@@ -1,0 +1,161 @@
+"""Build and load the hand-written CUDA kernels (``kernels/csrc/*.cu``).
+
+Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an object with
+a plain C interface, all sources at once in parallel, and the objects are
+linked into one shared library loaded with ``ctypes``. The build runs on
+first use into ``kernels/_build/<hash of the sources and flags>/`` (listed
+in ``.gitignore``), so a fresh checkout builds everything it runs from the
+sources in the repository and a stale library is never reused. Nothing is
+built when this module is imported: CPU hosts, which have no ``nvcc``,
+import every module of the package.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception. ``LAUNCHES`` counts
+kernel launches per wrapper: each wrapper adds one where it launches its
+kernel on the card, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
+           "ptxas_report", "stream_ptr"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# kernel name -> launches on the card since the last reset (clear() resets)
+LAUNCHES: collections.Counter = collections.Counter()
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+# C entry point -> argtypes. Pointers and the stream are c_void_p: ctypes
+# would otherwise pass a Python int as a 32-bit int and cut the pointer.
+_SIGNATURES = {
+    "photonic_matmul_s8": (_VOID,) * 5 + (_INT,) * 3 + (_VOID,),
+    "flash_attention_masked_f32": (_VOID,) * 6 + (_INT,) * 9 + (_FLOAT,
+                                                                _VOID),
+    "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
+    "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
+}
+
+_lib: ctypes.CDLL | None = None
+_ptxas: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels of repro_torch are built on first use on a machine with "
+            "the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every kernel source (in parallel) and link the library;
+    returns its path. A library already built from identical sources and
+    flags is reused. ``-Xptxas -v`` output (registers, shared memory,
+    spills) is kept per source in ``ptxas_report()``."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / "libreprokernels.so"
+    if lib_path.is_file():
+        for p in _sources():
+            log = out_dir / (p.stem + ".ptxas.txt")
+            if log.is_file():
+                _ptxas[p.name] = log.read_text()
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = str(os.getpid())
+    procs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+               str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failures = []
+    objs = []
+    for src, obj, proc in procs:
+        log, _ = proc.communicate()
+        _ptxas[src.name] = log
+        (out_dir / (src.stem + ".ptxas.txt")).write_text(log)
+        if verbose:
+            print(f"[build] {src.name}:\n{log}", flush=True)
+        if proc.returncode != 0:
+            failures.append(f"{src.name} (rc {proc.returncode}):\n{log}")
+        objs.append(str(obj))
+    if failures:
+        raise RuntimeError("nvcc failed to compile:\n" + "\n".join(failures))
+    tmp = out_dir / f"libreprokernels.{tag}.so"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
+                           str(tmp)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link:\n{link.stdout}")
+    os.replace(tmp, lib_path)          # atomic: concurrent builds race safely
+    for o in objs:
+        Path(o).unlink(missing_ok=True)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def ptxas_report() -> dict[str, str]:
+    """Source file -> ``-Xptxas -v`` output of the build in use."""
+    return dict(_ptxas)
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    """Raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

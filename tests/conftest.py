@@ -14,6 +14,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running training/convergence tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips inside a fixture without one)")
 
 
 @pytest.fixture(scope="session")
