@@ -1,17 +1,21 @@
-"""Parameter bridge: the reference's param pytree into the port, and a
-numpy-seeded initializer for runs that have no reference params.
+"""Parameter bridge: the reference's param pytree into the port, and
+seeded initializers for runs that have no reference params.
 
 ``from_jax_params`` takes the reference's parameter tree as nested dicts
 whose leaves are arrays (numpy arrays, or anything ``numpy.asarray``
 accepts) and returns the port's tree of tensors with the same keys. A
-cached weight arrives as a ``(wq, scale, bits)`` tuple, or as any object
-with ``wq``, ``scale`` and ``bits`` attributes, and becomes a
-``QuantizedWeight``. Scan-stacked ``blocks`` leaves keep their leading L
-axis: the encoder slices one layer per step.
+bfloat16 leaf (numpy holds it as ``ml_dtypes.bfloat16``, which torch
+cannot read) crosses bit for bit as ``torch.bfloat16``. A cached weight
+arrives as a ``(wq, scale, bits)`` tuple, or as any object with ``wq``,
+``scale`` and ``bits`` attributes, and becomes a ``QuantizedWeight``.
+Scan-stacked ``blocks`` leaves keep their leading L axis: the models slice
+one layer per step.
 
 ``init_vit`` draws a ViT (+ MGNet) parameter tree of the reference's
-shapes and scales from ``numpy.random.default_rng(seed)``. It does NOT
-reproduce the reference's ``jax.random`` draws: the port's tests bridge
+shapes and scales from ``numpy.random.default_rng(seed)``; ``init_lm``
+draws a dense LM tree on the target device from a seeded
+``torch.Generator`` (numpy would take minutes over 1.5 G normals). Neither
+reproduces the reference's ``jax.random`` draws: the port's tests bridge
 the reference's own params instead.
 """
 
@@ -24,7 +28,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import QuantizedWeight
 from repro_torch.device import resolve_device
 
-__all__ = ["from_jax_params", "to_device", "init_vit", "init_mgnet"]
+__all__ = ["from_jax_params", "to_device", "init_vit", "init_mgnet",
+           "init_lm"]
 
 
 def _is_cached(leaf) -> bool:
@@ -51,10 +56,20 @@ def from_jax_params(tree, device=None):
                 torch.from_numpy(np.array(wq, np.int8)).to(dev),
                 torch.from_numpy(np.array(scale, np.float32)).to(dev),
                 int(bits))
-        arr = np.array(leaf)
-        return torch.from_numpy(arr).to(dev)
+        return _to_tensor(leaf).to(dev)
 
     return conv(tree)
+
+
+def _to_tensor(leaf) -> torch.Tensor:
+    """An array leaf as a CPU tensor of the same dtype, bit for bit. numpy
+    holds bfloat16 as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses: its 16-bit patterns are carried through int16 and viewed as
+    ``torch.bfloat16``."""
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def to_device(params, device):
@@ -135,4 +150,49 @@ def init_vit(seed: int, cfg: ArchConfig, n_classes: int = 1000) -> dict:
     }
     if cfg.mgnet:
         params["mgnet"] = init_mgnet(rng, mgnet_config(cfg))
+    return params
+
+
+def init_lm(seed: int, cfg: ArchConfig, device=None,
+            dtype=torch.bfloat16) -> dict:
+    """A dense LM param tree of the reference's shapes and scales
+    (``init_lm``/``init_dense_layer``/``init_attention``/``init_swiglu``):
+    embed N(0, 0.02); every matmul weight He-normal over its fan-in;
+    biases 0; norm gains 1; stacked ``blocks`` with a leading L axis; an
+    ``lm_head`` only without tied embeddings. Drawn in f32 from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (default: the
+    card), then cast to ``dtype``."""
+    from repro_torch.models.transformer import attention_shapes, check_family
+
+    check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def he(shape):                       # fan-in: the per-layer rows
+        return normal(shape, (2.0 / shape[-2]) ** 0.5)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    attn = {}
+    for name, shape in attention_shapes(cfg).items():
+        attn[name] = he((L,) + shape) if len(shape) == 2 else \
+            const((L,) + shape, 0.0)
+    params = {
+        "embed": normal((cfg.vocab, d), 0.02),
+        "final_ln": const((d,), 1.0),
+        "blocks": {
+            "ln1": const((L, d), 1.0),
+            "attn": attn,
+            "ln2": const((L, d), 1.0),
+            "ffn": {"w_gate": he((L, d, dff)), "w_up": he((L, d, dff)),
+                    "w_down": he((L, dff, d))},
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he((d, cfg.vocab))
     return params

@@ -1,29 +1,40 @@
-"""Architecture configuration: the vision-transformer subset of the
-reference ``ArchConfig`` (src/repro/configs/base.py), field names and
+"""Architecture configuration: the subset of the reference ``ArchConfig``
+(src/repro/configs/base.py) that the ported paths read, field names and
 defaults unchanged so a reader finds each counterpart.
 
-Only the fields the ported serving path reads are here. The LM families,
-training knobs, bit plans and device noise come with later slices of the
-port (ROADMAP.md queue A).
+Two families are ported: ``vit`` (the near-sensor serving path) and
+``dense`` (the decoder-only LM serving path: prefill + KV-cache decode).
+The other LM families, training knobs, bit plans and device noise come
+with later slices of the port (ROADMAP.md queue A15), each with the
+fields its path reads.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["ArchConfig", "smoke_variant"]
+__all__ = ["ArchConfig", "smoke_variant", "PORTED_FAMILIES"]
+
+PORTED_FAMILIES = ("dense", "vit")
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # vit (the only family ported so far)
+    family: str                 # dense | vit (ported); moe | ssm | hybrid |
+    #                             encdec | vlm raise at the model entry points
     n_layers: int
     d_model: int
     n_heads: int
+    kv_heads: int
     d_ff: int
+    vocab: int
 
+    # attention
+    qkv_bias: bool = False
+    rope_theta: float = 500000.0
     attn_impl: str = "standard"          # standard (decomposed: later slice)
+    window: int = 0                      # local-attention window (hybrid)
 
     # vit / paper-specific
     img_size: int = 224
@@ -35,11 +46,13 @@ class ArchConfig:
 
     # paper technique knobs
     quant_bits: int = 0                  # 0 = off; 8 = paper's photonic w8a8
-    matmul_backend: str = ""             # photonic_pallas (core/backend.py)
+    matmul_backend: str = ""             # bf16 | photonic_pallas; "" resolves
+    #                                      from quant_bits (core/backend.py)
     attn_backend: str = ""               # flash
     ffn_backend: str = ""                # fused
 
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -50,7 +63,15 @@ class ArchConfig:
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
-    """Tiny same-family config for CPU smoke tests: 4 layers, d=64, 4 heads,
-    d_ff=128, 32x32 images in 8x8 patches (the reference's vit smoke)."""
-    return cfg.with_(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=4,
-                     d_ff=128, img_size=32, patch=8)
+    """Tiny same-family config for CPU smoke tests, as the reference's:
+    at most 4 layers, d=64, 4 heads, at most 2 KV heads, d_ff=128, vocab
+    256; a vit also gets 32x32 images in 8x8 patches."""
+    kw = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=4,
+              kv_heads=min(cfg.kv_heads, 2), d_ff=128, vocab=256)
+    if cfg.family == "vit":
+        kw.update(img_size=32, patch=8)
+    elif cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md queue A15); ported: {PORTED_FAMILIES}")
+    return cfg.with_(**kw)

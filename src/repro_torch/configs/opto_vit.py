@@ -21,7 +21,8 @@ def get_config(variant: str = "base", img_size: int = 224,
     l, d, h, dff = _VARIANTS[variant]
     return ArchConfig(
         name=f"opto-vit-{variant}", family="vit",
-        n_layers=l, d_model=d, n_heads=h, d_ff=dff,
+        n_layers=l, d_model=d, n_heads=h, kv_heads=h,
+        d_ff=dff, vocab=0,
         img_size=img_size, patch=16,
         quant_bits=quant_bits,
         mgnet=mgnet, mgnet_keep_ratio=mgnet_keep_ratio,

@@ -1,0 +1,46 @@
+"""Architecture registry: ``--arch <id>`` resolves here (the reference's
+src/repro/configs/registry.py, ported ids only).
+
+Ported: ``qwen2-1.5b`` (dense LM) and the paper's own backbones
+``opto-vit-{tiny,small,base,large}``. Every other id the reference knows
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig
+
+__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config"]
+
+# the reference's ids, in its order
+ARCH_IDS = [
+    "mamba2-780m",
+    "stablelm-12b",
+    "qwen2-1.5b",
+    "llama3-405b",
+    "qwen2.5-3b",
+    "llama-3.2-vision-90b",
+    "whisper-medium",
+    "recurrentgemma-9b",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-30b-a3b",
+    "opto-vit-tiny", "opto-vit-small", "opto-vit-base", "opto-vit-large",
+]
+
+PORTED_ARCH_IDS = ("qwen2-1.5b", "opto-vit-tiny", "opto-vit-small",
+                   "opto-vit-base", "opto-vit-large")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id == "qwen2-1.5b":
+        from repro_torch.configs.qwen2_1_5b import get_config as get
+        return get()
+    if arch_id in PORTED_ARCH_IDS:
+        from repro_torch.configs.opto_vit import get_config as get
+        return get(arch_id.split("-")[-1])
+    if arch_id in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to repro_torch yet (its "
+            f"family comes with ROADMAP.md queue A15); ported: "
+            f"{list(PORTED_ARCH_IDS)}")
+    raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")

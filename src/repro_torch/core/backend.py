@@ -1,23 +1,27 @@
 """Execution backend: the quantize-once weight cache and the three dispatch
-points the serving path funnels through (the reference's
+points the ported paths funnel through (the reference's
 src/repro/core/backend.py, serving subset).
 
-  * ``ExecPolicy``   - execution-mode knobs threaded from ArchConfig;
+  * ``ExecPolicy``   - execution-mode knobs threaded from ArchConfig, with
+    the reference's resolution of an empty matmul backend name;
   * ``QuantizedWeight`` + ``prepare_params`` - the quantize-once cache:
     every matmul weight replaced once by its int8 codes + per-output-
     channel f32 scale (the MR tuning step), selected by the same key rules
     as the reference, so the same leaves are cached, MGNet's included;
-  * ``linear``  - matmul registry: ``photonic_pallas`` (the int8 photonic
-    matmul kernel, kernels/photonic_matmul.py); the bias is added after
-    the kernel;
+  * ``linear``  - matmul registry: ``bf16`` (the LM default: f32
+    accumulate, one rounding to the activation dtype; a plain matmul, as
+    the reference leaves it to XLA) and ``photonic_pallas`` (the int8
+    photonic matmul kernel, kernels/photonic_matmul.py); the bias is added
+    after the matmul;
   * ``attend``  - attention-core registry: ``flash`` (the RoI-masked flash
     attention kernel, kernels/flash_attention.py);
   * ``ffn``     - FFN registry: ``fused`` (the fused int8 FFN kernel,
     kernels/fused_ffn.py).
 
-The reference's other registry entries (bf16 / qat / photonic_sim, the
+The reference's other registry entries (qat / photonic_sim, the
 materialized-score ``xla`` attention and the composed ``xla`` FFN) are not
-ported yet: naming one raises ``NotImplementedError`` (ROADMAP.md queue A).
+ported yet: naming one, or reaching one through the resolution of an
+empty name, raises ``NotImplementedError`` (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
 
 # registry entries of the reference that later slices of the port bring
 _NOT_PORTED = {
-    "matmul": ("bf16", "qat", "photonic_sim"),
+    "matmul": ("qat", "photonic_sim"),
     "attention": ("xla",),
     "ffn": ("xla",),
 }
@@ -45,19 +49,22 @@ _NOT_PORTED = {
 class ExecPolicy:
     """Execution-mode knobs threaded from ArchConfig into every layer.
 
-    ``backend`` names a matmul registry entry and must be given: the
-    reference resolves an empty name from legacy flags to bf16, qat or
-    photonic_sim, none of which is ported yet. ``attn_backend`` and
+    ``backend`` names a matmul registry entry; an empty name resolves as
+    the reference's legacy flags do: ``quant_bits`` -> qat, else bf16 (qat
+    is not ported yet). The matmul is looked up once, here, so naming an
+    unported backend raises when the policy is built. ``attn_backend`` and
     ``ffn_backend`` default to the reference's "xla" entries, also not
-    ported: the serving point names photonic_pallas + flash + fused.
+    ported: the ViT serving point names photonic_pallas + flash + fused.
     """
 
-    __slots__ = ("quant_bits", "backend", "attn_backend", "ffn_backend")
+    __slots__ = ("quant_bits", "backend", "attn_backend", "ffn_backend",
+                 "matmul_fn")
 
     def __init__(self, quant_bits: int = 0, backend: str = "",
                  attn_backend: str = "", ffn_backend: str = ""):
         self.quant_bits = quant_bits
-        self.backend = backend
+        self.backend = backend or ("qat" if quant_bits else "bf16")
+        self.matmul_fn = _lookup(BACKENDS, "matmul", self.backend)
         self.attn_backend = attn_backend
         self.ffn_backend = ffn_backend
 
@@ -66,22 +73,14 @@ class ExecPolicy:
         return ExecPolicy(cfg.quant_bits, cfg.matmul_backend,
                           cfg.attn_backend, cfg.ffn_backend)
 
-    def resolve_backend(self) -> str:
-        """The named matmul backend; raises when none is named or the
-        named one is not ported."""
-        if not self.backend:
-            raise NotImplementedError(
-                "no matmul backend named; the reference's legacy "
-                "resolution (bf16 / qat / photonic_sim) is not ported yet "
-                "(ROADMAP.md queue A): name 'photonic_pallas'")
-        _lookup(BACKENDS, "matmul", self.backend)
-        return self.backend
-
     def resolve_attn_backend(self) -> str:
         return self.attn_backend or "xla"
 
     def resolve_ffn_backend(self) -> str:
         return self.ffn_backend or "xla"
+
+    def is_photonic(self) -> bool:
+        return self.backend.startswith("photonic")
 
     def __repr__(self):
         return (f"ExecPolicy(backend={self.backend!r}, "
@@ -89,7 +88,6 @@ class ExecPolicy:
                 f"ffn={self.resolve_ffn_backend()!r}, bits={self.quant_bits})")
 
 
-_DEFAULT = ExecPolicy()
 
 
 # --------------------------------------------------------------------------
@@ -251,11 +249,33 @@ def _photonic_pallas_matmul(x, w, p: ExecPolicy):
 BACKENDS["photonic_pallas"] = _photonic_pallas_matmul
 
 
+def _bf16_matmul(x, w, p: ExecPolicy):
+    """Plain dot with f32 accumulation and one rounding to ``x.dtype``; a
+    cached ``QuantizedWeight`` is dequantized (f32 codes x scale) and cast
+    to ``x.dtype`` first, as the reference does. On the card a same-dtype
+    bf16/f16 product goes to cuBLAS, which accumulates in f32 and rounds
+    once (with ``allow_bf16_reduced_precision_reduction`` off, as the
+    entry points set it); every other case multiplies in f32 and casts.
+    ``w`` may be a transposed view (the tied LM head): it is never copied
+    to a contiguous layout here."""
+    if isinstance(w, QuantizedWeight):
+        w = (w.wq.float() * w.scale).to(x.dtype)
+    if (x.is_cuda and x.dtype == w.dtype
+            and x.dtype in (torch.bfloat16, torch.float16)):
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+BACKENDS["bf16"] = _bf16_matmul
+
+_DEFAULT = ExecPolicy()
+
+
 def matmul(x: torch.Tensor, w, policy: ExecPolicy | None = None) -> torch.Tensor:
     """y = x @ w under the policy. x (..., d_in); w (d_in, d_out) tensor or
     cached ``QuantizedWeight``."""
     p = policy or _DEFAULT
-    return BACKENDS[p.resolve_backend()](x, w, p)
+    return p.matmul_fn(x, w, p)
 
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None,

@@ -1,10 +1,12 @@
 """Where the port's entry points run: on the card unless the caller asks
 for the CPU.
 
-``StreamServer``, ``forward_vit``, ``forward_vit_tokens`` and
-``encode_tokens`` resolve their ``device`` argument here: None means
-``cuda``; ``"cpu"`` runs every kernel's plain PyTorch version. With no
-card and no explicit CPU request they raise, never falling back quietly.
+``StreamServer``, ``forward_vit``, ``forward_vit_tokens``,
+``encode_tokens``, ``models/api.py::init_model`` and
+``launch/serve.py::init_cache`` / ``main`` resolve their ``device``
+argument here: None means ``cuda``; ``"cpu"`` runs every kernel's plain
+PyTorch version. With no card and no explicit CPU request they raise,
+never falling back quietly.
 """
 
 from __future__ import annotations

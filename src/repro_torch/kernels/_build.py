@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
-           "ptxas_report", "stream_ptr"]
+           "ptxas_report", "stream_ptr", "strides_arg", "DTYPE_SUFFIX"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -41,6 +41,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_I64_PTR = ctypes.POINTER(ctypes.c_longlong)   # a host array of strides
 # C entry point -> argtypes. Pointers and the stream are c_void_p: ctypes
 # would otherwise pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
@@ -49,6 +50,14 @@ _SIGNATURES = {
                                                                 _VOID),
     "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
     "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
+    "flash_attention_causal_f32": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8
+    + (_FLOAT, _VOID),
+    "flash_attention_causal_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8
+    + (_FLOAT, _VOID),
+    "flash_decode_f32": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
+    + (_FLOAT, _VOID),
+    "flash_decode_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
+    + (_FLOAT, _VOID),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -154,6 +163,16 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+
+
+# tensor dtype -> suffix of the C entry point instantiated for it
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def strides_arg(*strides: int):
+    """A host array of element strides for an ``_I64_PTR`` argument (the
+    C entry point reads it before it returns)."""
+    return (ctypes.c_longlong * len(strides))(*strides)
 
 
 def stream_ptr(device) -> int:

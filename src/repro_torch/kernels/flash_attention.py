@@ -1,11 +1,19 @@
-"""RoI-masked bidirectional flash attention (the serving attention core).
+"""Flash attention: the RoI-masked bidirectional core of the ViT serving
+path and the causal / local-window GQA core of the LM prefill.
 
-Replaces src/repro/kernels/flash_attention.py::flash_attention_masked_kernel
-(wrapper ``flash_attention_masked``, host pick ``fused_masked_attention``).
-The CUDA kernel is ``csrc/flash_attention.cu`` (its source note says what
-bounds it on an H100 and how its design answers that); its plain version
-is ``kernels/ref.py::flash_attention_masked_ref``. The wrapper launches the
-kernel for CUDA tensors and takes the plain version only for CPU tensors.
+``flash_attention_masked`` replaces
+src/repro/kernels/flash_attention.py::flash_attention_masked_kernel
+(wrapper ``flash_attention_masked``, host pick ``fused_masked_attention``);
+its CUDA kernel is ``csrc/flash_attention.cu`` and its plain version
+``kernels/ref.py::flash_attention_masked_ref``.
+
+``flash_attention`` replaces ``flash_attention_kernel`` (wrapper
+``flash_attention``); its CUDA kernel is ``csrc/flash_attention_causal.cu``
+and its plain version ``kernels/ref.py::flash_attention_ref``.
+
+Each kernel's source note says what bounds it on an H100 and how its
+design answers that. The wrappers launch the kernel for CUDA tensors and
+take the plain version only for CPU tensors.
 
 The wrapper reduces the key mask (or the packed ``kv_len``) to per-(batch,
 KV tile) live-key counts once, the block-skip predicate the kernel reads,
@@ -20,9 +28,11 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_masked_ref, prefix_key_mask
+from repro_torch.kernels.ref import (flash_attention_masked_ref,
+                                     flash_attention_ref, prefix_key_mask)
 
-__all__ = ["KV_TILE", "MAX_HEAD_DIM", "flash_attention_masked"]
+__all__ = ["KV_TILE", "MAX_HEAD_DIM", "flash_attention_masked",
+           "flash_attention"]
 
 KV_TILE = 32          # keys per kernel tile (kBKV in csrc/flash_attention.cu)
 MAX_HEAD_DIM = 256    # D and Dv bound: the per-block tiles live in shared memory
@@ -101,4 +111,57 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), _build.stream_ptr(dev))
     _build.check(err, "flash_attention_masked_f32")
     _build.LAUNCHES["flash_attention_masked"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B, H, Sq, D); k/v (B, Hkv, Skv, D) -> (B, H, Sq, D) in q.dtype.
+
+    Causal and/or local-window GQA attention (query head i reads KV head
+    i // (H // Hkv); query row i sees key j iff (not causal or i >= j) and
+    (window == 0 or i - j < window)); rows with no visible key return 0.
+    ``scale`` (default 1/sqrt(D)) multiplies q. Any Sq and Skv. Inputs may
+    be strided views with D contiguous (e.g. the (B, S, H, D) projection
+    layout transposed): the kernel reads them by strides, and the output
+    has q's memory layout. The kernel takes f32 or bf16, all one dtype.
+    """
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if not (h % hkv == 0 and k.shape[0] == b and tuple(v.shape) == tuple(
+            k.shape) and k.shape[3] == d):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    dev = q.device
+    if any(t.device != dev for t in (k, v)):
+        raise ValueError("q, k and v must share one device")
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+    if q.dtype not in _build.DTYPE_SUFFIX or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"the CUDA kernel takes q, k, v all f32 or all bf16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)           # q's layout, hence D contiguous
+    if b * h * sq == 0:
+        return out
+    strides = _build.strides_arg(*(s_ for t in (q, k, v, out)
+                                   for s_ in t.stride()[:3]))
+    entry = "flash_attention_causal_" + _build.DTYPE_SUFFIX[q.dtype]
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        b, h, hkv, sq, skv, d, int(causal), int(window), float(scale),
+        _build.stream_ptr(dev))
+    _build.check(err, entry)
+    _build.LAUNCHES["flash_attention_causal"] += 1
     return out

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the three ported kernels (the numerics
-contracts), counterparts of src/repro/kernels/ref.py and of the reference's
-XLA twins.
+"""Plain PyTorch versions of the five ported kernels (the numerics
+contracts), counterparts of src/repro/kernels/ref.py, of the reference's
+XLA twins and of its decode attention.
 
 Each function here is the same function as its CUDA kernel. The wrappers
 take them for tensors on the CPU, the tests hold them against the
@@ -21,8 +21,8 @@ from repro_torch.core import quant
 
 __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "int_accumulate_ref", "photonic_matmul_ref",
-           "flash_attention_masked_ref", "fused_ffn_ref", "slice_live",
-           "restore_dead"]
+           "flash_attention_masked_ref", "flash_attention_ref",
+           "flash_decode_ref", "fused_ffn_ref", "slice_live", "restore_dead"]
 
 NEG_INF = -1e30
 
@@ -96,6 +96,58 @@ def flash_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
     if key_mask is not None:
         o = o * (key_mask.sum(-1) > 0).float()[:, None, None, None]
     return o.to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """Causal / local-window GQA attention with materialized scores (the
+    reference's ``flash_attention_ref``). q (B, H, Sq, D); k/v (B, Hkv,
+    Skv, D) -> (B, H, Sq, D) in q.dtype; f32 inside.
+
+    Query i sees key j iff (not causal or i >= j) and (window == 0 or
+    i - j < window); hidden keys score NEG_INF. ``scale`` (default
+    1/sqrt(D)) multiplies q. Rows with no visible key return exactly 0.
+    """
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = (q.float() * scale) @ expand_kv_heads(k, h).float().transpose(-1, -2)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window > 0:
+        mask &= q_pos - kv_pos < window
+    s = torch.where(mask, s, NEG_INF)
+    o = torch.softmax(s, dim=-1) @ expand_kv_heads(v, h).float()
+    o = torch.where(mask.any(-1)[:, None], o, 0.0)
+    return o.to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: int) -> torch.Tensor:
+    """One-token GQA attention against the first ``length`` rows of a KV
+    cache, in the op order of the reference's ``decode_attention`` (window
+    0, f32 compute): q / sqrt(D), scores over every cache row, rows >=
+    ``length`` set to NEG_INF, max-subtracted exp, sum, PV, divide.
+
+    q (B, 1, H, D); k/v_cache (B, S, Hkv, D) -> (B, 1, H, D) in q.dtype.
+    """
+    b, _, h, d = q.shape
+    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qf = q.reshape(b, hkv, g, d).float() / math.sqrt(d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
+    valid = torch.arange(s_len, device=q.device) < length
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()) / l
+    return o.reshape(b, 1, h, d).to(q.dtype)
 
 
 def slice_live(x: torch.Tensor, live_rows: int | None):

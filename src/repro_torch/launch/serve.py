@@ -1,0 +1,157 @@
+"""LM serving driver: prefill the prompt into the KV cache, then decode
+token by token (the reference's src/repro/launch/serve.py, one device).
+
+``prefill_into_cache`` steps the decode function over the prompt's
+positions, as the reference's ``_prefill_scan`` does, so every prompt
+token runs the flash decode kernel once per layer; ``models/api.py::
+prefill_fn`` is the full-prompt forward (the causal flash attention
+kernel). ``generate`` decodes greedily or samples from an explicit
+``torch.Generator``. There is no mesh: sharding is ROADMAP.md queue A14.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(the kernels' plain PyTorch versions).
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --batch 4 --prompt-len 128 --gen 32 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, smoke_variant
+from repro_torch.configs.registry import get_config
+from repro_torch.core.backend import BACKENDS, prepare_params
+from repro_torch.device import resolve_device
+from repro_torch.models import api as model_api
+from repro_torch.models.layers import ExecPolicy
+
+__all__ = ["init_cache", "prefill_into_cache", "generate", "main"]
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+    """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``."""
+    dev = resolve_device(device)
+    shapes, _ = model_api.cache_axes_spec(cfg, batch, seq_len)
+    return {k: torch.zeros(s, dtype=d, device=dev)
+            for k, (s, d) in shapes.items()}
+
+
+def prefill_into_cache(params, cache: dict, prompt: torch.Tensor,
+                       cfg: ArchConfig, policy: ExecPolicy | None = None):
+    """Write the prompt (B, P) into the cache by stepping ``decode_fn``
+    over positions 0..P-1. Returns (last-position logits (B, V), cache);
+    the cache is filled in place."""
+    logits = None
+    for pos in range(prompt.shape[1]):
+        logits, cache = model_api.decode_fn(params, cache,
+                                            prompt[:, pos:pos + 1], pos, cfg,
+                                            policy)
+    return logits, cache
+
+
+def generate(params, cache: dict, prompt: torch.Tensor, n_tokens: int,
+             cfg: ArchConfig, greedy: bool = True,
+             generator: torch.Generator | None = None,
+             policy: ExecPolicy | None = None):
+    """Prefill ``prompt`` (B, P), then decode ``n_tokens`` tokens. The first
+    token comes from the prefill's logits; each decode step feeds the last
+    token back. Greedy takes the argmax; otherwise tokens are sampled from
+    softmax(logits) with ``generator`` (required). Positions are host ints
+    and tokens stay on the device, so the loop never waits on the card.
+
+    Returns (generated (B, n_tokens) int64, tokens/s of the decode loop).
+    The cache is filled in place and holds the prompt and all ``n_tokens``
+    generated tokens: the last token is fed through a decode step too, and
+    that step's logits are discarded, as in the reference's generate."""
+    if not greedy and generator is None:
+        raise ValueError("sampling needs an explicit torch.Generator")
+    b, plen = prompt.shape
+
+    def pick(logits):
+        if greedy:
+            return logits.argmax(-1, keepdim=True)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
+
+    logits, cache = prefill_into_cache(params, cache, prompt, cfg, policy)
+    tok = pick(logits)
+    out = []
+    if prompt.is_cuda:
+        torch.cuda.synchronize(prompt.device)
+    t0 = time.perf_counter()
+    for i in range(n_tokens):
+        out.append(tok)
+        logits, cache = model_api.decode_fn(params, cache, tok, plen + i, cfg,
+                                            policy)
+        tok = pick(logits)
+    if prompt.is_cuda:
+        torch.cuda.synchronize(prompt.device)
+    dt = time.perf_counter() - t0
+    return torch.cat(out, dim=1), (b * n_tokens) / dt if dt > 0 else 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny same-family config (configs/base.py)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and the prompt")
+    ap.add_argument("--backend", default="",
+                    help=f"matmul backend ({', '.join(sorted(BACKENDS))}; "
+                         "empty = resolve from the config's flags)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (plain PyTorch versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    if args.backend:
+        if args.backend not in BACKENDS:
+            raise SystemExit(f"backend {args.backend!r} is not ported; "
+                             f"choose from {sorted(BACKENDS)}")
+        cfg = cfg.with_(matmul_backend=args.backend)
+    if not model_api.supports_decode(cfg):
+        raise SystemExit(f"{args.arch} has no decode step")
+    if args.prompt_len + args.gen > args.cache_len:
+        raise SystemExit("--prompt-len + --gen must fit in --cache-len")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # the reference's matmuls accumulate in f32 (preferred_element_type)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    policy = ExecPolicy.from_cfg(cfg)
+    params = model_api.init_model(args.seed, cfg, dev)
+    if policy.is_photonic():
+        # quantize-once weight cache: every matmul weight tuned before
+        # serving, so a token does only activation quant + int8 matmul +
+        # dequant (embeddings and norms stay as they are)
+        params = prepare_params(params, bits=cfg.quant_bits or 8)
+        print(f"[serve] backend={policy.backend} "
+              "(weights pre-quantized once)")
+    cache = init_cache(cfg, args.batch, args.cache_len, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    toks, tps = generate(params, cache, prompt, args.gen, cfg, policy=policy)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] {cfg.name} on {where}: generated {tuple(toks.shape)} "
+          f"tokens at {tps:.1f} tok/s (batch {args.batch})")
+    print("[serve] first sequence:", toks[0, :16].tolist())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""GELU-MLP block (the reference's src/repro/models/ffn.py::mlp), routed
-through the FFN registry of core/backend.py."""
+"""Feed-forward blocks (the reference's src/repro/models/ffn.py): SwiGLU,
+the LM default, and the GELU-MLP the ViT routes through the FFN registry
+of core/backend.py."""
 
 from __future__ import annotations
 
@@ -7,8 +8,20 @@ import torch
 
 from repro_torch.core.backend import ExecPolicy
 from repro_torch.core.backend import ffn as ffn_dispatch
+from repro_torch.core.backend import linear
 
-__all__ = ["mlp"]
+__all__ = ["swiglu", "mlp"]
+
+
+def swiglu(params: dict, x: torch.Tensor,
+           policy: ExecPolicy | None = None) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): SiLU of the gate in f32 (as x * sigmoid(x),
+    the reference's definition), cast to x.dtype, times the up projection
+    in x.dtype, then the down projection."""
+    g = linear(x, params["w_gate"], policy=policy).float()
+    u = linear(x, params["w_up"], policy=policy)
+    h = (g * torch.sigmoid(g)).to(x.dtype) * u
+    return linear(h, params["w_down"], policy=policy)
 
 
 def mlp(params: dict, x: torch.Tensor, policy: ExecPolicy | None = None,

@@ -1,6 +1,11 @@
 """Shared building blocks (the reference's src/repro/models/layers.py,
 serving subset). ``linear``/``ExecPolicy``/``QuantizedWeight`` live in
-core/backend.py and are re-exported here for the model layers."""
+core/backend.py and are re-exported here for the model layers.
+
+Every cast sits where the reference has it: the norms compute in f32 and
+cast back to ``x.dtype`` before the gain; RoPE tables are f32 and the
+rotation is done in f32 and cast back once.
+"""
 
 from __future__ import annotations
 
@@ -8,7 +13,8 @@ import torch
 
 from repro_torch.core.backend import ExecPolicy, QuantizedWeight, linear
 
-__all__ = ["layernorm", "linear", "ExecPolicy", "QuantizedWeight"]
+__all__ = ["layernorm", "rmsnorm", "rope", "apply_rope", "embedding_lookup",
+           "layer_view", "linear", "ExecPolicy", "QuantizedWeight"]
 
 
 def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -18,3 +24,48 @@ def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """f32 RMS normalization, cast back to x.dtype, then ``* g``."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
+
+
+def rope(positions: torch.Tensor, head_dim: int, theta: float = 500000.0):
+    """Rotary tables. positions (..., seq) -> cos, sin of shape
+    (..., seq, head_dim / 2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., seq, heads, head_dim); cos/sin (..., seq, head_dim / 2)."""
+    half = x.shape[-1] // 2
+    c = cos[..., None, :]          # broadcast over heads
+    s = sin[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Gather rows of ``table`` (V, d) at ``ids`` (...) -> (..., d)."""
+    return table[ids]
+
+
+def layer_view(blocks, i: int):
+    """Layer ``i`` of a stacked ``blocks`` subtree (leaves with a leading L
+    axis, as the reference's scan stacks them): views, no copies."""
+    if isinstance(blocks, dict):
+        return {k: layer_view(v, i) for k, v in blocks.items()}
+    if isinstance(blocks, QuantizedWeight):
+        return blocks.layer(i)
+    return blocks[i]

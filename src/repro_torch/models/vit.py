@@ -25,7 +25,7 @@ from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
-                                       linear)
+                                       layer_view, linear)
 
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "vit_matmul_shapes",
@@ -65,15 +65,6 @@ def encoder_layer_step(carry: torch.Tensor, lp: dict, cfg: ArchConfig,
     carry = carry + o.to(carry.dtype)
     h2 = layernorm(carry, lp["ln2_g"], lp["ln2_b"], cfg.norm_eps)
     return carry + ffn_mod.mlp(lp["ffn"], h2, policy, live_rows=ffn_live)
-
-
-def _layer(blocks, i: int):
-    """Layer ``i`` of the stacked blocks subtree."""
-    if isinstance(blocks, dict):
-        return {k: _layer(v, i) for k, v in blocks.items()}
-    if isinstance(blocks, QuantizedWeight):
-        return blocks.layer(i)
-    return blocks[i]
 
 
 def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
@@ -146,7 +137,7 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         mask = torch.cat([patch_mask.new_ones(b, 1), patch_mask], dim=1)
     attn_kv = None if kv_len is None else int(kv_len) + 1   # + live [cls]
     for i in range(cfg.n_layers):
-        x = encoder_layer_step(x, _layer(params["blocks"], i), cfg, policy,
+        x = encoder_layer_step(x, layer_view(params["blocks"], i), cfg, policy,
                                mask, attn_kv, attn_kv)
     x = layernorm(x, params["final_ln_g"], params["final_ln_b"], cfg.norm_eps)
     return linear(x[:, 0], params["head"], policy=policy)

@@ -8,7 +8,9 @@ reference package, so it also runs where JAX is not installed:
 
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
 flash attention rtol = atol = 2e-5; fused FFN one hidden quant step;
-end-to-end logits card vs CPU correlation > 0.999.
+causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
+within 1 bf16 ulp of the largest |o|; end-to-end logits card vs CPU
+correlation > 0.999.
 """
 
 import sys
@@ -20,14 +22,23 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.bridge import from_jax_params, init_vit, to_device  # noqa: E402
+from repro_torch.bridge import (from_jax_params, init_lm, init_vit,  # noqa: E402
+                                to_device)
+from repro_torch.configs.base import smoke_variant  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.backend import prepare_params  # noqa: E402
 from repro_torch.data.pipeline import VideoStream  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_masked  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention  # noqa: E402
+from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.fused_ffn import fused_ffn  # noqa: E402
+from repro_torch.models.attention import blockwise_attention  # noqa: E402
+from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
+from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.photonic_matmul import \
     photonic_matmul_int8  # noqa: E402
 from repro_torch.models.vit import forward_vit  # noqa: E402
@@ -39,6 +50,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels are CUDA C++ for sm_90a)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -143,3 +155,100 @@ def test_forward_vit_card_matches_cpu(dev):
     a, b = gl.double().cpu().flatten(), cl.double().flatten()
     assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
     assert np.array_equal(gl.cpu().argmax(-1).numpy(), cl.argmax(-1).numpy())
+
+
+def _assert_held(got, want):
+    """f32: rtol = atol = 2e-5; bf16: 1 bf16 ulp of the largest |want|."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= ulp
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,dtype", [
+    (4, 12, 2, 128, 128, 128, True, 0, torch.bfloat16),    # qwen2 prefill
+    (4, 12, 2, 128, 128, 128, True, 0, torch.float32),
+    (2, 12, 2, 77, 77, 128, True, 0, torch.float32),       # ragged
+    (2, 12, 2, 100, 100, 128, True, 32, torch.float32),    # window
+    (2, 12, 2, 1, 1, 128, True, 0, torch.bfloat16),        # Sq = 1
+    (1, 4, 2, 19, 45, 32, False, 0, torch.float32),        # non-causal
+])
+def test_flash_attention_causal_kernel(dev, b, h, hkv, sq, skv, d, causal,
+                                       window, dtype):
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, hkv, skv, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    before = _build.LAUNCHES["flash_attention_causal"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert _build.LAUNCHES["flash_attention_causal"] == before + 1
+    _assert_held(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                              window=window))
+
+
+@pytest.mark.gpu
+def test_fused_attention_reads_the_models_layout(dev):
+    """(B, S, H, D) projections go in as strided views and come out in the
+    same layout: the same numbers as contiguous (B, H, S, D) inputs."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(4, 128, 12, 128, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(4, 128, 2, 128, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    got = blockwise_attention(q, k, v)
+    assert tuple(got.shape) == (4, 128, 12, 128)
+    want = flash_attention(*(t.transpose(1, 2).contiguous()
+                             for t in (q, k, v))).transpose(1, 2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,hkv,d,length,dtype", [
+    (4, 512, 12, 2, 128, 160, torch.bfloat16),     # qwen2 decode
+    (4, 512, 12, 2, 128, 160, torch.float32),
+    (4, 512, 12, 2, 128, 1, torch.bfloat16),
+    (4, 512, 12, 2, 128, 512, torch.float32),
+    (2, 45, 12, 2, 128, 33, torch.float32),        # S not a tile multiple
+])
+def test_flash_decode_kernel(dev, b, s, h, hkv, d, length, dtype):
+    g = torch.Generator(device=dev).manual_seed(s + length)
+    q = torch.randn(b, 1, h, d, generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    before = _build.LAUNCHES["flash_decode"]
+    got = flash_decode(q, kc, vc, length)
+    assert _build.LAUNCHES["flash_decode"] == before + 1
+    _assert_held(got, ref.flash_decode_ref(q, kc, vc, length))
+    # a layer's slice of a stacked cache, and a head-major store, by strides
+    stacked = torch.stack([kc, kc]), torch.stack([vc, vc])
+    assert torch.equal(flash_decode(q, stacked[0][1], stacked[1][1], length),
+                       got)
+    hm = (kc.transpose(1, 2).contiguous().transpose(1, 2),
+          vc.transpose(1, 2).contiguous().transpose(1, 2))
+    assert torch.equal(flash_decode(q, *hm, length), got)
+
+
+@pytest.mark.gpu
+def test_decode_step_card_matches_cpu(dev):
+    """qwen2-1.5b at smoke width (2 layers): the decode-loop prefill of an
+    8-token prompt on the card (B5-free, B6 every layer) against the CPU's
+    plain versions; and prefill_fn (B5) on the card against the same."""
+    cfg = smoke_variant(get_config("qwen2-1.5b")).with_(n_layers=2)
+    cpu = init_lm(0, cfg, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    cl, _ = prefill_into_cache(cpu, init_cache(cfg, 2, 16, "cpu"), prompt,
+                               cfg)
+    before = _build.LAUNCHES["flash_decode"]
+    gl, _ = prefill_into_cache(to_device(cpu, dev),
+                               init_cache(cfg, 2, 16, dev), prompt.to(dev),
+                               cfg)
+    assert _build.LAUNCHES["flash_decode"] == before + 8 * cfg.n_layers
+    a, b = gl.double().cpu().flatten(), cl.double().flatten()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
+    full = model_api.prefill_fn(to_device(cpu, dev),
+                                {"tokens": prompt.to(dev)}, cfg)[:, -1]
+    a = full.double().cpu().flatten()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
