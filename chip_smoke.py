@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
      nvcc, printing ``-Xptxas -v`` (registers, shared memory, spills);
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card at ViT-Base/16-224, ViT-Tiny/16-224 and qwen2-1.5b widths and at
-     ragged shapes, with the tolerance stated beside each;
+     card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224 and
+     qwen2-1.5b widths and at ragged shapes, with the tolerance stated
+     beside each;
   4. main paths, each driven with the launch counts set to 0 just before
      it and read just after:
      a. ``StreamServer`` on opto-vit-base-224 + MGNet (random weights from
@@ -30,6 +31,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         rejects a causal mask planted one key off), and the last decode
         step re-run on the CPU with the plain versions gives logits with
         correlation > 0.999;
+     c. model-sharded serving: 2 ranks on the one card (gloo), mesh
+        (data 1, model 2), ``StreamServer`` with ``model_shards=2`` on
+        opto-vit-large-224 + MGNet (weights drawn once from seed 0 in this
+        process and handed to the ranks as shared CPU tensors), the traffic
+        of path a; each rank checks that every flush went through the
+        sharded encode and that the dequant epilogue launched 2 x 24 times
+        a flush, and every flush's logits must correlate > 0.99999 with the
+        same flush served unsharded on the card (two planted faults, one
+        that skips the int32 all-reduce and one that leaves the absmax
+        scopes local to the rank, must fail that check);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over peak and
@@ -62,6 +73,7 @@ REPLACES = {
     "fused_ffn": "src/repro/kernels/fused_ffn.py:92",
     "flash_attention_causal": "src/repro/kernels/flash_attention.py:57",
     "flash_decode": "src/repro/kernels/flash_decode.py:35",
+    "dequant_epilogue": "src/repro/kernels/fused_ffn.py:236",
 }
 SYMBOLS = {
     "photonic_matmul": ("photonic_matmul_s8_kernel",),
@@ -69,6 +81,7 @@ SYMBOLS = {
     "fused_ffn": ("fused_ffn_phase0_kernel", "fused_ffn_phase1_kernel"),
     "flash_attention_causal": ("flash_attention_causal_kernel",),
     "flash_decode": ("flash_decode_kernel",),
+    "dequant_epilogue": ("dequant_epilogue_kernel",),
 }
 TOLERANCES = {
     "photonic_matmul": "accumulate bitwise; output 1e-6 relative",
@@ -76,6 +89,7 @@ TOLERANCES = {
     "fused_ffn": "one quant step: rtol = atol = 1e-2 and corr > 0.9999",
     "flash_attention_causal": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
     "flash_decode": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
+    "dequant_epilogue": "bitwise",
 }
 SOURCES = {
     "photonic_matmul": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
@@ -84,10 +98,21 @@ SOURCES = {
     "flash_attention_causal":
         "src/repro_torch/kernels/csrc/flash_attention_causal.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "dequant_epilogue": "src/repro_torch/kernels/csrc/dequant_epilogue.cu",
 }
 VIT_KERNELS = ("photonic_matmul", "flash_attention_masked", "fused_ffn")
 # the LM main path: qwen2-1.5b serving, batch 4, prompt 128, 32 tokens
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CACHE = 4, 128, 32, 512
+# the sharded path: opto-vit-large over 2 ranks (mesh (1, 2)) on one card
+SHARDS = 2
+# every sharded flush's logits against the unsharded card serve: they
+# differ by B3 against the FFN twin only (one quant step at most); a scale
+# left local to a rank reads ~0.998, a missing int32 all-reduce ~0.6
+FLUSH_CORR = 0.99999
+# B4's shapes on that path, 4 frames x 197 tokens by d_ff / 2 (after w1's
+# local columns) and by d (after w2's all-reduce), a ragged one and M = 1
+B4_SHAPES = (("large w1 columns", 788, 2048), ("large w2 psum", 788, 1024),
+             ("ragged", 37, 1003), ("M = 1", 1, 2048))
 
 
 def fail(msg: str) -> None:
@@ -531,6 +556,279 @@ def run_lm(torch, dev, card: str) -> dict:
             "tps": tps, "serve_s": serve_s}
 
 
+def check_b4(torch, dev) -> dict:
+    """Phase 3, B4: the dequant epilogue against its plain version, bitwise,
+    at the sharded path's shapes, a ragged one and M = 1; each on the
+    16-byte path and, from an acc that starts 4 bytes into its buffer, on
+    the scalar path."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_ffn import dequant_epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    err = 0.0
+    for tag, m, n in B4_SHAPES:
+        buf = torch.randint(-2 ** 30, 2 ** 30, (m * n + 1,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        sx = torch.rand((), generator=gen, device=dev) * 1e-3
+        sw = torch.rand(n, generator=gen, device=dev)
+        for path, acc in (("16-byte", buf[:-1].view(m, n)),
+                          ("scalar", buf[1:].view(m, n))):
+            got = dequant_epilogue(acc, sx, sw)
+            want = ref.dequant_epilogue_ref(acc, sx, sw)
+            e = (got - want).abs().max().item()
+            say(f"[check] B4 {tag:<18s} ({m},{n}) {path} path: max abs err "
+                f"{e:.3e}, bitwise {torch.equal(got, want)} (tol bitwise)")
+            if not torch.equal(got, want):
+                fail(f"B4 {tag} ({m},{n}) {path}: not bitwise (max {e})")
+            err = max(err, e)
+    torch.cuda.synchronize()
+    return {"dequant_epilogue": err}
+
+
+def log_flushes(server) -> list:
+    """Keep every flush's logits (on the host) as ``server`` serves."""
+    logged = []
+    finish = server._finish
+
+    def finish_and_log(fb, by_sid):
+        finish(fb, by_sid)
+        logged.append(server.last_logits.float().cpu())
+    server._finish = finish_and_log
+    return logged
+
+
+def serve_large(cfg, sc, params, device) -> dict:
+    """Serve path a's traffic (2 streams x 32 frames, stream 1 from frame
+    16, after a one-chunk warm-up) on ``cfg``; returns what path c reads."""
+    import torch
+    from repro_torch.data.pipeline import video_fleet
+    from repro_torch.kernels import _build
+    from repro_torch.distributed import collectives
+    from repro_torch.models import sharded_encoder
+    from repro_torch.serving.server import StreamServer
+
+    server = StreamServer(cfg, sc, params=params, n_classes=10,
+                          device=device)
+    streams = video_fleet(2, img_size=cfg.img_size, patch=cfg.patch,
+                          cut_every=32)
+    server.add_session(streams[0], n_frames=8, start=1000)
+    server.serve()                                     # warm-up
+    flushes = log_flushes(server)
+    sessions = [server.add_session(st, n_frames=32, start=16 * i)
+                for i, st in enumerate(streams)]
+    _build.LAUNCHES.clear()
+    collectives.STATS.clear()
+    calls = sharded_encoder.sharded_encode_calls()
+    results = server.serve()
+    return {"server": server, "sessions": sessions, "results": results,
+            "flushes": flushes,
+            "launches": dict(_build.LAUNCHES),
+            "stats": dict(collectives.STATS),
+            "calls": sharded_encoder.sharded_encode_calls() - calls,
+            "wall": max(r.wall_s for r in results.values())}
+
+
+def sharded_rank(params: dict, cfg, sc, device: str) -> dict:
+    """One rank of path 4c. Checks its own launch counts and sharded-encode
+    calls, re-encodes the newest flush under two planted faults, and
+    returns what the parent compares (predictions and logits from rank
+    0)."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models.vit import forward_vit_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = serve_large(cfg, sc, params, device)
+    server = run["server"]
+    n_flush = len(server.flush_log)
+    launches = run["launches"]
+    if run["calls"] != n_flush or n_flush == 0:
+        raise RuntimeError(f"{run['calls']} sharded encodes for {n_flush} "
+                           f"flushes")
+    # (a CPU rehearsal runs the plain versions, which launch nothing)
+    if device == "cuda":
+        if launches.get("dequant_epilogue", 0) != 2 * cfg.n_layers * n_flush:
+            raise RuntimeError(f"dequant_epilogue launched "
+                               f"{launches.get('dequant_epilogue', 0)} times "
+                               f"for {n_flush} flushes of {cfg.n_layers} "
+                               f"layers")
+        for k in ("photonic_matmul", "flash_attention_masked"):
+            if launches.get(k, 0) <= 0:
+                raise RuntimeError(f"{k} never launched on the sharded path")
+        if launches.get("fused_ffn", 0):
+            raise RuntimeError("the fused FFN kernel ran on the sharded path")
+
+    fb = server.last_flush
+
+    def encode_newest():
+        with use_sharding(server.mesh):
+            return forward_vit_tokens(server.params, fb.tokens, cfg,
+                                      server.policy,
+                                      device=server.device)[0].float().cpu()
+
+    planted = {}
+    for tag, name, fault in (
+            ("w2 partial accumulates dequantized without the int32 "
+             "all-reduce", "exact_int_psum", lambda x, group: x),
+            ("absmax scopes left local to the rank", "replicated_absmax_scale",
+             lambda x, bits, group, eps=1e-8: quant.absmax_scale(
+                 x, bits=bits, eps=eps))):
+        saved = getattr(collectives, name)
+        setattr(collectives, name, fault)
+        try:
+            planted[tag] = encode_newest()
+        finally:
+            setattr(collectives, name, saved)
+    # each collective alone at the path's shapes (4 x 197 tokens): the
+    # scalar MAX of an absmax scope, the all-gather of a rank's merged
+    # heads, the int32 SUM of w2's partial accumulates
+    import torch.distributed as dist
+    mesh, dev = server.mesh, server.device
+    rows, d = 4 * 197, cfg.d_model
+    both, model_g = mesh.group(("data", "model")), mesh.group("model")
+    probes = {
+        "absmax MAX, 1 f32": lambda: collectives.all_reduce(
+            torch.ones((), device=dev), dist.ReduceOp.MAX, both),
+        f"all-gather ({rows}, {d // mesh.model}) f32": lambda:
+            collectives.all_gather_cat(torch.ones(rows, d // mesh.model,
+                                                  device=dev), model_g, 1),
+        f"int32 SUM ({rows}, {d})": lambda: collectives.exact_int_psum(
+            torch.ones(rows, d, dtype=torch.int32, device=dev), model_g)}
+    collective_ms = {}
+    for tag, fn in probes.items():
+        for _ in range(3):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        collective_ms[tag] = (time.perf_counter() - t0) / 20 * 1e3
+    out = {"launches": launches, "calls": run["calls"], "n_flush": n_flush,
+           "stats": run["stats"], "wall": run["wall"],
+           "collective_ms": collective_ms,
+           "backend": server.mesh.backend,
+           "mesh": tuple(server.mesh.shape.values())}
+    if server.mesh.d == 0 and server.mesh.m == 0:
+        out.update(
+            flushes=run["flushes"], planted=planted,
+            flush_log=[(k, n) for _, k, n in server.flush_log],
+            predictions=[run["results"][s.sid].predictions
+                         for s in run["sessions"]])
+    return out
+
+
+def run_sharded(torch, dev, card: str, cfg) -> dict:
+    """Phase 4c: ``cfg`` (opto-vit-large) served model-sharded over 2 ranks
+    on the one card against the same traffic served unsharded on it."""
+    from repro_torch.bridge import from_jax_params, init_vit
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.server import ServerConfig
+
+    sc = ServerConfig(bucket_fractions=(0.25, 0.5, 0.75, 1.0), microbatch=4,
+                      chunk=8, model_shards=SHARDS)
+    t0 = time.perf_counter()
+    params = from_jax_params(init_vit(0, cfg, 10), "cpu")
+
+    def share(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                share(v)
+            else:
+                v.share_memory_()
+    share(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[sharded] {cfg.name} {cfg.img_size}x{cfg.img_size} + MGNet: "
+        f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads, "
+        f"d_ff={cfg.d_ff}; {n_params / 1e6:.1f} M f32 params from "
+        f"init_vit(seed=0) into shared CPU memory in "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_rank, SHARDS, params, cfg, sc, dev.type,
+                        device=dev.type, timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    say(f"[sharded] {SHARDS} ranks, mesh (data, model) = {r0['mesh']}, "
+        f"backend {r0['backend']}, both ranks on {card}; spawn + serve "
+        f"{spawn_s:.1f}s")
+    for i, r in enumerate(ranks):
+        say(f"[sharded] rank {i}: {r['calls']} sharded encodes for "
+            f"{r['n_flush']} flushes; launches {r['launches']}")
+
+    # the same traffic served unsharded on the card, the same params
+    from repro_torch.serving.session import ServingConfig
+    plain = serve_large(cfg, ServingConfig(**{
+        k: getattr(sc, k) for k in ("bucket_fractions", "microbatch",
+                                    "chunk")}), params, dev)
+    if [(k, n) for _, k, n in plain["server"].flush_log] != r0["flush_log"]:
+        fail("the sharded and unsharded serves flushed different batches")
+    cors = [corr(torch, a, b) for a, b in zip(r0["flushes"],
+                                              plain["flushes"])]
+    if len(cors) != r0["n_flush"] or not min(cors) > FLUSH_CORR:
+        fail(f"sharded vs unsharded flush logits: min corr {min(cors)} "
+             f"over {len(cors)} flushes (limit {FLUSH_CORR})")
+    agree = total = 0
+    for s, preds in zip(plain["sessions"], r0["predictions"]):
+        want = plain["results"][s.sid].predictions
+        if set(preds) != set(range(s.start, s.start + 32)):
+            fail(f"sharded session {s.sid}: {len(preds)} predictions for 32 "
+                 f"frames")
+        agree += sum(preds[i] == want[i] for i in preds)
+        total += len(preds)
+    say(f"[sharded] every flush's logits vs the unsharded card serve: min "
+        f"corr {min(cors):.9f} over {len(cors)} flushes (limit "
+        f"{FLUSH_CORR}); top-1 agreement {agree}/{total} = "
+        f"{100 * agree / total:.2f}%")
+    newest = plain["flushes"][-1]
+    for tag, logits in r0["planted"].items():
+        c = corr(torch, logits, newest)
+        say(f"[sharded] planted fault, {tag}: newest flush corr {c:.9f}")
+        if c > FLUSH_CORR:
+            fail(f"the planted fault ({tag}) passes the {FLUSH_CORR} limit, "
+                 f"which therefore cannot catch it")
+    return {"ranks": ranks, "plain": plain, "cfg": cfg, "min_corr": min(cors),
+            "agree": agree / total}
+
+
+def report_sharded(sharded: dict, card: str) -> None:
+    """Phase 5, path 4c: frames/s of the ranks against the unsharded serve
+    of the same traffic, and the host time of the collectives."""
+    r0 = sharded["ranks"][0]
+    unsharded = sharded["plain"]
+    for i, r in enumerate(sharded["ranks"]):
+        st = r["stats"]
+        coll_s = sum(v for k, v in st.items() if k.endswith("_s"))
+        ops = {k: v for k, v in st.items() if not k.endswith("_s")}
+        say(f"[numbers] sharded rank {i}: 64 frames in {r['wall']:.4f}s = "
+            f"{64 / r['wall']:.2f} frames/s; collectives {coll_s * 1e3:.3f} "
+            f"ms host time over {r['n_flush']} flushes = "
+            f"{coll_s * 1e3 / r['n_flush']:.3f} ms a flush ({ops}; "
+            + ", ".join(f"{k[:-2]} {v * 1e3 / r['n_flush']:.3f} ms"
+                        for k, v in st.items() if k.endswith("_s"))
+            + f" a flush); backend {r['backend']}, both ranks on one card "
+            f"({card})")
+    say(f"[numbers] sharded rank 0, each collective alone (host clock, "
+        f"20 calls after 3): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in r0["collective_ms"].items())
+        + f" ({card})")
+    say(f"[numbers] {sharded['cfg'].name} unsharded on the card: 64 frames in "
+        f"{unsharded['wall']:.4f}s = {64 / unsharded['wall']:.2f} frames/s; "
+        f"sharded over {SHARDS} ranks on the same card: "
+        f"{64 / r0['wall']:.2f} frames/s (rank 0) = "
+        f"{unsharded['wall'] / r0['wall']:.3f}x ({card})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -580,6 +878,7 @@ def main() -> int:
     # -- 3. kernel checks --------------------------------------------------
     errs = check_kernels(torch, dev)
     errs.update(check_lm_kernels(torch, dev))
+    errs.update(check_b4(torch, dev))
 
     # -- 4a. main path: ViT serving ----------------------------------------
     cfg = serving_cfg("base", 224)
@@ -637,6 +936,11 @@ def main() -> int:
     lm = run_lm(torch, dev, card)
     launches.update(lm["launches"])
 
+    # -- 4c. main path: model-sharded ViT serving ----------------------------
+    sharded = run_sharded(torch, dev, card, serving_cfg("large", 224))
+    r0 = sharded["ranks"][0]
+    launches["dequant_epilogue"] = r0["launches"].get("dequant_epilogue", 0)
+
     # -- 5. numbers --------------------------------------------------------
     say(f"[numbers] card: {card}")
     for s in sessions:
@@ -690,6 +994,8 @@ def main() -> int:
         f"{LM_PROMPT} tokens = {LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} "
         f"tokens/s; {lm['launches'].get('flash_attention_causal', 0)} "
         f"flash_attention_causal launches per forward ({card})")
+
+    report_sharded(sharded, card)
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = []
@@ -782,6 +1088,21 @@ def main() -> int:
                  f"length {length} bf16", fns,
                  flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES,
                  "F.scaled_dot_product_attention(length mask, enable_gqa)"))
+
+    # B4 at the sharded path's larger shape: after w1's local columns,
+    # 4 frames x 197 tokens x d_ff / 2 = (788, 2048)
+    from repro_torch.kernels.fused_ffn import dequant_epilogue
+    m, n = 788, 2048
+    acc = torch.randint(-2 ** 30, 2 ** 30, (m, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sx4 = torch.rand((), generator=gen, device=dev) * 1e-3
+    sw4 = torch.rand(n, generator=gen, device=dev)
+    fns = (lambda: dequant_epilogue(acc, sx4, sw4),
+           lambda: ref.dequant_epilogue_ref(acc, sx4, sw4), None)
+    rows.append(("dequant_epilogue", f"acc ({m},{n}) int32", fns,
+                 2 * m * n / PEAK_F32_FLOPS,
+                 (4 * m * n + 4 + 4 * n + 4 * m * n) / PEAK_BYTES,
+                 "none: no single call"))
 
     # ms, plain_ms and library_ms: device time per call from the profiler
     # (the kernel's own launches; every launch of the plain version and of

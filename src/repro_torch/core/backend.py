@@ -16,7 +16,9 @@ src/repro/core/backend.py, serving subset).
   * ``attend``  - attention-core registry: ``flash`` (the RoI-masked flash
     attention kernel, kernels/flash_attention.py);
   * ``ffn``     - FFN registry: ``fused`` (the fused int8 FFN kernel,
-    kernels/fused_ffn.py).
+    kernels/fused_ffn.py);
+  * ``place_params`` - slices the prepared tree down to one rank's shard
+    of a model-sharded serving mesh.
 
 The reference's other registry entries (qat / photonic_sim, the
 materialized-score ``xla`` attention and the composed ``xla`` FFN) are not
@@ -34,7 +36,8 @@ import torch
 from repro_torch.core import quant
 
 __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
-           "prepare_params", "NON_MATMUL_KEYS", "MATMUL_WEIGHT_EXTRA",
+           "prepare_params", "place_params", "NON_MATMUL_KEYS",
+           "MATMUL_WEIGHT_EXTRA",
            "get_backend", "get_attention_backend", "get_ffn_backend",
            "matmul", "linear", "attend", "ffn"]
 
@@ -175,6 +178,44 @@ def prepare_params(params, bits: int = 8, min_size: int = 128,
         return quantize_weight(node, bits=bits)
 
     return walk(params, ())
+
+
+def place_params(params, logical_axes, ctx):
+    """This rank's shard of a prepared param tree (the reference's
+    ``place_params``, which pins the tree onto the mesh with a
+    ``NamedSharding`` per leaf; here each rank keeps only its block).
+
+    ``logical_axes`` is the model's per-leaf logical-axis tree
+    (``models.vit.vit_logical_axes``), ``ctx`` a ``ShardingCtx`` whose rules
+    map those axes to mesh axes: under MODEL_RULES the columns of
+    wq/wk/wv/w1 go with their scales and b1, the rows of w2 go while its
+    scale and b2 stay whole, and everything else (wo, head, LN, cls, pos,
+    MGNet) stays whole. A ``QuantizedWeight`` slices its codes and its
+    scale by the same axes (the scale's size-1 contraction dim replicates
+    by the divisibility rule) and keeps its ``bits``. A leaf whose rank
+    does not match its axes entry stays whole. Sliced leaves are made
+    contiguous once here, so the kernels never copy them per call.
+    """
+    from repro_torch.distributed.sharding import local_shard, logical_spec
+
+    def block(t, axes):
+        spec = logical_spec(t.shape, axes, ctx)
+        if all(r is None for r in spec):
+            return t
+        return local_shard(t, spec, ctx.mesh).contiguous()
+
+    def place(w, ax):
+        if isinstance(w, dict):
+            return {k: place(v, ax[k]) for k, v in w.items()}
+        axt = tuple(ax)
+        if isinstance(w, QuantizedWeight):
+            return QuantizedWeight(block(w.wq, axt), block(w.scale, axt),
+                                   w.bits)
+        if isinstance(w, torch.Tensor) and w.ndim == len(axt):
+            return block(w, axt)
+        return w
+
+    return place(params, logical_axes)
 
 
 def _resolve_wq(w, bits: int):

@@ -22,7 +22,7 @@ from repro_torch.core.backend import ExecPolicy, linear
 from repro_torch.kernels.ref import gelu_tanh
 
 __all__ = ["MGNetConfig", "patchify", "mgnet_scores", "select_topk_patches",
-           "mask_budget", "frame_delta"]
+           "mask_budget", "frame_delta", "mgnet_logical_axes"]
 
 
 @dataclass(frozen=True)
@@ -37,6 +37,27 @@ class MGNetConfig:
     @property
     def n_patches(self) -> int:
         return (self.img_size // self.patch) ** 2
+
+
+def mgnet_logical_axes() -> dict:
+    """Replicated (all-None) logical-axis tree of MGNet's params: MGNet is
+    tiny and never partitioned, but the tree mirrors the params for
+    ``core.backend.place_params``."""
+    return {
+        "patch_embed": {"w": (None, None), "b": (None,)},
+        "cls_token": (None, None, None),
+        "pos_embed": (None, None, None),
+        "block": {
+            "ln1": {"g": (None,), "b": (None,)},
+            "wqkv": (None, None),
+            "wo": (None, None),
+            "ln2": {"g": (None,), "b": (None,)},
+            "w1": (None, None), "b1": (None,),
+            "w2": (None, None), "b2": (None,),
+        },
+        "score": {"wq": (None, None), "wk": (None, None),
+                  "head_w": (None, None), "head_b": (None,)},
+    }
 
 
 def _ln(x, p, eps=1e-6):

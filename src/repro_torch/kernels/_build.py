@@ -58,6 +58,7 @@ _SIGNATURES = {
     + (_FLOAT, _VOID),
     "flash_decode_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
     + (_FLOAT, _VOID),
+    "dequant_epilogue_s32": (_VOID,) * 4 + (_INT,) * 2 + (_VOID,),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,17 +1,28 @@
 """The fused int8 photonic GELU-MLP: w1 GEMM + dequant + b1 + tanh-GELU +
 requantization at the hidden absmax + w2 GEMM + dequant, then + b2.
 
-Replaces src/repro/kernels/fused_ffn.py::fused_ffn_kernel (wrapper
-``fused_ffn_int8``, host pick ``fused_ffn``). The CUDA kernels are the two
-phases in ``csrc/fused_ffn.cu`` (its source note says why there are two
-launches, how d_ff is tiled, and what bounds them on an H100); the plain
-version is ``kernels/ref.py::fused_ffn_ref``. The wrapper launches the kernels for
-CUDA tensors and takes the plain version only for CPU tensors.
+Two constructions of the same function, as in the reference
+(src/repro/kernels/fused_ffn.py):
 
-As in the reference, x is quantized at w1's width outside the kernel, b2
-is added outside, and ``live_rows`` prefix-slices the token rows before any
-work (dead rows come back as exact zeros, and the hidden absmax reduces
-over live rows only).
+  * ``fused_ffn`` replaces ``fused_ffn_kernel`` (wrapper ``fused_ffn_int8``,
+    host pick ``fused_ffn``): the two phases in ``csrc/fused_ffn.cu`` (its
+    source note says why there are two launches, how d_ff is tiled, and
+    what bounds them on an H100); plain version ``ref.py::fused_ffn_ref``.
+  * ``fused_ffn_xla`` is the reference's XLA twin: quantize, an int32
+    accumulate outside any kernel (``int_accumulate``: ``torch._int_mm`` on
+    the card, as the reference leaves its integer dot to XLA), then
+    ``dequant_epilogue``, which replaces ``_dequant_epilogue_kernel`` (CUDA
+    ``csrc/dequant_epilogue.cu``, plain version
+    ``ref.py::dequant_epilogue_ref``). ``ffn_twin`` is its dataflow around
+    the two int8 linears; the model-sharded form
+    (``models/sharded_encoder.py::fused_ffn_sharded``) runs the same
+    dataflow with the collectives in its linears.
+
+Every wrapper launches its kernel for CUDA tensors and takes the plain
+version only for CPU tensors. As in the reference, x is quantized at w1's
+width outside the kernels, b2 is added outside, and ``live_rows``
+prefix-slices the token rows before any work (dead rows come back as exact
+zeros, and the absmax scopes reduce over live rows only).
 """
 
 from __future__ import annotations
@@ -20,9 +31,15 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import fused_ffn_ref, restore_dead, slice_live
+from repro_torch.kernels.ref import (dequant_epilogue_ref, fused_ffn_ref,
+                                     gelu_tanh, int_accumulate_ref,
+                                     restore_dead, slice_live)
 
-__all__ = ["bits_pair", "fused_ffn"]
+__all__ = ["bits_pair", "fused_ffn", "dequant_epilogue", "int_accumulate",
+           "int8_linear_xla", "ffn_twin", "fused_ffn_xla"]
+
+# torch._int_mm on the card takes M > 16 rows and K, N multiples of 8
+_INT_MM_MIN_ROWS = 17
 
 
 def bits_pair(bits) -> tuple[int, int]:
@@ -90,3 +107,100 @@ def fused_ffn(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
     _build.LAUNCHES["fused_ffn"] += 1
     y = out + b2
     return restore_dead(y.reshape(*lead, dout), n_tokens)
+
+
+def dequant_epilogue(acc: torch.Tensor, sx: torch.Tensor,
+                     sw: torch.Tensor) -> torch.Tensor:
+    """acc (M, N) int32, sx (1 element) f32, sw (N,) f32 -> (M, N) f32 =
+    (f32(acc) * sx) * sw. The B4 kernel on the card; its plain version for
+    CPU tensors. Contiguous operands only."""
+    if acc.dtype != torch.int32 or sx.dtype != torch.float32 \
+            or sw.dtype != torch.float32:
+        raise TypeError(f"dequant_epilogue takes int32 / f32 / f32, got "
+                        f"{acc.dtype} / {sx.dtype} / {sw.dtype}")
+    if acc.ndim != 2 or sx.numel() != 1 or sw.shape != (acc.shape[1],):
+        raise ValueError(f"shapes acc {tuple(acc.shape)} sx "
+                         f"{tuple(sx.shape)} sw {tuple(sw.shape)}")
+    devs = {t.device for t in (acc, sx, sw)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = acc.device
+    if dev.type == "cpu":
+        return dequant_epilogue_ref(acc, sx, sw)
+    if dev.type != "cuda":
+        raise ValueError(f"dequant_epilogue runs on cuda or cpu, not {dev}")
+    if not (acc.is_contiguous() and sx.is_contiguous()
+            and sw.is_contiguous()):
+        raise ValueError("dequant_epilogue takes contiguous operands")
+    m, n = acc.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    _build.check(_build.library().dequant_epilogue_s32(
+        acc.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n,
+        _build.stream_ptr(dev)), "dequant_epilogue_s32")
+    _build.LAUNCHES["dequant_epilogue"] += 1
+    return out
+
+
+def int_accumulate(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int32 accumulate of int8 codes, (M, K) . (K, N) -> (M, N),
+    outside any kernel of the port (the reference's ``dot_general`` with
+    ``preferred_element_type=int32``). CPU: the float64 plain version. The
+    card: ``torch._int_mm``, which takes M > 16 rows, so a shorter M is
+    padded with zero rows and the result sliced back (exact), and K, N that
+    are multiples of 8, so others raise."""
+    if xq.device.type == "cpu":
+        return int_accumulate_ref(xq, wq)
+    m, k = xq.shape
+    n = wq.shape[1]
+    if k % 8 or n % 8:
+        raise ValueError(f"the int32 accumulate on the card needs K and N "
+                         f"multiples of 8 (torch._int_mm), got K={k} N={n}")
+    if m < _INT_MM_MIN_ROWS:
+        xp = xq.new_zeros((_INT_MM_MIN_ROWS, k))
+        xp[:m] = xq
+        return torch._int_mm(xp, wq.contiguous())[:m].contiguous()
+    return torch._int_mm(xq.contiguous(), wq.contiguous())
+
+
+def int8_linear_xla(x2: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
+                    bits: int) -> torch.Tensor:
+    """quantize -> int32 accumulate -> B4 dequant: the reference's
+    ``_int8_linear_xla``. x2 (M, K) f32; wq (K, N) int8; sw (N,) f32."""
+    sx = quant.absmax_scale(x2, bits=bits)
+    xq = quant.quantize(x2, sx, bits=bits)
+    return dequant_epilogue(int_accumulate(xq, wq), sx, sw.contiguous())
+
+
+def ffn_twin(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
+             b1: torch.Tensor, w2q: torch.Tensor, sw2: torch.Tensor,
+             b2: torch.Tensor, bits: tuple[int, int],
+             live_rows: int | None, linear1, linear2) -> torch.Tensor:
+    """The dataflow of the reference's ``fused_ffn_xla`` around its two int8
+    linears ``linear1/2(x2, wq, sw, bits=)``: live-row slice, linear1 at
+    bits1, cast to x.dtype, + b1, tanh-GELU in f32, cast, linear2 at bits2,
+    cast, + b2, dead rows restored as exact zeros."""
+    bits1, bits2 = bits
+    n_tokens = x.shape[-2]
+    dout = w2q.shape[1]
+    xl, lv = slice_live(x, live_rows)
+    if lv == 0:
+        return x.new_zeros(*x.shape[:-1], dout)
+    lead = xl.shape[:-1]
+    x2 = xl.reshape(-1, x.shape[-1]).float()
+    h = linear1(x2, w1q, sw1, bits=bits1).to(x.dtype) + b1
+    g = gelu_tanh(h.float()).to(x.dtype)
+    y = linear2(g.float(), w2q, sw2, bits=bits2).to(x.dtype) + b2
+    return restore_dead(y.reshape(*lead, dout), n_tokens)
+
+
+def fused_ffn_xla(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
+                  b1: torch.Tensor, w2q: torch.Tensor, sw2: torch.Tensor,
+                  b2: torch.Tensor, *, bits=8,
+                  live_rows: int | None = None) -> torch.Tensor:
+    """The reference's ``fused_ffn_xla``: ``ffn_twin`` over two
+    ``int8_linear_xla``; the same shapes and ``live_rows`` semantics as
+    ``fused_ffn``."""
+    return ffn_twin(x, w1q, sw1, b1, w2q, sw2, b2, bits_pair(bits),
+                    live_rows, int8_linear_xla, int8_linear_xla)

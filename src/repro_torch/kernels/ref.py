@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five ported kernels (the numerics
+"""Plain PyTorch versions of the six ported kernels (the numerics
 contracts), counterparts of src/repro/kernels/ref.py, of the reference's
 XLA twins and of its decode attention.
 
@@ -20,7 +20,8 @@ import torch
 from repro_torch.core import quant
 
 __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
-           "int_accumulate_ref", "photonic_matmul_ref",
+           "int_accumulate_ref", "dequant_epilogue_ref",
+           "photonic_matmul_ref",
            "flash_attention_masked_ref", "flash_attention_ref",
            "flash_decode_ref", "fused_ffn_ref", "slice_live", "restore_dead"]
 
@@ -59,12 +60,19 @@ def int_accumulate_ref(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ wq.double()).to(torch.int32)
 
 
+def dequant_epilogue_ref(acc: torch.Tensor, sx: torch.Tensor,
+                         sw: torch.Tensor) -> torch.Tensor:
+    """Per-tensor x per-out-channel dequant of an int32 accumulate: acc
+    (M, N) int32; sx () f32; sw (N,) f32 -> (M, N) f32 = (f32(acc) * sx) *
+    sw, two rounded products in that order and no bias."""
+    return (acc.float() * sx.reshape(())) * sw[None, :]
+
+
 def photonic_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                         sw: torch.Tensor) -> torch.Tensor:
     """Integer-exact w8a8 matmul + dequant. xq (M, K) int8; wq (K, N) int8;
     sx () f32; sw (N,) f32 -> (M, N) f32 = (f32(acc) * sx) * sw."""
-    acc = int_accumulate_ref(xq, wq)
-    return acc.float() * sx.reshape(()) * sw[None, :]
+    return dequant_epilogue_ref(int_accumulate_ref(xq, wq), sx, sw)
 
 
 def flash_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,

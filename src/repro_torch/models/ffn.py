@@ -10,7 +10,7 @@ from repro_torch.core.backend import ExecPolicy
 from repro_torch.core.backend import ffn as ffn_dispatch
 from repro_torch.core.backend import linear
 
-__all__ = ["swiglu", "mlp"]
+__all__ = ["swiglu", "mlp", "mlp_logical_axes"]
 
 
 def swiglu(params: dict, x: torch.Tensor,
@@ -22,6 +22,13 @@ def swiglu(params: dict, x: torch.Tensor,
     u = linear(x, params["w_up"], policy=policy)
     h = (g * torch.sigmoid(g)).to(x.dtype) * u
     return linear(h, params["w_down"], policy=policy)
+
+
+def mlp_logical_axes() -> dict:
+    """Logical axes of the GELU-MLP's params: d_ff is the "p_mlp" axis
+    (w1's columns with b1, w2's rows)."""
+    return {"w1": ("p_embed", "p_mlp"), "b1": ("p_mlp",),
+            "w2": ("p_mlp", "p_embed"), "b2": ("p_embed",)}
 
 
 def mlp(params: dict, x: torch.Tensor, policy: ExecPolicy | None = None,

@@ -12,6 +12,11 @@ layers slices one layer per step in place of ``lax.scan``.
 MGNet RoI pruning: patches are scored by MGNet and only the top-k
 (static budget ceil(keep_ratio * N)) enter encoder block 0; the [cls]
 token is always kept.
+
+Under a sharding context whose "model" axis has more than one rank,
+``encode_tokens`` runs the model-sharded encoder
+(models/sharded_encoder.py) instead; ``vit_logical_axes`` names the axes
+``core.backend.place_params`` shards the params by.
 """
 
 from __future__ import annotations
@@ -23,13 +28,15 @@ from repro_torch.core import mgnet as mgnet_mod
 from repro_torch.core.decomposed_attention import mhsa_standard
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import current_ctx
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import sharded_encoder
 from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
                                        layer_view, linear)
 
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "vit_matmul_shapes",
-           "mgnet_config"]
+           "mgnet_config", "vit_logical_axes"]
 
 
 def _n_patches(cfg):
@@ -39,6 +46,36 @@ def _n_patches(cfg):
 def mgnet_config(cfg: ArchConfig) -> MGNetConfig:
     return MGNetConfig(patch=cfg.patch, img_size=cfg.img_size,
                        embed=cfg.mgnet_embed, heads=cfg.mgnet_heads)
+
+
+def vit_logical_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of every param leaf (stacked ``blocks`` leaves lead with
+    "p_layers"). wq/wk/wv output columns are head-major, so a "model" mesh
+    axis splits them into whole head groups; wo is deliberately not tagged
+    on its head-major rows: the sharded encoder consumes it whole after
+    all-gathering the merged head outputs (its dequant runs inside the
+    photonic matmul kernel, so a row split could not reduce the int32
+    accumulates before the dequant)."""
+    layer = {"ln1_g": (None,), "ln1_b": (None,),
+             "attn": {"wq": ("p_embed", "p_heads"),
+                      "wk": ("p_embed", "p_heads"),
+                      "wv": ("p_embed", "p_heads"), "wo": (None, "p_embed")},
+             "ln2_g": (None,), "ln2_b": (None,),
+             "ffn": ffn_mod.mlp_logical_axes()}
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return ("p_layers",) + tuple(tree)
+
+    ax = {"patch_embed": {"w": (None, "p_embed"), "b": ("p_embed",)},
+          "cls": (None, None, None), "pos": (None, None, None),
+          "blocks": stacked(layer),
+          "final_ln_g": (None,), "final_ln_b": (None,),
+          "head": ("p_embed", None)}
+    if cfg.mgnet:
+        ax["mgnet"] = mgnet_mod.mgnet_logical_axes()
+    return ax
 
 
 def embed_patches(params: dict, images: torch.Tensor, cfg: ArchConfig,
@@ -116,6 +153,12 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     alternative (only the first ``kv_len`` patch tokens are live: the
     flash kernel skips the dead key tiles and the fused FFN the dead rows).
     Runs on ``device`` (default: the card).
+
+    Under a sharding context with a "model" axis of more than one rank
+    the encode runs model-sharded (``sharded_encoder.sharded_encode``) on
+    this rank's shard of the params. If that path cannot run, this raises
+    with the reason: the port never serves unsharded when sharding was
+    asked for (the reference warns once and falls back).
     """
     dev = resolve_device(device)
     _check_device(params, dev)
@@ -128,12 +171,22 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         raise NotImplementedError(
             f"encoder not on the fused serving point ({reason}); the composed "
             f"dispatch is not ported yet (ROADMAP.md queue A)")
+    if patch_mask is not None:
+        patch_mask = torch.as_tensor(patch_mask).to(dev)
+    ctx = current_ctx()
+    if ctx is not None and ctx.mesh.shape.get("model", 1) > 1:
+        sreason = sharded_encoder.sharded_encode_ineligible_reason(
+            params, cfg, policy, ctx)
+        if sreason is not None:
+            raise ValueError(f"the model-sharded encode cannot run: "
+                             f"{sreason}")
+        return sharded_encoder.sharded_encode(params, tokens, cfg, policy,
+                                              patch_mask, kv_len, ctx)
     b, _, d = tokens.shape
     cls = params["cls"].expand(b, 1, d) + params["pos"][:, :1]
     x = torch.cat([cls.to(tokens.dtype), tokens], dim=1)
     mask = None
     if patch_mask is not None:
-        patch_mask = torch.as_tensor(patch_mask).to(dev)
         mask = torch.cat([patch_mask.new_ones(b, 1), patch_mask], dim=1)
     attn_kv = None if kv_len is None else int(kv_len) + 1   # + live [cls]
     for i in range(cfg.n_layers):

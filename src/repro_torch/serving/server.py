@@ -16,20 +16,31 @@ Per ingest chunk of each stream, in round-robin order:
      over the quantize-once int8 cache), then final LayerNorm -> head ->
      argmax.
 
+Model-sharded serving (``ServerConfig.model_shards`` = M > 1): every rank
+of a ``torch.distributed`` world of W = D x M ranks runs this same loop
+over the same streams. The gate, embed, routing and micro-batcher are
+deterministic and run replicated; only the encode is sharded, over the
+2-D ("data", "model") mesh of ``launch.mesh.make_serving_mesh``, on this
+rank's shard of the weight cache (``place_params``), through
+``models/sharded_encoder.py``. Every rank ends with the same predictions.
+
 Not ported yet (ROADMAP.md queue A): energy accounting, warm start and CUDA
 graphs, one-shape mode, device noise, faults, checkpoints, the control
-plane, mesh sharding, ``mix_streams``, ``max_wait``, ladder trimming and
-bit plans.
+plane, the 1-D data mesh, ``mix_streams``, ``max_wait``, ladder trimming
+and bit plans.
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
     PYTHONPATH=src python -m repro_torch.serving.server --streams 2 --frames 32
     PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \
+        --smoke --device cpu --model-shards 2
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,19 +48,37 @@ import torch
 
 from repro_torch.bridge import from_jax_params, init_vit, to_device
 from repro_torch.configs.base import ArchConfig, smoke_variant
-from repro_torch.core.backend import ExecPolicy, prepare_params
+from repro_torch.core.backend import ExecPolicy, place_params, prepare_params
 from repro_torch.core.mgnet import mask_budget, mgnet_scores
 from repro_torch.data.pipeline import VideoStream, video_fleet
 from repro_torch.device import resolve_device
-from repro_torch.models.vit import (embed_patches, forward_vit_tokens,
-                                    mgnet_config)
+from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
+                                              use_sharding)
+from repro_torch.launch.mesh import init_from_env, make_serving_mesh
+from repro_torch.models.sharded_encoder import \
+    sharded_encode_ineligible_reason
+from repro_torch.models.vit import (_fused_encoder_ineligible_reason,
+                                    embed_patches, forward_vit_tokens,
+                                    mgnet_config, vit_logical_axes)
 from repro_torch.serving.buckets import BucketLadder
 from repro_torch.serving.scheduler import FrameBatch, MicroBatcher
 from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
 
-__all__ = ["StreamServer", "serving_cfg", "smoke_cfg", "interleave_rounds",
-           "main"]
+__all__ = ["StreamServer", "ServerConfig", "serving_cfg", "smoke_cfg",
+           "interleave_rounds", "main"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig(ServingConfig):
+    """ServingConfig + the multi-stream knobs (the ported subset)."""
+
+    model_shards: int = 0        # > 1: 2-D ("data", "model") serving mesh —
+    #                              attention heads + d_ff shard over "model"
+    #                              (MODEL_RULES), the fused encode runs
+    #                              sharded (models/sharded_encoder.py),
+    #                              bitwise-equal to unsharded with the FFN's
+    #                              twin. 0/1 = unsharded
 
 
 def _gather_topk_rows(tokens: torch.Tensor, order: torch.Tensor,
@@ -96,6 +125,10 @@ class StreamServer:
     None to draw one with ``bridge.init_vit(seed, ...)``. Every matmul
     weight is quantized once, on ``device`` (default: the card), before any
     stream starts: the int8 photonic matmul is the only ported backend.
+    ``serve_cfg`` is a ``ServerConfig`` (a plain ``ServingConfig`` takes
+    its defaults). With ``model_shards`` > 1 this process is one rank of a
+    model-sharded mesh: it serves on ``cuda:(LOCAL_RANK % device_count)``
+    (or the CPU) and keeps only its shard of the cache.
     """
 
     def __init__(self, cfg: ArchConfig, serve_cfg: ServingConfig | None = None,
@@ -105,8 +138,18 @@ class StreamServer:
             raise ValueError("serving needs cfg.mgnet=True (the RoI gate is "
                              "the pipeline's first stage)")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.serve_cfg = serve_cfg or ServingConfig()
+        sc = serve_cfg or ServerConfig()
+        if not isinstance(sc, ServerConfig):
+            sc = ServerConfig(**dataclasses.asdict(sc))
+        self.serve_cfg = sc
+        dev = resolve_device(device)
+        # the mesh exactly when model_shards > 1; None on a world of one
+        # rank, and a world of more ranks without model shards raises
+        self.mesh = make_serving_mesh(model=max(1, sc.model_shards),
+                                      device=dev)
+        self.device = self.mesh.device if self.mesh is not None else dev
+        self._ctx = (ShardingCtx(self.mesh, MODEL_RULES)
+                     if self.mesh is not None else None)
         self.policy = ExecPolicy.from_cfg(cfg)
         self.n_patches = (cfg.img_size // cfg.patch) ** 2
         self.ladder = BucketLadder.from_fractions(
@@ -115,8 +158,8 @@ class StreamServer:
         if params is None:
             params = from_jax_params(init_vit(seed, cfg, n_classes),
                                      self.device)
-        self.params = prepare_params(to_device(params, self.device),
-                                     bits=cfg.quant_bits or 8)
+        self.params = self._maybe_place(prepare_params(
+            to_device(params, self.device), bits=cfg.quant_bits or 8))
         self._sessions: list[StreamSession] = []
         self._next_sid = 0
         self.batcher: MicroBatcher | None = None
@@ -125,6 +168,25 @@ class StreamServer:
         # numbers against another execution of the same encode
         self.last_flush: FrameBatch | None = None
         self.last_logits: torch.Tensor | None = None
+
+    def _maybe_place(self, params):
+        """This rank's shard of the prepared cache on a model-sharded mesh
+        (the whole cache without one). The cache is prepared whole first,
+        so every per-out-channel scale is the unsharded one. Raises with
+        the reason when the sharded encode cannot run: asking for
+        ``model_shards`` > 1 never serves unsharded quietly."""
+        if self._ctx is None:
+            return params
+        reason = (_fused_encoder_ineligible_reason(params, self.cfg,
+                                                   self.policy)
+                  or sharded_encode_ineligible_reason(params, self.cfg,
+                                                      self.policy,
+                                                      self._ctx))
+        if reason is not None:
+            raise ValueError(
+                f"model_shards={self.serve_cfg.model_shards} asks for the "
+                f"model-sharded encode, which cannot run: {reason}")
+        return place_params(params, vit_logical_axes(self.cfg), self._ctx)
 
     def add_session(self, stream: VideoStream, n_frames: int = 64,
                     start: int = 0) -> StreamSession:
@@ -216,8 +278,9 @@ class StreamServer:
     def _finish(self, fb: FrameBatch, by_sid: dict[int, StreamSession]) -> None:
         """Encode one flush and hand its predictions to the owning session."""
         k = fb.bucket[0]
-        logits = forward_vit_tokens(self.params, fb.tokens, self.cfg,
-                                    self.policy, device=self.device)[0]
+        with use_sharding(self.mesh):
+            logits = forward_vit_tokens(self.params, fb.tokens, self.cfg,
+                                        self.policy, device=self.device)[0]
         preds = torch.argmax(logits[:fb.n_real], dim=-1)
         sid = fb.bucket[1]
         sess = by_sid[sid]
@@ -244,27 +307,47 @@ def main(argv=None):
                     help="seed of the random weights (bridge.init_vit)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    ap.add_argument("--model-shards", type=int, default=0,
+                    help="> 1: 2-D (data, model) serving mesh over the "
+                         "torchrun world: attention heads + d_ff shard over "
+                         "the model axis (needs n_heads and d_ff divisible)")
     args = ap.parse_args(argv)
 
+    joined = init_from_env(device=args.device) is not None
+    try:
+        return _serve_cli(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _serve_cli(args):
+    rank0 = (not torch.distributed.is_initialized()
+             or torch.distributed.get_rank() == 0)
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = smoke_cfg() if args.smoke else serving_cfg()
-    server = StreamServer(cfg, seed=args.seed, device=args.device)
+    server = StreamServer(cfg, ServerConfig(model_shards=args.model_shards),
+                          seed=args.seed, device=args.device)
     where = (torch.cuda.get_device_name(server.device)
              if server.device.type == "cuda" else "cpu")
-    print(f"[server] {cfg.name} {cfg.img_size}x{cfg.img_size} on {where}: "
-          f"ladder={list(server.ladder.sizes)} of {server.n_patches} patches")
+    mesh = ("x".join(str(n) for n in server.mesh.shape.values())
+            if server.mesh is not None else "off")
+    say(f"[server] {cfg.name} {cfg.img_size}x{cfg.img_size} on {where}: "
+        f"ladder={list(server.ladder.sizes)} of {server.n_patches} patches "
+        f"mesh={mesh}")
     streams = video_fleet(args.streams, img_size=cfg.img_size,
                           patch=cfg.patch)
     sessions = [server.add_session(st, n_frames=args.frames,
                                    start=i * args.phase)
                 for i, st in enumerate(streams)]
-    results = server.serve(verbose=True)
+    results = server.serve(verbose=rank0)
     total = sum(r.frames for r in results.values())
     wall = max((r.wall_s for r in results.values()), default=0.0)
     for s in sessions:
-        print(f"[server] session {s.sid}:", results[s.sid].summary())
-    print(f"[server] aggregate: {total} frames over {len(sessions)} streams "
-          f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
-          f"({len(server.flush_log)} encode launches, {where})")
+        say(f"[server] session {s.sid}:", results[s.sid].summary())
+    say(f"[server] aggregate: {total} frames over {len(sessions)} streams "
+        f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
+        f"({len(server.flush_log)} encode launches, {where})")
     return results
 
 

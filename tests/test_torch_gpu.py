@@ -10,7 +10,9 @@ Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
 flash attention rtol = atol = 2e-5; fused FFN one hidden quant step;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
 within 1 bf16 ulp of the largest |o|; end-to-end logits card vs CPU
-correlation > 0.999.
+correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
+over 2 ranks on the one card bitwise against the unsharded twin on the
+card (an exact int32 accumulate and the same elementwise ops).
 """
 
 import sys
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from repro_torch.bridge import (from_jax_params, init_lm, init_vit,  # noqa: E402
                                 to_device)
@@ -35,7 +38,9 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
-from repro_torch.kernels.fused_ffn import fused_ffn  # noqa: E402
+from repro_torch.kernels.fused_ffn import (dequant_epilogue,  # noqa: E402
+                                           fused_ffn, fused_ffn_xla)
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
@@ -43,6 +48,8 @@ from repro_torch.kernels.photonic_matmul import \
     photonic_matmul_int8  # noqa: E402
 from repro_torch.models.vit import forward_vit  # noqa: E402
 from repro_torch.serving.server import smoke_cfg  # noqa: E402
+
+import _torch_ranks  # noqa: E402
 
 
 @pytest.fixture
@@ -252,3 +259,48 @@ def test_decode_step_card_matches_cpu(dev):
                                 {"tokens": prompt.to(dev)}, cfg)[:, -1]
     a = full.double().cpu().flatten()
     assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(788, 2048), (788, 1024), (37, 1003),
+                                 (1, 1024)])
+def test_dequant_epilogue_kernel(dev, m, n):
+    """Bitwise against the plain version, on the 16-byte path (N % 4 == 0,
+    aligned) and, from an acc that starts 4 bytes into its buffer, on the
+    scalar path."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    buf = torch.randint(-2 ** 30, 2 ** 30, (m * n + 1,), generator=g,
+                        device=dev, dtype=torch.int32)
+    sx = torch.rand((), generator=g, device=dev) * 1e-3
+    sw = torch.rand(n, generator=g, device=dev)
+    for acc in (buf[:-1].view(m, n), buf[1:].view(m, n)):
+        before = _build.LAUNCHES["dequant_epilogue"]
+        got = dequant_epilogue(acc, sx, sw)
+        assert _build.LAUNCHES["dequant_epilogue"] == before + 1
+        assert torch.equal(got, ref.dequant_epilogue_ref(acc, sx, sw))
+
+
+@pytest.mark.gpu
+def test_fused_ffn_sharded_two_ranks_on_one_card(dev):
+    """opto-vit-large's FFN widths (d 1024, d_ff 4096) at a 4 x 197 flush
+    and a live-row prefix, split over 2 gloo ranks on the one card."""
+    rng = np.random.default_rng(0)
+    cases = []
+    for bits, live in ((8, None), ((8, 6), 60)):
+        b1, b2 = bits if isinstance(bits, tuple) else (bits, bits)
+        g = torch.Generator().manual_seed(b2)
+        w1q, s1 = _qweight(g, 1024, 4096, b1, "cpu")
+        w2q, s2 = _qweight(g, 4096, 1024, b2, "cpu")
+        cases.append((rng.standard_normal((4, 197, 1024)).astype(np.float32),
+                      w1q.numpy(), s1.numpy(),
+                      (rng.standard_normal(4096) * 0.1).astype(np.float32),
+                      w2q.numpy(), s2.numpy(),
+                      (rng.standard_normal(1024) * 0.1).astype(np.float32),
+                      bits, live))
+    out = spawn_ranks(_torch_ranks.ffn_sharded, 2, cases, "cuda",
+                      device="cuda", timeout_s=300)
+    for i, (*ops, bits, live) in enumerate(cases):
+        whole = fused_ffn_xla(*(torch.from_numpy(a).to(dev) for a in ops),
+                              bits=bits, live_rows=live).cpu().numpy()
+        for r in out:
+            np.testing.assert_array_equal(r[i], whole)
