@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
-           "ptxas_report", "stream_ptr", "strides_arg", "DTYPE_SUFFIX"]
+           "ptxas_report", "aligned16", "stream_ptr", "strides_arg",
+           "DTYPE_SUFFIX"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -174,6 +175,13 @@ def strides_arg(*strides: int):
     """A host array of element strides for an ``_I64_PTR`` argument (the
     C entry point reads it before it returns)."""
     return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def aligned16(t: torch.Tensor, dims: int) -> bool:
+    """Whether ``t``'s data pointer and its first ``dims`` strides fall on
+    16-byte boundaries (what a kernel's 16-byte loads need)."""
+    return t.data_ptr() % 16 == 0 and all(
+        s_ * t.element_size() % 16 == 0 for s_ in t.stride()[:dims])
 
 
 def stream_ptr(device) -> int:

@@ -8,8 +8,10 @@ its CUDA kernel is ``csrc/flash_attention.cu`` and its plain version
 ``kernels/ref.py::flash_attention_masked_ref``.
 
 ``flash_attention`` replaces ``flash_attention_kernel`` (wrapper
-``flash_attention``); its CUDA kernel is ``csrc/flash_attention_causal.cu``
-and its plain version ``kernels/ref.py::flash_attention_ref``.
+``flash_attention``); its CUDA kernels are in
+``csrc/flash_attention_causal.cu`` (bf16 on the tensor cores, head dims
+``TC_HEAD_DIMS``; f32 on the CUDA cores) and its plain version
+``kernels/ref.py::flash_attention_ref``.
 
 Each kernel's source note says what bounds it on an H100 and how its
 design answers that. The wrappers launch the kernel for CUDA tensors and
@@ -31,11 +33,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_masked_ref,
                                      flash_attention_ref, prefix_key_mask)
 
-__all__ = ["KV_TILE", "MAX_HEAD_DIM", "flash_attention_masked",
-           "flash_attention"]
+__all__ = ["KV_TILE", "MAX_HEAD_DIM", "TC_HEAD_DIMS",
+           "flash_attention_masked", "flash_attention"]
 
 KV_TILE = 32          # keys per kernel tile (kBKV in csrc/flash_attention.cu)
 MAX_HEAD_DIM = 256    # D and Dv bound: the per-block tiles live in shared memory
+TC_HEAD_DIMS = (16, 64, 128)   # head dims the bf16 tensor-core kernel takes
 
 
 def _live_counts(mask: torch.Tensor, nkv: int):
@@ -125,7 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``scale`` (default 1/sqrt(D)) multiplies q. Any Sq and Skv. Inputs may
     be strided views with D contiguous (e.g. the (B, S, H, D) projection
     layout transposed): the kernel reads them by strides, and the output
-    has q's memory layout. The kernel takes f32 or bf16, all one dtype.
+    has q's memory layout. The kernel takes f32 or bf16, all one dtype;
+    on the card a bf16 call needs D in ``TC_HEAD_DIMS`` and 16-byte
+    aligned pointers and (batch, head, row) strides, else it raises.
     """
     b, h, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -152,6 +157,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    tc = q.dtype == torch.bfloat16
+    if tc and d not in TC_HEAD_DIMS:
+        raise ValueError(f"the bf16 kernel takes head dims {TC_HEAD_DIMS}, "
+                         f"got {d}")
+    if tc and not all(_build.aligned16(t, 3) for t in (q, k, v)):
+        raise ValueError("the bf16 kernel needs 16-byte aligned q, k, v "
+                         "pointers and (batch, head, row) strides")
     out = torch.empty_like(q)           # q's layout, hence D contiguous
     if b * h * sq == 0:
         return out

@@ -9,6 +9,9 @@ the reference's ``models/attention.py::decode_attention``. The wrapper
 launches the kernel for CUDA tensors and takes the plain version only for
 CPU tensors.
 
+The kernel splits the cache rows across a cluster of 8 blocks per (batch,
+kv head) and merges through distributed shared memory.
+
 Unlike the TPU wrapper, which transposes the cache to (B * Hkv, S, D)
 before its grid and needs S to be a multiple of its block, the kernel
 reads the (B, S, Hkv, D) cache where it lies, by strides, and masks any S.
@@ -26,8 +29,8 @@ from repro_torch.kernels.ref import flash_decode_ref
 
 __all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "flash_decode"]
 
-MAX_HEAD_DIM = 256    # D bound: the per-block tiles live in shared memory
-MAX_GROUP = 32        # G = H / Hkv bound, for the same reason
+MAX_HEAD_DIM = 256    # D bound: a lane holds at most two 16-byte vectors a row
+MAX_GROUP = 32        # G = H / Hkv bound: query rows go 8 to a pass
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -38,7 +41,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     ``length`` are masked; the kernel never reads them.
 
     The cache may be a strided view with D contiguous (a layer's slice of
-    the stacked cache is one). The kernel takes f32 or bf16, all one dtype.
+    the stacked cache is one). The kernel takes f32 or bf16, all one dtype;
+    on the card D must fill whole 16-byte vectors (a multiple of 8 bf16 or
+    4 f32) and the caches' pointers and (batch, row, head) strides must be
+    16-byte aligned, else it raises.
     """
     b, one, h, d = q.shape
     _, s, hkv, _ = k_cache.shape
@@ -69,9 +75,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if d > MAX_HEAD_DIM or h // hkv > MAX_GROUP:
         raise ValueError(f"head dim {d} (max {MAX_HEAD_DIM}) or group "
                          f"{h // hkv} (max {MAX_GROUP}) too large")
+    if d * q.element_size() % 16:
+        raise ValueError(f"head dim {d} of {q.dtype} does not fill whole "
+                         f"16-byte vectors")
     q = q.contiguous()
     k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
                         for t in (k_cache, v_cache))
+    if not all(_build.aligned16(t, 3) for t in (q, k_cache, v_cache)):
+        raise ValueError("the kernel needs 16-byte aligned q and cache "
+                         "pointers and (batch, row, head) strides")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = _build.strides_arg(*k_cache.stride()[:3], *v_cache.stride()[:3])
     entry = "flash_decode_" + _build.DTYPE_SUFFIX[q.dtype]

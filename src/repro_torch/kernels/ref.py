@@ -23,7 +23,9 @@ __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "int_accumulate_ref", "dequant_epilogue_ref",
            "photonic_matmul_ref",
            "flash_attention_masked_ref", "flash_attention_ref",
-           "flash_decode_ref", "fused_ffn_ref", "slice_live", "restore_dead"]
+           "flash_decode_ref", "flash_attention_tc_ref",
+           "flash_decode_split_ref", "fused_ffn_ref", "slice_live",
+           "restore_dead"]
 
 NEG_INF = -1e30
 
@@ -106,6 +108,17 @@ def flash_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
+def _visible(sq: int, skv: int, causal: bool, window: int, device):
+    q_pos = torch.arange(sq, device=device)[:, None]
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window > 0:
+        mask &= q_pos - kv_pos < window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         scale: float | None = None) -> torch.Tensor:
@@ -122,13 +135,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     s = (q.float() * scale) @ expand_kv_heads(k, h).float().transpose(-1, -2)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos >= kv_pos
-    if window > 0:
-        mask &= q_pos - kv_pos < window
+    mask = _visible(sq, skv, causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     o = torch.softmax(s, dim=-1) @ expand_kv_heads(v, h).float()
     o = torch.where(mask.any(-1)[:, None], o, 0.0)
@@ -156,6 +163,78 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()) / l
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True, window: int = 0,
+                           scale: float | None = None,
+                           kv_tile: int = 64) -> torch.Tensor:
+    """The bf16 tensor-core B5 kernel's numerics, for the tests (no path
+    calls it): 64-key tiles under an online softmax, S = (q k^T) * scale
+    (the product of the inputs as given, in f32, then the scale), and
+    O += hi V + lo V with P split into hi = bf16(p), lo = bf16(p - hi).
+    Same shapes and masks as ``flash_attention_ref``; o * (1 / max(l,
+    1e-30))."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    kf, vf = (expand_kv_heads(t, h).float() for t in (k, v))
+    mask = _visible(sq, skv, causal, window, q.device)
+    m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for j0 in range(0, skv, kv_tile):
+        kt, vt = kf[:, :, j0:j0 + kv_tile], vf[:, :, j0:j0 + kv_tile]
+        vis = mask[:, j0:j0 + kv_tile]
+        s = torch.where(vis, (qf @ kt.transpose(-1, -2)) * scale, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new), 0.0)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + hi @ vt + lo @ vt
+        m = m_new
+    return (acc * (1.0 / l.clamp_min(1e-30))).to(q.dtype)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, length: int,
+                           splits: int) -> torch.Tensor:
+    """The cluster B6 kernel's algorithm, for the tests (no path calls it):
+    split c of ``splits`` takes cache rows [c * chunk, min((c + 1) * chunk,
+    length)), chunk = ceil(length / splits), and keeps its own (max m_c,
+    sum l_c, accumulator acc_c) (m_c = NEG_INF, l_c = 0 with no rows); the
+    splits merge in order c = 0, 1, ... at the global max m: l = sum l_c
+    exp(m_c - m), acc likewise, o = acc / l. q is divided by sqrt(D) first,
+    as in ``flash_decode_ref``. Shapes as ``flash_decode_ref``."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    qf = q.reshape(b, hkv, h // hkv, d).float() / math.sqrt(d)
+    chunk = -(-length // splits)
+    parts = []
+    for c in range(splits):
+        lo, hi = c * chunk, min((c + 1) * chunk, length)
+        if lo >= hi:
+            parts.append((qf.new_full(qf.shape[:-1] + (1,), NEG_INF),
+                          qf.new_zeros(qf.shape[:-1] + (1,)),
+                          qf.new_zeros(qf.shape)))
+            continue
+        s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache[:, lo:hi].float())
+        m_c = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m_c)
+        parts.append((m_c, p.sum(-1, keepdim=True), torch.einsum(
+            "bhgs,bshd->bhgd", p, v_cache[:, lo:hi].float())))
+    m = torch.stack([m_c for m_c, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for m_c, l_c, a_c in parts:
+        f = torch.exp(m_c - m)
+        l = l + l_c * f
+        acc = acc + a_c * f
+    return (acc / l).reshape(b, 1, h, d).to(q.dtype)
 
 
 def slice_live(x: torch.Tensor, live_rows: int | None):

@@ -9,7 +9,7 @@ reference package, so it also runs where JAX is not installed:
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
 flash attention rtol = atol = 2e-5; fused FFN one hidden quant step;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
-within 1 bf16 ulp of the largest |o|; end-to-end logits card vs CPU
+within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
 over 2 ranks on the one card bitwise against the unsharded twin on the
 card (an exact int32 accumulate and the same elementwise ops).
@@ -235,6 +235,122 @@ def test_flash_decode_kernel(dev, b, s, h, hkv, d, length, dtype):
     hm = (kc.transpose(1, 2).contiguous().transpose(1, 2),
           vc.transpose(1, 2).contiguous().transpose(1, 2))
     assert torch.equal(flash_decode(q, *hm, length), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 6, 8, 16])
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 63, 64, 65, 159, 160, 511,
+                                    512])
+def test_flash_decode_cluster_boundaries(dev, length, g, d):
+    """The cluster split at its edges: lengths below, at and above the
+    split and lane-group sizes (splits with no row among them), G rows
+    below, at and above one 8-row pass; bf16 and f32. Two calls on the
+    same inputs are bitwise equal (the merge runs in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(length * 100 + g + d)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(2, 1, 2 * g, d, generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn(2, 512, 2, d, generator=gen, device=dev)
+                  .to(dtype) for _ in range(2))
+        got = flash_decode(q, kc, vc, length)
+        _assert_held(got, ref.flash_decode_ref(q, kc, vc, length))
+        assert torch.equal(flash_decode(q, kc, vc, length), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [0, 8, 64])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 256])
+def test_flash_attention_tensor_core_boundaries(dev, s, window, d):
+    """The bf16 tensor-core kernel at the 64-key tile's and the 64-row
+    query tile's edges, causal, with windows, G = 1; two calls bitwise
+    equal."""
+    gen = torch.Generator(device=dev).manual_seed(s * 10 + window + d)
+    q, k, v = (torch.randn(2, 2, s, d, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True, window=window)
+    _assert_held(got, ref.flash_attention_ref(q, k, v, causal=True,
+                                              window=window))
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+
+
+def _excess_over_rounding(got, want):
+    """Largest (|got - want| - half a bf16 ulp of got) / (1 + |want|): the
+    error left in a bf16 ``got`` once its own rounding is taken off."""
+    g, w = got.float(), want.float()
+    exp = torch.frexp(g).exponent               # |g| in [2^(e-1), 2^e)
+    half_ulp = torch.where(g == 0, 0.0,
+                           torch.ldexp(torch.ones_like(g), exp - 9))
+    return ((g - w).abs() - half_ulp).div(1 + w.abs()).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,d", [(0, 128), (8, 128), (0, 64)])
+def test_flash_attention_bf16_follows_its_emulation(dev, window, d):
+    """The bf16 tensor-core kernel against ``flash_attention_tc_ref`` (its
+    numerics in f32: 64-key tiles, the scale after the product, P as bf16
+    hi + lo) at the prefill shape q (4, 12, 128, D), KV 2 heads, in the
+    path's (B, S, H, D) layout. Once o's own rounding to bf16 is taken off,
+    the kernel is within the f32 limit 2e-5 (1 + |o|) of it. P rounded
+    once to bf16, without its lo part, is not: the limit tells the two
+    apart, as the same check of that variant shows."""
+    gen = torch.Generator(device=dev).manual_seed(window + d)
+    q, k, v = (torch.randn(4, 128, hh, d, generator=gen, device=dev)
+               .bfloat16().transpose(1, 2) for hh in (12, 2, 2))
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                      causal=True, window=window)
+    assert _excess_over_rounding(got, want) <= 2e-5
+    # P in bf16 alone: o = bf16(exp(s - m)) V / l
+    qf, kf, vf = (ref.expand_kv_heads(t, 12).float() for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) / d ** 0.5
+    vis = torch.ones(128, 128, dtype=torch.bool, device=dev).tril()
+    if window:
+        vis &= ~torch.ones_like(vis).tril(-window)
+    p = torch.exp(s - s.masked_fill(~vis, -1e30).amax(-1, keepdim=True))
+    p = p.masked_fill(~vis, 0.0)
+    hi_only = (p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True)
+    assert _excess_over_rounding(hi_only.bfloat16(), want) > 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [7, 160, 512])
+def test_flash_decode_follows_its_split_emulation(dev, length):
+    """B6 against ``flash_decode_split_ref(splits=8)``, the split of the
+    cache rows over the cluster's 8 blocks and their merge in rank order,
+    at the decode shape q (4, 1, 12, 128), cache (4, 512, 2, 128); length
+    7 leaves a block with no row. f32 within 4e-6 (1 + |o|); bf16 within
+    that once o's own rounding to bf16 is taken off."""
+    gen = torch.Generator(device=dev).manual_seed(length)
+    q = torch.randn(4, 1, 12, 128, generator=gen, device=dev)
+    kc, vc = (torch.randn(4, 512, 2, 128, generator=gen, device=dev)
+              for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dtype) for t in (q, kc, vc))
+        got = flash_decode(qd, kd, vd, length)
+        want = ref.flash_decode_split_ref(qd.float(), kd.float(), vd.float(),
+                                          length, 8)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=4e-6, atol=4e-6)
+        else:
+            assert _excess_over_rounding(got, want) <= 4e-6
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_rejects_what_the_kernel_does_not_take(dev):
+    """A bf16 head dim outside the instantiated set, and a view whose row
+    stride is not 16-byte aligned, raise instead of taking another path."""
+    q = torch.randn(1, 2, 8, 96, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    base = torch.randn(1, 2, 8, 132, device=dev).bfloat16()
+    view = base[..., 2:130]                   # D 128, row stride 132
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(view, view, view)
+    before = _build.LAUNCHES["flash_attention_causal"]
+    flash_attention(view.contiguous(), view.contiguous(), view.contiguous())
+    assert _build.LAUNCHES["flash_attention_causal"] == before + 1
 
 
 @pytest.mark.gpu
