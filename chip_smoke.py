@@ -13,16 +13,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      nvcc, printing ``-Xptxas -v`` (registers, shared memory, spills);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224 and
-     qwen2-1.5b widths, at ragged shapes and, for B5 and B6, at their
-     tiles' and splits' edges (B6 also bitwise from call to call), with
-     the tolerance stated beside each;
+     qwen2-1.5b widths, at ragged shapes and, for B1, B2, B5 and B6, at
+     their tiles', rings' and splits' edges (B6 also bitwise from call to
+     call; B2 also in the (B, S, H, D) layout read by strides and against
+     its 3xTF32 emulation), each naming the entry it took, with the
+     tolerance stated beside each;
   4. main paths, each driven with the launch counts set to 0 just before
      it and read just after:
      a. ``StreamServer`` on opto-vit-base-224 + MGNet (random weights from
         seed 0), 2 streams x 32 frames, chunk 8, micro-batch 4, buckets
         0.25/0.5/0.75/1.0; every frame gets a prediction, B1-B3 launch,
         and the newest flush re-encoded on the CPU with the plain versions
-        gives logits with correlation > 0.999;
+        gives logits with correlation > 0.999; every B2 launch took the
+        tensor-core entry and every B1 launch at K = 768 the K-major one;
      b. the LM serving path on qwen2-1.5b at full width (28 layers, random
         bf16 weights from seed 0): ``generate`` (batch 4, prompt 128
         prefilled by the decode step, 32 greedy tokens, cache 512) and one
@@ -38,14 +41,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         process and handed to the ranks as shared CPU tensors), the traffic
         of path a; each rank checks that every flush went through the
         sharded encode and that the dequant epilogue launched 2 x 24 times
-        a flush, and every flush's logits must correlate > 0.99999 with the
+        a flush and that B2 and B1 took the entries path a requires, and
+        every flush's logits must correlate > 0.99999 with the
         same flush served unsharded on the card (two planted faults, one
         that skips the int32 all-reduce and one that leaves the absmax
         scopes local to the rank, must fail that check);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
-     their type and bytes over 3.35 TB/s; B5 also at the f32 rate), its
+     their type and bytes over 3.35 TB/s; B2 at the TF32 rate of its
+     three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
      calls; torch.profiler breakdowns of one serve and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
@@ -67,6 +72,7 @@ ROOT = Path(__file__).resolve().parent
 # cores, HBM
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -79,8 +85,10 @@ REPLACES = {
     "dequant_epilogue": "src/repro/kernels/fused_ffn.py:236",
 }
 SYMBOLS = {
-    "photonic_matmul": ("photonic_matmul_s8_kernel",),
-    "flash_attention_masked": ("flash_attention_masked_kernel",),
+    "photonic_matmul": ("photonic_matmul_s8_kmajor_kernel",
+                        "photonic_matmul_s8_kernel"),
+    "flash_attention_masked": ("flash_attention_masked_tc_kernel",
+                               "flash_attention_masked_kernel"),
     "fused_ffn": ("fused_ffn_phase0_kernel", "fused_ffn_phase1_kernel"),
     "flash_attention_causal": ("flash_attention_causal_kernel",
                                "flash_attention_causal_mma_kernel"),
@@ -119,6 +127,29 @@ B4_SHAPES = (("large w1 columns", 788, 2048), ("large w2 psum", 788, 1024),
              ("ragged", 37, 1003), ("M = 1", 1, 2048))
 
 
+def vit_entry_fault(launches: dict) -> str | None:
+    """Why the ViT kernels' launches of a serving run (paths a and c) did
+    not take the entries the path requires, or None: every B2 launch the
+    tensor-core entry, every B1 launch at K = 768 the K-major entry (and
+    some did), and every launch counted under one entry."""
+    b1, b2 = (launches.get(k, 0) for k in ("photonic_matmul",
+                                            "flash_attention_masked"))
+    if launches.get("flash_attention_masked.tc", 0) != b2 or b2 == 0:
+        return (f"{launches.get('flash_attention_masked.tc', 0)} of {b2} "
+                f"flash_attention_masked launches took the tensor-core entry")
+    if launches.get("photonic_matmul.nmajor.K768", 0) or not launches.get(
+            "photonic_matmul.kmajor.K768", 0):
+        return (f"photonic_matmul at K = 768: "
+                f"{launches.get('photonic_matmul.kmajor.K768', 0)} K-major, "
+                f"{launches.get('photonic_matmul.nmajor.K768', 0)} N-major "
+                f"launches")
+    entries = sum(launches.get(f"photonic_matmul.{e}", 0)
+                  for e in ("kmajor", "nmajor"))
+    if entries != b1:
+        return f"photonic_matmul: {entries} entry launches for {b1} launches"
+    return None
+
+
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -155,32 +186,38 @@ def device_ms(torch, fn, match: tuple = (), iters: int = 50,
     A pass that records no such kernel is said, with the launches the
     wrapper counted under ``counter`` in that pass (so a kernel that did
     not launch is told apart from one the profiler missed), and run
-    again; a third empty pass fails. One run of the cluster-launched flash
-    decode had such a pass (PERF.md, open questions)."""
+    again; a fifth such pass fails. With ``counter`` a pass must also
+    record at least as many kernel instances as the wrapper counted
+    launches: a pass that lost some of them would read below the true
+    time (one run's dequant epilogue read under its bytes bound after an
+    empty pass, PERF.md). One run of the cluster-launched flash decode had
+    an empty pass too (PERF.md, open questions)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(1, 6):
         before = _build.LAUNCHES[counter] if counter else 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if getattr(e, "device_type", None) == DeviceType.CUDA
-                 and (not match or any(m in e.key for m in match)))
-        if us > 0:
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and (not match or any(m in e.key for m in match))]
+        us = sum(e.self_device_time_total for e in events)
+        recorded = sum(e.count for e in events)
+        launched = _build.LAUNCHES[counter] - before if counter else 0
+        if us > 0 and recorded >= launched:
             return us / 1e3 / iters, attempt
-        counted = (f"; {counter} counted "
-                   f"{_build.LAUNCHES[counter] - before} of {iters} calls' "
+        counted = (f"; {counter} counted {launched} of {iters} calls' "
                    f"launches in it" if counter else "")
-        say(f"[numbers] profiling pass {attempt} saw no device time for "
-            f"kernels {match or 'any'}{counted}")
-    fail(f"the profiler saw no device time for kernels {match or 'any'}")
+        say(f"[numbers] profiling pass {attempt} recorded {recorded} "
+            f"instances ({us:.1f} us) of kernels {match or 'any'}{counted}")
+    fail(f"the profiler lost device time for kernels {match or 'any'}")
 
 
 def qweight(torch, gen, k: int, n: int, bits: int, dev):
@@ -206,9 +243,11 @@ def quant_step_close(torch, a, b) -> bool:
 def check_kernels(torch, dev) -> dict:
     """Phase 3. Returns kernel name -> max |kernel - plain| over its checks."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_masked
+    from repro_torch.kernels.flash_attention import (flash_attention_masked,
+                                                     masked_entry_for)
     from repro_torch.kernels.fused_ffn import fused_ffn
-    from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
+    from repro_torch.kernels.photonic_matmul import (entry_for,
+                                                     photonic_matmul_int8)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     err = {"photonic_matmul": 0.0, "flash_attention_masked": 0.0,
@@ -218,39 +257,51 @@ def check_kernels(torch, dev) -> dict:
     # int32 accumulate must be bitwise (unit scales; every |acc| < 2^24 at
     # K <= 768, so f32(acc) is exact); the dequantized output within 1e-6
     # relative to the plain version's largest output.
+    # The weight reaches the K-major entry as its K-major copy, as the
+    # quantize-once cache holds it (QuantizedWeight.wt).
     b1 = [("base qkv/wo k=196", 788, 768, 768), ("base qkv/wo k=49", 200, 768, 768),
           ("base patch embed", 1568, 768, 768), ("base head", 4, 768, 10),
           ("mgnet wqkv", 1576, 192, 576), ("mgnet head_w", 8, 196, 196),
           ("tiny qkv/wo k=196", 788, 192, 192), ("tiny patch embed", 1568, 768, 192),
-          ("ragged", 37, 768, 192), ("ragged", 4, 768, 10)]
+          ("ragged", 37, 768, 192), ("ragged", 4, 768, 10),
+          ("ring edge K=32", 65, 32, 64), ("ring edge K=96", 63, 96, 128),
+          ("ring edge M=1", 1, 768, 768), ("large qkv (2 ranks)", 788, 1024, 512)]
     for tag, m, k, n in b1:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                            dtype=torch.int8)
+        wt = wq.t().contiguous()
         acc = photonic_matmul_int8(xq, wq, torch.ones((), device=dev),
-                                   torch.ones(n, device=dev))
+                                   torch.ones(n, device=dev), wt=wt)
         exact = ref.int_accumulate_ref(xq, wq)
         if not torch.equal(acc.to(torch.int64), exact.to(torch.int64)):
             fail(f"B1 {tag} ({m},{k},{n}): int32 accumulate not bitwise")
         sx = torch.rand((), generator=gen, device=dev) * 1e-2
         sw = torch.rand(n, generator=gen, device=dev) * 1e-2
-        got = photonic_matmul_int8(xq, wq, sx, sw)
+        got = photonic_matmul_int8(xq, wq, sx, sw, wt=wt)
         want = ref.photonic_matmul_ref(xq, wq, sx, sw)
         e = (got - want).abs().max().item()
         rel = e / max(want.abs().max().item(), 1e-30)
-        say(f"[check] B1 {tag:<20s} ({m},{k},{n}): accumulate bitwise, "
-            f"max abs err {e:.3e}, rel {rel:.3e} (tol 1e-6)")
+        say(f"[check] B1 {tag:<20s} ({m},{k},{n}) {entry_for(k)} entry: "
+            f"accumulate bitwise, max abs err {e:.3e}, rel {rel:.3e} "
+            f"(tol 1e-6)")
         if rel > 1e-6:
             fail(f"B1 {tag}: relative error {rel} > 1e-6")
         err["photonic_matmul"] = max(err["photonic_matmul"], e)
 
     # B2: f32 end to end, held to rtol = atol = 2e-5 (streaming-softmax
-    # reassociation against the materialized softmax).
-    def b2(tag, b, h, hk, hv, s, d, dv, mode, scale=None):
-        q = torch.randn(b, h, s, d, generator=gen, device=dev)
-        k = torch.randn(b, hk, s, d, generator=gen, device=dev)
-        v = torch.randn(b, hv, s, dv, generator=gen, device=dev)
+    # reassociation against the materialized softmax); the tensor-core
+    # entry also against its 3xTF32 emulation (on the CPU), at the same
+    # limit. "bshd" draws q, k, v in the projections' (B, S, H, D) layout
+    # and hands the kernel (B, H, S, D) views, read by strides.
+    def b2(tag, b, h, hk, hv, s, d, dv, mode, scale=None, layout="bhsd"):
+        def rnd(heads, dim):
+            if layout == "bhsd":
+                return torch.randn(b, heads, s, dim, generator=gen, device=dev)
+            return torch.randn(b, s, heads, dim, generator=gen,
+                               device=dev).transpose(1, 2)
+        q, k, v = rnd(h, d), rnd(hk, d), rnd(hv, dv)
         kw = {"scale": scale}
         if mode in ("mask", "dead"):
             m = (torch.rand(b, s, generator=gen, device=dev) > 0.5).float()
@@ -262,8 +313,19 @@ def check_kernels(torch, dev) -> dict:
         got = flash_attention_masked(q, k, v, **kw)
         want = ref.flash_attention_masked_ref(q, k, v, **kw)
         e = (got - want).abs().max().item()
-        say(f"[check] B2 {tag:<24s} q{tuple(q.shape)} Hk={hk} Hv={hv} "
-            f"Dv={dv} {mode}: max abs err {e:.3e} (tol 2e-5)")
+        entry = masked_entry_for(d, dv)
+        emu = ""
+        if entry == "tc":
+            cpu = {k_: (w.cpu() if torch.is_tensor(w) else w)
+                   for k_, w in kw.items()}
+            em = ref.flash_attention_masked_tc_ref(q.cpu(), k.cpu(), v.cpu(),
+                                                   **cpu).to(dev)
+            emu = f", {(got - em).abs().max().item():.3e} against the emulation"
+            if not torch.allclose(got, em, rtol=2e-5, atol=2e-5):
+                fail(f"B2 {tag}: outside 2e-5 of its 3xTF32 emulation")
+        say(f"[check] B2 {tag:<24s} q{tuple(q.shape)} {layout} Hk={hk} "
+            f"Hv={hv} Dv={dv} {mode} {entry} entry: max abs err {e:.3e}"
+            f"{emu} (tol 2e-5)")
         if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
             fail(f"B2 {tag}: max abs err {e}")
         if mode == "dead" and not bool((got[b - 1] == 0).all()):
@@ -276,6 +338,15 @@ def check_kernels(torch, dev) -> dict:
     b2("random key mask", 4, 12, 12, 12, 197, 64, 64, "mask")
     b2("kv_len", 4, 12, 12, 12, 197, 64, 64, "kv_len")
     b2("fully masked row", 4, 12, 12, 12, 99, 64, 64, "dead")
+    b2("base bucket k=196", 4, 12, 12, 12, 197, 64, 64, "ones", layout="bshd")
+    b2("large, 8 heads a rank", 4, 8, 8, 8, 197, 64, 64, "mask",
+       layout="bshd")
+    b2("kv_len, ragged S=50", 4, 12, 12, 12, 50, 64, 64, "kv_len",
+       layout="bshd")
+    for s_ in (1, 33, 63, 64, 65, 129):      # the 32-key / 64-row tile edges
+        b2("tile edge", 2, 4, 4, 4, s_, 64, 64, "mask", layout="bshd")
+    b2("dead row, GQA Hk=Hv=4", 2, 12, 4, 4, 99, 64, 64, "dead",
+       layout="bshd")
     b2("Hk=1, D != Dv (Eq. 2)", 2, 12, 1, 12, 99, 192, 64, "mask", 1.0)
     b2("GQA Hk=4 Hv=2", 2, 8, 4, 2, 37, 32, 48, "mask")
 
@@ -697,6 +768,9 @@ def sharded_rank(params: dict, cfg, sc, device: str) -> dict:
         for k in ("photonic_matmul", "flash_attention_masked"):
             if launches.get(k, 0) <= 0:
                 raise RuntimeError(f"{k} never launched on the sharded path")
+        fault = vit_entry_fault(launches)
+        if fault:
+            raise RuntimeError(f"sharded path: {fault}")
         if launches.get("fused_ffn", 0):
             raise RuntimeError("the fused FFN kernel ran on the sharded path")
 
@@ -942,6 +1016,9 @@ def main() -> int:
     for name_ in VIT_KERNELS:
         if launches.get(name_, 0) <= 0:
             fail(f"kernel {name_} was never launched on the main path")
+    fault = vit_entry_fault(launches)
+    if fault:
+        fail(f"main path: {fault}")
     for s in sessions:
         r = results[s.sid]
         want = set(range(s.start, s.start + 32))
@@ -1044,8 +1121,9 @@ def main() -> int:
     xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                        dtype=torch.int8)
     wq, sw = qweight(torch, gen, k, n, 8, dev)
+    wt = wq.t().contiguous()
     sx = torch.rand((), generator=gen, device=dev) * 1e-2
-    fns = (lambda: photonic_matmul_int8(xq, wq, sx, sw),
+    fns = (lambda: photonic_matmul_int8(xq, wq, sx, sw, wt=wt),
            lambda: ref.photonic_matmul_ref(xq, wq, sx, sw),
            lambda: torch._int_mm(xq, wq).float() * sx * sw)
     ops = 2 * m * k * n
@@ -1054,11 +1132,11 @@ def main() -> int:
                  ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES,
                  "torch._int_mm + dequant"))
 
-    # B2 at the largest bucket: (4, 12, 197, 64), all keys live
+    # B2 at the largest bucket: (4, 12, 197, 64), all keys live, in the
+    # path's (B, S, H, D) layout read by strides
     bb, h, s, d = 4, 12, 197, 64
-    q = torch.randn(bb, h, s, d, generator=gen, device=dev)
-    kk = torch.randn(bb, h, s, d, generator=gen, device=dev)
-    v = torch.randn(bb, h, s, d, generator=gen, device=dev)
+    q, kk, v = (torch.randn(bb, s, h, d, generator=gen, device=dev)
+                .transpose(1, 2) for _ in range(3))
     keep = torch.ones(bb, s, device=dev)
     bmask = (keep > 0)[:, None, None, :]
     fns = (lambda: flash_attention_masked(q, kk, v, keep),
@@ -1067,8 +1145,10 @@ def main() -> int:
                q, kk, v, attn_mask=bmask))
     flops = 2 * bb * h * s * s * d * 2
     nbytes = 4 * (4 * bb * h * s * d + bb * s)
+    b2_f32_bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    # f32-class work on the tensor cores takes three TF32 passes
     rows.append(("flash_attention_masked", f"({bb},{h},{s},{d}) f32", fns,
-                 flops / PEAK_F32_FLOPS,
+                 3 * flops / PEAK_TF32_FLOPS,
                  nbytes / PEAK_BYTES, "F.scaled_dot_product_attention"))
 
     # B3 at the largest bucket: x (4, 197, 768), d_ff 3072, bits (8, 8)
@@ -1157,8 +1237,10 @@ def main() -> int:
         bound_s = max(ops_s, bytes_s)
         by = "operations" if ops_s >= bytes_s else "bytes"
         lib_txt = f"{lib_ms:.4f} ms ({lib})" if lib_ms is not None else lib
-        f32_txt = (f"; at the f32 CUDA-core rate {b5_f32_bound * 1e3:.5f} ms"
-                   if kname == "flash_attention_causal" else "")
+        f32_bound = {"flash_attention_causal": b5_f32_bound,
+                     "flash_attention_masked": b2_f32_bound}.get(kname)
+        f32_txt = (f"; at the f32 CUDA-core rate {f32_bound * 1e3:.5f} ms"
+                   if f32_bound is not None else "")
         say(f"[numbers] {kname} {shape}: kernel {ms:.4f} ms device "
             f"(profiling passes {passes}; {event_ms:.4f} ms CUDA-event, "
             f"wrapper included), bound "

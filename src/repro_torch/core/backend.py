@@ -102,27 +102,34 @@ class QuantizedWeight:
 
     ``wq``: (..., K, N) int8; ``scale``: (..., 1, N) f32. A leading L axis
     carries scan-stacked layers (``wq[i]`` is layer i's (K, N) bank).
-    ``bits`` is one int width for every layer.
+    ``bits`` is one int width for every layer. ``wt``: (..., N, K) int8,
+    the same codes K-major (contiguous), which the photonic matmul kernel's
+    K-major entry reads (the tensor cores take int8 operands K-major only).
+    It is made once, where a cache entry is made or moved (given, or the
+    transpose of ``wq`` when not), never per call: ``layer(i)`` slices it.
     """
 
-    __slots__ = ("wq", "scale", "bits")
+    __slots__ = ("wq", "scale", "bits", "wt")
 
-    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, bits: int = 8):
+    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, bits: int = 8,
+                 wt: torch.Tensor | None = None):
         self.wq = wq
         self.scale = scale
         self.bits = int(bits)
+        self.wt = wq.transpose(-1, -2).contiguous() if wt is None else wt
 
     @property
     def ndim(self):
         return self.wq.ndim
 
     def layer(self, i: int) -> "QuantizedWeight":
-        """Layer ``i`` of a stacked cache entry."""
-        return QuantizedWeight(self.wq[i], self.scale[i], self.bits)
+        """Layer ``i`` of a stacked cache entry (views, no copies)."""
+        return QuantizedWeight(self.wq[i], self.scale[i], self.bits,
+                               self.wt[i])
 
     def to(self, device) -> "QuantizedWeight":
         return QuantizedWeight(self.wq.to(device), self.scale.to(device),
-                               self.bits)
+                               self.bits, self.wt.to(device))
 
     def __repr__(self):
         return f"QuantizedWeight(shape={tuple(self.wq.shape)}, bits={self.bits})"
@@ -193,8 +200,10 @@ def place_params(params, logical_axes, ctx):
     MGNet) stays whole. A ``QuantizedWeight`` slices its codes and its
     scale by the same axes (the scale's size-1 contraction dim replicates
     by the divisibility rule) and keeps its ``bits``. A leaf whose rank
-    does not match its axes entry stays whole. Sliced leaves are made
-    contiguous once here, so the kernels never copy them per call.
+    does not match its axes entry stays whole. Its K-major copy ``wt``
+    slices by the same axes with the last two swapped (a column shard of
+    ``wq`` is a row shard of ``wt``). Sliced leaves are made contiguous
+    once here, so the kernels never copy them per call.
     """
     from repro_torch.distributed.sharding import local_shard, logical_spec
 
@@ -210,7 +219,8 @@ def place_params(params, logical_axes, ctx):
         axt = tuple(ax)
         if isinstance(w, QuantizedWeight):
             return QuantizedWeight(block(w.wq, axt), block(w.scale, axt),
-                                   w.bits)
+                                   w.bits,
+                                   block(w.wt, axt[:-2] + (axt[-1], axt[-2])))
         if isinstance(w, torch.Tensor) and w.ndim == len(axt):
             return block(w, axt)
         return w
@@ -218,13 +228,10 @@ def place_params(params, logical_axes, ctx):
     return place(params, logical_axes)
 
 
-def _resolve_wq(w, bits: int):
-    """(int8 codes (K, N), scale (1, N) f32) from a raw or cached weight."""
-    if isinstance(w, QuantizedWeight):
-        return w.wq, w.scale
-    w32 = w.float()
-    sw = quant.absmax_scale(w32, bits=bits, axis=-2)
-    return quant.quantize(w32, sw, bits=bits), sw
+def _resolve_wq(w, bits: int) -> QuantizedWeight:
+    """A cached weight as it is; a raw one quantized (codes, scale and
+    K-major copy) for this call."""
+    return w if isinstance(w, QuantizedWeight) else quantize_weight(w, bits)
 
 
 def _weight_bits(w, p: ExecPolicy) -> int:
@@ -282,8 +289,9 @@ def _photonic_pallas_matmul(x, w, p: ExecPolicy):
     from repro_torch.kernels.ops import photonic_matmul_prequant
 
     bits = _weight_bits(w, p)
-    wq, sw = _resolve_wq(w, bits)
-    y = photonic_matmul_prequant(x.float(), wq, sw.reshape(-1), bits=bits)
+    qw = _resolve_wq(w, bits)
+    y = photonic_matmul_prequant(x.float(), qw.wq, qw.scale.reshape(-1),
+                                 bits=bits, wt=qw.wt)
     return y.to(x.dtype)
 
 

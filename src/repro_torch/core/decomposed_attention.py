@@ -35,5 +35,6 @@ def mhsa_standard(x: torch.Tensor, params: dict, heads: int,
         params["wk"].wq, params["wk"].scale.reshape(-1),
         params["wv"].wq, params["wv"].scale.reshape(-1),
         mask, heads=heads, kv_len=kv_len,
-        bits=tuple(params[n].bits for n in ("wq", "wk", "wv")))
+        bits=tuple(params[n].bits for n in ("wq", "wk", "wv")),
+        kmajor=tuple(params[n].wt for n in ("wq", "wk", "wv")))
     return linear(o, params["wo"], policy=policy)

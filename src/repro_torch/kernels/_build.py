@@ -36,7 +36,8 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# kernel name -> launches on the card since the last reset (clear() resets)
+# kernel name -> launches on the card since the last reset (clear() resets);
+# a kernel with several entries also counts each under "<kernel>.<entry>"
 LAUNCHES: collections.Counter = collections.Counter()
 
 _VOID = ctypes.c_void_p
@@ -47,8 +48,11 @@ _I64_PTR = ctypes.POINTER(ctypes.c_longlong)   # a host array of strides
 # would otherwise pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
     "photonic_matmul_s8": (_VOID,) * 5 + (_INT,) * 3 + (_VOID,),
+    "photonic_matmul_s8_kmajor": (_VOID,) * 5 + (_INT,) * 3 + (_VOID,),
     "flash_attention_masked_f32": (_VOID,) * 6 + (_INT,) * 9 + (_FLOAT,
                                                                 _VOID),
+    "flash_attention_masked_tc_f32": (_VOID,) * 6 + (_I64_PTR,) + (_INT,) * 7
+    + (_FLOAT, _VOID),
     "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
     "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
     "flash_attention_causal_f32": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8

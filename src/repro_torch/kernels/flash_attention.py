@@ -4,8 +4,11 @@ path and the causal / local-window GQA core of the LM prefill.
 ``flash_attention_masked`` replaces
 src/repro/kernels/flash_attention.py::flash_attention_masked_kernel
 (wrapper ``flash_attention_masked``, host pick ``fused_masked_attention``);
-its CUDA kernel is ``csrc/flash_attention.cu`` and its plain version
-``kernels/ref.py::flash_attention_masked_ref``.
+its CUDA kernels are in ``csrc/flash_attention.cu`` (3xTF32 on the tensor
+cores for head dims (D, Dv) = ``TC_MASKED_HEAD_DIMS``, f32 on the CUDA cores
+for every other pair, chosen by shape only: ``masked_entry_for``) and its
+plain version ``kernels/ref.py::flash_attention_masked_ref``
+(``flash_attention_masked_tc_ref`` emulates the tensor-core design).
 
 ``flash_attention`` replaces ``flash_attention_kernel`` (wrapper
 ``flash_attention``); its CUDA kernels are in
@@ -34,28 +37,40 @@ from repro_torch.kernels.ref import (flash_attention_masked_ref,
                                      flash_attention_ref, prefix_key_mask)
 
 __all__ = ["KV_TILE", "MAX_HEAD_DIM", "TC_HEAD_DIMS",
+           "TC_MASKED_HEAD_DIMS", "masked_entry_for",
            "flash_attention_masked", "flash_attention"]
 
-KV_TILE = 32          # keys per kernel tile (kBKV in csrc/flash_attention.cu)
+KV_TILE = 32          # keys per tile of both masked kernels (kBKV, tc::kBKV)
 MAX_HEAD_DIM = 256    # D and Dv bound: the per-block tiles live in shared memory
 TC_HEAD_DIMS = (16, 64, 128)   # head dims the bf16 tensor-core kernel takes
+TC_MASKED_HEAD_DIMS = (64, 64)  # (D, Dv) of the tensor-core masked kernel
 
 
-def _live_counts(mask: torch.Tensor, nkv: int):
-    """(B, Skv) f32 keep-mask -> (mask, (B, nkv) int32 live keys per tile)."""
+def masked_entry_for(d: int, dv: int) -> str:
+    """The entry a CUDA ``flash_attention_masked`` call of head dims (D, Dv)
+    launches: "tc" (3xTF32 tensor cores) or "simt"."""
+    return "tc" if (d, dv) == TC_MASKED_HEAD_DIMS else "simt"
+
+
+def _live_counts(mask: torch.Tensor, pad: bool):
+    """(B, Skv) f32 keep-mask -> (the mask, zero-padded to whole tiles when
+    ``pad``, (B, nkv) int32 live keys per KV tile)."""
     b, skv = mask.shape
+    nkv = -(-skv // KV_TILE)
     padded = torch.nn.functional.pad(mask, (0, nkv * KV_TILE - skv))
-    return mask, padded.reshape(b, nkv, KV_TILE).sum(-1).to(torch.int32)
+    counts = padded.reshape(b, nkv, KV_TILE).sum(-1).to(torch.int32)
+    return (padded if pad else mask), counts
 
 
 @functools.lru_cache(maxsize=64)
-def _constant_mask(kv_len: int | None, b: int, skv: int, dev: torch.device):
+def _constant_mask(kv_len: int | None, b: int, skv: int, dev: torch.device,
+                   pad: bool):
     """The keep-mask and live counts of an all-live (``kv_len`` None) or
     int-prefix key axis, built once per shape: the serving path's bucketed
     encode passes neither a mask nor ``kv_len`` on every layer."""
     mask = (torch.ones((b, skv), dtype=torch.float32, device=dev)
             if kv_len is None else prefix_key_mask(kv_len, b, skv, dev))
-    return _live_counts(mask, -(-skv // KV_TILE))
+    return _live_counts(mask, pad)
 
 
 def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,6 +85,15 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with no kept key are skipped. ``scale`` defaults to 1/sqrt(D). Rows
     with no live key return exactly 0. Sq and Skv need not be tile
     multiples.
+
+    On the card (D, Dv) = ``TC_MASKED_HEAD_DIMS`` takes the tensor-core
+    entry: q, k and v may be strided views with D contiguous (e.g. the
+    (B, S, H, D) projection layout permuted), read by strides, and need
+    16-byte aligned pointers and (batch, head, row) strides, else it
+    raises; the output is a (B, H, Sq, Dv) view of a (B, Sq, H, Dv)
+    tensor. Every other (D, Dv) takes the SIMT entry on contiguous copies.
+    Each launch counts under ``flash_attention_masked`` and under
+    ``flash_attention_masked.<entry>``.
     """
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape
@@ -97,23 +121,47 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dims ({d}, {dv}) above {MAX_HEAD_DIM}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    nkv = -(-skv // KV_TILE)
+    entry = masked_entry_for(d, dv)
+    tc = entry == "tc"           # the tensor-core kernel reads a padded mask
     if key_mask is None and (kv_len is None or isinstance(kv_len, int)):
-        mask, nlive = _constant_mask(kv_len, b, skv, dev)
+        mask, nlive = _constant_mask(kv_len, b, skv, dev, tc)
     else:
         if key_mask is None:
             key_mask = prefix_key_mask(kv_len, b, skv, dev)
-        mask, nlive = _live_counts(key_mask.float().contiguous(), nkv)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=dev)
-    if b * h * sq == 0:
-        return out
-    err = _build.library().flash_attention_masked_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        nlive.data_ptr(), out.data_ptr(), b, h, hk, hv, sq, skv, d, dv, nkv,
-        float(scale), _build.stream_ptr(dev))
-    _build.check(err, "flash_attention_masked_f32")
+        mask, nlive = _live_counts(key_mask.float().contiguous(), tc)
+    nkv = nlive.shape[1]
+    lib = _build.library()
+    if tc:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        if not all(_build.aligned16(t, 3) for t in (q, k, v)):
+            raise ValueError("the tensor-core kernel needs 16-byte aligned "
+                             "q, k, v pointers and (batch, head, row) "
+                             "strides")
+        out = torch.empty((b, sq, h, dv), dtype=torch.float32,
+                          device=dev).transpose(1, 2)
+        if b * h * sq == 0:
+            return out
+        strides = _build.strides_arg(*(s_ for t in (q, k, v, out)
+                                       for s_ in t.stride()[:3]))
+        fn = "flash_attention_masked_tc_f32"
+        err = lib.flash_attention_masked_tc_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            nlive.data_ptr(), out.data_ptr(), strides, b, h, hk, hv, sq, skv,
+            nkv, float(scale), _build.stream_ptr(dev))
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=dev)
+        if b * h * sq == 0:
+            return out
+        fn = "flash_attention_masked_f32"
+        err = lib.flash_attention_masked_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            nlive.data_ptr(), out.data_ptr(), b, h, hk, hv, sq, skv, d, dv,
+            nkv, float(scale), _build.stream_ptr(dev))
+    _build.check(err, fn)
     _build.LAUNCHES["flash_attention_masked"] += 1
+    _build.LAUNCHES["flash_attention_masked." + entry] += 1
     return out
 
 

@@ -20,17 +20,18 @@ __all__ = ["photonic_matmul_prequant", "fused_roi_attention_prequant"]
 
 
 def photonic_matmul_prequant(x: torch.Tensor, wq: torch.Tensor,
-                             sw: torch.Tensor, *, bits: int = 8
-                             ) -> torch.Tensor:
+                             sw: torch.Tensor, *, bits: int = 8,
+                             wt: torch.Tensor | None = None) -> torch.Tensor:
     """x (..., K) float; wq (K, N) int8 codes; sw (N,) f32 per-out-channel
-    scale. Returns (..., N) f32. Ragged M, K and N are masked inside the
-    kernel, never padded."""
+    scale; ``wt`` the codes' K-major copy (N, K), which the kernel's K-major
+    entry reads on the card (``photonic_matmul_int8``). Returns (..., N)
+    f32. Ragged M, K and N are masked inside the kernel, never padded."""
     lead = x.shape[:-1]
     k, n = wq.shape
     x2 = x.reshape(-1, k).float()
     sx = quant.absmax_scale(x2, bits=bits)
     xq = quant.quantize(x2, sx, bits=bits)
-    return photonic_matmul_int8(xq, wq, sx, sw).reshape(*lead, n)
+    return photonic_matmul_int8(xq, wq, sx, sw, wt=wt).reshape(*lead, n)
 
 
 def fused_roi_attention_prequant(x: torch.Tensor,
@@ -39,12 +40,17 @@ def fused_roi_attention_prequant(x: torch.Tensor,
                                  wv: torch.Tensor, sv_: torch.Tensor,
                                  key_mask: torch.Tensor | None = None, *,
                                  heads: int, kv_len: int | None = None,
-                                 bits=8) -> torch.Tensor:
+                                 bits=8, kmajor=(None, None, None)
+                                 ) -> torch.Tensor:
     """x (B, n, dm) float; wq/wk/wv (dm, dm) int8 codes with per-out-channel
-    scales (dm,) f32; ``key_mask`` (B, n) keep-mask or ``kv_len`` (keys >=
-    kv_len pruned). ``bits`` is an int or a (q, k, v) triple. Returns the
-    merged head outputs (B, n, dm) in x.dtype; the output projection is the
-    caller's ``linear``."""
+    scales (dm,) f32, and ``kmajor`` their K-major copies (the cache's
+    ``wt``, which the card's photonic matmul reads); ``key_mask`` (B, n)
+    keep-mask or ``kv_len`` (keys >= kv_len pruned). ``bits`` is an int or
+    a (q, k, v) triple. Returns the merged head outputs (B, n, dm) in
+    x.dtype; the output projection is the caller's ``linear``. The heads
+    reach the attention kernel as (B, H, n, dh) views of the projections
+    and its output is a (B, H, n, dh) view of a (B, n, H, dh) tensor, so
+    the merge is a view too: no copy either way."""
     if isinstance(bits, (tuple, list)):
         bits_q, bits_k, bits_v = (int(b_) for b_ in bits)
     else:
@@ -58,12 +64,13 @@ def fused_roi_attention_prequant(x: torch.Tensor,
         x2 = xf.reshape(-1, dm)
         sx = quant.absmax_scale(x2, bits=bits_q)
         xq = quant.quantize(x2, sx, bits=bits_q)
-        q, k, v = (photonic_matmul_int8(xq, w, sx, s).reshape(b, n, dm)
-                   for w, s in ((wq, sq_), (wk, sk_), (wv, sv_)))
+        q, k, v = (photonic_matmul_int8(xq, w, sx, s, wt=wt).reshape(b, n, dm)
+                   for w, s, wt in zip((wq, wk, wv), (sq_, sk_, sv_),
+                                       kmajor))
     else:
-        q = photonic_matmul_prequant(xf, wq, sq_, bits=bits_q)
-        k = photonic_matmul_prequant(xf, wk, sk_, bits=bits_k)
-        v = photonic_matmul_prequant(xf, wv, sv_, bits=bits_v)
+        q, k, v = (photonic_matmul_prequant(xf, w, s, bits=bt, wt=wt)
+                   for w, s, bt, wt in zip((wq, wk, wv), (sq_, sk_, sv_),
+                                           (bits_q, bits_k, bits_v), kmajor))
 
     def split(t):
         return t.to(x.dtype).reshape(b, n, heads, dh).permute(0, 2, 1, 3)

@@ -24,6 +24,7 @@ __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "photonic_matmul_ref",
            "flash_attention_masked_ref", "flash_attention_ref",
            "flash_decode_ref", "flash_attention_tc_ref",
+           "tf32_rna", "flash_attention_masked_tc_ref",
            "flash_decode_split_ref", "fused_ffn_ref", "slice_live",
            "restore_dead"]
 
@@ -198,6 +199,69 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + hi @ vt + lo @ vt
         m = m_new
     return (acc * (1.0 / l.clamp_min(1e-30))).to(q.dtype)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits, the low 13 zero),
+    ties away from zero: what ``cvt.rna.tf32.f32`` gives for finite x
+    (half a TF32 ulp added to the magnitude, then truncated)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def flash_attention_masked_tc_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  key_mask: torch.Tensor | None = None, *,
+                                  kv_len=None, scale: float | None = None,
+                                  kv_tile: int = 32,
+                                  passes: int = 3) -> torch.Tensor:
+    """The tensor-core B2 kernel's numerics, for the tests (no path calls
+    it): q scaled in f32; every matmul operand x split into hi =
+    tf32_rna(x) and lo = tf32_rna(x - hi), and S = (q * scale) k^T and
+    P V each taken as lo.hi + hi.lo + hi.hi (``passes=3``; ``passes=1``
+    keeps hi.hi alone, one TF32 pass); ``kv_tile``-key tiles under an
+    online softmax, a tile with no live key skipped for its batch row;
+    masked keys score NEG_INF; o = acc / max(l, 1e-30), so rows with no
+    live key are exactly 0. Shapes, masks and defaults as
+    ``flash_attention_masked_ref``."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if key_mask is not None and kv_len is not None:
+        raise ValueError("give key_mask or kv_len, not both")
+    if kv_len is not None:
+        key_mask = prefix_key_mask(kv_len, b, skv, q.device)
+    keep = (torch.ones((b, skv), dtype=torch.bool, device=q.device)
+            if key_mask is None else key_mask.float() > 0)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+
+    def mm(x, y):
+        xh, yh = tf32_rna(x), tf32_rna(y)
+        if passes == 1:
+            return xh @ yh
+        xl, yl = tf32_rna(x - xh), tf32_rna(y - yh)
+        return xl @ yh + xh @ yl + xh @ yh
+
+    qs = q.float() * scale
+    kf, vf = (expand_kv_heads(t, h).float() for t in (k, v))
+    m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), device=q.device)
+    for j0 in range(0, skv, kv_tile):
+        live = keep[:, j0:j0 + kv_tile][:, None, None, :]
+        s = torch.where(live, mm(qs, kf[:, :, j0:j0 + kv_tile]
+                                 .transpose(-1, -2)), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - torch.where(m_new == NEG_INF, 0.0, m_new))
+        run = live.any(-1, keepdim=True)      # the tile holds a live key
+        l = torch.where(run, l * alpha + p.sum(-1, keepdim=True), l)
+        acc = torch.where(run, acc * alpha + mm(p, vf[:, :, j0:j0 + kv_tile]),
+                          acc)
+        m = torch.where(run, m_new, m)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 def flash_decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor,

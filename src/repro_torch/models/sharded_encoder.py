@@ -76,17 +76,18 @@ def _pallas_proj(x2: torch.Tensor, weights: list, *, bits: int,
     """``ops.photonic_matmul_prequant`` with the per-launch activation
     absmax scope widened from this rank's rows to the global tensor
     (``replicated_absmax_scale``: a MAX all-reduce, exact). One scale and
-    one set of codes feed every (codes, scale) pair in ``weights``: the
-    same numbers as quantizing per weight at equal ``bits``. Per-column
-    outputs are independent in the kernel, so with a column shard of a
-    weight the result is bitwise that column slice of the unsharded call.
+    one set of codes feed every cached weight in ``weights``: the same
+    numbers as quantizing per weight at equal ``bits``. Per-column outputs
+    are independent in the kernel, so with a column shard of a weight the
+    result is bitwise that column slice of the unsharded call.
 
-    x2 (M, K) f32; each weight (K, N) int8 codes + (1, N) f32 scale.
-    Returns one (M, N) f32 per weight."""
+    x2 (M, K) f32; each weight a ``QuantizedWeight`` ((K, N) int8 codes,
+    (1, N) f32 scale, (N, K) K-major copy). Returns one (M, N) f32 per
+    weight."""
     sx = collectives.replicated_absmax_scale(x2, bits, group)
     xq = quant.quantize(x2, sx, bits=bits)
-    return [photonic_matmul_int8(xq, wq, sx, sw.reshape(-1))
-            for wq, sw in weights]
+    return [photonic_matmul_int8(xq, w.wq, sx, w.scale.reshape(-1), wt=w.wt)
+            for w in weights]
 
 
 def int8_linear_sharded(x2: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -218,6 +219,8 @@ def sharded_encode(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             qkv = [_pallas_proj(x2, [w], bits=bits[nm],
                                 group=scale_group)[0]
                    for nm, w in qkv_w.items()]
+        # (B, h_loc, n, dh) views of the projections in, a (B, h_loc, n,
+        # dh) view of a (B, n, h_loc, dh) tensor out: no copy either way
         q, k, v = (t.to(h.dtype).reshape(b, n, h_loc, dh).permute(0, 2, 1, 3)
                    for t in qkv)
         o = flash_attention_masked(q, k, v, kmask, kv_len=attn_kv)

@@ -7,7 +7,8 @@ reference package, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
-flash attention rtol = atol = 2e-5; fused FFN one hidden quant step;
+flash attention rtol = atol = 2e-5 (its tensor-core entry also against its
+3xTF32 emulation); fused FFN one hidden quant step;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
 within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
@@ -33,8 +34,8 @@ from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.backend import prepare_params  # noqa: E402
 from repro_torch.data.pipeline import VideoStream  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import \
-    flash_attention_masked  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_masked, masked_entry_for)
 from repro_torch.kernels.flash_attention import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
@@ -44,8 +45,8 @@ from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.kernels.photonic_matmul import \
-    photonic_matmul_int8  # noqa: E402
+from repro_torch.kernels.photonic_matmul import (  # noqa: E402
+    entry_for, photonic_matmul_int8)
 from repro_torch.models.vit import forward_vit  # noqa: E402
 from repro_torch.serving.server import smoke_cfg  # noqa: E402
 
@@ -72,21 +73,56 @@ def _qweight(gen, k, n, bits, device):
                                    (1576, 192, 576), (37, 768, 192),
                                    (8, 196, 196)])
 def test_photonic_matmul_kernel(dev, m, k, n):
-    g = torch.Generator(device=dev).manual_seed(m + n)
+    """The entry the shape names (the weight's K-major copy given, as the
+    quantize-once cache holds it): accumulate bitwise, dequant 1e-6."""
+    _check_photonic_matmul(dev, m, k, n)
+
+
+def _check_photonic_matmul(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
     xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                        dtype=torch.int8)
     wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                        dtype=torch.int8)
-    before = _build.LAUNCHES["photonic_matmul"]
+    wt = wq.t().contiguous()
+    entry = "photonic_matmul." + entry_for(k)
+    before = (_build.LAUNCHES["photonic_matmul"], _build.LAUNCHES[entry])
     acc = photonic_matmul_int8(xq, wq, torch.ones((), device=dev),
-                               torch.ones(n, device=dev))
-    assert _build.LAUNCHES["photonic_matmul"] == before + 1
+                               torch.ones(n, device=dev), wt=wt)
+    assert (_build.LAUNCHES["photonic_matmul"],
+            _build.LAUNCHES[entry]) == (before[0] + 1, before[1] + 1)
     assert torch.equal(acc.long(), ref.int_accumulate_ref(xq, wq).long())
     sx = torch.rand((), generator=g, device=dev)
     sw = torch.rand(n, generator=g, device=dev)
-    got = photonic_matmul_int8(xq, wq, sx, sw)
+    got = photonic_matmul_int8(xq, wq, sx, sw, wt=wt)
     want = ref.photonic_matmul_ref(xq, wq, sx, sw)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [32, 64, 96, 768])
+@pytest.mark.parametrize("m", [1, 63, 65, 1568])
+def test_photonic_matmul_kmajor_ring_edges(dev, m, k):
+    """The K-major entry at its 4-stage ring's edges (K = 32 and 64: one
+    step; 96: a half-filled second step; 768: twelve) and its 64-row
+    tile's (M = 1, 63, 65, 1568), N = 768 (N = 100 at M = 65: a ragged
+    n-tile)."""
+    _check_photonic_matmul(dev, m, k, 100 if m == 65 else 768)
+
+
+@pytest.mark.gpu
+def test_photonic_matmul_kmajor_rejects_what_it_does_not_take(dev):
+    """The K-major entry raises without the weight's K-major copy and on a
+    16-byte misaligned xq, instead of taking another path."""
+    xq = torch.zeros(8, 64, dtype=torch.int8, device=dev)
+    wq = torch.zeros(64, 64, dtype=torch.int8, device=dev)
+    one, ones = torch.ones((), device=dev), torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="K-major copy"):
+        photonic_matmul_int8(xq, wq, one, ones)
+    buf = torch.zeros(8 * 64 + 4, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        photonic_matmul_int8(buf[4:].view(8, 64), wq, one, ones,
+                             wt=wq.t().contiguous())
 
 
 @pytest.mark.gpu
@@ -114,6 +150,89 @@ def test_flash_attention_kernel(dev, b, h, hk, hv, s, d, dv, mode, scale):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     if mode == "dead":
         assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,mode", [
+    (4, 12, 197, "ones"), (4, 12, 197, "mask"), (4, 12, 99, "dead"),
+    (4, 12, 197, "kv_len"), (4, 12, 50, "ones"), (4, 12, 99, "mask"),
+    (4, 8, 197, "mask"), (2, 4, 1, "ones"), (2, 4, 33, "mask"),
+    (2, 4, 65, "mask"), (2, 4, 128, "kv_len"), (2, 4, 129, "mask")])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_attention_masked_tc_follows_its_emulation(dev, b, h, s, mode,
+                                                         layout):
+    """The tensor-core entry (D = Dv = 64) against its 3xTF32 emulation
+    ``kernels/ref.py::flash_attention_masked_tc_ref`` and the plain version,
+    rtol = atol = 2e-5 each, for all-live keys, a random mask, a dead batch
+    row (exactly 0), kv_len, ragged S and the 32-key / 64-row tile edges,
+    with q, k, v contiguous or as (B, S, H, D) tensors viewed (B, H, S, D)
+    (read by strides). The output is a (B, H, S, Dv) view of a (B, S, H,
+    Dv) tensor."""
+    g = torch.Generator(device=dev).manual_seed(s * 7 + h)
+
+    def rnd():
+        if layout == "bhsd":
+            return torch.randn(b, h, s, 64, generator=g, device=dev)
+        return torch.randn(b, s, h, 64, generator=g,
+                           device=dev).transpose(1, 2)
+    q, k, v = rnd(), rnd(), rnd()
+    kw = {}
+    if mode in ("mask", "dead"):
+        kw["key_mask"] = (torch.rand(b, s, generator=g, device=dev)
+                          > 0.5).float()
+        if mode == "dead":
+            kw["key_mask"][-1] = 0.0
+    elif mode == "kv_len":
+        kw["kv_len"] = s // 2 + 1
+    before = _build.LAUNCHES["flash_attention_masked.tc"]
+    got = flash_attention_masked(q, k, v, **kw)
+    assert _build.LAUNCHES["flash_attention_masked.tc"] == before + 1
+    assert got.shape == (b, h, s, 64)
+    assert got.transpose(1, 2).is_contiguous()
+    cpu = {n: (t.cpu() if torch.is_tensor(t) else t) for n, t in kw.items()}
+    emu = ref.flash_attention_masked_tc_ref(q.cpu(), k.cpu(), v.cpu(), **cpu)
+    torch.testing.assert_close(got.cpu(), emu, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(
+        got, ref.flash_attention_masked_ref(q, k, v, **kw), rtol=2e-5,
+        atol=2e-5)
+    if mode == "dead":
+        assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_masked_tc_rejects_misaligned_views(dev):
+    """A (B, H, S, 64) view whose row stride is not 16-byte aligned raises
+    instead of taking another path."""
+    base = torch.randn(1, 2, 8, 66, device=dev)
+    view = base[..., 1:65]                    # D 64, row stride 66
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_masked(view, view, view)
+
+
+@pytest.mark.gpu
+def test_vit_kernels_dispatch_by_shape(dev):
+    """Each wrapper picks its entry by shape only: B2 (64, 64) the tensor
+    cores, (192, 64) and (32, 48) the SIMT kernel; B1 K = 768 the K-major
+    entry, K = 196 the N-major one. Each launch counts under its entry."""
+    assert masked_entry_for(64, 64) == "tc"
+    assert masked_entry_for(192, 64) == masked_entry_for(32, 48) == "simt"
+    for (d, dv), entry in (((64, 64), "tc"), ((192, 64), "simt"),
+                           ((32, 48), "simt")):
+        q = torch.randn(2, 4, 37, d, device=dev)
+        v = torch.randn(2, 4, 37, dv, device=dev)
+        before = dict(_build.LAUNCHES)
+        flash_attention_masked(q, q, v)
+        for key in ("flash_attention_masked",
+                    "flash_attention_masked." + entry):
+            assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+        other = "simt" if entry == "tc" else "tc"
+        assert (_build.LAUNCHES["flash_attention_masked." + other]
+                == before.get("flash_attention_masked." + other, 0))
+    for k, entry in ((768, "kmajor"), (196, "nmajor")):
+        assert entry_for(k) == entry
+        before = _build.LAUNCHES[f"photonic_matmul.{entry}.K{k}"]
+        _check_photonic_matmul(dev, 8, k, 196)
+        assert _build.LAUNCHES[f"photonic_matmul.{entry}.K{k}"] == before + 2
 
 
 @pytest.mark.gpu
