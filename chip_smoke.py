@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      qwen2-1.5b widths, at ragged shapes and, for B1, B2, B5 and B6, at
      their tiles', rings' and splits' edges (B6 also bitwise from call to
      call; B2 also in the (B, S, H, D) layout read by strides and against
-     its 3xTF32 emulation), each naming the entry it took, with the
-     tolerance stated beside each;
+     its 3xTF32 emulation; B3's K-major entry also bitwise against its
+     first design), each naming the entry it took, with the tolerance
+     stated beside each; and the int32 accumulate of path c's FFN twin at
+     ragged (K, N), bitwise;
   4. main paths, each driven with the launch counts set to 0 just before
      it and read just after:
      a. ``StreamServer`` on opto-vit-base-224 + MGNet (random weights from
@@ -25,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         0.25/0.5/0.75/1.0; every frame gets a prediction, B1-B3 launch,
         and the newest flush re-encoded on the CPU with the plain versions
         gives logits with correlation > 0.999; every B2 launch took the
-        tensor-core entry and every B1 launch at K = 768 the K-major one;
+        tensor-core entry, every B1 launch at K = 768 and every B3 launch
+        the K-major one;
      b. the LM serving path on qwen2-1.5b at full width (28 layers, random
         bf16 weights from seed 0): ``generate`` (batch 4, prompt 128
         prefilled by the decode step, 32 greedy tokens, cache 512) and one
@@ -52,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      their type and bytes over 3.35 TB/s; B2 at the TF32 rate of its
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
-     calls; torch.profiler breakdowns of one serve and of 8 decode steps;
+     calls (B3 also its first design and each of its three launches);
+     torch.profiler breakdowns of one serve and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
      absolute error against its plain version and the tolerance held;
   7. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -84,12 +88,16 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:35",
     "dequant_epilogue": "src/repro/kernels/fused_ffn.py:236",
 }
+# B3's K-major entry (three launches) and its first design (N-major)
+B3_KMAJOR = ("fused_ffn_kmajor_phase0_kernel", "fused_ffn_requant_kernel",
+             "fused_ffn_kmajor_phase1_kernel")
+B3_FIRST_DESIGN = ("fused_ffn_phase0_kernel", "fused_ffn_phase1_kernel")
 SYMBOLS = {
     "photonic_matmul": ("photonic_matmul_s8_kmajor_kernel",
                         "photonic_matmul_s8_kernel"),
     "flash_attention_masked": ("flash_attention_masked_tc_kernel",
                                "flash_attention_masked_kernel"),
-    "fused_ffn": ("fused_ffn_phase0_kernel", "fused_ffn_phase1_kernel"),
+    "fused_ffn": B3_KMAJOR + B3_FIRST_DESIGN,
     "flash_attention_causal": ("flash_attention_causal_kernel",
                                "flash_attention_causal_mma_kernel"),
     "flash_decode": ("flash_decode_cluster_kernel",),
@@ -131,9 +139,15 @@ def vit_entry_fault(launches: dict) -> str | None:
     """Why the ViT kernels' launches of a serving run (paths a and c) did
     not take the entries the path requires, or None: every B2 launch the
     tensor-core entry, every B1 launch at K = 768 the K-major entry (and
-    some did), and every launch counted under one entry."""
-    b1, b2 = (launches.get(k, 0) for k in ("photonic_matmul",
-                                            "flash_attention_masked"))
+    some did), every B3 launch the K-major entry, and every launch counted
+    under one entry."""
+    b1, b2, b3 = (launches.get(k, 0) for k in (
+        "photonic_matmul", "flash_attention_masked", "fused_ffn"))
+    if launches.get("fused_ffn.kmajor", 0) != b3 or launches.get(
+            "fused_ffn.nmajor", 0):
+        return (f"fused_ffn: {launches.get('fused_ffn.kmajor', 0)} K-major, "
+                f"{launches.get('fused_ffn.nmajor', 0)} N-major launches of "
+                f"{b3}")
     if launches.get("flash_attention_masked.tc", 0) != b2 or b2 == 0:
         return (f"{launches.get('flash_attention_masked.tc', 0)} of {b2} "
                 f"flash_attention_masked launches took the tensor-core entry")
@@ -245,7 +259,9 @@ def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_masked,
                                                      masked_entry_for)
-    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.fused_ffn import (ffn_entry_for, fused_ffn,
+                                               fused_ffn_nmajor,
+                                               int_accumulate)
     from repro_torch.kernels.photonic_matmul import (entry_for,
                                                      photonic_matmul_int8)
 
@@ -351,7 +367,9 @@ def check_kernels(torch, dev) -> dict:
     b2("GQA Hk=4 Hv=2", 2, 8, 4, 2, 37, 32, 48, "mask")
 
     # B3: one quant step (quant_step_close), bits (8, 8) and (8, 4), and
-    # the packed live_rows prefix.
+    # the packed live_rows prefix; the weights reach the K-major entry as
+    # their K-major copies, as the cache holds them, and its output must be
+    # bitwise the first design's (the N-major entry, called directly)
     def b3(tag, b, n, d, dff, bits, live=None):
         x = torch.randn(b, n, d, generator=gen, device=dev)
         w1q, s1 = qweight(torch, gen, d, dff, bits[0], dev)
@@ -359,13 +377,21 @@ def check_kernels(torch, dev) -> dict:
         b1 = torch.randn(dff, generator=gen, device=dev) * 0.1
         b2_ = torch.randn(d, generator=gen, device=dev) * 0.1
         args = (x, w1q, s1, b1, w2q, s2, b2_)
-        got = fused_ffn(*args, bits=bits, live_rows=live)
+        got = fused_ffn(*args, bits=bits, live_rows=live,
+                        w1t=w1q.t().contiguous(), w2t=w2q.t().contiguous())
+        first = fused_ffn_nmajor(*args, bits=bits, live_rows=live)
         want = ref.fused_ffn_ref(*args, bits=bits, live_rows=live)
         e = (got - want).abs().max().item()
+        entry = ffn_entry_for(d, dff)
         say(f"[check] B3 {tag:<20s} x({b},{n},{d}) d_ff={dff} bits={bits} "
-            f"live_rows={live}: max abs err {e:.3e} (one quant step)")
+            f"live_rows={live} {entry} entry: max abs err {e:.3e} (one "
+            f"quant step), bitwise the first design "
+            f"{torch.equal(got, first)}")
         if not quant_step_close(torch, got, want):
             fail(f"B3 {tag}: outside one quant step (max abs err {e})")
+        if entry != "kmajor" or not torch.equal(got, first):
+            fail(f"B3 {tag}: the {entry} entry is not bitwise the first "
+                 f"design (max {(got - first).abs().max().item()})")
         if live is not None and not bool((got[:, live:] == 0).all()):
             fail(f"B3 {tag}: dead rows are not exactly 0")
         err["fused_ffn"] = max(err["fused_ffn"], e)
@@ -374,6 +400,21 @@ def check_kernels(torch, dev) -> dict:
     b3("base k=98 (8,4)", 4, 99, 768, 3072, (8, 4))
     b3("base live_rows", 4, 99, 768, 3072, (8, 8), live=60)
     b3("tiny k=196", 4, 197, 192, 768, (8, 8))
+    b3("ragged M=37", 1, 37, 768, 3072, (8, 8))
+    b3("M=1", 1, 1, 768, 3072, (8, 8))
+
+    # the int32 accumulate of path c's twin at a ragged (K, N), which
+    # torch._int_mm alone refuses: padded, bitwise the plain version
+    for m, k, n in ((5, 37, 1003), (37, 196, 13)):
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ok = torch.equal(int_accumulate(xq, wq), ref.int_accumulate_ref(xq, wq))
+        say(f"[check] int_accumulate ragged ({m},{k},{n}): bitwise {ok} "
+            f"(tol bitwise)")
+        if not ok:
+            fail(f"int_accumulate ({m},{k},{n}) not bitwise")
     torch.cuda.synchronize()
     return err
 
@@ -955,7 +996,7 @@ def main() -> int:
     from repro_torch.data.pipeline import video_fleet
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention_masked
-    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_nmajor
     from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
     from repro_torch.models.vit import (embed_patches, forward_vit_tokens,
                                         vit_matmul_shapes)
@@ -1158,8 +1199,10 @@ def main() -> int:
     bias1 = torch.zeros(3072, device=dev)
     bias2 = torch.zeros(768, device=dev)
     args = (x, w1q, s1, bias1, w2q, s2, bias2)
-    fns = (lambda: fused_ffn(*args),
+    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+    fns = (lambda: fused_ffn(*args, w1t=w1t, w2t=w2t),
            lambda: ref.fused_ffn_ref(*args, bits=(8, 8)), None)
+    b3_first = (lambda: fused_ffn_nmajor(*args), B3_FIRST_DESIGN)
     m = 4 * 197
     ops = 2 * m * 768 * 3072 * 2
     nbytes = (4 * m * 768 + 768 * 3072 * 2 + 4 * (3072 * 2 + 768 * 2)
@@ -1241,7 +1284,16 @@ def main() -> int:
                      "flash_attention_masked": b2_f32_bound}.get(kname)
         f32_txt = (f"; at the f32 CUDA-core rate {f32_bound * 1e3:.5f} ms"
                    if f32_bound is not None else "")
-        say(f"[numbers] {kname} {shape}: kernel {ms:.4f} ms device "
+        extra, first_txt = {}, ""
+        if kname == "fused_ffn":
+            # its first design, and each launch of the K-major entry apart
+            extra["first_design_ms"] = device_ms(torch, *b3_first)[0]
+            apart = [device_ms(torch, fn, (sym,))[0] for sym in B3_KMAJOR]
+            first_txt = (f" [first design {extra['first_design_ms']:.4f} "
+                         f"ms]; phase 0 / requant / phase 1 "
+                         + " / ".join(f"{t:.4f}" for t in apart) + " ms")
+        say(f"[numbers] {kname} {shape}: kernel {ms:.4f} ms device"
+            f"{first_txt} "
             f"(profiling passes {passes}; {event_ms:.4f} ms CUDA-event, "
             f"wrapper included), bound "
             f"{bound_s * 1e3:.5f} ms ({by}; ops {ops_s * 1e3:.5f} ms, bytes "
@@ -1254,7 +1306,8 @@ def main() -> int:
             "replaces": REPLACES[kname], "launches": launches.get(kname, 0),
             "max_abs_err": errs[kname], "tol": TOLERANCES[kname],
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms})
+            "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
+            **extra})
 
     # where a serve's device time goes, by kernel (one stream, 16 frames)
     from torch.autograd import DeviceType

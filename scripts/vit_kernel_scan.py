@@ -15,13 +15,22 @@ SASS holds.
   197, all keys live, q/k/v as the (B, S, H, D) projection layout permuted
   (read by strides), through the wrapper (the tensor-core entry), beside
   the SIMT entry (called directly on contiguous copies) and
-  ``F.scaled_dot_product_attention``.
+  ``F.scaled_dot_product_attention``;
+- B3 (``fused_ffn``) at x (4, n, 768), d_ff 3072, n = 50, 99, 148 and 197
+  (M = 200, 396, 592, 788: 4 frames at each bucket), through the wrapper
+  (the K-major entry, weights read from their K-major copies), each of its
+  three launches apart, beside the first design (``fused_ffn_nmajor``),
+  the plain version and, as a reference point, the port's own composed
+  twin ``fused_ffn_xla`` (``torch._int_mm`` + B4, twice: "composed", not
+  a library call).
 
 Each shape is checked first (B1: accumulate bitwise, output within 1e-6
 relative; B2: rtol = atol = 2e-5 against the plain version and against the
-3xTF32 emulation ``kernels/ref.py::flash_attention_masked_tc_ref``), then
-timed by the profiler's device time per call. Then the ``-Xptxas -v``
-lines of the two sources, each kernel's resident blocks per SM worked out
+3xTF32 emulation ``kernels/ref.py::flash_attention_masked_tc_ref``; B3:
+bitwise against its first design, one quant step against the plain
+version), then timed by the profiler's device time per call. Then the
+``-Xptxas -v`` lines of the three sources, each kernel's resident blocks
+per SM worked out
 from them, and per kernel the SASS counts of the instructions the designs
 rest on: IMMA / HMMA (mma.sync int8 / f16-class, TF32 counted apart),
 HGMMA (wgmma), LDGSTS (cp.async), UTMALDG (TMA) and LDSM (ldmatrix), and
@@ -46,9 +55,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 
 SASS_OPS = ("IMMA", "HMMA", "HMMA.TF32", "HGMMA", "LDGSTS", "UTMALDG", "LDSM")
+B3_KMAJOR, B3_FIRST = chip_smoke.B3_KMAJOR, chip_smoke.B3_FIRST_DESIGN
 KERNELS = ("photonic_matmul_s8_kmajor_kernel", "photonic_matmul_s8_kernel",
            "flash_attention_masked_tc_kernel",
-           "flash_attention_masked_kernel")
+           "flash_attention_masked_kernel") + B3_KMAJOR + B3_FIRST
 # H100 SM limits: registers, shared memory a block may use in all (the
 # runtime reserves 1 KB a block), threads, blocks
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
@@ -56,7 +66,12 @@ SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
 LAUNCH = {"photonic_matmul_s8_kmajor_kernel": (128, 0),
           "photonic_matmul_s8_kernel": (128, 0),
           "flash_attention_masked_tc_kernel": (128, 58624),   # tc::kSmem
-          "flash_attention_masked_kernel": (128, None)}
+          "flash_attention_masked_kernel": (128, None),
+          "fused_ffn_kmajor_phase0_kernel": (128, 0),
+          "fused_ffn_requant_kernel": (256, 0),
+          "fused_ffn_kmajor_phase1_kernel": (128, 0),
+          "fused_ffn_phase0_kernel": (128, 0),
+          "fused_ffn_phase1_kernel": (128, 0)}
 
 
 def sass_counts(lib: Path) -> dict:
@@ -122,6 +137,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (KV_TILE,
                                                      flash_attention_masked)
+    from repro_torch.kernels.fused_ffn import (fused_ffn, fused_ffn_nmajor,
+                                               fused_ffn_xla)
     from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,7 +149,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     lib_path = _build.build()
     lib = _build.library()
-    for src in ("photonic_matmul.cu", "flash_attention.cu"):
+    for src in ("photonic_matmul.cu", "flash_attention.cu", "fused_ffn.cu"):
         log = _build.ptxas_report().get(src, "")
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -232,6 +249,43 @@ def main() -> int:
               f"{t_new:.5f} ms, SIMT entry {t_old:.5f} ms, SDPA {t_lib:.5f} "
               f"ms device (max abs err {e:.3e} against the emulation; "
               f"{card})", flush=True)
+
+    # -- B3 ------------------------------------------------------------------
+    d, dff = 768, 3072
+    for n in (50, 99, 148, 197):
+        x = torch.randn(4, n, d, generator=gen, device=dev)
+        w1q, s1 = chip_smoke.qweight(torch, gen, d, dff, 8, dev)
+        w2q, s2 = chip_smoke.qweight(torch, gen, dff, d, 8, dev)
+        b1 = torch.randn(dff, generator=gen, device=dev) * 0.1
+        b2 = torch.randn(d, generator=gen, device=dev) * 0.1
+        args = (x, w1q, s1, b1, w2q, s2, b2)
+        w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+        got = fused_ffn(*args, w1t=w1t, w2t=w2t)
+        want = ref.fused_ffn_ref(*args)
+        e = (got - want).abs().max().item()
+        if not torch.equal(got, fused_ffn_nmajor(*args)):
+            print(f"FAIL: B3 n={n}: the K-major entry is not bitwise its "
+                  f"first design", file=sys.stderr)
+            return 1
+        if not chip_smoke.quant_step_close(torch, got, want):
+            print(f"FAIL: B3 n={n}: outside one quant step of the plain "
+                  f"version (max abs err {e:.3e})", file=sys.stderr)
+            return 1
+
+        def kmajor():
+            return fused_ffn(*args, w1t=w1t, w2t=w2t)
+        t_new, _ = dev_ms(kmajor, B3_KMAJOR, "fused_ffn")
+        apart = [dev_ms(kmajor, (sym,))[0] for sym in B3_KMAJOR]
+        t_old, _ = dev_ms(lambda: fused_ffn_nmajor(*args), B3_FIRST)
+        t_plain, _ = dev_ms(lambda: ref.fused_ffn_ref(*args), ())
+        t_twin, _ = dev_ms(lambda: fused_ffn_xla(*args), ())
+        print(f"[scan] B3 x(4,{n},{d}) d_ff {dff} (M {4 * n}): K-major entry "
+              f"{t_new:.5f} ms (phase 0 {apart[0]:.5f}, requant "
+              f"{apart[1]:.5f}, phase 1 {apart[2]:.5f}), first design "
+              f"{t_old:.5f} ms, plain {t_plain:.5f} ms, composed twin "
+              f"(_int_mm + B4, twice) {t_twin:.5f} ms device (bitwise the "
+              f"first design, max abs err {e:.2e} against the plain "
+              f"version; {card})", flush=True)
 
     for name, c in sorted(sass_counts(lib_path).items()):
         if any(k_ in name for k_ in KERNELS):

@@ -379,12 +379,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _ffn_fused(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
     """The fused int8 photonic FFN over per-layer cached weights (the
     encoder checks eligibility; the reference's composed fallback is not
-    ported yet)."""
+    ported yet). The kernel's K-major entry reads the cache's K-major
+    copies ``wt``, made with the cache entry (``layer(i)`` slices them)."""
     from repro_torch.kernels.fused_ffn import fused_ffn
 
     return fused_ffn(x, w1.wq, w1.scale.reshape(-1), b1,
                      w2.wq, w2.scale.reshape(-1), b2,
-                     bits=(w1.bits, w2.bits), live_rows=live_rows)
+                     bits=(w1.bits, w2.bits), live_rows=live_rows,
+                     w1t=w1.wt, w2t=w2.wt)
 
 
 FFN_BACKENDS["fused"] = _ffn_fused

@@ -55,6 +55,7 @@ _SIGNATURES = {
     + (_FLOAT, _VOID),
     "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
     "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
+    "fused_ffn_kmajor": (_VOID,) * 11 + (_INT,) * 5 + (_FLOAT, _VOID),
     "flash_attention_causal_f32": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8
     + (_FLOAT, _VOID),
     "flash_attention_causal_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8

@@ -8,10 +8,11 @@
 // Ragged M, K and N are zero-filled by the loaders and masked in the
 // epilogue: nothing is padded in device memory.
 //
-// The A loader and the epilogue are template functors, so the photonic
-// matmul (int8 A, dequant epilogue) and both phases of the fused FFN
-// (int8 A / GELU epilogue; f32 hidden A requantized on load / dequant
-// epilogue) share this one main loop.
+// The A loader and the epilogue are template functors, so the N-major
+// entries (the first designs) of the photonic matmul (int8 A, dequant
+// epilogue) and of both phases of the fused FFN (int8 A / GELU epilogue;
+// f32 hidden A requantized on load / dequant epilogue) share this one main
+// loop. The K-major entries run on int8_gemm_kmajor.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -8,7 +8,8 @@ reference package, so it also runs where JAX is not installed:
 
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
 flash attention rtol = atol = 2e-5 (its tensor-core entry also against its
-3xTF32 emulation); fused FFN one hidden quant step;
+3xTF32 emulation); fused FFN one hidden quant step, its K-major entry
+bitwise against its first design; the int32 accumulate bitwise;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
 within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
@@ -39,16 +40,18 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
-from repro_torch.kernels.fused_ffn import (dequant_epilogue,  # noqa: E402
-                                           fused_ffn, fused_ffn_xla)
+from repro_torch.kernels.fused_ffn import (  # noqa: E402
+    dequant_epilogue, ffn_entry_for, fused_ffn, fused_ffn_nmajor,
+    fused_ffn_xla, int_accumulate)
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.photonic_matmul import (  # noqa: E402
     entry_for, photonic_matmul_int8)
-from repro_torch.models.vit import forward_vit  # noqa: E402
-from repro_torch.serving.server import smoke_cfg  # noqa: E402
+from repro_torch.models.vit import (forward_vit,  # noqa: E402
+                                    forward_vit_tokens)
+from repro_torch.serving.server import serving_cfg, smoke_cfg  # noqa: E402
 
 import _torch_ranks  # noqa: E402
 
@@ -251,23 +254,87 @@ def test_flash_attention_constant_mask_path(dev, kv_len):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,dff,bits,live", [(197, 768, 3072, (8, 8), None),
-                                               (99, 192, 768, (8, 4), 60)])
-def test_fused_ffn_kernel(dev, n, d, dff, bits, live):
+@pytest.mark.parametrize("b,n,d,dff,bits,live", [
+    (4, 197, 768, 3072, (8, 8), None),     # base-224, largest bucket
+    (4, 99, 192, 768, (8, 4), 60),         # tiny, mixed widths, live rows
+    (1, 37, 768, 3072, (8, 8), None),      # ragged M: one 64-row tile
+    (1, 1, 768, 3072, (8, 8), None)])      # M = 1
+def test_fused_ffn_kernel(dev, b, n, d, dff, bits, live):
+    """The K-major entry (the weights' K-major copies given, as the cache
+    holds them) is bitwise equal to the first design called directly and
+    within one quant step of the plain version; dead rows exact zeros."""
     g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randn(4, n, d, generator=g, device=dev)
+    x = torch.randn(b, n, d, generator=g, device=dev)
     w1q, s1 = _qweight(g, d, dff, bits[0], dev)
     w2q, s2 = _qweight(g, dff, d, bits[1], dev)
     b1 = torch.randn(dff, generator=g, device=dev) * 0.1
     b2 = torch.randn(d, generator=g, device=dev) * 0.1
     args = (x, w1q, s1, b1, w2q, s2, b2)
-    got = fused_ffn(*args, bits=bits, live_rows=live)
+    assert ffn_entry_for(d, dff) == "kmajor"
+    before = _build.LAUNCHES["fused_ffn.kmajor"]
+    got = fused_ffn(*args, bits=bits, live_rows=live,
+                    w1t=w1q.t().contiguous(), w2t=w2q.t().contiguous())
+    assert _build.LAUNCHES["fused_ffn.kmajor"] == before + 1
+    assert torch.equal(got, fused_ffn_nmajor(*args, bits=bits,
+                                             live_rows=live))
     want = ref.fused_ffn_ref(*args, bits=bits, live_rows=live)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     c = torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1]
     assert c > 0.9999
     if live is not None:
         assert bool((got[:, live:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_fused_ffn_kmajor_rejects_what_it_does_not_take(dev):
+    """The K-major entry raises without the weights' K-major copies and on
+    a non-contiguous copy, instead of taking another path."""
+    x = torch.randn(1, 8, 64, device=dev)
+    w1q = torch.zeros(64, 128, dtype=torch.int8, device=dev)
+    w2q = torch.zeros(128, 64, dtype=torch.int8, device=dev)
+    args = (x, w1q, torch.ones(128, device=dev), torch.zeros(128, device=dev),
+            w2q, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    with pytest.raises(ValueError, match="K-major copies"):
+        fused_ffn(*args, w1t=w1q.t().contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ffn(*args, w1t=w1q.t().contiguous(), w2t=w2q.t())
+
+
+@pytest.mark.gpu
+def test_vit_encode_takes_the_kmajor_ffn(dev):
+    """A 4a-shaped encode (opto-vit-base-224 widths, 2 layers, 4 frames at
+    the largest bucket) through the quantize-once cache launches B3 once a
+    layer, every launch on the K-major entry."""
+    cfg = serving_cfg("base", 224).with_(n_layers=2)
+    params = to_device(prepare_params(from_jax_params(init_vit(0, cfg, 10),
+                                                      "cpu")), dev)
+    toks = torch.randn(4, 196, cfg.d_model,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+    before = {k: _build.LAUNCHES[k] for k in
+              ("fused_ffn", "fused_ffn.kmajor", "fused_ffn.nmajor")}
+    logits, _ = forward_vit_tokens(params, toks, cfg)
+    assert bool(torch.isfinite(logits).all())
+    got = {k: _build.LAUNCHES[k] - v for k, v in before.items()}
+    assert got == {"fused_ffn": 2, "fused_ffn.kmajor": 2,
+                   "fused_ffn.nmajor": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(5, 37, 1003), (37, 196, 13), (1, 9, 7),
+                                   (788, 768, 3072), (788, 64, 1024),
+                                   (33, 120, 40), (17, 128, 4096)])
+def test_int_accumulate_any_shape(dev, m, k, n):
+    """``torch._int_mm`` takes K and N multiples of 8 only, and below K =
+    128 with N > 16 only M a multiple of 32: the padded accumulate is
+    bitwise equal to the plain version at ragged shapes and there."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    got = int_accumulate(xq, wq)
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, ref.int_accumulate_ref(xq, wq))
 
 
 @pytest.mark.gpu
