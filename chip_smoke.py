@@ -23,12 +23,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4. main paths, each driven with the launch counts set to 0 just before
      it and read just after:
      a. ``StreamServer`` on opto-vit-base-224 + MGNet (random weights from
-        seed 0), 2 streams x 32 frames, chunk 8, micro-batch 4, buckets
-        0.25/0.5/0.75/1.0; every frame gets a prediction, B1-B3 launch,
-        and the newest flush re-encoded on the CPU with the plain versions
-        gives logits with correlation > 0.999; every B2 launch took the
-        tensor-core entry, every B1 launch at K = 768 and every B3 launch
-        the K-major one;
+        seed 0), warm-started: one CUDA graph per bucket encode, which
+        every flush replays; 2 streams x 32 frames, chunk 8, micro-batch
+        4, buckets 0.25/0.5/0.75/1.0; every frame gets a prediction, B1-B3
+        launch (counted on every replay), and the newest flush re-encoded
+        on the CPU with the plain versions gives logits with correlation
+        > 0.999; every B2 launch took the tensor-core entry, every B1
+        launch at K = 768 and every B3 launch the K-major one. Then
+        ``[graphs]``: at every bucket, gathered and one-shape, a replay
+        gives the eager encode's logits bitwise with the same launch
+        counts; the same 2 streams served through the graphs equal, per
+        stream and per flush, bitwise, two solo eager ``ServingEngine``
+        runs; a one-shape serve keeps the routing and modeled energy of
+        the gathered one; a ``max_wait_chunks=1`` serve (micro-batch 8,
+        chunk 3) pads more flushes than the same traffic without the
+        deadline and keeps its routing and energy;
      b. the LM serving path on qwen2-1.5b at full width (28 layers, random
         bf16 weights from seed 0): ``generate`` (batch 4, prompt 128
         prefilled by the decode step, 32 greedy tokens, cache 512) and one
@@ -46,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         sharded encode and that the dequant epilogue launched 2 x 24 times
         a flush and that B2 and B1 took the entries path a requires, and
         every flush's logits must correlate > 0.99999 with the
-        same flush served unsharded on the card (two planted faults, one
+        same flush served unsharded on the card; the ranks warm eagerly
+        and capture no graph (two planted faults, one
         that skips the int32 all-reduce and one that leaves the absmax
         scopes local to the rank, must fail that check);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
@@ -56,7 +66,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
      calls (B3 also its first design and each of its three launches);
-     torch.profiler breakdowns of one serve and of 8 decode steps;
+     per bucket one 4a flush's encode span eager and replayed (CUDA
+     events) and its device time (the profiler, of the eager encode);
+     torch.profiler breakdowns of a 16-frame serve through the graphs and
+     eagerly, and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
      absolute error against its plain version and the tolerance held;
   7. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -736,16 +749,23 @@ def check_b4(torch, dev) -> dict:
     return {"dequant_epilogue": err}
 
 
-def log_flushes(server) -> list:
-    """Keep every flush's logits (on the host) as ``server`` serves."""
-    logged = []
-    finish = server._finish
+def log_flushes(server) -> dict:
+    """Keep every flush's logits (on the host) as ``server`` serves, keyed
+    by the flush's (sid, frame index) pairs, in flush order. ``del
+    server._finish`` stops it."""
+    logged, finish = {}, server._finish
 
     def finish_and_log(fb, by_sid):
         finish(fb, by_sid)
-        logged.append(server.last_logits.float().cpu())
+        logged[tuple(fb.frame_idx)] = server.last_logits.float().cpu()
     server._finish = finish_and_log
     return logged
+
+
+def by_stream(logged: dict, sid0: int) -> dict:
+    """``log_flushes`` keys with each sid counted from ``sid0``."""
+    return {tuple((sid - sid0, fi) for sid, fi in key): v
+            for key, v in logged.items()}
 
 
 def serve_large(cfg, sc, params, device) -> dict:
@@ -794,6 +814,10 @@ def sharded_rank(params: dict, cfg, sc, device: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     run = serve_large(cfg, sc, params, device)
     server = run["server"]
+    if server.graphs:
+        raise RuntimeError(f"the sharded server captured CUDA graphs for "
+                           f"buckets {sorted(server.graphs)}: its gloo "
+                           f"collectives cannot run inside one")
     n_flush = len(server.flush_log)
     launches = run["launches"]
     if run["calls"] != n_flush or n_flush == 0:
@@ -864,6 +888,7 @@ def sharded_rank(params: dict, cfg, sc, device: str) -> dict:
             torch.cuda.synchronize(dev)
         collective_ms[tag] = (time.perf_counter() - t0) / 20 * 1e3
     out = {"launches": launches, "calls": run["calls"], "n_flush": n_flush,
+           "graphs": len(server.graphs), "warm_s": server.warm_s,
            "stats": run["stats"], "wall": run["wall"],
            "collective_ms": collective_ms,
            "backend": server.mesh.backend,
@@ -912,7 +937,8 @@ def run_sharded(torch, dev, card: str, cfg) -> dict:
         f"{spawn_s:.1f}s")
     for i, r in enumerate(ranks):
         say(f"[sharded] rank {i}: {r['calls']} sharded encodes for "
-            f"{r['n_flush']} flushes; launches {r['launches']}")
+            f"{r['n_flush']} flushes; {r['graphs']} CUDA graphs (eager "
+            f"warm start {r['warm_s']:.2f}s); launches {r['launches']}")
 
     # the same traffic served unsharded on the card, the same params
     from repro_torch.serving.session import ServingConfig
@@ -921,8 +947,12 @@ def run_sharded(torch, dev, card: str, cfg) -> dict:
                                     "chunk")}), params, dev)
     if [(k, n) for _, k, n in plain["server"].flush_log] != r0["flush_log"]:
         fail("the sharded and unsharded serves flushed different batches")
-    cors = [corr(torch, a, b) for a, b in zip(r0["flushes"],
-                                              plain["flushes"])]
+    # both servers number their sessions alike (a warm-up session, then
+    # the two streams), so the flushes key alike
+    if r0["flushes"].keys() != plain["flushes"].keys():
+        fail("the sharded and unsharded serves logged different flushes")
+    cors = [corr(torch, r0["flushes"][k], plain["flushes"][k])
+            for k in plain["flushes"]]
     if len(cors) != r0["n_flush"] or not min(cors) > FLUSH_CORR:
         fail(f"sharded vs unsharded flush logits: min corr {min(cors)} "
              f"over {len(cors)} flushes (limit {FLUSH_CORR})")
@@ -938,7 +968,7 @@ def run_sharded(torch, dev, card: str, cfg) -> dict:
         f"corr {min(cors):.9f} over {len(cors)} flushes (limit "
         f"{FLUSH_CORR}); top-1 agreement {agree}/{total} = "
         f"{100 * agree / total:.2f}%")
-    newest = plain["flushes"][-1]
+    newest = list(plain["flushes"].values())[-1]
     for tag, logits in r0["planted"].items():
         c = corr(torch, logits, newest)
         say(f"[sharded] planted fault, {tag}: newest flush corr {c:.9f}")
@@ -977,6 +1007,146 @@ def report_sharded(sharded: dict, card: str) -> None:
         f"{unsharded['wall'] / r0['wall']:.3f}x ({card})")
 
 
+def check_graphs(torch, cfg, sc, params, server, streams, results) -> dict:
+    """Phase 4a, warm start: one CUDA graph per bucket, under one-shape
+    too; each replay bitwise the eager encode of the same flush with the
+    same launch counts; a graphed 2-stream serve bitwise, per stream and
+    per flush, two solo eager ``ServingEngine`` runs; a one-shape serve
+    and a ``max_wait_chunks=1`` serve of the same traffic."""
+    from dataclasses import replace
+    from repro_torch.kernels import _build
+    from repro_torch.models.vit import embed_patches, forward_vit_tokens
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.server import StreamServer, _gather_topk_rows
+    from repro_torch.serving.session import ServingConfig
+
+    dev = server.device
+    frames = streams[0].frames_at(0, 8)["frames"]
+    toks = embed_patches(server.params, torch.from_numpy(frames).to(dev),
+                         cfg, server.policy)
+    order = torch.argsort(torch.from_numpy(server._score_fn(frames)).to(dev),
+                          dim=-1, descending=True, stable=True)
+    one = StreamServer(cfg, replace(sc, one_shape=True), params=params)
+    say(f"[graphs] one-shape server: warm start {one.warm_s:.2f}s, CUDA "
+        f"graphs at buckets {sorted(one.graphs)}")
+    if sorted(one.graphs) != list(one.ladder.sizes):
+        fail(f"one-shape graphs {sorted(one.graphs)} for ladder "
+             f"{list(one.ladder.sizes)}")
+    flushes = {}
+    for mode, srv in (("gathered", server), ("one-shape", one)):
+        for k in srv.ladder.sizes:
+            t = _gather_topk_rows(toks, order, srv.ladder.cap
+                                  if srv is one else k)[:4].contiguous()
+            kv = k if srv is one else None
+            _build.LAUNCHES.clear()
+            eager = forward_vit_tokens(srv.params, t, cfg, srv.policy,
+                                       kv_len=kv)[0]
+            eager_n = dict(_build.LAUNCHES)
+            _build.LAUNCHES.clear()
+            graphed = srv.graphs[k].replay(t).clone()
+            replay_n = dict(_build.LAUNCHES)
+            same = torch.equal(graphed, eager)
+            vit = {n: replay_n.get(n, 0) for n in VIT_KERNELS}
+            say(f"[graphs] {mode} k={k}: replay logits bitwise the eager "
+                f"encode's: {same}; launches a replay {vit}, the same as "
+                f"eager: {replay_n == eager_n}")
+            if not same:
+                fail(f"{mode} k={k}: replay logits differ from eager by "
+                     f"{(graphed - eager).abs().max().item():.3e}")
+            if replay_n != eager_n or min(vit.values()) <= 0:
+                fail(f"{mode} k={k}: launches a replay {replay_n}, eager "
+                     f"{eager_n}")
+            if srv is server:
+                flushes[k] = {"tokens": t, "launches": vit}
+
+    # the graphed interleaved serve against two solo eager engine runs
+    got = log_flushes(server)
+    sessions = [server.add_session(st, n_frames=32, start=16 * i)
+                for i, st in enumerate(streams)]
+    res = server.serve()
+    del server._finish
+    got = by_stream(got, sessions[0].sid)
+    eng = ServingEngine(cfg, ServingConfig(**{
+        f: getattr(sc, f) for f in ("bucket_fractions", "microbatch",
+                                    "chunk")}), params=params)
+    if eng.server.graphs:
+        fail("the ServingEngine (warm start off) captured graphs")
+    want = log_flushes(eng.server)
+    solo = [eng.run(st, n_frames=32, start=16 * i)
+            for i, st in enumerate(streams)]
+    want = by_stream(want, 0)
+    for s, r in zip(sessions, solo):
+        mine = res[s.sid]
+        if (mine.predictions != r.predictions
+                or mine.bucket_launches != r.bucket_launches
+                or mine.mean_frame_uj != r.mean_frame_uj):
+            fail(f"graphed interleaved stream {s.sid - sessions[0].sid} "
+                 f"differs from its solo eager run")
+    if got.keys() != want.keys() or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        fail("graphed interleaved flush logits are not bitwise the solo "
+             "eager runs'")
+    say(f"[graphs] 2 streams x 32 frames served interleaved through the "
+        f"graphs: predictions, launches and energy per stream and the "
+        f"logits of all {len(want)} flushes bitwise equal to two solo "
+        f"eager ServingEngine runs")
+
+    def serve_on(srv):
+        """Serve the main path's traffic on ``srv``; check the ViT kernels'
+        launches; return (results by stream, partial flushes)."""
+        ss = [srv.add_session(st, n_frames=32, start=16 * i)
+              for i, st in enumerate(streams)]
+        _build.LAUNCHES.clear()
+        out = srv.serve()
+        fault = vit_entry_fault(dict(_build.LAUNCHES))
+        if fault or not all(_build.LAUNCHES.get(n, 0) for n in VIT_KERNELS):
+            fail(f"serve with {srv.serve_cfg}: "
+                 f"{fault or dict(_build.LAUNCHES)}")
+        partial = sum(n < srv.serve_cfg.microbatch
+                      for _, _, n in srv.flush_log)
+        return [out[s.sid] for s in ss], partial
+
+    def same_service(tag, got, base) -> str:
+        """Every frame predicted once, hits and modeled energy per stream
+        equal to ``base``'s; returns the top-1 agreement with it."""
+        agree = total = 0
+        for i, (r, b) in enumerate(zip(got, base)):
+            if (set(r.predictions) != set(b.predictions) or r.frames != 32
+                    or r.bucket_hits != b.bucket_hits
+                    or abs(r.mean_frame_uj - b.mean_frame_uj)
+                    > 1e-12 * b.mean_frame_uj):
+                fail(f"{tag} serve of stream {i}: {r.summary()} against "
+                     f"{b.summary()}")
+            agree += sum(r.predictions[j] == b.predictions[j]
+                         for j in r.predictions)
+            total += len(r.predictions)
+        return f"{agree}/{total}"
+
+    # one-shape: the gathered serve's routing, other absmax scopes (the
+    # dead rows of the cap-size tensor count in every per-launch absmax)
+    got, partial = serve_on(one)
+    say(f"[graphs] one-shape serve (graphs at {sorted(one.graphs)}): hits "
+        f"and energy per stream equal to the gathered serve's, top-1 "
+        f"agreement with it {same_service('one-shape', got, results)}")
+    # the deadline, with chunk 3 < micro-batch 8 (graphs of their own) so
+    # that partial queues outlive a round, against the same traffic
+    # without it
+    c3 = replace(sc, microbatch=8, chunk=3)
+    free, free_partial = serve_on(StreamServer(cfg, c3, params=params))
+    tight_srv = StreamServer(cfg, replace(c3, max_wait_chunks=1),
+                             params=params)
+    tight, tight_partial = serve_on(tight_srv)
+    agree = same_service("max_wait_chunks=1", tight, free)
+    say(f"[graphs] max_wait_chunks=1 serve, micro-batch 8, chunk 3 (graphs at "
+        f"{sorted(tight_srv.graphs)}): {tight_partial} padded flushes "
+        f"against {free_partial} without the deadline; every frame "
+        f"predicted once, hits and energy per stream equal, top-1 "
+        f"agreement {agree}")
+    if tight_partial <= free_partial:
+        fail("the deadline padded no more flushes than the serve without it")
+    return {"flushes": flushes, "eager_server": eng.server}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -992,7 +1162,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.bridge import to_device
+    from repro_torch.bridge import from_jax_params, init_vit, to_device
     from repro_torch.data.pipeline import video_fleet
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention_masked
@@ -1000,8 +1170,8 @@ def main() -> int:
     from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
     from repro_torch.models.vit import (embed_patches, forward_vit_tokens,
                                         vit_matmul_shapes)
-    from repro_torch.serving.server import StreamServer, serving_cfg
-    from repro_torch.serving.session import ServingConfig
+    from repro_torch.serving.server import (ServerConfig, StreamServer,
+                                            serving_cfg)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1036,13 +1206,19 @@ def main() -> int:
 
     # -- 4a. main path: ViT serving ----------------------------------------
     cfg = serving_cfg("base", 224)
-    sc = ServingConfig(bucket_fractions=(0.25, 0.5, 0.75, 1.0), microbatch=4,
-                       chunk=8)
-    server = StreamServer(cfg, sc, n_classes=10, seed=0)
+    sc = ServerConfig(bucket_fractions=(0.25, 0.5, 0.75, 1.0), microbatch=4,
+                      chunk=8)
+    params = from_jax_params(init_vit(0, cfg, 10), "cpu")
+    server = StreamServer(cfg, sc, params=params)
     say(f"[main] {cfg.name} {cfg.img_size}x{cfg.img_size} + MGNet "
         f"(embed {cfg.mgnet_embed}, {cfg.mgnet_heads} heads): "
         f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads, "
-        f"d_ff={cfg.d_ff}; ladder {list(server.ladder.sizes)}")
+        f"d_ff={cfg.d_ff}; ladder {list(server.ladder.sizes)}; warm start "
+        f"{server.warm_s:.2f}s, CUDA graphs at buckets "
+        f"{sorted(server.graphs)}")
+    if sorted(server.graphs) != list(server.ladder.sizes):
+        fail(f"graphs {sorted(server.graphs)} for ladder "
+             f"{list(server.ladder.sizes)}")
     streams = video_fleet(2, img_size=cfg.img_size, patch=cfg.patch,
                           cut_every=32)
     # warm-up (CUDA context, cuBLAS, the allocator): one chunk, not timed
@@ -1088,6 +1264,8 @@ def main() -> int:
         f"{(a - b).abs().max().item():.3e}")
     if not corr > 0.999:
         fail(f"card vs plain logits correlation {corr} <= 0.999")
+    graphs = check_graphs(torch, cfg, sc, params, server, streams,
+                          [results[s.sid] for s in sessions])
 
     # -- 4b. main path: LM serving -----------------------------------------
     lm = run_lm(torch, dev, card)
@@ -1110,28 +1288,39 @@ def main() -> int:
     # frames in, host scores out), the patch embed, and one encode flush
     # (4 frames) per bucket. CUDA events on the stream, so host gaps
     # between launches count: these are the stages' steady-state spans.
-    chunk = streams[0].frames_at(0, 8)["frames"]
-    fdev = torch.from_numpy(chunk).to(dev)
     reps = 20
+    t0 = time.perf_counter()
+    for i in range(reps):
+        chunk = streams[0].frames_at(8 * i, 8)["frames"]
+    synth_ms = (time.perf_counter() - t0) * 1e3 / reps
+    fdev = torch.from_numpy(chunk).to(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         server._score_fn(chunk)
     gate_ms = (time.perf_counter() - t0) * 1e3 / reps
     embed_ms = cuda_ms(lambda: embed_patches(server.params, fdev, cfg,
                                              server.policy), iters=reps)
-    toks = embed_patches(server.params, fdev, cfg, server.policy)[:4]
-    say(f"[layers] gate (MGNet scores, 8 frames, host clock): {gate_ms:.3f} "
-        f"ms; embed (8 frames): {embed_ms:.3f} ms ({card})")
-    for kb in server.ladder.sizes:
-        enc_ms = cuda_ms(lambda: forward_vit_tokens(
-            server.params, toks[:, :kb], cfg, server.policy), iters=reps)
+    say(f"[layers] frame synthesis (VideoStream, 8 frames, host clock): "
+        f"{synth_ms:.3f} ms; gate (MGNet scores, 8 frames, host clock): "
+        f"{gate_ms:.3f} ms; embed (8 frames): {embed_ms:.3f} ms ({card})")
+    # one flush a bucket (4 frames of a real chunk, gathered as served):
+    # eager, and the bucket's graph replayed (its copy-in included)
+    for kb, fl in graphs["flushes"].items():
+        t = fl["tokens"]
+        fl["eager_ms"] = cuda_ms(lambda: forward_vit_tokens(
+            server.params, t, cfg, server.policy), iters=reps)
+        fl["replay_ms"] = cuda_ms(lambda: server.graphs[kb].replay(t),
+                                  iters=reps)
         # the encoder's matmul work for 4 frames (vit_matmul_shapes minus
         # the patch embed, which ran before the gather)
         ops = 4 * sum(2 * m * k * n for m, k, n in
                       vit_matmul_shapes(cfg, kept_patches=kb)[1:])
-        say(f"[layers] encode flush k={kb} (4 frames): {enc_ms:.3f} ms, "
-            f"{ops / 1e9:.2f} GOP of matmul work = "
-            f"{ops / (enc_ms * 1e-3) / 1e12:.3f} TOP/s ({card})")
+        say(f"[layers] encode flush k={kb} (4 frames): eager "
+            f"{fl['eager_ms']:.3f} ms, graph replay {fl['replay_ms']:.3f} ms "
+            f"({fl['eager_ms'] / fl['replay_ms']:.2f}x); {fl['launches']} "
+            f"launches a replay; {ops / 1e9:.2f} GOP of matmul work = "
+            f"{ops / (fl['replay_ms'] * 1e-3) / 1e12:.3f} TOP/s replayed "
+            f"({card})")
 
     # the LM path: one decode step at batch 4 (pos 159 of the cache, its
     # row rewritten in place each time) and prefill_fn over the 128-token
@@ -1309,24 +1498,43 @@ def main() -> int:
             "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
             **extra})
 
-    # where a serve's device time goes, by kernel (one stream, 16 frames)
+    # each flush's device time, from the profiler over its replays. After
+    # the kernel table: once a profiled session has recorded thousands of
+    # kernels, the next sessions lose a few records each (PERF.md §7)
+    for kb, fl in graphs["flushes"].items():
+        flush_ms, _ = device_ms(torch, lambda: server.graphs[kb].replay(
+            fl["tokens"]), iters=10)
+        say(f"[layers] encode flush k={kb}: device {flush_ms:.3f} ms a "
+            f"replay (profiler); spans: replay {fl['replay_ms']:.3f} ms, "
+            f"eager {fl['eager_ms']:.3f} ms ({card})")
+
+    # where a serve's device time goes, by kernel (one stream, 16 frames),
+    # served through the graphs and eagerly (the engine's server)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ps = server.add_session(streams[1], n_frames=16, start=2000)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pres = server.serve()[ps.sid]
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    wall_ms = pres.wall_s * 1e3
-    say(f"[profile] 16 frames served under the profiler: wall {wall_ms:.3f} "
-        f"ms, device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%), "
-        f"{len(events)} kernel kinds ({card})")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        say(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d}x  {e.key[:90]}")
+    for tag, srv in (("graphed", server),
+                     ("eager", graphs["eager_server"])):
+        ps = srv.add_session(streams[1], n_frames=16, start=2000)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pres = srv.serve()[ps.sid]
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        wall_ms = pres.wall_s * 1e3
+        say(f"[profile] 16 frames served {tag} under the profiler: wall "
+            f"{wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}%), {len(events)} kernel kinds "
+            f"({card})")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            say(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
+        say(f"[profile] {tag}, host ops by self CPU time (profiled): "
+            + ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
+                        f"ms {e.count}x" for e in host))
 
     # the card's busy share over 8 LM decode steps
     torch.cuda.synchronize()

@@ -1,19 +1,23 @@
-"""Synthetic video for near-sensor serving (the reference's
-src/repro/data/pipeline.py::VideoStream / video_fleet).
+"""Synthetic video for near-sensor serving and its double-buffered ingest
+(the reference's src/repro/data/pipeline.py::VideoStream / video_fleet /
+prefetch_to_device).
 
-Pure numpy: every frame is a pure function of (seed, frame_idx), drawn
-with the same generator calls as the reference, so both packages serve
-bit-identical frames.
+Frames are pure numpy: every frame is a pure function of (seed,
+frame_idx), drawn with the same generator calls as the reference, so both
+packages serve bit-identical frames. ``prefetch_to_device`` ships them to
+the card ahead of the consumer.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+import torch
 
-__all__ = ["VideoStream", "video_fleet"]
+__all__ = ["VideoStream", "video_fleet", "prefetch_to_device"]
 
 
 def _host_rng(seed: int, step: int) -> np.random.Generator:
@@ -92,3 +96,86 @@ def video_fleet(n_streams: int, img_size: int, patch: int = 16,
     return [VideoStream(img_size=img_size, patch=patch, seed=seed + i,
                         cut_every=cut_every, noise=noise, speed=speed)
             for i in range(n_streams)]
+
+
+def prefetch_to_device(it: Iterator[dict], depth: int = 2,
+                       keys: tuple[str, ...] = ("frames",),
+                       device="cpu") -> Iterator[dict]:
+    """Double-buffered host -> device ingest: ``depth`` host batches in
+    flight, yielded in order. Each entry under ``keys`` becomes a tensor on
+    ``device``, and its host array stays beside it as ``<key>_host`` (the
+    serving gate walks the frames on the host); other entries pass as they
+    are.
+
+    On the card every batch is staged in a pinned host buffer and copied
+    with ``non_blocking=True`` on the device's ingest copy stream (one a
+    device, shared by every iterator, so the allocator reuses the device
+    blocks the copies land in), so the upload of batch t+1 overlaps the
+    consumer's work on batch t. The
+    consumer's stream waits on the copy's event when the batch is yielded,
+    and the device tensor is recorded on that stream so the allocator
+    never hands its memory to the copy stream early. The pinned buffers
+    form a ring of ``depth + 1`` per key; a slot is refilled only after the
+    event of the copy that last read it has completed. On the CPU the
+    batches pass through in order (``<key>`` a tensor view of the host
+    array).
+    """
+    if depth < 1:
+        raise ValueError("prefetch depth must be >= 1")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        for item in it:
+            out = dict(item)
+            for k in keys:
+                out[k + "_host"] = item[k]
+                out[k] = torch.from_numpy(item[k])
+            yield out
+        return
+    copy_stream = _copy_stream(dev)
+    ring: dict[str, list] = {}            # key -> depth + 1 pinned buffers
+    done: list = [None] * (depth + 1)     # slot -> event of its last copy
+    inflight: deque = deque()
+    slot = 0
+    for item in it:
+        if done[slot] is not None:
+            done[slot].synchronize()
+        out = dict(item)
+        with torch.cuda.stream(copy_stream):
+            for k in keys:
+                host = torch.from_numpy(item[k])
+                bufs = ring.setdefault(k, [])
+                if len(bufs) <= slot:
+                    bufs.append(torch.empty(host.shape, dtype=host.dtype,
+                                            pin_memory=True))
+                pinned = bufs[slot]
+                pinned.copy_(host)
+                out[k + "_host"] = item[k]
+                out[k] = pinned.to(dev, non_blocking=True)
+        done[slot] = torch.cuda.Event()
+        done[slot].record(copy_stream)
+        inflight.append((out, done[slot]))
+        slot = (slot + 1) % (depth + 1)
+        if len(inflight) >= depth:
+            yield _hand_over(inflight.popleft(), keys, dev)
+    while inflight:
+        yield _hand_over(inflight.popleft(), keys, dev)
+
+
+_COPY_STREAMS: dict = {}          # device -> the ingest's copy stream
+
+
+def _copy_stream(dev: torch.device):
+    if dev not in _COPY_STREAMS:
+        _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _COPY_STREAMS[dev]
+
+
+def _hand_over(entry: tuple, keys: tuple[str, ...], dev) -> dict:
+    """Order the consumer's stream after a batch's copy and tie the batch's
+    device tensors to that stream."""
+    out, event = entry
+    consumer = torch.cuda.current_stream(dev)
+    consumer.wait_event(event)
+    for k in keys:
+        out[k].record_stream(consumer)
+    return out

@@ -12,12 +12,17 @@ import every module of the package.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception. ``LAUNCHES`` counts
 kernel launches per wrapper: each wrapper adds one where it launches its
-kernel on the card, and nowhere else.
+kernel on the card, and nowhere else. A wrapper called while a CUDA graph
+is captured counts too, though nothing runs then: ``captured_launches``
+takes those counts back out and keeps them as the graph's launches, and
+``add_replay`` adds them again for every replay, so the counts are the
+same whether an encode ran eagerly or as a graph.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +33,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
+           "captured_launches", "add_replay",
            "ptxas_report", "aligned16", "stream_ptr", "strides_arg",
            "DTYPE_SUFFIX"]
 
@@ -39,6 +45,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches on the card since the last reset (clear() resets);
 # a kernel with several entries also counts each under "<kernel>.<entry>"
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a Counter that holds, once the
+    block ends, the launches the wrappers counted inside it, and leaves
+    ``LAUNCHES`` as it was before the block (a capture launches nothing).
+    Pass the Counter to ``add_replay`` at every replay of the graph."""
+    before = LAUNCHES.copy()
+    graph: collections.Counter = collections.Counter()
+    try:
+        yield graph
+    finally:
+        graph.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+def add_replay(graph: collections.Counter) -> None:
+    """Count one replay of a graph whose launches ``captured_launches``
+    recorded: each kernel in it launches once more."""
+    LAUNCHES.update(graph)
+
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int

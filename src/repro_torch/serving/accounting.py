@@ -1,0 +1,163 @@
+"""Streaming KFPS/W accounting over the cross-layer accelerator model (the
+reference's src/repro/serving/accounting.py).
+
+Every encode flush of bucket k adds ``n_real`` frames' worth of the
+``vit_matmul_shapes(kept_patches=k)`` event counts; every MGNet invocation
+adds the mask generator's own shapes (frames that reused a cached mask pay
+nothing). The aggregate divides out to the paper's Table-4 metric: KFPS/W
+of a pipelined accelerator is frames-per-joule / 1000, i.e. 1 / mean
+E_frame[mJ], independent of host wall time (reported apart as frames/s).
+
+``summary()`` also gives per-bucket hit and launch counts and warns on dead
+buckets: ladder entries no frame routed to, each of which still costs a
+warmed encode (on the card, a captured CUDA graph).
+
+Not ported yet (ROADMAP.md queue A): per-layer bit widths
+(``layer_bits``, ``_mixed_bits_report``: A10), the MR re-tuning bill of a
+recalibration (``retune_report``, ``add_recalibration``: A11), measured
+flush wall times (``add_flush_wall``, ``measured_flush_s``: A12) and
+``state_dict`` / ``load_state`` (A13).
+"""
+
+from __future__ import annotations
+
+import warnings
+from collections import Counter
+from typing import Iterable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.energy import (EnergyReport, accumulate_matmuls,
+                                     energy_of_stats, kfps_per_watt,
+                                     latency_of_stats)
+from repro_torch.models.vit import vit_matmul_shapes
+
+__all__ = ["StreamAccounting", "bucket_report", "mgnet_report"]
+
+
+def _no_bit_plan(layer_bits) -> None:
+    if layer_bits is not None:
+        raise NotImplementedError(
+            "per-layer bit widths (a mixed-precision bit plan) are not "
+            "ported yet (ROADMAP.md queue A10)")
+
+
+def _nonlin_elems(cfg: ArchConfig, n_tokens: int) -> int:
+    """Softmax (H * n^2) + GELU (n * d_ff) element count per frame."""
+    return cfg.n_layers * (cfg.n_heads * n_tokens * n_tokens
+                           + n_tokens * cfg.d_ff)
+
+
+def bucket_report(cfg: ArchConfig, bucket: int,
+                  layer_bits: Iterable[int] | None = None) -> EnergyReport:
+    """Per-frame accelerator-model report for one k-patch encode (backbone
+    only): energy components + optical/EPU/memory latency. ``layer_bits``
+    must be None (uniform width; bit plans come with A10)."""
+    _no_bit_plan(layer_bits)
+    n_patches = (cfg.img_size // cfg.patch) ** 2
+    kept = None if bucket >= n_patches else bucket
+    stats, tiles = accumulate_matmuls(vit_matmul_shapes(cfg,
+                                                        kept_patches=kept))
+    nl = _nonlin_elems(cfg, bucket + 1)
+    rep = energy_of_stats(stats, nl)
+    lat = latency_of_stats(stats, nl, n_tiles=tiles)
+    rep.optical_us, rep.epu_us, rep.memory_us = (
+        lat.optical_us, lat.epu_us, lat.memory_us)
+    return rep
+
+
+def mgnet_report(cfg: ArchConfig) -> EnergyReport:
+    """Per-invocation MGNet report (the shapes ``include_mgnet`` appends
+    after the backbone's)."""
+    base = vit_matmul_shapes(cfg)
+    full = vit_matmul_shapes(cfg, include_mgnet=True)
+    stats, tiles = accumulate_matmuls(full[len(base):])
+    rep = energy_of_stats(stats)
+    lat = latency_of_stats(stats, n_tiles=tiles)
+    rep.optical_us, rep.epu_us, rep.memory_us = (
+        lat.optical_us, lat.epu_us, lat.memory_us)
+    return rep
+
+
+class StreamAccounting:
+    """Accumulates per-frame EnergyReports bucket by bucket, one stream."""
+
+    def __init__(self, cfg: ArchConfig,
+                 ladder_sizes: Iterable[int] | None = None,
+                 layer_bits: Iterable[int] | None = None):
+        _no_bit_plan(layer_bits)
+        self.cfg = cfg
+        self.total = EnergyReport()
+        self.frames = 0
+        self.scored_frames = 0
+        self.ladder_sizes = (tuple(int(k) for k in ladder_sizes)
+                             if ladder_sizes is not None else None)
+        self.bucket_frames: Counter = Counter()
+        self.bucket_launches: Counter = Counter()
+        self._per_bucket: dict[int, EnergyReport] = {}
+        self._mgnet: EnergyReport | None = None
+
+    def _bucket_report(self, k: int) -> EnergyReport:
+        """Per-frame report for a k-patch encode, computed once a bucket."""
+        rep = self._per_bucket.get(k)
+        if rep is None:
+            rep = self._per_bucket[k] = bucket_report(self.cfg, k)
+        return rep
+
+    def _mgnet_report(self) -> EnergyReport:
+        if self._mgnet is None:
+            self._mgnet = mgnet_report(self.cfg)
+        return self._mgnet
+
+    def add_encode(self, bucket: int, n_frames: int) -> None:
+        self.total += self._bucket_report(bucket).scaled(n_frames)
+        self.frames += n_frames
+        self.bucket_frames[int(bucket)] += n_frames
+        self.bucket_launches[int(bucket)] += 1
+
+    def add_mgnet(self, n_invocations: int) -> None:
+        self.total += self._mgnet_report().scaled(n_invocations)
+        self.scored_frames += n_invocations
+
+    def dead_buckets(self) -> tuple[int, ...]:
+        """Ladder entries no frame was ever routed to (empty when no
+        ladder was registered)."""
+        if self.ladder_sizes is None:
+            return ()
+        return tuple(k for k in self.ladder_sizes
+                     if self.bucket_frames[k] == 0)
+
+    def summary(self, warn: bool = True) -> str:
+        """Per-bucket hit/launch counts, warning on dead buckets (``warn``
+        False keeps the ``[dead: ...]`` text without the UserWarning)."""
+        sizes = (self.ladder_sizes if self.ladder_sizes is not None
+                 else tuple(sorted(self.bucket_frames)))
+        parts = [f"k={k}: {self.bucket_frames[k]} hits/"
+                 f"{self.bucket_launches[k]} launches" for k in sizes]
+        dead = self.dead_buckets()
+        if dead and warn:
+            warnings.warn(
+                f"dead ladder buckets {list(dead)}: no frame routed to "
+                f"them in {self.frames} frames — every ladder entry costs "
+                f"a warmed encode, retune the bucket fractions "
+                f"(README 'Bucket-ladder tuning')", stacklevel=2)
+        line = " | ".join(parts) if parts else "no encodes"
+        if dead:
+            line += f"  [dead: {', '.join(f'k={k}' for k in dead)}]"
+        return f"buckets: {line}"
+
+    @property
+    def mean_frame(self) -> EnergyReport:
+        return self.total.scaled(1.0 / self.frames if self.frames else 0.0)
+
+    @property
+    def kfps_per_watt(self) -> float:
+        return kfps_per_watt(self.mean_frame) if self.frames else 0.0
+
+    def dense_baseline_kfps_per_watt(self, with_mgnet: bool = True) -> float:
+        """KFPS/W if every frame were encoded dense (and scored, if
+        ``with_mgnet``): the no-gating reference for the energy saved."""
+        n = (self.cfg.img_size // self.cfg.patch) ** 2
+        rep = self._bucket_report(n)
+        if with_mgnet:
+            rep = rep + self._mgnet_report()
+        return kfps_per_watt(rep)

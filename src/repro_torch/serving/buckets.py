@@ -4,7 +4,8 @@ MGNet gives every frame a different kept-patch count; the ladder quantizes
 it into a few fixed bucket sizes (e.g. 25/50/75/100% of N). Each frame is
 routed to the smallest bucket that covers its budget, top-k gathered to
 exactly that size and micro-batched with other frames of that bucket, so
-the encoder only ever sees the ladder's shapes.
+the encoder only ever sees the ladder's shapes (one warmed encode, on the
+card one CUDA graph, per size).
 """
 
 from __future__ import annotations
@@ -53,6 +54,25 @@ class BucketLadder:
         arr = np.asarray(self.sizes)
         pos = np.searchsorted(arr, np.asarray(budgets), side="left")
         return arr[np.minimum(pos, len(arr) - 1)]
+
+    def trim(self, dead, keep_cap: bool = True) -> "BucketLadder":
+        """New ladder without the ``dead`` sizes (``StreamAccounting.
+        dead_buckets()``'s output): every dropped entry is one encode the
+        warm start no longer warms (on the card, one CUDA graph fewer).
+        Budgets that would have routed to a dropped size route up to the
+        next surviving bucket. With ``keep_cap`` (default) the ladder cap
+        survives even when flagged dead: dropping it would down-route
+        over-cap budgets, i.e. discard tokens a live frame asked for.
+        Unknown sizes in ``dead`` are ignored; trimming every bucket away
+        raises."""
+        dead = set(int(k) for k in dead)
+        if keep_cap:
+            dead.discard(self.cap)
+        kept = tuple(k for k in self.sizes if k not in dead)
+        if not kept:
+            raise ValueError(f"trim({sorted(dead)}) would empty the "
+                             f"ladder {self.sizes}")
+        return BucketLadder(kept)
 
 
 class BucketHistogram:

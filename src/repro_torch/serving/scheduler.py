@@ -1,12 +1,24 @@
 """Micro-batch scheduler: group same-bucket frames into one encode launch
-(the reference's src/repro/serving/scheduler.py, serving subset).
+(the reference's src/repro/serving/scheduler.py).
 
-Frames routed to the same bucket are queued as groups until ``microbatch``
-rows wait, then flushed as one (microbatch, k, d) encode. End-of-stream
-partials are zero-padded to the micro-batch size, so the encode shapes
-stay exactly the ladder's; padded rows are never predicted. Queue keys are
-opaque: the server keys ``(bucket, session)`` so every launch holds one
-stream's frames (its activation absmax scope is one stream).
+Frames routed to the same bucket are queued until ``microbatch`` rows
+wait, then flushed as one (microbatch, k, d) encode. Frames arrive as
+groups (all same-bucket frames of one ingest chunk) and the queue stores
+groups, so a flush is at most one concatenate; single frames (``push``)
+are stored as bare rows and expanded to group rank only at flush time.
+End-of-stream partials are zero-padded to the micro-batch size, so the
+encode shapes stay exactly the ladder's; padded rows are never predicted.
+
+Queue keys are opaque: the server keys ``(bucket, session)`` so every
+launch holds one stream's frames (its activation absmax scope is one
+stream), or the bare bucket under ``mix_streams``. ``push``/``push_many``
+stamp each entry with a ``now`` tick (the server's scheduling round), and
+``flush_stale(deadline)`` pad-flushes every queue whose oldest entry was
+queued at or before the deadline: the server's ``max_wait_chunks`` bound.
+
+Not ported yet (ROADMAP.md queue A): ``flush_filled`` and ``queue_stats``
+(the control plane, A12), ``discard`` and ``export`` (faults and
+checkpoints, A13).
 """
 
 from __future__ import annotations
@@ -36,21 +48,35 @@ class MicroBatcher:
         if microbatch < 1:
             raise ValueError("microbatch must be >= 1")
         self.microbatch = microbatch
-        self._queues: dict[Hashable, list] = {}   # key -> [(tokens, [idx])]
+        # key -> [(tokens, [frame_idx], now, is_row)]: tokens is a (m, k, d)
+        # group (is_row False) or a bare (k, d) row (is_row True)
+        self._queues: dict[Hashable, list] = {}
+
+    def push(self, bucket: Hashable, tokens: torch.Tensor, frame_idx,
+             now: int = 0) -> list[FrameBatch]:
+        """Queue a single (k, d) frame, stored as a bare row."""
+        self._queues.setdefault(bucket, []).append(
+            (tokens, [frame_idx], now, True))
+        return self._collect(bucket)
 
     def push_many(self, bucket: Hashable, tokens: torch.Tensor,
-                  frame_idx: list) -> list[FrameBatch]:
+                  frame_idx: list, now: int = 0) -> list[FrameBatch]:
         """Queue a (m, k, d) group; returns every batch that became ready."""
         if tokens.shape[0] != len(frame_idx):
             raise ValueError("tokens/frame_idx length mismatch")
-        self._queues.setdefault(bucket, []).append((tokens, list(frame_idx)))
+        self._queues.setdefault(bucket, []).append(
+            (tokens, list(frame_idx), now, False))
+        return self._collect(bucket)
+
+    def _collect(self, bucket: Hashable) -> list[FrameBatch]:
         out = []
-        while self._rows(bucket) >= self.microbatch:
+        while self.rows(bucket) >= self.microbatch:
             out.append(self._take(bucket))
         return out
 
-    def _rows(self, bucket: Hashable) -> int:
-        return sum(len(ix) for _, ix in self._queues.get(bucket, ()))
+    def rows(self, key: Hashable) -> int:
+        """Rows currently queued under ``key`` (0 for unknown keys)."""
+        return sum(len(it[1]) for it in self._queues.get(key, ()))
 
     def _take(self, bucket: Hashable, pad: bool = False) -> FrameBatch:
         """Pop exactly ``microbatch`` rows (an oversized group is split back
@@ -58,10 +84,12 @@ class MicroBatcher:
         q = self._queues[bucket]
         items, idxs, rows = [], [], 0
         while q and rows < self.microbatch:
-            t, ix = q.pop(0)
+            t, ix, now, is_row = q.pop(0)
+            if is_row:
+                t = t[None]                      # row -> group, at flush time
             need = self.microbatch - rows
             if t.shape[0] > need:
-                q.insert(0, (t[need:], ix[need:]))
+                q.insert(0, (t[need:], ix[need:], now, False))
                 t, ix = t[:need], ix[:need]
             items.append(t)
             idxs.extend(ix)
@@ -83,6 +111,19 @@ class MicroBatcher:
                 if select is None or select(k)]
         return [self._take(k, pad=True) for k in keys]
 
+    def flush_stale(self, deadline: int) -> list[FrameBatch]:
+        """Pad-flush every queue whose oldest entry was pushed at or before
+        ``deadline`` (the ``now`` tick of ``push``/``push_many``), oldest
+        queue first, ties by ``str(key)``: the server's max-wait bound."""
+        stale = [(q[0][2], k) for k, q in self._queues.items()
+                 if q and q[0][2] <= deadline]
+        return [self._take(k, pad=True) for _, k in sorted(
+            stale, key=lambda e: (e[0], str(e[1])))]
+
+    def pending_keys(self) -> tuple:
+        """Keys of queues currently holding frames."""
+        return tuple(sorted(self._queues, key=str))
+
     @property
     def pending(self) -> int:
-        return sum(self._rows(k) for k in self._queues)
+        return sum(self.rows(k) for k in self._queues)

@@ -1,20 +1,33 @@
 """Multi-stream session server: many cameras, one accelerator (the
-reference's src/repro/serving/server.py, pared to the serving main path).
+reference's src/repro/serving/server.py, serving main path).
 
 Per ingest chunk of each stream, in round-robin order:
 
-  1. the temporal mask cache decides which frames MGNet re-scores
+  1. the chunk arrives through the session's double-buffered ingest
+     (``data.pipeline.prefetch_to_device``: pinned buffers, a copy stream);
+  2. the temporal mask cache decides which frames MGNet re-scores
      (``mgnet_scores`` on the int8 photonic matmul kernel);
-  2. ``embed_patches`` embeds the whole chunk;
-  3. one stable descending argsort of the region scores, then a per-bucket
-     top-k gather (``_gather_topk_rows``) of each frame's routed bucket;
-  4. the session-pure micro-batcher queues the groups keyed (bucket,
-     session), so every encode launch holds one stream's frames and its
-     activation absmax scope is one stream;
-  5. every ready flush runs ``forward_vit_tokens`` on the fused serving
-     point (int8 photonic matmul + RoI-masked flash attention + fused FFN
-     over the quantize-once int8 cache), then final LayerNorm -> head ->
-     argmax.
+  3. ``embed_patches`` embeds the whole chunk;
+  4. one stable descending argsort of the region scores, then a per-bucket
+     top-k gather (``_gather_topk_rows``) of each frame's routed bucket, or
+     under ``one_shape`` one cap-size permutation for every bucket;
+  5. the micro-batcher queues the groups keyed (bucket, session), so every
+     encode launch holds one stream's frames and its activation absmax
+     scope is one stream (``mix_streams`` keys the bare bucket instead and
+     fills launches across streams);
+  6. every ready flush, interleaved ``interleave_depth`` launches a session
+     per pass, runs ``forward_vit_tokens`` on the fused serving point (int8
+     photonic matmul + RoI-masked flash attention + fused FFN over the
+     quantize-once int8 cache), then final LayerNorm -> head -> argmax; a
+     ``max_wait_chunks`` deadline pad-flushes queues that waited too long.
+
+Warm start (``ServerConfig.warm_start``, the default) runs every stage the
+loop can reach once before any stream starts. On the card, and unsharded,
+it also captures each bucket's encode as one CUDA graph (``self.graphs``,
+keyed by bucket): the port's counterpart of the reference's per-bucket
+``jax.jit`` compile, after which a flush is one copy into the graph's
+static input and one replay. A failed capture raises; ``warm_start=False``
+(``--no-warm-start``) is the only way to serve eagerly on the card.
 
 Model-sharded serving (``ServerConfig.model_shards`` = M > 1): every rank
 of a ``torch.distributed`` world of W = D x M ranks runs this same loop
@@ -23,25 +36,34 @@ deterministic and run replicated; only the encode is sharded, over the
 2-D ("data", "model") mesh of ``launch.mesh.make_serving_mesh``, on this
 rank's shard of the weight cache (``place_params``), through
 ``models/sharded_encoder.py``. Every rank ends with the same predictions.
+Its collectives go through gloo and the host, which no CUDA graph can
+hold, so a sharded server warms eagerly and captures nothing.
 
-Not ported yet (ROADMAP.md queue A): energy accounting, warm start and CUDA
-graphs, one-shape mode, device noise, faults, checkpoints, the control
-plane, the 1-D data mesh, ``mix_streams``, ``max_wait``, ladder trimming
-and bit plans.
+Energy: each session's ``StreamAccounting`` bills every encode at its
+bucket and every MGNet scoring, so each ``StreamResult`` carries the
+accelerator model's KFPS/W and energy per frame.
+
+Not ported yet (ROADMAP.md queue A): bit plans (A10), the composed
+dispatch and ``run_dense`` (A17), device noise and recalibration (A11),
+the control plane (``autotune``, A12), faults, checkpoints and migration
+(A13), the 1-D data mesh (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
     PYTHONPATH=src python -m repro_torch.serving.server --streams 2 --frames 32
-    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu
-    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --one-shape --max-wait 1 --trim-dead-buckets
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
         --smoke --device cpu --model-shards 2
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +76,7 @@ from repro_torch.data.pipeline import VideoStream, video_fleet
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
                                               use_sharding)
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import init_from_env, make_serving_mesh
 from repro_torch.models.sharded_encoder import \
     sharded_encode_ineligible_reason
@@ -61,24 +84,48 @@ from repro_torch.models.vit import (_fused_encoder_ineligible_reason,
                                     embed_patches, forward_vit_tokens,
                                     mgnet_config, vit_logical_axes)
 from repro_torch.serving.buckets import BucketLadder
+from repro_torch.serving.mask_cache import TemporalMaskCache
 from repro_torch.serving.scheduler import FrameBatch, MicroBatcher
 from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
 
-__all__ = ["StreamServer", "ServerConfig", "serving_cfg", "smoke_cfg",
-           "interleave_rounds", "main"]
+__all__ = ["StreamServer", "ServerConfig", "EncodeGraph", "serving_cfg",
+           "smoke_cfg", "interleave_rounds", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServerConfig(ServingConfig):
-    """ServingConfig + the multi-stream knobs (the ported subset)."""
+    """ServingConfig + the multi-stream knobs."""
 
+    max_wait_chunks: int = 0     # > 0: pad-flush a partial micro-batch after
+    #                              this many scheduling rounds (0 keeps
+    #                              frames queued until the bucket fills or
+    #                              the stream ends: the bitwise-reproducible
+    #                              default)
+    mix_streams: bool = False    # fill one bucket's micro-batch from several
+    #                              sessions (couples the w8a8 activation
+    #                              scales of co-batched streams)
+    warm_start: bool = True      # warm every stage at startup; on the card
+    #                              (unsharded) capture one CUDA graph per
+    #                              bucket encode
     model_shards: int = 0        # > 1: 2-D ("data", "model") serving mesh —
     #                              attention heads + d_ff shard over "model"
     #                              (MODEL_RULES), the fused encode runs
     #                              sharded (models/sharded_encoder.py),
     #                              bitwise-equal to unsharded with the FFN's
     #                              twin. 0/1 = unsharded
+    interleave_depth: int = 1    # ready-flush launches per session per
+    #                              rotation pass
+
+    @staticmethod
+    def from_serving(sc: ServingConfig, **overrides) -> "ServerConfig":
+        """ServerConfig carrying ``sc``'s fields plus ``overrides``; an
+        ``sc`` that already is a ServerConfig keeps its server knobs."""
+        src = type(sc) if isinstance(sc, ServerConfig) else ServingConfig
+        base = {f.name: getattr(sc, f.name)
+                for f in dataclasses.fields(src)}
+        base.update(overrides)
+        return ServerConfig(**base)
 
 
 def _gather_topk_rows(tokens: torch.Tensor, order: torch.Tensor,
@@ -90,16 +137,20 @@ def _gather_topk_rows(tokens: torch.Tensor, order: torch.Tensor,
     return torch.gather(tokens, 1, idx)
 
 
-def interleave_rounds(groups) -> list:
-    """Round-robin merge, one element from each list per pass:
-    [[a1, a2, a3], [b1]] -> [a1, b1, a2, a3]."""
+def interleave_rounds(groups, depth: int = 1) -> list:
+    """Round-robin merge, ``depth`` elements from each list per pass:
+    [[a1, a2, a3], [b1]] -> [a1, b1, a2, a3] at depth 1. The order ready
+    flushes run in: a session with a backlog yields to every other session
+    with one ready after ``depth`` launches."""
+    if depth < 1:
+        raise ValueError("interleave depth must be >= 1")
     out, i = [], 0
     while True:
-        row = [g[i] for g in groups if i < len(g)]
+        row = [x for g in groups for x in g[i: i + depth]]
         if not row:
             return out
         out.extend(row)
-        i += 1
+        i += depth
 
 
 def serving_cfg(variant: str = "base", img_size: int = 224) -> ArchConfig:
@@ -118,6 +169,27 @@ def smoke_cfg() -> ArchConfig:
         mgnet_keep_ratio=0.5, mgnet_embed=32, mgnet_heads=2)
 
 
+@dataclasses.dataclass
+class EncodeGraph:
+    """One bucket's encode captured as a CUDA graph: ``tokens`` is its
+    static input, ``logits`` its static output (overwritten by the next
+    replay: clone what must outlive it), ``launches`` the kernel launches
+    one replay makes (``_build.captured_launches``)."""
+
+    graph: torch.cuda.CUDAGraph
+    tokens: torch.Tensor
+    logits: torch.Tensor
+    launches: collections.Counter
+
+    def replay(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Encode ``tokens`` (the static input's shape): copy, replay,
+        return the static logits."""
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        _build.add_replay(self.launches)
+        return self.logits
+
+
 class StreamServer:
     """Shared serving resources + the multi-stream scheduling loop.
 
@@ -126,9 +198,10 @@ class StreamServer:
     weight is quantized once, on ``device`` (default: the card), before any
     stream starts: the int8 photonic matmul is the only ported backend.
     ``serve_cfg`` is a ``ServerConfig`` (a plain ``ServingConfig`` takes
-    its defaults). With ``model_shards`` > 1 this process is one rank of a
-    model-sharded mesh: it serves on ``cuda:(LOCAL_RANK % device_count)``
-    (or the CPU) and keeps only its shard of the cache.
+    its defaults, warm start included). With ``model_shards`` > 1 this
+    process is one rank of a model-sharded mesh: it serves on
+    ``cuda:(LOCAL_RANK % device_count)`` (or the CPU) and keeps only its
+    shard of the cache.
     """
 
     def __init__(self, cfg: ArchConfig, serve_cfg: ServingConfig | None = None,
@@ -140,7 +213,7 @@ class StreamServer:
         self.cfg = cfg
         sc = serve_cfg or ServerConfig()
         if not isinstance(sc, ServerConfig):
-            sc = ServerConfig(**dataclasses.asdict(sc))
+            sc = ServerConfig.from_serving(sc)
         self.serve_cfg = sc
         dev = resolve_device(device)
         # the mesh exactly when model_shards > 1; None on a world of one
@@ -168,6 +241,12 @@ class StreamServer:
         # numbers against another execution of the same encode
         self.last_flush: FrameBatch | None = None
         self.last_logits: torch.Tensor | None = None
+        self.graphs: dict[int, EncodeGraph] = {}
+        self.warmed: set[int] = set()      # buckets whose encode was warmed
+        self.warm_s = 0.0
+        self._graphed = False              # warm_start captured graphs
+        if sc.warm_start:
+            self.warm_start()
 
     def _maybe_place(self, params):
         """This rank's shard of the prepared cache on a model-sharded mesh
@@ -191,28 +270,198 @@ class StreamServer:
     def add_session(self, stream: VideoStream, n_frames: int = 64,
                     start: int = 0) -> StreamSession:
         """Register a stream for the next ``serve()``; returns its session."""
-        s = StreamSession(self._next_sid, stream, n_frames, start,
-                          self.serve_cfg, self.ladder)
+        s = self._new_session(self._next_sid, stream, n_frames, start)
         self._next_sid += 1
         self._sessions.append(s)
         return s
+
+    def _new_session(self, sid, stream, n_frames, start) -> StreamSession:
+        return StreamSession(sid, stream, n_frames, start, self.serve_cfg,
+                             self.cfg, ladder=self.ladder,
+                             device=self.device)
 
     def _score_fn(self, frames: np.ndarray) -> np.ndarray:
         f = torch.from_numpy(frames).to(self.device)
         s = mgnet_scores(self.params["mgnet"], f, self.mcfg, self.policy)
         return s.float().cpu().numpy()
 
+    # -- encode: eager, or one CUDA graph per bucket -------------------------
+
+    def _encode_eager(self, k: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits of one flush at bucket ``k``: (microbatch, k, d) tokens,
+        or under ``one_shape`` (microbatch, cap, d) with ``kv_len`` k."""
+        kv = k if self.serve_cfg.one_shape else None
+        with use_sharding(self.mesh):
+            return forward_vit_tokens(self.params, tokens, self.cfg,
+                                      self.policy, kv_len=kv,
+                                      device=self.device)[0]
+
+    def _encode(self, k: int, tokens: torch.Tensor) -> torch.Tensor:
+        """One flush's logits: the bucket's graph once warm start captured
+        graphs (a bucket without one yet is captured now, as the
+        reference's jit compiles a bucket it meets first), else eager."""
+        g = self.graphs.get(k)
+        if g is None and self._graphed:
+            g = self.graphs[k] = self._capture(k)
+        return g.replay(tokens) if g is not None else self._encode_eager(
+            k, tokens)
+
+    def _flush_shape(self, k: int) -> tuple:
+        t = self.ladder.cap if self.serve_cfg.one_shape else k
+        return (self.serve_cfg.microbatch, t, self.cfg.d_model)
+
+    def _capture(self, k: int) -> EncodeGraph:
+        """Capture bucket ``k``'s encode as a CUDA graph. It first runs
+        eagerly on a side stream, so nothing runs for the first time
+        inside the capture: the kernel library's load, each kernel's
+        shared-memory attribute, the cached key masks of the flash
+        attention wrapper. Raises with the reason if the capture fails."""
+        dev = self.device
+        static = torch.zeros(self._flush_shape(k), device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._encode_eager(k, static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _build.captured_launches() as launches, \
+                    torch.cuda.graph(graph):
+                logits = self._encode_eager(k, static)
+        except Exception as e:
+            raise RuntimeError(f"capturing the k={k} encode as a CUDA graph "
+                               f"failed: {e}") from e
+        return EncodeGraph(graph, static, logits, launches)
+
+    # -- warm start ----------------------------------------------------------
+
+    def warm_start(self, buckets: tuple | None = None) -> float:
+        """Run every stage the serving loop can hit once before a stream
+        starts: the gate, the embed, the order and the gathers, and each
+        bucket's encode at its flush shape (``buckets`` restricts the
+        encodes to those ladder sizes). On the card and unsharded, each
+        bucket's encode is captured as a CUDA graph (``self.graphs``) and
+        later flushes replay it; on the CPU and under ``model_shards`` > 1
+        (gloo collectives through the host, which a graph cannot hold) the
+        encodes run eagerly and nothing is captured. Returns the wall
+        seconds, also kept as ``self.warm_s``."""
+        sc, cfg, dev = self.serve_cfg, self.cfg, self.device
+        targets = tuple(k for k in self.ladder.sizes
+                        if buckets is None or k in buckets)
+        t0 = time.perf_counter()
+        zf = np.zeros((sc.chunk, cfg.img_size, cfg.img_size, 3), np.float32)
+        self._score_fn(zf)
+        toks = embed_patches(self.params, torch.from_numpy(zf).to(dev), cfg,
+                             self.policy)
+        order = torch.argsort(torch.zeros(sc.chunk, self.n_patches,
+                                          device=dev),
+                              dim=-1, descending=True, stable=True)
+        for k in ((self.ladder.cap,) if sc.one_shape else targets):
+            _gather_topk_rows(toks, order, k)
+        self._graphed = dev.type == "cuda" and self.mesh is None
+        for k in targets:
+            if self._graphed:
+                self.graphs[k] = self._capture(k)
+            else:
+                self._encode_eager(k, torch.zeros(self._flush_shape(k),
+                                                  device=dev))
+            self.warmed.add(k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.warm_s = time.perf_counter() - t0
+        return self.warm_s
+
+    # -- dead-bucket trimming ------------------------------------------------
+
+    def trim(self, dead, keep_cap: bool = True) -> tuple[int, ...]:
+        """Drop ladder sizes (``StreamAccounting.dead_buckets()`` output)
+        and their graphs; sessions not started yet are re-made on the
+        trimmed ladder. ``keep_cap=False`` lets the cap go too (only safe
+        under a ``force_bucket`` pin). Returns the sizes removed."""
+        new = self.ladder.trim(dead, keep_cap=keep_cap)
+        removed = tuple(sorted(set(self.ladder.sizes) - set(new.sizes)))
+        self.ladder = new
+        for k in removed:
+            self.graphs.pop(k, None)
+            self.warmed.discard(k)
+        # un-started sessions are replaced, not mutated: their histogram
+        # and accounting must key the trimmed ladder (sids stay)
+        self._sessions = [
+            s if s.finished or s.frames_seen > 0
+            else self._new_session(s.sid, s.stream, s.n_frames, s.start)
+            for s in self._sessions]
+        return removed
+
+    def _route_probe(self, calib_frames: int | None = None) -> set[int]:
+        """The ladder buckets the registered sessions' leading frames route
+        to: host-side scoring through throwaway mask caches, sessions
+        untouched. Under a ``force_bucket`` pin the answer is exact by
+        construction."""
+        sc = self.serve_cfg
+        if sc.force_bucket > 0:
+            return {self.ladder.route(
+                int(round(sc.force_bucket * self.n_patches)))}
+        calib = calib_frames or 2 * sc.chunk
+        calib = ((calib + sc.chunk - 1) // sc.chunk) * sc.chunk
+        hit: set[int] = set()
+        for s in self._sessions:
+            if s.finished:
+                continue
+            cache = TemporalMaskCache(sc.mask_refresh, sc.delta_threshold)
+            for ofs in range(0, calib, sc.chunk):
+                sub = s.stream.frames_at(s.start + ofs, sc.chunk)
+                scores, _ = cache.gate(sub["frames"], sub["frame_idx"],
+                                       self._score_fn)
+                hit |= set(int(k) for k in self.ladder.route_many(
+                    mask_budget(scores, self.mcfg.t_reg)))
+        return hit
+
+    def calibrate_trim(self, calib_frames: int | None = None
+                       ) -> tuple[int, ...]:
+        """Route-only calibration: score the first ``calib_frames`` of every
+        registered session (default two chunks), collect which buckets get
+        hit, and ``trim`` the rest. Run before ``warm_start()`` so fewer
+        encodes are warmed (on the card, fewer graphs captured).
+
+        Calibration sees only its window: frames that later route to a
+        trimmed bucket route up to the next surviving size (more tokens,
+        possibly other predictions than an untrimmed run), so the
+        interleaved-vs-sequential bitwise contract holds only against an
+        equally trimmed solo server. A ``UserWarning`` says so whenever
+        something is trimmed without a ``force_bucket`` pin."""
+        sc = self.serve_cfg
+        if not any(not s.finished for s in self._sessions):
+            # nothing to calibrate against: an empty pass would declare
+            # every non-cap bucket dead and collapse the ladder
+            return ()
+        hit = self._route_probe(calib_frames)
+        dead = tuple(k for k in self.ladder.sizes if k not in hit)
+        if not dead:
+            return ()
+        removed = self.trim(dead)
+        if removed and sc.force_bucket <= 0:
+            warnings.warn(
+                f"calibrate_trim dropped buckets {list(removed)} from a "
+                f"calibration window the streams may outgrow: budgets that "
+                f"later route to a dropped size will route up to the next "
+                f"surviving bucket (more tokens, possibly different "
+                f"predictions than an untrimmed run)", stacklevel=2)
+        return removed
+
+    # -- the serving loop ----------------------------------------------------
+
     def serve(self, verbose: bool = False) -> dict[int, StreamResult]:
         """Serve every registered session to completion, interleaved
         round-robin; returns ``{sid: StreamResult}``. Every result's
         ``wall_s`` is the loop's span (device work included), so the
         aggregate frames/s is ``sum(frames) / wall``."""
+        sc = self.serve_cfg
         live = [s for s in self._sessions if not s.finished]
         if not live:
             return {}
         for s in live:
             s.open()
-        self.batcher = MicroBatcher(self.serve_cfg.microbatch)
+        self.batcher = MicroBatcher(sc.microbatch)
         self.flush_log = []
         by_sid = {s.sid: s for s in live}
         t0 = time.perf_counter()
@@ -221,22 +470,34 @@ class StreamServer:
             rot = live[offset:] + live[:offset]
             offset = (offset + 1) % len(live)
             per = {s.sid: [] for s in rot}
+            late: list = []
             for s in rot:
                 if s.ingest_done:
                     continue
                 batch = s.next_batch()
                 if batch is not None:
-                    per[s.sid].extend(self._ingest_chunk(s, batch))
-            for s in rot:
-                if s.ingest_done and not s.drained:
-                    per[s.sid].extend(self.batcher.drain(
-                        select=lambda key, sid=s.sid: key[1] == sid))
-                    s.drained = True
-            for fb in interleave_rounds([per[s.sid] for s in rot]):
+                    per[s.sid].extend(self._ingest_chunk(s, batch, rnd))
+            if sc.mix_streams:
+                if all(s.ingest_done for s in live):
+                    late.extend(self.batcher.drain())
+                    for s in live:
+                        s.drained = True
+            else:
+                for s in rot:
+                    if s.ingest_done and not s.drained:
+                        per[s.sid].extend(self.batcher.drain(
+                            select=lambda key, sid=s.sid: key[1] == sid))
+                        s.drained = True
+            if sc.max_wait_chunks > 0:
+                late.extend(self.batcher.flush_stale(rnd - sc.max_wait_chunks))
+            for fb in interleave_rounds([per[s.sid] for s in rot],
+                                        sc.interleave_depth):
+                self._finish(fb, by_sid)
+            for fb in late:
                 self._finish(fb, by_sid)
             rnd += 1
-            if verbose and rnd % 4 == 0:
-                done = sum(s.frames_encoded for s in live)
+            if verbose and rnd % sc.report_every == 0:
+                done = sum(s.acct.frames for s in live)
                 print(f"[server] round {rnd:>4d}  {done:>5d} frames  "
                       f"{done / (time.perf_counter() - t0):7.1f} frames/s "
                       f"aggregate (pending {self.batcher.pending})")
@@ -247,47 +508,69 @@ class StreamServer:
         self._sessions = [s for s in self._sessions if not s.finished]
         return results
 
-    def _ingest_chunk(self, s: StreamSession, batch: dict) -> list:
+    def _ingest_chunk(self, s: StreamSession, batch: dict, rnd: int) -> list:
         """Gate one chunk through the session's mask cache, embed it, route
-        it on the ladder and push per-bucket groups into the batcher.
-        Returns the flushes that became ready."""
-        frames_np = batch["frames"]
+        it on the ladder and push per-bucket groups into the batcher,
+        stamped with the scheduling round ``rnd``. Returns the flushes that
+        became ready."""
+        sc = self.serve_cfg
+        frames = batch["frames"]                            # on the device
         idxs = batch["frame_idx"]
         valid = idxs < s.limit
-        scores_np, _ = s.cache.gate(frames_np, idxs, self._score_fn,
-                                    eligible=valid)
-        frames = torch.from_numpy(frames_np).to(self.device)
+        scores_np, n_scored = s.cache.gate(batch["frames_host"], idxs,
+                                           self._score_fn, eligible=valid)
+        s.acct.add_mgnet(n_scored)
         toks = embed_patches(self.params, frames, self.cfg,
                              self.policy)                   # (C, N, d)
-        routes = self.ladder.route_many(mask_budget(scores_np,
-                                                    self.mcfg.t_reg))
+        if sc.force_bucket > 0:
+            pin = self.ladder.route(
+                int(round(sc.force_bucket * self.n_patches)))
+            routes = np.full(frames.shape[0], pin)
+        else:
+            routes = self.ladder.route_many(mask_budget(scores_np,
+                                                        self.mcfg.t_reg))
         order = torch.argsort(torch.from_numpy(scores_np).to(self.device),
                               dim=-1, descending=True, stable=True)
+        # one-shape mode ships the shared cap-size permutation and prunes
+        # by the static per-bucket kv_len at encode time
+        permuted = (_gather_topk_rows(toks, order, self.ladder.cap)
+                    if sc.one_shape else None)              # (C, cap, d)
         out = []
         for k in np.unique(routes[valid]):
             k = int(k)
             sel = np.flatnonzero((routes == k) & valid)
-            pruned = _gather_topk_rows(toks, order, k)       # (C, k, d)
+            pruned = (permuted if sc.one_shape
+                      else _gather_topk_rows(toks, order, k))
             s.record_route(k, len(sel))
-            group = (pruned if len(sel) == frames_np.shape[0]
+            group = (pruned if len(sel) == frames.shape[0]
                      else pruned[torch.from_numpy(sel).to(self.device)])
+            key = k if sc.mix_streams else (k, s.sid)
             out.extend(self.batcher.push_many(
-                (k, s.sid), group, [(s.sid, int(idxs[i])) for i in sel]))
+                key, group, [(s.sid, int(idxs[i])) for i in sel], now=rnd))
+        s.frames_seen += int(valid.sum())
         return out
 
     def _finish(self, fb: FrameBatch, by_sid: dict[int, StreamSession]) -> None:
-        """Encode one flush and hand its predictions to the owning session."""
-        k = fb.bucket[0]
-        with use_sharding(self.mesh):
-            logits = forward_vit_tokens(self.params, fb.tokens, self.cfg,
-                                        self.policy, device=self.device)[0]
+        """Encode one flush and hand each owning session its rows'
+        predictions. The encode is billed at bucket k for the live rows
+        only; padded rows are never predicted or accounted."""
+        k = fb.bucket[0] if isinstance(fb.bucket, tuple) else fb.bucket
+        logits = self._encode(k, fb.tokens)
         preds = torch.argmax(logits[:fb.n_real], dim=-1)
-        sid = fb.bucket[1]
-        sess = by_sid[sid]
-        sess.record_flush(k, fb.n_real)
-        sess.add_deferred([fi for _, fi in fb.frame_idx], preds)
-        self.flush_log.append(((sid,), k, fb.n_real))
-        self.last_flush, self.last_logits = fb, logits
+        owners: dict[int, tuple[list, list]] = {}
+        for row, (sid, fidx) in enumerate(fb.frame_idx):
+            rows, fidxs = owners.setdefault(sid, ([], []))
+            rows.append(row)
+            fidxs.append(fidx)
+        for sid, (rows, fidxs) in owners.items():
+            sess = by_sid[sid]
+            sess.record_flush(k, len(rows))
+            sess.add_deferred(fidxs, preds if len(owners) == 1
+                              else preds[rows])
+        self.flush_log.append((tuple(sorted(owners)), k, fb.n_real))
+        # a graph's logits are overwritten by its next replay
+        self.last_flush = fb
+        self.last_logits = logits.clone() if k in self.graphs else logits
 
 
 # --------------------------------------------------------------------------
@@ -303,6 +586,26 @@ def main(argv=None):
                     help="frames per stream")
     ap.add_argument("--phase", type=int, default=16,
                     help="per-stream start offset (stream i starts at i*phase)")
+    ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument("--microbatch", type=int, default=4)
+    ap.add_argument("--one-shape", action="store_true",
+                    help="encode every flush at the ladder cap with a static "
+                         "packed kept-count per bucket")
+    ap.add_argument("--max-wait", type=int, default=0,
+                    help="pad-flush partial micro-batches after this many "
+                         "scheduling rounds (0: wait for fill or stream end)")
+    ap.add_argument("--mix-streams", action="store_true",
+                    help="fill micro-batches across sessions (couples w8a8 "
+                         "activation scales across streams)")
+    ap.add_argument("--trim-dead-buckets", action="store_true",
+                    help="route-only calibration pass, then drop ladder "
+                         "buckets no stream hits before the warm start")
+    ap.add_argument("--calib-frames", type=int, default=0,
+                    help="frames per stream for --trim-dead-buckets "
+                         "calibration (default 2 chunks)")
+    ap.add_argument("--no-warm-start", action="store_true",
+                    help="no warm start: every flush runs eagerly (on the "
+                         "card: no CUDA graphs)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights (bridge.init_vit)")
     ap.add_argument("--device", default=None,
@@ -326,8 +629,12 @@ def _serve_cli(args):
              or torch.distributed.get_rank() == 0)
     say = print if rank0 else (lambda *a, **k: None)
     cfg = smoke_cfg() if args.smoke else serving_cfg()
-    server = StreamServer(cfg, ServerConfig(model_shards=args.model_shards),
-                          seed=args.seed, device=args.device)
+    # the warm start runs after the optional trim, as in the reference
+    server = StreamServer(cfg, ServerConfig(
+        microbatch=args.microbatch, chunk=args.chunk,
+        one_shape=args.one_shape, max_wait_chunks=args.max_wait,
+        mix_streams=args.mix_streams, warm_start=False,
+        model_shards=args.model_shards), seed=args.seed, device=args.device)
     where = (torch.cuda.get_device_name(server.device)
              if server.device.type == "cuda" else "cpu")
     mesh = ("x".join(str(n) for n in server.mesh.shape.values())
@@ -340,6 +647,15 @@ def _serve_cli(args):
     sessions = [server.add_session(st, n_frames=args.frames,
                                    start=i * args.phase)
                 for i, st in enumerate(streams)]
+    if args.trim_dead_buckets:
+        removed = server.calibrate_trim(args.calib_frames or None)
+        say(f"[server] calibration trimmed buckets {list(removed)} -> "
+            f"ladder {list(server.ladder.sizes)}")
+    if not args.no_warm_start:
+        server.warm_start()
+        say(f"[server] warm start in {server.warm_s:.2f}s "
+            f"({len(server.warmed)} bucket encodes, {len(server.graphs)} "
+            f"CUDA graphs)")
     results = server.serve(verbose=rank0)
     total = sum(r.frames for r in results.values())
     wall = max((r.wall_s for r in results.values()), default=0.0)
@@ -347,7 +663,8 @@ def _serve_cli(args):
         say(f"[server] session {s.sid}:", results[s.sid].summary())
     say(f"[server] aggregate: {total} frames over {len(sessions)} streams "
         f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
-        f"({len(server.flush_log)} encode launches, {where})")
+        f"(warm-up {server.warm_s:.2f}s, {len(server.flush_log)} encode "
+        f"launches, {where})")
     return results
 
 

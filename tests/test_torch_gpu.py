@@ -14,7 +14,10 @@ causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
 within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
 over 2 ranks on the one card bitwise against the unsharded twin on the
-card (an exact int32 accumulate and the same elementwise ops).
+card (an exact int32 accumulate and the same elementwise ops); a CUDA
+graph replay of a bucket encode bitwise against the eager encode of the
+same flush, with the same launch counts, and a graphed interleaved serve
+bitwise, per stream, against solo eager runs.
 """
 
 import sys
@@ -49,9 +52,16 @@ from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E40
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.photonic_matmul import (  # noqa: E402
     entry_for, photonic_matmul_int8)
-from repro_torch.models.vit import (forward_vit,  # noqa: E402
+from repro_torch.models.vit import (embed_patches,  # noqa: E402
+                                    forward_vit,
                                     forward_vit_tokens)
-from repro_torch.serving.server import serving_cfg, smoke_cfg  # noqa: E402
+from repro_torch.data.pipeline import (prefetch_to_device,  # noqa: E402
+                                       video_fleet)
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.session import ServingConfig  # noqa: E402
+from repro_torch.serving.server import (ServerConfig,  # noqa: E402
+                                        StreamServer, _gather_topk_rows,
+                                        serving_cfg, smoke_cfg)
 
 import _torch_ranks  # noqa: E402
 
@@ -606,3 +616,89 @@ def test_fused_ffn_sharded_two_ranks_on_one_card(dev):
                               bits=bits, live_rows=live).cpu().numpy()
         for r in out:
             np.testing.assert_array_equal(r[i], whole)
+
+
+def _flush_tokens(server, k_gather: int, n: int = 4):
+    """(n, k_gather, d) tokens of a real chunk, gathered as the server
+    gathers them."""
+    frames = video_fleet(1, img_size=server.cfg.img_size,
+                         patch=server.cfg.patch)[0].frames_at(0, 8)["frames"]
+    toks = embed_patches(server.params, torch.from_numpy(frames).to(
+        server.device), server.cfg, server.policy)
+    order = torch.argsort(torch.from_numpy(server._score_fn(frames)).to(
+        server.device), dim=-1, descending=True, stable=True)
+    return _gather_topk_rows(toks, order, k_gather)[:n].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one_shape", [False, True])
+def test_graph_replay_is_the_eager_encode(dev, one_shape):
+    """opto-vit-base-224: ``StreamServer(...)`` on the card captures one
+    graph per ladder bucket; each replay gives the eager encode's logits
+    bitwise and counts the eager call's launches."""
+    cfg = serving_cfg("base", 224)
+    server = StreamServer(cfg, ServerConfig(one_shape=one_shape),
+                          params=from_jax_params(init_vit(0, cfg, 10), dev))
+    assert sorted(server.graphs) == list(server.ladder.sizes)
+    for k in server.ladder.sizes:
+        t = _flush_tokens(server, server.ladder.cap if one_shape else k)
+        _build.LAUNCHES.clear()
+        eager = forward_vit_tokens(server.params, t, cfg, server.policy,
+                                   kv_len=k if one_shape else None)[0]
+        eager_counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        graphed = server.graphs[k].replay(t).clone()
+        assert dict(_build.LAUNCHES) == eager_counts
+        assert eager_counts["fused_ffn"] == cfg.n_layers
+        assert torch.equal(graphed, eager), k
+
+
+@pytest.mark.gpu
+def test_graphed_interleaved_serve_matches_solo_eager_runs(dev):
+    """Two streams served interleaved through the graphs equal, per stream
+    and per flush, two solo ``ServingEngine`` runs (eager), bitwise."""
+    cfg = smoke_cfg()
+    params = from_jax_params(init_vit(0, cfg, 10), "cpu")
+    sc = ServerConfig(microbatch=4, chunk=8)
+    fleet = video_fleet(2, img_size=32, patch=8, cut_every=16)
+
+    def logged(server):
+        out, finish = {}, server._finish
+
+        def wrap(fb, by_sid):
+            finish(fb, by_sid)
+            out[tuple(fb.frame_idx)] = server.last_logits
+        server._finish = wrap
+        return out
+
+    server = StreamServer(cfg, sc, params=params)
+    assert sorted(server.graphs) == list(server.ladder.sizes)
+    got = logged(server)
+    sessions = [server.add_session(st, n_frames=32, start=4 * i)
+                for i, st in enumerate(fleet)]
+    res = server.serve()
+    eng = ServingEngine(cfg, ServingConfig(microbatch=4, chunk=8),
+                        params=params)
+    assert eng.server.graphs == {}
+    want = logged(eng.server)
+    for i, (s, st) in enumerate(zip(sessions, fleet)):
+        solo = eng.run(st, n_frames=32, start=4 * i)
+        assert res[s.sid].predictions == solo.predictions
+        assert res[s.sid].bucket_launches == solo.bucket_launches
+        assert res[s.sid].mean_frame_uj == solo.mean_frame_uj
+    # stream i is session i on both servers, so the flushes key alike
+    assert got.keys() == want.keys()
+    for key, logits in want.items():
+        assert torch.equal(got[key], logits), key
+
+
+@pytest.mark.gpu
+def test_prefetch_to_device_on_the_card(dev):
+    st = video_fleet(1, img_size=32, patch=8, seed=2)[0]
+    chunks = [st.frames_at(8 * i, 8) for i in range(7)]
+    out = list(prefetch_to_device(iter(chunks), depth=2, device=dev))
+    for got, want in zip(out, chunks):
+        assert got["frames"].device.type == "cuda"
+        assert got["frames_host"] is want["frames"]
+        assert torch.equal(got["frames"].cpu(),
+                           torch.from_numpy(want["frames"]))
