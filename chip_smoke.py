@@ -37,7 +37,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         runs; a one-shape serve keeps the routing and modeled energy of
         the gathered one; a ``max_wait_chunks=1`` serve (micro-batch 8,
         chunk 3) pads more flushes than the same traffic without the
-        deadline and keeps its routing and energy;
+        deadline and keeps its routing and energy. Then ``[bitplan]``: B1
+        (K-major, M = 788 and 200) and B3 (x (4, 197, 768), d_ff 3072)
+        with x and weights quantized at widths 6 and 4 ((6, 6), (4, 4),
+        (6, 4) for B3), each against its plain version as at 8 bits; the
+        same traffic served by ``StreamServer(ServerConfig(bit_plan=
+        T224_PLAN))`` (per-layer widths 8/6/4, mean 7.0): the plan in the
+        cache (each layer's largest w1 code its width's qmax), every
+        bucket's replay bitwise its eager encode at 49 / 12 / 12 B1 / B2 /
+        B3 launches a flush, every frame predicted, frames/s and the
+        modeled KFPS/W beside the uniform serve in alternating serves, a
+        flush against the CPU (each layer on the same input within one
+        quant step, corr > 0.9999; end to end within twice the distance
+        that one ulp of input moves the logits on either device alone: a
+        4-bit layer puts corr > 0.999 out of reach,
+        scripts/bitplan_parity.py); then ``calibrate_bits(6.5)`` on that
+        warmed, graphed server: its plan, scoring and re-capture
+        wall times, every new replay bitwise the eager encode under the
+        new cache, a graph kept from before the calibration that must
+        replay something else (the planted fault), and the memory
+        allocated before and after (within 10%);
      b. the LM serving path on qwen2-1.5b at full width (28 layers, random
         bf16 weights from seed 0): ``generate`` (batch 4, prompt 128
         prefilled by the decode step, 32 greedy tokens, cache 512) and one
@@ -68,8 +87,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      calls (B3 also its first design and each of its three launches);
      per bucket one 4a flush's encode span eager and replayed (CUDA
      events) and its device time (the profiler, of the eager encode);
-     torch.profiler breakdowns of a 16-frame serve through the graphs and
-     eagerly, and of 8 decode steps;
+     B1 and B3 at each bit-plan width beside their 8-bit calls (device
+     time); torch.profiler breakdowns of a 16-frame serve through the
+     graphs and eagerly, and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
      absolute error against its plain version and the tolerance held;
   7. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -105,6 +125,9 @@ REPLACES = {
 B3_KMAJOR = ("fused_ffn_kmajor_phase0_kernel", "fused_ffn_requant_kernel",
              "fused_ffn_kmajor_phase1_kernel")
 B3_FIRST_DESIGN = ("fused_ffn_phase0_kernel", "fused_ffn_phase1_kernel")
+# kernels one counted launch runs (B3's K-major entry: phase 0, requant,
+# phase 1)
+PER_LAUNCH = {"fused_ffn": len(B3_KMAJOR)}
 SYMBOLS = {
     "photonic_matmul": ("photonic_matmul_s8_kmajor_kernel",
                         "photonic_matmul_s8_kernel"),
@@ -146,6 +169,16 @@ FLUSH_CORR = 0.99999
 # local columns) and by d (after w2's all-reduce), a ragged one and M = 1
 B4_SHAPES = (("large w1 columns", 788, 2048), ("large w2 psum", 788, 1024),
              ("ragged", 37, 1003), ("M = 1", 1, 2048))
+# the [bitplan] path: opto-vit-base-224 under the reference's mixed plan
+# (benchmarks/mixed_precision_bench.py::T224_PLAN: 8-bit head and tail,
+# 6-bit shoulders, one 4-bit middle layer, mean 7.0 bits), then a plan
+# calibrated to this mean width on the same server
+T224_PLAN = (8, 8, 8, 6, 6, 4, 6, 6, 8, 8, 8, 8)
+CALIB_TARGET = 6.5
+# B1 (M, bits) and B3 (w1, w2) bits at the plan's widths, each timed
+# beside its 8-bit call in the same run
+B1_WIDTHS = ((788, 8), (788, 6), (788, 4), (200, 8), (200, 4))
+B3_WIDTHS = ((8, 8), (6, 6), (4, 4), (6, 4))
 
 
 def vit_entry_fault(launches: dict) -> str | None:
@@ -203,8 +236,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(torch, fn, match: tuple = (), iters: int = 50,
-              warmup: int = 5, counter: str | None = None
-              ) -> tuple[float, int]:
+              warmup: int = 5, counter: str | None = None,
+              per_launch: int = 1) -> tuple[float, int]:
     """Mean device milliseconds per call of ``fn()`` from torch.profiler:
     the summed device time of the CUDA kernels it launches, or of only
     those whose name holds one of ``match``. Unlike ``cuda_ms`` it leaves
@@ -214,9 +247,9 @@ def device_ms(torch, fn, match: tuple = (), iters: int = 50,
     wrapper counted under ``counter`` in that pass (so a kernel that did
     not launch is told apart from one the profiler missed), and run
     again; a fifth such pass fails. With ``counter`` a pass must also
-    record at least as many kernel instances as the wrapper counted
-    launches: a pass that lost some of them would read below the true
-    time (one run's dequant epilogue read under its bytes bound after an
+    record at least ``per_launch`` kernel instances (B3's K-major entry:
+    3) for each launch the wrapper counted: a pass that lost some of them
+    would read below the true time (one run's dequant epilogue read under its bytes bound after an
     empty pass, PERF.md). One run of the cluster-launched flash decode had
     an empty pass too (PERF.md, open questions)."""
     from torch.autograd import DeviceType
@@ -238,7 +271,7 @@ def device_ms(torch, fn, match: tuple = (), iters: int = 50,
         us = sum(e.self_device_time_total for e in events)
         recorded = sum(e.count for e in events)
         launched = _build.LAUNCHES[counter] - before if counter else 0
-        if us > 0 and recorded >= launched:
+        if us > 0 and recorded >= launched * per_launch:
             return us / 1e3 / iters, attempt
         counted = (f"; {counter} counted {launched} of {iters} calls' "
                    f"launches in it" if counter else "")
@@ -1147,6 +1180,317 @@ def check_graphs(torch, cfg, sc, params, server, streams, results) -> dict:
     return {"flushes": flushes, "eager_server": eng.server}
 
 
+def plan_kernel_calls(torch, dev) -> dict:
+    """B1 (K-major, 768 x 768) and B3 (x (4, 197, 768), d_ff 3072) at the
+    widths of ``B1_WIDTHS`` / ``B3_WIDTHS``: x and the weights quantized
+    at the width, as a bit plan runs them. Returns (kernel, widths) ->
+    (the kernel's call, a check that holds it against its plain version
+    and returns the largest absolute error)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_nmajor
+    from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    calls = {}
+    for m, bits in B1_WIDTHS:
+        x = torch.randn(m, 768, generator=gen, device=dev)
+        wq, sw = qweight(torch, gen, 768, 768, bits, dev)
+        wt = wq.t().contiguous()
+        sx = quant.absmax_scale(x, bits=bits)
+        xq = quant.quantize(x, sx, bits=bits)
+
+        def check(xq=xq, wq=wq, wt=wt, sx=sx, sw=sw, m=m, bits=bits):
+            qmax = quant.quant_range(bits)[1]
+            if max(int(xq.abs().max()), int(wq.abs().max())) > qmax:
+                fail(f"B1 at {bits} bits: codes outside +-{qmax}")
+            acc = photonic_matmul_int8(xq, wq, torch.ones((), device=dev),
+                                       torch.ones(768, device=dev), wt=wt)
+            if not torch.equal(acc.long(),
+                               ref.int_accumulate_ref(xq, wq).long()):
+                fail(f"B1 ({m},768,768) at {bits} bits: accumulate not "
+                     f"bitwise")
+            got = photonic_matmul_int8(xq, wq, sx, sw, wt=wt)
+            want = ref.photonic_matmul_ref(xq, wq, sx, sw)
+            e = (got - want).abs().max().item()
+            rel = e / max(want.abs().max().item(), 1e-30)
+            say(f"[bitplan] B1 ({m},768,768) at {bits} bits, codes within "
+                f"+-{qmax}: accumulate bitwise, max abs err {e:.3e}, rel "
+                f"{rel:.3e} (tol 1e-6)")
+            if rel > 1e-6:
+                fail(f"B1 at {bits} bits: relative error {rel} > 1e-6")
+            return e
+        calls[("photonic_matmul", (m, bits))] = (
+            lambda xq=xq, wq=wq, wt=wt, sx=sx, sw=sw: photonic_matmul_int8(
+                xq, wq, sx, sw, wt=wt), check)
+    x = torch.randn(4, 197, 768, generator=gen, device=dev)
+    b1 = torch.randn(3072, generator=gen, device=dev) * 0.1
+    b2 = torch.randn(768, generator=gen, device=dev) * 0.1
+    for bits in B3_WIDTHS:
+        w1q, s1 = qweight(torch, gen, 768, 3072, bits[0], dev)
+        w2q, s2 = qweight(torch, gen, 3072, 768, bits[1], dev)
+        args = (x, w1q, s1, b1, w2q, s2, b2)
+        w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+
+        def check(args=args, w1t=w1t, w2t=w2t, bits=bits):
+            got = fused_ffn(*args, bits=bits, w1t=w1t, w2t=w2t)
+            first = fused_ffn_nmajor(*args, bits=bits)
+            want = ref.fused_ffn_ref(*args, bits=bits)
+            e = (got - want).abs().max().item()
+            say(f"[bitplan] B3 x(4,197,768) d_ff 3072 at bits {bits}: max "
+                f"abs err {e:.3e} (one quant step), bitwise the first "
+                f"design {torch.equal(got, first)}")
+            if not quant_step_close(torch, got, want):
+                fail(f"B3 at bits {bits}: outside one quant step ({e})")
+            if not torch.equal(got, first):
+                fail(f"B3 at bits {bits}: the K-major entry is not bitwise "
+                     f"the first design")
+            return e
+        calls[("fused_ffn", bits)] = (
+            lambda args=args, w1t=w1t, w2t=w2t, bits=bits: fused_ffn(
+                *args, bits=bits, w1t=w1t, w2t=w2t), check)
+    return calls
+
+
+def flush_tokens(torch, server, streams) -> dict:
+    """Bucket -> 4 frames of a real chunk gathered as ``server`` serves."""
+    from repro_torch.models.vit import embed_patches
+    from repro_torch.serving.server import _gather_topk_rows
+
+    frames = streams[0].frames_at(0, 8)["frames"]
+    toks = embed_patches(server.params, torch.from_numpy(frames).to(
+        server.device), server.cfg, server.policy)
+    order = torch.argsort(torch.from_numpy(server._score_fn(frames)).to(
+        server.device), dim=-1, descending=True, stable=True)
+    return {k: _gather_topk_rows(toks, order, k)[:4].contiguous()
+            for k in server.ladder.sizes}
+
+
+def replays_are_eager(torch, server, tokens: dict, tag: str) -> None:
+    """Every bucket's graph replays the eager encode of the same flush
+    bitwise, with the eager call's launch counts: 49 B1 (4 a layer and the
+    head), 12 B2 and 12 B3 launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.vit import forward_vit_tokens
+
+    cfg = server.cfg
+    if not (sorted(server.graphs) == sorted(server.warmed)
+            == list(server.ladder.sizes)):
+        fail(f"{tag}: graphs {sorted(server.graphs)}, warmed "
+             f"{sorted(server.warmed)}")
+    want = {"photonic_matmul": 4 * cfg.n_layers + 1,
+            "flash_attention_masked": cfg.n_layers,
+            "fused_ffn": cfg.n_layers}
+    for k, t in tokens.items():
+        _build.LAUNCHES.clear()
+        eager = forward_vit_tokens(server.params, t, cfg, server.policy)[0]
+        eager_n = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        graphed = server.graphs[k].replay(t).clone()
+        replay_n = dict(_build.LAUNCHES)
+        vit = {n: replay_n.get(n, 0) for n in VIT_KERNELS}
+        say(f"[bitplan] {tag} k={k}: replay bitwise the eager encode "
+            f"{torch.equal(graphed, eager)}, launches a replay {vit}")
+        if not torch.equal(graphed, eager):
+            fail(f"{tag} k={k}: replay differs from eager by "
+                 f"{(graphed - eager).abs().max().item():.3e}")
+        if replay_n != eager_n or vit != want:
+            fail(f"{tag} k={k}: launches a replay {replay_n}, eager "
+                 f"{eager_n}, want {want}")
+
+
+def against_cpu(torch, server, fb, logits) -> None:
+    """One flush under the plan against the CPU port (the plain versions).
+    Each layer on the same input (the CPU's walk's) is held to one quant
+    step, corr > 0.9999 (B3's class). End to end, a 4-bit layer turns
+    last-bit differences upstream into code flips: moving the flush's
+    tokens by one ulp moves the card's own logits to corr ~0.994
+    (scripts/bitplan_parity.py), so the card against the CPU is held to
+    at most twice the distance (1 - corr) that one ulp moves either
+    device by itself, on this flush; top-1 is printed."""
+    from repro_torch.bridge import to_device
+    from repro_torch.models.layers import layer_view
+    from repro_torch.models.vit import encoder_layer_step, forward_vit_tokens
+
+    cfg, pol, dev = server.cfg, server.policy, server.device
+    t = fb.tokens
+    cpu_params = to_device(server.params, "cpu")
+    plain = forward_vit_tokens(cpu_params, t.cpu(), cfg, pol,
+                               device="cpu")[0]
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    own = min(corr(torch, forward_vit_tokens(server.params, up, cfg,
+                                             pol)[0], logits),
+              corr(torch, forward_vit_tokens(cpu_params, up.cpu(), cfg, pol,
+                                             device="cpu")[0], plain))
+    end = corr(torch, logits, plain)
+    top1 = int((logits.cpu().argmax(-1) == plain.argmax(-1)).sum())
+    b, _, d = t.shape
+    x = torch.cat([(cpu_params["cls"].expand(b, 1, d)
+                    + cpu_params["pos"][:, :1]), t.cpu()], dim=1)
+    layers = []
+    for i in range(cfg.n_layers):
+        want = encoder_layer_step(x, layer_view(cpu_params["blocks"], i),
+                                  cfg, pol)
+        got = encoder_layer_step(x.to(dev), layer_view(
+            server.params["blocks"], i), cfg, pol)
+        layers.append(corr(torch, got, want))
+        x = want
+    say(f"[bitplan] flush k={fb.bucket[0]} under the plan re-encoded on the "
+        f"CPU with the plain versions: logits corr {end:.6f}, top-1 "
+        f"{top1}/{b} (one ulp up the tokens, each device against itself: "
+        f"corr {own:.6f}); each layer on the same input, card vs CPU: corr "
+        f">= {min(layers):.7f}")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != plain.shape:
+        fail(f"mixed-plan logits {tuple(logits.shape)} not finite")
+    if min(layers) <= 0.9999:
+        fail(f"a layer under the plan, card vs CPU on the same input: corr "
+             f"{min(layers)} <= 0.9999 ({layers})")
+    if 1 - end > 2 * (1 - own):
+        fail(f"mixed-plan card vs CPU logits corr {end}: further than twice "
+             f"what one ulp of input moves either device alone ({own})")
+
+
+def run_bitplan(torch, cfg, sc, params, streams, uniform, card) -> dict:
+    """The [bitplan] path: 4a's traffic on opto-vit-base-224 under
+    ``T224_PLAN`` (graphs, launches, a flush against the CPU, frames/s and
+    modeled KFPS/W beside ``uniform``, 4a's server, in alternating
+    serves), then ``calibrate_bits(CALIB_TARGET)`` on the same warmed,
+    graphed server (re-capture, memory, a planted stale graph)."""
+    import gc
+    from dataclasses import replace
+    from repro_torch.kernels import _build
+    from repro_torch.models.vit import forward_vit_tokens
+    from repro_torch.serving.server import StreamServer
+
+    mixed = StreamServer(cfg, replace(sc, bit_plan=T224_PLAN), params=params)
+    # no local reference to the cache: the memory reading below counts
+    # what the server keeps
+    w1_bits = mixed.params["blocks"]["ffn"]["w1"].bits
+    top = [int(q.abs().max()) for q in mixed.params["blocks"]["ffn"]["w1"].wq]
+    say(f"[bitplan] {cfg.name} under the plan {list(T224_PLAN)} (mean "
+        f"{sum(T224_PLAN) / len(T224_PLAN):.2f} bits): warm start "
+        f"{mixed.warm_s:.2f}s, graphs at {sorted(mixed.graphs)}; largest "
+        f"|w1 code| a layer {top}")
+    # each layer's largest code is its width's qmax: 127, 31 or 7
+    if (mixed.layer_bits != T224_PLAN or w1_bits != T224_PLAN
+            or top != [2 ** (b - 1) - 1 for b in T224_PLAN]):
+        fail(f"the plan did not reach the cache: layer_bits "
+             f"{mixed.layer_bits}, w1.bits {w1_bits}, |codes| {top}")
+    tokens = flush_tokens(torch, mixed, streams)
+    replays_are_eager(torch, mixed, tokens, "mixed plan")
+
+    mixed.add_session(streams[0], n_frames=8, start=1000)
+    mixed.serve()                                      # warm-up
+    fps = {"uniform": [], "mixed": []}
+    served = {}
+    for _ in range(3):
+        for tag, srv in (("uniform", uniform), ("mixed", mixed)):
+            ss = [srv.add_session(st, n_frames=32, start=16 * i)
+                  for i, st in enumerate(streams)]
+            _build.LAUNCHES.clear()
+            res = srv.serve()
+            launches = dict(_build.LAUNCHES)
+            fault = vit_entry_fault(launches)
+            n_flush = len(srv.flush_log)
+            if (fault or launches.get("photonic_matmul", 0) <= 0
+                    or launches.get("flash_attention_masked", 0)
+                    != cfg.n_layers * n_flush
+                    or launches.get("fused_ffn", 0)
+                    != cfg.n_layers * n_flush):
+                fail(f"{tag} serve: {fault or launches} for {n_flush} "
+                     f"flushes")
+            for s in ss:
+                r = res[s.sid]
+                if (set(r.predictions) != set(range(s.start, s.start + 32))
+                        or r.frames != 32):
+                    fail(f"{tag} session {s.sid}: {len(r.predictions)} "
+                         f"predictions for 32 frames")
+            rs = [res[s.sid] for s in ss]
+            fps[tag].append(64 / max(r.wall_s for r in rs))
+            served[tag] = (rs, launches, n_flush)
+    (urs, _, _), (mrs, mlaunch, mflush) = served["uniform"], served["mixed"]
+    agree = sum(m.predictions[j] == u.predictions[j]
+                for m, u in zip(mrs, urs) for j in m.predictions)
+    for i, (m, u) in enumerate(zip(mrs, urs)):
+        if m.bucket_hits != u.bucket_hits or m.mean_bits != 7.0:
+            fail(f"mixed stream {i}: hits {m.bucket_hits} (uniform "
+                 f"{u.bucket_hits}), mean bits {m.mean_bits}")
+        say(f"[bitplan] stream {i}: modeled {m.kfps_per_watt:.2f} KFPS/W "
+            f"and {m.mean_frame_uj:.4f} uJ a frame under the plan against "
+            f"{u.kfps_per_watt:.2f} KFPS/W and {u.mean_frame_uj:.4f} uJ "
+            f"uniform ({m.kfps_per_watt / u.kfps_per_watt:.4f}x; the "
+            f"photonic accelerator model's, not the H100's)")
+    say(f"[bitplan] launches of the last mixed serve: "
+        f"{ {n: mlaunch.get(n, 0) for n in VIT_KERNELS} } for {mflush} "
+        f"flushes; top-1 agreement with the uniform serve {agree}/64")
+    say(f"[bitplan] frames/s, alternating serves of 2 streams x 32 frames: "
+        f"uniform {', '.join(f'{v:.2f}' for v in fps['uniform'])}; mixed "
+        f"plan {', '.join(f'{v:.2f}' for v in fps['mixed'])} ({card})")
+    against_cpu(torch, mixed, mixed.last_flush, mixed.last_logits)
+
+    # calibrate_bits on the warmed, graphed server; one graph captured
+    # before it is kept (the planted fault: it replays the old cache)
+    mixed.add_session(streams[1], n_frames=8, start=3000)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    k_stale = mixed.ladder.sizes[1]
+    stale = mixed.graphs[k_stale]
+    plan = mixed.calibrate_bits(CALIB_TARGET)
+    mean = sum(plan) / len(plan)
+    say(f"[bitplan] calibrate_bits({CALIB_TARGET}): plan {list(plan)}, mean "
+        f"{mean:.3f} bits; scoring {mixed.calibrate_s:.3f}s wall, re-capture "
+        f"of {len(mixed.graphs)} graphs {mixed.recapture_s:.3f}s wall "
+        f"({card})")
+    if mean > CALIB_TARGET or mixed.layer_bits != plan:
+        fail(f"calibrated plan {plan} misses the mean {CALIB_TARGET}")
+    replays_are_eager(torch, mixed, tokens, "calibrated")
+    eager = forward_vit_tokens(mixed.params, tokens[k_stale], cfg,
+                               mixed.policy)[0]
+    old = stale.replay(tokens[k_stale]).clone()
+    say(f"[bitplan] planted fault, a graph captured before the calibration "
+        f"(k={k_stale}): its replay differs from the eager encode under the "
+        f"new cache by {(old - eager).abs().max().item():.3e}")
+    if torch.equal(old, eager):
+        fail("the stale graph replays the new cache: the replay check "
+             "cannot tell a stale graph")
+    torch.cuda.synchronize()
+    mem_stale = torch.cuda.memory_allocated()
+    del stale, old
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    say(f"[bitplan] memory allocated on the card: {mem0 / 2**20:.1f} MiB "
+        f"before the calibration, {mem_stale / 2**20:.1f} MiB after it with "
+        f"the stale graph (and its old cache) held, {mem1 / 2**20:.1f} MiB "
+        f"once it is dropped ({mem1 / mem0:.4f}x)")
+    if mem1 > 1.10 * mem0:
+        fail(f"memory after the re-capture {mem1} > 1.10 x {mem0}: old "
+             f"graphs or caches leak")
+    (r,) = mixed.serve().values()
+    if len(r.predictions) != 8 or r.mean_bits != mean:
+        fail(f"the calibrated serve: {r.summary()}, mean bits {r.mean_bits}")
+    say(f"[bitplan] 8 frames served under the calibrated plan: "
+        f"{r.summary()}")
+    return {"fps": fps, "plan": plan}
+
+
+def time_plan_kernels(torch, calls: dict, card: str) -> dict:
+    """Device ms of B1 and B3 at each width of ``calls``, beside the 8-bit
+    call of the same shape in the same run. Returns kernel -> {widths:
+    ms}."""
+    out = {"photonic_matmul": {}, "fused_ffn": {}}
+    for (kname, widths), (fn, _) in calls.items():
+        ms, _ = device_ms(torch, fn, SYMBOLS[kname], counter=kname,
+                          per_launch=PER_LAUNCH.get(kname, 1))
+        out[kname][str(widths)] = ms
+    for kname, label in (("photonic_matmul", "(M, bits)"),
+                         ("fused_ffn", "(w1, w2) bits")):
+        say(f"[bitplan] {kname} device ms by {label}: " + ", ".join(
+            f"{w} {ms:.5f}" for w, ms in out[kname].items()) + f" ({card})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1203,6 +1547,10 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     errs.update(check_lm_kernels(torch, dev))
     errs.update(check_b4(torch, dev))
+    # B1 and B3 at the bit plan's widths
+    plan_calls = plan_kernel_calls(torch, dev)
+    for (kname, _), (_, check) in plan_calls.items():
+        errs[kname] = max(errs[kname], check())
 
     # -- 4a. main path: ViT serving ----------------------------------------
     cfg = serving_cfg("base", 224)
@@ -1266,6 +1614,9 @@ def main() -> int:
         fail(f"card vs plain logits correlation {corr} <= 0.999")
     graphs = check_graphs(torch, cfg, sc, params, server, streams,
                           [results[s.sid] for s in sessions])
+
+    # -- [bitplan]: 4a under a per-layer bit plan, then calibrate_bits ------
+    bitplan = run_bitplan(torch, cfg, sc, params, streams, server, card)
 
     # -- 4b. main path: LM serving -----------------------------------------
     lm = run_lm(torch, dev, card)
@@ -1462,7 +1813,8 @@ def main() -> int:
     # calls, so the wrapper's host work counts where it outlasts the kernel
     kernels = []
     for (kname, shape, (fn, plain_fn, lib_fn), ops_s, bytes_s, lib) in rows:
-        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
+        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname,
+                               per_launch=PER_LAUNCH.get(kname, 1))
         event_ms = cuda_ms(fn)
         plain_ms, _ = device_ms(torch, plain_fn)
         lib_ms = device_ms(torch, lib_fn)[0] if lib_fn is not None else None
@@ -1497,6 +1849,11 @@ def main() -> int:
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
             **extra})
+
+    plan_ms = time_plan_kernels(torch, plan_calls, card)
+    for entry in kernels:
+        if entry["name"] in plan_ms:
+            entry["ms_by_bits"] = plan_ms[entry["name"]]
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

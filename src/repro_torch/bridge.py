@@ -7,7 +7,9 @@ accepts) and returns the port's tree of tensors with the same keys. A
 bfloat16 leaf (numpy holds it as ``ml_dtypes.bfloat16``, which torch
 cannot read) crosses bit for bit as ``torch.bfloat16``. A cached weight
 arrives as a ``(wq, scale, bits)`` tuple, or as any object with ``wq``,
-``scale`` and ``bits`` attributes, and becomes a ``QuantizedWeight``.
+``scale`` and ``bits`` attributes, and becomes a ``QuantizedWeight`` (a
+per-layer ``bits`` tuple, from a mixed-precision bit plan, included; the
+K-major copy ``wt`` is made once here).
 Scan-stacked ``blocks`` leaves keep their leading L axis: the models slice
 one layer per step.
 
@@ -48,14 +50,10 @@ def from_jax_params(tree, device=None):
         if _is_cached(leaf):
             wq, scale, bits = (leaf if isinstance(leaf, tuple)
                                else (leaf.wq, leaf.scale, leaf.bits))
-            if isinstance(bits, (tuple, list)):
-                raise NotImplementedError(
-                    "per-layer bit plans are not ported yet "
-                    "(ROADMAP.md queue A)")
             return QuantizedWeight(
                 torch.from_numpy(np.array(wq, np.int8)).to(dev),
                 torch.from_numpy(np.array(scale, np.float32)).to(dev),
-                int(bits))
+                bits)
         return _to_tensor(leaf).to(dev)
 
     return conv(tree)

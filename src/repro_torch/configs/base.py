@@ -4,9 +4,9 @@ defaults unchanged so a reader finds each counterpart.
 
 Two families are ported: ``vit`` (the near-sensor serving path) and
 ``dense`` (the decoder-only LM serving path: prefill + KV-cache decode).
-The other LM families, training knobs, bit plans and device noise come
-with later slices of the port (ROADMAP.md queue A15), each with the
-fields its path reads.
+The other LM families, training knobs and device noise come with later
+slices of the port (ROADMAP.md queue A), each with the fields its path
+reads.
 """
 
 from __future__ import annotations
@@ -50,6 +50,11 @@ class ArchConfig:
     #                                      from quant_bits (core/backend.py)
     attn_backend: str = ""               # flash
     ffn_backend: str = ""                # fused
+    bit_plan: tuple = ()                 # per-layer bit widths (one per
+    #                                      encoder block, core/bitalloc.py);
+    #                                      () = uniform quant_bits. Feeds
+    #                                      prepare_params(bit_plan=...) and
+    #                                      ExecPolicy.bit_plan
 
     norm_eps: float = 1e-6
     tie_embeddings: bool = False

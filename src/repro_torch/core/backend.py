@@ -7,7 +7,9 @@ src/repro/core/backend.py, serving subset).
   * ``QuantizedWeight`` + ``prepare_params`` - the quantize-once cache:
     every matmul weight replaced once by its int8 codes + per-output-
     channel f32 scale (the MR tuning step), selected by the same key rules
-    as the reference, so the same leaves are cached, MGNet's included;
+    as the reference, so the same leaves are cached, MGNet's included; a
+    mixed-precision bit plan (core/bitalloc.py) gives each stacked layer
+    its own width;
   * ``linear``  - matmul registry: ``bf16`` (the LM default: f32
     accumulate, one rounding to the activation dtype; a plain matmul, as
     the reference leaves it to XLA) and ``photonic_pallas`` (the int8
@@ -33,7 +35,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import bitalloc, quant
 
 __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
            "prepare_params", "place_params", "NON_MATMUL_KEYS",
@@ -58,23 +60,33 @@ class ExecPolicy:
     unported backend raises when the policy is built. ``attn_backend`` and
     ``ffn_backend`` default to the reference's "xla" entries, also not
     ported: the ViT serving point names photonic_pallas + flash + fused.
+
+    ``bit_plan`` is the identity of the active mixed-precision plan
+    (``core.bitalloc.plan_key`` output, or a bare per-layer tuple); None
+    means uniform ``quant_bits``. Setting it lets ``_weight_bits`` accept
+    cached widths that differ from ``quant_bits`` (deliberate per-layer
+    widths instead of a stale cache, which without a plan is an error).
     """
 
     __slots__ = ("quant_bits", "backend", "attn_backend", "ffn_backend",
-                 "matmul_fn")
+                 "matmul_fn", "bit_plan")
 
     def __init__(self, quant_bits: int = 0, backend: str = "",
-                 attn_backend: str = "", ffn_backend: str = ""):
+                 attn_backend: str = "", ffn_backend: str = "",
+                 bit_plan=None):
         self.quant_bits = quant_bits
         self.backend = backend or ("qat" if quant_bits else "bf16")
         self.matmul_fn = _lookup(BACKENDS, "matmul", self.backend)
         self.attn_backend = attn_backend
         self.ffn_backend = ffn_backend
+        self.bit_plan = (tuple(bit_plan) if isinstance(bit_plan, list)
+                         else bit_plan) or None
 
     @staticmethod
     def from_cfg(cfg) -> "ExecPolicy":
         return ExecPolicy(cfg.quant_bits, cfg.matmul_backend,
-                          cfg.attn_backend, cfg.ffn_backend)
+                          cfg.attn_backend, cfg.ffn_backend,
+                          cfg.bit_plan or None)
 
     def resolve_attn_backend(self) -> str:
         return self.attn_backend or "xla"
@@ -86,9 +98,11 @@ class ExecPolicy:
         return self.backend.startswith("photonic")
 
     def __repr__(self):
+        plan = "" if self.bit_plan is None else f", plan={self.bit_plan}"
         return (f"ExecPolicy(backend={self.backend!r}, "
                 f"attn={self.resolve_attn_backend()!r}, "
-                f"ffn={self.resolve_ffn_backend()!r}, bits={self.quant_bits})")
+                f"ffn={self.resolve_ffn_backend()!r}, bits={self.quant_bits}"
+                f"{plan})")
 
 
 
@@ -102,29 +116,45 @@ class QuantizedWeight:
 
     ``wq``: (..., K, N) int8; ``scale``: (..., 1, N) f32. A leading L axis
     carries scan-stacked layers (``wq[i]`` is layer i's (K, N) bank).
-    ``bits`` is one int width for every layer. ``wt``: (..., N, K) int8,
-    the same codes K-major (contiguous), which the photonic matmul kernel's
-    K-major entry reads (the tensor cores take int8 operands K-major only).
-    It is made once, where a cache entry is made or moved (given, or the
-    transpose of ``wq`` when not), never per call: ``layer(i)`` slices it.
+    ``bits`` is an int, or for a stacked (L, K, N) weight under a
+    mixed-precision bit plan a length-L tuple of per-layer widths; a 2-D
+    dispatch only ever sees an int (``layer(i)`` hands layer i its own).
+    ``wt``: (..., N, K) int8, the same codes K-major (contiguous), which
+    the photonic matmul kernel's K-major entry reads (the tensor cores take
+    int8 operands K-major only). It is made once, where a cache entry is
+    made or moved (given, or the transpose of ``wq`` when not), never per
+    call: ``layer(i)`` slices it.
     """
 
     __slots__ = ("wq", "scale", "bits", "wt")
 
-    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, bits: int = 8,
+    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, bits=8,
                  wt: torch.Tensor | None = None):
         self.wq = wq
         self.scale = scale
-        self.bits = int(bits)
+        self.bits = (tuple(int(b) for b in bits)
+                     if isinstance(bits, (tuple, list)) else int(bits))
         self.wt = wq.transpose(-1, -2).contiguous() if wt is None else wt
 
     @property
     def ndim(self):
         return self.wq.ndim
 
+    def layer_bits(self, i: int) -> int:
+        """Width of stacked layer ``i`` (an int ``bits`` is uniform)."""
+        return self.bits[i] if isinstance(self.bits, tuple) else self.bits
+
+    def uniform_bits(self) -> int | None:
+        """The single width when uniform, else None (mixed stacked)."""
+        if isinstance(self.bits, tuple):
+            u = set(self.bits)
+            return u.pop() if len(u) == 1 else None
+        return self.bits
+
     def layer(self, i: int) -> "QuantizedWeight":
-        """Layer ``i`` of a stacked cache entry (views, no copies)."""
-        return QuantizedWeight(self.wq[i], self.scale[i], self.bits,
+        """Layer ``i`` of a stacked cache entry at its own int width
+        (views, no copies)."""
+        return QuantizedWeight(self.wq[i], self.scale[i], self.layer_bits(i),
                                self.wt[i])
 
     def to(self, device) -> "QuantizedWeight":
@@ -135,10 +165,28 @@ class QuantizedWeight:
         return f"QuantizedWeight(shape={tuple(self.wq.shape)}, bits={self.bits})"
 
 
-def quantize_weight(w: torch.Tensor, bits: int = 8) -> QuantizedWeight:
+def quantize_weight(w: torch.Tensor, bits=8) -> QuantizedWeight:
     """Codes + scale for one weight; the scale reduces only the contraction
-    axis (-2), i.e. per output channel per layer for stacked weights."""
+    axis (-2), i.e. per output channel per layer for stacked weights.
+
+    ``bits`` may be a per-layer sequence for a stacked (L, K, N) weight:
+    each layer is quantized at its own width (bitwise what quantizing the
+    2-D slices apart gives) and codes, scales and the K-major copy are
+    stacked once into one cache entry. A uniform sequence takes the int
+    path."""
     w32 = w.float()
+    if isinstance(bits, (tuple, list)):
+        bt = tuple(int(b) for b in bits)
+        if w32.ndim < 3 or w32.shape[0] != len(bt):
+            raise ValueError(
+                f"per-layer bits {bt} need a stacked (L={len(bt)}, K, N) "
+                f"weight, got shape {tuple(w.shape)}")
+        if len(set(bt)) > 1:
+            parts = [quantize_weight(w32[i], bt[i]) for i in range(len(bt))]
+            return QuantizedWeight(torch.stack([p.wq for p in parts]),
+                                   torch.stack([p.scale for p in parts]), bt,
+                                   torch.stack([p.wt for p in parts]))
+        bits = bt[0]                            # uniform plan: int path
     scale = quant.absmax_scale(w32, bits=bits, axis=-2)     # (..., 1, N)
     return QuantizedWeight(quant.quantize(w32, scale, bits=bits), scale, bits)
 
@@ -161,14 +209,41 @@ def _is_matmul_weight_key(name: str) -> bool:
 
 
 def prepare_params(params, bits: int = 8, min_size: int = 128,
-                   exclude: frozenset = NON_MATMUL_KEYS):
+                   exclude: frozenset = NON_MATMUL_KEYS,
+                   bit_plan=None, n_layers: int | None = None):
     """Quantize every matmul weight of a nested-dict param tree once.
 
     A leaf is cached iff its key names a ``linear`` weight (``w*`` prefix
     or ``MATMUL_WEIGHT_EXTRA``), no key on its path is in ``exclude``, and
     it is a float tensor of ndim >= 2 with at least ``min_size`` elements.
     Already-cached leaves pass through. Returns a new tree.
+
+    ``bit_plan`` assigns non-uniform widths (core/bitalloc.py): a
+    per-layer sequence (one width per encoder block, applied to every
+    matmul weight of the stacked ``blocks`` subtree) or a dict with
+    per-tensor path-suffix overrides (``{"attn/wq": 4, "ffn/w2": (8, 6,
+    6, 8)}``) plus optional ``"layers"`` / ``"default"`` keys. Each leaf's
+    width is ``bitalloc.resolve_bits`` of its key path; weights outside
+    ``blocks`` take the plan's default (``bits`` unless overridden), and
+    a per-layer width on a weight that is not stacked falls back to
+    ``bits``. ``n_layers`` sizes per-layer sequences; it defaults to the
+    leading dim of the stacked ``blocks`` leaves.
     """
+    plan = None
+    if bit_plan is not None:
+        if n_layers is None:
+            n_layers = _infer_n_layers(params)
+        plan = bitalloc.normalize_bit_plan(bit_plan, n_layers, default=bits)
+
+    def leaf_bits(path, node):
+        if plan is None:
+            return bits
+        lb = bitalloc.resolve_bits(plan, path)
+        if isinstance(lb, tuple) and (node.ndim < 3
+                                      or node.shape[0] != len(lb)):
+            return bits      # per-layer plan, non-stacked weight: default
+        return lb
+
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (str(k),)) for k, v in node.items()}
@@ -182,9 +257,30 @@ def prepare_params(params, bits: int = 8, min_size: int = 128,
             return node
         if not torch.is_floating_point(node):
             return node
-        return quantize_weight(node, bits=bits)
+        return quantize_weight(node, bits=leaf_bits(path, node))
 
     return walk(params, ())
+
+
+def _infer_n_layers(params) -> int:
+    """Leading dim of the stacked ``blocks`` leaves (plan sizing)."""
+    def first(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                n = first(v)
+                if n is not None:
+                    return n
+            return None
+        if isinstance(node, QuantizedWeight):
+            node = node.wq
+        return int(node.shape[0]) if getattr(node, "ndim", 0) >= 1 else None
+
+    blocks = params.get("blocks") if isinstance(params, dict) else None
+    n = first(blocks) if blocks is not None else None
+    if n is None:
+        raise ValueError("cannot infer n_layers for a per-layer bit plan: "
+                         "no stacked 'blocks' subtree; pass n_layers=")
+    return n
 
 
 def place_params(params, logical_axes, ctx):
@@ -199,7 +295,8 @@ def place_params(params, logical_axes, ctx):
     scale and b2 stay whole, and everything else (wo, head, LN, cls, pos,
     MGNet) stays whole. A ``QuantizedWeight`` slices its codes and its
     scale by the same axes (the scale's size-1 contraction dim replicates
-    by the divisibility rule) and keeps its ``bits``. A leaf whose rank
+    by the divisibility rule) and keeps its ``bits``, a per-layer tuple
+    included. A leaf whose rank
     does not match its axes entry stays whole. Its K-major copy ``wt``
     slices by the same axes with the last two swapped (a column shard of
     ``wq`` is a row shard of ``wt``). Sliced leaves are made contiguous
@@ -236,16 +333,24 @@ def _resolve_wq(w, bits: int) -> QuantizedWeight:
 
 def _weight_bits(w, p: ExecPolicy) -> int:
     """Width for a 2-D dispatch: the cached width for a cached weight, else
-    ``policy.quant_bits`` (8 when unset). A cached width that disagrees with
-    an explicit ``quant_bits`` is a stale cache and an error (per-layer bit
-    plans, which make that deliberate, are not ported yet)."""
+    ``policy.quant_bits`` (8 when unset). A stacked per-layer tuple here is
+    an error (slice the layer first: ``QuantizedWeight.layer``), and so is
+    a cached width that disagrees with an explicit ``quant_bits`` unless a
+    bit plan is active (``policy.bit_plan``): without one it is a stale
+    cache."""
     if isinstance(w, QuantizedWeight):
-        if p.quant_bits and w.bits != p.quant_bits:
+        if isinstance(w.bits, tuple):
+            raise ValueError(
+                f"stacked mixed-bits QuantizedWeight (bits={w.bits}) "
+                f"reached a 2-D matmul dispatch; slice it to one layer "
+                f"first (QuantizedWeight.layer, as the encoder does)")
+        if p.quant_bits and p.bit_plan is None and w.bits != p.quant_bits:
             raise ValueError(
                 f"cached QuantizedWeight.bits={w.bits} disagrees with "
-                f"ExecPolicy.quant_bits={p.quant_bits} — re-run "
-                f"prepare_params at the policy's width, or set quant_bits=0 "
-                f"to defer to the cache")
+                f"ExecPolicy.quant_bits={p.quant_bits} and no bit plan is "
+                f"active — re-run prepare_params at the policy's width, "
+                f"set quant_bits=0 to defer to the cache, or set "
+                f"ExecPolicy.bit_plan for deliberate mixed precision")
         return w.bits
     return p.quant_bits or 8
 

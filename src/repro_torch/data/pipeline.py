@@ -17,6 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["VideoStream", "video_fleet", "prefetch_to_device"]
 
 
@@ -100,7 +102,7 @@ def video_fleet(n_streams: int, img_size: int, patch: int = 16,
 
 def prefetch_to_device(it: Iterator[dict], depth: int = 2,
                        keys: tuple[str, ...] = ("frames",),
-                       device="cpu") -> Iterator[dict]:
+                       device=None) -> Iterator[dict]:
     """Double-buffered host -> device ingest: ``depth`` host batches in
     flight, yielded in order. Each entry under ``keys`` becomes a tensor on
     ``device``, and its host array stays beside it as ``<key>_host`` (the
@@ -116,13 +118,13 @@ def prefetch_to_device(it: Iterator[dict], depth: int = 2,
     and the device tensor is recorded on that stream so the allocator
     never hands its memory to the copy stream early. The pinned buffers
     form a ring of ``depth + 1`` per key; a slot is refilled only after the
-    event of the copy that last read it has completed. On the CPU the
-    batches pass through in order (``<key>`` a tensor view of the host
-    array).
+    event of the copy that last read it has completed. On the CPU (which
+    ``device="cpu"`` asks for; the default is the card) the batches pass
+    through in order (``<key>`` a tensor view of the host array).
     """
     if depth < 1:
         raise ValueError("prefetch depth must be >= 1")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type != "cuda":
         for item in it:
             out = dict(item)

@@ -1,8 +1,9 @@
 """Where the port's entry points run: on the card unless the caller asks
 for the CPU.
 
-``StreamServer``, ``forward_vit``, ``forward_vit_tokens``,
-``encode_tokens``, ``models/api.py::init_model`` and
+``StreamServer``, ``StreamSession``, ``forward_vit``,
+``forward_vit_tokens``, ``encode_tokens``, ``data/pipeline.py::
+prefetch_to_device``, ``models/api.py::init_model`` and
 ``launch/serve.py::init_cache`` / ``main`` resolve their ``device``
 argument here: None means ``cuda``; ``"cpu"`` runs every kernel's plain
 PyTorch version. With no card and no explicit CPU request they raise,

@@ -133,7 +133,10 @@ def fused_ffn_sharded(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
 
 def _encoder_bits(params: dict, policy: ExecPolicy) -> dict[str, int]:
     """Per-weight bit widths of the sharded encode. Raises ValueError (the
-    ineligibility reason) for a stale cache."""
+    ineligibility reason) for a stale cache, and for a stacked weight with
+    per-layer widths (a mixed bit plan): the sharded encode reads one width
+    a weight for every layer. The reference then serves unsharded; the
+    port raises (``StreamServer`` names this reason)."""
     blocks = params["blocks"]
     bits = {}
     for name in ("wq", "wk", "wv", "wo"):

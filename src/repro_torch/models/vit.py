@@ -7,7 +7,11 @@ RoI-masked flash attention kernel and every GELU-MLP through the fused
 int8 FFN kernel: the reference's fully fused serving point
 (photonic_pallas + flash + fused). Stacked layer weights keep their
 leading L axis (as the reference's scan stacks them); a Python loop over
-layers slices one layer per step in place of ``lax.scan``.
+layers slices one layer per step in place of ``lax.scan``. Under a
+mixed-precision bit plan each layer's slice carries its own int widths
+(``QuantizedWeight.layer``), so B1 and B3 run each layer at its width: the
+loop is the port's counterpart of the reference's segmented scan over
+equal-bits runs.
 
 MGNet RoI pruning: patches are scored by MGNet and only the top-k
 (static budget ceil(keep_ratio * N)) enter encoder block 0; the [cls]
@@ -108,7 +112,8 @@ def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
                                      policy: ExecPolicy) -> str | None:
     """None when the encoder can run the fused serving point (int8 photonic
     matmuls + flash attention + fused FFN, standard dataflow, every
-    per-layer matmul weight cached at <= 8 bits); else why not. The one
+    per-layer matmul weight cached at 2-8 bits, uniform or under a
+    per-layer bit plan); else why not. The one
     eligibility check of the encode: the attention and FFN blocks below it
     call their kernels directly."""
     triple = (policy.backend, policy.resolve_attn_backend(),
@@ -128,7 +133,8 @@ def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
         return "blocks missing attn/ffn weight entries"
     if not all(isinstance(w, QuantizedWeight) for w in ws):
         return "block weights not quantize-once cached (run prepare_params)"
-    widths = sorted({w.bits for w in ws})
+    widths = sorted({b for w in ws for b in (
+        w.bits if isinstance(w.bits, tuple) else (w.bits,))})
     if not all(2 <= b <= 8 for b in widths):
         return f"cached bit widths {widths} outside [2, 8]"
     return None

@@ -12,8 +12,11 @@ E_frame[mJ], independent of host wall time (reported apart as frames/s).
 buckets: ladder entries no frame routed to, each of which still costs a
 warmed encode (on the card, a captured CUDA graph).
 
-Not ported yet (ROADMAP.md queue A): per-layer bit widths
-(``layer_bits``, ``_mixed_bits_report``: A10), the MR re-tuning bill of a
+Under a mixed-precision bit plan (``layer_bits``, one width per encoder
+layer) each layer's weight-stationary matmuls pay their width's share of
+the 8-bit constants (``_mixed_bits_report``).
+
+Not ported yet (ROADMAP.md queue A): the MR re-tuning bill of a
 recalibration (``retune_report``, ``add_recalibration``: A11), measured
 flush wall times (``add_flush_wall``, ``measured_flush_s``: A12) and
 ``state_dict`` / ``load_state`` (A13).
@@ -28,17 +31,10 @@ from typing import Iterable
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import (EnergyReport, accumulate_matmuls,
                                      energy_of_stats, kfps_per_watt,
-                                     latency_of_stats)
+                                     latency_of_stats, scale_for_bits)
 from repro_torch.models.vit import vit_matmul_shapes
 
 __all__ = ["StreamAccounting", "bucket_report", "mgnet_report"]
-
-
-def _no_bit_plan(layer_bits) -> None:
-    if layer_bits is not None:
-        raise NotImplementedError(
-            "per-layer bit widths (a mixed-precision bit plan) are not "
-            "ported yet (ROADMAP.md queue A10)")
 
 
 def _nonlin_elems(cfg: ArchConfig, n_tokens: int) -> int:
@@ -47,17 +43,53 @@ def _nonlin_elems(cfg: ArchConfig, n_tokens: int) -> int:
                            + n_tokens * cfg.d_ff)
 
 
+# index layout of one layer's chunk in vit_matmul_shapes: q, k, v,
+# scores, attn@v, out-proj, mlp w1, mlp w2
+_WEIGHT_IDX = (0, 1, 2, 5, 6, 7)
+_ACT_IDX = (3, 4)
+
+
+def _mixed_bits_report(cfg: ArchConfig, shapes: list, nl: int,
+                       layer_bits: tuple) -> EnergyReport:
+    """Energy and latency with each layer's weight-stationary matmuls
+    (q/k/v, out-projection, both MLP matmuls) at its planned width: their
+    MR tuning, ADC/DAC conversion and SRAM code traffic pay ``bits/8`` of
+    the 8-bit constants, in energy (``scale_for_bits``) and in the ADC and
+    SRAM stage latencies (``latency_of_stats(bits=...)``). The score and
+    PV matmuls and the patch embed stay at 8 bits. One pipelined tuning
+    exposure is counted for the whole frame, and the parts are summed in
+    the reference's order, so a uniform-8 plan gives the unplanned
+    report."""
+    embed_stats, _ = accumulate_matmuls(shapes[:1])
+    rep = energy_of_stats(embed_stats, nl)
+    lat = latency_of_stats(embed_stats, nl, exposed_tunings=1)
+    for li, bits in enumerate(layer_bits):
+        chunk = shapes[1 + 8 * li: 1 + 8 * (li + 1)]
+        w_stats, _ = accumulate_matmuls([chunk[i] for i in _WEIGHT_IDX])
+        a_stats, _ = accumulate_matmuls([chunk[i] for i in _ACT_IDX])
+        rep += scale_for_bits(energy_of_stats(w_stats), bits)
+        rep += energy_of_stats(a_stats)
+        lat += latency_of_stats(w_stats, bits=bits, exposed_tunings=0)
+        lat += latency_of_stats(a_stats, exposed_tunings=0)
+    rep.optical_us, rep.epu_us, rep.memory_us = (
+        lat.optical_us, lat.epu_us, lat.memory_us)
+    return rep
+
+
 def bucket_report(cfg: ArchConfig, bucket: int,
                   layer_bits: Iterable[int] | None = None) -> EnergyReport:
     """Per-frame accelerator-model report for one k-patch encode (backbone
     only): energy components + optical/EPU/memory latency. ``layer_bits``
-    must be None (uniform width; bit plans come with A10)."""
-    _no_bit_plan(layer_bits)
+    (one width per encoder layer, ``core.bitalloc.plan_layer_bits``)
+    bills each layer at its width."""
     n_patches = (cfg.img_size // cfg.patch) ** 2
     kept = None if bucket >= n_patches else bucket
-    stats, tiles = accumulate_matmuls(vit_matmul_shapes(cfg,
-                                                        kept_patches=kept))
+    shapes = vit_matmul_shapes(cfg, kept_patches=kept)
+    stats, tiles = accumulate_matmuls(shapes)
     nl = _nonlin_elems(cfg, bucket + 1)
+    lb = tuple(int(b) for b in layer_bits) if layer_bits is not None else None
+    if lb is not None and len(shapes) == 1 + 8 * cfg.n_layers:
+        return _mixed_bits_report(cfg, shapes, nl, lb)
     rep = energy_of_stats(stats, nl)
     lat = latency_of_stats(stats, nl, n_tiles=tiles)
     rep.optical_us, rep.epu_us, rep.memory_us = (
@@ -84,13 +116,18 @@ class StreamAccounting:
     def __init__(self, cfg: ArchConfig,
                  ladder_sizes: Iterable[int] | None = None,
                  layer_bits: Iterable[int] | None = None):
-        _no_bit_plan(layer_bits)
         self.cfg = cfg
         self.total = EnergyReport()
         self.frames = 0
         self.scored_frames = 0
         self.ladder_sizes = (tuple(int(k) for k in ladder_sizes)
                              if ladder_sizes is not None else None)
+        self.layer_bits = (tuple(int(b) for b in layer_bits)
+                           if layer_bits is not None else None)
+        if (self.layer_bits is not None
+                and len(self.layer_bits) != cfg.n_layers):
+            raise ValueError(f"layer_bits has {len(self.layer_bits)} "
+                             f"entries for {cfg.n_layers} layers")
         self.bucket_frames: Counter = Counter()
         self.bucket_launches: Counter = Counter()
         self._per_bucket: dict[int, EnergyReport] = {}
@@ -100,7 +137,8 @@ class StreamAccounting:
         """Per-frame report for a k-patch encode, computed once a bucket."""
         rep = self._per_bucket.get(k)
         if rep is None:
-            rep = self._per_bucket[k] = bucket_report(self.cfg, k)
+            rep = self._per_bucket[k] = bucket_report(self.cfg, k,
+                                                      self.layer_bits)
         return rep
 
     def _mgnet_report(self) -> EnergyReport:

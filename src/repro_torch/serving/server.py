@@ -39,20 +39,33 @@ rank's shard of the weight cache (``place_params``), through
 Its collectives go through gloo and the host, which no CUDA graph can
 hold, so a sharded server warms eagerly and captures nothing.
 
-Energy: each session's ``StreamAccounting`` bills every encode at its
-bucket and every MGNet scoring, so each ``StreamResult`` carries the
-accelerator model's KFPS/W and energy per frame.
+Mixed precision (``ServerConfig.bit_plan``, ``--bit-plan``): the shared
+cache is quantized from the raw weights (``self._raw_params``) under a
+per-layer / per-tensor bit plan (core/bitalloc.py) before the warm start,
+so B1 and B3 run each layer at its width. ``calibrate_bits``
+(``--bit-budget``) derives a plan from the sensitivity of each layer on
+the first session's leading frames and re-quantizes the cache. Every CUDA
+graph reads the cache it was captured over (``EncodeGraph.params`` keeps
+it alive), so replacing the cache drops the graphs and captures each
+warmed bucket again.
 
-Not ported yet (ROADMAP.md queue A): bit plans (A10), the composed
-dispatch and ``run_dense`` (A17), device noise and recalibration (A11),
-the control plane (``autotune``, A12), faults, checkpoints and migration
-(A13), the 1-D data mesh (A14).
+Energy: each session's ``StreamAccounting`` bills every encode at its
+bucket (each layer at its planned width) and every MGNet scoring, so each
+``StreamResult`` carries the accelerator model's KFPS/W and energy per
+frame.
+
+Not ported yet (ROADMAP.md queue A): the composed dispatch and
+``run_dense`` (A17), device noise and recalibration (A11), the control
+plane (``autotune``, A12), faults, checkpoints and migration (A13), the
+1-D data mesh (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
     PYTHONPATH=src python -m repro_torch.serving.server --streams 2 --frames 32
     PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
         --one-shape --max-wait 1 --trim-dead-buckets
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --bit-plan 8,6,4,8 --json        # or --bit-budget 6
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
         --smoke --device cpu --model-shards 2
 """
@@ -62,6 +75,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import json
 import time
 import warnings
 
@@ -70,6 +84,7 @@ import torch
 
 from repro_torch.bridge import from_jax_params, init_vit, to_device
 from repro_torch.configs.base import ArchConfig, smoke_variant
+from repro_torch.core import bitalloc
 from repro_torch.core.backend import ExecPolicy, place_params, prepare_params
 from repro_torch.core.mgnet import mask_budget, mgnet_scores
 from repro_torch.data.pipeline import VideoStream, video_fleet
@@ -116,6 +131,11 @@ class ServerConfig(ServingConfig):
     #                              twin. 0/1 = unsharded
     interleave_depth: int = 1    # ready-flush launches per session per
     #                              rotation pass
+    bit_plan: tuple = ()         # mixed-precision bit plan for the shared
+    #                              weight cache (per-layer tuple or the dict
+    #                              form, core/bitalloc.py); () = the
+    #                              config's plan, else uniform quant_bits.
+    #                              ``calibrate_bits`` derives one instead
 
     @staticmethod
     def from_serving(sc: ServingConfig, **overrides) -> "ServerConfig":
@@ -174,12 +194,15 @@ class EncodeGraph:
     """One bucket's encode captured as a CUDA graph: ``tokens`` is its
     static input, ``logits`` its static output (overwritten by the next
     replay: clone what must outlive it), ``launches`` the kernel launches
-    one replay makes (``_build.captured_launches``)."""
+    one replay makes (``_build.captured_launches``). ``params`` is the
+    weight cache the graph reads: held here so its memory lives as long as
+    the graph, which replays that cache whatever the server holds now."""
 
     graph: torch.cuda.CUDAGraph
     tokens: torch.Tensor
     logits: torch.Tensor
     launches: collections.Counter
+    params: dict
 
     def replay(self, tokens: torch.Tensor) -> torch.Tensor:
         """Encode ``tokens`` (the static input's shape): copy, replay,
@@ -193,10 +216,12 @@ class EncodeGraph:
 class StreamServer:
     """Shared serving resources + the multi-stream scheduling loop.
 
-    ``params`` is the port's param tree (``bridge.from_jax_params``), or
-    None to draw one with ``bridge.init_vit(seed, ...)``. Every matmul
-    weight is quantized once, on ``device`` (default: the card), before any
-    stream starts: the int8 photonic matmul is the only ported backend.
+    ``params`` is the port's raw param tree (``bridge.from_jax_params``,
+    on any device), or None to draw one with ``bridge.init_vit(seed, ...)``
+    on the host. It is kept as ``_raw_params``, and every matmul weight is
+    quantized from it once, on ``device`` (default: the card), under
+    ``serve_cfg.bit_plan`` (or ``cfg.bit_plan``) before any stream starts:
+    the int8 photonic matmul is the only ported backend.
     ``serve_cfg`` is a ``ServerConfig`` (a plain ``ServingConfig`` takes
     its defaults, warm start included). With ``model_shards`` > 1 this
     process is one rank of a model-sharded mesh: it serves on
@@ -229,10 +254,12 @@ class StreamServer:
             self.n_patches, self.serve_cfg.bucket_fractions)
         self.mcfg = mgnet_config(cfg)
         if params is None:
-            params = from_jax_params(init_vit(seed, cfg, n_classes),
-                                     self.device)
-        self.params = self._maybe_place(prepare_params(
-            to_device(params, self.device), bits=cfg.quant_bits or 8))
+            params = from_jax_params(init_vit(seed, cfg, n_classes), "cpu")
+        # the raw weights are kept: calibrate_bits re-quantizes from them
+        self._raw_params = params
+        self.layer_bits: tuple | None = None
+        self.params = self._maybe_place(self._prepare(
+            sc.bit_plan or cfg.bit_plan or None))
         self._sessions: list[StreamSession] = []
         self._next_sid = 0
         self.batcher: MicroBatcher | None = None
@@ -244,6 +271,8 @@ class StreamServer:
         self.graphs: dict[int, EncodeGraph] = {}
         self.warmed: set[int] = set()      # buckets whose encode was warmed
         self.warm_s = 0.0
+        self.calibrate_s = 0.0             # the last calibrate_bits' scoring
+        self.recapture_s = 0.0             # and its graphs' re-capture
         self._graphed = False              # warm_start captured graphs
         if sc.warm_start:
             self.warm_start()
@@ -267,6 +296,42 @@ class StreamServer:
                 f"model-sharded encode, which cannot run: {reason}")
         return place_params(params, vit_logical_axes(self.cfg), self._ctx)
 
+    def _prepare(self, plan) -> dict:
+        """The cache quantized from the raw weights under ``plan`` (None:
+        uniform ``quant_bits``). Sets ``policy.bit_plan`` to the plan's
+        key, so the encode accepts the widths it differs from
+        ``quant_bits`` by, and ``layer_bits`` (each layer's width, which
+        the sessions' accounting bills)."""
+        bits = self.cfg.quant_bits or 8
+        n_layers = self.cfg.n_layers
+        nplan = bitalloc.normalize_bit_plan(plan, n_layers, default=bits)
+        self.policy.bit_plan = bitalloc.plan_key(nplan)
+        self.layer_bits = (bitalloc.plan_layer_bits(nplan, n_layers)
+                           if nplan is not None else None)
+        return prepare_params(to_device(self._raw_params, self.device),
+                              bits=bits, bit_plan=plan, n_layers=n_layers)
+
+    def _install(self, params: dict) -> None:
+        """Serve from ``params`` from now on. The graphs replay the cache
+        they were captured over, so they are dropped, their memory handed
+        back, and each bucket warmed before is captured again over the new
+        cache (``recapture_s``); an eager warm start reads no cache and
+        stands."""
+        warmed = sorted(self.warmed)
+        self.graphs = {}
+        self.params = params
+        if not self._graphed:
+            return
+        self.warmed = set()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for k in warmed:
+            self.graphs[k] = self._capture(k)
+            self.warmed.add(k)
+        torch.cuda.synchronize(self.device)
+        self.recapture_s = time.perf_counter() - t0
+
     def add_session(self, stream: VideoStream, n_frames: int = 64,
                     start: int = 0) -> StreamSession:
         """Register a stream for the next ``serve()``; returns its session."""
@@ -278,7 +343,7 @@ class StreamServer:
     def _new_session(self, sid, stream, n_frames, start) -> StreamSession:
         return StreamSession(sid, stream, n_frames, start, self.serve_cfg,
                              self.cfg, ladder=self.ladder,
-                             device=self.device)
+                             device=self.device, layer_bits=self.layer_bits)
 
     def _score_fn(self, frames: np.ndarray) -> np.ndarray:
         f = torch.from_numpy(frames).to(self.device)
@@ -331,7 +396,7 @@ class StreamServer:
         except Exception as e:
             raise RuntimeError(f"capturing the k={k} encode as a CUDA graph "
                                f"failed: {e}") from e
-        return EncodeGraph(graph, static, logits, launches)
+        return EncodeGraph(graph, static, logits, launches, self.params)
 
     # -- warm start ----------------------------------------------------------
 
@@ -384,13 +449,16 @@ class StreamServer:
         for k in removed:
             self.graphs.pop(k, None)
             self.warmed.discard(k)
-        # un-started sessions are replaced, not mutated: their histogram
-        # and accounting must key the trimmed ladder (sids stay)
+        self._renew_unstarted()
+        return removed
+
+    def _renew_unstarted(self) -> None:
+        """Re-make the sessions that have not started, so their histogram
+        and accounting key the current ladder and bit plan (sids stay)."""
         self._sessions = [
             s if s.finished or s.frames_seen > 0
             else self._new_session(s.sid, s.stream, s.n_frames, s.start)
             for s in self._sessions]
-        return removed
 
     def _route_probe(self, calib_frames: int | None = None) -> set[int]:
         """The ladder buckets the registered sessions' leading frames route
@@ -447,6 +515,42 @@ class StreamServer:
                 f"surviving bucket (more tokens, possibly different "
                 f"predictions than an untrimmed run)", stacklevel=2)
         return removed
+
+    # -- sensitivity-driven bit allocation -----------------------------------
+
+    def calibrate_bits(self, target_mean_bits: float,
+                       calib_frames: int | None = None,
+                       candidates: tuple = (6, 4)) -> tuple:
+        """Derive a per-layer bit plan whose mean width is <=
+        ``target_mean_bits`` and re-quantize the shared cache under it
+        (``core.bitalloc.calibrate_bit_plan``). The calibration batch is
+        the first unfinished session's leading ``calib_frames`` (default
+        one chunk), embedded on the server's cache. Each layer is scored on
+        the device, one at a time. The new cache replaces the old one
+        (``_install``: graphs captured again); sessions not started yet are
+        re-made so their accounting bills the plan's widths. Returns the
+        plan; ``calibrate_s`` and ``recapture_s`` keep the wall seconds of
+        the scoring and of the re-capture."""
+        src = next((s for s in self._sessions if not s.finished), None)
+        if src is None:
+            raise ValueError("register at least one session before "
+                             "calibrate_bits (it provides the calibration "
+                             "frames)")
+        n = calib_frames or self.serve_cfg.chunk
+        frames = torch.from_numpy(
+            src.stream.frames_at(src.start, n)["frames"]).to(self.device)
+        t0 = time.perf_counter()
+        tokens = embed_patches(self.params, frames, self.cfg, self.policy)
+        plan = bitalloc.calibrate_bit_plan(
+            self._raw_params, tokens, self.cfg, self.policy,
+            target_mean_bits=target_mean_bits, candidates=candidates,
+            default=self.cfg.quant_bits or 8)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibrate_s = time.perf_counter() - t0
+        self._install(self._maybe_place(self._prepare(plan)))
+        self._renew_unstarted()
+        return plan
 
     # -- the serving loop ----------------------------------------------------
 
@@ -603,6 +707,16 @@ def main(argv=None):
     ap.add_argument("--calib-frames", type=int, default=0,
                     help="frames per stream for --trim-dead-buckets "
                          "calibration (default 2 chunks)")
+    ap.add_argument("--bit-plan", default="",
+                    help="mixed-precision bit plan: comma per-layer widths "
+                         "('8,6,4,8'), a JSON literal, or a JSON file path "
+                         "(core/bitalloc.py formats)")
+    ap.add_argument("--bit-budget", type=float, default=0.0,
+                    help="> 0: calibrate a per-layer plan to this target "
+                         "mean bit width before the warm start "
+                         "(sensitivity-driven, overrides --bit-plan)")
+    ap.add_argument("--json", action="store_true",
+                    help="print a JSON summary line last")
     ap.add_argument("--no-warm-start", action="store_true",
                     help="no warm start: every flush runs eagerly (on the "
                          "card: no CUDA graphs)")
@@ -629,19 +743,25 @@ def _serve_cli(args):
              or torch.distributed.get_rank() == 0)
     say = print if rank0 else (lambda *a, **k: None)
     cfg = smoke_cfg() if args.smoke else serving_cfg()
-    # the warm start runs after the optional trim, as in the reference
+    bit_plan = (bitalloc.parse_bit_plan(args.bit_plan) or ()
+                if args.bit_plan else ())
+    # the warm start runs after the optional trim and bit calibration, as
+    # in the reference
     server = StreamServer(cfg, ServerConfig(
         microbatch=args.microbatch, chunk=args.chunk,
         one_shape=args.one_shape, max_wait_chunks=args.max_wait,
         mix_streams=args.mix_streams, warm_start=False,
-        model_shards=args.model_shards), seed=args.seed, device=args.device)
+        model_shards=args.model_shards, bit_plan=bit_plan),
+        seed=args.seed, device=args.device)
     where = (torch.cuda.get_device_name(server.device)
              if server.device.type == "cuda" else "cpu")
     mesh = ("x".join(str(n) for n in server.mesh.shape.values())
             if server.mesh is not None else "off")
+    bits = (list(server.layer_bits) if server.layer_bits
+            else cfg.quant_bits or 8)
     say(f"[server] {cfg.name} {cfg.img_size}x{cfg.img_size} on {where}: "
-        f"ladder={list(server.ladder.sizes)} of {server.n_patches} patches "
-        f"mesh={mesh}")
+        f"bits={bits} ladder={list(server.ladder.sizes)} of "
+        f"{server.n_patches} patches mesh={mesh}")
     streams = video_fleet(args.streams, img_size=cfg.img_size,
                           patch=cfg.patch)
     sessions = [server.add_session(st, n_frames=args.frames,
@@ -651,6 +771,12 @@ def _serve_cli(args):
         removed = server.calibrate_trim(args.calib_frames or None)
         say(f"[server] calibration trimmed buckets {list(removed)} -> "
             f"ladder {list(server.ladder.sizes)}")
+    if args.bit_budget > 0:
+        plan = server.calibrate_bits(args.bit_budget,
+                                     args.calib_frames or None)
+        say(f"[server] bit calibration -> per-layer plan {list(plan)} "
+            f"(mean {sum(plan) / len(plan):.2f} bits, target "
+            f"{args.bit_budget:g}) in {server.calibrate_s:.2f}s")
     if not args.no_warm_start:
         server.warm_start()
         say(f"[server] warm start in {server.warm_s:.2f}s "
@@ -665,6 +791,15 @@ def _serve_cli(args):
         f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
         f"(warm-up {server.warm_s:.2f}s, {len(server.flush_log)} encode "
         f"launches, {where})")
+    if args.json:
+        say(json.dumps({
+            "streams": len(sessions), "frames_total": total,
+            "aggregate_fps": total / wall if wall else 0.0,
+            "warm_s": server.warm_s, "ladder": list(server.ladder.sizes),
+            "layer_bits": (list(server.layer_bits) if server.layer_bits
+                           else None),
+            "kfps_per_watt": [results[s.sid].kfps_per_watt
+                              for s in sessions]}))
     return results
 
 

@@ -11,7 +11,7 @@ and no graphs.
 
 Not ported yet (ROADMAP.md queue A): checkpoints (``state_dict`` /
 ``from_state``) and fault bookkeeping (``fail``, ``shed``, retries: A13),
-measured flush times (A12), bit plans (A10) and recalibrations (A11).
+measured flush times (A12) and recalibrations (A11).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from repro_torch.data.pipeline import VideoStream, prefetch_to_device
+from repro_torch.device import resolve_device
 from repro_torch.serving.accounting import StreamAccounting
 from repro_torch.serving.buckets import BucketHistogram, BucketLadder
 from repro_torch.serving.mask_cache import TemporalMaskCache
@@ -62,7 +63,7 @@ class StreamResult:
     kfps_per_watt: float = 0.0
     mean_frame_uj: float = 0.0
     dense_kfps_per_watt: float = 0.0
-    mean_bits: float = 0.0       # mean weight width (8.0: uniform int8)
+    mean_bits: float = 0.0       # mean planned layer width (8.0: uniform)
     predictions: dict = field(default_factory=dict)      # frame_idx -> class
 
     @property
@@ -90,22 +91,29 @@ class StreamSession:
     Passive: the server pulls its next chunk and records outcomes back, so
     per-stream numbers aggregate exactly as a solo run of the same stream
     would; interleaving changes when launches happen, never what each
-    stream computes. ``device`` is where the ingest ships the frames."""
+    stream computes. ``device`` is where the ingest ships the frames
+    (default: the card; ``"cpu"`` must be asked for). ``layer_bits`` are
+    the server's per-layer widths under a bit plan (None: uniform), which
+    the accounting bills each layer at."""
 
     def __init__(self, sid: int, stream: VideoStream, n_frames: int,
                  start: int, serve_cfg: ServingConfig, cfg,
-                 ladder: BucketLadder | None = None, device="cpu"):
+                 ladder: BucketLadder | None = None, device=None,
+                 layer_bits: tuple | None = None):
         self.sid = sid
         self.stream = stream
         self.n_frames = n_frames
         self.start = start
         self.limit = start + n_frames
         self.serve_cfg = serve_cfg
-        self.device = device
+        self.device = resolve_device(device)
         self.cache = TemporalMaskCache(serve_cfg.mask_refresh,
                                        serve_cfg.delta_threshold)
+        self.layer_bits = (tuple(int(b) for b in layer_bits)
+                           if layer_bits is not None else None)
         self.acct = StreamAccounting(
-            cfg, ladder_sizes=ladder.sizes if ladder is not None else None)
+            cfg, ladder_sizes=ladder.sizes if ladder is not None else None,
+            layer_bits=self.layer_bits)
         self.hist = BucketHistogram(ladder) if ladder is not None else None
         self.deferred: list = []     # (frame_idx list, argmax tensor)
         self.frames_seen = 0         # valid frames ingested so far
@@ -180,6 +188,7 @@ class StreamSession:
         res.kfps_per_watt = self.acct.kfps_per_watt
         res.mean_frame_uj = self.acct.mean_frame.total_uj
         res.dense_kfps_per_watt = self.acct.dense_baseline_kfps_per_watt()
-        res.mean_bits = 8.0
+        res.mean_bits = (sum(self.layer_bits) / len(self.layer_bits)
+                         if self.layer_bits else 8.0)
         self.finished = True
         return res

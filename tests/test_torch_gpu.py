@@ -9,15 +9,17 @@ reference package, so it also runs where JAX is not installed:
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
 flash attention rtol = atol = 2e-5 (its tensor-core entry also against its
 3xTF32 emulation); fused FFN one hidden quant step, its K-major entry
-bitwise against its first design; the int32 accumulate bitwise;
+bitwise against its first design (both also at bit-plan widths 6 and
+4); the int32 accumulate bitwise;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
 within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
 over 2 ranks on the one card bitwise against the unsharded twin on the
 card (an exact int32 accumulate and the same elementwise ops); a CUDA
 graph replay of a bucket encode bitwise against the eager encode of the
-same flush, with the same launch counts, and a graphed interleaved serve
-bitwise, per stream, against solo eager runs.
+same flush, with the same launch counts (also under a per-layer bit plan,
+and after ``calibrate_bits`` re-quantized the cache), and a graphed
+interleaved serve bitwise, per stream, against solo eager runs.
 """
 
 import sys
@@ -50,10 +52,12 @@ from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.kernels.ops import photonic_matmul_prequant  # noqa: E402
 from repro_torch.kernels.photonic_matmul import (  # noqa: E402
     entry_for, photonic_matmul_int8)
+from repro_torch.models.layers import layer_view  # noqa: E402
 from repro_torch.models.vit import (embed_patches,  # noqa: E402
-                                    forward_vit,
+                                    encoder_layer_step, forward_vit,
                                     forward_vit_tokens)
 from repro_torch.data.pipeline import (prefetch_to_device,  # noqa: E402
                                        video_fleet)
@@ -121,6 +125,34 @@ def test_photonic_matmul_kmajor_ring_edges(dev, m, k):
     tile's (M = 1, 63, 65, 1568), N = 768 (N = 100 at M = 65: a ragged
     n-tile)."""
     _check_photonic_matmul(dev, m, k, 100 if m == 65 else 768)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,bits", [(788, 6), (788, 4), (200, 4)])
+def test_photonic_matmul_at_plan_widths(dev, m, bits):
+    """B1 as a bit plan runs it: x quantized at the weight's width (codes
+    within its range), the K-major entry's accumulate bitwise and its
+    dequant within 1e-6 of the plain version, and the whole prequant call
+    within 1e-6 of the same call on the CPU."""
+    g = torch.Generator(device=dev).manual_seed(m + bits)
+    x = torch.randn(m, 768, generator=g, device=dev)
+    wq, sw = _qweight(g, 768, 768, bits, dev)
+    wt = wq.t().contiguous()
+    qmax = quant.quant_range(bits)[1]
+    sx = quant.absmax_scale(x, bits=bits)
+    xq = quant.quantize(x, sx, bits=bits)
+    assert int(xq.abs().max()) <= qmax and int(wq.abs().max()) <= qmax
+    before = _build.LAUNCHES["photonic_matmul.kmajor.K768"]
+    acc = photonic_matmul_int8(xq, wq, torch.ones((), device=dev),
+                               torch.ones(768, device=dev), wt=wt)
+    assert _build.LAUNCHES["photonic_matmul.kmajor.K768"] == before + 1
+    assert torch.equal(acc.long(), ref.int_accumulate_ref(xq, wq).long())
+    want = ref.photonic_matmul_ref(xq, wq, sx, sw)
+    got = photonic_matmul_int8(xq, wq, sx, sw, wt=wt)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    got = photonic_matmul_prequant(x, wq, sw, bits=bits, wt=wt)
+    cpu = photonic_matmul_prequant(x.cpu(), wq.cpu(), sw.cpu(), bits=bits)
+    assert (got.cpu() - cpu).abs().max() <= 1e-6 * cpu.abs().max()
 
 
 @pytest.mark.gpu
@@ -268,7 +300,10 @@ def test_flash_attention_constant_mask_path(dev, kv_len):
     (4, 197, 768, 3072, (8, 8), None),     # base-224, largest bucket
     (4, 99, 192, 768, (8, 4), 60),         # tiny, mixed widths, live rows
     (1, 37, 768, 3072, (8, 8), None),      # ragged M: one 64-row tile
-    (1, 1, 768, 3072, (8, 8), None)])      # M = 1
+    (1, 1, 768, 3072, (8, 8), None),       # M = 1
+    (4, 197, 768, 3072, (6, 6), None),     # base-224 at bit-plan widths
+    (4, 197, 768, 3072, (4, 4), None),
+    (4, 197, 768, 3072, (6, 4), None)])
 def test_fused_ffn_kernel(dev, b, n, d, dff, bits, live):
     """The K-major entry (the weights' K-major copies given, as the cache
     holds them) is bitwise equal to the first design called directly and
@@ -702,3 +737,92 @@ def test_prefetch_to_device_on_the_card(dev):
         assert got["frames_host"] is want["frames"]
         assert torch.equal(got["frames"].cpu(),
                            torch.from_numpy(want["frames"]))
+
+
+# opto-vit-base-224's mixed-precision plan: 8-bit head and tail, 6-bit
+# shoulders, one 4-bit middle layer, mean 7.0 bits (the reference's
+# benchmarks/mixed_precision_bench.py::T224_PLAN)
+T224_PLAN = (8, 8, 8, 6, 6, 4, 6, 6, 8, 8, 8, 8)
+
+
+@pytest.mark.gpu
+def test_mixed_plan_graph_replay_is_the_eager_encode(dev):
+    """opto-vit-base-224 under T224_PLAN: the plan reaches the cache (layer
+    5's w1 codes within +-7), every bucket's graph replays the eager
+    encode bitwise with the eager launch counts (12 B3 launches, one a
+    layer at its widths), and a flush agrees with the same encode on the
+    CPU: each layer on the same input within one quant step (corr >
+    0.9999), the logits within twice the distance (1 - corr) that one ulp
+    of input moves them on either device alone (a 4-bit layer turns
+    last-bit differences into code flips: corr ~0.994 for one ulp,
+    scripts/bitplan_parity.py)."""
+    cfg = serving_cfg("base", 224)
+    params = from_jax_params(init_vit(0, cfg, 10), "cpu")
+    server = StreamServer(cfg, ServerConfig(bit_plan=T224_PLAN),
+                          params=params)
+    assert server.layer_bits == T224_PLAN
+    w1 = server.params["blocks"]["ffn"]["w1"]
+    assert w1.bits == T224_PLAN
+    assert int(w1.wq[5].abs().max()) <= 7 < int(w1.wq[0].abs().max())
+    assert sorted(server.graphs) == list(server.ladder.sizes)
+    for k in server.ladder.sizes:
+        t = _flush_tokens(server, k)
+        _build.LAUNCHES.clear()
+        eager = forward_vit_tokens(server.params, t, cfg, server.policy)[0]
+        eager_counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        graphed = server.graphs[k].replay(t).clone()
+        assert dict(_build.LAUNCHES) == eager_counts
+        assert eager_counts["fused_ffn"] == cfg.n_layers
+        assert torch.equal(graphed, eager), k
+    def corr(a, b):
+        a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+        return float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+
+    pol, cpu_params = server.policy, to_device(server.params, "cpu")
+    cpu = forward_vit_tokens(cpu_params, t.cpu(), cfg, pol, device="cpu")[0]
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    own = min(corr(forward_vit_tokens(server.params, up, cfg, pol)[0],
+                   graphed),
+              corr(forward_vit_tokens(cpu_params, up.cpu(), cfg, pol,
+                                      device="cpu")[0], cpu))
+    assert 1 - corr(graphed, cpu) <= 2 * (1 - own)
+    x = torch.cat([cpu_params["cls"].expand(4, 1, -1)
+                   + cpu_params["pos"][:, :1], t.cpu()], dim=1)
+    for i in range(cfg.n_layers):
+        want = encoder_layer_step(x, layer_view(cpu_params["blocks"], i),
+                                  cfg, pol)
+        got = encoder_layer_step(x.to(dev), layer_view(
+            server.params["blocks"], i), cfg, pol)
+        assert corr(got, want) > 0.9999, i
+        x = want
+
+
+@pytest.mark.gpu
+def test_calibrate_bits_recaptures_every_warmed_bucket(dev):
+    """``calibrate_bits`` after the warm start: every warmed bucket gets a
+    new graph over the new cache, whose replay is the eager encode
+    bitwise, while each graph captured before the calibration still
+    replays the old cache (so the check above can fail)."""
+    cfg = smoke_cfg()
+    server = StreamServer(cfg, ServerConfig(microbatch=4, chunk=8),
+                          params=from_jax_params(init_vit(0, cfg, 10),
+                                                 "cpu"))
+    old = dict(server.graphs)
+    assert sorted(old) == list(server.ladder.sizes)
+    tokens = {k: _flush_tokens(server, k) for k in old}
+    server.add_session(video_fleet(1, img_size=32, patch=8)[0], n_frames=8)
+    plan = server.calibrate_bits(6.0)
+    assert sum(plan) / len(plan) <= 6.0 and server.layer_bits == plan
+    assert sorted(server.graphs) == sorted(server.warmed) == sorted(old)
+    stale = 0
+    for k, t in tokens.items():
+        assert server.graphs[k] is not old[k]
+        assert server.graphs[k].params is server.params
+        eager = forward_vit_tokens(server.params, t, cfg, server.policy)[0]
+        assert torch.equal(server.graphs[k].replay(t), eager), k
+        stale += not torch.equal(old[k].replay(t), eager)
+    assert stale == len(old)
+    (res,) = server.serve().values()
+    assert len(res.predictions) == 8
+    assert res.mean_bits == sum(plan) / len(plan)

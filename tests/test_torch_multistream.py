@@ -53,7 +53,7 @@ from repro_torch.serving import server as tserver
 from repro_torch.serving.buckets import BucketLadder
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import MicroBatcher
-from repro_torch.serving.session import ServingConfig
+from repro_torch.serving.session import ServingConfig, StreamSession
 
 N_FRAMES, PHASE = 32, 4
 REPORT_FIELDS = ("tuning_uj", "vcsel_uj", "bpd_uj", "adc_uj", "dac_uj",
@@ -376,8 +376,17 @@ def test_accounting_matches_reference(variant):
     assert ta.summary(warn=False) == ja.summary(warn=False)
     with pytest.warns(UserWarning, match="dead ladder buckets"):
         ta.summary()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tacct.StreamAccounting(tcfg, layer_bits=(8,) * tcfg.n_layers)
+    # under a per-layer bit plan (A10): each layer billed at its width
+    plan = tuple(8 if i % 3 == 0 else 6 - 2 * (i % 2)
+                 for i in range(tcfg.n_layers))
+    tp = tacct.StreamAccounting(tcfg, ladder_sizes=ladder, layer_bits=plan)
+    jp = jacct.StreamAccounting(jcfg, ladder_sizes=ladder, layer_bits=plan)
+    for a in (tp, jp):
+        a.add_mgnet(2)
+        a.add_encode(ladder[1], 4)
+        a.add_encode(ladder[-1], 1)
+    _reports_equal(tp.total, jp.total)
+    assert tp.kfps_per_watt == pytest.approx(jp.kfps_per_watt, rel=1e-12)
 
 
 # --------------------------------------------------------------------------
@@ -399,6 +408,19 @@ def test_prefetch_keeps_order_with_host_view(depth):
         np.testing.assert_array_equal(got["patch_mask"], want["patch_mask"])
     with pytest.raises(ValueError):
         list(prefetch_to_device(iter(chunks), depth=0))
+
+
+@pytest.mark.parametrize("entry", ["prefetch_to_device", "StreamSession"])
+def test_no_card_and_no_device_raises(monkeypatch, entry):
+    """Both run on the card unless the caller asks for the CPU: with no
+    card and no ``device`` they raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    st = video_fleet(1, img_size=32, patch=8, seed=5)[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "prefetch_to_device":
+            next(prefetch_to_device(iter([st.frames_at(0, 8)])))
+        else:
+            StreamSession(0, st, 8, 0, ServingConfig(), tserver.smoke_cfg())
 
 
 def test_launch_counts_of_a_capture_move_to_its_replays():
