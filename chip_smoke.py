@@ -78,13 +78,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         and capture no graph (two planted faults, one
         that skips the int32 all-reduce and one that leaves the absmax
         scopes local to the rank, must fail that check);
+     d. ``[composed]``, after the kernel table: B2's SIMT entry at Eq. 2's
+        (D, Dv) = (768, 64) with one shared key head (scale 1.0, all keys
+        live and a scattered mask), B1 at (788, 768, 3072), (788, 3072,
+        768) and (788, 64, 768), and ``int_accumulate_pallas`` bitwise,
+        each against its plain version; then opto-vit-base-224 served as
+        4a's traffic through the graphed server under (a) the reference
+        CLI's default, photonic_pallas + xla attention + xla FFN (73 B1 a
+        flush), and (b) Eq. 2, photonic_pallas + flash + xla FFN with
+        ``attn_impl="decomposed"`` (205 B1 and 12 B2 on the SIMT entry a
+        flush): every bucket's replay bitwise its eager encode with equal
+        launch counts, every frame predicted, B1 at K 3072 (and K 64 under
+        Eq. 2) launched, the newest flush against the CPU (corr > 0.999,
+        equal argmax, each layer corr > 0.9999), frames/s beside 4a's;
+        (c) ``run_dense`` on 4a's server over the same streams (one CUDA
+        graph a chunk: 50 B1, 12 B2, 12 B3): the same frames, prediction
+        keys and MGNet scorings as 4a's bucketed serve at a higher modeled
+        energy a frame, dense and bucketed frames/s and their ratio (a
+        reading); the bf16, qat and photonic_sim encoders, one flush each,
+        against the CPU (corr > 0.999, equal argmax);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
      their type and bytes over 3.35 TB/s; B2 at the TF32 rate of its
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
-     calls (B3 also its first design and each of its three launches);
+     calls (B3 also its first design and each of its three launches; B1
+     also at path d's three shapes, B2's SIMT entry also at Eq. 2's
+     shape, both in the kernels line as ``ms_by_shape`` / ``simt_eq2``);
      per bucket one 4a flush's encode span eager and replayed (CUDA
      events) and its device time (the profiler, of the eager encode);
      B1 and B3 at each bit-plan width beside their 8-bit calls (device
@@ -179,6 +200,13 @@ CALIB_TARGET = 6.5
 # beside its 8-bit call in the same run
 B1_WIDTHS = ((788, 8), (788, 6), (788, 4), (200, 8), (200, 4))
 B3_WIDTHS = ((8, 8), (6, 6), (4, 4), (6, 4))
+# path 4d: B2 under Eq. 2 at base-224 (q (B, H, n, d_model) against the
+# one shared key head x, v (B, H, n, d_head)) and B1 at the composed
+# FFN's w1 / w2 and Eq. 2's per-head W_K^T / sqrt(dh), 4 frames x 197
+EQ2_SHAPE = (4, 12, 197, 768, 64)
+COMPOSED_B1 = {"composed FFN w1": (788, 768, 3072),
+               "composed FFN w2": (788, 3072, 768),
+               "Eq. 2 W_K^T per head": (788, 64, 768)}
 
 
 def vit_entry_fault(launches: dict) -> str | None:
@@ -1491,6 +1519,372 @@ def time_plan_kernels(torch, calls: dict, card: str) -> dict:
     return out
 
 
+def check_composed_kernels(torch, dev) -> dict:
+    """Path 4d's kernel shapes on the card against their plain versions:
+    B2's SIMT entry at Eq. 2's (D, Dv) = (768, 64) with one shared key head
+    (scale 1.0, folded upstream), all keys live and a scattered mask with a
+    fully masked batch row; B1 at the composed FFN's w1 / w2 and Eq. 2's
+    per-head W_K^T product; the int32 accumulate through B1 with unit
+    scales (``int_accumulate_pallas``), bitwise. Returns kernel -> largest
+    absolute error."""
+    from repro_torch.core.backend import int_accumulate_pallas
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_masked,
+                                                     masked_entry_for)
+    from repro_torch.kernels.photonic_matmul import (entry_for,
+                                                     photonic_matmul_int8)
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    err = {"photonic_matmul": 0.0, "flash_attention_masked": 0.0}
+    b, h, s_, d, dv = EQ2_SHAPE
+    # q as Eq. 2 hands it over (Q_h W_K^T / sqrt(dh): unit-scale scores)
+    q = torch.randn(b, h, s_, d, generator=gen, device=dev) * d ** -0.5
+    k = torch.randn(b, 1, s_, d, generator=gen, device=dev)
+    v = torch.randn(b, h, s_, dv, generator=gen, device=dev)
+    m = (torch.rand(b, s_, generator=gen, device=dev) > 0.5).float()
+    m[b - 1] = 0.0
+    for mode, mask in (("all keys live", None), ("scattered mask", m)):
+        got = flash_attention_masked(q, k, v, mask, scale=1.0)
+        want = ref.flash_attention_masked_ref(q, k, v, mask, scale=1.0)
+        e = (got - want).abs().max().item()
+        say(f"[composed] B2 Eq. 2 q{tuple(q.shape)} Hk=1 Dv={dv} {mode} "
+            f"{masked_entry_for(d, dv)} entry: max abs err {e:.3e} (tol "
+            f"2e-5)")
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            fail(f"B2 at (768, 64), {mode}: max abs err {e}")
+        if mask is not None and not bool((got[b - 1] == 0).all()):
+            fail("B2 at (768, 64): a fully masked batch row is not 0")
+        err["flash_attention_masked"] = max(err["flash_attention_masked"], e)
+    for tag, (m_, k_, n_) in COMPOSED_B1.items():
+        xq = torch.randint(-127, 128, (m_, k_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wt = wq.t().contiguous()
+        acc = photonic_matmul_int8(xq, wq, torch.ones((), device=dev),
+                                   torch.ones(n_, device=dev), wt=wt)
+        if not torch.equal(acc.long(), ref.int_accumulate_ref(xq, wq).long()):
+            fail(f"B1 {tag}: int32 accumulate not bitwise")
+        sx = torch.rand((), generator=gen, device=dev) * 1e-2
+        sw = torch.rand(n_, generator=gen, device=dev) * 1e-2
+        got = photonic_matmul_int8(xq, wq, sx, sw, wt=wt)
+        want = ref.photonic_matmul_ref(xq, wq, sx, sw)
+        e = (got - want).abs().max().item()
+        rel = e / max(want.abs().max().item(), 1e-30)
+        say(f"[composed] B1 {tag:<22s} ({m_},{k_},{n_}) {entry_for(k_)} "
+            f"entry: accumulate bitwise, max abs err {e:.3e}, rel "
+            f"{rel:.3e} (tol 1e-6)")
+        if rel > 1e-6:
+            fail(f"B1 {tag}: relative error {rel} > 1e-6")
+        err["photonic_matmul"] = max(err["photonic_matmul"], e)
+    xq = torch.randint(-127, 128, (788, 768), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (768, 768), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ok = torch.equal(int_accumulate_pallas(xq, wq),
+                     ref.int_accumulate_ref(xq, wq))
+    say(f"[composed] int_accumulate_pallas (788,768,768), B1 at unit "
+        f"scales: bitwise {ok} (tol bitwise)")
+    if not ok:
+        fail("int_accumulate_pallas is not the exact int32 accumulate")
+    torch.cuda.synchronize()
+    return err
+
+
+def time_composed_kernels(torch, dev, card: str) -> dict:
+    """B1 at the composed FFN's and Eq. 2's shapes (device ms, bound,
+    ``torch._int_mm`` + dequant) and B2's SIMT entry at Eq. 2's shape
+    (device ms, CUDA-event ms, bound, plain, SDPA on the key head
+    expanded with a boolean mask). Returns extra fields for the two
+    kernels' entries of the kernels line (the SIMT launches are path
+    4d's, filled in once it ran)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_masked
+    from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    shapes = {}
+    for tag, (m_, k_, n_) in COMPOSED_B1.items():
+        xq = torch.randint(-127, 128, (m_, k_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq, sw = qweight(torch, gen, k_, n_, 8, dev)
+        wt = wq.t().contiguous()
+        sx = torch.rand((), generator=gen, device=dev) * 1e-2
+        fn = lambda: photonic_matmul_int8(xq, wq, sx, sw, wt=wt)  # noqa
+        t_ms, _ = device_ms(torch, fn, SYMBOLS["photonic_matmul"],
+                            counter="photonic_matmul")
+        event_ms = cuda_ms(fn)
+        plain_ms, _ = device_ms(torch, lambda: ref.photonic_matmul_ref(
+            xq, wq, sx, sw))
+        # torch._int_mm takes M below K = 128 only in multiples of 32
+        # (cuBLASLt, kernels/fused_ffn.py::padded_int_mm): the library call
+        # gets rows zero-padded once, outside the timing
+        xl = xq if k_ >= 128 else torch.nn.functional.pad(
+            xq, (0, 0, 0, -m_ % 32))
+        lib, _ = device_ms(torch, lambda: torch._int_mm(
+            xl, wq)[:m_].float() * sx * sw)
+        ops_s = 2 * m_ * k_ * n_ / PEAK_INT8_OPS
+        bytes_s = (m_ * k_ + k_ * n_ + 4 + 4 * n_ + 4 * m_ * n_) / PEAK_BYTES
+        shapes[f"({m_},{k_},{n_})"] = {
+            "ms": t_ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "library_ms": lib, "bound_ms": max(ops_s, bytes_s) * 1e3}
+        say(f"[numbers] photonic_matmul {tag} ({m_},{k_},{n_}) int8: kernel "
+            f"{t_ms:.5f} ms device ({event_ms:.4f} ms CUDA-event, wrapper "
+            f"included), bound {max(ops_s, bytes_s) * 1e3:.5f} ms "
+            f"({'operations' if ops_s >= bytes_s else 'bytes'}), plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib:.5f} ms (torch._int_mm + dequant"
+            f"{'' if xl is xq else f', M padded to {xl.shape[0]}'}) "
+            f"({card})")
+    b, h, s_, d, dv = EQ2_SHAPE
+    q = torch.randn(b, h, s_, d, generator=gen, device=dev) * d ** -0.5
+    k = torch.randn(b, 1, s_, d, generator=gen, device=dev)
+    v = torch.randn(b, h, s_, dv, generator=gen, device=dev)
+    keep = torch.ones(b, s_, device=dev)
+    bmask = (keep > 0)[:, None, None, :]
+    fn = lambda: flash_attention_masked(q, k, v, keep, scale=1.0)  # noqa
+    ms, passes = device_ms(torch, fn, ("flash_attention_masked_kernel",),
+                           counter="flash_attention_masked")
+    event_ms = cuda_ms(fn)
+    plain_ms, _ = device_ms(torch, lambda: ref.flash_attention_masked_ref(
+        q, k, v, keep, scale=1.0))
+    lib_ms, _ = device_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k.expand(b, h, s_, d), v, attn_mask=bmask, scale=1.0))
+    flops = 2 * b * h * s_ * s_ * (d + dv)
+    nbytes = 4 * (b * h * s_ * d + b * s_ * d + 2 * b * h * s_ * dv + b * s_)
+    ops_s, bytes_s = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    bound = max(ops_s, bytes_s)
+    by = "operations" if ops_s >= bytes_s else "bytes"
+    say(f"[numbers] flash_attention_masked simt (768, 64) q{tuple(q.shape)} "
+        f"Hk=1 f32: kernel {ms:.4f} ms device (profiling passes {passes}; "
+        f"{event_ms:.4f} ms CUDA-event), bound {bound * 1e3:.5f} ms ({by}; "
+        f"f32 ops {ops_s * 1e3:.5f} ms, bytes {bytes_s * 1e3:.5f} ms), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(F.scaled_dot_product_attention, key head expanded, bool mask) "
+        f"({card})")
+    simt = {"shape": f"q({b},{h},{s_},{d}) k({b},1,{s_},{d}) "
+                     f"v({b},{h},{s_},{dv}) f32",
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound * 1e3, "bound_by": by, "library_ms": lib_ms}
+    return {"flash_attention_masked": {"simt_eq2": simt},
+            "photonic_matmul": {"ms_by_shape": shapes}}
+
+
+def composed_against_cpu(torch, server, tag: str) -> None:
+    """The newest flush of ``server`` against the port on the CPU (the
+    plain versions): logits corr > 0.999 and equal argmax; each layer on
+    the same input (the CPU walk's), card against CPU, corr > 0.9999 (one
+    quant step: B3's class)."""
+    from repro_torch.bridge import to_device
+    from repro_torch.models.layers import layer_view
+    from repro_torch.models.vit import encoder_layer_step, forward_vit_tokens
+
+    cfg, pol = server.cfg, server.policy
+    fb, logits = server.last_flush, server.last_logits
+    t = fb.tokens
+    cpu_params = to_device(server.params, "cpu")
+    t0 = time.perf_counter()
+    plain = forward_vit_tokens(cpu_params, t.cpu(), cfg, pol,
+                               device="cpu")[0]
+    plain_s = time.perf_counter() - t0
+    end = corr(torch, logits, plain)
+    same = bool(torch.equal(logits.cpu().argmax(-1), plain.argmax(-1)))
+    b, _, d = t.shape
+    x = torch.cat([(cpu_params["cls"].expand(b, 1, d)
+                    + cpu_params["pos"][:, :1]), t.cpu()], dim=1)
+    layers = []
+    for i in range(cfg.n_layers):
+        want = encoder_layer_step(x, layer_view(cpu_params["blocks"], i),
+                                  cfg, pol)
+        got = encoder_layer_step(x.to(server.device), layer_view(
+            server.params["blocks"], i), cfg, pol)
+        layers.append(corr(torch, got, want))
+        x = want
+    say(f"[composed] {tag}: flush k={fb.bucket[0]} re-encoded on the CPU "
+        f"with the plain versions ({plain_s:.1f}s): logits corr {end:.6f}, "
+        f"argmax equal {same}; each layer on the same input, card vs CPU: "
+        f"corr >= {min(layers):.7f}")
+    if (logits.shape != plain.shape
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"{tag}: flush logits {tuple(logits.shape)} not finite")
+    if not end > 0.999 or not same:
+        fail(f"{tag}: card vs CPU logits corr {end}, argmax equal {same}")
+    if min(layers) <= 0.9999:
+        fail(f"{tag}: a layer, card vs CPU on the same input: corr "
+             f"{min(layers)} <= 0.9999 ({layers})")
+
+
+def run_composed(torch, dev, card: str, cfg, sc, params, streams, fused,
+                 fused_results, fused_fps: float) -> dict:
+    """Path 4d: opto-vit-base-224 on the composed dispatch through the
+    graphed server, 4a's traffic, under (a) the reference CLI's default
+    (photonic_pallas + xla attention + xla FFN) and (b) Eq. 2
+    (photonic_pallas + flash + xla FFN, attn_impl "decomposed"); then
+    ``run_dense`` on 4a's fused server over the same streams; then the
+    bf16, qat and photonic_sim encoders, one flush each, against the CPU.
+    Returns the checks' errors, the launches of the served runs and the
+    readings."""
+    import collections
+    import gc
+    from repro_torch.bridge import to_device
+    from repro_torch.core.backend import prepare_params
+    from repro_torch.kernels import _build
+    from repro_torch.models.vit import forward_vit_masked, forward_vit_tokens
+    from repro_torch.serving.server import StreamServer
+
+    errs = check_composed_kernels(torch, dev)
+    launches: collections.Counter = collections.Counter()
+    fps = {}
+    policies = (
+        ("a", cfg.with_(attn_backend="", ffn_backend=""),
+         {"photonic_matmul": 6 * cfg.n_layers + 1}),
+        ("b", cfg.with_(ffn_backend="", attn_impl="decomposed"),
+         {"photonic_matmul": (5 + cfg.n_heads) * cfg.n_layers + 1,
+          "flash_attention_masked": cfg.n_layers,
+          "flash_attention_masked.simt": cfg.n_layers}))
+    for tag, c, want in policies:
+        srv = StreamServer(c, sc, params=params)
+        say(f"[composed] ({tag}) {srv.policy} attn_impl={c.attn_impl}: "
+            f"warm start {srv.warm_s:.2f}s, CUDA graphs at buckets "
+            f"{sorted(srv.graphs)}")
+        if sorted(srv.graphs) != list(srv.ladder.sizes):
+            fail(f"({tag}) graphs {sorted(srv.graphs)} for ladder "
+                 f"{list(srv.ladder.sizes)}")
+        for k, g in sorted(srv.graphs.items()):
+            per = {n_: g.launches.get(n_, 0) for n_ in (
+                "photonic_matmul", "flash_attention_masked",
+                "flash_attention_masked.simt", "flash_attention_masked.tc",
+                "fused_ffn")}
+            if {n_: per.get(n_, 0) for n_ in want} != want or per[
+                    "fused_ffn"] or per["flash_attention_masked.tc"] or (
+                    per["flash_attention_masked"] != want.get(
+                        "flash_attention_masked", 0)):
+                fail(f"({tag}) k={k}: launches a flush {per}, want {want}")
+        cap = srv.graphs[srv.ladder.cap].launches
+        say(f"[composed] ({tag}) launches a flush (every bucket's graph): "
+            f"B1 {cap.get('photonic_matmul', 0)}, B2 simt "
+            f"{cap.get('flash_attention_masked.simt', 0)}, B2 tc "
+            f"{cap.get('flash_attention_masked.tc', 0)}, B3 "
+            f"{cap.get('fused_ffn', 0)}")
+        tokens = flush_tokens(torch, srv, streams)
+        for k, t in tokens.items():
+            _build.LAUNCHES.clear()
+            eager = forward_vit_tokens(srv.params, t, c, srv.policy)[0]
+            eager_n = dict(_build.LAUNCHES)
+            _build.LAUNCHES.clear()
+            graphed = srv.graphs[k].replay(t).clone()
+            if not torch.equal(graphed, eager) or dict(
+                    _build.LAUNCHES) != eager_n:
+                fail(f"({tag}) k={k}: replay vs eager max diff "
+                     f"{(graphed - eager).abs().max().item():.3e}, "
+                     f"launches {dict(_build.LAUNCHES)} against {eager_n}")
+        spans = {k: cuda_ms(lambda k=k, t=t: srv.graphs[k].replay(t),
+                            iters=10, warmup=2)
+                 for k, t in tokens.items()}
+        say(f"[composed] ({tag}) every bucket's replay is its eager encode "
+            f"bitwise, with the eager call's launches; a flush's replay "
+            f"span (4 frames, CUDA events): " + ", ".join(
+                f"k={k} {v:.3f} ms" for k, v in spans.items()) + f" ({card})")
+        srv.add_session(streams[0], n_frames=8, start=1000)
+        srv.serve()                                        # warm-up
+        ss = [srv.add_session(st, n_frames=32, start=16 * i)
+              for i, st in enumerate(streams)]
+        _build.LAUNCHES.clear()
+        res = srv.serve()
+        n = dict(_build.LAUNCHES)
+        launches.update(n)
+        for s in ss:
+            r = res[s.sid]
+            if set(r.predictions) != set(range(s.start, s.start + 32)):
+                fail(f"({tag}) session {s.sid}: {len(r.predictions)} "
+                     f"predictions for 32 frames")
+        shapes = {kk: vv for kk, vv in sorted(n.items())
+                  if kk.startswith("photonic_matmul.kmajor.K")}
+        if not (n.get("photonic_matmul.kmajor.K3072") and (
+                tag == "a" or n.get("photonic_matmul.kmajor.K64"))):
+            fail(f"({tag}) B1 missed a composed shape: {shapes}")
+        fps[tag] = 64 / max(res[s.sid].wall_s for s in ss)
+        say(f"[composed] ({tag}) 2 streams x 32 frames: {fps[tag]:.2f} "
+            f"frames/s against 4a's fused serve {fused_fps:.2f} ({card}); "
+            f"{len(srv.flush_log)} flushes; launches {n}")
+        composed_against_cpu(torch, srv, f"({tag})")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the mask-mode dense baseline on 4a's fused server, same streams
+    fused.run_dense(streams[0], n_frames=8, start=1000)  # captures its graph
+    if fused.dense_graph is None:
+        fail("run_dense on the graphed server captured no graph")
+    g = fused.dense_graph
+    # the dense encode embeds its chunk too: 4 B1 a layer, the head and
+    # the patch embed
+    dense_want = {"photonic_matmul": 4 * cfg.n_layers + 2,
+                  "flash_attention_masked": cfg.n_layers,
+                  "fused_ffn": cfg.n_layers}
+    per = {n_: g.launches.get(n_, 0) for n_ in dense_want}
+    if per != dense_want:
+        fail(f"dense encode launches {dict(g.launches)}, want {dense_want}")
+    chunk = torch.from_numpy(streams[0].frames_at(0, sc.chunk)[
+        "frames"]).to(dev)
+    mask = (torch.rand(sc.chunk, fused.n_patches, device=dev) > 0.5).float()
+    eager = forward_vit_masked(fused.params, chunk, mask, fused.cfg,
+                               fused.policy)[0]
+    if not torch.equal(g.replay(chunk, mask).clone(), eager):
+        fail("the dense graph's replay is not its eager encode")
+    _build.LAUNCHES.clear()
+    dense = [fused.run_dense(st, n_frames=32, start=16 * i)
+             for i, st in enumerate(streams)]
+    dn = dict(_build.LAUNCHES)
+    launches.update(dn)
+    fault = vit_entry_fault(dn)
+    if fault:
+        fail(f"run_dense: {fault}")
+    for i, (d_, b_) in enumerate(zip(dense, fused_results)):
+        if (d_.frames != b_.frames or set(d_.predictions)
+                != set(b_.predictions)
+                or d_.scored_frames != b_.scored_frames
+                or d_.bucket_hits != {fused.n_patches: 32}
+                or not d_.mean_frame_uj > b_.mean_frame_uj):
+            fail(f"run_dense stream {i}: {d_.summary()} against the "
+                 f"bucketed {b_.summary()}")
+        say(f"[composed] (c) dense stream {i}: {d_.summary()}; bucketed "
+            f"{b_.mean_frame_uj:.4f} uJ a frame (modeled)")
+    dense_fps = sum(d_.frames for d_ in dense) / sum(d_.wall_s for d_ in dense)
+    say(f"[composed] (c) run_dense, mask-mode dense on the fused point "
+        f"(one CUDA graph a chunk of {sc.chunk}; {dense_want} a chunk): "
+        f"{dense_fps:.2f} frames/s; bucketed 4a {fused_fps:.2f} frames/s: "
+        f"ratio {fused_fps / dense_fps:.3f}x (a reading, not a gate) "
+        f"({card}); launches {dn}")
+
+    # the bf16, qat and photonic_sim encoders, one flush each, card vs CPU
+    fb = fused.last_flush
+    raw_cpu = params
+    for backend in ("bf16", "qat", "photonic_sim"):
+        c = cfg.with_(matmul_backend=backend, attn_backend="",
+                      ffn_backend="")
+        cpu_p = (prepare_params(raw_cpu) if backend == "photonic_sim"
+                 else raw_cpu)
+        card_p = to_device(cpu_p, dev)
+        _build.LAUNCHES.clear()
+        got = forward_vit_tokens(card_p, fb.tokens, c)[0]
+        n = dict(_build.LAUNCHES)
+        want = forward_vit_tokens(cpu_p, fb.tokens.cpu(), c,
+                                  device="cpu")[0]
+        cc = corr(torch, got, want)
+        same = bool(torch.equal(got.cpu().argmax(-1), want.argmax(-1)))
+        say(f"[composed] {backend} + xla + xla encoder, flush k="
+            f"{fb.bucket[0]}: card vs CPU logits corr {cc:.6f}, argmax "
+            f"equal {same}; kernel launches {n or 'none'}")
+        if not cc > 0.999 or not same:
+            fail(f"{backend} encoder: card vs CPU corr {cc}, argmax equal "
+                 f"{same}")
+        del card_p
+    return {"errs": errs, "launches": launches, "fps": fps,
+            "dense_fps": dense_fps}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1850,10 +2244,32 @@ def main() -> int:
             "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
             **extra})
 
+    # path 4d's kernel shapes, timed next to the table (later profiled
+    # sessions drop records, §7 of PERF.md); their launches come with 4d
+    extra = time_composed_kernels(torch, dev, card)
     plan_ms = time_plan_kernels(torch, plan_calls, card)
     for entry in kernels:
         if entry["name"] in plan_ms:
             entry["ms_by_bits"] = plan_ms[entry["name"]]
+
+    # -- 4d. [composed]: the composed dispatch, Eq. 2 and the dense
+    # baseline on opto-vit-base-224 (after the kernel table, before the
+    # profiled phases); its launches join B1's and B2's counts
+    composed = run_composed(torch, dev, card, cfg, sc, params, streams,
+                            server, [results[s.sid] for s in sessions], fps)
+    simt = extra["flash_attention_masked"]["simt_eq2"]
+    simt["launches"] = composed["launches"].get(
+        "flash_attention_masked.simt", 0)
+    say(f"[numbers] flash_attention_masked simt (768, 64): "
+        f"{simt['launches']} launches on path 4d ({card})")
+    for entry in kernels:
+        kname = entry["name"]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   composed["errs"].get(kname, 0.0))
+        entry["launches"] += composed["launches"].get(kname, 0)
+        entry.update(extra.get(kname, {}))
+    say(f"[composed] launches on the main paths with 4d's: "
+        f"{ {e['name']: e['launches'] for e in kernels} }")
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

@@ -33,7 +33,7 @@ class ArchConfig:
     # attention
     qkv_bias: bool = False
     rope_theta: float = 500000.0
-    attn_impl: str = "standard"          # standard (decomposed: later slice)
+    attn_impl: str = "standard"          # standard | decomposed (Eq. 2)
     window: int = 0                      # local-attention window (hybrid)
 
     # vit / paper-specific
@@ -45,11 +45,14 @@ class ArchConfig:
     mgnet_heads: int = 3
 
     # paper technique knobs
-    quant_bits: int = 0                  # 0 = off; 8 = paper's photonic w8a8
-    matmul_backend: str = ""             # bf16 | photonic_pallas; "" resolves
-    #                                      from quant_bits (core/backend.py)
-    attn_backend: str = ""               # flash
-    ffn_backend: str = ""                # fused
+    quant_bits: int = 0                  # 0 = off; 8 = paper's QAT/photonic
+    photonic: bool = False               # "" backend -> photonic_sim
+    matmul_backend: str = ""             # bf16 | qat | photonic_sim |
+    #                                      photonic_pallas; "" resolves from
+    #                                      photonic / quant_bits
+    #                                      (core/backend.py)
+    attn_backend: str = ""               # xla | flash ("" -> xla)
+    ffn_backend: str = ""                # xla | fused ("" -> xla)
     bit_plan: tuple = ()                 # per-layer bit widths (one per
     #                                      encoder block, core/bitalloc.py);
     #                                      () = uniform quant_bits. Feeds

@@ -1,31 +1,38 @@
 """Execution backend: the quantize-once weight cache and the three dispatch
-points the ported paths funnel through (the reference's
-src/repro/core/backend.py, serving subset).
+points every ported path funnels through (the reference's
+src/repro/core/backend.py, its noise dispatch aside).
 
   * ``ExecPolicy``   - execution-mode knobs threaded from ArchConfig, with
-    the reference's resolution of an empty matmul backend name;
+    the reference's resolution of an empty matmul backend name (photonic
+    -> photonic_sim, quant_bits -> qat, else bf16);
   * ``QuantizedWeight`` + ``prepare_params`` - the quantize-once cache:
     every matmul weight replaced once by its int8 codes + per-output-
     channel f32 scale (the MR tuning step), selected by the same key rules
     as the reference, so the same leaves are cached, MGNet's included; a
     mixed-precision bit plan (core/bitalloc.py) gives each stacked layer
     its own width;
-  * ``linear``  - matmul registry: ``bf16`` (the LM default: f32
-    accumulate, one rounding to the activation dtype; a plain matmul, as
-    the reference leaves it to XLA) and ``photonic_pallas`` (the int8
-    photonic matmul kernel, kernels/photonic_matmul.py); the bias is added
-    after the matmul;
-  * ``attend``  - attention-core registry: ``flash`` (the RoI-masked flash
-    attention kernel, kernels/flash_attention.py);
-  * ``ffn``     - FFN registry: ``fused`` (the fused int8 FFN kernel,
+  * ``linear``  - matmul registry: ``bf16`` (f32 accumulate, one rounding
+    to the activation dtype; a plain matmul, as the reference leaves it to
+    XLA), ``qat`` (fake-quant w8a8 in float), ``photonic_sim`` (the int32
+    accumulate walked in 32-wide wavelength chunks, then the dequant) and
+    ``photonic_pallas`` (the int8 photonic matmul kernel,
+    kernels/photonic_matmul.py); the bias is added after the matmul. The
+    photonic entries share one numerics contract: their int32 accumulates
+    equal ``int_accumulate_exact``'s;
+  * ``attend``  - attention-core registry: ``xla`` (materialized scores,
+    an additive -1e9 key bias, softmax, PV: plain PyTorch, as the
+    reference computes it outside any kernel) and ``flash`` (the
+    RoI-masked flash attention kernel, kernels/flash_attention.py);
+  * ``ffn``     - FFN registry: ``xla`` (two ``linear`` dispatches with the
+    tanh GELU between them) and ``fused`` (the fused int8 FFN kernel,
     kernels/fused_ffn.py);
   * ``place_params`` - slices the prepared tree down to one rank's shard
     of a model-sharded serving mesh.
 
-The reference's other registry entries (qat / photonic_sim, the
-materialized-score ``xla`` attention and the composed ``xla`` FFN) are not
-ported yet: naming one, or reaching one through the resolution of an
-empty name, raises ``NotImplementedError`` (ROADMAP.md queue A).
+A fused entry asked for with weights it cannot take raises with the
+reason (``_fused_ffn_ineligible_reason``): the reference warns once and
+runs the composed dispatch instead, which would hide the kernel the
+policy named (ROADMAP.md queue C, deviations by design).
 """
 
 from __future__ import annotations
@@ -39,27 +46,26 @@ from repro_torch.core import bitalloc, quant
 
 __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
            "prepare_params", "place_params", "NON_MATMUL_KEYS",
-           "MATMUL_WEIGHT_EXTRA",
+           "MATMUL_WEIGHT_EXTRA", "int_accumulate_exact",
+           "int_accumulate_sim", "int_accumulate_pallas",
            "get_backend", "get_attention_backend", "get_ffn_backend",
-           "matmul", "linear", "attend", "ffn"]
+           "available_backends", "available_attention_backends",
+           "available_ffn_backends", "matmul", "linear", "attend", "ffn"]
 
-# registry entries of the reference that later slices of the port bring
-_NOT_PORTED = {
-    "matmul": ("qat", "photonic_sim"),
-    "attention": ("xla",),
-    "ffn": ("xla",),
-}
+# photonic K-chunk width (32 WDM wavelength channels, paper Fig. 3b)
+_WAVELENGTHS = 32
 
 
 class ExecPolicy:
     """Execution-mode knobs threaded from ArchConfig into every layer.
 
     ``backend`` names a matmul registry entry; an empty name resolves as
-    the reference's legacy flags do: ``quant_bits`` -> qat, else bf16 (qat
-    is not ported yet). The matmul is looked up once, here, so naming an
-    unported backend raises when the policy is built. ``attn_backend`` and
-    ``ffn_backend`` default to the reference's "xla" entries, also not
-    ported: the ViT serving point names photonic_pallas + flash + fused.
+    the reference's legacy flags do: ``photonic`` -> photonic_sim,
+    ``quant_bits`` -> qat, else bf16. The matmul is looked up once, here,
+    so an unknown name raises when the policy is built. ``attn_backend``
+    and ``ffn_backend`` default to the reference's "xla" entries (the
+    composed dispatch); the ViT serving point names photonic_pallas +
+    flash + fused.
 
     ``bit_plan`` is the identity of the active mixed-precision plan
     (``core.bitalloc.plan_key`` output, or a bare per-layer tuple); None
@@ -68,14 +74,16 @@ class ExecPolicy:
     widths instead of a stale cache, which without a plan is an error).
     """
 
-    __slots__ = ("quant_bits", "backend", "attn_backend", "ffn_backend",
-                 "matmul_fn", "bit_plan")
+    __slots__ = ("quant_bits", "photonic", "backend", "attn_backend",
+                 "ffn_backend", "matmul_fn", "bit_plan")
 
     def __init__(self, quant_bits: int = 0, backend: str = "",
                  attn_backend: str = "", ffn_backend: str = "",
-                 bit_plan=None):
+                 bit_plan=None, photonic: bool = False):
         self.quant_bits = quant_bits
-        self.backend = backend or ("qat" if quant_bits else "bf16")
+        self.photonic = photonic
+        self.backend = backend or ("photonic_sim" if photonic else
+                                   "qat" if quant_bits else "bf16")
         self.matmul_fn = _lookup(BACKENDS, "matmul", self.backend)
         self.attn_backend = attn_backend
         self.ffn_backend = ffn_backend
@@ -86,7 +94,7 @@ class ExecPolicy:
     def from_cfg(cfg) -> "ExecPolicy":
         return ExecPolicy(cfg.quant_bits, cfg.matmul_backend,
                           cfg.attn_backend, cfg.ffn_backend,
-                          cfg.bit_plan or None)
+                          cfg.bit_plan or None, cfg.photonic)
 
     def resolve_attn_backend(self) -> str:
         return self.attn_backend or "xla"
@@ -150,6 +158,10 @@ class QuantizedWeight:
             u = set(self.bits)
             return u.pop() if len(u) == 1 else None
         return self.bits
+
+    def dequantize(self) -> torch.Tensor:
+        """The f32 weight the codes stand for: f32 codes x scale."""
+        return quant.dequantize(self.wq, self.scale)
 
     def layer(self, i: int) -> "QuantizedWeight":
         """Layer ``i`` of a stacked cache entry at its own int width
@@ -367,13 +379,8 @@ FFN_BACKENDS: dict[str, Callable] = {}
 def _lookup(registry: dict, kind: str, name: str) -> Callable:
     if name in registry:
         return registry[name]
-    if name in _NOT_PORTED[kind]:
-        raise NotImplementedError(
-            f"{kind} backend {name!r} is not ported to repro_torch yet (a "
-            f"later slice of the port, ROADMAP.md queue A); ported: "
-            f"{sorted(registry)}")
-    raise KeyError(f"unknown {kind} backend {name!r}; ported: "
-                   f"{sorted(registry)}")
+    raise KeyError(f"unknown {kind} backend {name!r}; available: "
+                   f"{tuple(sorted(registry))}")
 
 
 def get_backend(name: str) -> Callable:
@@ -386,6 +393,64 @@ def get_attention_backend(name: str) -> Callable:
 
 def get_ffn_backend(name: str) -> Callable:
     return _lookup(FFN_BACKENDS, "ffn", name)
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(BACKENDS))
+
+
+def available_attention_backends() -> tuple[str, ...]:
+    return tuple(sorted(ATTN_BACKENDS))
+
+
+def available_ffn_backends() -> tuple[str, ...]:
+    return tuple(sorted(FFN_BACKENDS))
+
+
+# --------------------------------------------------------------------------
+# integer-accumulate primitives (the photonic entries' numerics contract)
+# --------------------------------------------------------------------------
+
+def int_accumulate_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """One-shot exact int32 accumulate of (M, K) and (K, N) codes, outside
+    any kernel of the port (``kernels/fused_ffn.py::int_accumulate``: the
+    float64 plain version on the CPU, ``torch._int_mm`` on the card)."""
+    from repro_torch.kernels.fused_ffn import int_accumulate
+    return int_accumulate(xq, wq)
+
+
+def int_accumulate_sim(xq: torch.Tensor, wq: torch.Tensor,
+                       chunk: int = _WAVELENGTHS) -> torch.Tensor:
+    """The int32 accumulate walked over K in ``chunk``-wide wavelength
+    groups (the paper's Fig. 6 schedule), K zero-padded to whole chunks.
+    Integer addition is associative, so it equals ``int_accumulate_exact``
+    bitwise; each chunk goes through the same exact accumulate."""
+    from repro_torch.kernels.fused_ffn import int_accumulate
+    m, k = xq.shape
+    n = wq.shape[1]
+    rem = (-k) % chunk
+    if rem:
+        xq = torch.nn.functional.pad(xq, (0, rem))
+        wq = torch.nn.functional.pad(wq, (0, 0, 0, rem))
+    acc = torch.zeros((m, n), dtype=torch.int32, device=xq.device)
+    for c0 in range(0, k + rem, chunk):
+        acc += int_accumulate(xq[:, c0:c0 + chunk].contiguous(),
+                              wq[c0:c0 + chunk])
+    return acc
+
+
+def int_accumulate_pallas(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulate through the photonic matmul kernel (B1) with
+    unit scales, whose f32 output is then the raw accumulate: exact for
+    |acc| < 2^24 (K <= 1040 at 8 bits, every ViT shape of the repo). The
+    kernel masks ragged edges, so nothing is padded; its K-major entry
+    reads a K-major copy of ``wq`` made here."""
+    from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
+    n = wq.shape[1]
+    out = photonic_matmul_int8(
+        xq, wq, torch.ones((), device=xq.device),
+        torch.ones(n, device=xq.device), wt=wq.t().contiguous())
+    return out.to(torch.int32)
 
 
 def _photonic_pallas_matmul(x, w, p: ExecPolicy):
@@ -413,7 +478,7 @@ def _bf16_matmul(x, w, p: ExecPolicy):
     ``w`` may be a transposed view (the tied LM head): it is never copied
     to a contiguous layout here."""
     if isinstance(w, QuantizedWeight):
-        w = (w.wq.float() * w.scale).to(x.dtype)
+        w = w.dequantize().to(x.dtype)
     if (x.is_cuda and x.dtype == w.dtype
             and x.dtype in (torch.bfloat16, torch.float16)):
         return torch.matmul(x, w)
@@ -421,6 +486,42 @@ def _bf16_matmul(x, w, p: ExecPolicy):
 
 
 BACKENDS["bf16"] = _bf16_matmul
+
+
+def _qat_matmul(x, w, p: ExecPolicy):
+    """Fake-quant w8a8 in float (the reference's ``qat`` entry, paper §IV):
+    the weight per output channel, the activations per tensor, then one f32
+    product cast to ``x.dtype``. A cached weight is dequantized instead
+    (the cache already quantized it). On the card the f32 product runs
+    without TF32, as the entry points set it."""
+    bits = p.quant_bits or 8
+    if isinstance(w, QuantizedWeight):
+        wq = w.dequantize().to(x.dtype)
+    else:
+        wq = quant.fake_quant(w, bits=bits, axis=tuple(range(w.ndim - 1)))
+    xq = quant.fake_quant(x, bits=bits, axis=None)
+    return torch.matmul(xq.float(), wq.float()).to(x.dtype)
+
+
+BACKENDS["qat"] = _qat_matmul
+
+
+def _photonic_sim_matmul(x, w, p: ExecPolicy):
+    """The chunk-walking w8a8 oracle: per-tensor activation codes, the
+    int32 accumulate over 32-wavelength K chunks (``int_accumulate_sim``),
+    then the dequant (f32(acc) * sx) * sw[n], as the kernel's epilogue."""
+    bits = _weight_bits(w, p)
+    qw = _resolve_wq(w, bits)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    sx = quant.absmax_scale(x2, bits=bits)
+    xq = quant.quantize(x2, sx, bits=bits)
+    acc = int_accumulate_sim(xq, qw.wq)
+    y = acc.float() * sx * qw.scale.reshape(1, -1)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+BACKENDS["photonic_sim"] = _photonic_sim_matmul
 
 _DEFAULT = ExecPolicy()
 
@@ -463,6 +564,36 @@ def _attend_flash(q, k, v, p: ExecPolicy, mask, kv_len, scale):
 ATTN_BACKENDS["flash"] = _attend_flash
 
 
+def _attend_xla(q, k, v, p: ExecPolicy, mask, kv_len, scale):
+    """The materialized-score dataflow, plain PyTorch as the reference
+    computes it outside any kernel: the full (Sq, Skv) scores, a large
+    negative additive bias (mask - 1) * 1e9 on masked keys (the
+    reference's constant, not the plain kernel's NEG_INF), softmax, then
+    PV; rows with no live key are set to exactly 0. Runs in the operands'
+    dtype. A packed ``kv_len`` is applied as a prefix mask: nothing is
+    skipped."""
+    from repro_torch.kernels.ref import expand_kv_heads, prefix_key_mask
+
+    h = q.shape[-3]
+    if kv_len is not None:
+        # an int kv_len builds the mask on the device, copying nothing
+        # from the host, so a CUDA graph can capture it
+        skv = k.shape[-2]
+        mask = ((torch.arange(skv, device=q.device) < kv_len).float()
+                if isinstance(kv_len, int)
+                else prefix_key_mask(kv_len, 1, skv, q.device)[0])
+    s = (q @ expand_kv_heads(k, h).transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + ((mask.float() - 1.0) * 1e9).to(s.dtype)[..., None, None, :]
+    o = torch.softmax(s, dim=-1) @ expand_kv_heads(v, h)
+    if mask is not None:
+        o = o * (mask.sum(-1) > 0)[..., None, None, None].to(o.dtype)
+    return o
+
+
+ATTN_BACKENDS["xla"] = _attend_xla
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            policy: ExecPolicy | None = None, *,
            mask: torch.Tensor | None = None, kv_len: int | None = None,
@@ -481,13 +612,56 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                            kv_len, scale)
 
 
+def _ffn_xla(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
+    """The composed dataflow: two ``linear`` dispatches with the tanh GELU
+    in f32 between them, cast to ``x.dtype`` after the bias and after the
+    GELU. Runs on every matmul backend; ``live_rows`` is ignored (this
+    entry never skips, as the reference's)."""
+    from repro_torch.kernels.ref import gelu_tanh
+
+    h = linear(x, w1, b1, policy=p)
+    h = gelu_tanh(h.float()).to(x.dtype)
+    return linear(h, w2, b2, policy=p)
+
+
+FFN_BACKENDS["xla"] = _ffn_xla
+
+
+def _fused_ffn_ineligible_reason(w1, w2,
+                                 p: ExecPolicy | None) -> str | None:
+    """None when the fused int8 FFN kernel can take the block: the int8
+    photonic matmul backend (a policy of None, a direct call of the
+    entry, names no other) and both weights quantize-once cached, per
+    layer, at (possibly different) widths of at most 8 bits; else why
+    not."""
+    if p is not None and p.backend != "photonic_pallas":
+        return (f"matmul backend is {p.backend!r}, the fused FFN needs "
+                f"'photonic_pallas'")
+    if not (isinstance(w1, QuantizedWeight)
+            and isinstance(w2, QuantizedWeight)):
+        return "w1/w2 not quantize-once cached (run prepare_params)"
+    if not (w1.ndim == 2 and w2.ndim == 2):
+        return "w1/w2 still stacked (ndim > 2), not per-layer slices"
+    if not (isinstance(w1.bits, int) and isinstance(w2.bits, int)):
+        return (f"w1/w2 carry stacked per-layer bits ({w1.bits}/{w2.bits}),"
+                f" not a single width")
+    if not (w1.bits <= 8 and w2.bits <= 8):
+        return f"bit widths ({w1.bits}, {w2.bits}) above the int8 kernel max"
+    return None
+
+
 def _ffn_fused(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
-    """The fused int8 photonic FFN over per-layer cached weights (the
-    encoder checks eligibility; the reference's composed fallback is not
-    ported yet). The kernel's K-major entry reads the cache's K-major
-    copies ``wt``, made with the cache entry (``layer(i)`` slices them)."""
+    """The fused int8 photonic FFN over per-layer cached weights. Weights
+    it cannot take raise with the reason (the reference falls back to the
+    composed dispatch). The kernel's K-major entry reads the cache's
+    K-major copies ``wt``, made with the cache entry (``layer(i)`` slices
+    them)."""
     from repro_torch.kernels.fused_ffn import fused_ffn
 
+    reason = _fused_ffn_ineligible_reason(w1, w2, p)
+    if reason is not None:
+        raise ValueError(f"the fused FFN was asked for but cannot run: "
+                         f"{reason}")
     return fused_ffn(x, w1.wq, w1.scale.reshape(-1), b1,
                      w2.wq, w2.scale.reshape(-1), b2,
                      bits=(w1.bits, w2.bits), live_rows=live_rows,

@@ -21,8 +21,9 @@ import torch
 from repro_torch.core.backend import ExecPolicy, linear
 from repro_torch.kernels.ref import gelu_tanh
 
-__all__ = ["MGNetConfig", "patchify", "mgnet_scores", "select_topk_patches",
-           "mask_budget", "frame_delta", "mgnet_logical_axes"]
+__all__ = ["MGNetConfig", "patchify", "mgnet_scores", "mgnet_mask",
+           "select_topk_patches", "mask_budget", "frame_delta", "mask_iou",
+           "mgnet_logical_axes"]
 
 
 @dataclass(frozen=True)
@@ -111,6 +112,13 @@ def mgnet_scores(params: dict, images: torch.Tensor, cfg: MGNetConfig,
                   params["score"]["head_b"], policy)
 
 
+def mgnet_mask(params: dict, images: torch.Tensor, cfg: MGNetConfig,
+               policy: ExecPolicy | None = None) -> torch.Tensor:
+    """Binary patch mask (B, N) in {0., 1.}: sigmoid(S_region) > t_reg."""
+    s = torch.sigmoid(mgnet_scores(params, images, cfg, policy))
+    return (s > cfg.t_reg).float()
+
+
 def select_topk_patches(scores: torch.Tensor, tokens: torch.Tensor, keep: int):
     """Keep the ``keep`` highest-scoring patches: stable descending argsort,
     so among equal scores the lowest patch index wins. scores (B, N);
@@ -134,3 +142,11 @@ def frame_delta(frames: np.ndarray, ref: np.ndarray) -> np.ndarray:
     cheap host-side signal that decides whether MGNet re-scores."""
     d = np.abs(frames.astype(np.float32) - ref.astype(np.float32))
     return d.mean(axis=tuple(range(1, frames.ndim)))
+
+
+def mask_iou(pred: torch.Tensor, gt: torch.Tensor,
+             eps: float = 1e-8) -> torch.Tensor:
+    """Mean IoU of binary masks (B, N): the paper's mask quality metric."""
+    inter = (pred * gt).sum(-1)
+    union = torch.clamp(pred + gt, 0, 1).sum(-1)
+    return (inter / (union + eps)).mean()

@@ -5,6 +5,12 @@ is ``absmax * f32(1/qmax)`` (a pre-rounded reciprocal, never a division by
 qmax), ``quantize`` divides by the scale, rounds half to even
 (``torch.round``) and clips to the balanced range [-qmax, qmax], so -128
 is never produced. Codes are int8 for bits <= 8 and int32 above.
+
+``fake_quant`` / ``fake_quant_ste`` (the ``qat`` matmul backend's
+quantize -> dequantize) and ``quantize_params`` divide by the scale as the
+reference does and return the input's dtype. Only their forward values
+are ported: the straight-through gradient of ``fake_quant_ste`` comes with
+training (ROADMAP.md queue A15).
 """
 
 from __future__ import annotations
@@ -12,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["quant_range", "inv_qmax", "absmax_scale", "quantize", "dequantize"]
+__all__ = ["quant_range", "inv_qmax", "absmax_scale", "quantize", "dequantize",
+           "fake_quant", "fake_quant_ste", "quantize_params"]
 
 
 def quant_range(bits: int) -> tuple[int, int]:
@@ -51,3 +58,39 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 8) -> torch.Tenso
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+    """quantize -> dequantize in ``x.dtype``: round(x / s), clipped to the
+    balanced range, times s (the inference path). ``x / s`` is taken in
+    f32, as the reference promotes a low-precision x against its f32
+    scale."""
+    scale = absmax_scale(x, bits=bits, axis=axis)
+    qmin, qmax = quant_range(bits)
+    q = torch.clamp(torch.round(x.float() / scale), qmin, qmax)
+    return (q * scale).to(x.dtype)
+
+
+def fake_quant_ste(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+    """The training form of ``fake_quant``: clip x / s, then round. Equal to
+    ``fake_quant`` in value (rounding and clipping to integer bounds
+    commute); the reference's straight-through gradient is not ported."""
+    scale = absmax_scale(x, bits=bits, axis=axis)
+    qmin, qmax = quant_range(bits)
+    clipped = torch.clamp(x.float() / scale, qmin, qmax)
+    return (torch.round(clipped) * scale).to(x.dtype)
+
+
+def quantize_params(params, bits: int = 8, min_size: int = 128):
+    """Post-training fake quantization of a nested-dict param tree: every
+    tensor leaf of ndim >= 2 and at least ``min_size`` elements is
+    fake-quantized per output channel (every axis but the last reduced);
+    smaller leaves (biases, norm gains) stay as they are."""
+    if isinstance(params, dict):
+        return {k: quantize_params(v, bits, min_size)
+                for k, v in params.items()}
+    if (isinstance(params, torch.Tensor) and params.ndim >= 2
+            and params.numel() >= min_size):
+        return fake_quant(params, bits=bits,
+                          axis=tuple(range(params.ndim - 1)))
+    return params

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "full_precision_matmuls"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +26,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
     return dev
+
+
+def full_precision_matmuls() -> None:
+    """Make the card's matmuls keep the reference's precision: f32 products
+    in full f32 (no TF32: the composed ``qat`` / ``xla`` entries and the
+    bf16 einsum of Eq. 2 run f32 products through cuBLAS) and bf16 products
+    accumulated in f32 and rounded once (the reference's
+    ``preferred_element_type``). The serving entry points set both on the
+    card; a process-wide setting of PyTorch's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -94,6 +94,8 @@ _SIGNATURES = {
     "flash_decode_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
     + (_FLOAT, _VOID),
     "dequant_epilogue_s32": (_VOID,) * 4 + (_INT,) * 2 + (_VOID,),
+    "flash_attention_masked_smem": (_INT, _INT),
+    "max_dynamic_smem": (_INT,),
 }
 
 _lib: ctypes.CDLL | None = None

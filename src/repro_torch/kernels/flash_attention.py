@@ -36,12 +36,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_masked_ref,
                                      flash_attention_ref, prefix_key_mask)
 
-__all__ = ["KV_TILE", "MAX_HEAD_DIM", "TC_HEAD_DIMS",
-           "TC_MASKED_HEAD_DIMS", "masked_entry_for",
-           "flash_attention_masked", "flash_attention"]
+__all__ = ["KV_TILE", "CAUSAL_MAX_HEAD_DIM", "TC_HEAD_DIMS",
+           "TC_MASKED_HEAD_DIMS", "masked_entry_for", "simt_smem_bytes",
+           "simt_smem_limit", "flash_attention_masked", "flash_attention"]
 
 KV_TILE = 32          # keys per tile of both masked kernels (kBKV, tc::kBKV)
-MAX_HEAD_DIM = 256    # D and Dv bound: the per-block tiles live in shared memory
+CAUSAL_MAX_HEAD_DIM = 256   # the causal f32 kernel's D bound (its tiles
+#                             live in shared memory)
 TC_HEAD_DIMS = (16, 64, 128)   # head dims the bf16 tensor-core kernel takes
 TC_MASKED_HEAD_DIMS = (64, 64)  # (D, Dv) of the tensor-core masked kernel
 
@@ -50,6 +51,27 @@ def masked_entry_for(d: int, dv: int) -> str:
     """The entry a CUDA ``flash_attention_masked`` call of head dims (D, Dv)
     launches: "tc" (3xTF32 tensor cores) or "simt"."""
     return "tc" if (d, dv) == TC_MASKED_HEAD_DIMS else "simt"
+
+
+@functools.lru_cache(maxsize=None)
+def simt_smem_bytes(d: int, dv: int) -> int:
+    """Shared memory one block of the masked SIMT entry takes at head dims
+    (D, Dv): its Q and K tiles (D + 1 floats a row), V, P, the accumulator
+    and the row state (``smem_bytes`` in csrc/flash_attention.cu, read
+    from the library so the two never drift apart)."""
+    return int(_build.library().flash_attention_masked_smem(d, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def simt_smem_limit(index: int) -> int:
+    """The shared memory a block may opt into on card ``index``
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 bytes on an H100),
+    read once per card."""
+    v = int(_build.library().max_dynamic_smem(index))
+    if v <= 0:
+        raise RuntimeError(f"reading card {index}'s shared-memory opt-in "
+                           f"limit failed: cudaError_t {-v}")
+    return v
 
 
 def _live_counts(mask: torch.Tensor, pad: bool):
@@ -91,7 +113,11 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, D) projection layout permuted), read by strides, and need
     16-byte aligned pointers and (batch, head, row) strides, else it
     raises; the output is a (B, H, Sq, Dv) view of a (B, Sq, H, Dv)
-    tensor. Every other (D, Dv) takes the SIMT entry on contiguous copies.
+    tensor. Every other (D, Dv) takes the SIMT entry on contiguous copies,
+    up to the head dims whose block fits the card's opt-in shared memory
+    (``simt_smem_bytes`` against ``simt_smem_limit``: (768, 64), Eq. 2 at
+    ViT-Base, and (1024, 64), at ViT-Large, both fit); above that it
+    raises.
     Each launch counts under ``flash_attention_masked`` and under
     ``flash_attention_masked.<entry>``.
     """
@@ -117,11 +143,17 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_masked runs on cuda or cpu, not {dev}")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("the CUDA kernel takes f32 q, k, v")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims ({d}, {dv}) above {MAX_HEAD_DIM}")
+    entry = masked_entry_for(d, dv)
+    if entry == "simt":
+        need = simt_smem_bytes(d, dv)
+        limit = simt_smem_limit(dev.index if dev.index is not None
+                                else torch.cuda.current_device())
+        if need > limit:
+            raise ValueError(f"head dims ({d}, {dv}) need {need} bytes of "
+                             f"shared memory a block, above the card's "
+                             f"{limit}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    entry = masked_entry_for(d, dv)
     tc = entry == "tc"           # the tensor-core kernel reads a padded mask
     if key_mask is None and (kv_len is None or isinstance(kv_len, int)):
         mask, nlive = _constant_mask(kv_len, b, skv, dev, tc)
@@ -200,8 +232,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.dtype != q.dtype:
         raise TypeError(f"the CUDA kernel takes q, k, v all f32 or all bf16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}")
+    if d > CAUSAL_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above {CAUSAL_MAX_HEAD_DIM}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))

@@ -3,7 +3,8 @@ src/repro/kernels/ops.py, serving subset).
 
 ``photonic_matmul_prequant`` quantizes the activations per tensor (PyTorch
 ops, as the reference runs them under XLA outside its kernel) and feeds
-the int8 photonic matmul with the quantize-once cached weight.
+the int8 photonic matmul with the quantize-once cached weight;
+``photonic_matmul`` is the float API that quantizes the weight too.
 ``fused_roi_attention_prequant`` is the MHSA hot path: three cached-weight
 int8 projections feeding the RoI-masked flash attention kernel.
 """
@@ -16,7 +17,21 @@ from repro_torch.core import quant
 from repro_torch.kernels.flash_attention import flash_attention_masked
 from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
 
-__all__ = ["photonic_matmul_prequant", "fused_roi_attention_prequant"]
+__all__ = ["pad_to", "photonic_matmul", "photonic_matmul_prequant",
+           "fused_roi_attention_prequant"]
+
+
+def pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
+    """Zero-pad ``axis`` of ``x`` up to a multiple of ``mult`` (x itself when
+    it already is one). The kernels mask ragged edges, so no path of the
+    port pads for them; this is the reference's helper for callers that
+    want padded operands."""
+    r = (-x.shape[axis]) % mult
+    if r == 0:
+        return x
+    pad = [0, 0] * x.ndim
+    pad[2 * (x.ndim - 1 - axis % x.ndim) + 1] = r
+    return torch.nn.functional.pad(x, pad)
 
 
 def photonic_matmul_prequant(x: torch.Tensor, wq: torch.Tensor,
@@ -32,6 +47,18 @@ def photonic_matmul_prequant(x: torch.Tensor, wq: torch.Tensor,
     sx = quant.absmax_scale(x2, bits=bits)
     xq = quant.quantize(x2, sx, bits=bits)
     return photonic_matmul_int8(xq, wq, sx, sw, wt=wt).reshape(*lead, n)
+
+
+def photonic_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                    bits: int = 8) -> torch.Tensor:
+    """The float API: the weight quantized per output channel (and its
+    K-major copy made) for this call, then ``photonic_matmul_prequant``.
+    x (..., K) any float dtype; w (K, N). Returns (..., N) f32."""
+    w32 = w.float()
+    sw = quant.absmax_scale(w32, bits=bits, axis=0)
+    wq = quant.quantize(w32, sw, bits=bits)
+    return photonic_matmul_prequant(x, wq, sw.reshape(-1), bits=bits,
+                                    wt=wq.t().contiguous())
 
 
 def fused_roi_attention_prequant(x: torch.Tensor,

@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.configs.registry import get_config
 from repro_torch.core.backend import BACKENDS, prepare_params
-from repro_torch.device import resolve_device
+from repro_torch.device import full_precision_matmuls, resolve_device
 from repro_torch.models import api as model_api
 from repro_torch.models.layers import ExecPolicy
 
@@ -119,7 +119,7 @@ def main(argv=None):
         cfg = smoke_variant(cfg)
     if args.backend:
         if args.backend not in BACKENDS:
-            raise SystemExit(f"backend {args.backend!r} is not ported; "
+            raise SystemExit(f"unknown backend {args.backend!r}; "
                              f"choose from {sorted(BACKENDS)}")
         cfg = cfg.with_(matmul_backend=args.backend)
     if not model_api.supports_decode(cfg):
@@ -128,9 +128,7 @@ def main(argv=None):
         raise SystemExit("--prompt-len + --gen must fit in --cache-len")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        # the reference's matmuls accumulate in f32 (preferred_element_type)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        full_precision_matmuls()
 
     policy = ExecPolicy.from_cfg(cfg)
     params = model_api.init_model(args.seed, cfg, dev)

@@ -1,21 +1,30 @@
 """Vision Transformer backbone + Opto-ViT serving path (the reference's
-src/repro/models/vit.py, fused serving point).
+src/repro/models/vit.py).
 
-Every matmul routes through ``linear`` (the int8 photonic matmul kernel
-over the quantize-once cache), every attention core through the
-RoI-masked flash attention kernel and every GELU-MLP through the fused
-int8 FFN kernel: the reference's fully fused serving point
-(photonic_pallas + flash + fused). Stacked layer weights keep their
-leading L axis (as the reference's scan stacks them); a Python loop over
-layers slices one layer per step in place of ``lax.scan``. Under a
-mixed-precision bit plan each layer's slice carries its own int widths
-(``QuantizedWeight.layer``), so B1 and B3 run each layer at its width: the
-loop is the port's counterpart of the reference's segmented scan over
-equal-bits runs.
+Every matmul routes through ``linear`` (core/backend.py's matmul registry:
+bf16 | qat | photonic_sim | photonic_pallas), every attention core through
+``attend`` (xla materialized scores | the RoI-masked flash attention
+kernel) and every GELU-MLP through ``ffn`` (xla composed two-linear | the
+fused int8 FFN kernel), as the policy names them. On the fully fused
+serving point (photonic_pallas + flash + fused over a cache of <= 8-bit
+weights) each layer is the fused attention branch plus the fused FFN;
+every other combination runs the composed dispatch, and the Eq. 2
+decomposed attention dataflow runs with ``attn_impl="decomposed"``. A
+fused block asked for with params it cannot take raises with the reason,
+where the reference warns once and composes.
+
+Stacked layer weights keep their leading L axis (as the reference's scan
+stacks them); a Python loop over layers slices one layer per step in
+place of ``lax.scan``. Under a mixed-precision bit plan each layer's
+slice carries its own int widths (``QuantizedWeight.layer``): the loop is
+the port's counterpart of the reference's segmented scan over equal-bits
+runs.
 
 MGNet RoI pruning: patches are scored by MGNet and only the top-k
-(static budget ceil(keep_ratio * N)) enter encoder block 0; the [cls]
-token is always kept.
+(static budget int(keep_ratio * N)) enter encoder block 0; the [cls]
+token is always kept. ``forward_vit_masked`` is the mask-mode dense
+baseline: all N patches enter, the mask removes dropped ones from every
+attention key axis.
 
 Under a sharding context whose "model" axis has more than one rank,
 ``encode_tokens`` runs the model-sharded encoder
@@ -29,7 +38,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import mgnet as mgnet_mod
-from repro_torch.core.decomposed_attention import mhsa_standard
+from repro_torch.core.decomposed_attention import (mhsa_decomposed,
+                                                   mhsa_standard)
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import current_ctx
@@ -39,8 +49,8 @@ from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
                                        layer_view, linear)
 
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
-           "forward_vit", "forward_vit_tokens", "vit_matmul_shapes",
-           "mgnet_config", "vit_logical_axes"]
+           "forward_vit", "forward_vit_tokens", "forward_vit_masked",
+           "vit_matmul_shapes", "mgnet_config", "vit_logical_axes"]
 
 
 def _n_patches(cfg):
@@ -99,10 +109,13 @@ def encoder_layer_step(carry: torch.Tensor, lp: dict, cfg: ArchConfig,
                        mask: torch.Tensor | None = None,
                        attn_kv: int | None = None,
                        ffn_live: int | None = None) -> torch.Tensor:
-    """One encoder layer: LN -> MHSA -> residual -> LN -> FFN -> residual.
+    """One encoder layer: LN -> MHSA (standard, or Eq. 2 under
+    ``attn_impl="decomposed"``) -> residual -> LN -> FFN -> residual.
     ``lp`` is one layer's param slice."""
     h = layernorm(carry, lp["ln1_g"], lp["ln1_b"], cfg.norm_eps)
-    o = mhsa_standard(h, lp["attn"], cfg.n_heads, policy, mask, attn_kv)
+    mhsa = (mhsa_decomposed if cfg.attn_impl == "decomposed"
+            else mhsa_standard)
+    o = mhsa(h, lp["attn"], cfg.n_heads, policy, mask, attn_kv)
     carry = carry + o.to(carry.dtype)
     h2 = layernorm(carry, lp["ln2_g"], lp["ln2_b"], cfg.norm_eps)
     return carry + ffn_mod.mlp(lp["ffn"], h2, policy, live_rows=ffn_live)
@@ -113,9 +126,7 @@ def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
     """None when the encoder can run the fused serving point (int8 photonic
     matmuls + flash attention + fused FFN, standard dataflow, every
     per-layer matmul weight cached at 2-8 bits, uniform or under a
-    per-layer bit plan); else why not. The one
-    eligibility check of the encode: the attention and FFN blocks below it
-    call their kernels directly."""
+    per-layer bit plan); else why not."""
     triple = (policy.backend, policy.resolve_attn_backend(),
               policy.resolve_ffn_backend())
     if triple != ("photonic_pallas", "flash", "fused"):
@@ -160,11 +171,18 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     flash kernel skips the dead key tiles and the fused FFN the dead rows).
     Runs on ``device`` (default: the card).
 
+    Every policy runs: the fused serving point (photonic_pallas + flash +
+    fused over cached weights), or the composed dispatch its backends
+    name. A fused block (the attention branch on photonic_pallas + flash,
+    the fused FFN) whose weights it cannot take raises with the reason
+    (the reference warns once and composes).
+
     Under a sharding context with a "model" axis of more than one rank
     the encode runs model-sharded (``sharded_encoder.sharded_encode``) on
-    this rank's shard of the params. If that path cannot run, this raises
-    with the reason: the port never serves unsharded when sharding was
-    asked for (the reference warns once and falls back).
+    this rank's shard of the params, on the fused point only. If that
+    path cannot run, this raises with the reason: the port never serves
+    unsharded when sharding was asked for (the reference warns once and
+    falls back).
     """
     dev = resolve_device(device)
     _check_device(params, dev)
@@ -172,17 +190,13 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     policy = policy or ExecPolicy.from_cfg(cfg)
     if patch_mask is not None and kv_len is not None:
         raise ValueError("give patch_mask or kv_len, not both")
-    reason = _fused_encoder_ineligible_reason(params, cfg, policy)
-    if reason is not None:
-        raise NotImplementedError(
-            f"encoder not on the fused serving point ({reason}); the composed "
-            f"dispatch is not ported yet (ROADMAP.md queue A)")
     if patch_mask is not None:
         patch_mask = torch.as_tensor(patch_mask).to(dev)
     ctx = current_ctx()
     if ctx is not None and ctx.mesh.shape.get("model", 1) > 1:
-        sreason = sharded_encoder.sharded_encode_ineligible_reason(
-            params, cfg, policy, ctx)
+        sreason = (_fused_encoder_ineligible_reason(params, cfg, policy)
+                   or sharded_encoder.sharded_encode_ineligible_reason(
+                       params, cfg, policy, ctx))
         if sreason is not None:
             raise ValueError(f"the model-sharded encode cannot run: "
                              f"{sreason}")
@@ -232,6 +246,22 @@ def forward_vit_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     kept = tokens.shape[1] if kv_len is None else kv_len
     return encode_tokens(params, tokens, cfg, policy, kv_len=kv_len,
                          device=device), kept
+
+
+def forward_vit_masked(params: dict, images: torch.Tensor,
+                       patch_mask: torch.Tensor, cfg: ArchConfig,
+                       policy: ExecPolicy | None = None, *, device=None):
+    """Mask-mode dense forward: images (B, H, W, 3), patch_mask (B, N) ->
+    (logits (B, n_classes), N). All N patches enter the encoder and the
+    mask removes dropped ones from every attention key axis: compute is not
+    reduced. The baseline the bucketed top-k serve is measured against."""
+    dev = resolve_device(device)
+    _check_device(params, dev)
+    images = torch.as_tensor(images).to(dev)
+    policy = policy or ExecPolicy.from_cfg(cfg)
+    x = embed_patches(params, images, cfg, policy)
+    return encode_tokens(params, x, cfg, policy, patch_mask,
+                         device=dev), x.shape[1]
 
 
 def vit_matmul_shapes(cfg: ArchConfig, kept_patches: int | None = None,

@@ -6,14 +6,18 @@ flush runs eagerly: on the card no CUDA graph is captured) and serves
 exactly one session per ``run``; each result is field for field what the
 server gives that stream. The pipeline is the server's: ingest
 (double-buffered to the device), RoI gate with temporal mask reuse,
-bucket routing + micro-batching, the fused encode, and the energy account.
+bucket routing + micro-batching, the encode under the config's policy,
+and the energy account. ``run_dense`` is the mask-mode dense baseline
+(``StreamServer.run_dense``).
 
-Not ported yet: ``run_dense``, the mask-mode dense baseline, needs
-``forward_vit_masked`` (ROADMAP.md queue A17), and with it the CLI's
-``--compare-dense``; the CLI serves the fused point only (no
-``--backend`` choice, A17).
+The CLI takes the reference's backend flags with the reference's
+defaults: ``--backend photonic_pallas`` and the attention and FFN left
+empty, which resolve to the composed ``xla`` entries (``--attn-backend
+flash --ffn-backend fused`` is the fused serving point);
+``--compare-dense`` runs the dense baseline after the bucketed run.
 
-    PYTHONPATH=src python -m repro_torch.serving.engine --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.serving.engine --smoke --device cpu \\
+        --compare-dense
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import argparse
 import json
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.backend import available_backends
 from repro_torch.data.pipeline import VideoStream
 from repro_torch.serving.server import (ServerConfig, StreamServer,
-                                        serving_cfg, smoke_cfg)
+                                        serving_cfg, smoke_cfg,
+                                        with_backends)
 from repro_torch.serving.session import ServingConfig, StreamResult
 
 __all__ = ["ServingConfig", "StreamResult", "ServingEngine", "main"]
@@ -55,11 +61,10 @@ class ServingEngine:
 
     def run_dense(self, stream: VideoStream, n_frames: int = 64,
                   start: int = 0) -> StreamResult:
-        """The mask-mode dense baseline (every frame at all N patches, the
-        RoI mask on the attention key axis)."""
-        raise NotImplementedError(
-            "run_dense needs forward_vit_masked, the composed masked "
-            "encoder, which is not ported yet (ROADMAP.md queue A17)")
+        """The mask-mode dense baseline: the same gating, every frame
+        encoded at all N patches with the RoI mask on the attention key
+        axis."""
+        return self.server.run_dense(stream, n_frames=n_frames, start=start)
 
 
 # --------------------------------------------------------------------------
@@ -70,6 +75,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="tiny config (32x32 frames, 4 layers, d=64)")
+    ap.add_argument("--backend", default="photonic_pallas",
+                    choices=available_backends(), help="matmul backend")
+    ap.add_argument("--attn-backend", default="", choices=["", "xla", "flash"],
+                    help="attention core: xla (materialized scores, the "
+                         "default) or flash (the RoI-masked flash kernel)")
+    ap.add_argument("--ffn-backend", default="", choices=["", "xla", "fused"],
+                    help="GELU-MLP: xla (composed two-linear, the default) "
+                         "or fused (the fused int8 FFN kernel)")
+    ap.add_argument("--attn-impl", default="standard",
+                    choices=["standard", "decomposed"],
+                    help="attention dataflow: standard or the paper's Eq. 2 "
+                         "decomposition")
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=4)
@@ -84,11 +101,13 @@ def main(argv=None):
                     help="seed of the random weights (bridge.init_vit)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    ap.add_argument("--compare-dense", action="store_true",
+                    help="also run the mask-mode dense baseline")
     ap.add_argument("--json", default="",
                     help="write the StreamResult to this path")
     args = ap.parse_args(argv)
 
-    cfg = smoke_cfg() if args.smoke else serving_cfg()
+    cfg = with_backends(smoke_cfg() if args.smoke else serving_cfg(), args)
     serve_cfg = ServingConfig(
         bucket_fractions=tuple(float(f) for f in args.buckets.split(",")),
         microbatch=args.microbatch, chunk=args.chunk,
@@ -98,12 +117,19 @@ def main(argv=None):
                            device=args.device)
     server = engine.server
     print(f"[serve] {cfg.name} {cfg.img_size}x{cfg.img_size} on "
-          f"{server.device} ladder={list(server.ladder.sizes)} of "
-          f"{server.n_patches} patches")
+          f"{server.device}: {server.policy} attn_impl={cfg.attn_impl} "
+          f"ladder={list(server.ladder.sizes)} of {server.n_patches} "
+          f"patches")
     stream = VideoStream(img_size=cfg.img_size, patch=cfg.patch,
                          cut_every=args.cut_every)
     res = engine.run(stream, n_frames=args.frames, verbose=True)
     print("[serve]", res.summary())
+    if args.compare_dense:
+        dense = engine.run_dense(stream, n_frames=args.frames)
+        print("[serve] dense baseline:", dense.summary())
+        if dense.fps > 0:
+            print(f"[serve] bucketed speedup: {res.fps / dense.fps:.2f}x "
+                  f"frames/s over mask-mode dense")
     if args.json:
         payload = {
             "frames": res.frames, "fps": res.fps,

@@ -16,18 +16,32 @@ Per ingest chunk of each stream, in round-robin order:
      scope is one stream (``mix_streams`` keys the bare bucket instead and
      fills launches across streams);
   6. every ready flush, interleaved ``interleave_depth`` launches a session
-     per pass, runs ``forward_vit_tokens`` on the fused serving point (int8
-     photonic matmul + RoI-masked flash attention + fused FFN over the
-     quantize-once int8 cache), then final LayerNorm -> head -> argmax; a
-     ``max_wait_chunks`` deadline pad-flushes queues that waited too long.
+     per pass, runs ``forward_vit_tokens`` under the server's policy (the
+     serving default is the fused point: int8 photonic matmul + RoI-masked
+     flash attention + fused FFN over the quantize-once int8 cache; any
+     other backends run the composed dispatch, and ``attn_impl=
+     "decomposed"`` the Eq. 2 attention), then final LayerNorm -> head ->
+     argmax; a ``max_wait_chunks`` deadline pad-flushes queues that waited
+     too long.
+
+The quantize-once cache is made only under a photonic policy, as the
+reference makes it: under ``bf16`` or ``qat`` every matmul reads the raw
+float weights.
+
+``run_dense`` is the mask-mode dense baseline: the same gating, but every
+ingest chunk is encoded at all N patches by ``forward_vit_masked`` with
+the RoI mask on the attention key axis (compute not reduced), billed at N
+patches a frame.
 
 Warm start (``ServerConfig.warm_start``, the default) runs every stage the
 loop can reach once before any stream starts. On the card, and unsharded,
 it also captures each bucket's encode as one CUDA graph (``self.graphs``,
-keyed by bucket): the port's counterpart of the reference's per-bucket
-``jax.jit`` compile, after which a flush is one copy into the graph's
-static input and one replay. A failed capture raises; ``warm_start=False``
-(``--no-warm-start``) is the only way to serve eagerly on the card.
+keyed by bucket), under every policy: the port's counterpart of the
+reference's per-bucket ``jax.jit`` compile, after which a flush is one
+copy into the graph's static input and one replay. ``run_dense`` on such
+a server captures its chunk encode the first time it runs. A failed
+capture raises; ``warm_start=False`` (``--no-warm-start``) is the only way
+to serve eagerly on the card.
 
 Model-sharded serving (``ServerConfig.model_shards`` = M > 1): every rank
 of a ``torch.distributed`` world of W = D x M ranks runs this same loop
@@ -54,10 +68,9 @@ bucket (each layer at its planned width) and every MGNet scoring, so each
 ``StreamResult`` carries the accelerator model's KFPS/W and energy per
 frame.
 
-Not ported yet (ROADMAP.md queue A): the composed dispatch and
-``run_dense`` (A17), device noise and recalibration (A11), the control
-plane (``autotune``, A12), faults, checkpoints and migration (A13), the
-1-D data mesh (A14).
+Not ported yet (ROADMAP.md queue A): device noise and recalibration
+(A11), the control plane (``autotune``, A12), faults, checkpoints and
+migration (A13), the 1-D data mesh (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
@@ -66,6 +79,8 @@ CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
         --one-shape --max-wait 1 --trim-dead-buckets
     PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
         --bit-plan 8,6,4,8 --json        # or --bit-budget 6
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --attn-backend flash --ffn-backend xla --attn-impl decomposed
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
         --smoke --device cpu --model-shards 2
 """
@@ -88,7 +103,7 @@ from repro_torch.core import bitalloc
 from repro_torch.core.backend import ExecPolicy, place_params, prepare_params
 from repro_torch.core.mgnet import mask_budget, mgnet_scores
 from repro_torch.data.pipeline import VideoStream, video_fleet
-from repro_torch.device import resolve_device
+from repro_torch.device import full_precision_matmuls, resolve_device
 from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
                                               use_sharding)
 from repro_torch.kernels import _build
@@ -96,8 +111,9 @@ from repro_torch.launch.mesh import init_from_env, make_serving_mesh
 from repro_torch.models.sharded_encoder import \
     sharded_encode_ineligible_reason
 from repro_torch.models.vit import (_fused_encoder_ineligible_reason,
-                                    embed_patches, forward_vit_tokens,
-                                    mgnet_config, vit_logical_axes)
+                                    embed_patches, forward_vit_masked,
+                                    forward_vit_tokens, mgnet_config,
+                                    vit_logical_axes)
 from repro_torch.serving.buckets import BucketLadder
 from repro_torch.serving.mask_cache import TemporalMaskCache
 from repro_torch.serving.scheduler import FrameBatch, MicroBatcher
@@ -105,7 +121,7 @@ from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
 
 __all__ = ["StreamServer", "ServerConfig", "EncodeGraph", "serving_cfg",
-           "smoke_cfg", "interleave_rounds", "main"]
+           "smoke_cfg", "interleave_rounds", "with_backends", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,18 +212,24 @@ class EncodeGraph:
     replay: clone what must outlive it), ``launches`` the kernel launches
     one replay makes (``_build.captured_launches``). ``params`` is the
     weight cache the graph reads: held here so its memory lives as long as
-    the graph, which replays that cache whatever the server holds now."""
+    the graph, which replays that cache whatever the server holds now.
+    The dense baseline's graph takes a chunk's frames as ``tokens`` and
+    its RoI mask as ``mask``."""
 
     graph: torch.cuda.CUDAGraph
     tokens: torch.Tensor
     logits: torch.Tensor
     launches: collections.Counter
     params: dict
+    mask: torch.Tensor | None = None
 
-    def replay(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Encode ``tokens`` (the static input's shape): copy, replay,
-        return the static logits."""
+    def replay(self, tokens: torch.Tensor,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Encode ``tokens`` (and ``mask``, the static inputs' shapes):
+        copy, replay, return the static logits."""
         self.tokens.copy_(tokens)
+        if mask is not None:
+            self.mask.copy_(mask)
         self.graph.replay()
         _build.add_replay(self.launches)
         return self.logits
@@ -218,10 +240,13 @@ class StreamServer:
 
     ``params`` is the port's raw param tree (``bridge.from_jax_params``,
     on any device), or None to draw one with ``bridge.init_vit(seed, ...)``
-    on the host. It is kept as ``_raw_params``, and every matmul weight is
-    quantized from it once, on ``device`` (default: the card), under
-    ``serve_cfg.bit_plan`` (or ``cfg.bit_plan``) before any stream starts:
-    the int8 photonic matmul is the only ported backend.
+    on the host. It is kept as ``_raw_params``. Under a photonic policy
+    every matmul weight is quantized from it once, on ``device`` (default:
+    the card), under ``serve_cfg.bit_plan`` (or ``cfg.bit_plan``) before
+    any stream starts; under ``bf16`` or ``qat`` the raw weights are
+    served, moved to ``device``, as the reference serves them. On the
+    card the matmuls are set to full precision
+    (``device.full_precision_matmuls``).
     ``serve_cfg`` is a ``ServerConfig`` (a plain ``ServingConfig`` takes
     its defaults, warm start included). With ``model_shards`` > 1 this
     process is one rank of a model-sharded mesh: it serves on
@@ -241,6 +266,8 @@ class StreamServer:
             sc = ServerConfig.from_serving(sc)
         self.serve_cfg = sc
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            full_precision_matmuls()
         # the mesh exactly when model_shards > 1; None on a world of one
         # rank, and a world of more ranks without model shards raises
         self.mesh = make_serving_mesh(model=max(1, sc.model_shards),
@@ -258,8 +285,10 @@ class StreamServer:
         # the raw weights are kept: calibrate_bits re-quantizes from them
         self._raw_params = params
         self.layer_bits: tuple | None = None
-        self.params = self._maybe_place(self._prepare(
-            sc.bit_plan or cfg.bit_plan or None))
+        self.params = self._maybe_place(
+            self._prepare(sc.bit_plan or cfg.bit_plan or None)
+            if self.policy.is_photonic()
+            else to_device(params, self.device))
         self._sessions: list[StreamSession] = []
         self._next_sid = 0
         self.batcher: MicroBatcher | None = None
@@ -269,6 +298,7 @@ class StreamServer:
         self.last_flush: FrameBatch | None = None
         self.last_logits: torch.Tensor | None = None
         self.graphs: dict[int, EncodeGraph] = {}
+        self.dense_graph: EncodeGraph | None = None   # run_dense's encode
         self.warmed: set[int] = set()      # buckets whose encode was warmed
         self.warm_s = 0.0
         self.calibrate_s = 0.0             # the last calibrate_bits' scoring
@@ -319,6 +349,7 @@ class StreamServer:
         stands."""
         warmed = sorted(self.warmed)
         self.graphs = {}
+        self.dense_graph = None
         self.params = params
         if not self._graphed:
             return
@@ -376,27 +407,35 @@ class StreamServer:
         return (self.serve_cfg.microbatch, t, self.cfg.d_model)
 
     def _capture(self, k: int) -> EncodeGraph:
-        """Capture bucket ``k``'s encode as a CUDA graph. It first runs
-        eagerly on a side stream, so nothing runs for the first time
-        inside the capture: the kernel library's load, each kernel's
-        shared-memory attribute, the cached key masks of the flash
-        attention wrapper. Raises with the reason if the capture fails."""
+        """Capture bucket ``k``'s encode as a CUDA graph."""
+        static = torch.zeros(self._flush_shape(k), device=self.device)
+        return self._capture_fn(f"k={k}", lambda: self._encode_eager(
+            k, static), static)
+
+    def _capture_fn(self, tag: str, fn, static: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> EncodeGraph:
+        """Capture ``fn()``, which reads the static inputs ``static`` (and
+        ``mask``), as a CUDA graph. It first runs eagerly on a side stream,
+        so nothing runs for the first time inside the capture: the kernel
+        library's load, each kernel's shared-memory attribute, the cached
+        key masks of the flash attention wrapper. Raises with the reason
+        if the capture fails (a composed policy whose encode cannot be
+        captured too: it never serves eagerly instead)."""
         dev = self.device
-        static = torch.zeros(self._flush_shape(k), device=dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._encode_eager(k, static)
+            fn()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
             with _build.captured_launches() as launches, \
                     torch.cuda.graph(graph):
-                logits = self._encode_eager(k, static)
+                logits = fn()
         except Exception as e:
-            raise RuntimeError(f"capturing the k={k} encode as a CUDA graph "
-                               f"failed: {e}") from e
-        return EncodeGraph(graph, static, logits, launches, self.params)
+            raise RuntimeError(f"capturing the {tag} encode as a CUDA graph "
+                               f"failed ({self.policy}): {e}") from e
+        return EncodeGraph(graph, static, logits, launches, self.params, mask)
 
     # -- warm start ----------------------------------------------------------
 
@@ -531,6 +570,9 @@ class StreamServer:
         re-made so their accounting bills the plan's widths. Returns the
         plan; ``calibrate_s`` and ``recapture_s`` keep the wall seconds of
         the scoring and of the re-capture."""
+        if not self.policy.is_photonic():
+            raise ValueError("bit allocation needs a photonic backend (the "
+                             "plan drives the quantize-once cache)")
         src = next((s for s in self._sessions if not s.finished), None)
         if src is None:
             raise ValueError("register at least one session before "
@@ -677,9 +719,75 @@ class StreamServer:
         self.last_logits = logits.clone() if k in self.graphs else logits
 
 
+    # -- the single-stream dense baseline -----------------------------------
+
+    def _encode_dense(self, frames: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        """Logits of one ingest chunk encoded at all N patches, the RoI
+        ``mask`` on the key axis: through one CUDA graph on a graphed
+        server (captured at the first chunk), else eagerly."""
+        def eager(f=frames, m=mask):
+            with use_sharding(self.mesh):
+                return forward_vit_masked(self.params, f, m, self.cfg,
+                                          self.policy, device=self.device)[0]
+        if not self._graphed:
+            return eager()
+        g = self.dense_graph
+        if g is None or g.tokens.shape != frames.shape:
+            sf, sm = torch.zeros_like(frames), torch.zeros_like(mask)
+            g = self.dense_graph = self._capture_fn(
+                "dense", lambda: eager(sf, sm), sf, sm)
+        return g.replay(frames, mask)
+
+    def run_dense(self, stream: VideoStream, n_frames: int = 64,
+                  start: int = 0) -> StreamResult:
+        """The mask-mode dense baseline: the gating of ``serve`` (the mask
+        cache, MGNet), but every chunk is encoded at all N patches with the
+        binary RoI mask sigmoid(score) > t_reg on the attention key axis.
+        Compute is not reduced; each frame is billed at N patches and
+        ``bucket_hits`` is ``{N: frames}``."""
+        s = StreamSession(-1, stream, n_frames, start, self.serve_cfg,
+                          self.cfg, ladder=None, device=self.device,
+                          layer_bits=self.layer_bits)
+        t0 = time.perf_counter()
+        while True:
+            batch = s.next_batch()
+            if batch is None:
+                break
+            idxs = batch["frame_idx"]
+            valid = idxs < s.limit
+            scores_np, n_scored = s.cache.gate(batch["frames_host"], idxs,
+                                               self._score_fn,
+                                               eligible=valid)
+            s.acct.add_mgnet(n_scored)
+            mask = (torch.sigmoid(torch.from_numpy(scores_np).float())
+                    > self.mcfg.t_reg).float().to(self.device)
+            logits = self._encode_dense(batch["frames"], mask)
+            s.acct.add_encode(self.n_patches, int(valid.sum()))
+            s.add_deferred([int(i) for i in idxs], torch.argmax(logits, -1))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        res = s.finish(time.perf_counter() - t0)
+        res.bucket_hits = {self.n_patches: res.frames}
+        return res
+
+
 # --------------------------------------------------------------------------
 # CLI
 # --------------------------------------------------------------------------
+
+def with_backends(cfg: ArchConfig, args) -> ArchConfig:
+    """``cfg`` with the CLI's ``--backend`` / ``--attn-backend`` /
+    ``--ffn-backend`` / ``--attn-impl`` (a flag left out keeps the
+    config's own)."""
+    kw = {"attn_impl": args.attn_impl}
+    for field, val in (("matmul_backend", args.backend),
+                       ("attn_backend", args.attn_backend),
+                       ("ffn_backend", args.ffn_backend)):
+        if val is not None and (val or field != "matmul_backend"):
+            kw[field] = val
+    return cfg.with_(**kw)
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -715,6 +823,24 @@ def main(argv=None):
                     help="> 0: calibrate a per-layer plan to this target "
                          "mean bit width before the warm start "
                          "(sensitivity-driven, overrides --bit-plan)")
+    ap.add_argument("--backend", default="",
+                    help="matmul backend (bf16, qat, photonic_sim, "
+                         "photonic_pallas); default: the serving point's "
+                         "photonic_pallas")
+    ap.add_argument("--attn-backend", default=None,
+                    choices=["", "xla", "flash"],
+                    help="attention core: xla (materialized scores) or "
+                         "flash (the RoI-masked flash kernel, the "
+                         "default); '' resolves to xla")
+    ap.add_argument("--ffn-backend", default=None,
+                    choices=["", "xla", "fused"],
+                    help="GELU-MLP: xla (composed two-linear) or fused (the "
+                         "fused int8 FFN kernel, the default); '' resolves "
+                         "to xla")
+    ap.add_argument("--attn-impl", default="standard",
+                    choices=["standard", "decomposed"],
+                    help="attention dataflow: standard or the paper's Eq. 2 "
+                         "decomposition")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line last")
     ap.add_argument("--no-warm-start", action="store_true",
@@ -742,7 +868,7 @@ def _serve_cli(args):
     rank0 = (not torch.distributed.is_initialized()
              or torch.distributed.get_rank() == 0)
     say = print if rank0 else (lambda *a, **k: None)
-    cfg = smoke_cfg() if args.smoke else serving_cfg()
+    cfg = with_backends(smoke_cfg() if args.smoke else serving_cfg(), args)
     bit_plan = (bitalloc.parse_bit_plan(args.bit_plan) or ()
                 if args.bit_plan else ())
     # the warm start runs after the optional trim and bit calibration, as
@@ -760,6 +886,7 @@ def _serve_cli(args):
     bits = (list(server.layer_bits) if server.layer_bits
             else cfg.quant_bits or 8)
     say(f"[server] {cfg.name} {cfg.img_size}x{cfg.img_size} on {where}: "
+        f"{server.policy} attn_impl={cfg.attn_impl} "
         f"bits={bits} ladder={list(server.ladder.sizes)} of "
         f"{server.n_patches} patches mesh={mesh}")
     streams = video_fleet(args.streams, img_size=cfg.img_size,

@@ -18,8 +18,10 @@ over 2 ranks on the one card bitwise against the unsharded twin on the
 card (an exact int32 accumulate and the same elementwise ops); a CUDA
 graph replay of a bucket encode bitwise against the eager encode of the
 same flush, with the same launch counts (also under a per-layer bit plan,
-and after ``calibrate_bits`` re-quantized the cache), and a graphed
-interleaved serve bitwise, per stream, against solo eager runs.
+after ``calibrate_bits`` re-quantized the cache, and under Eq. 2's
+composed policy), and a graphed interleaved serve bitwise, per stream,
+against solo eager runs. The composed and Eq. 2 base-224 encodes against
+the CPU: correlation > 0.999, equal argmax.
 """
 
 import sys
@@ -37,7 +39,8 @@ from repro_torch.bridge import (from_jax_params, init_lm, init_vit,  # noqa: E40
 from repro_torch.configs.base import smoke_variant  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
-from repro_torch.core.backend import prepare_params  # noqa: E402
+from repro_torch.core.backend import (int_accumulate_pallas,  # noqa: E402
+                                      prepare_params)
 from repro_torch.data.pipeline import VideoStream  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -57,8 +60,8 @@ from repro_torch.kernels.photonic_matmul import (  # noqa: E402
     entry_for, photonic_matmul_int8)
 from repro_torch.models.layers import layer_view  # noqa: E402
 from repro_torch.models.vit import (embed_patches,  # noqa: E402
-                                    encoder_layer_step, forward_vit,
-                                    forward_vit_tokens)
+                                    encode_tokens, encoder_layer_step,
+                                    forward_vit, forward_vit_tokens)
 from repro_torch.data.pipeline import (prefetch_to_device,  # noqa: E402
                                        video_fleet)
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -826,3 +829,130 @@ def test_calibrate_bits_recaptures_every_warmed_bucket(dev):
     (res,) = server.serve().values()
     assert len(res.predictions) == 8
     assert res.mean_bits == sum(plan) / len(plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,mode", [(768, 12, "ones"), (768, 12, "mask"),
+                                      (1024, 16, "mask")])
+def test_flash_attention_simt_at_eq2_head_dims(dev, d, h, mode):
+    """Eq. 2's attention core: q (4, H, 197, D) against one shared key head
+    (4, 1, 197, D), v (4, H, 197, 64), scale 1.0 (folded upstream), at
+    ViT-Base's D = 768 and ViT-Large's 1024: the SIMT entry, 2e-5 of the
+    plain version, rows with no live key exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn(4, h, 197, d, generator=g, device=dev) * d ** -0.5
+    k = torch.randn(4, 1, 197, d, generator=g, device=dev)
+    v = torch.randn(4, h, 197, 64, generator=g, device=dev)
+    kw = {"scale": 1.0}
+    if mode == "mask":
+        m = (torch.rand(4, 197, generator=g, device=dev) > 0.5).float()
+        m[-1] = 0.0
+        kw["key_mask"] = m
+    before = _build.LAUNCHES["flash_attention_masked.simt"]
+    got = flash_attention_masked(q, k, v, **kw)
+    assert _build.LAUNCHES["flash_attention_masked.simt"] == before + 1
+    torch.testing.assert_close(got, ref.flash_attention_masked_ref(q, k, v,
+                                                                   **kw),
+                               rtol=2e-5, atol=2e-5)
+    if mode == "mask":
+        assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_simt_raises_above_the_shared_memory_bound(dev):
+    """A head dim whose SIMT block would not fit the card's opt-in shared
+    memory raises; it never falls back to the plain version."""
+    from repro_torch.kernels.flash_attention import (simt_smem_bytes,
+                                                     simt_smem_limit)
+    limit = simt_smem_limit(torch.cuda.current_device())
+    assert simt_smem_bytes(768, 64) == 162304 <= limit
+    assert simt_smem_bytes(1024, 64) == 211456 <= limit
+    assert simt_smem_bytes(2048, 64) > limit
+    q = torch.zeros(1, 1, 4, 2048, device=dev)
+    v = torch.zeros(1, 1, 4, 64, device=dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention_masked(q, q, v)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(788, 768, 3072), (788, 3072, 768),
+                                   (788, 64, 768)])
+def test_photonic_matmul_at_composed_shapes(dev, m, k, n):
+    """B1 at the composed FFN's w1 and w2 and at Eq. 2's per-head
+    W_K^T / sqrt(dh) (K 64 -> N 768), all on the K-major entry."""
+    assert entry_for(k) == "kmajor"
+    _check_photonic_matmul(dev, m, k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(788, 768, 768), (37, 70, 9)])
+def test_int_accumulate_pallas_is_bitwise(dev, m, k, n):
+    """B1 with unit scales gives the exact int32 accumulate."""
+    g = torch.Generator(device=dev).manual_seed(m * k)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    before = _build.LAUNCHES["photonic_matmul"]
+    got = int_accumulate_pallas(xq, wq)
+    assert _build.LAUNCHES["photonic_matmul"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.int_accumulate_ref(xq, wq))
+
+
+def _base_tokens(cfg, params, k=49):
+    """4 frames of a real stream embedded (CPU) and cut to k tokens."""
+    frames = torch.from_numpy(VideoStream(img_size=224, patch=16).frames_at(
+        0, 4)["frames"])
+    return embed_patches(params, frames, cfg, None)[:, :k].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,attn,impl", [
+    ("photonic_pallas", "", "standard"), ("photonic_pallas", "flash",
+                                          "decomposed"),
+    ("bf16", "", "standard"), ("qat", "", "standard"),
+    ("photonic_sim", "", "standard")])
+def test_composed_base_encode_card_matches_cpu(dev, backend, attn, impl):
+    """opto-vit-base-224 on the composed dispatch (the reference CLI's
+    default, Eq. 2, and the bf16 / qat / photonic_sim encoders): the card
+    against the CPU, corr > 0.999 and equal argmax."""
+    cfg = serving_cfg("base", 224).with_(matmul_backend=backend,
+                                         attn_backend=attn, ffn_backend="",
+                                         attn_impl=impl)
+    raw = from_jax_params(init_vit(0, cfg, 10), "cpu")
+    cpu = prepare_params(raw) if backend.startswith("photonic") else raw
+    toks = _base_tokens(cfg, cpu)
+    gl = encode_tokens(to_device(cpu, dev), toks.to(dev), cfg)
+    cl = encode_tokens(cpu, toks, cfg, device="cpu")
+    a, b = gl.double().cpu().flatten(), cl.double().flatten()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
+    assert torch.equal(gl.cpu().argmax(-1), cl.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_decomposed_graph_replay_is_the_eager_encode(dev):
+    """Eq. 2 on photonic_pallas + flash + xla FFN, base-224: each bucket's
+    replay is its eager encode bitwise, at 205 B1 (Q, V, wo, w1, w2 and
+    twelve per-head W_K^T products a layer, and the head) and 12 B2
+    launches a flush, every B2 launch on the SIMT entry."""
+    cfg = serving_cfg("base", 224).with_(ffn_backend="",
+                                         attn_impl="decomposed")
+    server = StreamServer(cfg, ServerConfig(),
+                          params=from_jax_params(init_vit(0, cfg, 10), dev))
+    assert sorted(server.graphs) == list(server.ladder.sizes)
+    for k in server.ladder.sizes:
+        t = _flush_tokens(server, k)
+        _build.LAUNCHES.clear()
+        eager = forward_vit_tokens(server.params, t, cfg, server.policy)[0]
+        counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        graphed = server.graphs[k].replay(t).clone()
+        assert dict(_build.LAUNCHES) == counts
+        assert counts["photonic_matmul"] == 17 * cfg.n_layers + 1
+        assert counts["flash_attention_masked.simt"] == cfg.n_layers
+        assert counts["flash_attention_masked"] == cfg.n_layers
+        assert "fused_ffn" not in counts
+        assert torch.equal(graphed, eager), k

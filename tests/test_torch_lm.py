@@ -328,7 +328,7 @@ def test_registry_and_unported_messages():
     # the reference's perf knobs no ported path reads are not fields: setting
     # one fails rather than being ignored
     for knob in ("attn_p_bf16", "attn_qk_bf16", "decode_attn_bf16",
-                 "dot_out_native", "photonic", "causal_block_skip"):
+                 "dot_out_native", "causal_block_skip"):
         with pytest.raises(TypeError, match=knob):
             dense.with_(**{knob: True})
     assert not tapi.supports_decode(t_get("opto-vit-base"))
@@ -337,13 +337,15 @@ def test_registry_and_unported_messages():
 
 
 def test_policy_legacy_resolution():
-    """An empty backend name resolves as the reference's does: quant_bits
-    -> qat (unported: building the policy raises), else bf16. The matmul
-    is looked up once, when the policy is built."""
+    """An empty backend name resolves as the reference's does: photonic ->
+    photonic_sim, quant_bits -> qat, else bf16. The matmul is looked up
+    once, when the policy is built."""
     pol = TPolicy()
     assert pol.backend == "bf16" and not pol.is_photonic()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TPolicy(quant_bits=8)
+    assert TPolicy(quant_bits=8).backend == "qat"
+    assert TPolicy(photonic=True).is_photonic()
+    with pytest.raises(KeyError, match="unknown matmul backend"):
+        TPolicy(backend="no-such-backend")
     pol = TPolicy(quant_bits=8, backend="photonic_pallas")
     assert pol.backend == "photonic_pallas" and pol.is_photonic()
     assert TPolicy.from_cfg(t_get("qwen2-1.5b")).backend == "bf16"

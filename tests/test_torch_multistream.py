@@ -455,8 +455,11 @@ def test_engine_shim_and_run_dense(ref):
     assert eng.server.serve_cfg.warm_start is False and not eng.server.warmed
     res = eng.run(_fleet(1)[0], n_frames=8)
     assert res.frames == 8 and res.kfps_per_watt > 0
-    with pytest.raises(NotImplementedError, match="A17"):
-        eng.run_dense(_fleet(1)[0], n_frames=8)
+    dense = eng.run_dense(_fleet(1)[0], n_frames=8)
+    assert dense.frames == 8 and dense.bucket_hits == {eng.server.n_patches: 8}
+    assert sorted(dense.predictions) == sorted(res.predictions)
+    assert dense.scored_frames == res.scored_frames
+    assert dense.mean_frame_uj > res.mean_frame_uj
 
 
 def test_server_cli_flags_on_cpu(capsys):

@@ -124,15 +124,14 @@ def test_weight_bits_rejects_stale_cache():
 
 def test_policy_names_its_matmul_backend():
     """An unnamed matmul backend resolves as the reference's legacy flags
-    do: bf16 by default, quant_bits -> qat, which is not ported and
-    raises."""
+    do: bf16 by default, quant_bits -> qat (fake-quant in float)."""
     x, w = torch.randn(3, 16), torch.randn(16, 8)
     assert tbackend.ExecPolicy().backend == "bf16"
     torch.testing.assert_close(tbackend.linear(x, w), x @ w)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbackend.linear(x, w, policy=tbackend.ExecPolicy(quant_bits=8))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbackend.ExecPolicy(quant_bits=8, backend="qat")
+    qat = tbackend.linear(x, w, policy=tbackend.ExecPolicy(quant_bits=8))
+    want = tquant.fake_quant(x, 8) @ tquant.fake_quant(w, 8, axis=(0,))
+    torch.testing.assert_close(qat, want)
+    assert tbackend.ExecPolicy(quant_bits=8, backend="qat").backend == "qat"
     pol = tbackend.ExecPolicy(backend="photonic_pallas")
     assert pol.backend == "photonic_pallas"
     assert tuple(tbackend.linear(x, w, policy=pol).shape) == (3, 8)
@@ -142,15 +141,14 @@ def test_policy_names_its_matmul_backend():
                                        ("matmul", "photonic_sim"),
                                        ("attention", "xla"), ("ffn", "xla")])
 def test_unported_backends_raise(kind, name):
-    """Every registry entry of the reference not ported yet raises; bf16
-    came with the LM slice and now resolves to its matmul."""
+    """Every registry entry of the reference is ported now and resolves to
+    its entry; only an unknown name raises."""
     get = {"matmul": tbackend.get_backend,
            "attention": tbackend.get_attention_backend,
            "ffn": tbackend.get_ffn_backend}[kind]
-    if (kind, name) == ("matmul", "bf16"):
-        assert get(name) is tbackend.BACKENDS["bf16"]
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get(name)
+    registry = {"matmul": tbackend.BACKENDS,
+                "attention": tbackend.ATTN_BACKENDS,
+                "ffn": tbackend.FFN_BACKENDS}[kind]
+    assert get(name) is registry[name]
     with pytest.raises(KeyError):
         get("no-such-backend")

@@ -138,13 +138,19 @@ def test_forward_vit_tokens_kept_count(models, frames):
 
 
 def test_encoder_needs_the_fused_serving_point(models, frames):
+    """The fused point asked for needs the cache: raw params raise with
+    the reason (the reference warns once and composes). Other backends
+    run the composed dispatch; on the CPU its FFN is bitwise the fused
+    one."""
     _, _, _, tcfg, tp, _ = models
-    toks = torch.zeros(2, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="fused serving triple"):
-        tvit.encode_tokens(tp, toks, tcfg.with_(ffn_backend="xla"),
-                           device="cpu")
+    toks = torch.randn(2, 4, tcfg.d_model, generator=torch.Generator(
+    ).manual_seed(0))
+    composed = tvit.encode_tokens(tp, toks, tcfg.with_(ffn_backend="xla"),
+                                  device="cpu")
+    assert torch.equal(composed, tvit.encode_tokens(tp, toks, tcfg,
+                                                    device="cpu"))
     raw = from_jax_params(init_vit(0, tcfg, 10), "cpu")   # not prepared
-    with pytest.raises(NotImplementedError, match="prepare_params"):
+    with pytest.raises(ValueError, match="prepare_params"):
         tvit.encode_tokens(raw, toks, tcfg, device="cpu")
 
 
