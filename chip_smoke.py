@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224 and
      qwen2-1.5b widths, at ragged shapes and, for B1, B2, B5 and B6, at
      their tiles', rings' and splits' edges (B6 also bitwise from call to
-     call; B2 also in the (B, S, H, D) layout read by strides and against
-     its 3xTF32 emulation; B3's K-major entry also bitwise against its
+     call; B2 also in the (B, S, H, D) layout read by strides and, on
+     both tensor-core entries, against its 3xTF32 emulation (the wide
+     entry's in its D-chunk order); B3's K-major entry also bitwise against its
      first design), each naming the entry it took, with the tolerance
      stated beside each; and the int32 accumulate of path c's FFN twin at
      ragged (K, N), bitwise;
@@ -78,16 +79,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         and capture no graph (two planted faults, one
         that skips the int32 all-reduce and one that leaves the absmax
         scopes local to the rank, must fail that check);
-     d. ``[composed]``, after the kernel table: B2's SIMT entry at Eq. 2's
-        (D, Dv) = (768, 64) with one shared key head (scale 1.0, all keys
-        live and a scattered mask), B1 at (788, 768, 3072), (788, 3072,
+     d. ``[composed]``, after the kernel table: B2's wide tensor-core
+        entry at Eq. 2's (D, Dv) = (768, 64) with one shared key head and v
+        a strided head view (scale 1.0, all keys live and a scattered mask
+        with a dead batch row), and at ViT-Large's (1024, 64) with 16
+        heads, B1 at (788, 768, 3072), (788, 3072,
         768) and (788, 64, 768), and ``int_accumulate_pallas`` bitwise,
         each against its plain version; then opto-vit-base-224 served as
         4a's traffic through the graphed server under (a) the reference
         CLI's default, photonic_pallas + xla attention + xla FFN (73 B1 a
         flush), and (b) Eq. 2, photonic_pallas + flash + xla FFN with
-        ``attn_impl="decomposed"`` (205 B1 and 12 B2 on the SIMT entry a
-        flush): every bucket's replay bitwise its eager encode with equal
+        ``attn_impl="decomposed"`` (205 B1 and 12 B2 on the wide entry a
+        flush, none on the SIMT one): every bucket's replay bitwise its
+        eager encode with equal
         launch counts, every frame predicted, B1 at K 3072 (and K 64 under
         Eq. 2) launched, the newest flush against the CPU (corr > 0.999,
         equal argmax, each layer corr > 0.9999), frames/s beside 4a's;
@@ -104,8 +108,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
      calls (B3 also its first design and each of its three launches; B1
-     also at path d's three shapes, B2's SIMT entry also at Eq. 2's
-     shape, both in the kernels line as ``ms_by_shape`` / ``simt_eq2``);
+     also at path d's three shapes, B2's wide entry also at Eq. 2's
+     shape with its 3xTF32 bound, both in the kernels line as
+     ``ms_by_shape`` / ``wide_eq2``);
      per bucket one 4a flush's encode span eager and replayed (CUDA
      events) and its device time (the profiler, of the eager encode);
      B1 and B3 at each bit-plan width beside their 8-bit calls (device
@@ -153,6 +158,8 @@ SYMBOLS = {
     "photonic_matmul": ("photonic_matmul_s8_kmajor_kernel",
                         "photonic_matmul_s8_kernel"),
     "flash_attention_masked": ("flash_attention_masked_tc_kernel",
+                               "flash_attention_masked_wide_kernel",
+                               "flash_attention_masked_wide_split_kernel",
                                "flash_attention_masked_kernel"),
     "fused_ffn": B3_KMAJOR + B3_FIRST_DESIGN,
     "flash_attention_causal": ("flash_attention_causal_kernel",
@@ -162,7 +169,7 @@ SYMBOLS = {
 }
 TOLERANCES = {
     "photonic_matmul": "accumulate bitwise; output 1e-6 relative",
-    "flash_attention_masked": "rtol = atol = 2e-5",
+    "flash_attention_masked": "rtol = atol = 2e-5 (the plain version in f64)",
     "fused_ffn": "one quant step: rtol = atol = 1e-2 and corr > 0.9999",
     "flash_attention_causal": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
     "flash_decode": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
@@ -331,7 +338,8 @@ def quant_step_close(torch, a, b) -> bool:
 def check_kernels(torch, dev) -> dict:
     """Phase 3. Returns kernel name -> max |kernel - plain| over its checks."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention_masked,
+    from repro_torch.kernels.flash_attention import (WIDE_D_CHUNK,
+                                                     flash_attention_masked,
                                                      masked_entry_for)
     from repro_torch.kernels.fused_ffn import (ffn_entry_for, fused_ffn,
                                                fused_ffn_nmajor,
@@ -380,11 +388,14 @@ def check_kernels(torch, dev) -> dict:
             fail(f"B1 {tag}: relative error {rel} > 1e-6")
         err["photonic_matmul"] = max(err["photonic_matmul"], e)
 
-    # B2: f32 end to end, held to rtol = atol = 2e-5 (streaming-softmax
-    # reassociation against the materialized softmax); the tensor-core
-    # entry also against its 3xTF32 emulation (on the CPU), at the same
-    # limit. "bshd" draws q, k, v in the projections' (B, S, H, D) layout
-    # and hands the kernel (B, H, S, D) views, read by strides.
+    # B2: f32 end to end, held to rtol = atol = 2e-5 against the plain
+    # version evaluated in float64, the exact function (at the unscaled
+    # Eq. 2 check below, scores spread ~14, the plain version in f32 is
+    # itself 2-3e-5 off; its distance is printed too); the tensor-core
+    # entries also against their 3xTF32 emulation (on the CPU; the wide
+    # entry's in its D-chunk order), at the same limit. "bshd" draws q, k,
+    # v in the projections' (B, S, H, D) layout and hands the kernel
+    # (B, H, S, D) views, read by strides.
     def b2(tag, b, h, hk, hv, s, d, dv, mode, scale=None, layout="bhsd"):
         def rnd(heads, dim):
             if layout == "bhsd":
@@ -401,20 +412,24 @@ def check_kernels(torch, dev) -> dict:
         elif mode == "kv_len":
             kw["kv_len"] = s // 2 + 1
         got = flash_attention_masked(q, k, v, **kw)
-        want = ref.flash_attention_masked_ref(q, k, v, **kw)
+        want = ref.flash_attention_masked_ref(q.double(), k.double(),
+                                              v.double(), **kw).float()
         e = (got - want).abs().max().item()
+        e32 = (got - ref.flash_attention_masked_ref(q, k, v, **kw)).abs().max()
         entry = masked_entry_for(d, dv)
         emu = ""
-        if entry == "tc":
+        if entry != "simt":
             cpu = {k_: (w.cpu() if torch.is_tensor(w) else w)
                    for k_, w in kw.items()}
-            em = ref.flash_attention_masked_tc_ref(q.cpu(), k.cpu(), v.cpu(),
-                                                   **cpu).to(dev)
+            em = ref.flash_attention_masked_tc_ref(
+                q.cpu(), k.cpu(), v.cpu(), **cpu,
+                d_chunk=WIDE_D_CHUNK if entry == "wide" else None).to(dev)
             emu = f", {(got - em).abs().max().item():.3e} against the emulation"
             if not torch.allclose(got, em, rtol=2e-5, atol=2e-5):
                 fail(f"B2 {tag}: outside 2e-5 of its 3xTF32 emulation")
         say(f"[check] B2 {tag:<24s} q{tuple(q.shape)} {layout} Hk={hk} "
-            f"Hv={hv} Dv={dv} {mode} {entry} entry: max abs err {e:.3e}"
+            f"Hv={hv} Dv={dv} {mode} {entry} entry: max abs err {e:.3e} "
+            f"against the plain version in f64 ({e32.item():.3e} in f32)"
             f"{emu} (tol 2e-5)")
         if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
             fail(f"B2 {tag}: max abs err {e}")
@@ -438,6 +453,10 @@ def check_kernels(torch, dev) -> dict:
     b2("dead row, GQA Hk=Hv=4", 2, 12, 4, 4, 99, 64, 64, "dead",
        layout="bshd")
     b2("Hk=1, D != Dv (Eq. 2)", 2, 12, 1, 12, 99, 192, 64, "mask", 1.0)
+    b2("Eq. 2 tiny, dead row", 2, 3, 1, 3, 50, 192, 64, "dead", 1.0,
+       layout="bshd")
+    b2("wide, GQA Hk=2 Hv=4", 2, 8, 2, 4, 33, 256, 64, "kv_len",
+       layout="bshd")
     b2("GQA Hk=4 Hv=2", 2, 8, 4, 2, 37, 32, 48, "mask")
 
     # B3: one quant step (quant_step_close), bits (8, 8) and (8, 4), and
@@ -1521,14 +1540,15 @@ def time_plan_kernels(torch, calls: dict, card: str) -> dict:
 
 def check_composed_kernels(torch, dev) -> dict:
     """Path 4d's kernel shapes on the card against their plain versions:
-    B2's SIMT entry at Eq. 2's (D, Dv) = (768, 64) with one shared key head
-    (scale 1.0, folded upstream), all keys live and a scattered mask with a
-    fully masked batch row; B1 at the composed FFN's w1 / w2 and Eq. 2's
+    B2's wide tensor-core entry at Eq. 2's (D, Dv) = (768, 64), H 12, and
+    ViT-Large's (1024, 64), H 16, with one shared key head and v a strided
+    head view (scale 1.0, folded upstream), all keys live and a scattered
+    mask with a fully masked batch row; B1 at the composed FFN's w1 / w2 and Eq. 2's
     per-head W_K^T product; the int32 accumulate through B1 with unit
     scales (``int_accumulate_pallas``), bitwise. Returns kernel -> largest
     absolute error."""
     from repro_torch.core.backend import int_accumulate_pallas
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (flash_attention_masked,
                                                      masked_entry_for)
     from repro_torch.kernels.photonic_matmul import (entry_for,
@@ -1537,24 +1557,33 @@ def check_composed_kernels(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2468)
     err = {"photonic_matmul": 0.0, "flash_attention_masked": 0.0}
     b, h, s_, d, dv = EQ2_SHAPE
-    # q as Eq. 2 hands it over (Q_h W_K^T / sqrt(dh): unit-scale scores)
-    q = torch.randn(b, h, s_, d, generator=gen, device=dev) * d ** -0.5
-    k = torch.randn(b, 1, s_, d, generator=gen, device=dev)
-    v = torch.randn(b, h, s_, dv, generator=gen, device=dev)
-    m = (torch.rand(b, s_, generator=gen, device=dev) > 0.5).float()
-    m[b - 1] = 0.0
-    for mode, mask in (("all keys live", None), ("scattered mask", m)):
-        got = flash_attention_masked(q, k, v, mask, scale=1.0)
-        want = ref.flash_attention_masked_ref(q, k, v, mask, scale=1.0)
-        e = (got - want).abs().max().item()
-        say(f"[composed] B2 Eq. 2 q{tuple(q.shape)} Hk=1 Dv={dv} {mode} "
-            f"{masked_entry_for(d, dv)} entry: max abs err {e:.3e} (tol "
-            f"2e-5)")
-        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
-            fail(f"B2 at (768, 64), {mode}: max abs err {e}")
-        if mask is not None and not bool((got[b - 1] == 0).all()):
-            fail("B2 at (768, 64): a fully masked batch row is not 0")
-        err["flash_attention_masked"] = max(err["flash_attention_masked"], e)
+    for h, d in ((h, d), (16, 1024)):
+        # q as Eq. 2 hands it over (Q_h W_K^T / sqrt(dh): unit-scale
+        # scores), the key head a view of x, v split from its projection
+        q = torch.randn(b, h, s_, d, generator=gen, device=dev) * d ** -0.5
+        k = torch.randn(b, s_, d, generator=gen, device=dev)[:, None]
+        v = torch.randn(b, s_, h * dv, generator=gen, device=dev).reshape(
+            b, s_, h, dv).transpose(1, 2)
+        m = (torch.rand(b, s_, generator=gen, device=dev) > 0.5).float()
+        m[b - 1] = 0.0
+        entry = masked_entry_for(d, dv)
+        for mode, mask in (("all keys live", None), ("scattered mask", m)):
+            before = _build.LAUNCHES["flash_attention_masked.wide"]
+            got = flash_attention_masked(q, k, v, mask, scale=1.0)
+            went = _build.LAUNCHES["flash_attention_masked.wide"] - before
+            want = ref.flash_attention_masked_ref(q, k, v, mask, scale=1.0)
+            e = (got - want).abs().max().item()
+            say(f"[composed] B2 Eq. 2 q{tuple(q.shape)} Hk=1 Dv={dv} {mode} "
+                f"{entry} entry: max abs err {e:.3e} (tol 2e-5)")
+            if entry != "wide" or went != 1:
+                fail(f"B2 at ({d}, {dv}): {went} launches of the wide entry "
+                     f"(entry {entry})")
+            if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+                fail(f"B2 at ({d}, {dv}), {mode}: max abs err {e}")
+            if mask is not None and not bool((got[b - 1] == 0).all()):
+                fail(f"B2 at ({d}, {dv}): a fully masked batch row is not 0")
+            err["flash_attention_masked"] = max(
+                err["flash_attention_masked"], e)
     for tag, (m_, k_, n_) in COMPOSED_B1.items():
         xq = torch.randint(-127, 128, (m_, k_), generator=gen, device=dev,
                            dtype=torch.int8)
@@ -1593,13 +1622,15 @@ def check_composed_kernels(torch, dev) -> dict:
 
 def time_composed_kernels(torch, dev, card: str) -> dict:
     """B1 at the composed FFN's and Eq. 2's shapes (device ms, bound,
-    ``torch._int_mm`` + dequant) and B2's SIMT entry at Eq. 2's shape
-    (device ms, CUDA-event ms, bound, plain, SDPA on the key head
-    expanded with a boolean mask). Returns extra fields for the two
-    kernels' entries of the kernels line (the SIMT launches are path
-    4d's, filled in once it ran)."""
+    ``torch._int_mm`` + dequant) and B2's wide entry at Eq. 2's shape, v
+    a strided head view (device ms, CUDA-event ms, its 3xTF32 bound and
+    the f32 one, plain, SDPA on the key head expanded with a boolean
+    mask). Returns extra fields for the two kernels' entries of the
+    kernels line (the wide entry's launches are path 4d's, filled in once
+    it ran)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_masked
+    from repro_torch.kernels.flash_attention import (flash_attention_masked,
+                                                     masked_entry_for)
     from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
 
     gen = torch.Generator(device=dev).manual_seed(1357)
@@ -1638,36 +1669,54 @@ def time_composed_kernels(torch, dev, card: str) -> dict:
             f"({card})")
     b, h, s_, d, dv = EQ2_SHAPE
     q = torch.randn(b, h, s_, d, generator=gen, device=dev) * d ** -0.5
-    k = torch.randn(b, 1, s_, d, generator=gen, device=dev)
-    v = torch.randn(b, h, s_, dv, generator=gen, device=dev)
+    k = torch.randn(b, s_, d, generator=gen, device=dev)[:, None]
+    v = torch.randn(b, s_, h * dv, generator=gen, device=dev).reshape(
+        b, s_, h, dv).transpose(1, 2)
     keep = torch.ones(b, s_, device=dev)
     bmask = (keep > 0)[:, None, None, :]
+    entry = masked_entry_for(d, dv)
     fn = lambda: flash_attention_masked(q, k, v, keep, scale=1.0)  # noqa
-    ms, passes = device_ms(torch, fn, ("flash_attention_masked_kernel",),
-                           counter="flash_attention_masked")
+    # the entry's two kernels: K's split, then the attention
+    wide = ("flash_attention_masked_wide_kernel",
+            "flash_attention_masked_wide_split_kernel")
+    ms, passes = device_ms(torch, fn, wide, counter="flash_attention_masked.wide",
+                           per_launch=2)
+    split_ms, _ = device_ms(torch, fn, wide[1:])
     event_ms = cuda_ms(fn)
     plain_ms, _ = device_ms(torch, lambda: ref.flash_attention_masked_ref(
         q, k, v, keep, scale=1.0))
-    lib_ms, _ = device_ms(
-        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k.expand(b, h, s_, d), v, attn_mask=bmask, scale=1.0))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        q, k.expand(b, h, s_, d), v, attn_mask=bmask, scale=1.0)
+    lib_ms, _ = device_ms(torch, sdpa)
+    # no launch count guards the library's profiled time (a pass that
+    # lost records reads low, PERF.md §7): its CUDA-event time beside it
+    lib_event_ms = cuda_ms(sdpa)
     flops = 2 * b * h * s_ * s_ * (d + dv)
     nbytes = 4 * (b * h * s_ * d + b * s_ * d + 2 * b * h * s_ * dv + b * s_)
-    ops_s, bytes_s = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    # f32-class work on the tensor cores takes three TF32 passes
+    ops_s, bytes_s = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     bound = max(ops_s, bytes_s)
     by = "operations" if ops_s >= bytes_s else "bytes"
-    say(f"[numbers] flash_attention_masked simt (768, 64) q{tuple(q.shape)} "
-        f"Hk=1 f32: kernel {ms:.4f} ms device (profiling passes {passes}; "
-        f"{event_ms:.4f} ms CUDA-event), bound {bound * 1e3:.5f} ms ({by}; "
-        f"f32 ops {ops_s * 1e3:.5f} ms, bytes {bytes_s * 1e3:.5f} ms), plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+    say(f"[numbers] flash_attention_masked {entry} (768, 64) "
+        f"q{tuple(q.shape)} Hk=1 f32: kernel {ms:.5f} ms device ({split_ms:.5f} "
+        f"of it K's split; profiling passes {passes}; {event_ms:.5f} ms "
+        f"CUDA-event), bound "
+        f"{bound * 1e3:.5f} ms ({by}; TF32 x 3 ops {ops_s * 1e3:.5f} ms, "
+        f"bytes {bytes_s * 1e3:.5f} ms; at the f32 CUDA-core rate "
+        f"{flops / PEAK_F32_FLOPS * 1e3:.5f} ms), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms device, {lib_event_ms:.4f} ms CUDA-event "
         f"(F.scaled_dot_product_attention, key head expanded, bool mask) "
         f"({card})")
-    simt = {"shape": f"q({b},{h},{s_},{d}) k({b},1,{s_},{d}) "
-                     f"v({b},{h},{s_},{dv}) f32",
-            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": bound * 1e3, "bound_by": by, "library_ms": lib_ms}
-    return {"flash_attention_masked": {"simt_eq2": simt},
+    if not ms < lib_ms:
+        say(f"[numbers] flash_attention_masked {entry} at Eq. 2's shape is "
+            f"not ahead of SDPA ({ms:.5f} against {lib_ms:.5f} ms)")
+    eq2 = {"entry": entry,
+           "shape": f"q({b},{h},{s_},{d}) k({b},1,{s_},{d}) "
+                    f"v({b},{h},{s_},{dv}) f32",
+           "ms": ms, "split_ms": split_ms, "event_ms": event_ms,
+           "plain_ms": plain_ms, "bound_ms": bound * 1e3, "bound_by": by,
+           "library_ms": lib_ms, "library_event_ms": lib_event_ms}
+    return {"flash_attention_masked": {f"{entry}_eq2": eq2},
             "photonic_matmul": {"ms_by_shape": shapes}}
 
 
@@ -1742,7 +1791,7 @@ def run_composed(torch, dev, card: str, cfg, sc, params, streams, fused,
         ("b", cfg.with_(ffn_backend="", attn_impl="decomposed"),
          {"photonic_matmul": (5 + cfg.n_heads) * cfg.n_layers + 1,
           "flash_attention_masked": cfg.n_layers,
-          "flash_attention_masked.simt": cfg.n_layers}))
+          "flash_attention_masked.wide": cfg.n_layers}))
     for tag, c, want in policies:
         srv = StreamServer(c, sc, params=params)
         say(f"[composed] ({tag}) {srv.policy} attn_impl={c.attn_impl}: "
@@ -1754,16 +1803,18 @@ def run_composed(torch, dev, card: str, cfg, sc, params, streams, fused,
         for k, g in sorted(srv.graphs.items()):
             per = {n_: g.launches.get(n_, 0) for n_ in (
                 "photonic_matmul", "flash_attention_masked",
-                "flash_attention_masked.simt", "flash_attention_masked.tc",
-                "fused_ffn")}
+                "flash_attention_masked.wide", "flash_attention_masked.simt",
+                "flash_attention_masked.tc", "fused_ffn")}
             if {n_: per.get(n_, 0) for n_ in want} != want or per[
-                    "fused_ffn"] or per["flash_attention_masked.tc"] or (
+                    "fused_ffn"] or per["flash_attention_masked.tc"] or per[
+                    "flash_attention_masked.simt"] or (
                     per["flash_attention_masked"] != want.get(
                         "flash_attention_masked", 0)):
                 fail(f"({tag}) k={k}: launches a flush {per}, want {want}")
         cap = srv.graphs[srv.ladder.cap].launches
         say(f"[composed] ({tag}) launches a flush (every bucket's graph): "
-            f"B1 {cap.get('photonic_matmul', 0)}, B2 simt "
+            f"B1 {cap.get('photonic_matmul', 0)}, B2 wide "
+            f"{cap.get('flash_attention_masked.wide', 0)}, B2 simt "
             f"{cap.get('flash_attention_masked.simt', 0)}, B2 tc "
             f"{cap.get('flash_attention_masked.tc', 0)}, B3 "
             f"{cap.get('fused_ffn', 0)}")
@@ -2257,11 +2308,13 @@ def main() -> int:
     # profiled phases); its launches join B1's and B2's counts
     composed = run_composed(torch, dev, card, cfg, sc, params, streams,
                             server, [results[s.sid] for s in sessions], fps)
-    simt = extra["flash_attention_masked"]["simt_eq2"]
-    simt["launches"] = composed["launches"].get(
-        "flash_attention_masked.simt", 0)
-    say(f"[numbers] flash_attention_masked simt (768, 64): "
-        f"{simt['launches']} launches on path 4d ({card})")
+    eq2 = extra["flash_attention_masked"]["wide_eq2"]
+    eq2["launches"] = composed["launches"].get(
+        "flash_attention_masked.wide", 0)
+    say(f"[numbers] flash_attention_masked wide (768, 64): "
+        f"{eq2['launches']} launches on path 4d, "
+        f"{composed['launches'].get('flash_attention_masked.simt', 0)} on "
+        f"the SIMT entry ({card})")
     for entry in kernels:
         kname = entry["name"]
         entry["max_abs_err"] = max(entry["max_abs_err"],

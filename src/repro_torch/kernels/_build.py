@@ -82,6 +82,8 @@ _SIGNATURES = {
                                                                 _VOID),
     "flash_attention_masked_tc_f32": (_VOID,) * 6 + (_I64_PTR,) + (_INT,) * 7
     + (_FLOAT, _VOID),
+    "flash_attention_masked_wide_f32": (_VOID,) * 6 + (_I64_PTR, _VOID)
+    + (_INT,) * 8 + (_FLOAT, _VOID),
     "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
     "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
     "fused_ffn_kmajor": (_VOID,) * 11 + (_INT,) * 5 + (_FLOAT, _VOID),

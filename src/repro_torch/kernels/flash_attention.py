@@ -5,10 +5,13 @@ path and the causal / local-window GQA core of the LM prefill.
 src/repro/kernels/flash_attention.py::flash_attention_masked_kernel
 (wrapper ``flash_attention_masked``, host pick ``fused_masked_attention``);
 its CUDA kernels are in ``csrc/flash_attention.cu`` (3xTF32 on the tensor
-cores for head dims (D, Dv) = ``TC_MASKED_HEAD_DIMS``, f32 on the CUDA cores
-for every other pair, chosen by shape only: ``masked_entry_for``) and its
-plain version ``kernels/ref.py::flash_attention_masked_ref``
-(``flash_attention_masked_tc_ref`` emulates the tensor-core design).
+cores for head dims (D, Dv) = ``TC_MASKED_HEAD_DIMS`` and, with Q and K
+streamed in ``WIDE_D_CHUNK``-wide D-chunks, for Dv = 64 and any wider D
+that is a multiple of the chunk (Eq. 2's (192 | 768 | 1024, 64)); f32 on
+the CUDA cores for every other pair; chosen by shape only:
+``masked_entry_for``) and its plain version
+``kernels/ref.py::flash_attention_masked_ref``
+(``flash_attention_masked_tc_ref`` emulates both tensor-core designs).
 
 ``flash_attention`` replaces ``flash_attention_kernel`` (wrapper
 ``flash_attention``); its CUDA kernels are in
@@ -37,7 +40,8 @@ from repro_torch.kernels.ref import (flash_attention_masked_ref,
                                      flash_attention_ref, prefix_key_mask)
 
 __all__ = ["KV_TILE", "CAUSAL_MAX_HEAD_DIM", "TC_HEAD_DIMS",
-           "TC_MASKED_HEAD_DIMS", "masked_entry_for", "simt_smem_bytes",
+           "TC_MASKED_HEAD_DIMS", "WIDE_D_CHUNK", "masked_entry_for",
+           "simt_smem_bytes",
            "simt_smem_limit", "flash_attention_masked", "flash_attention"]
 
 KV_TILE = 32          # keys per tile of both masked kernels (kBKV, tc::kBKV)
@@ -45,12 +49,25 @@ CAUSAL_MAX_HEAD_DIM = 256   # the causal f32 kernel's D bound (its tiles
 #                             live in shared memory)
 TC_HEAD_DIMS = (16, 64, 128)   # head dims the bf16 tensor-core kernel takes
 TC_MASKED_HEAD_DIMS = (64, 64)  # (D, Dv) of the tensor-core masked kernel
+WIDE_D_CHUNK = 32     # the wide entry's D-chunk (wide::kDC)
+
+
+def wide_scratch_floats(b: int, hk: int, nkv: int, d: int) -> int:
+    """f32 scratch of a wide-entry call: K split into TF32 hi and lo, 16 KB
+    a (batch, key head, 64-key step, D-chunk)."""
+    return b * hk * (nkv + 1) // 2 * (d // WIDE_D_CHUNK) * 4096
 
 
 def masked_entry_for(d: int, dv: int) -> str:
     """The entry a CUDA ``flash_attention_masked`` call of head dims (D, Dv)
-    launches: "tc" (3xTF32 tensor cores) or "simt"."""
-    return "tc" if (d, dv) == TC_MASKED_HEAD_DIMS else "simt"
+    launches: "tc" (3xTF32 tensor cores) at (64, 64), "wide" (3xTF32 over
+    D-chunks) at Dv = 64 with D > 64 a multiple of ``WIDE_D_CHUNK``, else
+    "simt"."""
+    if (d, dv) == TC_MASKED_HEAD_DIMS:
+        return "tc"
+    if dv == 64 and d > 64 and d % WIDE_D_CHUNK == 0:
+        return "wide"
+    return "simt"
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,14 +126,15 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     multiples.
 
     On the card (D, Dv) = ``TC_MASKED_HEAD_DIMS`` takes the tensor-core
+    entry, and Dv = 64 with D > 64 a multiple of ``WIDE_D_CHUNK`` (Eq. 2's
+    (768, 64) at ViT-Base, (1024, 64) at ViT-Large) the wide tensor-core
     entry: q, k and v may be strided views with D contiguous (e.g. the
     (B, S, H, D) projection layout permuted), read by strides, and need
     16-byte aligned pointers and (batch, head, row) strides, else it
     raises; the output is a (B, H, Sq, Dv) view of a (B, Sq, H, Dv)
     tensor. Every other (D, Dv) takes the SIMT entry on contiguous copies,
     up to the head dims whose block fits the card's opt-in shared memory
-    (``simt_smem_bytes`` against ``simt_smem_limit``: (768, 64), Eq. 2 at
-    ViT-Base, and (1024, 64), at ViT-Large, both fit); above that it
+    (``simt_smem_bytes`` against ``simt_smem_limit``); above that it
     raises.
     Each launch counts under ``flash_attention_masked`` and under
     ``flash_attention_masked.<entry>``.
@@ -154,7 +172,7 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{limit}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    tc = entry == "tc"           # the tensor-core kernel reads a padded mask
+    tc = entry != "simt"         # the tensor-core kernels read a padded mask
     if key_mask is None and (kv_len is None or isinstance(kv_len, int)):
         mask, nlive = _constant_mask(kv_len, b, skv, dev, tc)
     else:
@@ -176,11 +194,21 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return out
         strides = _build.strides_arg(*(s_ for t in (q, k, v, out)
                                        for s_ in t.stride()[:3]))
-        fn = "flash_attention_masked_tc_f32"
-        err = lib.flash_attention_masked_tc_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            nlive.data_ptr(), out.data_ptr(), strides, b, h, hk, hv, sq, skv,
-            nkv, float(scale), _build.stream_ptr(dev))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                nlive.data_ptr(), out.data_ptr(), strides)
+        if entry == "tc":
+            fn = "flash_attention_masked_tc_f32"
+            err = lib.flash_attention_masked_tc_f32(
+                *ptrs, b, h, hk, hv, sq, skv, nkv, float(scale),
+                _build.stream_ptr(dev))
+        else:
+            # K split into TF32 hi / lo once a call, in the kernel's layout
+            kscratch = torch.empty(wide_scratch_floats(b, hk, nkv, d),
+                                   dtype=torch.float32, device=dev)
+            fn = "flash_attention_masked_wide_f32"
+            err = lib.flash_attention_masked_wide_f32(
+                *ptrs, kscratch.data_ptr(), b, h, hk, hv, sq, skv, d, nkv,
+                float(scale), _build.stream_ptr(dev))
     else:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=dev)

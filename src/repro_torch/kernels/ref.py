@@ -88,7 +88,8 @@ def flash_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
     q (B, H, Sq, D); k (B, Hk, Skv, D); v (B, Hv, Skv, Dv) -> (B, H, Sq, Dv).
     ``key_mask`` (B, Skv) {0,1} keep-mask or ``kv_len`` (key j kept iff
     j < kv_len); at most one. Masked keys score NEG_INF; batch rows with no
-    live key output exactly 0. ``scale`` defaults to 1/sqrt(D).
+    live key output exactly 0. ``scale`` defaults to 1/sqrt(D). Computes in
+    f32, or in float64 for float64 q (the exact function, for the checks).
     """
     b, h, _, d = q.shape
     skv = k.shape[2]
@@ -98,14 +99,15 @@ def flash_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
         key_mask = prefix_key_mask(kv_len, b, skv, q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    s = qf @ expand_kv_heads(k, h).float().transpose(-1, -2)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct) * scale
+    s = qf @ expand_kv_heads(k, h).to(ct).transpose(-1, -2)
     if key_mask is not None:
-        s = s + ((key_mask.float() - 1.0) * -NEG_INF)[:, None, None, :]
+        s = s + ((key_mask.to(ct) - 1.0) * -NEG_INF)[:, None, None, :]
     p = torch.softmax(s, dim=-1)
-    o = p @ expand_kv_heads(v, h).float()
+    o = p @ expand_kv_heads(v, h).to(ct)
     if key_mask is not None:
-        o = o * (key_mask.sum(-1) > 0).float()[:, None, None, None]
+        o = o * (key_mask.sum(-1) > 0).to(ct)[:, None, None, None]
     return o.to(q.dtype)
 
 
@@ -214,19 +216,25 @@ def flash_attention_masked_tc_ref(q: torch.Tensor, k: torch.Tensor,
                                   key_mask: torch.Tensor | None = None, *,
                                   kv_len=None, scale: float | None = None,
                                   kv_tile: int = 32,
+                                  d_chunk: int | None = None,
                                   passes: int = 3) -> torch.Tensor:
-    """The tensor-core B2 kernel's numerics, for the tests (no path calls
+    """The tensor-core B2 kernels' numerics, for the tests (no path calls
     it): q scaled in f32; every matmul operand x split into hi =
     tf32_rna(x) and lo = tf32_rna(x - hi), and S = (q * scale) k^T and
     P V each taken as lo.hi + hi.lo + hi.hi (``passes=3``; ``passes=1``
     keeps hi.hi alone, one TF32 pass); ``kv_tile``-key tiles under an
     online softmax, a tile with no live key skipped for its batch row;
     masked keys score NEG_INF; o = acc / max(l, 1e-30), so rows with no
-    live key are exactly 0. Shapes, masks and defaults as
+    live key are exactly 0. ``d_chunk`` takes S as the wide entry walks
+    it: summed in f32 chunk by chunk over ``d_chunk``-wide slices of D,
+    each chunk's three passes added in turn (D a multiple of it); None is
+    the (64, 64) entry's one product over D. Shapes, masks and defaults as
     ``flash_attention_masked_ref``."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     b, h, sq, d = q.shape
+    if d_chunk is not None and d % d_chunk:
+        raise ValueError(f"D {d} is not a multiple of d_chunk {d_chunk}")
     skv = k.shape[2]
     if key_mask is not None and kv_len is not None:
         raise ValueError("give key_mask or kv_len, not both")
@@ -244,15 +252,26 @@ def flash_attention_masked_tc_ref(q: torch.Tensor, k: torch.Tensor,
         xl, yl = tf32_rna(x - xh), tf32_rna(y - yh)
         return xl @ yh + xh @ yl + xh @ yh
 
+    def scores(x, kt):
+        if d_chunk is None:
+            return mm(x, kt.transpose(-1, -2))
+        s = None
+        for c0 in range(0, d, d_chunk):
+            part = mm(x[..., c0:c0 + d_chunk],
+                      kt[..., c0:c0 + d_chunk].transpose(-1, -2))
+            s = part if s is None else s + part
+        return s
+
     qs = q.float() * scale
     kf, vf = (expand_kv_heads(t, h).float() for t in (k, v))
+
     m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, sq, 1), device=q.device)
     acc = torch.zeros((b, h, sq, v.shape[-1]), device=q.device)
     for j0 in range(0, skv, kv_tile):
         live = keep[:, j0:j0 + kv_tile][:, None, None, :]
-        s = torch.where(live, mm(qs, kf[:, :, j0:j0 + kv_tile]
-                                 .transpose(-1, -2)), NEG_INF)
+        s = torch.where(live, scores(qs, kf[:, :, j0:j0 + kv_tile]),
+                        NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - torch.where(m_new == NEG_INF, 0.0, m_new))

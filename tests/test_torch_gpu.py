@@ -7,8 +7,8 @@ reference package, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
 Tolerances: photonic matmul accumulate bitwise, dequant <= 1e-6 relative;
-flash attention rtol = atol = 2e-5 (its tensor-core entry also against its
-3xTF32 emulation); fused FFN one hidden quant step, its K-major entry
+flash attention rtol = atol = 2e-5 (its two tensor-core entries also
+against their 3xTF32 emulation); fused FFN one hidden quant step, its K-major entry
 bitwise against its first design (both also at bit-plan widths 6 and
 4); the int32 accumulate bitwise;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
@@ -181,6 +181,11 @@ def test_photonic_matmul_kmajor_rejects_what_it_does_not_take(dev):
     (2, 12, 1, 12, 99, 192, 64, "mask", 1.0),
 ])
 def test_flash_attention_kernel(dev, b, h, hk, hv, s, d, dv, mode, scale):
+    """Each entry against the plain version evaluated in float64 (the exact
+    function), rtol = atol = 2e-5. With unscaled N(0, 1) q at D = 192 and
+    scale 1.0 the scores' spread is ~14, where the plain version in f32
+    is itself 2-3e-5 from the exact output (measured on an H100): an f32
+    reference would grade its own rounding, not the kernel's."""
     g = torch.Generator(device=dev).manual_seed(s)
     q = torch.randn(b, h, s, d, generator=g, device=dev)
     k = torch.randn(b, hk, s, d, generator=g, device=dev)
@@ -194,8 +199,9 @@ def test_flash_attention_kernel(dev, b, h, hk, hv, s, d, dv, mode, scale):
     elif mode == "kv_len":
         kw["kv_len"] = 50
     got = flash_attention_masked(q, k, v, **kw)
-    want = ref.flash_attention_masked_ref(q, k, v, **kw)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    want = ref.flash_attention_masked_ref(q.double(), k.double(), v.double(),
+                                          **kw)
+    torch.testing.assert_close(got, want.float(), rtol=2e-5, atol=2e-5)
     if mode == "dead":
         assert bool((got[-1] == 0).all())
 
@@ -260,12 +266,13 @@ def test_flash_attention_masked_tc_rejects_misaligned_views(dev):
 @pytest.mark.gpu
 def test_vit_kernels_dispatch_by_shape(dev):
     """Each wrapper picks its entry by shape only: B2 (64, 64) the tensor
-    cores, (192, 64) and (32, 48) the SIMT kernel; B1 K = 768 the K-major
-    entry, K = 196 the N-major one. Each launch counts under its entry."""
-    assert masked_entry_for(64, 64) == "tc"
-    assert masked_entry_for(192, 64) == masked_entry_for(32, 48) == "simt"
-    for (d, dv), entry in (((64, 64), "tc"), ((192, 64), "simt"),
+    cores, (192, 64) the wide tensor-core entry, (32, 48) the SIMT kernel;
+    B1 K = 768 the K-major entry, K = 196 the N-major one. Each launch
+    counts under its entry and no other."""
+    entries = ("tc", "wide", "simt")
+    for (d, dv), entry in (((64, 64), "tc"), ((192, 64), "wide"),
                            ((32, 48), "simt")):
+        assert masked_entry_for(d, dv) == entry
         q = torch.randn(2, 4, 37, d, device=dev)
         v = torch.randn(2, 4, 37, dv, device=dev)
         before = dict(_build.LAUNCHES)
@@ -273,9 +280,10 @@ def test_vit_kernels_dispatch_by_shape(dev):
         for key in ("flash_attention_masked",
                     "flash_attention_masked." + entry):
             assert _build.LAUNCHES[key] == before.get(key, 0) + 1
-        other = "simt" if entry == "tc" else "tc"
-        assert (_build.LAUNCHES["flash_attention_masked." + other]
-                == before.get("flash_attention_masked." + other, 0))
+        for other in entries:
+            if other != entry:
+                key = "flash_attention_masked." + other
+                assert _build.LAUNCHES[key] == before.get(key, 0)
     for k, entry in ((768, "kmajor"), (196, "nmajor")):
         assert entry_for(k) == entry
         before = _build.LAUNCHES[f"photonic_matmul.{entry}.K{k}"]
@@ -832,13 +840,15 @@ def test_calibrate_bits_recaptures_every_warmed_bucket(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,h,mode", [(768, 12, "ones"), (768, 12, "mask"),
-                                      (1024, 16, "mask")])
+@pytest.mark.parametrize("d,h,mode", [(760, 12, "ones"), (760, 12, "mask"),
+                                      (1000, 16, "mask")])
 def test_flash_attention_simt_at_eq2_head_dims(dev, d, h, mode):
-    """Eq. 2's attention core: q (4, H, 197, D) against one shared key head
-    (4, 1, 197, D), v (4, H, 197, 64), scale 1.0 (folded upstream), at
-    ViT-Base's D = 768 and ViT-Large's 1024: the SIMT entry, 2e-5 of the
-    plain version, rows with no live key exactly 0."""
+    """Eq. 2's attention core at head dims beside ViT-Base's 768 and
+    ViT-Large's 1024 that stay on the SIMT entry (D not a multiple of the
+    wide entry's chunk): q (4, H, 197, D) against one shared key head
+    (4, 1, 197, D), v (4, H, 197, 64), scale 1.0 (folded upstream), 2e-5
+    of the plain version, rows with no live key exactly 0."""
+    assert masked_entry_for(d, 64) == "simt"
     g = torch.Generator(device=dev).manual_seed(d)
     q = torch.randn(4, h, 197, d, generator=g, device=dev) * d ** -0.5
     k = torch.randn(4, 1, 197, d, generator=g, device=dev)
@@ -858,18 +868,103 @@ def test_flash_attention_simt_at_eq2_head_dims(dev, d, h, mode):
         assert bool((got[-1] == 0).all())
 
 
+def _eq2_operands(dev, b, h, s, d, mode, seed):
+    """Eq. 2's operands as ``mhsa_decomposed`` hands them over: q (B, H, s,
+    D) at unit-scale scores, the one key head a view of x (B, s, D), v the
+    (B, s, H * 64) projection split into heads (a strided view), and the
+    mask keyword of ``mode``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=g, device=dev) * d ** -0.5
+    x = torch.randn(b, s, d, generator=g, device=dev)
+    v = torch.randn(b, s, h * 64, generator=g, device=dev).reshape(
+        b, s, h, 64).transpose(1, 2)
+    kw = {"scale": 1.0}
+    if mode in ("mask", "dead"):
+        m = (torch.rand(b, s, generator=g, device=dev) > 0.5).float()
+        if mode == "dead":
+            m[-1] = 0.0
+        kw["key_mask"] = m
+    elif mode == "kv_len":
+        kw["kv_len"] = s // 2 + 1
+    return q, x[:, None], v, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ones", "mask", "dead", "kv_len"])
+@pytest.mark.parametrize("s", [1, 37, 197])
+@pytest.mark.parametrize("d,h", [(768, 12), (1024, 16)])
+def test_flash_attention_wide_at_eq2_head_dims(dev, d, h, s, mode):
+    """The wide tensor-core entry at Eq. 2's ViT-Base (768, 64), H 12, and
+    ViT-Large (1024, 64), H 16, one shared key head, v a strided view:
+    2e-5 of the plain version, a dead batch row exactly 0, one launch on
+    the wide entry and none on the others; the output is a (B, H, Sq, Dv)
+    view of a (B, Sq, H, Dv) tensor."""
+    assert masked_entry_for(d, 64) == "wide"
+    q, k, v, kw = _eq2_operands(dev, 4, h, s, d, mode, seed=d + s)
+    assert v.stride(2) == h * 64          # the projection's row stride
+    before = dict(_build.LAUNCHES)
+    got = flash_attention_masked(q, k, v, **kw)
+    for key in ("flash_attention_masked", "flash_attention_masked.wide"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    for key in ("flash_attention_masked.tc", "flash_attention_masked.simt"):
+        assert _build.LAUNCHES[key] == before.get(key, 0)
+    assert got.shape == (4, h, s, 64)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        got, ref.flash_attention_masked_ref(q, k, v, **kw), rtol=2e-5,
+        atol=2e-5)
+    if mode == "dead":
+        assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ones", "mask", "dead", "kv_len"])
+@pytest.mark.parametrize("d,s", [(192, 1), (192, 33), (192, 50),
+                                 (768, 37), (96, 65)])
+def test_flash_attention_wide_follows_its_emulation(dev, d, s, mode):
+    """The wide entry against its 3xTF32 emulation in its D-chunk order
+    (``flash_attention_masked_tc_ref(d_chunk=WIDE_D_CHUNK)``, on the CPU)
+    and the plain version, rtol = atol = 2e-5 each; three query heads
+    (a partial group of the block's heads) on one key head."""
+    from repro_torch.kernels.flash_attention import WIDE_D_CHUNK
+    q, k, v, kw = _eq2_operands(dev, 2, 3, s, d, mode, seed=7 * d + s)
+    got = flash_attention_masked(q, k, v, **kw)
+    cpu = {n: (t.cpu() if torch.is_tensor(t) else t) for n, t in kw.items()}
+    emu = ref.flash_attention_masked_tc_ref(q.cpu(), k.cpu(), v.cpu(),
+                                            d_chunk=WIDE_D_CHUNK, **cpu)
+    torch.testing.assert_close(got.cpu(), emu, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(
+        got, ref.flash_attention_masked_ref(q, k, v, **kw), rtol=2e-5,
+        atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wide_gqa_and_default_scale(dev):
+    """The wide entry with several key and value heads (H 8, Hk 2, Hv 4)
+    and the default scale 1/sqrt(D), q, k, v in the (B, S, H, D) layout
+    read by strides: 2e-5 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(2, 99, hh, dd, generator=g, device=dev)
+               .transpose(1, 2) for hh, dd in ((8, 256), (2, 256), (4, 64)))
+    m = (torch.rand(2, 99, generator=g, device=dev) > 0.3).float()
+    got = flash_attention_masked(q, k, v, m)
+    torch.testing.assert_close(got, ref.flash_attention_masked_ref(q, k, v, m),
+                               rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.gpu
 def test_flash_attention_simt_raises_above_the_shared_memory_bound(dev):
     """A head dim whose SIMT block would not fit the card's opt-in shared
-    memory raises; it never falls back to the plain version."""
+    memory raises; it never falls back to the plain version. (2047, 48)
+    stays on the SIMT entry (Dv != 64), whose tiles hold whole rows."""
     from repro_torch.kernels.flash_attention import (simt_smem_bytes,
                                                      simt_smem_limit)
     limit = simt_smem_limit(torch.cuda.current_device())
-    assert simt_smem_bytes(768, 64) == 162304 <= limit
-    assert simt_smem_bytes(1024, 64) == 211456 <= limit
-    assert simt_smem_bytes(2048, 64) > limit
-    q = torch.zeros(1, 1, 4, 2048, device=dev)
-    v = torch.zeros(1, 1, 4, 64, device=dev)
+    assert masked_entry_for(2047, 48) == "simt"
+    assert simt_smem_bytes(760, 64) == 160768 <= limit
+    assert simt_smem_bytes(2047, 48) > limit
+    q = torch.zeros(1, 1, 4, 2047, device=dev)
+    v = torch.zeros(1, 1, 4, 48, device=dev)
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="shared memory"):
         flash_attention_masked(q, q, v)
@@ -937,7 +1032,8 @@ def test_decomposed_graph_replay_is_the_eager_encode(dev):
     """Eq. 2 on photonic_pallas + flash + xla FFN, base-224: each bucket's
     replay is its eager encode bitwise, at 205 B1 (Q, V, wo, w1, w2 and
     twelve per-head W_K^T products a layer, and the head) and 12 B2
-    launches a flush, every B2 launch on the SIMT entry."""
+    launches a flush, every B2 launch on the wide tensor-core entry and
+    none on the SIMT one."""
     cfg = serving_cfg("base", 224).with_(ffn_backend="",
                                          attn_impl="decomposed")
     server = StreamServer(cfg, ServerConfig(),
@@ -952,7 +1048,8 @@ def test_decomposed_graph_replay_is_the_eager_encode(dev):
         graphed = server.graphs[k].replay(t).clone()
         assert dict(_build.LAUNCHES) == counts
         assert counts["photonic_matmul"] == 17 * cfg.n_layers + 1
-        assert counts["flash_attention_masked.simt"] == cfg.n_layers
+        assert counts["flash_attention_masked.wide"] == cfg.n_layers
         assert counts["flash_attention_masked"] == cfg.n_layers
+        assert "flash_attention_masked.simt" not in counts
         assert "fused_ffn" not in counts
         assert torch.equal(graphed, eager), k

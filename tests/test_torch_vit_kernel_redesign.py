@@ -209,12 +209,13 @@ def test_place_params_shards_the_copy_as_its_codes(bridged):
 def test_entries_are_chosen_by_shape_only():
     """B1: K a multiple of 16 takes the K-major entry (every K of the
     serving path but MGNet's 196-wide score head); B2: (D, Dv) = (64, 64)
-    takes the tensor cores, Eq. 2's (192, 64) and (32, 48) the SIMT
-    kernel."""
+    takes the tensor cores, Eq. 2's (192, 64) the wide tensor-core entry,
+    (32, 48) the SIMT kernel."""
     assert [entry_for(k) for k in (768, 1024, 192, 32, 96, 196, 37)] == \
         ["kmajor"] * 5 + ["nmajor"] * 2
     assert masked_entry_for(64, 64) == "tc"
-    assert masked_entry_for(192, 64) == masked_entry_for(32, 48) == "simt"
+    assert masked_entry_for(192, 64) == "wide"
+    assert masked_entry_for(32, 48) == "simt"
 
 
 def test_cpu_wrapper_takes_the_copy_and_checks_it():
