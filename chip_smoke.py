@@ -101,6 +101,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         energy a frame, dense and bucketed frames/s and their ratio (a
         reading); the bf16, qat and photonic_sim encoders, one flush each,
         against the CPU (corr > 0.999, equal argmax);
+     e. ``[noise]``, after 4d: the noise-draw kernel against its plain
+        version at (768, 768), (768, 3072), (3072, 768) and (197, 50)
+        (bits bitwise, the multiplier within 1e-6, codes bitwise f32(w)
+        times it, the shot readout within 1e-6 relative); then
+        opto-vit-base-224 served as 4a's traffic through the graphed
+        server under calibrated device noise: (A) photonic_sim + flash +
+        xla FFN with drift 0.01 nm a frame, wander 0.01 nm and a 0.08 nm
+        recalibration bound, (B) photonic_pallas + xla + xla under the
+        default NoiseSpec. Each: every bucket's replay bitwise its eager
+        encode at a pinned DriftState, with equal launch counts (146
+        noise_draw, 12 B2 on the tensor-core entry under (A), no B1 or
+        B3 a flush) and a replay at the next frame different; every
+        frame predicted, 4a's bucket hits. (A) also: a planted fault (a
+        replay over a state tensor left at the old frame) must differ
+        from the eager encode at the new one; at least one recalibration,
+        billed (energy a frame above (B)'s), the graphs still bitwise
+        eager after it; the newest flush re-encoded on the CPU at its
+        state, corr > 0.999 and equal argmax. Readings: noisy vs clean
+        logits, frames/s beside 4a's, a noisy flush's replay span a
+        bucket;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -110,14 +130,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      calls (B3 also its first design and each of its three launches; B1
      also at path d's three shapes, B2's wide entry also at Eq. 2's
      shape with its 3xTF32 bound, both in the kernels line as
-     ``ms_by_shape`` / ``wide_eq2``);
+     ``ms_by_shape`` / ``wide_eq2``); the noise-draw kernel (after 4e)
+     at (3072, 768) and (768, 768), bound by its integer operations,
+     beside its plain version and ``torch.randn`` (another generator, a
+     yardstick: ``library_ms`` null);
      per bucket one 4a flush's encode span eager and replayed (CUDA
      events) and its device time (the profiler, of the eager encode);
      B1 and B3 at each bit-plan width beside their 8-bit calls (device
      time); torch.profiler breakdowns of a 16-frame serve through the
      graphs and eagerly, and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
-     absolute error against its plain version and the tolerance held;
+     absolute error against its plain version and the tolerance held
+     (seven kernels: B1-B6 and noise_draw);
   7. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -138,6 +162,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer operations: 132 SMs x 64 INT32 lanes x 1.98 GHz (the clock
+# the f32 peak implies: 67e12 / (132 x 128 x 2)); f32 instructions (an FMA
+# one) at half the f32 flop peak
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+PEAK_F32_INSTR = PEAK_F32_FLOPS / 2
 
 REPLACES = {
     "photonic_matmul": "src/repro/kernels/photonic_matmul.py:41",
@@ -146,6 +175,8 @@ REPLACES = {
     "flash_attention_causal": "src/repro/kernels/flash_attention.py:57",
     "flash_decode": "src/repro/kernels/flash_decode.py:35",
     "dequant_epilogue": "src/repro/kernels/fused_ffn.py:236",
+    # no TPU kernel: the jax.random draws of the reference's noise model
+    "noise_draw": "src/repro/core/noise.py:192",
 }
 # B3's K-major entry (three launches) and its first design (N-major)
 B3_KMAJOR = ("fused_ffn_kmajor_phase0_kernel", "fused_ffn_requant_kernel",
@@ -166,6 +197,8 @@ SYMBOLS = {
                                "flash_attention_causal_mma_kernel"),
     "flash_decode": ("flash_decode_cluster_kernel",),
     "dequant_epilogue": ("dequant_epilogue_kernel",),
+    "noise_draw": ("noise_transmission_kernel", "noise_readout_shot_kernel",
+                   "noise_draw_bits_kernel"),
 }
 TOLERANCES = {
     "photonic_matmul": "accumulate bitwise; output 1e-6 relative",
@@ -174,6 +207,8 @@ TOLERANCES = {
     "flash_attention_causal": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
     "flash_decode": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
     "dequant_epilogue": "bitwise",
+    "noise_draw": ("bits bitwise; multiplier 1e-6 absolute; codes bitwise "
+                   "f32(w) * multiplier; shot readout 1e-6 relative"),
 }
 SOURCES = {
     "photonic_matmul": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
@@ -183,6 +218,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_causal.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "dequant_epilogue": "src/repro_torch/kernels/csrc/dequant_epilogue.cu",
+    "noise_draw": "src/repro_torch/kernels/csrc/noise_draw.cu",
 }
 VIT_KERNELS = ("photonic_matmul", "flash_attention_masked", "fused_ffn")
 # the LM main path: qwen2-1.5b serving, batch 4, prompt 128, 32 tokens
@@ -214,6 +250,23 @@ EQ2_SHAPE = (4, 12, 197, 768, 64)
 COMPOSED_B1 = {"composed FFN w1": (788, 768, 3072),
                "composed FFN w2": (788, 3072, 768),
                "Eq. 2 W_K^T per head": (788, 64, 768)}
+# path 4e: the noise-draw kernel at base-224's weight shapes and a ragged
+# one; the noisy serving point's operating point (drift, wander and a
+# recalibration bound the 64 frames cross)
+NOISE_SHAPES = ((768, 768), (768, 3072), (3072, 768), (197, 50))
+NOISE_KW = dict(drift_rate_nm=0.01, wander_sigma_nm=0.01,
+                recal_bound_nm=0.08)
+# the kernel's checks: each branch of its multiplier (the wander normal and
+# the FPV normal are drawn only when their sigma is above 0)
+NOISE_CHECK_SPECS = {"wander+fpv": NOISE_KW, "default (no wander)": {},
+                     "no fpv": dict(NOISE_KW, fpv_sigma=0.0)}
+# 32-bit integer ops of one threefry2x32 draw (2 + 20 rounds x 3 + 5 key
+# injections x 2, the counter's split and the output xor) and of turning
+# its bits into a float; f32 instructions an element of the multiplier
+# (two normals at ~35 each: erfinv's log1p and 8 FMAs; the Lorentzian and
+# the products ~18)
+OPS_PER_DRAW = 75 + 2
+F32_PER_CODE = 90
 
 
 def vit_entry_fault(launches: dict) -> str | None:
@@ -1936,6 +1989,386 @@ def run_composed(torch, dev, card: str, cfg, sc, params, streams, fused,
             "dense_fps": dense_fps}
 
 
+def noise_call(dev, spec, salts=(3,), counter=2, frame=5, drift=0.037):
+    """A NoiseCall of a layer-salted call site on a state tensor on
+    ``dev``."""
+    from repro_torch.core import noise, threefry
+    state = noise.DriftState(threefry.prng_key(3), frame, drift)
+    with noise.noise_scope(state, state.to_tensor(dev)) as sc:
+        sc.salts, sc.counter = tuple(salts), counter
+        return noise.next_call_keys(spec)
+
+
+def check_noise_kernel(torch, dev) -> float:
+    """The noise-draw kernel against its plain version on the same state
+    tensor at base-224's weight shapes and a ragged one: the bits (the
+    draw key and its wander fold) bitwise; then under each of
+    ``NOISE_CHECK_SPECS`` (wander and FPV both on; the default spec, the
+    one 4e (B) and the CLI serve, wander off; FPV off) the multiplier (the
+    f32 entry on unit weights) within 1e-6 absolute of the plain version
+    on the card and on the CPU, the int8 codes bitwise f32(w) *
+    multiplier, the shot readout (in place) within 1e-6 relative. Returns
+    the largest multiplier error."""
+    from repro_torch.core import noise
+    from repro_torch.kernels import noise_draw, ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for k, n in NOISE_SHAPES:
+        call = noise_call(dev, noise.NoiseSpec(**NOISE_KW))
+        st = call.state_tensor(dev)
+        for fold in (0, noise._WANDER_FOLD):
+            got = noise_draw.draw_bits(st, call.salts, call.counter, fold,
+                                       (k, n))
+            want = ref.draw_bits_ref(st.cpu(), call.salts, call.counter,
+                                     fold, (k, n))
+            if not torch.equal(got.cpu(), want):
+                fail(f"noise_draw bits ({k},{n}) fold {fold:#x}: "
+                     f"{int((got.cpu() != want).sum())} differ")
+        for tag, kw in NOISE_CHECK_SPECS.items():
+            spec = noise.NoiseSpec(**kw)
+            call = noise_call(dev, spec)
+            st = call.state_tensor(dev)
+            ones = torch.ones(k, n, device=dev)
+            mult = noise_draw.transmission_codes(ones, call, spec)
+            args = (call.salts, call.counter, call.fpv_key, spec.mr(),
+                    spec.fpv_sigma, spec.wander_sigma_nm)
+            on_card = ref.transmission_codes_ref(ones, st, *args)
+            on_cpu = ref.transmission_codes_ref(ones.cpu(), st.cpu(), *args)
+            e_card = float((mult - on_card).abs().max())
+            e_cpu = float((mult.cpu() - on_cpu).abs().max())
+            wq, _ = qweight(torch, gen, k, n, 8, dev)
+            codes = noise_draw.transmission_codes(wq, call, spec)
+            y = torch.randn(k, n, generator=gen, device=dev)
+            want = ref.readout_shot_ref(y, st, call.salts, call.counter,
+                                        spec.shot_sigma)
+            shot = noise_draw.readout_shot(y.clone(), call, spec.shot_sigma)
+            e_shot = float((shot - want).abs().max() / y.abs().max())
+            bitwise = torch.equal(codes, wq.float() * mult)
+            say(f"[check] noise_draw ({k},{n}) {tag}: multiplier max "
+                f"|kernel - plain| {e_card:.3e} on the card, {e_cpu:.3e} "
+                f"against the CPU (spread {float(mult.std()):.4f}); codes "
+                f"bitwise f32(w) * multiplier {bitwise}; shot readout "
+                f"{e_shot:.3e} relative")
+            if max(e_card, e_cpu) > 1e-6 or e_shot > 1e-6:
+                fail(f"noise_draw ({k},{n}) {tag} off its plain version: "
+                     f"multiplier {e_card:.3e} / {e_cpu:.3e}, shot "
+                     f"{e_shot:.3e}")
+            if not bitwise:
+                fail(f"noise_draw ({k},{n}) {tag}: int8 codes are not "
+                     f"f32(w) * M")
+            worst = max(worst, e_card, e_cpu)
+        say(f"[check] noise_draw ({k},{n}): bits bitwise (2 keys)")
+    return worst
+
+
+def time_noise_kernel(torch, dev, card: str) -> dict:
+    """The kernels-line entry of noise_draw: the transmission entry at the
+    w1 / w2 shape (3072, 768) and at (768, 768), device time (profiler)
+    and CUDA-event time, its bound (integer operations, f32 instructions
+    and bytes), the plain version on the card, and torch.randn at the same
+    shape (a different generator: a yardstick, not the same function, so
+    library_ms stays null). Launches and the error are filled in by 4e."""
+    from repro_torch.core import noise
+    from repro_torch.kernels import noise_draw, ref
+
+    spec = noise.NoiseSpec(**NOISE_KW)
+    call = noise_call(dev, spec)
+    st = call.state_tensor(dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    by_shape = {}
+    for k, n in ((3072, 768), (768, 768)):
+        wq, _ = qweight(torch, gen, k, n, 8, dev)
+        fn = lambda: noise_draw.transmission_codes(wq, call, spec)  # noqa
+        ms, passes = device_ms(torch, fn, ("noise_transmission_kernel",),
+                               counter="noise_draw.codes")
+        event_ms = cuda_ms(fn)
+        plain_ms, _ = device_ms(torch, lambda: ref.transmission_codes_ref(
+            wq, st, call.salts, call.counter, call.fpv_key, spec.mr(),
+            spec.fpv_sigma, spec.wander_sigma_nm), iters=3, warmup=1)
+        randn_ms, _ = device_ms(torch, lambda: torch.randn(
+            k, n, generator=gen, device=dev))
+        elems = k * n
+        int_s = elems * 3 * OPS_PER_DRAW / PEAK_INT32_OPS
+        f32_s = elems * F32_PER_CODE / PEAK_F32_INSTR
+        bytes_s = elems * (1 + 4) / PEAK_BYTES
+        bound = max(int_s, f32_s, bytes_s)
+        by = "operations" if max(int_s, f32_s) >= bytes_s else "bytes"
+        by_shape[f"({k},{n})"] = {"ms": ms, "event_ms": event_ms,
+                                  "plain_ms": plain_ms,
+                                  "bound_ms": bound * 1e3, "bound_by": by,
+                                  "randn_ms": randn_ms}
+        say(f"[numbers] noise_draw codes ({k},{n}) int8: kernel {ms:.4f} ms "
+            f"device (profiling passes {passes}; {event_ms:.4f} ms "
+            f"CUDA-event), bound {bound * 1e3:.5f} ms ({by}; int32 ops "
+            f"{int_s * 1e3:.5f} ms at {PEAK_INT32_OPS / 1e12:.1f} Tops/s, "
+            f"f32 {f32_s * 1e3:.5f} ms, bytes {bytes_s * 1e3:.5f} ms), plain "
+            f"{plain_ms:.4f} ms, torch.randn at the same shape (another "
+            f"generator, a yardstick) {randn_ms:.4f} ms ({card})")
+    y = torch.randn(788, 3072, generator=gen, device=dev)
+    shot_ms, _ = device_ms(torch, lambda: noise_draw.readout_shot(
+        y, call, spec.shot_sigma), ("noise_readout_shot_kernel",),
+        counter="noise_draw.shot")
+    say(f"[numbers] noise_draw shot readout (788,3072) in place: "
+        f"{shot_ms:.4f} ms device ({card})")
+    head = by_shape["(3072,768)"]
+    return {"name": "noise_draw", "route": "cuda",
+            "source": SOURCES["noise_draw"],
+            "replaces": REPLACES["noise_draw"], "launches": 0,
+            "max_abs_err": 0.0, "tol": TOLERANCES["noise_draw"],
+            "ms": head["ms"], "event_ms": head["event_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "randn_ms": head["randn_ms"], "ms_by_shape": by_shape,
+            "shot_ms": shot_ms}
+
+
+def noisy_eager(torch, server, t):
+    """The eager encode of ``t`` at the server's current DriftState (its
+    state tensor written, a fresh scope), as ``_encode`` runs it."""
+    from repro_torch.models.vit import forward_vit_tokens
+    server._write_state()
+    with server._scope():
+        return forward_vit_tokens(server.params, t, server.cfg,
+                                  server.policy, device=server.device)[0]
+
+
+def noisy_tokens(torch, server, streams) -> dict:
+    """Bucket -> 4 frames of a real chunk, embedded clean and gathered by
+    the clean gate's order (the graphs' inputs for the replay checks)."""
+    from repro_torch.models.vit import embed_patches
+    from repro_torch.serving.server import _gather_topk_rows
+
+    frames = streams[0].frames_at(0, 8)["frames"]
+    toks = embed_patches(server.params, torch.from_numpy(frames).to(
+        server.device), server.cfg, server.policy.without_noise())
+    order = torch.argsort(torch.from_numpy(server._score_fn(frames)).to(
+        server.device), dim=-1, descending=True, stable=True)
+    return {k: _gather_topk_rows(toks, order, k)[:4].contiguous()
+            for k in server.ladder.sizes}
+
+
+def noisy_replays(torch, server, tokens: dict, want: dict, tag: str,
+                  plant: bool) -> None:
+    """At a pinned DriftState every bucket's graph (captured over the
+    server's state tensor) replays the eager encode bitwise with the
+    eager call's launch counts (``want``: those of the ViT kernels and
+    noise_draw); a replay at the next frame differs. With ``plant``, the
+    planted fault: a replay over a state tensor left at the old frame must
+    not match the eager encode at the new one."""
+    from repro_torch.core import noise, threefry
+    from repro_torch.kernels import _build
+
+    spec = server.noise
+    pinned = noise.DriftState(threefry.prng_key(spec.seed), 7, 0.03)
+    for k, t in tokens.items():
+        server.drift = pinned
+        _build.LAUNCHES.clear()
+        eager = noisy_eager(torch, server, t)
+        eager_n = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        server._write_state()
+        graphed = server.graphs[k].replay(t).clone()
+        replay_n = dict(_build.LAUNCHES)
+        got = {n: replay_n.get(n, 0) for n in want}
+        server.drift = pinned.advance(spec, 4)
+        server._write_state()
+        nxt = server.graphs[k].replay(t).clone()
+        say(f"[noise] {tag} k={k}: replay bitwise the eager encode "
+            f"{torch.equal(graphed, eager)}, launches a replay {got}; next "
+            f"frame's replay max |d| {(nxt - graphed).abs().max().item():.3e}")
+        if not torch.equal(graphed, eager):
+            fail(f"{tag} k={k}: noisy replay differs from eager by "
+                 f"{(graphed - eager).abs().max().item():.3e}")
+        if replay_n != eager_n or got != want:
+            fail(f"{tag} k={k}: launches a replay {replay_n}, eager "
+                 f"{eager_n}, want {want}")
+        if torch.equal(nxt, graphed):
+            fail(f"{tag} k={k}: the next frame replayed the same noise")
+        if plant:
+            # the state advances but the tensor is not written: the graph
+            # replays the old frame's draws
+            server.drift = pinned.advance(spec, 8)
+            stale = server.graphs[k].replay(t).clone()
+            fresh = noisy_eager(torch, server, t)
+            caught = not torch.equal(stale, fresh)
+            say(f"[noise] planted fault (state tensor not written, k={k}): "
+                f"stale replay vs the eager encode at the new frame max |d| "
+                f"{(stale - fresh).abs().max().item():.3e}, caught {caught}")
+            if not caught:
+                fail("a replay over a stale state tensor matched the eager "
+                     "encode at the new frame")
+            plant = False
+
+
+def noisy_serve(torch, server, streams) -> tuple:
+    """4a's traffic (2 streams x 32 frames from phases 0 and 16) on a
+    noisy server from a fresh DriftState; launches counted from 0. Returns
+    (results in stream order, launches, wall s)."""
+    from repro_torch.core import noise
+    from repro_torch.kernels import _build
+
+    server.drift = noise.DriftState.init(server.noise.seed)
+    server._host_drift_nm = 0.0
+    server.recalibrations = 0
+    sessions = [server.add_session(st, n_frames=32, start=16 * i)
+                for i, st in enumerate(streams)]
+    _build.LAUNCHES.clear()
+    res = server.serve()
+    launches = dict(_build.LAUNCHES)
+    chunks = sum(s.chunks_done for s in sessions)
+    out = [res[s.sid] for s in sessions]
+    for s, r in zip(sessions, out):
+        if set(r.predictions) != set(range(s.start, s.start + 32)):
+            fail(f"noisy session {s.sid}: {len(r.predictions)} predictions "
+                 f"for 32 frames")
+    return out, launches, chunks, max(r.wall_s for r in out)
+
+
+def run_noise(torch, dev, card: str, cfg, sc, params, streams,
+              fused_results, fused_fps: float) -> dict:
+    """Path 4e: calibrated device noise on opto-vit-base-224 through the
+    graphed server, 4a's traffic: (A) photonic_sim + flash + xla FFN under
+    drift 0.01 nm a frame, wander 0.01 nm and a 0.08 nm recalibration
+    bound, (B) photonic_pallas + xla + xla under the default NoiseSpec
+    (no drift). Each: every bucket's replay bitwise its eager encode at a
+    pinned state (and a new frame's replay different), noise_draw and B2
+    launched the counted number of times a flush and nothing fused, every
+    frame predicted, 4a's bucket hits; (A) also the planted stale-state
+    fault, at least one billed recalibration (energy a frame above B's, the
+    same routing) with the graphs still valid, and its newest flush
+    re-encoded on the CPU at its state (corr > 0.999, equal argmax);
+    readings: noisy against clean logits, frames/s beside 4a's."""
+    from repro_torch.bridge import to_device
+    from repro_torch.core import noise
+    from repro_torch.models.vit import forward_vit_tokens
+    from repro_torch.serving.server import StreamServer
+
+    err = check_noise_kernel(torch, dev)
+    out = {"err": err}
+    L = cfg.n_layers
+    per_flush = 2 * (6 * L + 1)        # a codes and a shot draw a matmul
+    for tag, (backend, attn), spec in (
+            ("A", ("photonic_sim", "flash"), noise.NoiseSpec(**NOISE_KW)),
+            ("B", ("photonic_pallas", "xla"), noise.NoiseSpec())):
+        ncfg = cfg.with_(matmul_backend=backend, attn_backend=attn,
+                         ffn_backend="xla", noise=spec)
+        t0 = time.perf_counter()
+        server = StreamServer(ncfg, sc, params=params)
+        build_s = time.perf_counter() - t0
+        say(f"[noise] ({tag}) {server.policy}, {spec}: warm start "
+            f"{server.warm_s:.2f}s ({build_s:.2f}s with the cache), graphs "
+            f"at {sorted(server.graphs)}")
+        want = {"noise_draw": per_flush, "photonic_matmul": 0,
+                "fused_ffn": 0,
+                "flash_attention_masked": L if attn == "flash" else 0,
+                "flash_attention_masked.tc": L if attn == "flash" else 0}
+        noisy_replays(torch, server, noisy_tokens(torch, server, streams),
+                      want, tag, plant=tag == "A")
+        res, launches, chunks, wall = noisy_serve(torch, server, streams)
+        flushes = len(server.flush_log)
+        fps = 64 / wall
+        say(f"[noise] ({tag}) launches on the path: {launches}; {flushes} "
+            f"flushes, {chunks} ingest chunks, {server.recalibrations} "
+            f"recalibrations; 2 streams x 32 frames {fps:.2f} frames/s "
+            f"against 4a's clean fused serve {fused_fps:.2f} ({card})")
+        for r, c in zip(res, fused_results):
+            say(f"[noise] ({tag}) {r.summary()} | recalibrations "
+                f"{r.recalibrations}")
+            if r.bucket_hits != c.bucket_hits:
+                fail(f"({tag}) bucket hits {r.bucket_hits} vs the clean "
+                     f"serve's {c.bucket_hits}")
+        # the embed draws too: a codes and a shot launch an ingest chunk
+        n_draw = per_flush * flushes + 2 * chunks
+        b2 = L * flushes if attn == "flash" else 0
+        if (launches.get("noise_draw", 0) != n_draw
+                or launches.get("flash_attention_masked.tc", 0) != b2
+                or launches.get("flash_attention_masked", 0) != b2
+                or launches.get("fused_ffn", 0)):
+            fail(f"({tag}) launches {launches}: want {n_draw} noise_draw, "
+                 f"{b2} B2 on the tensor-core entry, no B3")
+        if backend == "photonic_sim" and launches.get("photonic_matmul", 0):
+            fail(f"({tag}) B1 launched {launches['photonic_matmul']} times "
+                 f"on a photonic_sim path")
+        out[tag] = {"server": server, "results": res, "fps": fps,
+                    "launches": launches, "flushes": flushes}
+    a, b = out["A"], out["B"]
+    server = a["server"]
+    if server.recalibrations < 1 or any(
+            r.recalibrations != server.recalibrations for r in a["results"]):
+        fail(f"(A) {server.recalibrations} recalibrations, billed "
+             f"{[r.recalibrations for r in a['results']]}")
+    uj_a = [r.mean_frame_uj for r in a["results"]]
+    uj_b = [r.mean_frame_uj for r in b["results"]]
+    say(f"[noise] (A) {server.recalibrations} recalibrations billed: "
+        f"{uj_a} uJ a frame against (B)'s no-drift {uj_b}")
+    if not all(x > y for x, y in zip(uj_a, uj_b)):
+        fail(f"recalibrations not billed: {uj_a} vs {uj_b} uJ a frame")
+    # the graphs stay valid across the recalibrations
+    t = server.last_flush.tokens
+    k = server.last_flush.bucket[0]
+    eager = noisy_eager(torch, server, t)
+    server._write_state()
+    if not torch.equal(server.graphs[k].replay(t), eager):
+        fail("(A) a replay after the recalibrations differs from eager")
+    # the newest flush again on the CPU at its own state
+    fb, logits, st = server.last_flush, server.last_logits, server.last_drift
+    cpu_params = to_device(server.params, "cpu")
+    t0 = time.perf_counter()
+    with noise.noise_scope(st):
+        plain = forward_vit_tokens(cpu_params, fb.tokens.cpu(), server.cfg,
+                                   server.policy, device="cpu")[0]
+    plain_s = time.perf_counter() - t0
+    end = corr(torch, logits, plain)
+    same = bool(torch.equal(logits.cpu().argmax(-1), plain.argmax(-1)))
+    clean = forward_vit_tokens(server.params, fb.tokens, server.cfg,
+                               server.policy.without_noise(),
+                               device=server.device)[0]
+    say(f"[noise] (A) flush k={fb.bucket[0]} at frame {int(st.frame)}, "
+        f"drift {float(st.drift_nm):.3f} nm re-encoded on the CPU with the "
+        f"plain versions ({plain_s:.1f}s): logits corr {end:.6f}, argmax "
+        f"equal {same}; noisy vs clean logits corr "
+        f"{corr(torch, logits, clean):.6f} (a reading)")
+    if (logits.shape != plain.shape
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"(A) flush logits {tuple(logits.shape)} not finite")
+    if not end > 0.999 or not same:
+        fail(f"(A) card vs CPU logits corr {end}, argmax equal {same}")
+    # a noisy flush's span: replay (its state write and copy-in included)
+    # and device time at every bucket
+    tokens = noisy_tokens(torch, server, streams)
+    for kb, tk in tokens.items():
+        rep_ms = cuda_ms(lambda: server._encode(kb, tk), iters=10,
+                         warmup=2)
+        say(f"[noise] (A) noisy encode flush k={kb} (4 frames): graph "
+            f"replay {rep_ms:.3f} ms (CUDA events, the state write "
+            f"included) ({card})")
+        out.setdefault("replay_ms", {})[kb] = rep_ms
+    # where a noisy flush's device time goes (k = 196, 3 replays; a
+    # reading: the profiler may drop records, PERF.md §7)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kb = max(tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            server._encode(kb, tokens[kb])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 3e3
+    say(f"[noise] (A) k={kb} flush under the profiler: device busy "
+        f"{busy:.3f} ms a replay, {sum(e.count for e in events) / 3:.0f} "
+        f"kernels ({card})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"[noise] {e.self_device_time_total / 3e3:9.3f} ms "
+            f"{e.count / 3:7.0f}x  {e.key[:90]}")
+    out["launches"] = a["launches"]
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2295,6 +2728,9 @@ def main() -> int:
             "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
             **extra})
 
+    # the noise-draw kernel, timed next to the table too; its launches
+    # come with 4e
+    noise_entry = time_noise_kernel(torch, dev, card)
     # path 4d's kernel shapes, timed next to the table (later profiled
     # sessions drop records, §7 of PERF.md); their launches come with 4d
     extra = time_composed_kernels(torch, dev, card)
@@ -2323,6 +2759,21 @@ def main() -> int:
         entry.update(extra.get(kname, {}))
     say(f"[composed] launches on the main paths with 4d's: "
         f"{ {e['name']: e['launches'] for e in kernels} }")
+
+    # -- 4e. [noise]: calibrated device noise on opto-vit-base-224 through
+    # the graphed server (after 4d, before the profiled phases)
+    noisy = run_noise(torch, dev, card, cfg, sc, params, streams,
+                      [results[s.sid] for s in sessions], fps)
+    for entry in kernels:
+        entry["launches"] += noisy["launches"].get(entry["name"], 0)
+    noise_entry["launches"] = noisy["launches"].get("noise_draw", 0)
+    noise_entry["max_abs_err"] = noisy["err"]
+    say(f"[numbers] noise_draw: {noise_entry['launches']} launches on path "
+        f"4e ({card})")
+    kernels.append(noise_entry)
+    for tag in ("A", "B"):
+        del noisy[tag]["server"]           # its graphs' memory back
+    torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

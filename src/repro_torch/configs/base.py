@@ -4,9 +4,8 @@ defaults unchanged so a reader finds each counterpart.
 
 Two families are ported: ``vit`` (the near-sensor serving path) and
 ``dense`` (the decoder-only LM serving path: prefill + KV-cache decode).
-The other LM families, training knobs and device noise come with later
-slices of the port (ROADMAP.md queue A), each with the fields its path
-reads.
+The other LM families and training knobs come with later slices of the
+port (ROADMAP.md queue A), each with the fields its path reads.
 """
 
 from __future__ import annotations
@@ -53,6 +52,9 @@ class ArchConfig:
     #                                      (core/backend.py)
     attn_backend: str = ""               # xla | flash ("" -> xla)
     ffn_backend: str = ""                # xla | fused ("" -> xla)
+    noise: object = None                 # calibrated device noise
+    #                                      (core/noise.py NoiseSpec); None
+    #                                      = clean. Feeds ExecPolicy.noise
     bit_plan: tuple = ()                 # per-layer bit widths (one per
     #                                      encoder block, core/bitalloc.py);
     #                                      () = uniform quant_bits. Feeds

@@ -33,6 +33,15 @@ A fused entry asked for with weights it cannot take raises with the
 reason (``_fused_ffn_ineligible_reason``): the reference warns once and
 runs the composed dispatch instead, which would hide the kernel the
 policy named (ROADMAP.md queue C, deviations by design).
+
+Calibrated device noise (``ExecPolicy.noise``, a ``core.noise.NoiseSpec``)
+takes every matmul through ``_noisy_matmul`` on every backend: the tuned
+weights take the MR transmission error (drawn on the card by the
+noise-draw kernel, kernels/noise_draw.py), the readout shot noise and an
+optional ADC. The photonic backends walk the analog float-code schedule
+(``core.photonic.analog_accumulate``), bf16 and qat multiply their
+effective float weight. The fused int8 entries are the clean digital
+contract: under noise they are ineligible, the noise reason first.
 """
 
 from __future__ import annotations
@@ -72,14 +81,19 @@ class ExecPolicy:
     means uniform ``quant_bits``. Setting it lets ``_weight_bits`` accept
     cached widths that differ from ``quant_bits`` (deliberate per-layer
     widths instead of a stale cache, which without a plan is an error).
+
+    ``noise`` is the calibrated device-noise operating point
+    (``core.noise.NoiseSpec``, hashable); None is the clean path. Under
+    noise every matmul runs ``_noisy_matmul``, which needs an active noise
+    scope (``core.noise.noise_scope``).
     """
 
     __slots__ = ("quant_bits", "photonic", "backend", "attn_backend",
-                 "ffn_backend", "matmul_fn", "bit_plan")
+                 "ffn_backend", "matmul_fn", "bit_plan", "noise")
 
     def __init__(self, quant_bits: int = 0, backend: str = "",
                  attn_backend: str = "", ffn_backend: str = "",
-                 bit_plan=None, photonic: bool = False):
+                 bit_plan=None, photonic: bool = False, noise=None):
         self.quant_bits = quant_bits
         self.photonic = photonic
         self.backend = backend or ("photonic_sim" if photonic else
@@ -89,12 +103,35 @@ class ExecPolicy:
         self.ffn_backend = ffn_backend
         self.bit_plan = (tuple(bit_plan) if isinstance(bit_plan, list)
                          else bit_plan) or None
+        self.noise = noise
 
     @staticmethod
     def from_cfg(cfg) -> "ExecPolicy":
         return ExecPolicy(cfg.quant_bits, cfg.matmul_backend,
                           cfg.attn_backend, cfg.ffn_backend,
-                          cfg.bit_plan or None, cfg.photonic)
+                          cfg.bit_plan or None, cfg.photonic, cfg.noise)
+
+    def without_noise(self) -> "ExecPolicy":
+        """A clean copy of this policy (noise stripped); self when already
+        clean."""
+        if self.noise is None:
+            return self
+        return ExecPolicy(self.quant_bits, self.backend, self.attn_backend,
+                          self.ffn_backend, self.bit_plan, self.photonic)
+
+    def gate_policy(self) -> "ExecPolicy":
+        """Policy of the MGNet RoI gate: clean even under noise (noisy gate
+        matmuls would make the routing, and so every bucket shape,
+        stochastic) unless ``NoiseSpec.noisy_gate`` opts it in."""
+        if self.noise is None or self.noise.noisy_gate:
+            return self
+        return self.without_noise()
+
+    def fingerprint(self) -> tuple:
+        """Hashable identity of every dispatch-relevant knob."""
+        return (self.backend, self.resolve_attn_backend(),
+                self.resolve_ffn_backend(), self.quant_bits, self.bit_plan,
+                self.noise)
 
     def resolve_attn_backend(self) -> str:
         return self.attn_backend or "xla"
@@ -107,10 +144,11 @@ class ExecPolicy:
 
     def __repr__(self):
         plan = "" if self.bit_plan is None else f", plan={self.bit_plan}"
+        noise = ", noise=on" if self.noise is not None else ""
         return (f"ExecPolicy(backend={self.backend!r}, "
                 f"attn={self.resolve_attn_backend()!r}, "
                 f"ffn={self.resolve_ffn_backend()!r}, bits={self.quant_bits}"
-                f"{plan})")
+                f"{plan}{noise})")
 
 
 
@@ -523,13 +561,57 @@ def _photonic_sim_matmul(x, w, p: ExecPolicy):
 
 BACKENDS["photonic_sim"] = _photonic_sim_matmul
 
+
+def _noisy_matmul(x, w, p: ExecPolicy):
+    """One noisy path for every backend (the registry entries stay the
+    clean contract). The weight-stationary MR banks take the transmission
+    error (crosstalk floor + FPV + Lorentzian drift and wander), the
+    readout shot noise and an optional range-limited ADC, keyed by the
+    active noise scope's next call (``core.noise.next_call_keys``). The
+    photonic backends walk the analog float-code schedule over the
+    perturbed codes (both through ``photonic_matmul_prequant_noisy``: the
+    reference's two photonic branches compute the same numbers); bf16 and
+    qat apply the multiplier to their effective float weight (a cached
+    weight dequantized, qat's fake-quantized) and take one f32 product."""
+    from repro_torch.core import noise as noise_mod
+    from repro_torch.kernels.noise_draw import transmission_codes
+
+    spec = p.noise
+    call = noise_mod.next_call_keys(spec)
+    if p.backend.startswith("photonic"):
+        from repro_torch.kernels.ops import photonic_matmul_prequant_noisy
+
+        bits = _weight_bits(w, p)
+        qw = _resolve_wq(w, bits)
+        y = photonic_matmul_prequant_noisy(
+            x.float(), qw.wq, qw.scale.reshape(-1), call, spec, bits=bits,
+            chunk=_WAVELENGTHS)
+        return y.to(x.dtype)
+    bits = p.quant_bits or 8
+    if isinstance(w, QuantizedWeight):
+        wf = w.dequantize()
+        xf = x.float()
+    elif p.backend == "qat":
+        wf = quant.fake_quant(w.float(), bits=bits,
+                              axis=tuple(range(w.ndim - 1)))
+        xf = quant.fake_quant(x.float(), bits=bits, axis=None)
+    else:
+        wf = w.float()
+        xf = x.float()
+    y = torch.matmul(xf, transmission_codes(wf.contiguous(), call, spec))
+    y = noise_mod.readout_noise(y, spec, call, bits=bits)
+    return y.to(x.dtype)
+
+
 _DEFAULT = ExecPolicy()
 
 
 def matmul(x: torch.Tensor, w, policy: ExecPolicy | None = None) -> torch.Tensor:
     """y = x @ w under the policy. x (..., d_in); w (d_in, d_out) tensor or
-    cached ``QuantizedWeight``."""
+    cached ``QuantizedWeight``. A noisy policy takes ``_noisy_matmul``."""
     p = policy or _DEFAULT
+    if p.noise is not None:
+        return _noisy_matmul(x, w, p)
     return p.matmul_fn(x, w, p)
 
 
@@ -633,7 +715,12 @@ def _fused_ffn_ineligible_reason(w1, w2,
     photonic matmul backend (a policy of None, a direct call of the
     entry, names no other) and both weights quantize-once cached, per
     layer, at (possibly different) widths of at most 8 bits; else why
-    not."""
+    not. Calibrated device noise is the first reason: the fused int8
+    kernel is the clean digital contract."""
+    if p is not None and p.noise is not None:
+        return ("calibrated device noise is active (ExecPolicy.noise) — "
+                "the fused int8 kernel is the clean digital contract; "
+                "noisy execution runs the composed analog dispatch")
     if p is not None and p.backend != "photonic_pallas":
         return (f"matmul backend is {p.backend!r}, the fused FFN needs "
                 f"'photonic_pallas'")

@@ -79,8 +79,13 @@ def _fused_prequant_ineligible_reason(params: dict,
     """None when the whole MHSA block can take the fused serving branch:
     the int8 photonic matmul, the flash attention core and Q/K/V cached
     at (possibly different) widths of at most 8 bits, on (B, n, dm)
-    tokens; else why not."""
+    tokens; else why not. Calibrated device noise is the first reason:
+    the fused branch is the clean digital contract."""
     p = policy or ExecPolicy()
+    if p.noise is not None:
+        return ("calibrated device noise is active (ExecPolicy.noise) — "
+                "the fused prequant kernel is the clean digital contract; "
+                "noisy execution runs the composed analog dispatch")
     if p.resolve_attn_backend() != "flash":
         return (f"attention backend is {p.resolve_attn_backend()!r}, "
                 f"fused prequant needs 'flash'")

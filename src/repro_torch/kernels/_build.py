@@ -35,7 +35,7 @@ import torch
 __all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
            "captured_launches", "add_replay",
            "ptxas_report", "aligned16", "stream_ptr", "strides_arg",
-           "DTYPE_SUFFIX"]
+           "words_arg", "DTYPE_SUFFIX"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -71,7 +71,10 @@ def add_replay(graph: collections.Counter) -> None:
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_UINT = ctypes.c_uint
+_I64 = ctypes.c_longlong
 _FLOAT = ctypes.c_float
+_UINT_PTR = ctypes.POINTER(ctypes.c_uint)     # a host array of 32-bit words
 _I64_PTR = ctypes.POINTER(ctypes.c_longlong)   # a host array of strides
 # C entry point -> argtypes. Pointers and the stream are c_void_p: ctypes
 # would otherwise pass a Python int as a 32-bit int and cut the pointer.
@@ -96,6 +99,14 @@ _SIGNATURES = {
     "flash_decode_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
     + (_FLOAT, _VOID),
     "dequant_epilogue_s32": (_VOID,) * 4 + (_INT,) * 2 + (_VOID,),
+    "noise_transmission_s8": (_VOID, _VOID, _I64, _VOID, _UINT_PTR, _INT)
+    + (_UINT,) * 3 + (_FLOAT,) * 6 + (_INT, _VOID),
+    "noise_transmission_f32": (_VOID, _VOID, _I64, _VOID, _UINT_PTR, _INT)
+    + (_UINT,) * 3 + (_FLOAT,) * 6 + (_INT, _VOID),
+    "noise_readout_shot": (_VOID, _I64, _VOID, _UINT_PTR, _INT, _UINT,
+                           _FLOAT, _VOID),
+    "noise_draw_bits": (_VOID, _I64, _VOID, _UINT_PTR, _INT, _UINT, _UINT,
+                        _VOID),
     "flash_attention_masked_smem": (_INT, _INT),
     "max_dynamic_smem": (_INT,),
 }
@@ -213,6 +224,12 @@ def strides_arg(*strides: int):
     """A host array of element strides for an ``_I64_PTR`` argument (the
     C entry point reads it before it returns)."""
     return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def words_arg(*words: int):
+    """A host array of 32-bit words for a ``_UINT_PTR`` argument (the C
+    entry point copies it into the launch's arguments)."""
+    return (ctypes.c_uint * max(1, len(words)))(*words)
 
 
 def aligned16(t: torch.Tensor, dims: int) -> bool:

@@ -7,6 +7,9 @@ the int8 photonic matmul with the quantize-once cached weight;
 ``photonic_matmul`` is the float API that quantizes the weight too.
 ``fused_roi_attention_prequant`` is the MHSA hot path: three cached-weight
 int8 projections feeding the RoI-masked flash attention kernel.
+``photonic_matmul_prequant_noisy`` is the noisy companion of the cached
+matmul: the transmission error drawn onto the codes (the noise-draw
+kernel), the analog float-code walk, shot noise and the optional ADC.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from repro_torch.kernels.flash_attention import flash_attention_masked
 from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
 
 __all__ = ["pad_to", "photonic_matmul", "photonic_matmul_prequant",
-           "fused_roi_attention_prequant"]
+           "photonic_matmul_prequant_noisy", "fused_roi_attention_prequant"]
 
 
 def pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -47,6 +50,35 @@ def photonic_matmul_prequant(x: torch.Tensor, wq: torch.Tensor,
     sx = quant.absmax_scale(x2, bits=bits)
     xq = quant.quantize(x2, sx, bits=bits)
     return photonic_matmul_int8(xq, wq, sx, sw, wt=wt).reshape(*lead, n)
+
+
+def photonic_matmul_prequant_noisy(x: torch.Tensor, wq: torch.Tensor,
+                                   sw: torch.Tensor, call, spec, *,
+                                   bits: int = 8,
+                                   chunk: int = 32) -> torch.Tensor:
+    """Noisy companion of ``photonic_matmul_prequant``: x (..., K) float,
+    wq (K, N) codes, sw (N,) f32; ``call`` the dispatch's keys
+    (``core.noise.next_call_keys``) and ``spec`` its ``NoiseSpec``. The
+    int8 kernel is the clean digital contract (a sub-LSB transmission error
+    cannot ride through integer codes), so the codes times the MR
+    multiplier (``noise_draw.transmission_codes``: the kernel on the card,
+    its plain version on the CPU) walk the wavelength chunks as floats
+    (``core.photonic.analog_accumulate``), then acc * sx * sw, shot noise
+    and, with ``spec.adc_quantize_output``, an ADC requant at ``bits``.
+    Returns (..., N) f32."""
+    from repro_torch.core.noise import readout_noise
+    from repro_torch.core.photonic import analog_accumulate
+    from repro_torch.kernels.noise_draw import transmission_codes
+
+    lead = x.shape[:-1]
+    k, n = wq.shape
+    x2 = x.reshape(-1, k).float()
+    sx = quant.absmax_scale(x2, bits=bits)
+    xq = quant.quantize(x2, sx, bits=bits)
+    acc = analog_accumulate(xq, transmission_codes(wq, call, spec),
+                            chunk=chunk)
+    y = acc * sx * sw[None, :]
+    return readout_noise(y, spec, call, bits=bits).reshape(*lead, n)
 
 
 def photonic_matmul(x: torch.Tensor, w: torch.Tensor, *,

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the six ported kernels (the numerics
 contracts), counterparts of src/repro/kernels/ref.py, of the reference's
-XLA twins and of its decode attention.
+XLA twins and of its decode attention, and of the port's noise-draw
+kernel (the reference's jax.random draws of core/noise.py).
 
 Each function here is the same function as its CUDA kernel. The wrappers
 take them for tensors on the CPU, the tests hold them against the
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
@@ -26,7 +28,8 @@ __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "flash_decode_ref", "flash_attention_tc_ref",
            "tf32_rna", "flash_attention_masked_tc_ref",
            "flash_decode_split_ref", "fused_ffn_ref", "slice_live",
-           "restore_dead"]
+           "restore_dead", "transmission_codes_ref", "readout_shot_ref",
+           "draw_bits_ref"]
 
 NEG_INF = -1e30
 
@@ -364,3 +367,45 @@ def fused_ffn_ref(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
     g = gelu_tanh(h.float()).to(x.dtype)
     y = _int8_linear_ref(g.float(), w2q, sw2, bits2).to(x.dtype) + b2
     return restore_dead(y.reshape(*lead, w2q.shape[1]), n_tokens)
+
+
+# --------------------------------------------------------------------------
+# the noise-draw kernel's plain versions (kernels/noise_draw.py)
+# --------------------------------------------------------------------------
+
+def transmission_codes_ref(w: torch.Tensor, state: torch.Tensor,
+                           salts: tuple, counter: int, fpv_key, mr,
+                           fpv_sigma: float,
+                           wander_sigma_nm: float) -> torch.Tensor:
+    """f32(w) * M: the drifted-branch transmission multiplier M of
+    ``core.noise.transmission_error`` under the call's draw key (derived
+    from the state tensor, int32[4], with ``salts`` and ``counter``) and
+    the state's drift, FPV from ``fpv_key``."""
+    from repro_torch.core import noise
+    kc = noise.state_draw_key(state, salts, counter)
+    m = noise.transmission_error(kc, tuple(w.shape), mr, fpv_sigma,
+                                 fpv_key=fpv_key,
+                                 drift_nm=noise.state_drift(state),
+                                 wander_sigma_nm=wander_sigma_nm)
+    return w.float() * m
+
+
+def readout_shot_ref(y: torch.Tensor, state: torch.Tensor, salts: tuple,
+                     counter: int, sigma: float) -> torch.Tensor:
+    """y * (1 + sigma * n), n = normal(fold_in(draw key, SHOT)) over y's
+    shape, as one fused multiply-add."""
+    from repro_torch.core import noise, threefry
+    ks = noise.shot_key(noise.state_draw_key(state, salts, counter))
+    n = threefry.normal(ks, tuple(y.shape))
+    return y * threefry.fma(n, float(np.float32(sigma)), 1.0)
+
+
+def draw_bits_ref(state: torch.Tensor, salts: tuple, counter: int,
+                  fold: int, shape) -> torch.Tensor:
+    """``random_bits`` (int64 of uint32 values) under the call's draw key,
+    folded once more with ``fold`` when it is not 0."""
+    from repro_torch.core import noise, threefry
+    k = noise.state_draw_key(state, salts, counter)
+    if fold:
+        k = threefry.fold_in(k, fold)
+    return threefry.random_bits(k, tuple(shape))

@@ -26,6 +26,15 @@ token is always kept. ``forward_vit_masked`` is the mask-mode dense
 baseline: all N patches enter, the mask removes dropped ones from every
 attention key axis.
 
+Under calibrated device noise (``policy.noise``) the encode runs inside
+the caller's noise scope (``core.noise.noise_scope``) and numbers its
+noisy call sites as the reference's traces do: the reference scans each
+run of equal bit widths (``_bit_segments``) with one traced body, so every
+layer of a run draws with the same call counters, salted by its global
+index, and the counter moves on by one body's calls a run; the head takes
+the next. The MGNet gate scores under ``policy.gate_policy()`` (clean
+unless the spec's ``noisy_gate``).
+
 Under a sharding context whose "model" axis has more than one rank,
 ``encode_tokens`` runs the model-sharded encoder
 (models/sharded_encoder.py) instead; ``vit_logical_axes`` names the axes
@@ -38,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import mgnet as mgnet_mod
+from repro_torch.core import noise as noise_mod
 from repro_torch.core.decomposed_attention import (mhsa_decomposed,
                                                    mhsa_standard)
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
@@ -121,12 +131,39 @@ def encoder_layer_step(carry: torch.Tensor, lp: dict, cfg: ArchConfig,
     return carry + ffn_mod.mlp(lp["ffn"], h2, policy, live_rows=ffn_live)
 
 
+def _blocks_qw_leaves(blocks) -> list:
+    """The cached (QuantizedWeight) leaves of the stacked blocks."""
+    if isinstance(blocks, dict):
+        return [q for v in blocks.values() for q in _blocks_qw_leaves(v)]
+    return [blocks] if isinstance(blocks, QuantizedWeight) else []
+
+
+def _bit_segments(blocks, n_layers: int) -> list[tuple[int, int]]:
+    """[lo, hi) runs of consecutive layers whose cached widths agree on
+    every cached leaf: the units the reference's segmented scan traces
+    once each. A cache without per-layer widths is one run."""
+    leaves = _blocks_qw_leaves(blocks)
+    if not any(isinstance(a.bits, tuple) for a in leaves):
+        return [(0, n_layers)]
+    sig = [tuple(a.layer_bits(i) for a in leaves) for i in range(n_layers)]
+    segs, lo = [], 0
+    for i in range(1, n_layers + 1):
+        if i == n_layers or sig[i] != sig[lo]:
+            segs.append((lo, i))
+            lo = i
+    return segs
+
+
 def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
                                      policy: ExecPolicy) -> str | None:
     """None when the encoder can run the fused serving point (int8 photonic
     matmuls + flash attention + fused FFN, standard dataflow, every
     per-layer matmul weight cached at 2-8 bits, uniform or under a
-    per-layer bit plan); else why not."""
+    per-layer bit plan); else why not, calibrated device noise first."""
+    if policy.noise is not None:
+        return ("calibrated device noise is active (ExecPolicy.noise) — "
+                "the fused encoder is the clean digital contract; noisy "
+                "execution runs the composed analog dispatch")
     triple = (policy.backend, policy.resolve_attn_backend(),
               policy.resolve_ffn_backend())
     if triple != ("photonic_pallas", "flash", "fused"):
@@ -209,9 +246,21 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if patch_mask is not None:
         mask = torch.cat([patch_mask.new_ones(b, 1), patch_mask], dim=1)
     attn_kv = None if kv_len is None else int(kv_len) + 1   # + live [cls]
-    for i in range(cfg.n_layers):
-        x = encoder_layer_step(x, layer_view(params["blocks"], i), cfg, policy,
-                               mask, attn_kv, attn_kv)
+    if policy.noise is None:
+        for i in range(cfg.n_layers):
+            x = encoder_layer_step(x, layer_view(params["blocks"], i), cfg,
+                                   policy, mask, attn_kv, attn_kv)
+    else:
+        sc = noise_mod.current_scope()
+        for lo, hi in _bit_segments(params["blocks"], cfg.n_layers):
+            c0 = sc.counter if sc is not None else 0
+            for i in range(lo, hi):
+                if sc is not None:
+                    sc.counter = c0        # one traced body per run
+                with noise_mod.scope_salt(i):
+                    x = encoder_layer_step(x, layer_view(params["blocks"], i),
+                                           cfg, policy, mask, attn_kv,
+                                           attn_kv)
     x = layernorm(x, params["final_ln_g"], params["final_ln_b"], cfg.norm_eps)
     return linear(x[:, 0], params["head"], policy=policy)
 
@@ -232,7 +281,7 @@ def forward_vit(params: dict, images: torch.Tensor, cfg: ArchConfig,
     kept = n
     if cfg.mgnet and cfg.mgnet_keep_ratio < 1.0:
         scores = mgnet_scores(params["mgnet"], images, mgnet_config(cfg),
-                              policy)
+                              policy.gate_policy())
         kept = max(1, int(cfg.mgnet_keep_ratio * n))
         x, _ = mgnet_mod.select_topk_patches(scores, x, kept)
     return encode_tokens(params, x, cfg, policy, device=dev), kept

@@ -16,10 +16,13 @@ Under a mixed-precision bit plan (``layer_bits``, one width per encoder
 layer) each layer's weight-stationary matmuls pay their width's share of
 the 8-bit constants (``_mixed_bits_report``).
 
-Not ported yet (ROADMAP.md queue A): the MR re-tuning bill of a
-recalibration (``retune_report``, ``add_recalibration``: A11), measured
-flush wall times (``add_flush_wall``, ``measured_flush_s``: A12) and
-``state_dict`` / ``load_state`` (A13).
+A drift-triggered recalibration (device noise, core/noise.py) bills one
+full-model MR re-tuning pass (``retune_report``) to every live stream
+(``add_recalibration``, counted in ``recal_events``).
+
+Not ported yet (ROADMAP.md queue A): measured flush wall times
+(``add_flush_wall``, ``measured_flush_s``: A12) and ``state_dict`` /
+``load_state`` (A13).
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import (EnergyReport, accumulate_matmuls,
                                      energy_of_stats, kfps_per_watt,
                                      latency_of_stats, scale_for_bits)
+from repro_torch.core.photonic import PhotonicOpStats
 from repro_torch.models.vit import vit_matmul_shapes
 
-__all__ = ["StreamAccounting", "bucket_report", "mgnet_report"]
+__all__ = ["StreamAccounting", "bucket_report", "mgnet_report",
+           "retune_report"]
 
 
 def _nonlin_elems(cfg: ArchConfig, n_tokens: int) -> int:
@@ -110,6 +115,36 @@ def mgnet_report(cfg: ArchConfig) -> EnergyReport:
     return rep
 
 
+def retune_report(cfg: ArchConfig,
+                  layer_bits: Iterable[int] | None = None) -> EnergyReport:
+    """Energy of one full-model MR re-tuning pass (drift-triggered online
+    recalibration): every weight-stationary bank's codes are re-driven once
+    (one tuning event and one tuning-DAC conversion per MR) at the dense
+    tile grid. The score and PV matmuls are tuned every cycle anyway and pay
+    nothing extra. ``layer_bits`` scales each layer's tuning energy to its
+    planned width, as ``_mixed_bits_report`` does."""
+    shapes = vit_matmul_shapes(cfg)
+
+    def tune_only(sel_shapes):
+        stats, _ = accumulate_matmuls(sel_shapes)
+        t = stats.mr_tunings
+        return energy_of_stats(PhotonicOpStats(mr_tunings=t,
+                                               dac_conversions=t))
+
+    rep = tune_only(shapes[:1])            # patch embed bank
+    lb = (tuple(int(b) for b in layer_bits)
+          if layer_bits is not None else None)
+    per_layer = len(shapes) == 1 + 8 * cfg.n_layers
+    if per_layer:
+        for li in range(cfg.n_layers):
+            chunk = shapes[1 + 8 * li: 1 + 8 * (li + 1)]
+            layer = tune_only([chunk[i] for i in _WEIGHT_IDX])
+            rep += layer if lb is None else scale_for_bits(layer, lb[li])
+    else:                                   # non-standard shape list
+        rep += tune_only(shapes[1:])
+    return rep
+
+
 class StreamAccounting:
     """Accumulates per-frame EnergyReports bucket by bucket, one stream."""
 
@@ -132,6 +167,8 @@ class StreamAccounting:
         self.bucket_launches: Counter = Counter()
         self._per_bucket: dict[int, EnergyReport] = {}
         self._mgnet: EnergyReport | None = None
+        self._retune: EnergyReport | None = None
+        self.recal_events = 0
 
     def _bucket_report(self, k: int) -> EnergyReport:
         """Per-frame report for a k-patch encode, computed once a bucket."""
@@ -155,6 +192,14 @@ class StreamAccounting:
     def add_mgnet(self, n_invocations: int) -> None:
         self.total += self._mgnet_report().scaled(n_invocations)
         self.scored_frames += n_invocations
+
+    def add_recalibration(self) -> None:
+        """Bill one drift-triggered MR re-tuning pass (``retune_report``)
+        to this stream's running energy total."""
+        if self._retune is None:
+            self._retune = retune_report(self.cfg, self.layer_bits)
+        self.total += self._retune
+        self.recal_events += 1
 
     def dead_buckets(self) -> tuple[int, ...]:
         """Ladder entries no frame was ever routed to (empty when no

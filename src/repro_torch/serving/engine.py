@@ -75,6 +75,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="tiny config (32x32 frames, 4 layers, d=64)")
+    ap.add_argument("--variant", default="base",
+                    help="opto-vit variant (tiny, small, base, large); "
+                         "ignored under --smoke (the reference's default: "
+                         "tiny)")
+    ap.add_argument("--img-size", type=int, default=224,
+                    help="frame side in pixels; ignored under --smoke (the "
+                         "reference's default: 96)")
     ap.add_argument("--backend", default="photonic_pallas",
                     choices=available_backends(), help="matmul backend")
     ap.add_argument("--attn-backend", default="", choices=["", "xla", "flash"],
@@ -107,7 +114,8 @@ def main(argv=None):
                     help="write the StreamResult to this path")
     args = ap.parse_args(argv)
 
-    cfg = with_backends(smoke_cfg() if args.smoke else serving_cfg(), args)
+    cfg = with_backends(smoke_cfg() if args.smoke
+                        else serving_cfg(args.variant, args.img_size), args)
     serve_cfg = ServingConfig(
         bucket_fractions=tuple(float(f) for f in args.buckets.split(",")),
         microbatch=args.microbatch, chunk=args.chunk,

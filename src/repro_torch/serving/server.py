@@ -68,9 +68,27 @@ bucket (each layer at its planned width) and every MGNet scoring, so each
 ``StreamResult`` carries the accelerator model's KFPS/W and energy per
 frame.
 
-Not ported yet (ROADMAP.md queue A): device noise and recalibration
-(A11), the control plane (``autotune``, A12), faults, checkpoints and
-migration (A13), the 1-D data mesh (A14).
+Calibrated device noise (``cfg.noise``, a ``core.noise.NoiseSpec``,
+``--noise``): the server owns one ``DriftState`` (one device, one thermal
+history for every stream) and one device state tensor. Before every
+noisy stage (embed, encode, a noisy gate) the state is written into that
+tensor and the stage runs under a fresh noise scope over it, so a
+bucket's CUDA graph, captured over the tensor, draws at each replay what
+the eager encode of the state written draws. Each flush ages the device
+by its live frames (``_advance_drift``); once the drift crosses
+``recal_bound_nm``, ``recalibrate`` resets the drift and bills a
+re-tuning pass to every live stream (the reference re-derives the cache
+from the raw weights, which gives bitwise the cache already live: it
+stays, and so do the graphs).
+The gate scores clean unless ``noisy_gate``; ``calibrate_bits`` scores
+clean. The fused entries are the clean digital contract and raise under
+noise: a noisy server names composed backends (``photonic_sim`` or
+``photonic_pallas`` matmuls, ``flash`` or ``xla`` attention, ``xla`` FFN;
+photonic_pallas + flash raises too). Noise with ``model_shards`` > 1
+raises.
+
+Not ported yet (ROADMAP.md queue A): the control plane (``autotune``,
+A12), faults, checkpoints and migration (A13), the 1-D data mesh (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
@@ -83,12 +101,18 @@ CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
         --attn-backend flash --ffn-backend xla --attn-impl decomposed
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
         --smoke --device cpu --model-shards 2
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --backend photonic_sim --ffn-backend xla --noise \\
+        --drift-rate-nm 0.01 --recal-bound-nm 0.08
+    PYTHONPATH=src python -m repro_torch.serving.server --variant tiny \\
+        --img-size 96 --device cpu    # the reference's default model
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import time
@@ -100,8 +124,10 @@ import torch
 from repro_torch.bridge import from_jax_params, init_vit, to_device
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.core import bitalloc
-from repro_torch.core.backend import ExecPolicy, place_params, prepare_params
+from repro_torch.core.backend import (ExecPolicy, place_params,
+                                      prepare_params)
 from repro_torch.core.mgnet import mask_budget, mgnet_scores
+from repro_torch.core.noise import DriftState, NoiseSpec, noise_scope
 from repro_torch.data.pipeline import VideoStream, video_fleet
 from repro_torch.device import full_precision_matmuls, resolve_device
 from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
@@ -121,7 +147,8 @@ from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
 
 __all__ = ["StreamServer", "ServerConfig", "EncodeGraph", "serving_cfg",
-           "smoke_cfg", "interleave_rounds", "with_backends", "main"]
+           "smoke_cfg", "interleave_rounds", "with_backends", "build_parser",
+           "config_from_args", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,6 +303,17 @@ class StreamServer:
         self._ctx = (ShardingCtx(self.mesh, MODEL_RULES)
                      if self.mesh is not None else None)
         self.policy = ExecPolicy.from_cfg(cfg)
+        # calibrated device noise: the server's DriftState and the device
+        # state tensor every noisy stage reads (written before each one)
+        self.noise: NoiseSpec | None = cfg.noise
+        self.drift = (DriftState.init(self.noise.seed)
+                      if self.noise is not None else None)
+        self._state_t = (torch.zeros(4, dtype=torch.int32,
+                                     device=self.device)
+                         if self.noise is not None else None)
+        self._written: np.ndarray | None = None
+        self._host_drift_nm = 0.0
+        self.recalibrations = 0
         self.n_patches = (cfg.img_size // cfg.patch) ** 2
         self.ladder = BucketLadder.from_fractions(
             self.n_patches, self.serve_cfg.bucket_fractions)
@@ -297,6 +335,7 @@ class StreamServer:
         # numbers against another execution of the same encode
         self.last_flush: FrameBatch | None = None
         self.last_logits: torch.Tensor | None = None
+        self.last_drift: DriftState | None = None   # its noise state
         self.graphs: dict[int, EncodeGraph] = {}
         self.dense_graph: EncodeGraph | None = None   # run_dense's encode
         self.warmed: set[int] = set()      # buckets whose encode was warmed
@@ -378,8 +417,79 @@ class StreamServer:
 
     def _score_fn(self, frames: np.ndarray) -> np.ndarray:
         f = torch.from_numpy(frames).to(self.device)
-        s = mgnet_scores(self.params["mgnet"], f, self.mcfg, self.policy)
+        gpol = self.policy.gate_policy()
+        with self._noise_ctx(gpol):
+            s = mgnet_scores(self.params["mgnet"], f, self.mcfg, gpol)
         return s.float().cpu().numpy()
+
+    def _embed(self, frames: torch.Tensor) -> torch.Tensor:
+        with self._noise_ctx(self.policy):
+            return embed_patches(self.params, frames, self.cfg, self.policy)
+
+    # -- calibrated device noise + drift-triggered recalibration ------------
+
+    def _write_state(self) -> None:
+        """Write the current DriftState into the device state tensor (in
+        stream order, after every launch queued before), unless it holds
+        it already. Never called inside a graph capture."""
+        if self.noise is None:
+            return
+        words = self.drift.words()
+        if self._written is None or not np.array_equal(words,
+                                                       self._written):
+            self.drift.write(self._state_t)
+            self._written = words
+
+    def _scope(self):
+        """A fresh noise scope of the current DriftState over the state
+        tensor (which the caller has written), or nothing when clean."""
+        if self.noise is None:
+            return contextlib.nullcontext()
+        return noise_scope(self.drift, self._state_t)
+
+    def _noise_ctx(self, policy: ExecPolicy):
+        """Write the state and open a scope for an eager noisy stage under
+        ``policy`` (nothing when ``policy`` is clean)."""
+        if policy.noise is None:
+            return contextlib.nullcontext()
+        self._write_state()
+        return self._scope()
+
+    def inject_drift(self, nm: float) -> None:
+        """Add ``nm`` of resonance drift on top of the accumulated state (a
+        thermal step for robustness experiments)."""
+        if self.noise is None:
+            raise ValueError("inject_drift needs cfg.noise set")
+        self.drift = self.drift.with_drift(self.drift.drift_nm
+                                           + np.float32(nm))
+        self._host_drift_nm += float(nm)
+
+    def _advance_drift(self, frames: int, extra_sessions=()) -> None:
+        """Age the device by ``frames`` served frames; recalibrate once the
+        drift (its host mirror, no device read) reaches the bound."""
+        if self.noise is None or frames <= 0:
+            return
+        self.drift = self.drift.advance(self.noise, frames)
+        self._host_drift_nm += frames * self.noise.drift_rate_nm
+        if (self.noise.recal_bound_nm > 0.0
+                and self._host_drift_nm >= self.noise.recal_bound_nm):
+            self.recalibrate(extra_sessions)
+
+    def recalibrate(self, extra_sessions=()) -> None:
+        """Online MR re-tuning: the drift reset to zero, billed to every
+        live session as one full-model tuning pass. The reference re-derives
+        the cache from the raw weights under the active plan; the same
+        weights and plan give bitwise the same codes, so the live cache
+        already is that re-derivation and stays as it is (every CUDA graph
+        reads it, so the graphs stay valid, as the reference keeps its AOT
+        executables)."""
+        if self.drift is not None:
+            self.drift = self.drift.reset_drift()
+        self._host_drift_nm = 0.0
+        self.recalibrations += 1
+        for s in list(self._sessions) + list(extra_sessions):
+            if not s.finished:
+                s.acct.add_recalibration()
 
     # -- encode: eager, or one CUDA graph per bucket -------------------------
 
@@ -387,7 +497,7 @@ class StreamServer:
         """Logits of one flush at bucket ``k``: (microbatch, k, d) tokens,
         or under ``one_shape`` (microbatch, cap, d) with ``kv_len`` k."""
         kv = k if self.serve_cfg.one_shape else None
-        with use_sharding(self.mesh):
+        with use_sharding(self.mesh), self._scope():
             return forward_vit_tokens(self.params, tokens, self.cfg,
                                       self.policy, kv_len=kv,
                                       device=self.device)[0]
@@ -395,7 +505,9 @@ class StreamServer:
     def _encode(self, k: int, tokens: torch.Tensor) -> torch.Tensor:
         """One flush's logits: the bucket's graph once warm start captured
         graphs (a bucket without one yet is captured now, as the
-        reference's jit compiles a bucket it meets first), else eager."""
+        reference's jit compiles a bucket it meets first), else eager.
+        Under noise the current DriftState is written first."""
+        self._write_state()
         g = self.graphs.get(k)
         if g is None and self._graphed:
             g = self.graphs[k] = self._capture(k)
@@ -407,7 +519,9 @@ class StreamServer:
         return (self.serve_cfg.microbatch, t, self.cfg.d_model)
 
     def _capture(self, k: int) -> EncodeGraph:
-        """Capture bucket ``k``'s encode as a CUDA graph."""
+        """Capture bucket ``k``'s encode as a CUDA graph (under noise, over
+        the server's state tensor)."""
+        self._write_state()
         static = torch.zeros(self._flush_shape(k), device=self.device)
         return self._capture_fn(f"k={k}", lambda: self._encode_eager(
             k, static), static)
@@ -455,8 +569,7 @@ class StreamServer:
         t0 = time.perf_counter()
         zf = np.zeros((sc.chunk, cfg.img_size, cfg.img_size, 3), np.float32)
         self._score_fn(zf)
-        toks = embed_patches(self.params, torch.from_numpy(zf).to(dev), cfg,
-                             self.policy)
+        toks = self._embed(torch.from_numpy(zf).to(dev))
         order = torch.argsort(torch.zeros(sc.chunk, self.n_patches,
                                           device=dev),
                               dim=-1, descending=True, stable=True)
@@ -467,6 +580,7 @@ class StreamServer:
             if self._graphed:
                 self.graphs[k] = self._capture(k)
             else:
+                self._write_state()
                 self._encode_eager(k, torch.zeros(self._flush_shape(k),
                                                   device=dev))
             self.warmed.add(k)
@@ -582,9 +696,12 @@ class StreamServer:
         frames = torch.from_numpy(
             src.stream.frames_at(src.start, n)["frames"]).to(self.device)
         t0 = time.perf_counter()
-        tokens = embed_patches(self.params, frames, self.cfg, self.policy)
+        # scored clean even under noise: the plan ranks layers by their
+        # quantization sensitivity, not by one noise draw
+        cpol = self.policy.without_noise()
+        tokens = embed_patches(self.params, frames, self.cfg, cpol)
         plan = bitalloc.calibrate_bit_plan(
-            self._raw_params, tokens, self.cfg, self.policy,
+            self._raw_params, tokens, self.cfg, cpol,
             target_mean_bits=target_mean_bits, candidates=candidates,
             default=self.cfg.quant_bits or 8)
         if self.device.type == "cuda":
@@ -666,8 +783,7 @@ class StreamServer:
         scores_np, n_scored = s.cache.gate(batch["frames_host"], idxs,
                                            self._score_fn, eligible=valid)
         s.acct.add_mgnet(n_scored)
-        toks = embed_patches(self.params, frames, self.cfg,
-                             self.policy)                   # (C, N, d)
+        toks = self._embed(frames)                          # (C, N, d)
         if sc.force_bucket > 0:
             pin = self.ladder.route(
                 int(round(sc.force_bucket * self.n_patches)))
@@ -717,6 +833,10 @@ class StreamServer:
         # a graph's logits are overwritten by its next replay
         self.last_flush = fb
         self.last_logits = logits.clone() if k in self.graphs else logits
+        # the flush saw the state before it; the device then ages by the
+        # frames it pushed through
+        self.last_drift = self.drift
+        self._advance_drift(fb.n_real)
 
 
     # -- the single-stream dense baseline -----------------------------------
@@ -727,9 +847,10 @@ class StreamServer:
         ``mask`` on the key axis: through one CUDA graph on a graphed
         server (captured at the first chunk), else eagerly."""
         def eager(f=frames, m=mask):
-            with use_sharding(self.mesh):
+            with use_sharding(self.mesh), self._scope():
                 return forward_vit_masked(self.params, f, m, self.cfg,
                                           self.policy, device=self.device)[0]
+        self._write_state()
         if not self._graphed:
             return eager()
         g = self.dense_graph
@@ -765,6 +886,7 @@ class StreamServer:
             logits = self._encode_dense(batch["frames"], mask)
             s.acct.add_encode(self.n_patches, int(valid.sum()))
             s.add_deferred([int(i) for i in idxs], torch.argmax(logits, -1))
+            self._advance_drift(int(valid.sum()), extra_sessions=(s,))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         res = s.finish(time.perf_counter() - t0)
@@ -789,10 +911,19 @@ def with_backends(cfg: ArchConfig, args) -> ArchConfig:
     return cfg.with_(**kw)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The server CLI's flags: the reference's names and meanings
+    (src/repro/serving/server.py::main), except that without ``--smoke``
+    the model defaults to opto-vit-base-224 (the reference: tiny-96) and
+    the backends to the fused serving point."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="tiny config (32x32 frames, 4 layers, d=64)")
+    ap.add_argument("--variant", default="base",
+                    help="opto-vit variant (tiny, small, base, large); "
+                         "ignored under --smoke")
+    ap.add_argument("--img-size", type=int, default=224,
+                    help="frame side in pixels; ignored under --smoke")
     ap.add_argument("--streams", type=int, default=2)
     ap.add_argument("--frames", type=int, default=32,
                     help="frames per stream")
@@ -800,6 +931,14 @@ def main(argv=None):
                     help="per-stream start offset (stream i starts at i*phase)")
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=4)
+    ap.add_argument("--mask-refresh", type=int, default=8,
+                    help="re-score MGNet at least every this many frames")
+    ap.add_argument("--delta-threshold", type=float, default=0.15,
+                    help="frame-difference threshold that forces a re-score")
+    ap.add_argument("--buckets", default="0.25,0.5,0.75,1.0",
+                    help="bucket ladder as fractions of the patch count")
+    ap.add_argument("--cut-every", type=int, default=32,
+                    help="scene cut every this many frames of each stream")
     ap.add_argument("--one-shape", action="store_true",
                     help="encode every flush at the ladder cap with a static "
                          "packed kept-count per bucket")
@@ -854,7 +993,63 @@ def main(argv=None):
                     help="> 1: 2-D (data, model) serving mesh over the "
                          "torchrun world: attention heads + d_ff shard over "
                          "the model axis (needs n_heads and d_ff divisible)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--noise", action="store_true",
+                    help="run with calibrated device noise (FPV + shot + "
+                         "MR drift, core/noise.py NoiseSpec); needs composed "
+                         "backends (e.g. --backend photonic_sim "
+                         "--ffn-backend xla)")
+    ap.add_argument("--fpv-sigma", type=float, default=0.01,
+                    help="fabrication process variation sigma (static "
+                         "per-call-site multiplicative weight noise)")
+    ap.add_argument("--shot-sigma", type=float, default=0.005,
+                    help="per-readout shot/thermal noise sigma")
+    ap.add_argument("--q-factor", type=float, default=5000.0,
+                    help="MR quality factor of the noise operating point")
+    ap.add_argument("--drift-rate-nm", type=float, default=0.0,
+                    help="resonance drift accumulated per served frame (nm)")
+    ap.add_argument("--wander-sigma-nm", type=float, default=0.0,
+                    help="per-element resonance wander sigma around the "
+                         "common-mode drift (nm)")
+    ap.add_argument("--recal-bound-nm", type=float, default=0.0,
+                    help="> 0: recalibrate (re-tune the cache, reset the "
+                         "drift, billed as an MR re-tune) when the "
+                         "accumulated drift reaches this bound")
+    ap.add_argument("--adc-quant", action="store_true",
+                    help="quantize noisy readouts through the 8-bit ADC "
+                         "transfer function")
+    ap.add_argument("--noise-seed", type=int, default=0,
+                    help="seed of the device-noise RNG lineage")
+    return ap
+
+
+def config_from_args(args) -> tuple[ArchConfig, ServerConfig]:
+    """The model config and the ServerConfig the CLI serves (warm start
+    off: ``main`` warms after the optional trim and bit calibration, as
+    the reference does)."""
+    cfg = with_backends(smoke_cfg() if args.smoke
+                        else serving_cfg(args.variant, args.img_size), args)
+    if args.noise:
+        cfg = cfg.with_(noise=NoiseSpec(
+            q_factor=args.q_factor, fpv_sigma=args.fpv_sigma,
+            shot_sigma=args.shot_sigma, drift_rate_nm=args.drift_rate_nm,
+            wander_sigma_nm=args.wander_sigma_nm,
+            recal_bound_nm=args.recal_bound_nm,
+            adc_quantize_output=args.adc_quant, seed=args.noise_seed))
+    bit_plan = (bitalloc.parse_bit_plan(args.bit_plan) or ()
+                if args.bit_plan else ())
+    sc = ServerConfig(
+        bucket_fractions=tuple(float(f) for f in args.buckets.split(",")),
+        microbatch=args.microbatch, chunk=args.chunk,
+        mask_refresh=args.mask_refresh,
+        delta_threshold=args.delta_threshold, one_shape=args.one_shape,
+        max_wait_chunks=args.max_wait, mix_streams=args.mix_streams,
+        warm_start=False, model_shards=args.model_shards,
+        bit_plan=bit_plan)
+    return cfg, sc
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     joined = init_from_env(device=args.device) is not None
     try:
@@ -868,29 +1063,23 @@ def _serve_cli(args):
     rank0 = (not torch.distributed.is_initialized()
              or torch.distributed.get_rank() == 0)
     say = print if rank0 else (lambda *a, **k: None)
-    cfg = with_backends(smoke_cfg() if args.smoke else serving_cfg(), args)
-    bit_plan = (bitalloc.parse_bit_plan(args.bit_plan) or ()
-                if args.bit_plan else ())
-    # the warm start runs after the optional trim and bit calibration, as
-    # in the reference
-    server = StreamServer(cfg, ServerConfig(
-        microbatch=args.microbatch, chunk=args.chunk,
-        one_shape=args.one_shape, max_wait_chunks=args.max_wait,
-        mix_streams=args.mix_streams, warm_start=False,
-        model_shards=args.model_shards, bit_plan=bit_plan),
-        seed=args.seed, device=args.device)
+    cfg, sc = config_from_args(args)
+    server = StreamServer(cfg, sc, seed=args.seed, device=args.device)
     where = (torch.cuda.get_device_name(server.device)
              if server.device.type == "cuda" else "cpu")
     mesh = ("x".join(str(n) for n in server.mesh.shape.values())
             if server.mesh is not None else "off")
     bits = (list(server.layer_bits) if server.layer_bits
             else cfg.quant_bits or 8)
+    noise = server.noise
     say(f"[server] {cfg.name} {cfg.img_size}x{cfg.img_size} on {where}: "
         f"{server.policy} attn_impl={cfg.attn_impl} "
         f"bits={bits} ladder={list(server.ladder.sizes)} of "
-        f"{server.n_patches} patches mesh={mesh}")
+        f"{server.n_patches} patches mesh={mesh}"
+        + (f" noise=Q{noise.q_factor:g}/fpv{noise.fpv_sigma:g}"
+           f"/shot{noise.shot_sigma:g}" if noise is not None else ""))
     streams = video_fleet(args.streams, img_size=cfg.img_size,
-                          patch=cfg.patch)
+                          patch=cfg.patch, cut_every=args.cut_every)
     sessions = [server.add_session(st, n_frames=args.frames,
                                    start=i * args.phase)
                 for i, st in enumerate(streams)]
@@ -918,6 +1107,9 @@ def _serve_cli(args):
         f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
         f"(warm-up {server.warm_s:.2f}s, {len(server.flush_log)} encode "
         f"launches, {where})")
+    if noise is not None:
+        say(f"[server] noise: drift {server._host_drift_nm:.3f} nm "
+            f"residual, {server.recalibrations} recalibrations")
     if args.json:
         say(json.dumps({
             "streams": len(sessions), "frames_total": total,
@@ -926,7 +1118,15 @@ def _serve_cli(args):
             "layer_bits": (list(server.layer_bits) if server.layer_bits
                            else None),
             "kfps_per_watt": [results[s.sid].kfps_per_watt
-                              for s in sessions]}))
+                              for s in sessions],
+            "noise": (None if noise is None else {
+                "q_factor": noise.q_factor, "fpv_sigma": noise.fpv_sigma,
+                "shot_sigma": noise.shot_sigma,
+                "drift_rate_nm": noise.drift_rate_nm,
+                "recal_bound_nm": noise.recal_bound_nm,
+                "recalibrations": server.recalibrations}),
+            "recalibrations": [results[s.sid].recalibrations
+                               for s in sessions]}))
     return results
 
 

@@ -10,8 +10,8 @@ parameters and records flush outcomes back; a session holds no parameters
 and no graphs.
 
 Not ported yet (ROADMAP.md queue A): checkpoints (``state_dict`` /
-``from_state``) and fault bookkeeping (``fail``, ``shed``, retries: A13),
-measured flush times (A12) and recalibrations (A11).
+``from_state``) and fault bookkeeping (``fail``, ``shed``, retries: A13)
+and measured flush times (A12).
 """
 
 from __future__ import annotations
@@ -64,6 +64,9 @@ class StreamResult:
     mean_frame_uj: float = 0.0
     dense_kfps_per_watt: float = 0.0
     mean_bits: float = 0.0       # mean planned layer width (8.0: uniform)
+    recalibrations: int = 0      # drift-triggered MR re-tunes billed to
+    #                              this stream (device noise with
+    #                              recal_bound_nm > 0)
     predictions: dict = field(default_factory=dict)      # frame_idx -> class
 
     @property
@@ -190,5 +193,6 @@ class StreamSession:
         res.dense_kfps_per_watt = self.acct.dense_baseline_kfps_per_watt()
         res.mean_bits = (sum(self.layer_bits) / len(self.layer_bits)
                          if self.layer_bits else 8.0)
+        res.recalibrations = self.acct.recal_events
         self.finished = True
         return res

@@ -21,7 +21,15 @@ same flush, with the same launch counts (also under a per-layer bit plan,
 after ``calibrate_bits`` re-quantized the cache, and under Eq. 2's
 composed policy), and a graphed interleaved serve bitwise, per stream,
 against solo eager runs. The composed and Eq. 2 base-224 encodes against
-the CPU: correlation > 0.999, equal argmax.
+the CPU: correlation > 0.999, equal argmax. The noise-draw kernel against
+its plain version on the card: the generator's bits bitwise, the
+transmission multiplier (the f32 entry on unit weights) within 1e-6
+absolute, the int8 codes times it within 1e-6 of the largest code, the
+shot-noise readout within 1e-6 relative (the plain version's FMAs are
+emulated in float64, the kernel's are one rounding); a noisy graphed
+encode (photonic_sim + flash + xla FFN, drift and wander) replays the
+eager encode of the same DriftState bitwise with equal launch counts,
+draws anew at the next frame, and stays valid across a recalibration.
 """
 
 import sys
@@ -56,6 +64,8 @@ from repro_torch.models.attention import blockwise_attention  # noqa: E402
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.ops import photonic_matmul_prequant  # noqa: E402
+from repro_torch.core import noise  # noqa: E402
+from repro_torch.kernels import noise_draw  # noqa: E402
 from repro_torch.kernels.photonic_matmul import (  # noqa: E402
     entry_for, photonic_matmul_int8)
 from repro_torch.models.layers import layer_view  # noqa: E402
@@ -1053,3 +1063,128 @@ def test_decomposed_graph_replay_is_the_eager_encode(dev):
         assert "flash_attention_masked.simt" not in counts
         assert "fused_ffn" not in counts
         assert torch.equal(graphed, eager), k
+
+
+NOISE_SPEC = noise.NoiseSpec(drift_rate_nm=0.01, wander_sigma_nm=0.01,
+                             recal_bound_nm=0.08)
+
+
+# each branch of the multiplier: wander and FPV on; the default spec (the
+# one the CLI and a no-drift serve run), wander off; FPV off
+NOISE_CHECK_SPECS = {
+    "wander-fpv": NOISE_SPEC, "default": noise.NoiseSpec(),
+    "no-fpv": noise.NoiseSpec(drift_rate_nm=0.01, wander_sigma_nm=0.01,
+                              recal_bound_nm=0.08, fpv_sigma=0.0)}
+
+
+def _noise_call(dev, spec=NOISE_SPEC, salts=(3,), counter=2, frame=5,
+                drift=0.037):
+    """A NoiseCall under ``spec`` on a state tensor written on ``dev``."""
+    state = noise.DriftState(noise.threefry.prng_key(3), frame, drift)
+    with noise.noise_scope(state, state.to_tensor(dev)) as sc:
+        sc.salts = tuple(salts)
+        sc.counter = counter
+        return noise.next_call_keys(spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", list(NOISE_CHECK_SPECS))
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768),
+                                 (197, 50)])
+def test_noise_draw_kernel(dev, k, n, spec):
+    """The three entries against their plain versions on the same state
+    tensor, on the card, at the noisy flush's weight shapes and a ragged
+    one, under each branch of the multiplier; each launch counted."""
+    spec = NOISE_CHECK_SPECS[spec]
+    call = _noise_call(dev, spec)
+    state = call.state_tensor(dev)
+    for fold in (0, noise._WANDER_FOLD):
+        before = _build.LAUNCHES["noise_draw.bits"]
+        got = noise_draw.draw_bits(state, call.salts, call.counter, fold,
+                                   (k, n))
+        assert _build.LAUNCHES["noise_draw.bits"] == before + 1
+        assert torch.equal(got, ref.draw_bits_ref(
+            state, call.salts, call.counter, fold, (k, n)))
+    ones = torch.ones(k, n, device=dev)
+    mult = noise_draw.transmission_codes(ones, call, spec)
+    want = ref.transmission_codes_ref(ones, state, call.salts, call.counter,
+                                      call.fpv_key, spec.mr(),
+                                      spec.fpv_sigma, spec.wander_sigma_nm)
+    assert float((mult - want).abs().max()) <= 1e-6
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    wq, _ = _qweight(gen, k, n, 8, dev)
+    before = _build.LAUNCHES["noise_draw.codes"]
+    codes = noise_draw.transmission_codes(wq, call, spec)
+    assert _build.LAUNCHES["noise_draw.codes"] == before + 1
+    assert torch.equal(codes, wq.float() * mult)   # one product, bitwise
+    y = torch.randn(k, n, generator=gen, device=dev)
+    want = ref.readout_shot_ref(y, state, call.salts, call.counter,
+                                spec.shot_sigma)
+    # in place, as the noisy matmul's readout
+    yy = y.clone()
+    before = _build.LAUNCHES["noise_draw.shot"]
+    assert noise_draw.readout_shot(yy, call, spec.shot_sigma) is yy
+    assert _build.LAUNCHES["noise_draw.shot"] == before + 1
+    assert float((yy - want).abs().max()) <= 1e-6 * float(y.abs().max())
+
+
+def _noisy_server(dev):
+    cfg = serving_cfg("base", 224).with_(matmul_backend="photonic_sim",
+                                         ffn_backend="xla", noise=NOISE_SPEC)
+    return cfg, StreamServer(cfg, ServerConfig(),
+                             params=from_jax_params(init_vit(0, cfg, 10),
+                                                    dev))
+
+
+def _noisy_tokens(server, k):
+    frames = video_fleet(1, img_size=224, patch=16)[0].frames_at(
+        0, 4)["frames"]
+    toks = embed_patches(server.params,
+                         torch.from_numpy(frames).to(server.device),
+                         server.cfg, server.policy.without_noise())
+    return toks[:, :k].contiguous()
+
+
+def _eager_at(server, t):
+    server._write_state()
+    with server._scope():
+        return forward_vit_tokens(server.params, t, server.cfg,
+                                  server.policy)[0]
+
+
+@pytest.mark.gpu
+def test_noisy_graph_replay_is_the_eager_encode(dev):
+    """opto-vit-base-224 under noise on photonic_sim + flash + xla FFN:
+    each bucket's graph, captured over the server's state tensor, replays
+    the eager encode of the DriftState written last bitwise, at 146
+    noise-draw launches (a codes and a shot draw for each of the 73
+    matmuls) and 12 tensor-core B2 launches a flush, no B1 and no B3; a
+    replay at the next frame differs; after ``recalibrate`` (the drift
+    reset, the live cache kept) replays still equal the eager encode."""
+    cfg, server = _noisy_server(dev)
+    assert sorted(server.graphs) == list(server.ladder.sizes)
+    state = noise.DriftState(noise.threefry.prng_key(0), 7, 0.03)
+    for k in server.ladder.sizes:
+        t = _noisy_tokens(server, k)
+        server.drift = state
+        _build.LAUNCHES.clear()
+        eager = _eager_at(server, t)
+        counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        server._write_state()
+        graphed = server.graphs[k].replay(t).clone()
+        assert dict(_build.LAUNCHES) == counts
+        assert counts["noise_draw"] == 2 * (6 * cfg.n_layers + 1)
+        assert counts["flash_attention_masked.tc"] == cfg.n_layers
+        assert "photonic_matmul" not in counts and "fused_ffn" not in counts
+        assert torch.equal(graphed, eager), k
+        server.drift = state.advance(NOISE_SPEC, 4)
+        server._write_state()
+        assert not torch.equal(server.graphs[k].replay(t), eager), k
+    server.recalibrate()
+    assert server.recalibrations == 1 and server.drift.drift_nm == 0
+    for k in server.ladder.sizes:
+        t = _noisy_tokens(server, k)
+        eager = _eager_at(server, t)
+        server._write_state()
+        assert torch.equal(server.graphs[k].replay(t), eager), k
