@@ -121,6 +121,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         state, corr > 0.999 and equal argmax. Readings: noisy vs clean
         logits, frames/s beside 4a's, a noisy flush's replay span a
         bucket;
+     f. ``[control]``, after 4e: the serving control plane on 4a's model
+        and traffic through the graphed server. (a) ``autotune=True,
+        retune_every=8`` with natural routing: ``autotune_prepare``
+        probes, prices the probed buckets on the H100 roofline and, by
+        pricing them, captures their graphs (each replay bitwise its
+        eager encode); the cost table, each priced bucket's replay time
+        beside its roofline bound, the controller's report and its
+        held-out median relative error, and frames/s beside the static 4a
+        server's serve of the same traffic right after (which must record
+        no flush time); every frame predicted, 49 B1, 12 B2 (64, 64) and
+        12 B3 a flush, no clamp violation, the controller calibrated. (b)
+        ``force_bucket=0.5``, autotuned against static: predictions and
+        flush logs bitwise equal. (c) a ``watchdog=True`` server whose
+        13th flush this script (not the package) delays by 50 ms: that
+        flush must be among ``straggler_flags`` (the other flags are
+        counted), every flush in the telemetry, predictions bitwise 4a's;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -1366,18 +1382,23 @@ def flush_tokens(torch, server, streams) -> dict:
             for k in server.ladder.sizes}
 
 
-def replays_are_eager(torch, server, tokens: dict, tag: str) -> None:
-    """Every bucket's graph replays the eager encode of the same flush
+def replays_are_eager(torch, server, tokens: dict, tag: str,
+                      phase: str = "bitplan") -> None:
+    """Every bucket's graph (one for each bucket of ``tokens``, which is
+    every warmed one: the whole ladder unless the control plane warmed
+    only the buckets it priced) replays the eager encode of the same flush
     bitwise, with the eager call's launch counts: 49 B1 (4 a layer and the
     head), 12 B2 and 12 B3 launches."""
     from repro_torch.kernels import _build
     from repro_torch.models.vit import forward_vit_tokens
 
     cfg = server.cfg
-    if not (sorted(server.graphs) == sorted(server.warmed)
-            == list(server.ladder.sizes)):
+    want_k = (sorted(tokens) if server.cost_model is not None
+              else list(server.ladder.sizes))
+    if not (sorted(server.graphs) == sorted(server.warmed) == want_k
+            == sorted(tokens)):
         fail(f"{tag}: graphs {sorted(server.graphs)}, warmed "
-             f"{sorted(server.warmed)}")
+             f"{sorted(server.warmed)}, checked {sorted(tokens)}")
     want = {"photonic_matmul": 4 * cfg.n_layers + 1,
             "flash_attention_masked": cfg.n_layers,
             "fused_ffn": cfg.n_layers}
@@ -1389,7 +1410,7 @@ def replays_are_eager(torch, server, tokens: dict, tag: str) -> None:
         graphed = server.graphs[k].replay(t).clone()
         replay_n = dict(_build.LAUNCHES)
         vit = {n: replay_n.get(n, 0) for n in VIT_KERNELS}
-        say(f"[bitplan] {tag} k={k}: replay bitwise the eager encode "
+        say(f"[{phase}] {tag} k={k}: replay bitwise the eager encode "
             f"{torch.equal(graphed, eager)}, launches a replay {vit}")
         if not torch.equal(graphed, eager):
             fail(f"{tag} k={k}: replay differs from eager by "
@@ -2369,6 +2390,222 @@ def run_noise(torch, dev, card: str, cfg, sc, params, streams,
     return out
 
 
+def vit_flush_fault(launches: dict, flushes: int) -> str | None:
+    """Why a serve of ``flushes`` encode flushes (each bucket's graph
+    capture's eager run counting as one more) did not launch 12 B2 and 12
+    B3 a flush and at least 49 B1 a flush (the gate and the patch embed
+    launch B1 too) on the entries path a requires, or None."""
+    b2, b3 = (launches.get(n, 0) for n in ("flash_attention_masked",
+                                            "fused_ffn"))
+    b1 = launches.get("photonic_matmul", 0)
+    if (b2, b3) != (12 * flushes, 12 * flushes) or b1 < 49 * flushes:
+        return (f"launches B1 {b1}, B2 {b2}, B3 {b3} for {flushes} flushes: "
+                f"want at least {49 * flushes}, {12 * flushes} and "
+                f"{12 * flushes}")
+    return vit_entry_fault(launches)
+
+
+def add_traffic(server, streams) -> list:
+    """Register 4a's traffic on ``server``: 2 streams x 32 frames from
+    phases 0 and 16."""
+    return [server.add_session(st, n_frames=32, start=16 * i)
+            for i, st in enumerate(streams)]
+
+
+def control_serve(torch, server, sessions, encode_hook=None) -> tuple:
+    """Serve the registered ``sessions`` (``add_traffic``), launches
+    counted from 0. Returns (results in stream order, launches, graphs
+    captured during the serve, wall s)."""
+    from repro_torch.kernels import _build
+
+    if encode_hook is not None:
+        server._encode = encode_hook(server._encode)
+    before = set(server.graphs)
+    _build.LAUNCHES.clear()
+    res = server.serve()
+    launches = dict(_build.LAUNCHES)
+    out = [res[s.sid] for s in sessions]
+    for s, r in zip(sessions, out):
+        if set(r.predictions) != set(range(s.start, s.start + 32)):
+            fail(f"session {s.sid}: {len(r.predictions)} predictions for 32 "
+                 f"frames")
+    return (out, launches, sorted(set(server.graphs) - before),
+            max(r.wall_s for r in out))
+
+
+def run_control(torch, dev, card: str, cfg, sc, params, streams,
+                fused) -> dict:
+    """Path 4f: the serving control plane on 4a's model and traffic through
+    the graphed server. (a) ``autotune=True, retune_every=8``, natural
+    routing: the probed buckets priced on the H100 roofline, pricing
+    capturing their graphs (each replay bitwise its eager encode); after
+    the serve each priced bucket's replay time beside its roofline bound,
+    the controller's report and held-out error, frames/s beside the static
+    4a server's
+    serve of the same traffic right after; every frame predicted, 49 B1,
+    12 B2 (64, 64) and 12 B3 a flush, no clamp violation, calibrated. (b)
+    ``force_bucket=0.5``, autotuned against static: predictions bitwise
+    equal. (c) a ``watchdog=True`` server whose 13th flush this script
+    delays by 50 ms: that flush is flagged; every flush in the telemetry;
+    predictions bitwise 4a's. The static 4a server records nothing."""
+    from dataclasses import replace
+    from repro_torch.serving.server import StreamServer
+
+    out = {}
+    # (a) the autotuned server, natural routing
+    t0 = time.perf_counter()
+    server = StreamServer(cfg, replace(sc, autotune=True, retune_every=8),
+                          params=params)
+    if server.graphs or server.warmed:
+        fail(f"an autotuned server warmed {sorted(server.warmed)} before "
+             f"its probe")
+    sessions = add_traffic(server, streams)
+    ctl = server.autotune_prepare()
+    prep_s = time.perf_counter() - t0
+    cm = server.cost_model
+    priced = sorted(cm.costs)
+    say(f"[control] (a) autotune_prepare: probed and priced buckets "
+        f"{priced} of {list(server.ladder.sizes)}, CUDA graphs at "
+        f"{sorted(server.graphs)}; {prep_s:.2f}s with the cache ({card})")
+    tokens = flush_tokens(torch, server, streams)
+    replays_are_eager(torch, server, {k: tokens[k] for k in priced},
+                      "costing-installed graph", phase="control")
+    # the held-out error just before each step recuts the fit: the flushes
+    # since the previous fit, scored against it (a reading of this script)
+    held, step = [], ctl.step
+
+    def scored_step(*args):
+        e = ctl.median_rel_error()
+        if e is not None:
+            held.append((e, ctl.telemetry.seq - ctl._fit_seq))
+        return step(*args)
+
+    ctl.step = scored_step
+    res, launches, lazy, wall = control_serve(torch, server, sessions)
+    del ctl.step                    # no reference cycle keeps it alive
+    flushes = len(server.flush_log)
+    fps = 64 / wall
+    fault = vit_flush_fault(launches, flushes + len(lazy))
+    if fault:
+        fail(f"(a) {fault}")
+    if len(server.telemetry) != flushes or [
+            (o.bucket, o.n_real) for o in server.telemetry] != [
+            (k, n) for _, k, n in server.flush_log]:
+        fail(f"(a) {len(server.telemetry)} telemetry records for {flushes} "
+             f"flushes")
+    err = (sorted(e for e, _ in held)[len(held) // 2] if held else None)
+    err_all = ctl.median_rel_error(holdout=False)
+    say(f"[control] (a) {flushes} flushes ({len(lazy)} buckets captured "
+        f"during the serve: {lazy}), launches {launches}")
+    say(f"[control] (a) {ctl.report()}")
+    say(f"[control] (a) median relative error held out, before each step "
+        f"(error, flushes since the fit): "
+        f"{[(round(e, 4), n) for e, n in held]}, their median "
+        f"{'n/a' if err is None else f'{err:.4f}'}; in window at the end "
+        f"{'n/a' if err_all is None else f'{err_all:.4f}'}; fit "
+        f"{ctl._fit}; buckets priced after the probe "
+        f"{sorted(set(cm.costs) - set(priced))}")
+    for r in res:
+        say(f"[control] (a) {r.summary()} | measured ms a flush "
+            f"{ {k: round(v, 4) for k, v in sorted(r.flush_wall_ms.items())} }")
+    say("[control] cost model after the serve (H100 roofline, HW of "
+        "repro_torch/roofline/report.py; buckets the probe missed were "
+        "priced, and captured, at their first flush):")
+    for line in cm.render().splitlines():
+        say(f"[control]   {line}")
+    replay = {}
+    for k in sorted(cm.costs):
+        replay[k] = cuda_ms(lambda: server.graphs[k].replay(tokens[k]),
+                            iters=20)
+        c = cm.costs[k]
+        by = ("bytes" if c.hbm_bytes / cm.hw.hbm_bw >= c.device_s
+              else "operations")
+        say(f"[control] (a) k={k}: replay {replay[k]:.4f} ms (CUDA events, "
+            f"copy-in included) against the roofline {c.device_s * 1e6:.2f} "
+            f"us ({by}; {c.flops / 1e9:.3f} GFLOP, {c.int8_flops / 1e9:.3f} "
+            f"of it int8, {c.hbm_bytes / 1e6:.2f} MB): "
+            f"{replay[k] * 1e3 / (c.device_s * 1e6):.1f}x ({card})")
+    if ctl.clamp_violations != 0 or not ctl.calibrated:
+        fail(f"(a) controller: {ctl.clamp_violations} clamp violations, "
+             f"calibrated {ctl.calibrated}")
+    # the static 4a server on the same traffic, right after
+    static4a, _, _, swall = control_serve(torch, fused,
+                                          add_traffic(fused, streams))
+    sfps = 64 / swall
+    if fused.telemetry is not None or any(r.flush_wall_ms
+                                          for r in static4a):
+        fail("the untimed 4a server recorded flush times")
+    say(f"[control] (a) 2 streams x 32 frames: autotuned {fps:.2f} frames/s "
+        f"(one sync a flush) against the static 4a server's {sfps:.2f} in "
+        f"the same run ({card})")
+    out.update(launches=launches, fps=fps, static_fps=sfps, replay=replay,
+               err=err, err_all=err_all)
+    del server
+    torch.cuda.empty_cache()
+
+    # (b) force_bucket=0.5: autotuned against static, predictions bitwise
+    fsc = replace(sc, force_bucket=0.5)
+    auto = StreamServer(cfg, replace(fsc, autotune=True, retune_every=8),
+                        params=params)
+    asess = add_traffic(auto, streams)
+    auto.autotune_prepare()
+    static = StreamServer(cfg, fsc, params=params)
+    ares, alaunch, alazy, _ = control_serve(torch, auto, asess)
+    sres, _, _, _ = control_serve(torch, static, add_traffic(static,
+                                                             streams))
+    same = [a.predictions == b.predictions for a, b in zip(ares, sres)]
+    say(f"[control] (b) force_bucket 0.5: ladder {list(auto.ladder.sizes)}, "
+        f"priced {sorted(auto.cost_model.costs)}; predictions bitwise the "
+        f"static server's per stream {same}; flush logs equal "
+        f"{auto.flush_log == static.flush_log}; {auto.controller.report()}")
+    if not all(same) or auto.flush_log != static.flush_log:
+        fail("(b) autotuning changed predictions where every queue fills")
+    fault = vit_flush_fault(alaunch, len(auto.flush_log) + len(alazy))
+    if fault or auto.controller.clamp_violations:
+        fail(f"(b) {fault}, {auto.controller.clamp_violations} clamp "
+             f"violations")
+    del auto, static
+    torch.cuda.empty_cache()
+
+    # (c) the watchdog flags a flush this script delays by 50 ms
+    wsrv = StreamServer(cfg, replace(sc, watchdog=True), params=params)
+    target, seen = 12, [0]
+
+    def hook(encode):
+        def delayed(k, tokens):
+            logits = encode(k, tokens)
+            if seen[0] == target:
+                torch.cuda.synchronize(dev)
+                time.sleep(0.05)
+            seen[0] += 1
+            return logits
+        return delayed
+
+    wres, wlaunch, _, _ = control_serve(torch, wsrv,
+                                        add_traffic(wsrv, streams), hook)
+    del wsrv._encode                # no reference cycle keeps it alive
+    seqs = [o.seq for o in wsrv.straggler_flags]
+    walls = [o.wall_s for o in wsrv.telemetry]
+    say(f"[control] (c) watchdog: flush {target} delayed 50 ms by this "
+        f"script; flagged flushes {seqs} ({len([q for q in seqs if q != target])} "
+        f"others); {len(wsrv.telemetry)} telemetry records for "
+        f"{len(wsrv.flush_log)} flushes; flush wall ms median "
+        f"{sorted(walls)[len(walls) // 2] * 1e3:.3f}, the delayed one "
+        f"{walls[target] * 1e3:.3f} ({card})")
+    if target not in seqs:
+        fail(f"(c) the delayed flush {target} was not flagged ({seqs})")
+    if len(wsrv.telemetry) != len(wsrv.flush_log) or wsrv.controller:
+        fail("(c) not every flush landed in the watchdog's telemetry")
+    if [r.predictions for r in wres] != [r.predictions for r in static4a]:
+        fail("(c) the watchdog server's predictions differ from 4a's")
+    fault = vit_flush_fault(wlaunch, len(wsrv.flush_log))
+    if fault:
+        fail(f"(c) {fault}")
+    del wsrv
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2774,6 +3011,16 @@ def main() -> int:
     for tag in ("A", "B"):
         del noisy[tag]["server"]           # its graphs' memory back
     torch.cuda.empty_cache()
+
+    # -- 4f. [control]: the serving control plane on 4a's model and traffic
+    # (after 4e, before the profiled phases); (a)'s launches join the counts
+    t0 = time.perf_counter()
+    control = run_control(torch, dev, card, cfg, sc, params, streams, server)
+    for entry in kernels:
+        entry["launches"] += control["launches"].get(entry["name"], 0)
+    say(f"[control] path 4f in {time.perf_counter() - t0:.2f}s; launches on "
+        f"the main paths with 4f's (a): "
+        f"{ {e['name']: e['launches'] for e in kernels} }")
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

@@ -20,9 +20,13 @@ A drift-triggered recalibration (device noise, core/noise.py) bills one
 full-model MR re-tuning pass (``retune_report``) to every live stream
 (``add_recalibration``, counted in ``recal_events``).
 
-Not ported yet (ROADMAP.md queue A): measured flush wall times
-(``add_flush_wall``, ``measured_flush_s``: A12) and ``state_dict`` /
-``load_state`` (A13).
+A server that times its flushes (the control plane's ``autotune``, the
+``watchdog``) bills each flush's measured wall seconds to every owning
+stream (``add_flush_wall``); ``measured_flush_s`` is their mean per
+bucket, and ``summary()`` prints it beside the modeled latency.
+
+Not ported yet (ROADMAP.md queue A): ``state_dict`` / ``load_state``
+(A13).
 """
 
 from __future__ import annotations
@@ -165,6 +169,10 @@ class StreamAccounting:
                              f"entries for {cfg.n_layers} layers")
         self.bucket_frames: Counter = Counter()
         self.bucket_launches: Counter = Counter()
+        # measured wall seconds a flush (sum + count per bucket): the
+        # observed numbers the cost model's calibration fits against
+        self.flush_wall_s: dict[int, float] = {}
+        self.flush_wall_n: Counter = Counter()
         self._per_bucket: dict[int, EnergyReport] = {}
         self._mgnet: EnergyReport | None = None
         self._retune: EnergyReport | None = None
@@ -201,6 +209,22 @@ class StreamAccounting:
         self.total += self._retune
         self.recal_events += 1
 
+    def add_flush_wall(self, bucket: int, wall_s: float) -> None:
+        """Record one flush's measured host wall seconds at this bucket (a
+        ``mix_streams`` flush is billed in full to every owning stream: the
+        mean then reads as the seconds of the launches this stream's frames
+        rode in, not exclusive time)."""
+        k = int(bucket)
+        self.flush_wall_s[k] = self.flush_wall_s.get(k, 0.0) + float(wall_s)
+        self.flush_wall_n[k] += 1
+
+    def measured_flush_s(self, bucket: int) -> float | None:
+        """Mean measured wall seconds a flush at this bucket (None before
+        any timed flush landed there)."""
+        k = int(bucket)
+        n = self.flush_wall_n[k]
+        return self.flush_wall_s[k] / n if n else None
+
     def dead_buckets(self) -> tuple[int, ...]:
         """Ladder entries no frame was ever routed to (empty when no
         ladder was registered)."""
@@ -210,12 +234,22 @@ class StreamAccounting:
                      if self.bucket_frames[k] == 0)
 
     def summary(self, warn: bool = True) -> str:
-        """Per-bucket hit/launch counts, warning on dead buckets (``warn``
-        False keeps the ``[dead: ...]`` text without the UserWarning)."""
+        """Per-bucket hit/launch counts (and, where the server timed its
+        flushes, the measured ms a flush beside the modeled accelerator's
+        us a frame), warning on dead buckets (``warn`` False keeps the
+        ``[dead: ...]`` text without the UserWarning)."""
         sizes = (self.ladder_sizes if self.ladder_sizes is not None
                  else tuple(sorted(self.bucket_frames)))
-        parts = [f"k={k}: {self.bucket_frames[k]} hits/"
-                 f"{self.bucket_launches[k]} launches" for k in sizes]
+        parts = []
+        for k in sizes:
+            part = (f"k={k}: {self.bucket_frames[k]} hits/"
+                    f"{self.bucket_launches[k]} launches")
+            meas = self.measured_flush_s(k)
+            if meas is not None:
+                part += (f" ({meas * 1e3:.1f}ms/flush measured, "
+                         f"{self._bucket_report(k).total_us:.2f}us/frame "
+                         f"modeled)")
+            parts.append(part)
         dead = self.dead_buckets()
         if dead and warn:
             warnings.warn(

@@ -15,10 +15,12 @@ stream), or the bare bucket under ``mix_streams``. ``push``/``push_many``
 stamp each entry with a ``now`` tick (the server's scheduling round), and
 ``flush_stale(deadline)`` pad-flushes every queue whose oldest entry was
 queued at or before the deadline: the server's ``max_wait_chunks`` bound.
+The control plane's per-bucket flush thresholds pad-flush through
+``flush_filled``, and its re-tuning reads the live queue depths through
+``queue_stats``.
 
-Not ported yet (ROADMAP.md queue A): ``flush_filled`` and ``queue_stats``
-(the control plane, A12), ``discard`` and ``export`` (faults and
-checkpoints, A13).
+Not ported yet (ROADMAP.md queue A): ``discard`` and ``export`` (faults
+and checkpoints, A13).
 """
 
 from __future__ import annotations
@@ -119,6 +121,27 @@ class MicroBatcher:
                  if q and q[0][2] <= deadline]
         return [self._take(k, pad=True) for _, k in sorted(
             stale, key=lambda e: (e[0], str(e[1])))]
+
+    def flush_filled(self, threshold_of: Callable[[Hashable], int]
+                     ) -> list[FrameBatch]:
+        """Pad-flush every queue holding at least ``threshold_of(key)``
+        rows, in ``str(key)`` order (thresholds at or above the micro-batch
+        never fire here: full queues already flushed in ``_collect``). The
+        control plane's per-bucket flush-threshold knob: a chronically
+        partial bucket stops waiting for a fill that never comes."""
+        out = []
+        for k in sorted(self._queues, key=str):
+            thr = threshold_of(k)
+            if thr < self.microbatch and self.rows(k) >= thr:
+                out.append(self._take(k, pad=True))
+        return out
+
+    def queue_stats(self) -> dict:
+        """key -> (queued rows, oldest entry's ``now`` tick) for every
+        non-empty queue: the live depth view the controller's re-tuning
+        reads."""
+        return {k: (self.rows(k), q[0][2])
+                for k, q in self._queues.items() if q}
 
     def pending_keys(self) -> tuple:
         """Keys of queues currently holding frames."""

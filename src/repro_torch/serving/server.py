@@ -87,8 +87,22 @@ noise: a noisy server names composed backends (``photonic_sim`` or
 photonic_pallas + flash raises too). Noise with ``model_shards`` > 1
 raises.
 
-Not ported yet (ROADMAP.md queue A): the control plane (``autotune``,
-A12), faults, checkpoints and migration (A13), the 1-D data mesh (A14).
+The serving control plane (``ServerConfig.autotune``, ``--autotune``;
+``serving/control/``): ``autotune_prepare`` probes which buckets the
+sessions' leading frames route to, prices each probed bucket on the H100
+roofline (``EncodeCostModel``), which warms it (on the card its CUDA
+graph is captured then), and stands up the controller. The serve loop
+then reads ``controller.knobs`` every round (the deadline, the interleave
+depth, per-bucket flush thresholds), times every flush (launch to the
+predictions materialized: one stream sync a flush, which costs the
+timed server its asynchronous overlap) into the telemetry ring the
+controller calibrates against, and calls ``controller.step`` every
+``retune_every`` frames. ``watchdog=True`` times the flushes too and
+feeds a ``StragglerDetector`` (``straggler_flags``). An untimed server
+adds no sync.
+
+Not ported yet (ROADMAP.md queue A): faults, checkpoints and migration
+(A13), the 1-D data mesh (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
@@ -106,6 +120,8 @@ CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
         --drift-rate-nm 0.01 --recal-bound-nm 0.08
     PYTHONPATH=src python -m repro_torch.serving.server --variant tiny \\
         --img-size 96 --device cpu    # the reference's default model
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --autotune --retune-every 4 --assert-converged
 """
 
 from __future__ import annotations
@@ -114,6 +130,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import time
 import warnings
@@ -130,6 +147,7 @@ from repro_torch.core.mgnet import mask_budget, mgnet_scores
 from repro_torch.core.noise import DriftState, NoiseSpec, noise_scope
 from repro_torch.data.pipeline import VideoStream, video_fleet
 from repro_torch.device import full_precision_matmuls, resolve_device
+from repro_torch.distributed.fault_tolerance import StragglerDetector
 from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
                                               use_sharding)
 from repro_torch.kernels import _build
@@ -142,6 +160,9 @@ from repro_torch.models.vit import (_fused_encoder_ineligible_reason,
                                     vit_logical_axes)
 from repro_torch.serving.buckets import BucketLadder
 from repro_torch.serving.mask_cache import TemporalMaskCache
+from repro_torch.serving.control import (Controller, ControllerConfig,
+                                         EncodeCostModel, FlushTelemetry,
+                                         TunedKnobs)
 from repro_torch.serving.scheduler import FrameBatch, MicroBatcher
 from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
@@ -179,6 +200,18 @@ class ServerConfig(ServingConfig):
     #                              form, core/bitalloc.py); () = the
     #                              config's plan, else uniform quant_bits.
     #                              ``calibrate_bits`` derives one instead
+    autotune: bool = False       # serving control plane: route-probe the
+    #                              ladder, price the hit buckets on the
+    #                              H100 roofline (pricing captures their
+    #                              graphs), then run the online controller
+    #                              (serving/control/); the constructor skips
+    #                              the full-ladder warm start
+    retune_every: int = 32       # frames between controller evaluations
+    telemetry_window: int = 256  # flush-observation ring-buffer size
+    watchdog: bool = False       # time every flush (one sync a flush, as
+    #                              autotune) and feed a StragglerDetector
+    #                              through the telemetry ring: anomalously
+    #                              slow flushes land in ``straggler_flags``
 
     @staticmethod
     def from_serving(sc: ServingConfig, **overrides) -> "ServerConfig":
@@ -342,8 +375,19 @@ class StreamServer:
         self.warm_s = 0.0
         self.calibrate_s = 0.0             # the last calibrate_bits' scoring
         self.recapture_s = 0.0             # and its graphs' re-capture
-        self._graphed = False              # warm_start captured graphs
-        if sc.warm_start:
+        self._graphed = False              # encodes warm into CUDA graphs
+        # the control plane (autotune_prepare) and the flush watchdog
+        self.cost_model = None
+        self.controller = None
+        self.telemetry = None
+        self._watchdog = bool(sc.watchdog)
+        if self._watchdog and not sc.autotune:
+            self.telemetry = self._make_telemetry()
+        self._round = 0                    # the scheduling round a flush ran in
+        # autotune warms only the buckets its probe finds (pricing a bucket
+        # captures its graph): a full-ladder warm start would capture the
+        # dead buckets the probe exists to skip
+        if sc.warm_start and not sc.autotune:
             self.warm_start()
 
     def _maybe_place(self, params):
@@ -385,22 +429,27 @@ class StreamServer:
         they were captured over, so they are dropped, their memory handed
         back, and each bucket warmed before is captured again over the new
         cache (``recapture_s``); an eager warm start reads no cache and
-        stands."""
+        stands. A cost model (``autotune_prepare``) re-prices its buckets
+        at the new cache's widths."""
         warmed = sorted(self.warmed)
         self.graphs = {}
         self.dense_graph = None
         self.params = params
-        if not self._graphed:
-            return
-        self.warmed = set()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        for k in warmed:
-            self.graphs[k] = self._capture(k)
-            self.warmed.add(k)
-        torch.cuda.synchronize(self.device)
-        self.recapture_s = time.perf_counter() - t0
+        if self._graphed:
+            self.warmed = set()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            for k in warmed:
+                self._warm_bucket(k)
+            torch.cuda.synchronize(self.device)
+            self.recapture_s = time.perf_counter() - t0
+        if self.cost_model is not None:
+            # the prices follow the cache's widths (its layer_bits)
+            self.cost_model = EncodeCostModel.from_server(
+                self, buckets=tuple(self.cost_model.costs))
+            if self.controller is not None:
+                self.controller.cost_model = self.cost_model
 
     def add_session(self, stream: VideoStream, n_frames: int = 64,
                     start: int = 0) -> StreamSession:
@@ -508,9 +557,9 @@ class StreamServer:
         reference's jit compiles a bucket it meets first), else eager.
         Under noise the current DriftState is written first."""
         self._write_state()
+        if k not in self.graphs and self._graphed:
+            self._warm_bucket(k)
         g = self.graphs.get(k)
-        if g is None and self._graphed:
-            g = self.graphs[k] = self._capture(k)
         return g.replay(tokens) if g is not None else self._encode_eager(
             k, tokens)
 
@@ -542,6 +591,11 @@ class StreamServer:
             fn()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # a graph held only by a dead reference cycle (a dropped server) is
+        # destroyed when the cycle is collected, which inside a capture
+        # invalidates it: no automatic collection runs during the capture
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with _build.captured_launches() as launches, \
                     torch.cuda.graph(graph):
@@ -549,6 +603,9 @@ class StreamServer:
         except Exception as e:
             raise RuntimeError(f"capturing the {tag} encode as a CUDA graph "
                                f"failed ({self.policy}): {e}") from e
+        finally:
+            if gc_on:
+                gc.enable()
         return EncodeGraph(graph, static, logits, launches, self.params, mask)
 
     # -- warm start ----------------------------------------------------------
@@ -562,7 +619,8 @@ class StreamServer:
         later flushes replay it; on the CPU and under ``model_shards`` > 1
         (gloo collectives through the host, which a graph cannot hold) the
         encodes run eagerly and nothing is captured. Returns the wall
-        seconds, also kept as ``self.warm_s``."""
+        seconds, also kept as ``self.warm_s``. A bucket warmed already (an
+        earlier warm start, or the control plane's pricing) is kept."""
         sc, cfg, dev = self.serve_cfg, self.cfg, self.device
         targets = tuple(k for k in self.ladder.sizes
                         if buckets is None or k in buckets)
@@ -575,19 +633,30 @@ class StreamServer:
                               dim=-1, descending=True, stable=True)
         for k in ((self.ladder.cap,) if sc.one_shape else targets):
             _gather_topk_rows(toks, order, k)
-        self._graphed = dev.type == "cuda" and self.mesh is None
         for k in targets:
-            if self._graphed:
-                self.graphs[k] = self._capture(k)
-            else:
-                self._write_state()
-                self._encode_eager(k, torch.zeros(self._flush_shape(k),
-                                                  device=dev))
-            self.warmed.add(k)
+            self._warm_bucket(k)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.warm_s = time.perf_counter() - t0
         return self.warm_s
+
+    def _warm_bucket(self, k: int) -> None:
+        """Warm bucket ``k``'s encode once (a bucket warmed already is left
+        as it is): on the card and unsharded, capture its CUDA graph into
+        ``self.graphs``, after which the server serves through graphs;
+        on the CPU and under ``model_shards`` > 1 run its eager encode at
+        the flush shape. The control plane's cost model prices a bucket
+        through here, so pricing a bucket warms it."""
+        if k in self.warmed:
+            return
+        self._graphed = self.device.type == "cuda" and self.mesh is None
+        if self._graphed:
+            self.graphs[k] = self._capture(k)
+        else:
+            self._write_state()
+            self._encode_eager(k, torch.zeros(self._flush_shape(k),
+                                              device=self.device))
+        self.warmed.add(k)
 
     # -- dead-bucket trimming ------------------------------------------------
 
@@ -711,14 +780,76 @@ class StreamServer:
         self._renew_unstarted()
         return plan
 
+    # -- serving control plane -----------------------------------------------
+
+    def autotune_prepare(self, calib_frames: int | None = None):
+        """Stand up the serving control plane (``serving/control/``):
+
+        1. **Route probe** — host-side scoring of each session's leading
+           frames finds which ladder buckets the workload can hit. Under
+           a ``force_bucket`` pin the unreachable sizes are trimmed
+           outright (route-invariant: every frame routes to the pin either
+           way; without ``one_shape`` even the cap can go). Otherwise the
+           ladder is left intact: the probe only decides which buckets are
+           priced and warmed now, never where frames route, so predictions
+           stay those of a statically-knobbed run wherever the knobs leave
+           the flushes alone.
+        2. **Cost model** — each probed bucket is priced on the H100
+           roofline (``EncodeCostModel``); pricing warms it (on the card,
+           unsharded, its CUDA graph is captured), so dead buckets are
+           never captured. Then ``warm_start(buckets=)`` warms the gate,
+           the embed and the gathers.
+        3. **Controller** — the telemetry ring + the calibrating, clamped
+           knob tuner; the serve loop reads ``controller.knobs`` every
+           round and calls ``controller.step`` every ``retune_every``
+           frames.
+
+        Run it after ``calibrate_bits`` (as the CLI does); a later
+        ``calibrate_bits`` re-prices the buckets at the new widths.
+        Returns the controller."""
+        sc = self.serve_cfg
+        probed = self._route_probe(calib_frames)
+        if sc.force_bucket > 0:
+            dead = tuple(k for k in self.ladder.sizes if k not in probed)
+            if dead:
+                self.trim(dead, keep_cap=not sc.one_shape)
+        self.cost_model = EncodeCostModel.from_server(
+            self, buckets=tuple(sorted(probed & set(self.ladder.sizes))))
+        self.warm_start(buckets=tuple(sorted(probed)))
+        self.telemetry = self._make_telemetry()
+        defaults = TunedKnobs(max_wait_chunks=sc.max_wait_chunks,
+                              interleave_depth=sc.interleave_depth)
+        self.controller = Controller(
+            self.cost_model, self.telemetry, defaults,
+            ControllerConfig(retune_every=sc.retune_every))
+        return self.controller
+
+    def _make_telemetry(self):
+        """Flush-observation ring; with the watchdog on it carries a
+        ``StragglerDetector``, so every timed flush feeds the median+MAD
+        slow-flush estimate (``straggler_flags``)."""
+        det = StragglerDetector() if self._watchdog else None
+        return FlushTelemetry(self.serve_cfg.telemetry_window,
+                              straggler=det)
+
+    @property
+    def straggler_flags(self) -> list:
+        """Flush observations the watchdog flagged as anomalously slow
+        (empty without ``watchdog=True``)."""
+        return (list(self.telemetry.straggler_flags)
+                if self.telemetry is not None else [])
+
     # -- the serving loop ----------------------------------------------------
 
     def serve(self, verbose: bool = False) -> dict[int, StreamResult]:
         """Serve every registered session to completion, interleaved
         round-robin; returns ``{sid: StreamResult}``. Every result's
         ``wall_s`` is the loop's span (device work included), so the
-        aggregate frames/s is ``sum(frames) / wall``."""
+        aggregate frames/s is ``sum(frames) / wall``. Under the control
+        plane the loop reads ``controller.knobs`` every round and steps
+        the controller every ``retune_every`` frames."""
         sc = self.serve_cfg
+        ctl = self.controller
         live = [s for s in self._sessions if not s.finished]
         if not live:
             return {}
@@ -728,8 +859,15 @@ class StreamServer:
         self.flush_log = []
         by_sid = {s.sid: s for s in live}
         t0 = time.perf_counter()
-        offset, rnd = 0, 0
+        offset, rnd, retuned_at = 0, 0, 0
         while any(not s.drained for s in live):
+            # the controller owns the re-timing knobs when present, re-read
+            # every round so a step lands at once
+            kn = ctl.knobs if ctl is not None else None
+            max_wait = (kn.max_wait_chunks if kn is not None
+                        else sc.max_wait_chunks)
+            depth = (kn.interleave_depth if kn is not None
+                     else sc.interleave_depth)
             rot = live[offset:] + live[:offset]
             offset = (offset + 1) % len(live)
             per = {s.sid: [] for s in rot}
@@ -751,14 +889,25 @@ class StreamServer:
                         per[s.sid].extend(self.batcher.drain(
                             select=lambda key, sid=s.sid: key[1] == sid))
                         s.drained = True
-            if sc.max_wait_chunks > 0:
-                late.extend(self.batcher.flush_stale(rnd - sc.max_wait_chunks))
-            for fb in interleave_rounds([per[s.sid] for s in rot],
-                                        sc.interleave_depth):
+            if max_wait > 0:
+                late.extend(self.batcher.flush_stale(rnd - max_wait))
+            if kn is not None and kn.flush_threshold:
+                late.extend(self.batcher.flush_filled(
+                    lambda key: kn.flush_threshold.get(
+                        key[0] if isinstance(key, tuple) else key,
+                        self.batcher.microbatch)))
+            self._round = rnd
+            for fb in interleave_rounds([per[s.sid] for s in rot], depth):
                 self._finish(fb, by_sid)
             for fb in late:
                 self._finish(fb, by_sid)
             rnd += 1
+            if ctl is not None:
+                done = sum(s.acct.frames for s in live)
+                if done - retuned_at >= sc.retune_every:
+                    ctl.step(self.batcher.queue_stats(), done,
+                             time.perf_counter() - t0)
+                    retuned_at = done
             if verbose and rnd % sc.report_every == 0:
                 done = sum(s.acct.frames for s in live)
                 print(f"[server] round {rnd:>4d}  {done:>5d} frames  "
@@ -815,8 +964,14 @@ class StreamServer:
     def _finish(self, fb: FrameBatch, by_sid: dict[int, StreamSession]) -> None:
         """Encode one flush and hand each owning session its rows'
         predictions. The encode is billed at bucket k for the live rows
-        only; padded rows are never predicted or accounted."""
+        only; padded rows are never predicted or accounted. Under the
+        control plane or the watchdog the flush is timed from before the
+        encode until its predictions are materialized (one sync of the
+        current stream) into the telemetry and each owner's accounting;
+        an untimed server adds no sync."""
         k = fb.bucket[0] if isinstance(fb.bucket, tuple) else fb.bucket
+        timed = self.controller is not None or self._watchdog
+        t0 = time.perf_counter() if timed else 0.0
         logits = self._encode(k, fb.tokens)
         preds = torch.argmax(logits[:fb.n_real], dim=-1)
         owners: dict[int, tuple[list, list]] = {}
@@ -824,9 +979,24 @@ class StreamServer:
             rows, fidxs = owners.setdefault(sid, ([], []))
             rows.append(row)
             fidxs.append(fidx)
+        if timed:
+            # the sync costs the timed server its asynchronous overlap: it
+            # is what makes each observation one flush's own seconds
+            if preds.is_cuda:
+                torch.cuda.current_stream(preds.device).synchronize()
+            wall = time.perf_counter() - t0
+            if self.controller is not None:
+                self.controller.record_flush(k, fb.n_real, len(owners), wall,
+                                             self._round)
+            else:
+                # watchdog only: feed the straggler detector directly
+                self.telemetry.record(k, fb.n_real, self.serve_cfg.microbatch,
+                                      len(owners), wall, self._round)
         for sid, (rows, fidxs) in owners.items():
             sess = by_sid[sid]
             sess.record_flush(k, len(rows))
+            if timed:
+                sess.acct.add_flush_wall(k, wall)
             sess.add_deferred(fidxs, preds if len(owners) == 1
                               else preds[rows])
         self.flush_log.append((tuple(sorted(owners)), k, fb.n_real))
@@ -985,6 +1155,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-warm-start", action="store_true",
                     help="no warm start: every flush runs eagerly (on the "
                          "card: no CUDA graphs)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="serving control plane: route-probe the ladder, "
+                         "price the hit buckets on the H100 roofline "
+                         "(pricing captures their CUDA graphs), then re-tune "
+                         "the scheduling knobs online with hysteresis + "
+                         "safety clamp")
+    ap.add_argument("--retune-every", type=int, default=32,
+                    help="frames between controller evaluations")
+    ap.add_argument("--assert-converged", action="store_true",
+                    help="exit nonzero unless the controller calibrated "
+                         "and settled (the CI smoke gate)")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="flush watchdog: median+MAD straggler detection "
+                         "over per-flush wall times")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights (bridge.init_vit)")
     ap.add_argument("--device", default=None,
@@ -1044,7 +1228,8 @@ def config_from_args(args) -> tuple[ArchConfig, ServerConfig]:
         delta_threshold=args.delta_threshold, one_shape=args.one_shape,
         max_wait_chunks=args.max_wait, mix_streams=args.mix_streams,
         warm_start=False, model_shards=args.model_shards,
-        bit_plan=bit_plan)
+        bit_plan=bit_plan, autotune=args.autotune,
+        retune_every=args.retune_every, watchdog=args.watchdog)
     return cfg, sc
 
 
@@ -1093,7 +1278,14 @@ def _serve_cli(args):
         say(f"[server] bit calibration -> per-layer plan {list(plan)} "
             f"(mean {sum(plan) / len(plan):.2f} bits, target "
             f"{args.bit_budget:g}) in {server.calibrate_s:.2f}s")
-    if not args.no_warm_start:
+    if args.autotune:
+        server.autotune_prepare(args.calib_frames or None)
+        say(f"[server] autotune: priced buckets "
+            f"{sorted(server.cost_model.costs)} (ladder "
+            f"{list(server.ladder.sizes)}), {len(server.graphs)} CUDA graphs, "
+            f"warmed in {server.warm_s:.2f}s")
+        say(server.cost_model.render())
+    elif not args.no_warm_start:
         server.warm_start()
         say(f"[server] warm start in {server.warm_s:.2f}s "
             f"({len(server.warmed)} bucket encodes, {len(server.graphs)} "
@@ -1110,6 +1302,18 @@ def _serve_cli(args):
     if noise is not None:
         say(f"[server] noise: drift {server._host_drift_nm:.3f} nm "
             f"residual, {server.recalibrations} recalibrations")
+    if server._watchdog:
+        say(f"[server] watchdog: {len(server.straggler_flags)} straggler "
+            f"flushes flagged")
+    if server.controller is not None:
+        say("[server]", server.controller.report())
+        assert server.controller.clamp_violations == 0, (
+            "controller applied knobs outside the safety clamp: "
+            f"{server.controller.clamp_violations} violations")
+        if args.assert_converged:
+            assert server.controller.converged, (
+                "controller did not converge: "
+                + server.controller.report())
     if args.json:
         say(json.dumps({
             "streams": len(sessions), "frames_total": total,

@@ -9,9 +9,13 @@ pulls its chunks, gates them through its cache, encodes on the shared
 parameters and records flush outcomes back; a session holds no parameters
 and no graphs.
 
+A server that times its flushes (the control plane's ``autotune``, the
+``watchdog``) bills each flush's measured wall seconds to the sessions
+whose frames rode in it; ``StreamResult.flush_wall_ms`` carries their mean
+per bucket.
+
 Not ported yet (ROADMAP.md queue A): checkpoints (``state_dict`` /
-``from_state``) and fault bookkeeping (``fail``, ``shed``, retries: A13)
-and measured flush times (A12).
+``from_state``) and fault bookkeeping (``fail``, ``shed``, retries: A13).
 """
 
 from __future__ import annotations
@@ -64,6 +68,10 @@ class StreamResult:
     mean_frame_uj: float = 0.0
     dense_kfps_per_watt: float = 0.0
     mean_bits: float = 0.0       # mean planned layer width (8.0: uniform)
+    flush_wall_ms: dict = field(default_factory=dict)  # bucket -> mean
+    #                              measured host ms a flush (only when the
+    #                              server timed its flushes: autotune or
+    #                              watchdog), beside the modeled latency
     recalibrations: int = 0      # drift-triggered MR re-tunes billed to
     #                              this stream (device noise with
     #                              recal_bound_nm > 0)
@@ -188,6 +196,9 @@ class StreamSession:
         res.bucket_hits = (self.hist.as_dict() if self.hist is not None
                            else dict(self.acct.bucket_frames))
         res.bucket_launches = dict(self.acct.bucket_launches)
+        res.flush_wall_ms = {
+            int(k): self.acct.measured_flush_s(k) * 1e3
+            for k in self.acct.flush_wall_n if self.acct.flush_wall_n[k]}
         res.kfps_per_watt = self.acct.kfps_per_watt
         res.mean_frame_uj = self.acct.mean_frame.total_uj
         res.dense_kfps_per_watt = self.acct.dense_baseline_kfps_per_watt()

@@ -30,9 +30,16 @@ emulated in float64, the kernel's are one rounding); a noisy graphed
 encode (photonic_sim + flash + xla FFN, drift and wander) replays the
 eager encode of the same DriftState bitwise with equal launch counts,
 draws anew at the next frame, and stays valid across a recalibration.
+The serving control plane: the graphs ``autotune_prepare`` captures while
+pricing replay the eager encode bitwise; every timed flush lands in the
+telemetry and each hit bucket reports a positive measured flush time; an
+untimed server records none; the watchdog flags a flush delayed by 50 ms;
+a capture survives a dropped server's graphs held by a reference cycle.
 """
 
+import gc
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1188,3 +1195,123 @@ def test_noisy_graph_replay_is_the_eager_encode(dev):
         eager = _eager_at(server, t)
         server._write_state()
         assert torch.equal(server.graphs[k].replay(t), eager), k
+
+
+# -- the serving control plane (A12) ------------------------------------------
+
+def _control_server(dev, **knobs):
+    cfg = smoke_cfg()
+    server = StreamServer(cfg, ServerConfig(microbatch=4, chunk=8, **knobs),
+                          params=from_jax_params(init_vit(0, cfg, 10),
+                                                 "cpu"))
+    sessions = [server.add_session(st, n_frames=32, start=16 * i)
+                for i, st in enumerate(video_fleet(2, img_size=32,
+                                                   patch=8))]
+    return server, sessions
+
+
+@pytest.mark.gpu
+def test_autotune_graphs_replay_eager_and_every_flush_is_timed(dev):
+    """``autotune_prepare`` captures a graph for each bucket it prices (and
+    none before): each replays the eager encode bitwise with the same
+    launch counts. Every timed flush lands in the telemetry, in flush
+    order, and each hit bucket reports a positive measured flush time."""
+    server, sessions = _control_server(dev, autotune=True, retune_every=8)
+    assert not server.graphs and not server.warmed
+    ctl = server.autotune_prepare()
+    priced = sorted(server.cost_model.costs)
+    assert priced and sorted(server.graphs) == sorted(server.warmed) == priced
+    for k in priced:
+        t = _flush_tokens(server, k)
+        _build.LAUNCHES.clear()
+        eager = forward_vit_tokens(server.params, t, server.cfg,
+                                   server.policy)[0]
+        eager_n = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        graphed = server.graphs[k].replay(t).clone()
+        assert dict(_build.LAUNCHES) == eager_n
+        assert torch.equal(graphed, eager), k
+    res = server.serve()
+    assert server.serve_cfg.telemetry_window >= len(server.flush_log)
+    assert len(server.telemetry) == len(server.flush_log)
+    assert [(o.bucket, o.n_real) for o in server.telemetry] == [
+        (k, n) for _, k, n in server.flush_log]
+    for s in sessions:
+        r = res[s.sid]
+        assert len(r.predictions) == 32
+        hit = {k for k, n in r.bucket_launches.items() if n}
+        assert set(r.flush_wall_ms) == hit
+        assert all(v > 0 for v in r.flush_wall_ms.values())
+    assert ctl.clamp_violations == 0 and ctl.calibrated
+
+
+@pytest.mark.gpu
+def test_untimed_server_records_no_flush_time(dev):
+    """A warm-started server without the control plane or the watchdog
+    (path 4a's) keeps no telemetry and reports no measured flush time."""
+    server, sessions = _control_server(dev)
+    res = server.serve()
+    assert server.controller is None and server.cost_model is None
+    assert server.telemetry is None and server.straggler_flags == []
+    for s in sessions:
+        assert res[s.sid].flush_wall_ms == {}
+        assert len(res[s.sid].predictions) == 32
+
+
+@pytest.mark.gpu
+def test_watchdog_flags_a_delayed_flush(dev):
+    """A ``watchdog=True`` server whose 13th flush the test delays by 50 ms
+    (after its encode, inside the timed span) flags that flush; its
+    predictions are the untimed server's."""
+    server, sessions = _control_server(dev, watchdog=True)
+    encode, seen = server._encode, [0]
+
+    def delayed(k, tokens):
+        logits = encode(k, tokens)
+        if seen[0] == 12:
+            torch.cuda.synchronize(dev)
+            time.sleep(0.05)
+        seen[0] += 1
+        return logits
+
+    server._encode = delayed
+    res = server.serve()
+    assert 12 in [o.seq for o in server.straggler_flags]
+    assert len(server.telemetry) == len(server.flush_log)
+    plain, psessions = _control_server(dev)
+    pres = plain.serve()
+    for s, p in zip(sessions, psessions):
+        assert res[s.sid].predictions == pres[p.sid].predictions
+
+
+@pytest.mark.gpu
+def test_capture_survives_a_dead_cycle_holding_a_graph(dev):
+    """A dropped server whose graphs only a reference cycle still holds is
+    never collected inside a capture: the capture below runs a full
+    collection wherever the interpreter may collect automatically (the
+    garbage collector enabled), which would destroy the old graphs
+    mid-capture and invalidate it."""
+    cfg = smoke_cfg()
+    params = from_jax_params(init_vit(0, cfg, 10), "cpu")
+    old = StreamServer(cfg, ServerConfig(microbatch=4, chunk=8),
+                       params=params)
+    assert old.graphs
+    old.cycle = old
+    del old
+    new = StreamServer(cfg, ServerConfig(microbatch=4, chunk=8,
+                                         warm_start=False), params=params)
+    eager = new._encode_eager
+
+    def collecting(k, tokens):
+        if torch.cuda.is_current_stream_capturing() and gc.isenabled():
+            gc.collect()
+        return eager(k, tokens)
+
+    new._encode_eager = collecting
+    new.warm_start()
+    del new._encode_eager
+    assert sorted(new.graphs) == list(new.ladder.sizes)
+    t = _flush_tokens(new, new.ladder.sizes[0])
+    assert torch.equal(new.graphs[new.ladder.sizes[0]].replay(t),
+                       forward_vit_tokens(new.params, t, cfg,
+                                          new.policy)[0])
