@@ -137,6 +137,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         13th flush this script (not the package) delays by 50 ms: that
         flush must be among ``straggler_flags`` (the other flags are
         counted), every flush in the telemetry, predictions bitwise 4a's;
+     g. ``[faults]``, after 4f: faults, checkpoints and migration on 4a's
+        model, params and traffic through the graphed server, each
+        sub-phase on a server of its own, held to a clean re-serve on
+        4a's server. (A) ``FaultSpec(flush_fault_rate=0.10)``: every
+        session completes with retries, predictions and flush log bitwise
+        the clean serve's, 49 B1, 12 B2 and 12 B3 a flush, frames/s
+        beside the clean serve's (a reading; the reference's gate is
+        0.7x). (B) session 1 hard-fails at its chunk 2: it comes back
+        poisoned with the reason, no flush after the failure carries its
+        frames, session 0 bitwise its solo serve. (C) ``crash_at_round=2``
+        with a checkpoint every round through ``serve_with_restarts``:
+        one restart, predictions bitwise 4a's, the restored server's
+        graphs bitwise its eager encode. (D) paused at round 2, session 1
+        exported and adopted by a second graphed server: both bitwise.
+        4a's traffic fills every queue by the end of each round (16 full
+        flushes), so its snapshots carry no queued rows; the card test
+        ``test_checkpoint_and_migration_on_a_graphed_server`` restores
+        and migrates queued rows at smoke width. (E) under 4e (B)'s
+        NoiseSpec: a checkpoint at round 2 restored into a fresh server
+        holds the snapshot's DriftState in its state
+        tensor at every replay, predictions bitwise the uninterrupted
+        serve's; a planted restore that leaves ``_written`` stale must
+        fail that check. (F) ``stall_rate`` 0.15 under ``watchdog=True``:
+        every stall after the detector's 10-flush warm-up is among
+        ``straggler_flags``. (A) and (F) take the first fault seed (from
+        the reference's 7 and 6) whose sites, hashed on the host over the
+        clean serve's flush sites, exercise the check. Readings: a
+        ``checkpoint()``'s wall ms, a restore's read and re-capture s,
+        the phase's seconds;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -2606,6 +2635,321 @@ def run_control(torch, dev, card: str, cfg, sc, params, streams,
     return out
 
 
+def flush_tags(server) -> list:
+    """Keep each flush's (bucket, first (sid, frame index)) as ``server``
+    serves, in flush order: the sites the fault injector hashes. ``del
+    server._finish`` stops it."""
+    tags, finish = [], server._finish
+
+    def finish_and_tag(fb, by_sid):
+        finish(fb, by_sid)
+        tags.append((fb.bucket[0], fb.frame_idx[0]))
+    server._finish = finish_and_tag
+    return tags
+
+
+def first_seed(hits, start: int, want) -> int:
+    """The first fault seed from ``start`` whose injected sites (``hits``
+    of a seed: the flush indices it injects at) satisfy ``want``."""
+    for seed in range(start, start + 1000):
+        if want(hits(seed)):
+            return seed
+    fail(f"no fault seed in [{start}, {start + 1000}) exercises the check")
+
+
+def normalized(flush_log, sid0: int) -> list:
+    """A flush log with its owners counted from ``sid0``."""
+    return [(tuple(o - sid0 for o in owners), k, n)
+            for owners, k, n in flush_log]
+
+
+def faults_serve(torch, server, streams, check=True) -> tuple:
+    """4a's traffic on ``server``; launches counted from 0. Returns
+    (sessions, results in stream order, launches, wall s)."""
+    from repro_torch.kernels import _build
+
+    sessions = add_traffic(server, streams)
+    _build.LAUNCHES.clear()
+    res = server.serve()
+    launches = dict(_build.LAUNCHES)
+    out = [res[s.sid] for s in sessions]
+    if check:
+        for s, r in zip(sessions, out):
+            if set(r.predictions) != set(range(s.start, s.start + 32)):
+                fail(f"[faults] session {s.sid}: {len(r.predictions)} "
+                     f"predictions for 32 frames")
+    return sessions, out, launches, max(r.wall_s for r in out)
+
+
+def state_checked(server) -> list:
+    """Wrap every graph of a noisy ``server``: before each replay record
+    whether its state tensor holds the words of the server's DriftState
+    (the state the flush must draw at)."""
+    import numpy as np
+
+    seen = []
+    for g in server.graphs.values():
+        def checked(tokens, mask=None, g=g, replay=g.replay):
+            seen.append(bool(np.array_equal(server._state_t.cpu().numpy(),
+                                            server.drift.words())))
+            return replay(tokens, mask)
+        g.replay = checked
+    return seen
+
+
+def run_faults(torch, dev, card: str, cfg, sc, params, streams, fused,
+               clean, noisy_b) -> dict:
+    """Path 4g: faults, checkpoints and migration on 4a's model and traffic
+    through the graphed server (each sub-phase's server built from the same
+    raw params; ``fused`` is the 4a server, ``clean`` its results,
+    ``noisy_b`` 4e (B)'s). (A) 10% transient flush faults: every session
+    completes with retries, predictions and flush log bitwise a clean
+    re-serve's, frames/s beside it. (B) session 1 hard-fails at chunk 2:
+    it comes back poisoned, no later flush carries its frames, session 0
+    bitwise its solo serve. (C) a crash at round 2 with a checkpoint every
+    round, through ``serve_with_restarts``: one restart, predictions
+    bitwise 4a's, the restored server's graphs bitwise its eager encode.
+    (D) paused at round 2, session 1 exported and adopted by a second
+    graphed server: both bitwise 4a's. (E) under 4e (B)'s NoiseSpec: a
+    checkpoint at round 2 restored into a fresh server, whose state tensor
+    holds the snapshot's DriftState at every replay and whose predictions
+    are the uninterrupted ones; a planted restore that leaves ``_written``
+    stale must fail that check. (F) injected stalls under the watchdog:
+    each one after the detector's 10-flush warm-up is flagged. Readings:
+    a ``checkpoint()``'s wall ms, a restore's read and re-capture s."""
+    import gc
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.core import noise
+    from repro_torch.serving.faults import (FaultInjector, FaultSpec,
+                                            serve_with_restarts)
+    from repro_torch.serving.server import StreamServer
+
+    out = {}
+    want = [r.predictions for r in clean]
+    # the clean re-serve on the 4a server: the baseline flush log, the
+    # flush sites (in flush order) and frames/s
+    tags = flush_tags(fused)
+    csess, cres, _, cwall = faults_serve(torch, fused, streams)
+    del fused._finish
+    sid0 = csess[0].sid
+    clog = normalized(fused.flush_log, sid0)
+    sites = [(k, (sid - sid0, fi)) for k, (sid, fi) in tags]
+    if [r.predictions for r in cres] != want:
+        fail("[faults] the clean re-serve differs from 4a's serve")
+    cfps = 64 / cwall
+
+    # (A) 10% transient flush faults
+    def flush_hits(seed):
+        inj = FaultInjector(FaultSpec(flush_fault_rate=0.10, seed=seed))
+        return [i for i, (k, (sid, fi)) in enumerate(sites)
+                if inj._hit(0.10, "flush", k, sid, fi)]
+    seed_a = first_seed(flush_hits, 7, bool)
+    srv = StreamServer(cfg, replace(sc, faults=FaultSpec(
+        flush_fault_rate=0.10, seed=seed_a)), params=params)
+    sess, res, launches, wall = faults_serve(torch, srv, streams)
+    fps = 64 / wall
+    retries = [r.retries for r in res]
+    say(f"[faults] (A) flush_fault_rate 0.10 (seed {seed_a}, the first "
+        f"from 7 that hits one of the {len(sites)} flush sites: "
+        f"{flush_hits(seed_a)}): {srv._injector.report()}; retries "
+        f"{retries}; predictions bitwise the clean serve's "
+        f"{[r.predictions for r in res] == want}, flush log equal "
+        f"{normalized(srv.flush_log, sess[0].sid) == clog}; {fps:.2f} "
+        f"frames/s against the clean re-serve's {cfps:.2f} "
+        f"({fps / cfps:.3f}x; the reference's gate is 0.7x) ({card})")
+    if ([r.predictions for r in res] != want or any(r.poisoned for r in res)
+            or sum(retries) != len(flush_hits(seed_a))
+            or normalized(srv.flush_log, sess[0].sid) != clog):
+        fail("(A) transient flush faults changed the served predictions")
+    fault = vit_flush_fault(launches, len(srv.flush_log))
+    if fault:
+        fail(f"[faults] (A) {fault}")
+    out.update(launches=launches, fps=fps, clean_fps=cfps)
+    del srv
+    torch.cuda.empty_cache()
+
+    # (B) session 1 hard-fails at its chunk 2; session 0 against its solo
+    srv = StreamServer(cfg, replace(sc, faults=FaultSpec(
+        hard_fail_session=1, hard_fail_at_chunk=2)), params=params)
+    late, finish = [], srv._finish
+
+    def watch(fb, by_sid):
+        if by_sid[1].failed_reason and any(s == 1 for s, _ in fb.frame_idx):
+            late.append(fb.frame_idx)
+        return finish(fb, by_sid)
+    srv._finish = watch
+    sess, res, _, _ = faults_serve(torch, srv, streams, check=False)
+    del srv._finish
+    solo = fused.add_session(streams[0], n_frames=32, start=0)
+    sres = fused.serve()[solo.sid]
+    r0, r1 = res
+    say(f"[faults] (B) session 1 poisoned {r1.poisoned} ({r1.failure!r}), "
+        f"{r1.frames} of its frames served, {len(late)} flushes after the "
+        f"failure carrying its frames; session 0 bitwise its solo serve "
+        f"{r0.predictions == sres.predictions} and 4a's "
+        f"{r0.predictions == want[0]}")
+    if (not r1.poisoned or "session 1" not in r1.failure or late
+            or r0.poisoned or r0.predictions != sres.predictions
+            or r0.predictions != want[0] or r1.frames >= 32):
+        fail("(B) quarantine leaked into the other session or the victim")
+    del srv
+    torch.cuda.empty_cache()
+
+    # (C) a crash at round 2 and a checkpoint every round:
+    # serve_with_restarts restores from the last snapshot
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    built, read_s, queued = [], [], []
+
+    def make_server(attempt):
+        t0 = time.perf_counter()
+        s_ = StreamServer(cfg, replace(
+            sc, checkpoint_dir=root, checkpoint_every=1,
+            faults=FaultSpec(crash_at_round=2) if attempt == 0 else None),
+            params=params)
+        built.append((time.perf_counter() - t0, s_.warm_s))
+        real = s_.restore_checkpoint
+
+        def timed(*a, **k):
+            t1 = time.perf_counter()
+            got = real(*a, **k)
+            read_s.append(time.perf_counter() - t1)
+            queued.append(sum(len(x._pending_restore or ())
+                              for x in got.values()))
+            return got
+        s_.restore_checkpoint = timed
+        return s_
+
+    t0 = time.perf_counter()
+    results, restarts, srv = serve_with_restarts(
+        make_server, lambda s_: add_traffic(s_, streams), root)
+    c_s = time.perf_counter() - t0
+    del srv.restore_checkpoint
+    got = [results[sid].predictions for sid in sorted(results)]
+    say(f"[faults] (C) crash at round 2, a checkpoint every round: "
+        f"{restarts} restart(s), predictions bitwise 4a's {got == want}, "
+        f"{queued[0]} queued groups restored; "
+        f"the restored server built in {built[-1][0]:.3f}s (warm start, "
+        f"the graphs' re-capture, {built[-1][1]:.3f}s), the snapshot read "
+        f"in {read_s[0] if read_s else float('nan'):.4f}s; {c_s:.2f}s in "
+        f"all ({card})")
+    if restarts != 1 or got != want or len(read_s) != 1:
+        fail(f"(C) {restarts} restarts, predictions bitwise {got == want}")
+    replays_are_eager(torch, srv, flush_tokens(torch, srv, streams),
+                      "restored server's graph", phase="faults")
+    out.update(restore_read_s=read_s[0], restore_capture_s=built[-1][1],
+               restore_build_s=built[-1][0])
+    del srv, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (D) paused at round 2, a checkpoint timed, session 1 migrated
+    droot = tempfile.mkdtemp(prefix="chip_smoke_dckpt_")
+    srv = StreamServer(cfg, sc, params=params)
+    sess = add_traffic(srv, streams)
+    if srv.serve(max_rounds=2) != {}:
+        fail("(D) serve(max_rounds=2) did not pause")
+    ck_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        srv.checkpoint(root=droot, step=100 + len(ck_ms))
+        ck_ms.append((time.perf_counter() - t0) * 1e3)
+    dst = StreamServer(cfg, sc, params=params)
+    t0 = time.perf_counter()
+    snap = srv.export_session(sess[1].sid)
+    dst.adopt_session(snap)
+    mig_ms = (time.perf_counter() - t0) * 1e3
+    rb, ra = dst.serve(), srv.serve()
+    ok = (ra[sess[0].sid].predictions == want[0]
+          and rb[sess[1].sid].predictions == want[1]
+          and sess[1].sid not in ra)
+    say(f"[faults] (D) paused at round 2: checkpoint() "
+        f"{', '.join(f'{m:.3f}' for m in ck_ms)} ms; session 1 exported "
+        f"with {len(snap['meta']['pending'])} queued groups "
+        f"({sum(len(p_['fidx']) for p_ in snap['meta']['pending'])} rows) "
+        f"and adopted in {mig_ms:.3f} ms; both servers bitwise 4a's {ok} "
+        f"({card})")
+    if not ok:
+        fail("(D) a migrated session's predictions differ")
+    out["checkpoint_ms"] = ck_ms
+    del srv, dst, snap
+    torch.cuda.empty_cache()
+
+    # (E) under 4e (B)'s NoiseSpec: checkpoint at round 2, restore, the
+    # state tensor checked at every replay; a planted stale restore
+    ncfg = cfg.with_(matmul_backend="photonic_pallas", attn_backend="xla",
+                     ffn_backend="xla", noise=noise.NoiseSpec())
+    nroot = tempfile.mkdtemp(prefix="chip_smoke_nckpt_")
+    srv = StreamServer(ncfg, sc, params=params)
+    add_traffic(srv, streams)
+    if srv.serve(max_rounds=2) != {}:
+        fail("(E) serve(max_rounds=2) did not pause")
+    srv.checkpoint(root=nroot)
+    resumed = srv.serve()
+    nwant = [r.predictions for r in noisy_b]
+    if [resumed[sid].predictions for sid in sorted(resumed)] != nwant:
+        fail("(E) the paused noisy serve, resumed, differs from 4e (B)'s")
+    del srv
+    torch.cuda.empty_cache()
+    checks = {}
+    for plant in (False, True):
+        t0 = time.perf_counter()
+        fresh = StreamServer(ncfg, sc, params=params)
+        capture_s = fresh.warm_s
+        t1 = time.perf_counter()
+        fresh.restore_checkpoint(nroot)
+        read = time.perf_counter() - t1
+        if plant:
+            # the planted fault: the restore claims the state is written
+            fresh._written = fresh.drift.words()
+        seen = state_checked(fresh)
+        res = fresh.serve()
+        got = [res[sid].predictions for sid in sorted(res)]
+        checks[plant] = (bool(seen) and all(seen), got == nwant)
+        say(f"[faults] (E) {'planted stale restore' if plant else 'restore'}"
+            f" of the noisy snapshot (round 2): built {t1 - t0:.3f}s (re-capture "
+            f"{capture_s:.3f}s), read {read:.4f}s; state tensor = the "
+            f"DriftState at every replay {checks[plant][0]} ({len(seen)} "
+            f"replays, first {seen[0] if seen else None}); predictions "
+            f"bitwise the uninterrupted noisy serve's {checks[plant][1]}")
+        for g in fresh.graphs.values():
+            del g.replay
+        del fresh
+        torch.cuda.empty_cache()
+    if checks[False] != (True, True):
+        fail("(E) a restored noisy server replayed a stale state tensor or "
+             "other predictions")
+    if checks[True][0]:
+        fail("(E) the planted stale restore was not caught")
+
+    # (F) injected stalls under the watchdog
+    def stall_hits(seed):
+        inj = FaultInjector(FaultSpec(stall_rate=0.15, seed=seed))
+        return [i for i, (k, (sid, fi)) in enumerate(sites)
+                if inj._hit(0.15, "stall", k, sid, fi)]
+    seed_f = first_seed(stall_hits, 6, lambda h: h and min(h) >= 10)
+    srv = StreamServer(cfg, replace(sc, watchdog=True, faults=FaultSpec(
+        stall_rate=0.15, stall_s=0.05, seed=seed_f)), params=params)
+    _, res, _, _ = faults_serve(torch, srv, streams)
+    flagged = sorted(o.seq for o in srv.straggler_flags)
+    stalled = stall_hits(seed_f)
+    walls = sorted(o.wall_s for o in srv.telemetry)
+    say(f"[faults] (F) stall_rate 0.15 (seed {seed_f}, the first from 6 "
+        f"whose stalls all fall after the detector's 10-flush warm-up): "
+        f"stalled flushes {stalled} ({srv._injector.report()}), flagged "
+        f"{flagged}; flush wall ms median "
+        f"{walls[len(walls) // 2] * 1e3:.3f}; predictions bitwise 4a's "
+        f"{[r.predictions for r in res] == want} ({card})")
+    if (not set(stalled) <= set(flagged)
+            or srv._injector.injected["stall"] != len(stalled)
+            or [r.predictions for r in res] != want):
+        fail("(F) an injected stall was not flagged")
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3021,6 +3365,24 @@ def main() -> int:
     say(f"[control] path 4f in {time.perf_counter() - t0:.2f}s; launches on "
         f"the main paths with 4f's (a): "
         f"{ {e['name']: e['launches'] for e in kernels} }")
+
+    # -- 4g. [faults]: faults, checkpoints and migration on 4a's model and
+    # traffic (after 4f, before the profiled phases); (A)'s launches join
+    # the counts
+    t0 = time.perf_counter()
+    faults = run_faults(torch, dev, card, cfg, sc, params, streams, server,
+                        [results[s.sid] for s in sessions],
+                        noisy["B"]["results"])
+    for entry in kernels:
+        entry["launches"] += faults["launches"].get(entry["name"], 0)
+    say(f"[faults] path 4g in {time.perf_counter() - t0:.2f}s; (A) "
+        f"{faults['fps']:.2f} frames/s against the clean re-serve's "
+        f"{faults['clean_fps']:.2f}; checkpoint() "
+        f"{min(faults['checkpoint_ms']):.3f} ms; restore: read "
+        f"{faults['restore_read_s']:.4f}s, re-capture "
+        f"{faults['restore_capture_s']:.3f}s; launches on the main paths "
+        f"with 4g's (A): { {e['name']: e['launches'] for e in kernels} } "
+        f"({card})")
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

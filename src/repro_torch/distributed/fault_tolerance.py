@@ -1,22 +1,66 @@
-"""Straggler detection (the reference's
-src/repro/distributed/fault_tolerance.py, ``StragglerDetector`` only).
+"""Fault tolerance: the restartable step loop and straggler detection (the
+reference's src/repro/distributed/fault_tolerance.py).
+
+``run_with_restarts`` wraps a step loop with checkpoint / restore
+(``checkpoint.CheckpointManager``), so any exception (a preemption, a
+device lost; simulated in tests by injected faults) resumes from the last
+checkpoint. A step loop whose data is a pure function of (seed, step)
+then ends in the fault-free state.
 
 ``StragglerDetector`` flags slow steps from a robust running estimate
 (median + MAD over a window of recent durations). The serving control
 plane's telemetry ring carries one under the server's ``watchdog`` knob,
 so every timed encode flush feeds it and anomalously slow flushes land in
 ``StreamServer.straggler_flags``.
-
-Not ported yet (ROADMAP.md queue A): ``run_with_restarts``, the
-checkpoint-restore step loop, which comes with checkpoints (A13).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import Any, Callable
 
-__all__ = ["StragglerDetector"]
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+
+__all__ = ["run_with_restarts", "StragglerDetector"]
+
+
+def run_with_restarts(step_fn: Callable[[Any, int], Any], init_state: Any,
+                      n_steps: int, manager: CheckpointManager,
+                      like: Any | None = None, max_restarts: int = 10,
+                      on_restart: Callable[[int], None] | None = None):
+    """Run ``state = step_fn(state, step)`` for ``n_steps`` steps,
+    restarting on any exception from the newest checkpoint (or from
+    ``init_state`` when there is none). ``manager`` checkpoints
+    periodically, and a final checkpoint is always written; ``like`` (by
+    default ``init_state``) gives a restore its structure, devices and
+    dtypes. Returns (state, restarts used)."""
+    restarts = 0
+    state = init_state
+    step = 0
+    template = like if like is not None else init_state
+    restored, s0 = manager.restore_latest(template)
+    if restored is not None:
+        state, step = restored, s0
+    while step < n_steps:
+        try:
+            state = step_fn(state, step)
+            step += 1
+            manager.maybe_save(step, state)
+        except Exception:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            if on_restart:
+                on_restart(step)
+            restored, s0 = manager.restore_latest(template)
+            if restored is None:
+                state, step = init_state, 0
+            else:
+                state, step = restored, s0
+    manager.maybe_save(step, state, force=True)
+    manager.wait()
+    return state, restarts
 
 
 @dataclass

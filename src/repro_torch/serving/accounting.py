@@ -25,14 +25,16 @@ A server that times its flushes (the control plane's ``autotune``, the
 stream (``add_flush_wall``); ``measured_flush_s`` is their mean per
 bucket, and ``summary()`` prints it beside the modeled latency.
 
-Not ported yet (ROADMAP.md queue A): ``state_dict`` / ``load_state``
-(A13).
+``state_dict`` / ``load_state`` carry every accumulated counter through a
+checkpoint or a migration (the per-bucket reports rebuild from the
+config).
 """
 
 from __future__ import annotations
 
 import warnings
 from collections import Counter
+from dataclasses import fields as _dc_fields
 from typing import Iterable
 
 from repro_torch.configs.base import ArchConfig
@@ -224,6 +226,48 @@ class StreamAccounting:
         k = int(bucket)
         n = self.flush_wall_n[k]
         return self.flush_wall_s[k] / n if n else None
+
+    # -- checkpoint / migration ---------------------------------------------
+
+    def state_dict(self) -> dict:
+        """JSON-able snapshot of the accumulated accounting: everything a
+        restored session needs to keep billing where it left off (the
+        per-bucket report caches rebuild from the config). Counter keys
+        become strings (JSON keys are strings); ``load_state`` turns them
+        back into ints."""
+        return {
+            "total": {f.name: getattr(self.total, f.name)
+                      for f in _dc_fields(self.total)},
+            "frames": self.frames,
+            "scored_frames": self.scored_frames,
+            "bucket_frames": {str(k): v
+                              for k, v in self.bucket_frames.items()},
+            "bucket_launches": {str(k): v
+                                for k, v in self.bucket_launches.items()},
+            "flush_wall_s": {str(k): v
+                             for k, v in self.flush_wall_s.items()},
+            "flush_wall_n": {str(k): v
+                             for k, v in self.flush_wall_n.items()},
+            "recal_events": self.recal_events,
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Load ``state_dict()`` output into this (fresh) accounting; the
+        config, ladder and bit plan are the caller's to match (the
+        server's checkpoint compatibility check)."""
+        self.total = EnergyReport(**{k: float(v)
+                                     for k, v in state["total"].items()})
+        self.frames = int(state["frames"])
+        self.scored_frames = int(state["scored_frames"])
+        self.bucket_frames = Counter(
+            {int(k): int(v) for k, v in state["bucket_frames"].items()})
+        self.bucket_launches = Counter(
+            {int(k): int(v) for k, v in state["bucket_launches"].items()})
+        self.flush_wall_s = {int(k): float(v)
+                             for k, v in state["flush_wall_s"].items()}
+        self.flush_wall_n = Counter(
+            {int(k): int(v) for k, v in state["flush_wall_n"].items()})
+        self.recal_events = int(state["recal_events"])
 
     def dead_buckets(self) -> tuple[int, ...]:
         """Ladder entries no frame was ever routed to (empty when no

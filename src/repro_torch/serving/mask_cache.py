@@ -5,7 +5,9 @@ when ``refresh`` frames have passed since the last scoring or the mean
 |frame - last scored frame| exceeds ``delta_threshold``; otherwise the
 cached region scores are reused. The decision walk is host numpy; the
 frames that need scoring go to MGNet in one call per chunk, padded to the
-chunk size so the score call has one shape.
+chunk size so the score call has one shape. ``state_dict`` /
+``load_state`` carry the walk's state through a checkpoint or a migration,
+so a restored cache makes the original's next decision.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class TemporalMaskCache:
         self._ref_idx: int = -(1 << 30)
         self.scored_frames = 0
         self.reused_frames = 0
+
+    def reset(self) -> None:
+        self.__init__(self.refresh, self.delta_threshold)
 
     def _needs_refresh(self, frame: np.ndarray, idx: int,
                        ref: np.ndarray | None, ref_idx: int) -> bool:
@@ -92,3 +97,29 @@ class TemporalMaskCache:
     def reuse_rate(self) -> float:
         tot = self.scored_frames + self.reused_frames
         return self.reused_frames / tot if tot else 0.0
+
+    # -- checkpoint / migration ---------------------------------------------
+
+    def state_dict(self) -> dict:
+        """The gating walk's whole state: the reference frame and its
+        scores (None before anything was scored), the reference index and
+        the reuse counters. A cache loaded from it makes the same refresh
+        or reuse decision on the next frame as this one."""
+        return {
+            "ref_frame": (None if self._ref_frame is None
+                          else np.asarray(self._ref_frame)),
+            "ref_scores": (None if self._ref_scores is None
+                           else np.asarray(self._ref_scores)),
+            "ref_idx": int(self._ref_idx),
+            "scored_frames": int(self.scored_frames),
+            "reused_frames": int(self.reused_frames),
+        }
+
+    def load_state(self, state: dict) -> None:
+        self._ref_frame = (None if state["ref_frame"] is None
+                           else np.asarray(state["ref_frame"]))
+        self._ref_scores = (None if state["ref_scores"] is None
+                            else np.asarray(state["ref_scores"]))
+        self._ref_idx = int(state["ref_idx"])
+        self.scored_frames = int(state["scored_frames"])
+        self.reused_frames = int(state["reused_frames"])

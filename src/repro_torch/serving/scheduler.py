@@ -17,10 +17,9 @@ stamp each entry with a ``now`` tick (the server's scheduling round), and
 queued at or before the deadline: the server's ``max_wait_chunks`` bound.
 The control plane's per-bucket flush thresholds pad-flush through
 ``flush_filled``, and its re-tuning reads the live queue depths through
-``queue_stats``.
-
-Not ported yet (ROADMAP.md queue A): ``discard`` and ``export`` (faults
-and checkpoints, A13).
+``queue_stats``. Quarantine drops a failed session's queues unflushed
+(``discard``); checkpoints and migration read the queued entries without
+flushing them (``export``).
 """
 
 from __future__ import annotations
@@ -134,6 +133,35 @@ class MicroBatcher:
             thr = threshold_of(k)
             if thr < self.microbatch and self.rows(k) >= thr:
                 out.append(self._take(k, pad=True))
+        return out
+
+    def discard(self, select: Callable[[Hashable], bool]) -> int:
+        """Drop every queue whose key matches ``select`` without flushing
+        it (quarantine: a hard-failed session's queued frames must never
+        reach the device, where their launches would be billed and their
+        padding would waste flush slots). Returns the rows dropped."""
+        doomed = [k for k in self._queues if select(k)]
+        dropped = 0
+        for k in doomed:
+            dropped += self.rows(k)
+            del self._queues[k]
+        return dropped
+
+    def export(self, select: Callable[[Hashable], bool] | None = None
+               ) -> list:
+        """The queued entries as ``(key, tokens, frame_idx, now, is_row)``
+        tuples, keys in ``str(key)`` order and each queue in its order,
+        without changing the queues (the checkpoint and migration
+        surface). Pushing the entries back into an empty batcher in this
+        order rebuilds the same groups with the same ``now`` ticks, so a
+        restored serve's launches keep their activation absmax scopes (a
+        pad-flush at checkpoint time would change them)."""
+        out = []
+        for k in sorted(self._queues, key=str):
+            if select is not None and not select(k):
+                continue
+            for t, ix, now, is_row in self._queues[k]:
+                out.append((k, t, list(ix), now, is_row))
         return out
 
     def queue_stats(self) -> dict:

@@ -101,8 +101,36 @@ controller calibrates against, and calls ``controller.step`` every
 feeds a ``StragglerDetector`` (``straggler_flags``). An untimed server
 adds no sync.
 
-Not ported yet (ROADMAP.md queue A): faults, checkpoints and migration
-(A13), the 1-D data mesh (A14).
+Faults, checkpoints and migration (``ServerConfig.faults``, a
+``serving.faults.FaultSpec``; ``--flush-fault-rate`` and the other fault
+flags): a transient flush fault retries the flush with bounded
+exponential backoff, a transient ingest fault retries the chunk next
+round (checked before ``next_batch``, so it never consumes a chunk from
+the pinned prefetch ring), a fatal fault or exhausted retries quarantine
+the owning session only (``_fail_sessions``: its queued rows discarded,
+its result ``poisoned``), and any other exception fails the serve as a
+``ServeError`` naming the bucket, sessions and round, with the results
+of the sessions that had drained. ``max_pending_rows`` sheds ingest
+chunks above a queue bound; an injected stall syncs the stream and sleeps
+(the watchdog's target). Without a spec there is no injector: every seam
+is an ``if injector is not None`` check, with no sync and no host copy.
+``serve(max_rounds=n)`` pauses after n rounds (the next ``serve()``
+resumes at the same cursors); ``checkpoint`` snapshots every live
+session (ingest cursor, mask cache, accounting, deferred predictions,
+queued rows copied to the host) with the DriftState and the loop's
+cursors, every ``checkpoint_every`` rounds or on demand, through
+``checkpoint.save`` (the reference's format). ``restore_checkpoint``
+rebuilds them in a fresh server, whose queued rows go back on its device
+and whose first noisy stage rewrites the state tensor, so the remaining
+predictions are bitwise the uninterrupted serve's;
+``serving.faults.serve_with_restarts`` drives that across crashes.
+``export_session`` / ``adopt_session`` move one live stream between
+servers mid-stream. A restored or adopting server serves through the
+graphs of its own warm start, over its own cache: no graph crosses
+servers.
+
+Not ported yet (ROADMAP.md queue A): the 1-D data mesh and the fleet
+router (A14).
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
@@ -122,6 +150,9 @@ CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
         --img-size 96 --device cpu    # the reference's default model
     PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
         --autotune --retune-every 4 --assert-converged
+    PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
+        --streams 3 --frames 24 --flush-fault-rate 0.1 --hard-fail-session 1 \\
+        --checkpoint-dir /tmp/ckpt --checkpoint-every 1 --json
 """
 
 from __future__ import annotations
@@ -132,6 +163,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import time
 import warnings
 
@@ -139,6 +172,8 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import from_jax_params, init_vit, to_device
+from repro_torch.checkpoint.checkpoint import latest_step, restore_flat
+from repro_torch.checkpoint.checkpoint import save as _ckpt_save
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.core import bitalloc
 from repro_torch.core.backend import (ExecPolicy, place_params,
@@ -163,6 +198,10 @@ from repro_torch.serving.mask_cache import TemporalMaskCache
 from repro_torch.serving.control import (Controller, ControllerConfig,
                                          EncodeCostModel, FlushTelemetry,
                                          TunedKnobs)
+from repro_torch.serving.faults import (CheckpointFault, FatalFault,
+                                        FaultInjector, FaultSpec,
+                                        ServeError, ServerCrash,
+                                        SessionFailure, TransientFault)
 from repro_torch.serving.scheduler import FrameBatch, MicroBatcher
 from repro_torch.serving.session import (ServingConfig, StreamResult,
                                          StreamSession)
@@ -212,6 +251,21 @@ class ServerConfig(ServingConfig):
     #                              autotune) and feed a StragglerDetector
     #                              through the telemetry ring: anomalously
     #                              slow flushes land in ``straggler_flags``
+    faults: FaultSpec | None = None  # deterministic fault injection
+    #                              (serving/faults.py); None: no injector,
+    #                              the fault-free instruction stream
+    retry_limit: int = 3         # transient-fault retries a flush before
+    #                              the owning session is quarantined
+    retry_backoff_s: float = 0.002  # base of the bounded exponential
+    #                              backoff between flush retries (doubles
+    #                              an attempt, capped at 1 s; 0 disables)
+    max_pending_rows: int = 0    # > 0: bound on the batcher's queued rows;
+    #                              an ingest chunk arriving above it is
+    #                              shed (dropped, counted per session)
+    checkpoint_dir: str = ""     # root of the periodic snapshots
+    checkpoint_every: int = 0    # > 0: snapshot every N scheduling rounds
+    #                              (needs checkpoint_dir)
+    checkpoint_keep: int = 3     # newest snapshots kept under the root
 
     @staticmethod
     def from_serving(sc: ServingConfig, **overrides) -> "ServerConfig":
@@ -384,6 +438,14 @@ class StreamServer:
         if self._watchdog and not sc.autotune:
             self.telemetry = self._make_telemetry()
         self._round = 0                    # the scheduling round a flush ran in
+        # faults: an injector only under a FaultSpec (the fault-free loop
+        # runs the instruction stream it runs without one)
+        self.faults: FaultSpec | None = sc.faults
+        self._injector = (FaultInjector(sc.faults)
+                          if sc.faults is not None else None)
+        self.checkpoint_failures = 0
+        self._inflight: dict | None = None  # a paused serve's loop state
+        self._resume: tuple | None = None   # (rnd, offset) of a restore
         # autotune warms only the buckets its probe finds (pricing a bucket
         # captures its graph): a full-ladder warm start would capture the
         # dead buckets the probe exists to skip
@@ -583,8 +645,12 @@ class StreamServer:
         library's load, each kernel's shared-memory attribute, the cached
         key masks of the flash attention wrapper. Raises with the reason
         if the capture fails (a composed policy whose encode cannot be
-        captured too: it never serves eagerly instead)."""
+        captured too: it never serves eagerly instead), leaving the device
+        out of capture mode and on the stream it was on (``torch.cuda.
+        graph`` does not restore the stream when ending a broken capture
+        raises), so the server can capture and serve again."""
         dev = self.device
+        prev = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -601,6 +667,10 @@ class StreamServer:
                     torch.cuda.graph(graph):
                 logits = fn()
         except Exception as e:
+            if torch.cuda.is_current_stream_capturing():
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+            torch.cuda.set_stream(prev)
             raise RuntimeError(f"capturing the {tag} encode as a CUDA graph "
                                f"failed ({self.policy}): {e}") from e
         finally:
@@ -841,26 +911,110 @@ class StreamServer:
 
     # -- the serving loop ----------------------------------------------------
 
-    def serve(self, verbose: bool = False) -> dict[int, StreamResult]:
+    def serve(self, verbose: bool = False,
+              max_rounds: int = 0) -> dict[int, StreamResult]:
         """Serve every registered session to completion, interleaved
         round-robin; returns ``{sid: StreamResult}``. Every result's
         ``wall_s`` is the loop's span (device work included), so the
         aggregate frames/s is ``sum(frames) / wall``. Under the control
         plane the loop reads ``controller.knobs`` every round and steps
-        the controller every ``retune_every`` frames."""
+        the controller every ``retune_every`` frames.
+
+        ``max_rounds > 0`` pauses after that many scheduling rounds and
+        returns ``{}``, holding the loop state (sessions, queued rows, the
+        round and rotation cursors) in flight: the deterministic stop the
+        checkpoint and migration surfaces work at. The next ``serve()``
+        resumes where it paused. A paused segment's wall time includes its
+        device work (the device is synced before the clock is read).
+
+        Failures: a transient flush fault retries with bounded
+        exponential backoff; a fatal fault or exhausted retries quarantine
+        the owning session only (its ``StreamResult`` comes back
+        ``poisoned`` with the reason) while the others serve to
+        completion. Any other exception fails the serve as a
+        ``ServeError`` naming the failing bucket, sessions and round, with
+        the results of the sessions that had fully drained; the half-served
+        sessions are abandoned, and the server serves the next sessions
+        registered."""
         sc = self.serve_cfg
-        ctl = self.controller
-        live = [s for s in self._sessions if not s.finished]
-        if not live:
-            return {}
-        for s in live:
-            s.open()
-        self.batcher = MicroBatcher(sc.microbatch)
-        self.flush_log = []
+        if self._inflight is None:
+            live = [s for s in self._sessions if not s.finished]
+            if not live:
+                return {}
+            for s in live:
+                s.open()
+            self.batcher = MicroBatcher(sc.microbatch)
+            self.flush_log = []
+            rnd, offset = self._resume if self._resume else (0, 0)
+            self._resume = None
+            st = {"live": live, "rnd": rnd, "offset": offset,
+                  "wall_s": 0.0, "retuned_at": 0,
+                  "early": self._restore_pending(live)}
+            self._inflight = st
+        else:
+            st = self._inflight
+        live = st["live"]
         by_sid = {s.sid: s for s in live}
         t0 = time.perf_counter()
-        offset, rnd, retuned_at = 0, 0, 0
+        try:
+            done = self._serve_loop(st, by_sid, t0, verbose, max_rounds)
+        except BaseException as e:
+            # the half-served sessions are abandoned (re-opening them would
+            # re-ingest and double-count); the drained ones lose nothing:
+            # their results ride out on the ServeError
+            st["wall_s"] += time.perf_counter() - t0
+            wall = st["wall_s"]
+            partial = {s.sid: s.finish(wall) for s in live
+                       if s.drained and (s.failed_reason
+                                         or s.acct.frames == s.frames_seen)}
+            for s in live:
+                s.finished = True
+            self._inflight = None
+            self._sessions = [s for s in self._sessions if not s.finished]
+            if isinstance(e, ServeError):
+                e.partial_results.update(partial)
+                raise
+            if not isinstance(e, Exception):
+                raise               # an interrupt or exit stays what it is
+            ctx = {"round": st["rnd"],
+                   "sessions": [s.sid for s in live if not s.drained]}
+            raise ServeError(
+                f"serve() died at round {ctx['round']} (sessions "
+                f"{ctx['sessions']} mid-stream): {e}", context=ctx,
+                partial_results=partial) from e
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        st["wall_s"] += time.perf_counter() - t0
+        if not done:
+            return {}           # paused by max_rounds; serve() resumes
+        wall = st["wall_s"]
+        results = {s.sid: s.finish(wall) for s in live}
+        self._inflight = None
+        self._sessions = [s for s in self._sessions if not s.finished]
+        return results
+
+    def _serve_loop(self, st: dict, by_sid: dict, t0: float, verbose: bool,
+                    max_rounds: int) -> bool:
+        """Scheduling rounds until every live session drains (True) or
+        ``max_rounds`` rounds ran (False: paused). The cursors (round,
+        rotation offset) persist in ``st`` across pauses and checkpoints."""
+        sc = self.serve_cfg
+        ctl = self.controller
+        inj = self._injector
+        live = st["live"]
+        rounds = 0
+        early, st["early"] = st.get("early") or [], []
+        if early:
+            # flushes that filled while a snapshot's queued rows were
+            # pushed back (none for a snapshot that kept each queue below
+            # the micro-batch, but no frame is lost either way)
+            self._round = st["rnd"]
+            for fb in early:
+                self._safe_finish(fb, by_sid)
         while any(not s.drained for s in live):
+            if max_rounds and rounds >= max_rounds:
+                return False
+            rnd = st["rnd"]
             # the controller owns the re-timing knobs when present, re-read
             # every round so a step lands at once
             kn = ctl.knobs if ctl is not None else None
@@ -868,13 +1022,39 @@ class StreamServer:
                         else sc.max_wait_chunks)
             depth = (kn.interleave_depth if kn is not None
                      else sc.interleave_depth)
+            offset = st["offset"]
             rot = live[offset:] + live[:offset]
-            offset = (offset + 1) % len(live)
+            st["offset"] = (offset + 1) % len(live)
             per = {s.sid: [] for s in rot}
             late: list = []
             for s in rot:
                 if s.ingest_done:
                     continue
+                if (sc.max_pending_rows > 0
+                        and self.batcher.pending >= sc.max_pending_rows):
+                    # load shedding: the queue bound is hit, so this chunk
+                    # is pulled off the sensor and dropped whole (deferring
+                    # it could deadlock: without a deadline a partial queue
+                    # fills only from its own session's later chunks)
+                    batch = s.next_batch()
+                    if batch is not None:
+                        s.shed(int((np.asarray(batch["frame_idx"])
+                                    < s.limit).sum()))
+                    continue
+                if inj is not None:
+                    # checked before next_batch: a raised fault never
+                    # consumes a chunk from the prefetch ring
+                    try:
+                        inj.ingest(s.sid, s.chunks_done,
+                                   attempt=s.ingest_attempts)
+                    except TransientFault:
+                        s.ingest_attempts += 1
+                        s.retries += 1
+                        continue          # the same chunk, next round
+                    except FatalFault as e:
+                        self._fail_sessions((s.sid,), str(e), by_sid)
+                        continue
+                    s.ingest_attempts = 0
                 batch = s.next_batch()
                 if batch is not None:
                     per[s.sid].extend(self._ingest_chunk(s, batch, rnd))
@@ -898,27 +1078,34 @@ class StreamServer:
                         self.batcher.microbatch)))
             self._round = rnd
             for fb in interleave_rounds([per[s.sid] for s in rot], depth):
-                self._finish(fb, by_sid)
+                self._safe_finish(fb, by_sid)
             for fb in late:
-                self._finish(fb, by_sid)
-            rnd += 1
+                self._safe_finish(fb, by_sid)
+            st["rnd"] = rnd + 1
+            rounds += 1
+            if inj is not None:
+                inj.round_tick(rnd)           # may raise ServerCrash
+            if (sc.checkpoint_every > 0 and sc.checkpoint_dir
+                    and st["rnd"] % sc.checkpoint_every == 0):
+                try:
+                    self.checkpoint()
+                except CheckpointFault as e:
+                    # checkpoint I/O loss degrades: serving goes on from
+                    # the last good snapshot
+                    self.checkpoint_failures += 1
+                    warnings.warn(f"checkpoint skipped: {e}", stacklevel=2)
             if ctl is not None:
                 done = sum(s.acct.frames for s in live)
-                if done - retuned_at >= sc.retune_every:
+                if done - st["retuned_at"] >= sc.retune_every:
                     ctl.step(self.batcher.queue_stats(), done,
                              time.perf_counter() - t0)
-                    retuned_at = done
-            if verbose and rnd % sc.report_every == 0:
+                    st["retuned_at"] = done
+            if verbose and st["rnd"] % sc.report_every == 0:
                 done = sum(s.acct.frames for s in live)
-                print(f"[server] round {rnd:>4d}  {done:>5d} frames  "
+                print(f"[server] round {st['rnd']:>4d}  {done:>5d} frames  "
                       f"{done / (time.perf_counter() - t0):7.1f} frames/s "
                       f"aggregate (pending {self.batcher.pending})")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t0
-        results = {s.sid: s.finish(wall) for s in live}
-        self._sessions = [s for s in self._sessions if not s.finished]
-        return results
+        return True
 
     def _ingest_chunk(self, s: StreamSession, batch: dict, rnd: int) -> list:
         """Gate one chunk through the session's mask cache, embed it, route
@@ -961,6 +1148,53 @@ class StreamServer:
         s.frames_seen += int(valid.sum())
         return out
 
+    def _safe_finish(self, fb: FrameBatch,
+                     by_sid: dict[int, StreamSession]) -> None:
+        """Run one flush with per-session failure isolation. A
+        ``SessionFailure`` (an injected fatal fault, exhausted retries)
+        quarantines only the owning sessions; any other exception means the
+        shared machinery broke, and is raised again as a ``ServeError``
+        naming the bucket, sessions, frames and round."""
+        owners = sorted({sid for sid, _ in fb.frame_idx})
+        if owners and all(by_sid[sid].failed_reason for sid in owners
+                          if sid in by_sid):
+            return            # a stale flush of quarantined sessions
+        k = fb.bucket[0] if isinstance(fb.bucket, tuple) else fb.bucket
+        try:
+            self._finish(fb, by_sid)
+        except SessionFailure as e:
+            self._fail_sessions(e.sids, e.reason, by_sid)
+        except ServerCrash:
+            raise
+        except Exception as e:
+            rnd = self._round
+            frames = [f"{sid}:{fi}" for sid, fi in fb.frame_idx]
+            raise ServeError(
+                f"flush failed at bucket k={k} (sessions {owners}, frames "
+                f"{frames}, round {rnd}): {e}",
+                context={"bucket": k, "sessions": owners,
+                         "n_real": fb.n_real, "round": rnd}) from e
+
+    def _fail_sessions(self, sids, reason: str,
+                       by_sid: dict[int, StreamSession]) -> None:
+        """Quarantine ``sids``: mark them failed (their results come back
+        ``poisoned`` with ``reason``), drop their queued rows so no further
+        launch is billed to them, and let every other session serve on.
+        Under ``mix_streams`` the queues are shared, so their rows stay
+        queued (a flush whose owners all failed is skipped)."""
+        fresh = [sid for sid in sids
+                 if sid in by_sid and not by_sid[sid].failed_reason]
+        if not fresh:
+            return
+        for sid in fresh:
+            by_sid[sid].fail(reason)
+        if not self.serve_cfg.mix_streams:
+            doomed = set(fresh)
+            self.batcher.discard(
+                lambda key: isinstance(key, tuple) and key[1] in doomed)
+        warnings.warn(f"quarantined session(s) {fresh}: {reason}; the "
+                      f"remaining sessions keep serving", stacklevel=3)
+
     def _finish(self, fb: FrameBatch, by_sid: dict[int, StreamSession]) -> None:
         """Encode one flush and hand each owning session its rows'
         predictions. The encode is billed at bucket k for the live rows
@@ -968,12 +1202,48 @@ class StreamServer:
         control plane or the watchdog the flush is timed from before the
         encode until its predictions are materialized (one sync of the
         current stream) into the telemetry and each owner's accounting;
-        an untimed server adds no sync."""
+        an untimed server adds no sync. Under a FaultSpec an injected
+        transient fault (raised before the encode, so never inside a
+        capture) retries the flush after a bounded backoff, a fatal one or
+        the retry limit raises ``SessionFailure``, and an injected stall
+        syncs the stream and sleeps."""
+        sc = self.serve_cfg
         k = fb.bucket[0] if isinstance(fb.bucket, tuple) else fb.bucket
         timed = self.controller is not None or self._watchdog
-        t0 = time.perf_counter() if timed else 0.0
-        logits = self._encode(k, fb.tokens)
-        preds = torch.argmax(logits[:fb.n_real], dim=-1)
+        inj = self._injector
+        tag = fb.frame_idx[0] if fb.frame_idx else (0, 0)
+        attempt = 0
+        while True:
+            try:
+                if inj is not None:
+                    inj.flush(k, tag, attempt=attempt)
+                t0 = time.perf_counter() if timed else 0.0
+                logits = self._encode(k, fb.tokens)
+                preds = torch.argmax(logits[:fb.n_real], dim=-1)
+                if inj is not None:
+                    stall = inj.stall_s(k, tag)
+                    if stall > 0:
+                        # an injected straggler: the flush completes, slowly
+                        if preds.is_cuda:
+                            torch.cuda.current_stream(
+                                preds.device).synchronize()
+                        time.sleep(stall)
+                break
+            except TransientFault as e:
+                attempt += 1
+                sids = sorted({sid for sid, _ in fb.frame_idx})
+                for sid in sids:
+                    if sid in by_sid:
+                        by_sid[sid].retries += 1
+                if attempt > sc.retry_limit:
+                    raise SessionFailure(
+                        sids, f"retry limit ({sc.retry_limit}) exhausted: "
+                              f"{e}") from e
+                time.sleep(min(sc.retry_backoff_s * 2 ** (attempt - 1),
+                               1.0))
+            except FatalFault as e:
+                raise SessionFailure(sorted({sid for sid, _ in fb.frame_idx}),
+                                     str(e)) from e
         owners: dict[int, tuple[list, list]] = {}
         for row, (sid, fidx) in enumerate(fb.frame_idx):
             rows, fidxs = owners.setdefault(sid, ([], []))
@@ -990,7 +1260,7 @@ class StreamServer:
                                              self._round)
             else:
                 # watchdog only: feed the straggler detector directly
-                self.telemetry.record(k, fb.n_real, self.serve_cfg.microbatch,
+                self.telemetry.record(k, fb.n_real, sc.microbatch,
                                       len(owners), wall, self._round)
         for sid, (rows, fidxs) in owners.items():
             sess = by_sid[sid]
@@ -1008,6 +1278,251 @@ class StreamServer:
         self.last_drift = self.drift
         self._advance_drift(fb.n_real)
 
+    # -- checkpoint / restore / migration ------------------------------------
+
+    def _compat(self) -> dict:
+        """The configuration a snapshot is valid under only: a mismatch
+        between writer and reader changes routing, shapes or numerics, so
+        a restore refuses rather than diverging."""
+        sc = self.serve_cfg
+        return {
+            "img_size": self.cfg.img_size, "patch": self.cfg.patch,
+            "ladder": [int(k) for k in self.ladder.sizes],
+            "chunk": sc.chunk, "microbatch": sc.microbatch,
+            "mask_refresh": sc.mask_refresh,
+            "delta_threshold": sc.delta_threshold,
+            "one_shape": bool(sc.one_shape),
+            "fingerprint": str(self.policy.fingerprint()),
+            "noise": repr(self.noise),
+        }
+
+    def _check_compat(self, compat: dict) -> None:
+        mine = self._compat()
+        diffs = [f"{k}: snapshot={compat.get(k)!r} server={mine[k]!r}"
+                 for k in mine if compat.get(k) != mine[k]]
+        if diffs:
+            raise ValueError("snapshot is incompatible with this server "
+                             "(restore would not be bitwise): "
+                             + "; ".join(diffs))
+
+    def _pending_of(self, sid: int, remove: bool = False) -> list:
+        """This session's queued, unflushed batcher entries as plain
+        descriptors, tokens copied to the host. Exported, not
+        pad-flushed: the flushes they later join keep their activation
+        absmax scopes, which keeps a resumed serve bitwise."""
+        if self.batcher is None:
+            return []
+        sel = lambda key: isinstance(key, tuple) and key[1] == sid
+        out = []
+        for key, t, ix, now, is_row in self.batcher.export(sel):
+            out.append({"bucket": int(key[0]), "now": int(now),
+                        "is_row": bool(is_row),
+                        "fidx": [int(f) for _, f in ix],
+                        "tokens": t.detach().cpu().numpy()})
+        if remove and out:
+            self.batcher.discard(sel)
+        return out
+
+    def _snapshot(self, live, rnd: int, offset: int) -> tuple[dict, dict]:
+        """Server and session state flattened into (arrays, extra) for
+        ``checkpoint.save``. The control plane's state is not captured: a
+        restored server warms and calibrates its own; only the state the
+        predictions depend on must round-trip bitwise."""
+        arrays: dict = {}
+        metas = []
+        for s in live:
+            s_arrays, meta = s.state_dict()
+            pend = self._pending_of(s.sid)
+            for j, p in enumerate(pend):
+                arrays[f"s{s.sid}/pend{j}"] = p.pop("tokens")
+            meta["pending"] = pend
+            for key, a in s_arrays.items():
+                arrays[f"s{s.sid}/{key}"] = a
+            metas.append(meta)
+        if self.drift is not None:
+            arrays["drift/key"] = np.asarray(self.drift.key)
+            arrays["drift/frame"] = np.asarray(self.drift.frame)
+            arrays["drift/nm"] = np.asarray(self.drift.drift_nm)
+        extra = {"sessions": metas, "rnd": int(rnd), "offset": int(offset),
+                 "recalibrations": int(self.recalibrations),
+                 "host_drift_nm": float(self._host_drift_nm),
+                 "next_sid": int(self._next_sid),
+                 "compat": self._compat()}
+        return arrays, extra
+
+    def checkpoint(self, root: str | None = None,
+                   step: int | None = None) -> str:
+        """Snapshot every live session (ingest cursor, mask cache,
+        accounting, deferred predictions, queued rows) with the server's
+        DriftState and the loop's cursors to ``root/step_<n>`` (atomic,
+        ``checkpoint.save``). Valid between rounds of a serve
+        (``serve(max_rounds=...)`` or the ``checkpoint_every`` cadence) or
+        between serves. One sync of the device (the deferred predictions
+        and queued rows come to the host). Returns the path written."""
+        sc = self.serve_cfg
+        root = root or sc.checkpoint_dir
+        if not root:
+            raise ValueError("checkpoint needs a root (checkpoint_dir "
+                             "config or the root argument)")
+        if sc.mix_streams:
+            raise ValueError(
+                "checkpoint is unsupported under mix_streams: queued rows "
+                "are cross-session, so per-session state cannot be "
+                "snapshotted without changing absmax scopes")
+        if self._inflight is not None:
+            st = self._inflight
+            live, rnd, offset = st["live"], st["rnd"], st["offset"]
+        else:
+            live = [s for s in self._sessions if not s.finished]
+            rnd, offset = 0, 0
+        arrays, extra = self._snapshot(live, rnd, offset)
+        step = int(rnd if step is None else step)
+        if self._injector is not None:
+            self._injector.checkpoint_io(step)   # may raise CheckpointFault
+        os.makedirs(root, exist_ok=True)
+        path = os.path.join(root, f"step_{step}")
+        _ckpt_save(path, arrays, step=step, extra=extra)
+        self._ckpt_gc(root)
+        return path
+
+    def _ckpt_gc(self, root: str) -> None:
+        keep = self.serve_cfg.checkpoint_keep
+        if keep <= 0:
+            return
+        steps = sorted((int(d.split("_", 1)[1]), d)
+                       for d in os.listdir(root)
+                       if d.startswith("step_")
+                       and d.split("_", 1)[1].isdigit())
+        for _, d in steps[:-keep]:
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+
+    def restore_checkpoint(self, path_or_root: str,
+                           streams: dict | None = None) -> dict:
+        """Rebuild the sessions of a ``checkpoint()`` snapshot in this
+        (fresh) server; the next ``serve()`` resumes at the snapshot's
+        round and rotation cursors and gives the remaining predictions
+        bitwise the uninterrupted serve's. The server's own warm start
+        captured its graphs over its own cache; under noise the restored
+        DriftState is written into the state tensor before the first noisy
+        stage reads it.
+
+        ``path_or_root`` is a ``step_<n>`` directory or a root (its newest
+        step is taken). ``streams`` maps sid -> VideoStream for sources
+        that did not serialize (a plain ``VideoStream`` restores without).
+        Returns the restored ``{sid: StreamSession}``."""
+        if self._inflight is not None:
+            raise ValueError("cannot restore into a mid-serve server")
+        if any(not s.finished for s in self._sessions):
+            raise ValueError("cannot restore into a server with live "
+                             "sessions (their sids would collide)")
+        path = path_or_root
+        if not os.path.exists(os.path.join(path, "meta.json")):
+            step = latest_step(path_or_root)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint under {path_or_root}")
+            path = os.path.join(path_or_root, f"step_{step}")
+        arrays, _, extra = restore_flat(path)
+        self._check_compat(extra.get("compat", {}))
+        streams = streams or {}
+        sessions: dict[int, StreamSession] = {}
+        for meta in extra["sessions"]:
+            sid = int(meta["sid"])
+            pre = f"s{sid}/"
+            sub = {k[len(pre):]: v for k, v in arrays.items()
+                   if k.startswith(pre)}
+            s = StreamSession.from_state(
+                sub, meta, self.serve_cfg, self.cfg, ladder=self.ladder,
+                layer_bits=self.layer_bits,
+                stream=streams.get(sid, streams.get(str(sid))),
+                device=self.device)
+            sessions[sid] = s
+            self._sessions.append(s)
+        self._next_sid = max(int(extra.get("next_sid", 0)),
+                             max(sessions, default=-1) + 1)
+        if self.noise is not None and "drift/key" in arrays:
+            self.drift = DriftState(arrays["drift/key"].numpy(),
+                                    arrays["drift/frame"].numpy(),
+                                    arrays["drift/nm"].numpy())
+            self._host_drift_nm = float(extra.get("host_drift_nm", 0.0))
+            self._written = None     # the state tensor holds another state
+        self.recalibrations = int(extra.get("recalibrations", 0))
+        self._resume = (int(extra["rnd"]), int(extra["offset"]))
+        return sessions
+
+    def _restore_pending(self, live) -> list:
+        """Push restored sessions' queued rows back into the batcher on
+        this server's device (the same groups with the same ``now`` ticks:
+        ``MicroBatcher.export``). A flush that fills at once is returned to
+        run before the first resumed round."""
+        early = []
+        for s in live:
+            pend = s._pending_restore
+            if not pend:
+                continue
+            for bucket, toks, fidx, now, is_row in pend:
+                key = (bucket, s.sid)
+                pairs = [(s.sid, int(f)) for f in fidx]
+                toks = (toks if isinstance(toks, torch.Tensor)
+                        else torch.from_numpy(np.asarray(toks))
+                        ).to(self.device)
+                if is_row:
+                    early.extend(self.batcher.push(key, toks, pairs[0],
+                                                   now=now))
+                else:
+                    early.extend(self.batcher.push_many(key, toks, pairs,
+                                                        now=now))
+            s._pending_restore = None
+        return early
+
+    # -- session migration ---------------------------------------------------
+
+    def export_session(self, sid: int) -> dict:
+        """Take one live session out of this server with its full state
+        and its queued rows (copied to the host), as a snapshot for
+        ``adopt_session`` on another server. The session leaves this
+        server (its queues discarded, marked finished). Mid-serve only
+        while paused (``serve(max_rounds=...)`` returned ``{}``)."""
+        if self.serve_cfg.mix_streams:
+            raise ValueError("migration is unsupported under mix_streams")
+        s = next((s for s in self._sessions
+                  if s.sid == sid and not s.finished), None)
+        if s is None:
+            raise KeyError(f"no live session {sid}")
+        arrays, meta = s.state_dict()
+        meta["pending"] = self._pending_of(sid, remove=True)
+        if self._inflight is not None:
+            self._inflight["live"] = [x for x in self._inflight["live"]
+                                      if x.sid != sid]
+        self._sessions = [x for x in self._sessions if x.sid != sid]
+        s.finished = True
+        return {"arrays": arrays, "meta": meta, "compat": self._compat()}
+
+    def adopt_session(self, snapshot: dict, stream=None) -> StreamSession:
+        """Adopt a session another server exported mid-stream. The
+        remaining predictions are bitwise those of staying put: the
+        micro-batches are session-pure, so the numerics depend only on the
+        session's own frames and the (compat-checked) weights, not on the
+        server that launches them; this server replays its own graphs.
+        Under noise the DriftState is the server's shared thermal history,
+        so a migrated session sees the destination's drift."""
+        if self._inflight is not None:
+            raise ValueError("cannot adopt mid-serve (pause first)")
+        if self.serve_cfg.mix_streams:
+            raise ValueError("migration is unsupported under mix_streams")
+        self._check_compat(snapshot["compat"])
+        meta = snapshot["meta"]
+        sid = int(meta["sid"])
+        if any(s.sid == sid and not s.finished for s in self._sessions):
+            raise ValueError(f"sid {sid} already live on this server")
+        s = StreamSession.from_state(snapshot["arrays"], meta,
+                                     self.serve_cfg, self.cfg,
+                                     ladder=self.ladder,
+                                     layer_bits=self.layer_bits,
+                                     stream=stream, device=self.device)
+        self._sessions.append(s)
+        self._next_sid = max(self._next_sid, sid + 1)
+        return s
 
     # -- the single-stream dense baseline -----------------------------------
 
@@ -1203,6 +1718,35 @@ def build_parser() -> argparse.ArgumentParser:
                          "transfer function")
     ap.add_argument("--noise-seed", type=int, default=0,
                     help="seed of the device-noise RNG lineage")
+    ap.add_argument("--flush-fault-rate", type=float, default=0.0,
+                    help="probability a flush site raises a (retryable) "
+                         "transient device fault")
+    ap.add_argument("--flush-fatal-rate", type=float, default=0.0,
+                    help="probability a flush site raises a fatal fault "
+                         "(quarantines the owning session)")
+    ap.add_argument("--ingest-fault-rate", type=float, default=0.0,
+                    help="probability an ingest chunk raises a transient "
+                         "fault (chunk retried next round)")
+    ap.add_argument("--stall-rate", type=float, default=0.0,
+                    help="probability a flush stalls (injected straggler)")
+    ap.add_argument("--stall-s", type=float, default=0.05,
+                    help="injected stall duration (seconds)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault-injection RNG lineage")
+    ap.add_argument("--hard-fail-session", type=int, default=-1,
+                    help=">= 0: hard-fail this session id at its first "
+                         "ingest (isolation demo)")
+    ap.add_argument("--retry-limit", type=int, default=3,
+                    help="transient-fault retries per flush before the "
+                         "owning session is quarantined")
+    ap.add_argument("--max-pending", type=int, default=0,
+                    help="> 0: bound on queued micro-batch rows; ingest "
+                         "chunks arriving over the bound are shed")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="root directory for session checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="> 0: snapshot every N scheduling rounds to "
+                         "--checkpoint-dir")
     return ap
 
 
@@ -1221,6 +1765,16 @@ def config_from_args(args) -> tuple[ArchConfig, ServerConfig]:
             adc_quantize_output=args.adc_quant, seed=args.noise_seed))
     bit_plan = (bitalloc.parse_bit_plan(args.bit_plan) or ()
                 if args.bit_plan else ())
+    faults = None
+    if (args.flush_fault_rate > 0 or args.flush_fatal_rate > 0
+            or args.ingest_fault_rate > 0 or args.stall_rate > 0
+            or args.hard_fail_session >= 0):
+        faults = FaultSpec(flush_fault_rate=args.flush_fault_rate,
+                           flush_fatal_rate=args.flush_fatal_rate,
+                           ingest_fault_rate=args.ingest_fault_rate,
+                           stall_rate=args.stall_rate, stall_s=args.stall_s,
+                           hard_fail_session=args.hard_fail_session,
+                           seed=args.fault_seed)
     sc = ServerConfig(
         bucket_fractions=tuple(float(f) for f in args.buckets.split(",")),
         microbatch=args.microbatch, chunk=args.chunk,
@@ -1229,7 +1783,11 @@ def config_from_args(args) -> tuple[ArchConfig, ServerConfig]:
         max_wait_chunks=args.max_wait, mix_streams=args.mix_streams,
         warm_start=False, model_shards=args.model_shards,
         bit_plan=bit_plan, autotune=args.autotune,
-        retune_every=args.retune_every, watchdog=args.watchdog)
+        retune_every=args.retune_every, watchdog=args.watchdog,
+        faults=faults, retry_limit=args.retry_limit,
+        max_pending_rows=args.max_pending,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
     return cfg, sc
 
 
@@ -1294,7 +1852,9 @@ def _serve_cli(args):
     total = sum(r.frames for r in results.values())
     wall = max((r.wall_s for r in results.values()), default=0.0)
     for s in sessions:
-        say(f"[server] session {s.sid}:", results[s.sid].summary())
+        r = results[s.sid]
+        say(f"[server] session {s.sid}:", r.summary()
+            + (f" POISONED ({r.failure})" if r.poisoned else ""))
     say(f"[server] aggregate: {total} frames over {len(sessions)} streams "
         f"in {wall:.3f}s -> {total / wall if wall else 0.0:.1f} frames/s "
         f"(warm-up {server.warm_s:.2f}s, {len(server.flush_log)} encode "
@@ -1302,6 +1862,8 @@ def _serve_cli(args):
     if noise is not None:
         say(f"[server] noise: drift {server._host_drift_nm:.3f} nm "
             f"residual, {server.recalibrations} recalibrations")
+    if server._injector is not None:
+        say(f"[server] faults: {server._injector.report()}")
     if server._watchdog:
         say(f"[server] watchdog: {len(server.straggler_flags)} straggler "
             f"flushes flagged")
@@ -1330,7 +1892,14 @@ def _serve_cli(args):
                 "recal_bound_nm": noise.recal_bound_nm,
                 "recalibrations": server.recalibrations}),
             "recalibrations": [results[s.sid].recalibrations
-                               for s in sessions]}))
+                               for s in sessions],
+            "faults": (None if server._injector is None
+                       else dict(server._injector.injected)),
+            "poisoned": [results[s.sid].poisoned for s in sessions],
+            "failure": [results[s.sid].failure for s in sessions],
+            "retries": [results[s.sid].retries for s in sessions],
+            "shed_frames": [results[s.sid].shed_frames
+                            for s in sessions]}))
     return results
 
 

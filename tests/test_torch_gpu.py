@@ -35,6 +35,13 @@ pricing replay the eager encode bitwise; every timed flush lands in the
 telemetry and each hit bucket reports a positive measured flush time; an
 untimed server records none; the watchdog flags a flush delayed by 50 ms;
 a capture survives a dropped server's graphs held by a reference cycle.
+Faults, checkpoints and migration: a graphed server's checkpoint restored
+into a fresh graphed server, and a session exported to another, serve the
+remaining predictions bitwise (the new server's graphs replay its eager
+encode bitwise); a restored noisy server holds the snapshot's DriftState
+in its state tensor at its first replay (a planted stale restore does
+not); an exception inside a capture leaves the device out of capture mode
+on its default stream, and the server serves again.
 """
 
 import gc
@@ -51,6 +58,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from repro_torch.bridge import (from_jax_params, init_lm, init_vit,  # noqa: E402
                                 to_device)
+from repro_torch.checkpoint.checkpoint import load_meta  # noqa: E402
 from repro_torch.configs.base import smoke_variant  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
@@ -1315,3 +1323,133 @@ def test_capture_survives_a_dead_cycle_holding_a_graph(dev):
     assert torch.equal(new.graphs[new.ladder.sizes[0]].replay(t),
                        forward_vit_tokens(new.params, t, cfg,
                                           new.policy)[0])
+
+
+# -- faults, checkpoints and migration (A13) ----------------------------------
+
+def _fault_server(dev, cfg=None, **knobs):
+    cfg = cfg or smoke_cfg()
+    return StreamServer(cfg, ServerConfig(microbatch=4, chunk=8, **knobs),
+                        params=from_jax_params(init_vit(0, cfg, 10), "cpu"))
+
+
+def _fault_traffic(server, n_frames=32):
+    return [server.add_session(st, n_frames=n_frames, start=16 * i)
+            for i, st in enumerate(video_fleet(2, img_size=32, patch=8))]
+
+
+def _replays_are_eager(server):
+    for k in server.ladder.sizes:
+        t = _flush_tokens(server, k)
+        eager = server._encode_eager(k, t)
+        assert torch.equal(server.graphs[k].replay(t), eager), k
+
+
+@pytest.mark.gpu
+def test_checkpoint_and_migration_on_a_graphed_server(dev, tmp_path):
+    """On the graphed smoke server: pause at round 2 (queued rows in the
+    snapshot), checkpoint, restore into a fresh graphed server (its own
+    graphs, each replaying its eager encode bitwise): the remaining
+    predictions are the uninterrupted serve's; ``export_session`` /
+    ``adopt_session`` (queued rows included) between two graphed servers
+    likewise."""
+    base = _fault_server(dev)
+    sessions = _fault_traffic(base)
+    res = base.serve()
+    want = [res[s.sid].predictions for s in sessions]
+    srv = _fault_server(dev)
+    _fault_traffic(srv)
+    assert srv.serve(max_rounds=2) == {}
+    meta = load_meta(srv.checkpoint(root=str(tmp_path)))
+    assert any(m["pending"] for m in meta["extra"]["sessions"])
+    fresh = _fault_server(dev)
+    assert sorted(fresh.graphs) == list(fresh.ladder.sizes)
+    fresh.restore_checkpoint(str(tmp_path))
+    got = fresh.serve()
+    assert [got[0].predictions, got[1].predictions] == want
+    _replays_are_eager(fresh)
+    srv_b = _fault_server(dev)
+    snap = srv.export_session(1)
+    assert snap["meta"]["pending"]           # queued rows migrate too
+    srv_b.adopt_session(snap)
+    res_b, res_a = srv_b.serve(), srv.serve()
+    assert res_a[0].predictions == want[0] and 1 not in res_a
+    assert res_b[1].predictions == want[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plant", [False, True], ids=["restore", "planted"])
+def test_restored_noisy_server_writes_its_state_first(dev, tmp_path, plant):
+    """A noisy graphed server restored from a checkpoint holds the
+    snapshot's DriftState in its state tensor at its first replay, and
+    serves the rest bitwise; the planted fault (a restore that leaves
+    ``_written`` claiming the state is written) replays a stale state."""
+    cfg = smoke_cfg().with_(matmul_backend="photonic_sim",
+                            ffn_backend="xla", noise=NOISE_SPEC)
+    base = _fault_server(dev, cfg)
+    sessions = _fault_traffic(base, 24)
+    res = base.serve()
+    want = [res[s.sid].predictions for s in sessions]
+    srv = _fault_server(dev, cfg)
+    _fault_traffic(srv, 24)
+    assert srv.serve(max_rounds=1) == {}
+    srv.checkpoint(root=str(tmp_path))
+    fresh = _fault_server(dev, cfg)
+    fresh.restore_checkpoint(str(tmp_path))
+    assert fresh.drift == srv.drift
+    if plant:
+        fresh._written = fresh.drift.words()
+    seen = []
+    for g in fresh.graphs.values():
+        def checked(tokens, mask=None, g=g, replay=g.replay):
+            seen.append(np.array_equal(fresh._state_t.cpu().numpy(),
+                                       fresh.drift.words()))
+            return replay(tokens, mask)
+        g.replay = checked
+    got = fresh.serve()
+    assert seen and seen[0] is (not plant)
+    if not plant:
+        assert all(seen)
+        assert [got[0].predictions, got[1].predictions] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["python", "cuda"])
+def test_a_failed_capture_leaves_the_server_able_to_serve(dev, how):
+    """An exception inside a capture (a Python error, or a CUDA call a
+    capture does not allow) fails the serve as a ``ServeError`` and leaves
+    the device out of capture mode on its default stream; the same server
+    then captures and serves the next sessions as a fresh one does."""
+    from repro_torch.serving.faults import ServeError
+
+    want_srv = _fault_server(dev)
+    ws = _fault_traffic(want_srv)
+    wres = want_srv.serve()
+    want = [wres[s.sid].predictions for s in ws]
+    server = _fault_server(dev)
+    server.graphs, server.warmed = {}, set()
+    eager = server._encode_eager
+
+    def broken(k, tokens):
+        if torch.cuda.is_current_stream_capturing():
+            if how == "python":
+                raise RuntimeError("planted failure inside the capture")
+            torch.cuda.synchronize()
+        return eager(k, tokens)
+
+    server._encode_eager = broken
+    _fault_traffic(server)
+    with pytest.raises(ServeError, match="capturing"):
+        server.serve()
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    assert server._sessions == [] and server._inflight is None
+    del server._encode_eager
+    sessions = _fault_traffic(server)
+    res = server.serve()
+    assert [res[s.sid].predictions for s in sessions] == want
+    assert server.graphs and set(server.graphs) == server.warmed
+    for k in server.graphs:
+        t = _flush_tokens(server, k)
+        assert torch.equal(server.graphs[k].replay(t),
+                           server._encode_eager(k, t)), k
