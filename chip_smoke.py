@@ -166,6 +166,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         clean serve's flush sites, exercise the check. Readings: a
         ``checkpoint()``'s wall ms, a restore's read and re-capture s,
         the phase's seconds;
+     h. ``[fleet]``, after 4g: ``serving.fleet.FleetRouter`` and the 1-D
+        data mesh on opto-vit-base-224 + MGNet (seed 0). (A) 4 in-process
+        workers on one shared cache, each with its own CUDA graphs over
+        it, serve the reference fleet CLI's 8 streams (frames 32 x (1, 3,
+        2, ...), stream i from frame 8 i, force_bucket 0.5) under cost
+        placement, then rr: every job predicted and bitwise (predictions
+        and each flush's logits) its solo serve on a graphed server over
+        the same cache, B1-B3 launched on every worker on the entries 4a
+        requires, one aggregated dead-bucket warning. (B) rr placement,
+        ``rebalance``, one ``migrate`` and ``drain(1)`` through checkpoint
+        / restore: every job bitwise its solo serve, the replacement's
+        replays bitwise its eager encode. (C) two ``spawn=True`` workers
+        on the card: each reports its launches (B1-B3 on 4a's entries) and
+        its graphs, and compiled no kernel (the parent built the library);
+        worker 0's jobs (seed 0) bitwise their solo serves. (D) 2 gloo
+        ranks on the card on the data mesh (``mesh="auto"``, no model
+        shards), 4a's traffic: every flush's logits bitwise the unsharded
+        eager card serve, B1 inside the split only at half a flush's rows,
+        every B3 launch through its host-split binding, and the newest
+        flush re-encoded with the absmax scopes left local to the rank
+        (a planted fault) not bitwise. Readings: worker walls, aggregate
+        frames/s of 4 workers (cost, rr) against one server with all 8
+        streams (the reference's gates, 1.5x and 1.15x, are structural and
+        not applied), the data mesh's frames/s and collective ms a flush;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -954,6 +978,7 @@ def serve_large(cfg, sc, params, device) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.distributed import collectives
     from repro_torch.models import sharded_encoder
+    from repro_torch.models.vit import data_split_calls
     from repro_torch.serving.server import StreamServer
 
     server = StreamServer(cfg, sc, params=params, n_classes=10,
@@ -968,12 +993,16 @@ def serve_large(cfg, sc, params, device) -> dict:
     _build.LAUNCHES.clear()
     collectives.STATS.clear()
     calls = sharded_encoder.sharded_encode_calls()
+    data_calls = data_split_calls()
     results = server.serve()
+    data_after = data_split_calls()
     return {"server": server, "sessions": sessions, "results": results,
             "flushes": flushes,
             "launches": dict(_build.LAUNCHES),
             "stats": dict(collectives.STATS),
             "calls": sharded_encoder.sharded_encode_calls() - calls,
+            "data_calls": {k: data_after[k] - data_calls[k]
+                           for k in data_calls},
             "wall": max(r.wall_s for r in results.values())}
 
 
@@ -2950,6 +2979,361 @@ def run_faults(torch, dev, card: str, cfg, sc, params, streams, fused,
     return out
 
 
+# path 4h: the fleet router over the reference CLI's traffic (8 streams,
+# frames 32 x (1, 3, 2, ...), stream i from frame 8 i, a scene cut every 32
+# frames) on 4 in-process workers, and the 1-D data mesh over 2 ranks
+FLEET_WORKERS, FLEET_STREAMS = 4, 8
+
+
+def fleet_spec(streams) -> list:
+    """(stream, frames, start) of each job of the reference CLI's mix."""
+    return [(st, 32 * (1 + (2 * i) % 3), 8 * i)
+            for i, st in enumerate(streams)]
+
+
+def per_worker_launches(router) -> dict:
+    """Wrap each worker's ``serve`` to record the kernel launches it made
+    (worker index -> counts); ``del w.serve`` stops it."""
+    import collections
+
+    from repro_torch.kernels import _build
+
+    per = {}
+    for i, w in enumerate(router.workers):
+        def serve(*a, i=i, orig=w.serve, **k):
+            before = collections.Counter(_build.LAUNCHES)
+            out = orig(*a, **k)
+            per[i] = dict(collections.Counter(_build.LAUNCHES) - before)
+            return out
+        w.serve = serve
+    return per
+
+
+def job_flushes(logged: dict, sid: int) -> dict:
+    """``log_flushes`` entries of session ``sid``, keyed by frame indices
+    (micro-batches are session-pure, so each flush has one owner)."""
+    return {tuple(f for _, f in key): v for key, v in logged.items()
+            if key[0][0] == sid}
+
+
+def fleet_round(torch, router, spec, solo: dict, tag: str,
+                change=None) -> dict:
+    """Place ``spec`` on ``router`` (``change(router, jobs)`` runs after
+    placement), serve, and hold every job to its solo serve: every frame
+    predicted, predictions and each flush's logits bitwise. Returns the
+    jobs, walls, per-worker launches, aggregate frames/s and warnings."""
+    import warnings
+
+    from repro_torch.kernels import _build
+
+    router.jobs.clear()
+    jobs = [router.add_job(st, n_frames=nf, start=s0)
+            for st, nf, s0 in spec]
+    if change is not None:
+        change(router, jobs)
+    per = per_worker_launches(router)
+    logs = [log_flushes(w) for w in router.workers]
+    _build.LAUNCHES.clear()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        res = router.serve()
+    launches = dict(_build.LAUNCHES)
+    for w in router.workers:
+        del w.serve, w._finish
+    for i, j in enumerate(jobs):
+        preds, flushes = solo[i]
+        got = res[j.job_id].predictions
+        if set(got) != set(range(j.start, j.start + j.n_frames)):
+            fail(f"[fleet] {tag} job {j.job_id}: {len(got)} predictions "
+                 f"for {j.n_frames} frames")
+        mine = job_flushes(logs[j.worker], j.sid)
+        if got != preds or mine.keys() != flushes.keys() or not all(
+                torch.equal(mine[k], v) for k, v in flushes.items()):
+            fail(f"[fleet] {tag} job {j.job_id} (worker {j.worker}) is not "
+                 f"bitwise its solo serve")
+    for i, n in per.items():
+        fault = vit_entry_fault(n)
+        if fault or not all(n.get(k, 0) for k in VIT_KERNELS):
+            fail(f"[fleet] {tag} worker {i}: {fault or n}")
+    dead = [str(w.message) for w in rec
+            if "fleet dead buckets" in str(w.message)]
+    if len(dead) != 1:
+        fail(f"[fleet] {tag}: {len(dead)} aggregated dead-bucket warnings")
+    frames = sum(j.n_frames for j in jobs)
+    return {"jobs": jobs, "walls": list(router.last_walls),
+            "fps": frames / max(router.last_walls), "per": per,
+            "launches": launches, "warning": dead[0]}
+
+
+def data_mesh_rank(params: dict, cfg, sc, device: str) -> dict:
+    """One rank of path 4h (D): 4a's traffic on the 1-D data mesh (mesh
+    "auto", no model shards). Checks its own launches (B1 inside the split
+    at half a flush's rows, every B3 launch through the host-split
+    binding), re-encodes the newest flush with and without a planted
+    local absmax, and returns what the parent compares (rank 0's flush
+    logits)."""
+    import torch
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models.vit import forward_vit_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, launch = [], ops.photonic_matmul_int8
+
+    def recorded(xq, *a, **k):
+        if sharding.absmax_group() is not None:
+            rows.append(int(xq.shape[0]))
+        return launch(xq, *a, **k)
+    ops.photonic_matmul_int8 = recorded
+    run = serve_large(cfg, sc, params, device)
+    server = run["server"]
+    mesh = server.mesh
+    if mesh.axis_names != ("data",) or server.graphs:
+        raise RuntimeError(f"mesh {mesh.axis_names}, graphs "
+                           f"{sorted(server.graphs)}")
+    n_flush = len(server.flush_log)
+    launches = run["launches"]
+    if device == "cuda":
+        fault = vit_entry_fault(launches)
+        b3 = launches.get("fused_ffn", 0)
+        if fault or b3 != cfg.n_layers * n_flush or launches.get(
+                "fused_ffn.kmajor.split", 0) != b3:
+            raise RuntimeError(f"data mesh launches {launches}: {fault}")
+
+    fb = server.last_flush
+
+    def encode_newest():
+        with sharding.use_sharding(mesh):
+            return forward_vit_tokens(server.params, fb.tokens, cfg,
+                                      server.policy,
+                                      device=server.device)[0].float().cpu()
+
+    again = encode_newest()
+    saved = sharding.absmax_group
+    sharding.absmax_group = lambda: None
+    try:
+        planted = encode_newest()
+    finally:
+        sharding.absmax_group = saved
+    ops.photonic_matmul_int8 = launch
+    out = {"launches": launches, "n_flush": n_flush, "wall": run["wall"],
+           "stats": run["stats"], "rows": sorted(set(rows)),
+           "split": run["data_calls"]["split"],
+           "whole": run["data_calls"]["whole"],
+           "backend": mesh.backend, "shape": mesh.shape}
+    if mesh.d == 0:
+        out.update(flushes=run["flushes"], again=again, planted=planted,
+                   newest=tuple(fb.frame_idx),
+                   flush_log=[(k, n) for _, k, n in server.flush_log],
+                   predictions=[run["results"][s.sid].predictions
+                                for s in run["sessions"]])
+    return out
+
+
+def run_fleet(torch, dev, card: str, cfg, sc, params, fused) -> dict:
+    """Path 4h on ``cfg`` (opto-vit-base-224): (A) 4 in-process workers
+    sharing one cache, each with its own CUDA graphs over it, serve the
+    reference CLI's 8 streams under cost placement, then rr; every job
+    bitwise its solo serve (a graphed server over the same cache), B1-B3
+    launched on every worker; readings: walls, aggregate frames/s, one
+    worker (the solo server with all 8 streams) against 4. (B) rr
+    placement, ``rebalance``, one ``migrate`` and ``drain(1)`` through
+    checkpoint / restore: every job bitwise its solo serve, the
+    replacement's replays bitwise its eager encode. (C) two spawned
+    workers on the card: each reports its launches and graphs and built
+    no kernel; worker 0's jobs (seed 0, 4a's weights) bitwise their solo
+    serves. (D) the 1-D data mesh: 2 gloo ranks on the card serve 4a's
+    traffic (``fused``: 4a's eager server config) with every flush's
+    logits bitwise the unsharded eager card serve, B1 inside the split at
+    half a flush's rows, every B3 launch through its host-split binding,
+    and a planted local absmax that must break the equality; readings:
+    frames/s, collective ms a flush."""
+    import tempfile
+
+    from repro_torch.data.pipeline import video_fleet
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.fleet import FleetRouter
+    from repro_torch.serving.server import ServerConfig, StreamServer
+    from repro_torch.serving.session import ServingConfig
+
+    out = {}
+    fsc = ServerConfig.from_serving(
+        ServingConfig(microbatch=4, chunk=8, force_bucket=0.5),
+        warm_start=True)
+    streams = video_fleet(FLEET_STREAMS, img_size=cfg.img_size,
+                          patch=cfg.patch, cut_every=32)
+    spec = fleet_spec(streams)
+    t0 = time.perf_counter()
+    router = FleetRouter(cfg, fsc, workers=FLEET_WORKERS, seed=0)
+    build_s = time.perf_counter() - t0
+    w0 = router.workers[0]
+    for i, w in enumerate(router.workers):
+        if sorted(w.graphs) != list(w.ladder.sizes) or any(
+                g.params is not w.params for g in w.graphs.values()):
+            fail(f"[fleet] worker {i}: graphs {sorted(w.graphs)}")
+        if (w.params["blocks"]["ffn"]["w1"].wq.data_ptr()
+                != w0.params["blocks"]["ffn"]["w1"].wq.data_ptr()):
+            fail(f"[fleet] worker {i} does not share worker 0's cache")
+    price = router.price_per_frame()
+    say(f"[fleet] {FLEET_WORKERS} in-process workers of {cfg.name}-"
+        f"{cfg.img_size} (force_bucket 0.5, micro-batch 4, chunk 8) on one "
+        f"shared cache, {len(w0.graphs)} CUDA graphs each, built in "
+        f"{build_s:.2f}s; price {price * 1e6:.3f} us a frame "
+        f"(EncodeCostModel at bucket "
+        f"{w0.ladder.route(int(round(0.5 * w0.n_patches)))}, {card})")
+
+    # the solo serves: each job's stream alone on a graphed server over the
+    # same cache; then all 8 at once (one worker)
+    solo_srv = StreamServer(cfg, fsc, params=w0.params)
+    solo = []
+    for st, nf, s0 in spec:
+        logged = log_flushes(solo_srv)
+        s = solo_srv.add_session(st, n_frames=nf, start=s0)
+        res = solo_srv.serve()
+        del solo_srv._finish
+        solo.append((res[s.sid].predictions, job_flushes(logged, s.sid)))
+    one = [solo_srv.add_session(st, n_frames=nf, start=s0)
+           for st, nf, s0 in spec]
+    t0 = time.time()
+    res = solo_srv.serve()
+    one_wall = time.time() - t0
+    if [res[s.sid].predictions for s in one] != [p for p, _ in solo]:
+        fail("[fleet] one worker serving all 8 streams is not bitwise the "
+             "solo serves")
+    frames = sum(nf for _, nf, _ in spec)
+    one_fps = frames / one_wall
+
+    # (A) cost placement, then rr
+    for placement in ("cost", "rr"):
+        router.placement = placement
+        r = fleet_round(torch, router, spec, solo, placement)
+        out[placement] = r
+        say(f"[fleet] (A) {placement}: workers "
+            f"{[j.worker for j in r['jobs']]}, predicted queue "
+            f"{[round(sum(j.cost_s for j in r['jobs'] if j.worker == i), 6) for i in range(FLEET_WORKERS)]} s; "
+            f"every job bitwise its solo serve; walls "
+            f"{[round(w, 4) for w in r['walls']]} s -> {r['fps']:.2f} "
+            f"frames/s aggregate ({frames} frames); launches a worker "
+            f"{ {i: {k: n.get(k, 0) for k in VIT_KERNELS} for i, n in sorted(r['per'].items())} } "
+            f"({card})")
+    say(f"[fleet] (A) the aggregated warning: {out['cost']['warning']}")
+    say(f"[fleet] (A) 1 worker (8 streams on one server): {one_wall:.4f}s "
+        f"= {one_fps:.2f} frames/s; 4 workers: cost "
+        f"{out['cost']['fps']:.2f} ({out['cost']['fps'] / one_fps:.3f}x, "
+        f"the reference's structural gate 1.5x), rr {out['rr']['fps']:.2f}"
+        f" (cost / rr {out['cost']['fps'] / out['rr']['fps']:.3f}x, the "
+        f"reference's gate 1.15x); readings, not gated ({card})")
+
+    # (B) rr placement, rebalance, one migrate, drain(1)
+    moved, repl = [], []
+
+    def change(router, jobs):
+        moved.extend(router.rebalance())
+        j = next(j for j in jobs if j.worker != 0)
+        router.migrate(j.job_id, 0)
+        moved.append(("migrate", j.job_id, 0))
+        with tempfile.TemporaryDirectory(prefix="fleet_drain_") as root:
+            t = time.perf_counter()
+            repl.append(router.drain(1, root=root))
+            moved.append(("drain_s", round(time.perf_counter() - t, 3)))
+    router.placement = "rr"
+    r = fleet_round(torch, router, spec, solo, "(B)", change)
+    new = repl[0]
+    replays_are_eager(torch, new, flush_tokens(torch, new, streams),
+                      "drain replacement", phase="fleet")
+    say(f"[fleet] (B) rr, then rebalance / migrate / drain(1): {moved}; "
+        f"workers {[j.worker for j in r['jobs']]}; every job bitwise its "
+        f"solo serve; walls {[round(w, 4) for w in r['walls']]} s")
+    out["B"] = r
+    for w in router.workers:
+        w.graphs = {}
+    del router, new, repl
+    solo_srv.graphs = {}
+    torch.cuda.empty_cache()
+
+    # (C) two spawned workers on the card
+    spawned = FleetRouter(cfg, fsc, workers=2, spawn=True, seed=0)
+    sjobs = [spawned.add_job(st, n_frames=nf, start=s0)
+             for st, nf, s0 in spec[:4]]
+    t0 = time.perf_counter()
+    sres = spawned.serve()
+    spawn_s = time.perf_counter() - t0
+    for j in sjobs:
+        got = sres[j.job_id].predictions
+        if set(got) != set(range(j.start, j.start + j.n_frames)):
+            fail(f"[fleet] (C) job {j.job_id}: {len(got)} predictions")
+        if j.worker == 0 and got != solo[j.job_id][0]:
+            fail(f"[fleet] (C) job {j.job_id} on spawned worker 0 (seed 0) "
+                 f"is not bitwise its solo serve")
+    for i, info in sorted(spawned.last_worker_info.items()):
+        fault = vit_entry_fault(info["launches"])
+        if (info["built"] or fault or info["graphs"] != list(w0.ladder.sizes)
+                or not all(info["launches"].get(k, 0) for k in VIT_KERNELS)):
+            fail(f"[fleet] (C) spawned worker {i}: {info} {fault}")
+        say(f"[fleet] (C) spawned worker {i} on {info['device']}: graphs "
+            f"{info['graphs']}, kernels built {len(info['built'])}, "
+            f"launches { {k: info['launches'].get(k, 0) for k in VIT_KERNELS} }, "
+            f"wall {spawned.last_walls[i]:.3f}s")
+    say(f"[fleet] (C) 2 spawned workers, 4 jobs: spawn + serve "
+        f"{spawn_s:.1f}s; worker 0's jobs bitwise their solo serves "
+        f"({card})")
+    out["spawn_s"] = spawn_s
+
+    # (D) the 1-D data mesh: 2 gloo ranks on the one card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(data_mesh_rank, 2, params, cfg, sc, dev.type,
+                        device=dev.type, timeout_s=600)
+    mesh_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    plain = serve_large(cfg, fused, params, dev)
+    keys = plain["flushes"].keys()
+    if r0["flushes"].keys() != keys or r0["flush_log"] != [
+            (k, n) for _, k, n in plain["server"].flush_log]:
+        fail("[fleet] (D) the data mesh and the unsharded serve flushed "
+             "different batches")
+    same = [torch.equal(r0["flushes"][k], plain["flushes"][k]) for k in keys]
+    if not all(same):
+        fail(f"[fleet] (D) {same.count(False)} of {len(same)} data-mesh "
+             f"flushes differ from the unsharded eager card serve")
+    preds = [plain["results"][s.sid].predictions for s in plain["sessions"]]
+    if r0["predictions"] != preds:
+        fail("[fleet] (D) data-mesh predictions differ from the unsharded")
+    want = plain["flushes"][r0["newest"]]
+    if not torch.equal(r0["again"], want):
+        fail("[fleet] (D) the newest flush re-encoded is not bitwise")
+    planted_err = (r0["planted"] - want).abs().max().item()
+    if torch.equal(r0["planted"], want):
+        fail("[fleet] (D) the planted local absmax passes the bitwise "
+             "check, which therefore cannot catch it")
+    halves = {2 * (k + 1) for k in plain["server"].ladder.sizes} | {2}
+    fulls = {4 * (k + 1) for k in plain["server"].ladder.sizes} | {4}
+    for i, r in enumerate(ranks):
+        if not set(r["rows"]) <= halves or set(r["rows"]) & fulls or \
+                r["split"] != r["n_flush"] or r["whole"]:
+            fail(f"[fleet] (D) rank {i}: B1 rows in the split {r['rows']}, "
+                 f"split / whole encodes {r['split']} / {r['whole']}")
+        st = r["stats"]
+        coll_s = sum(v for k, v in st.items() if k.endswith("_s"))
+        ops = {k: v for k, v in st.items() if not k.endswith("_s")}
+        say(f"[fleet] (D) rank {i} (mesh {r['shape']}, backend "
+            f"{r['backend']}): {r['n_flush']} flushes split, B1 rows inside "
+            f"the split {r['rows']}, launches "
+            f"{ {k: r['launches'].get(k, 0) for k in VIT_KERNELS} }, "
+            f"{r['launches'].get('fused_ffn.kmajor.split', 0)} of B3's "
+            f"through its host-split binding; 64 frames in {r['wall']:.4f}s "
+            f"= {64 / r['wall']:.2f} frames/s; collectives "
+            f"{coll_s * 1e3 / r['n_flush']:.3f} ms host time a flush "
+            f"({ops}) ({card})")
+    say(f"[fleet] (D) every data-mesh flush bitwise the unsharded eager card "
+        f"serve ({len(same)} flushes, {64 / plain['wall']:.2f} frames/s "
+        f"unsharded eager); planted local absmax: newest flush max |diff| "
+        f"{planted_err:.3e} (caught); spawn + serve {mesh_s:.1f}s ({card})")
+    out["mesh"] = {"ranks": ranks, "plain_fps": 64 / plain["wall"]}
+    del plain
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3383,6 +3767,20 @@ def main() -> int:
         f"{faults['restore_capture_s']:.3f}s; launches on the main paths "
         f"with 4g's (A): { {e['name']: e['launches'] for e in kernels} } "
         f"({card})")
+
+    # -- 4h. [fleet]: the fleet router and the 1-D data mesh on
+    # opto-vit-base-224 (after 4g, before the profiled phases); (A)'s cost
+    # serve's launches join the counts
+    t0 = time.perf_counter()
+    fleet = run_fleet(torch, dev, card, cfg, sc, params,
+                      ServerConfig.from_serving(sc, warm_start=False))
+    for entry in kernels:
+        entry["launches"] += fleet["cost"]["launches"].get(entry["name"], 0)
+    say(f"[fleet] path 4h in {time.perf_counter() - t0:.2f}s; launches on "
+        f"the main paths with 4h's (A): "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del fleet
+    torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of

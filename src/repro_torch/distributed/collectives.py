@@ -19,6 +19,13 @@ src/repro/distributed/collectives.py), on ``torch.distributed``.
     All-gather over a group, concatenated in group-rank order (exact data
     movement).
 
+``scoped_absmax_scale`` / ``scoped_amax``
+    What the kernels' wrappers call for a per-launch absmax: the scope the
+    installed sharding context names (``sharding.absmax_scope``, set where
+    a launch's rows are split over ranks: the 1-D data mesh's encode),
+    else this rank's own tensor, with no collective and the ops of
+    ``core.quant.absmax_scale``.
+
 Backends. NCCL (a card per rank) takes the CUDA tensors as they are.
 Under gloo (ranks sharing a card, or on the CPU) an op on a CUDA tensor
 is staged by hand: the operand is copied to host memory, the op runs on
@@ -45,9 +52,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import quant
+from repro_torch.distributed import sharding
 
 __all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
-           "all_gather_cat", "all_reduce"]
+           "all_gather_cat", "all_reduce", "scoped_absmax_scale",
+           "scoped_amax"]
 
 # op name -> calls, and op name + "_s" -> host seconds, since the last
 # STATS.clear()
@@ -106,6 +115,27 @@ def replicated_absmax_scale(x: torch.Tensor, bits: int, group,
     amax = x.abs().amax()
     amax = all_reduce(amax, dist.ReduceOp.MAX, group, "absmax_max")
     return torch.clamp_min(amax, eps).float() * quant.inv_qmax(bits)
+
+
+def scoped_absmax_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """The per-launch activation absmax scale of ``x`` at ``bits``: over
+    the rows of every rank of the current absmax scope's group
+    (``replicated_absmax_scale``), or ``quant.absmax_scale(x, bits)``
+    outside a scope."""
+    group = sharding.absmax_group()
+    if group is None:
+        return quant.absmax_scale(x, bits=bits)
+    return replicated_absmax_scale(x, bits, group)
+
+
+def scoped_amax(amax: torch.Tensor) -> torch.Tensor:
+    """A device scalar of |values| maxima (B3's hidden absmax) MAX-reduced
+    over the current absmax scope's group, in place; untouched outside a
+    scope. Returns ``amax``."""
+    group = sharding.absmax_group()
+    if group is not None:
+        amax.copy_(all_reduce(amax, dist.ReduceOp.MAX, group, "absmax_max"))
+    return amax
 
 
 def exact_int_psum(x: torch.Tensor, group) -> torch.Tensor:

@@ -7,7 +7,10 @@ first use into ``kernels/_build/<hash of the sources and flags>/`` (listed
 in ``.gitignore``), so a fresh checkout builds everything it runs from the
 sources in the repository and a stale library is never reused. Nothing is
 built when this module is imported: CPU hosts, which have no ``nvcc``,
-import every module of the package.
+import every module of the package. Processes that build at once (ranks
+or spawned workers sharing a checkout) take turns on a file lock in the
+build directory, so one compiles and the others load what it built;
+``BUILT`` lists the builds this process compiled itself.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception. ``LAUNCHES`` counts
@@ -24,6 +27,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -32,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "check",
+__all__ = ["LAUNCHES", "BUILT", "NVCC_FLAGS", "build", "library", "check",
            "captured_launches", "add_replay",
            "ptxas_report", "aligned16", "stream_ptr", "strides_arg",
            "words_arg", "DTYPE_SUFFIX"]
@@ -45,6 +49,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches on the card since the last reset (clear() resets);
 # a kernel with several entries also counts each under "<kernel>.<entry>"
 LAUNCHES: collections.Counter = collections.Counter()
+
+# build directories this process compiled (empty where it loaded a library
+# another process built)
+BUILT: list[Path] = []
 
 
 @contextlib.contextmanager
@@ -90,6 +98,8 @@ _SIGNATURES = {
     "fused_ffn_phase0": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
     "fused_ffn_phase1": (_VOID,) * 5 + (_INT,) * 4 + (_FLOAT, _VOID),
     "fused_ffn_kmajor": (_VOID,) * 11 + (_INT,) * 5 + (_FLOAT, _VOID),
+    "fused_ffn_kmajor_hidden": (_VOID,) * 7 + (_INT,) * 3 + (_VOID,),
+    "fused_ffn_kmajor_out": (_VOID,) * 6 + (_INT,) * 4 + (_FLOAT, _VOID),
     "flash_attention_causal_f32": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8
     + (_FLOAT, _VOID),
     "flash_attention_causal_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 8
@@ -149,13 +159,23 @@ def build(verbose: bool = False) -> Path:
     spills) is kept per source in ``ptxas_report()``."""
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / "libreprokernels.so"
-    if lib_path.is_file():
-        for p in _sources():
-            log = out_dir / (p.stem + ".ptxas.txt")
-            if log.is_file():
-                _ptxas[p.name] = log.read_text()
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if not lib_path.is_file():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # one process compiles at a time; a waiter finds the library built
+        with open(out_dir / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.is_file():
+                _compile(out_dir, lib_path, verbose)
+                BUILT.append(out_dir)
+                return lib_path
+    for p in _sources():
+        log = out_dir / (p.stem + ".ptxas.txt")
+        if log.is_file():
+            _ptxas[p.name] = log.read_text()
+    return lib_path
+
+
+def _compile(out_dir: Path, lib_path: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     tag = str(os.getpid())
     procs = []
@@ -185,10 +205,9 @@ def build(verbose: bool = False) -> Path:
                           stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc failed to link:\n{link.stdout}")
-    os.replace(tmp, lib_path)          # atomic: concurrent builds race safely
+    os.replace(tmp, lib_path)          # atomic: a reader sees it whole
     for o in objs:
         Path(o).unlink(missing_ok=True)
-    return lib_path
 
 
 def library() -> ctypes.CDLL:

@@ -41,6 +41,15 @@
 // divides 2.4 M times. Phase 1 has 156 blocks walking K = 3072 in 48 steps:
 // the K walk's latency bounds it, as it bounds B1.
 //
+// Host-split binding of the K-major entry (fused_ffn_kmajor_hidden, then
+// fused_ffn_kmajor_out): the same three kernels in two host calls, phase 0
+// in the first, requant and phase 1 in the second. Between them the
+// wrapper MAX-reduces the hidden absmax scalar over the ranks that hold
+// the launch's other rows (the 1-D data mesh), so every rank requantizes
+// at the whole launch's scale. Nothing else differs from the single call:
+// the same launches, grids and arithmetic, so a rank's rows come out
+// bitwise those rows of the unsplit launch.
+//
 // N-major entry (fused_ffn_phase0_kernel, fused_ffn_phase1_kernel), other
 // widths: the first design on the main loop of int8_gemm.cuh, kept
 // unchanged. It reads the row-major (K, N) codes with synchronous loads,
@@ -252,6 +261,46 @@ extern "C" int fused_ffn_phase1(const void* hidden, const void* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+int launch_kmajor_phase0(const void* xq, const void* w1t, const void* sx,
+                         const void* sw1, const void* b1, void* hidden,
+                         float* sc, int M, int K, int F, cudaStream_t st) {
+  namespace km = repro::km;
+  fused_ffn_kmajor_phase0_kernel<<<dim3((F + km::BN - 1) / km::BN,
+                                        (M + km::BM - 1) / km::BM),
+                                   km::kThreads, 0, st>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1t),
+      static_cast<const float*>(sx), static_cast<const float*>(sw1),
+      static_cast<const float*>(b1), static_cast<float*>(hidden), sc, M, K,
+      F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_kmajor_requant_phase1(const void* hidden, void* hq, float* sc,
+                                 const void* w2t, const void* sw2, void* out,
+                                 int M, int F, int N, int qmax,
+                                 float inv_qmax, cudaStream_t st) {
+  namespace km = repro::km;
+  const long long n16 = (long long)M * F / 16;
+  fused_ffn_requant_kernel<<<(unsigned)((n16 + kRequantThreads - 1) /
+                                        kRequantThreads),
+                             kRequantThreads, 0, st>>>(
+      static_cast<const float*>(hidden), sc, static_cast<int8_t*>(hq), n16,
+      qmax, inv_qmax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_ffn_kmajor_phase1_kernel<<<dim3((N + km::BN - 1) / km::BN,
+                                        (M + km::BM - 1) / km::BM),
+                                   km::kThreads, 0, st>>>(
+      static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2t),
+      sc + 1, static_cast<const float*>(sw2), static_cast<float*>(out), M, F,
+      N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // K-major entry: xq (M, K), w1t (F, K), w2t (N, F) row-major int8, K and F
 // multiples of 16, every operand 16-byte aligned (the wrapper checks);
 // hidden (M, F) f32 and hq (M, F) int8 scratch; scal 2 f32, zeroed.
@@ -262,31 +311,35 @@ extern "C" int fused_ffn_kmajor(const void* xq, const void* w1t,
                                 void* scal, void* out, int M, int K, int F,
                                 int N, int qmax, float inv_qmax,
                                 void* stream) {
-  namespace km = repro::km;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scal);
-  fused_ffn_kmajor_phase0_kernel<<<dim3((F + km::BN - 1) / km::BN,
-                                        (M + km::BM - 1) / km::BM),
-                                   km::kThreads, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1t),
-      static_cast<const float*>(sx), static_cast<const float*>(sw1),
-      static_cast<const float*>(b1), static_cast<float*>(hidden), sc, M, K,
-      F);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n16 = (long long)M * F / 16;
-  fused_ffn_requant_kernel<<<(unsigned)((n16 + kRequantThreads - 1) /
-                                        kRequantThreads),
-                             kRequantThreads, 0, st>>>(
-      static_cast<const float*>(hidden), sc, static_cast<int8_t*>(hq), n16,
-      qmax, inv_qmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_ffn_kmajor_phase1_kernel<<<dim3((N + km::BN - 1) / km::BN,
-                                        (M + km::BM - 1) / km::BM),
-                                   km::kThreads, 0, st>>>(
-      static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2t),
-      sc + 1, static_cast<const float*>(sw2), static_cast<float*>(out), M, F,
-      N);
-  return static_cast<int>(cudaGetLastError());
+  const int err = launch_kmajor_phase0(xq, w1t, sx, sw1, b1, hidden, sc, M, K,
+                                       F, st);
+  if (err != 0) return err;
+  return launch_kmajor_requant_phase1(hidden, hq, sc, w2t, sw2, out, M, F, N,
+                                      qmax, inv_qmax, st);
+}
+
+// The host-split binding, first call: phase 0 only; scal[0] <- max |h| over
+// this call's rows (scal 2 f32, zeroed). The caller may then raise scal[0]
+// to the max over other ranks' rows before the second call.
+extern "C" int fused_ffn_kmajor_hidden(const void* xq, const void* w1t,
+                                       const void* sx, const void* sw1,
+                                       const void* b1, void* hidden,
+                                       void* scal, int M, int K, int F,
+                                       void* stream) {
+  return launch_kmajor_phase0(xq, w1t, sx, sw1, b1, hidden,
+                              static_cast<float*>(scal), M, K, F,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The host-split binding, second call: scale2 from scal[0] into scal[1],
+// the requant, phase 1.
+extern "C" int fused_ffn_kmajor_out(const void* hidden, void* hq, void* scal,
+                                    const void* w2t, const void* sw2,
+                                    void* out, int M, int F, int N, int qmax,
+                                    float inv_qmax, void* stream) {
+  return launch_kmajor_requant_phase1(hidden, hq, static_cast<float*>(scal),
+                                      w2t, sw2, out, M, F, N, qmax, inv_qmax,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -24,6 +24,20 @@ Two constructions of the same function, as in the reference
     (``models/sharded_encoder.py::fused_ffn_sharded``) runs the same
     dataflow with the collectives in its linears.
 
+Absmax scopes. Both of B3's per-launch scales (x's, taken in torch before
+phase 0, and the hidden state's, taken inside the kernels) follow the
+scope the installed sharding context names
+(``collectives.scoped_absmax_scale`` / ``scoped_amax``). Inside a split
+region (the 1-D data mesh's encode, each rank holding some of the
+launch's rows) the K-major entry runs through its host-split binding:
+``fused_ffn_kmajor_hidden`` (phase 0, which leaves the hidden absmax in a
+device scalar), the scalar MAX-reduced over the scope's group, then
+``fused_ffn_kmajor_out`` (requant and phase 1) at the reduced scale. The
+arithmetic is the single call's and max is exact, so each rank's rows
+are bitwise those rows of the unsplit launch. Such a launch also counts
+under ``fused_ffn.kmajor.split``. Outside a scope the single host call
+runs, as before.
+
 Every wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors. As in the reference, x is quantized at w1's
 width outside the kernels, b2 is added outside, and ``live_rows``
@@ -36,6 +50,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed import sharding
+from repro_torch.distributed.collectives import (scoped_absmax_scale,
+                                                 scoped_amax)
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (dequant_epilogue_ref, fused_ffn_ref,
                                      gelu_tanh, int_accumulate_ref,
@@ -133,7 +150,8 @@ def _fused_ffn(entry, x, w1q, sw1, b1, w2q, sw2, b2, bits, live_rows, w1t,
         raise ValueError("x and the FFN weights must share one device")
     if dev.type == "cpu":
         return fused_ffn_ref(x, w1q, sw1, b1, w2q, sw2, b2,
-                             bits=(bits1, bits2), live_rows=live_rows)
+                             bits=(bits1, bits2), live_rows=live_rows,
+                             scale_fn=scoped_absmax_scale)
     if dev.type != "cuda":
         raise ValueError(f"fused_ffn runs on cuda or cpu, not {dev}")
     if x.dtype != torch.float32:
@@ -156,7 +174,7 @@ def _fused_ffn(entry, x, w1q, sw1, b1, w2q, sw2, b2, bits, live_rows, w1t,
     lead = xl.shape[:-1]
     x2 = xl.reshape(-1, k1)
     m = x2.shape[0]
-    sx = quant.absmax_scale(x2, bits=bits1)
+    sx = scoped_absmax_scale(x2, bits1)
     xq = quant.quantize(x2, sx, bits=bits1).contiguous()
     sw1, sw2 = sw1.float().contiguous(), sw2.float().contiguous()
     b1f = b1.float().contiguous()
@@ -168,11 +186,24 @@ def _fused_ffn(entry, x, w1q, sw1, b1, w2q, sw2, b2, bits, live_rows, w1t,
     if entry == "kmajor":
         hq = torch.empty((m, dff), dtype=torch.int8, device=dev)
         scal = torch.zeros((2,), dtype=torch.float32, device=dev)
-        _build.check(lib.fused_ffn_kmajor(
-            xq.data_ptr(), w1t.data_ptr(), sx.data_ptr(), sw1.data_ptr(),
-            b1f.data_ptr(), w2t.data_ptr(), sw2.data_ptr(), hidden.data_ptr(),
-            hq.data_ptr(), scal.data_ptr(), out.data_ptr(), m, k1, dff, dout,
-            qmax, inv, stream), "fused_ffn_kmajor")
+        if sharding.absmax_group() is None:
+            _build.check(lib.fused_ffn_kmajor(
+                xq.data_ptr(), w1t.data_ptr(), sx.data_ptr(), sw1.data_ptr(),
+                b1f.data_ptr(), w2t.data_ptr(), sw2.data_ptr(),
+                hidden.data_ptr(), hq.data_ptr(), scal.data_ptr(),
+                out.data_ptr(), m, k1, dff, dout, qmax, inv, stream),
+                "fused_ffn_kmajor")
+        else:
+            _build.check(lib.fused_ffn_kmajor_hidden(
+                xq.data_ptr(), w1t.data_ptr(), sx.data_ptr(), sw1.data_ptr(),
+                b1f.data_ptr(), hidden.data_ptr(), scal.data_ptr(), m, k1,
+                dff, stream), "fused_ffn_kmajor_hidden")
+            scoped_amax(scal[:1])
+            _build.check(lib.fused_ffn_kmajor_out(
+                hidden.data_ptr(), hq.data_ptr(), scal.data_ptr(),
+                w2t.data_ptr(), sw2.data_ptr(), out.data_ptr(), m, dff, dout,
+                qmax, inv, stream), "fused_ffn_kmajor_out")
+            _build.LAUNCHES["fused_ffn.kmajor.split"] += 1
     else:
         w1q, w2q = w1q.contiguous(), w2q.contiguous()
         amax = torch.zeros((1,), dtype=torch.float32, device=dev)
@@ -180,6 +211,7 @@ def _fused_ffn(entry, x, w1q, sw1, b1, w2q, sw2, b2, bits, live_rows, w1t,
             xq.data_ptr(), w1q.data_ptr(), sx.data_ptr(), sw1.data_ptr(),
             b1f.data_ptr(), hidden.data_ptr(), amax.data_ptr(), m, k1, dff,
             stream), "fused_ffn_phase0")
+        scoped_amax(amax)
         _build.check(lib.fused_ffn_phase1(
             hidden.data_ptr(), w2q.data_ptr(), amax.data_ptr(),
             sw2.data_ptr(), out.data_ptr(), m, dff, dout, qmax, inv, stream),

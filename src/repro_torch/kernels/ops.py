@@ -10,6 +10,11 @@ int8 projections feeding the RoI-masked flash attention kernel.
 ``photonic_matmul_prequant_noisy`` is the noisy companion of the cached
 matmul: the transmission error drawn onto the codes (the noise-draw
 kernel), the analog float-code walk, shot noise and the optional ADC.
+
+The clean entries take each per-launch activation absmax in the scope the
+installed sharding context names (``collectives.scoped_absmax_scale``):
+over every rank's rows where a launch's rows are split over ranks (the
+1-D data mesh's encode), else over this call's rows alone.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed.collectives import scoped_absmax_scale
 from repro_torch.kernels.flash_attention import flash_attention_masked
 from repro_torch.kernels.photonic_matmul import photonic_matmul_int8
 
@@ -47,7 +53,7 @@ def photonic_matmul_prequant(x: torch.Tensor, wq: torch.Tensor,
     lead = x.shape[:-1]
     k, n = wq.shape
     x2 = x.reshape(-1, k).float()
-    sx = quant.absmax_scale(x2, bits=bits)
+    sx = scoped_absmax_scale(x2, bits)
     xq = quant.quantize(x2, sx, bits=bits)
     return photonic_matmul_int8(xq, wq, sx, sw, wt=wt).reshape(*lead, n)
 
@@ -121,7 +127,7 @@ def fused_roi_attention_prequant(x: torch.Tensor,
         # one activation scale and one set of codes feed all three
         # projections: the same numbers as quantizing three times
         x2 = xf.reshape(-1, dm)
-        sx = quant.absmax_scale(x2, bits=bits_q)
+        sx = scoped_absmax_scale(x2, bits_q)
         xq = quant.quantize(x2, sx, bits=bits_q)
         q, k, v = (photonic_matmul_int8(xq, w, sx, s, wt=wt).reshape(b, n, dm)
                    for w, s, wt in zip((wq, wk, wv), (sq_, sk_, sv_),

@@ -341,21 +341,28 @@ def restore_dead(y: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([y, pad], dim=-2)
 
 
+def _absmax_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
+    return quant.absmax_scale(x, bits=bits)
+
+
 def _int8_linear_ref(x2: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                     bits: int) -> torch.Tensor:
-    sx = quant.absmax_scale(x2, bits=bits)
+                     bits: int, scale_fn=_absmax_scale) -> torch.Tensor:
+    sx = scale_fn(x2, bits)
     return photonic_matmul_ref(quant.quantize(x2, sx, bits=bits), wq, sx, sw)
 
 
 def fused_ffn_ref(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
                   b1: torch.Tensor, w2q: torch.Tensor, sw2: torch.Tensor,
                   b2: torch.Tensor, *, bits=(8, 8),
-                  live_rows: int | None = None) -> torch.Tensor:
+                  live_rows: int | None = None,
+                  scale_fn=_absmax_scale) -> torch.Tensor:
     """The fused int8 FFN's arithmetic (the reference's ``fused_ffn_xla``):
     quantize x at bits1, int8 GEMM + dequant, cast to x.dtype, + b1, GELU,
     cast, requantize at bits2 over the live rows, int8 GEMM + dequant,
     cast, + b2. ``live_rows`` drops the dead token tail before any work and
-    returns it as exact zeros."""
+    returns it as exact zeros. ``scale_fn(t, bits)`` takes both absmax
+    scales (x's and the hidden state's; the wrapper passes the sharding
+    scope's, ``collectives.scoped_absmax_scale``)."""
     bits1, bits2 = bits
     n_tokens = x.shape[-2]
     xl, lv = slice_live(x, live_rows)
@@ -363,9 +370,10 @@ def fused_ffn_ref(x: torch.Tensor, w1q: torch.Tensor, sw1: torch.Tensor,
         return x.new_zeros(*x.shape[:-1], w2q.shape[1])
     lead = xl.shape[:-1]
     x2 = xl.reshape(-1, x.shape[-1]).float()
-    h = _int8_linear_ref(x2, w1q, sw1, bits1).to(x.dtype) + b1
+    h = _int8_linear_ref(x2, w1q, sw1, bits1, scale_fn).to(x.dtype) + b1
     g = gelu_tanh(h.float()).to(x.dtype)
-    y = _int8_linear_ref(g.float(), w2q, sw2, bits2).to(x.dtype) + b2
+    y = _int8_linear_ref(g.float(), w2q, sw2, bits2,
+                         scale_fn).to(x.dtype) + b2
     return restore_dead(y.reshape(*lead, w2q.shape[1]), n_tokens)
 
 

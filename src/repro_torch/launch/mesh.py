@@ -24,8 +24,14 @@ Starting ranks: ``init_from_env`` reads torchrun's environment (``RANK``,
 (no TCP port to race for), and raises if a rank fails or outlives its
 timeout.
 
-Not ported yet (ROADMAP.md A14): ``make_production_mesh`` (TPU pods),
-``make_host_mesh``, and the 1-D ("data",) mesh with model = 1.
+With ``model`` <= 1 on a world of W > 1 ranks the mesh is the 1-D
+("data",) mesh: a ``ServingMesh`` of shape (W, 1) whose ``axis_names`` are
+("data",), as the reference reports them. Every rank holds the whole
+replicated cache and encodes its rows of each flush
+(``models/vit.py::encode_tokens``, under ``sharding.DATA_RULES``).
+
+Not ported yet (ROADMAP.md A14, LM half): ``make_production_mesh`` (TPU
+pods) and ``make_host_mesh``.
 """
 
 from __future__ import annotations
@@ -60,12 +66,14 @@ class ServingMesh:
     device: torch.device
     backend: str
     groups: dict = field(repr=False)   # axes tuple -> process group
-
-    axis_names = ("data", "model")
+    # the mesh's axes as the reference names them: ("data",) for the 1-D
+    # data mesh (model = 1), else ("data", "model")
+    axis_names: tuple = ("data", "model")
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": self.data, "model": self.model}
+        sizes = {"data": self.data, "model": self.model}
+        return {ax: sizes[ax] for ax in self.axis_names}
 
     @property
     def world(self) -> int:
@@ -147,6 +155,10 @@ def make_serving_mesh(model: int = 1, device=None) -> ServingMesh | None:
     """Serving mesh over every rank of the process group, or None without
     one (or with a world of 1 and ``model`` <= 1).
 
+    ``model <= 1`` on W > 1 ranks: the 1-D ("data",) mesh of shape (W, 1):
+    the encode batch data-parallelizes (distributed.sharding.DATA_RULES),
+    params replicate, each rank encodes a slice of the micro-batch.
+
     ``model > 1``: the 2-D ("data", "model") mesh of shape (W // model,
     model): attention heads and the FFN hidden dim shard over "model"
     (distributed.sharding.MODEL_RULES), the batch over "data". Raises when
@@ -164,12 +176,11 @@ def make_serving_mesh(model: int = 1, device=None) -> ServingMesh | None:
         return _build_mesh(n // model, model, device)
     if n < 2:
         return None
-    raise NotImplementedError(
-        f"the 1-D ('data',) serving mesh over {n} ranks (model=1) is not "
-        f"ported yet (ROADMAP.md A14); ask for model > 1 or run one rank")
+    return _build_mesh(n, 1, device, axis_names=("data",))
 
 
-def _build_mesh(n_data: int, n_model: int, device) -> ServingMesh:
+def _build_mesh(n_data: int, n_model: int, device,
+                axis_names: tuple = ("data", "model")) -> ServingMesh:
     rank = dist.get_rank()
     d, m = divmod(rank, n_model)
     groups = {}
@@ -184,7 +195,7 @@ def _build_mesh(n_data: int, n_model: int, device) -> ServingMesh:
             groups[("data",)] = g
     groups[("data", "model")] = dist.group.WORLD
     return ServingMesh(n_data, n_model, d, m, rank_device(device),
-                       dist.get_backend(), groups)
+                       dist.get_backend(), groups, axis_names)
 
 
 def _rank_entry(rank: int, fn, world: int, store: str, device, timeout_s,

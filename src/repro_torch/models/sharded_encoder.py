@@ -15,7 +15,8 @@ own shard of the weights (``core.backend.place_params``):
     all-reduce of the partial accumulates and the dequant epilogue (B4)
     twice a layer (``fused_ffn_sharded``: the reference's
     ``kernels/fused_ffn.py::fused_ffn_sharded``, kept here so that the
-    kernel layer stays free of collectives);
+    kernel layer holds no collective over "model": its wrappers only
+    reduce absmax scopes, ``collectives.scoped_absmax_scale``);
   * the batch splits over "data" whenever the flush batch divides the axis
     (otherwise every data replica encodes the whole batch) and the logits
     are all-gathered over "data". This split is the reference's batch

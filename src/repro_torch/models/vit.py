@@ -38,10 +38,16 @@ unless the spec's ``noisy_gate``).
 Under a sharding context whose "model" axis has more than one rank,
 ``encode_tokens`` runs the model-sharded encoder
 (models/sharded_encoder.py) instead; ``vit_logical_axes`` names the axes
-``core.backend.place_params`` shards the params by.
+``core.backend.place_params`` shards the params by. Under the 1-D
+("data",) mesh it runs the data-split encode (``_data_split_encode``):
+each rank encodes its rows of the batch on the replicated params, with
+every per-launch absmax scope MAX-reduced over "data", and the logits
+are all-gathered.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -52,7 +58,8 @@ from repro_torch.core.decomposed_attention import (mhsa_decomposed,
                                                    mhsa_standard)
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import current_ctx
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import absmax_scope, current_ctx
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import sharded_encoder
 from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
@@ -60,7 +67,18 @@ from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
 
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "forward_vit_masked",
-           "vit_matmul_shapes", "mgnet_config", "vit_logical_axes"]
+           "vit_matmul_shapes", "mgnet_config", "vit_logical_axes",
+           "data_split_calls"]
+
+# "split" -> data-split encodes run by this process with the batch split
+# over "data"; "whole" -> those that encoded the whole batch on every rank
+_DATA_CALLS: collections.Counter = collections.Counter()
+
+
+def data_split_calls() -> dict:
+    """How many data-mesh encodes this process ran, split and whole: a
+    serving run reads it to prove which path served its flushes."""
+    return {"split": _DATA_CALLS["split"], "whole": _DATA_CALLS["whole"]}
 
 
 def _n_patches(cfg):
@@ -219,7 +237,8 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     this rank's shard of the params, on the fused point only. If that
     path cannot run, this raises with the reason: the port never serves
     unsharded when sharding was asked for (the reference warns once and
-    falls back).
+    falls back). Under the 1-D ("data",) mesh it runs the data-split
+    encode (``_data_split_encode``), on the fused point only too.
     """
     dev = resolve_device(device)
     _check_device(params, dev)
@@ -239,6 +258,50 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                              f"{sreason}")
         return sharded_encoder.sharded_encode(params, tokens, cfg, policy,
                                               patch_mask, kv_len, ctx)
+    if (ctx is not None and ctx.absmax_group is None
+            and ctx.mesh.shape["data"] > 1):
+        reason = _fused_encoder_ineligible_reason(params, cfg, policy)
+        if reason is not None:
+            raise ValueError(f"the data-split encode cannot run: {reason}")
+        return _data_split_encode(params, tokens, cfg, policy, patch_mask,
+                                  kv_len, ctx)
+    return _encode_local(params, tokens, cfg, policy, patch_mask, kv_len)
+
+
+def _data_split_encode(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                       policy: ExecPolicy, patch_mask: torch.Tensor | None,
+                       kv_len: int | None, ctx) -> torch.Tensor:
+    """The encode on the 1-D ("data",) mesh, the port's form of the
+    reference's batch placement (``StreamServer._place``): every rank holds
+    the whole flush; rank d encodes rows [d B/D, (d+1) B/D) inside an
+    absmax scope over "data", so each launch quantizes with the scale of
+    the whole flush (the reference's GSPMD reduces every absmax over the
+    global array), and the logits are all-gathered over "data" in rank
+    order. Every other op is row-local, so the result is bitwise the
+    unsplit encode. A batch that does not divide D is encoded whole on
+    every rank, with no collective (each scope is then the whole flush
+    already)."""
+    mesh = ctx.mesh
+    n_data = mesh.shape["data"]
+    b = tokens.shape[0]
+    if b % n_data:
+        _DATA_CALLS["whole"] += 1
+        return _encode_local(params, tokens, cfg, policy, patch_mask, kv_len)
+    per = b // n_data
+    rows = slice(mesh.d * per, (mesh.d + 1) * per)
+    group = mesh.group("data")
+    with absmax_scope(group):
+        logits = _encode_local(params, tokens[rows], cfg, policy,
+                               None if patch_mask is None
+                               else patch_mask[rows], kv_len)
+    _DATA_CALLS["split"] += 1
+    return collectives.all_gather_cat(logits, group, dim=0)
+
+
+def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                  policy: ExecPolicy, patch_mask: torch.Tensor | None,
+                  kv_len: int | None) -> torch.Tensor:
+    """The unsharded encoder trunk on this rank's tokens -> logits."""
     b, _, d = tokens.shape
     cls = params["cls"].expand(b, 1, d) + params["pos"][:, :1]
     x = torch.cat([cls.to(tokens.dtype), tokens], dim=1)

@@ -53,6 +53,20 @@ rank's shard of the weight cache (``place_params``), through
 Its collectives go through gloo and the host, which no CUDA graph can
 hold, so a sharded server warms eagerly and captures nothing.
 
+The 1-D data mesh (``ServerConfig.mesh="auto"``, the default, on a world
+of W > 1 ranks without model shards, e.g. under ``torchrun``): every rank
+runs the same loop over the same streams, the gate, embed and routing
+replicated as above, and holds the whole replicated cache. Each flush of
+B rows is encoded B/D rows a rank with every per-launch absmax scope
+MAX-reduced over "data" (B1's activation scales, B3's x and hidden
+scales through B3's host-split binding) and the logits all-gathered
+(``models/vit.py::encode_tokens``), so every rank's predictions are
+bitwise the unsharded serve's; a flush whose B does not divide D is
+encoded whole on every rank. Only the fused serving point can take the
+split: another policy raises with the reason (never a quiet replicated
+serve). Its ranks warm eagerly, as a model-sharded server's do.
+``mesh="off"`` builds no mesh: each rank then serves on its own.
+
 Mixed precision (``ServerConfig.bit_plan``, ``--bit-plan``): the shared
 cache is quantized from the raw weights (``self._raw_params``) under a
 per-layer / per-tensor bit plan (core/bitalloc.py) before the warm start,
@@ -129,8 +143,8 @@ servers mid-stream. A restored or adopting server serves through the
 graphs of its own warm start, over its own cache: no graph crosses
 servers.
 
-Not ported yet (ROADMAP.md queue A): the 1-D data mesh and the fleet
-router (A14).
+Several servers behind one router (placement, migration, drain) are
+``serving/fleet.py``'s ``FleetRouter``.
 
 CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
 
@@ -143,6 +157,8 @@ CLI (the card; ``--device cpu`` runs the plain PyTorch versions):
         --attn-backend flash --ffn-backend xla --attn-impl decomposed
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
         --smoke --device cpu --model-shards 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.serving.server \\
+        --smoke --device cpu            # the 1-D data mesh (--mesh auto)
     PYTHONPATH=src python -m repro_torch.serving.server --smoke --device cpu \\
         --backend photonic_sim --ffn-backend xla --noise \\
         --drift-rate-nm 0.01 --recal-bound-nm 0.08
@@ -183,7 +199,7 @@ from repro_torch.core.noise import DriftState, NoiseSpec, noise_scope
 from repro_torch.data.pipeline import VideoStream, video_fleet
 from repro_torch.device import full_precision_matmuls, resolve_device
 from repro_torch.distributed.fault_tolerance import StragglerDetector
-from repro_torch.distributed.sharding import (MODEL_RULES, ShardingCtx,
+from repro_torch.distributed.sharding import (ShardingCtx, rules_for_mesh,
                                               use_sharding)
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import init_from_env, make_serving_mesh
@@ -226,6 +242,10 @@ class ServerConfig(ServingConfig):
     warm_start: bool = True      # warm every stage at startup; on the card
     #                              (unsharded) capture one CUDA graph per
     #                              bucket encode
+    mesh: str = "auto"           # "auto": on a world of > 1 ranks, split
+    #                              the encode batch over the 1-D data mesh
+    #                              (or the 2-D mesh of model_shards);
+    #                              "off": never build a mesh
     model_shards: int = 0        # > 1: 2-D ("data", "model") serving mesh —
     #                              attention heads + d_ff shard over "model"
     #                              (MODEL_RULES), the fused encode runs
@@ -365,7 +385,9 @@ class StreamServer:
     its defaults, warm start included). With ``model_shards`` > 1 this
     process is one rank of a model-sharded mesh: it serves on
     ``cuda:(LOCAL_RANK % device_count)`` (or the CPU) and keeps only its
-    shard of the cache.
+    shard of the cache. On a world of several ranks without model shards
+    (``mesh="auto"``) it is one rank of the 1-D data mesh, on that device,
+    with the whole cache.
     """
 
     def __init__(self, cfg: ArchConfig, serve_cfg: ServingConfig | None = None,
@@ -382,12 +404,15 @@ class StreamServer:
         dev = resolve_device(device)
         if dev.type == "cuda":
             full_precision_matmuls()
-        # the mesh exactly when model_shards > 1; None on a world of one
-        # rank, and a world of more ranks without model shards raises
-        self.mesh = make_serving_mesh(model=max(1, sc.model_shards),
-                                      device=dev)
+        if sc.mesh not in ("auto", "off"):
+            raise ValueError(f"mesh must be 'auto' or 'off', got {sc.mesh!r}")
+        # mesh "auto": the 2-D mesh when model_shards > 1, the 1-D data
+        # mesh on a world of more ranks, None on a world of one rank
+        self.mesh = (make_serving_mesh(model=max(1, sc.model_shards),
+                                       device=dev)
+                     if sc.mesh == "auto" else None)
         self.device = self.mesh.device if self.mesh is not None else dev
-        self._ctx = (ShardingCtx(self.mesh, MODEL_RULES)
+        self._ctx = (ShardingCtx(self.mesh, rules_for_mesh(self.mesh))
                      if self.mesh is not None else None)
         self.policy = ExecPolicy.from_cfg(cfg)
         # calibrated device noise: the server's DriftState and the device
@@ -454,11 +479,19 @@ class StreamServer:
 
     def _maybe_place(self, params):
         """This rank's shard of the prepared cache on a model-sharded mesh
-        (the whole cache without one). The cache is prepared whole first,
-        so every per-out-channel scale is the unsharded one. Raises with
-        the reason when the sharded encode cannot run: asking for
-        ``model_shards`` > 1 never serves unsharded quietly."""
+        (the whole cache without one, or on the data mesh). The cache is
+        prepared whole first, so every per-out-channel scale is the
+        unsharded one. Raises with the reason when the mesh's encode
+        cannot run: a mesh never serves unsharded or replicated quietly."""
         if self._ctx is None:
+            return params
+        if self.mesh.axis_names == ("data",):
+            reason = _fused_encoder_ineligible_reason(params, self.cfg,
+                                                      self.policy)
+            if reason is not None:
+                raise ValueError(
+                    f"mesh='auto' on {self.mesh.world} ranks asks for the "
+                    f"data-split encode, which cannot run: {reason}")
             return params
         reason = (_fused_encoder_ineligible_reason(params, self.cfg,
                                                    self.policy)
@@ -686,9 +719,9 @@ class StreamServer:
         bucket's encode at its flush shape (``buckets`` restricts the
         encodes to those ladder sizes). On the card and unsharded, each
         bucket's encode is captured as a CUDA graph (``self.graphs``) and
-        later flushes replay it; on the CPU and under ``model_shards`` > 1
-        (gloo collectives through the host, which a graph cannot hold) the
-        encodes run eagerly and nothing is captured. Returns the wall
+        later flushes replay it; on the CPU and on a mesh (gloo collectives
+        through the host, which a graph cannot hold) the encodes run
+        eagerly and nothing is captured. Returns the wall
         seconds, also kept as ``self.warm_s``. A bucket warmed already (an
         earlier warm start, or the control plane's pricing) is kept."""
         sc, cfg, dev = self.serve_cfg, self.cfg, self.device
@@ -714,8 +747,7 @@ class StreamServer:
         """Warm bucket ``k``'s encode once (a bucket warmed already is left
         as it is): on the card and unsharded, capture its CUDA graph into
         ``self.graphs``, after which the server serves through graphs;
-        on the CPU and under ``model_shards`` > 1 run its eager encode at
-        the flush shape. The control plane's cost model prices a bucket
+        on the CPU and on a mesh run its eager encode at the flush shape. The control plane's cost model prices a bucket
         through here, so pricing a bucket warms it."""
         if k in self.warmed:
             return
@@ -1688,6 +1720,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed of the random weights (bridge.init_vit)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    ap.add_argument("--mesh", default="auto", choices=["auto", "off"],
+                    help="auto: under torchrun (> 1 ranks) split each "
+                         "flush's encode over the 1-D data mesh; off: "
+                         "every rank serves on its own")
     ap.add_argument("--model-shards", type=int, default=0,
                     help="> 1: 2-D (data, model) serving mesh over the "
                          "torchrun world: attention heads + d_ff shard over "
@@ -1781,7 +1817,7 @@ def config_from_args(args) -> tuple[ArchConfig, ServerConfig]:
         mask_refresh=args.mask_refresh,
         delta_threshold=args.delta_threshold, one_shape=args.one_shape,
         max_wait_chunks=args.max_wait, mix_streams=args.mix_streams,
-        warm_start=False, model_shards=args.model_shards,
+        warm_start=False, mesh=args.mesh, model_shards=args.model_shards,
         bit_plan=bit_plan, autotune=args.autotune,
         retune_every=args.retune_every, watchdog=args.watchdog,
         faults=faults, retry_limit=args.retry_limit,

@@ -41,7 +41,13 @@ remaining predictions bitwise (the new server's graphs replay its eager
 encode bitwise); a restored noisy server holds the snapshot's DriftState
 in its state tensor at its first replay (a planted stale restore does
 not); an exception inside a capture leaves the device out of capture mode
-on its default stream, and the server serves again.
+on its default stream, and the server serves again. The 1-D data mesh
+and the fleet: B3 under an absmax scope (its K-major host-split binding,
+and the N-major design's two launches) bitwise the call outside one; a
+2-rank data-mesh serve on the one card bitwise the unsharded eager serve,
+every B3 launch on the host-split binding; a graphed 2-worker fleet on
+one shared cache bitwise, job by job, solo serves; two spawned workers
+serve through their own graphs and compile no kernel.
 """
 
 import gc
@@ -1453,3 +1459,175 @@ def test_a_failed_capture_leaves_the_server_able_to_serve(dev, how):
         t = _flush_tokens(server, k)
         assert torch.equal(server.graphs[k].replay(t),
                            server._encode_eager(k, t)), k
+
+
+# --------------------------------------------------------------------------
+# the 1-D data mesh and the fleet router
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_scope(dev, tmp_path):
+    """A gloo group of this one process and, inside the yielded callable's
+    context, an absmax scope over it: the wrappers take their split paths
+    (B3's host-split binding), and the MAX over one rank is the identity."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import (DATA_RULES, absmax_scope,
+                                                  use_sharding)
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    mesh = SimpleNamespace(axis_names=("data",), shape={"data": 1})
+
+    class Scope:
+        def __enter__(self):
+            self._ctx = use_sharding(mesh, DATA_RULES)
+            self._ctx.__enter__()
+            self._scope = absmax_scope(dist.group.WORLD)
+            self._scope.__enter__()
+
+        def __exit__(self, *exc):
+            self._scope.__exit__(*exc)
+            self._ctx.__exit__(*exc)
+
+    try:
+        yield Scope
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,live,bits", [
+    ((4, 197, 768), None, (8, 8)), ((4, 197, 768), 150, (8, 8)),
+    ((3, 37, 768), None, (8, 6)), ((1, 1, 768), None, (8, 8))],
+    ids=["base", "live", "ragged-M", "M=1"])
+def test_fused_ffn_host_split_is_the_single_call(dev, one_rank_scope, shape,
+                                                 live, bits):
+    """B3's host-split binding (phase 0; the hidden absmax through the
+    scope's MAX; requant + phase 1) against the single host call on the
+    same operands: bitwise, at base-224's widths (d_ff 3072)."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    d, dff = shape[-1], 3072
+    w1q, s1 = _qweight(g, d, dff, bits[0], dev)
+    w2q, s2 = _qweight(g, dff, d, bits[1], dev)
+    args = (torch.randn(shape, generator=g, device=dev), w1q, s1,
+            torch.randn(dff, generator=g, device=dev) * 0.1, w2q, s2,
+            torch.randn(d, generator=g, device=dev) * 0.1)
+    kw = dict(bits=bits, live_rows=live, w1t=w1q.t().contiguous(),
+              w2t=w2q.t().contiguous())
+    single = fused_ffn(*args, **kw)
+    before = dict(_build.LAUNCHES)
+    with one_rank_scope():
+        split = fused_ffn(*args, **kw)
+    for key in ("fused_ffn", "fused_ffn.kmajor", "fused_ffn.kmajor.split"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1, key
+    assert torch.equal(split, single)
+
+
+@pytest.mark.gpu
+def test_fused_ffn_nmajor_under_a_scope_is_the_single_call(dev,
+                                                           one_rank_scope):
+    """The N-major first design under an absmax scope (its hidden absmax
+    reduced between its two launches): bitwise the call outside one, at
+    widths the K-major entry does not take."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, dff = 200, 300
+    w1q, s1 = _qweight(g, d, dff, 8, dev)
+    w2q, s2 = _qweight(g, dff, d, 8, dev)
+    args = (torch.randn(2, 37, d, generator=g, device=dev), w1q, s1,
+            torch.randn(dff, generator=g, device=dev) * 0.1, w2q, s2,
+            torch.randn(d, generator=g, device=dev) * 0.1)
+    single = fused_ffn_nmajor(*args)
+    with one_rank_scope():
+        split = fused_ffn_nmajor(*args)
+    assert torch.equal(split, single)
+
+
+@pytest.mark.gpu
+def test_data_mesh_serve_is_bitwise_the_unsharded_card_serve(dev):
+    """2 gloo ranks sharing the card on the 1-D data mesh (mesh "auto", no
+    model shards): every flush's logits bitwise the unsharded eager serve
+    of the same traffic on the card; every B3 launch through the
+    host-split binding; no graphs."""
+    cfg = smoke_cfg()
+    raw = init_vit(0, cfg, 10)
+    ranks = spawn_ranks(_torch_ranks.serve_data_mesh, 2, raw, 2, 16, 8,
+                        "cuda", device="cuda", timeout_s=300)
+    srv = StreamServer(cfg, ServerConfig(microbatch=4, chunk=8,
+                                         warm_start=False),
+                       params=from_jax_params(raw, "cpu"))
+    want = _torch_ranks.serve_streams(srv, 2, 16, 8)
+    for r in ranks:
+        assert r["axis_names"] == ("data",) and r["graphs"] == 0
+        assert r["predictions"] == want["predictions"]
+        assert r["logits"].keys() == want["logits"].keys()
+        for key, logits in want["logits"].items():
+            np.testing.assert_array_equal(r["logits"][key], logits)
+        n = len(want["flush_log"])
+        assert r["calls"] == {"split": n, "whole": 0}
+        b3 = r["launches"].get("fused_ffn", 0)
+        assert b3 == n * cfg.n_layers
+        assert r["launches"].get("fused_ffn.kmajor.split", 0) == b3
+
+
+def _fleet_sc(**kw):
+    return ServerConfig.from_serving(
+        ServingConfig(microbatch=4, chunk=8, force_bucket=0.5), **kw)
+
+
+@pytest.mark.gpu
+def test_graphed_fleet_jobs_are_bitwise_their_solo_serves(dev):
+    """Two in-process graphed workers on one shared cache (each with its
+    own graphs over it): every job's predictions and flush logits bitwise
+    the same stream served alone on a graphed server over that cache."""
+    import warnings
+
+    from repro_torch.serving.fleet import FleetRouter
+
+    cfg = smoke_cfg()
+    router = FleetRouter(cfg, _fleet_sc(), workers=2, price_per_frame=1.0)
+    w0, w1 = router.workers
+    assert w0.graphs and sorted(w0.graphs) == sorted(w1.graphs)
+    assert w0.graphs[8].params is w0.params
+    assert (w1.params["blocks"]["ffn"]["w1"].wq.data_ptr()
+            == w0.params["blocks"]["ffn"]["w1"].wq.data_ptr())
+    streams = video_fleet(3, img_size=32, patch=8)
+    frames = [16, 48, 32]
+    jobs = [router.add_job(st, n_frames=nf, start=8 * i)
+            for i, (st, nf) in enumerate(zip(streams, frames))]
+    logs = [_torch_ranks.log_flushes(w) for w in router.workers]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = router.serve()
+    solo = StreamServer(cfg, _fleet_sc(), params=w0.params)
+    for i, (j, st) in enumerate(zip(jobs, streams)):
+        log = _torch_ranks.log_flushes(solo)
+        s = solo.add_session(st, n_frames=j.n_frames, start=j.start)
+        got = solo.serve()
+        del solo._finish
+        assert res[j.job_id].predictions == got[s.sid].predictions
+        mine = {tuple(f for _, f in k): v
+                for k, v in logs[j.worker].items() if k[0][0] == j.sid}
+        alone = {tuple(f for _, f in k): v for k, v in log.items()}
+        assert mine.keys() == alone.keys()
+        for k, v in alone.items():
+            np.testing.assert_array_equal(mine[k], v)
+
+
+@pytest.mark.gpu
+def test_spawned_fleet_workers_build_no_kernel(dev):
+    """Two spawned workers on the one card: each serves its jobs through
+    its own graphs and loads the library the parent built."""
+    from repro_torch.serving.fleet import FleetRouter
+
+    router = FleetRouter(smoke_cfg(), _fleet_sc(), workers=2, spawn=True)
+    for i, st in enumerate(video_fleet(4, img_size=32, patch=8)):
+        router.add_job(st, n_frames=16, start=8 * i)
+    res = router.serve()
+    assert sorted(res) == [0, 1, 2, 3]
+    assert all(r.frames == 16 for r in res.values())
+    for i in (0, 1):
+        info = router.last_worker_info[i]
+        assert info["device"].startswith("cuda") and info["built"] == []
+        assert info["graphs"] and info["launches"].get("fused_ffn", 0) > 0

@@ -539,7 +539,7 @@ CFG_FIELDS = ("name", "n_layers", "d_model", "n_heads", "d_ff", "img_size",
 @pytest.mark.parametrize("argv", CLI_ARGV, ids=["noise-flags", "plan"])
 def test_server_cli_parses_as_the_reference(monkeypatch, argv):
     jcfg, jsc = _parsed(monkeypatch, jserver, argv + ["--mesh", "off"])
-    tcfg, tsc = _parsed(monkeypatch, tserver, argv)
+    tcfg, tsc = _parsed(monkeypatch, tserver, argv + ["--mesh", "off"])
     for f in CFG_FIELDS:
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     assert dataclasses.asdict(tcfg.noise) == dataclasses.asdict(jcfg.noise)

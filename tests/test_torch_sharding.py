@@ -437,10 +437,17 @@ def test_model_shards_on_an_ineligible_config_raises(two_ranks):
             "cannot split evenly")
 
 
-def test_server_without_model_shards_on_many_ranks_raises(two_ranks):
+def test_server_without_model_shards_on_many_ranks_raises(two_ranks,
+                                                          reference):
     """No quiet replica per rank: a world of 2 ranks with no model shards
-    asks for the 1-D data mesh, which is not ported."""
+    serves on the 1-D data mesh, whose predictions are the reference's
+    (and the port's unsharded ones, which the model-sharded test holds
+    to it), and raises with the reason under a policy the data-split
+    encode cannot take (the xla FFN)."""
     for r in two_ranks.out:
-        assert r["serve"]["unsharded"].startswith(
-            "the 1-D ('data',) serving mesh over 2 ranks (model=1) is not "
-            "ported yet")
+        assert r["serve"]["unsharded"] == reference.predictions
+        assert r["serve"]["unsharded_ineligible"] == (
+            "mesh='auto' on 2 ranks asks for the data-split encode, which "
+            "cannot run: backends ('photonic_pallas', 'flash', 'xla') are "
+            "not the fused serving triple ('photonic_pallas', 'flash', "
+            "'fused')")
