@@ -190,6 +190,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         frames/s of 4 workers (cost, rr) against one server with all 8
         streams (the reference's gates, 1.5x and 1.15x, are structural and
         not applied), the data mesh's frames/s and collective ms a flush;
+     i. ``[train]``, after 4h: ViT training on opto-vit-base-224 + MGNet
+        (keep 0.33) on qat + xla + xla under a training policy, batch 32
+        of ``ImageStream(224, 32, n_classes=8, patch=16)``, a 10-step
+        warmup. (A) MGNet alone by BCE, 40 AdamW steps: BCE falls and the
+        held-out mask mIoU ends above max(untrained + 0.15, 0.4) (the
+        reference's ``test_mgnet.py`` margin). (B) 30 QAT steps through
+        ``launch/train.py::train_loop`` / ``launch/steps.py::
+        make_train_fn`` from the trained gate: the loss falls; a run
+        resumed from its step-10 checkpoint, and one resumed after a fault
+        injected at step 13, give bitwise the straight run's losses and
+        final state, all under ``torch.use_deterministic_algorithms``.
+        (C) one step's gradients on the card against the CPU at equal
+        state and batch: global relative L2 < 0.25, each leaf's corr >
+        0.95, the loss within 1% (the gate's routing, the rounding and the
+        STE are discontinuous, so rounding differences move whole leaves;
+        the CPU against itself one ulp up is printed beside it); the
+        inference fake quant planted in the qat entry (zero gradients to
+        nearly every weight element) must fail it. (D) the trained params
+        through ``prepare_params``, served on the fused point
+        (photonic_pallas + flash + fused) against the QAT forward
+        (training=False) on a held-out batch: corr > 0.99, top-1
+        agreement and both accuracies printed (after the straight run is
+        continued to 200 steps), B1-B3 launched. Readings:
+        a step's CUDA-event ms and images/s on a device batch, the host's
+        synthesis ms a batch, peak memory, a profiled step's GEMMs
+        against the rest;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -217,6 +243,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3334,6 +3361,366 @@ def run_fleet(torch, dev, card: str, cfg, sc, params, fused) -> dict:
     return out
 
 
+# path 4i: ViT training on opto-vit-base-224 + MGNet at the config's keep
+# ratio (0.33) on qat + xla + xla, training=True, batch 32 of
+# ImageStream(224, 32, n_classes=8, patch=16); a 10-step warmup so the
+# short run trains (the config's default is 100 of 10,000)
+TRAIN_BATCH = 32
+TRAIN_STEPS = 30          # the QAT phase's straight run
+TRAIN_RESUME_AT = 10      # the checkpoint the resumed runs start from
+TRAIN_FAULT_AT = 13       # the injected fault (after the step-10 save)
+TRAIN_LONG = 200          # the straight run continued, for (D)'s weights
+MGNET_STEPS = 40
+MGNET_LR = 3e-3           # AdamW on MGNet's leaves alone, constant rate
+# the card's gradients against the CPU's at equal inputs and state: the
+# quantized gate's top-k routing, the fake quant's rounding and the STE
+# (0.5 on a clip bound, 1 an ulp inside) are discontinuous, so rounding
+# differences move whole leaves (a routing flip moved the loss by 2e-2
+# and the gradients by 5.9e-2 in relative L2; the CPU against itself with
+# its images one ulp up, printed beside it, reads the same class). The
+# bounds catch gross faults: the planted inference fake quant reads ~1.
+GRAD_REL_L2 = 0.25
+GRAD_LEAF_CORR = 0.95
+GRAD_LOSS_REL = 1e-2
+TRAINED_SERVE_CORR = 0.99  # tests/test_vit_qat.py::test_execution_modes_agree
+
+
+def train_cfg():
+    from repro_torch.configs.opto_vit import get_config
+    return get_config("base", 224, mgnet=True).with_(lr_warmup=10,
+                                                     lr_total=1000)
+
+
+def grad_distance(torch, ga: dict, gb: dict) -> tuple:
+    """(global relative L2 of ga against gb, min corr over the leaves gb
+    moves, the leaf of that min, leaves compared)."""
+    from repro_torch.optim.adamw import tree_leaves
+    num = den = 0.0
+    worst, worst_name, n = 1.0, "", 0
+    names = _leaf_names(gb)
+    for name, a, b in zip(names, tree_leaves(ga), tree_leaves(gb)):
+        a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+        if float(b.norm()) > 0 and b.numel() > 1:
+            c = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+            n += 1
+            if not c >= worst:
+                worst, worst_name = c, name
+    return (num / den) ** 0.5, worst, worst_name, n
+
+
+def _leaf_names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)]
+    return [prefix]
+
+
+def train_mgnet(torch, dev, cfg, params: dict, stream, card: str) -> dict:
+    """4i (A): MGNet alone, by BCE against the box-derived patch labels,
+    under the training policy; mIoU on a held-out batch before and after."""
+    from repro_torch.core.mgnet import bce_loss, mask_iou, mgnet_scores
+    from repro_torch.models.layers import ExecPolicy
+    from repro_torch.models.vit import mgnet_config
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, tree_leaves, tree_map,
+                                         tree_unflatten)
+    mcfg = mgnet_config(cfg)
+    pol = ExecPolicy.from_cfg(cfg, training=True).gate_policy()
+    held = stream.batch_at(9999)
+
+    def miou(p):
+        with torch.no_grad():
+            s = mgnet_scores(p, held["images"], mcfg, pol)
+        return float(mask_iou((torch.sigmoid(s) > mcfg.t_reg).float(),
+                              held["patch_mask"]))
+
+    ocfg = AdamWConfig(lr=MGNET_LR, low_mem=False)
+    p = params
+    opt = adamw_init(p, ocfg)
+    m0 = miou(p)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(MGNET_STEPS):
+        b = stream.batch_at(i)
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss = bce_loss(mgnet_scores(live, b["images"], mcfg, pol),
+                        b["patch_mask"])
+        g = torch.autograd.grad(loss, tree_leaves(live))
+        p, opt = adamw_update(tree_unflatten(p, list(g)), opt, p, ocfg)
+        losses.append(float(loss.detach()))
+    wall = time.perf_counter() - t0
+    m1 = miou(p)
+    say(f"[train] (A) MGNet (embed {mcfg.embed}, {mcfg.heads} heads, "
+        f"{mcfg.n_patches} patches) by BCE, {MGNET_STEPS} AdamW steps at lr "
+        f"{MGNET_LR} on batches of {stream.global_batch}: BCE "
+        f"{losses[0]:.4f} -> {sum(losses[-5:]) / 5:.4f} (last 5); mask mIoU "
+        f"{m0:.4f} untrained -> {m1:.4f} trained; {wall:.2f}s ({card})")
+    if not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
+        fail(f"4i (A): BCE did not fall ({losses[:5]} -> {losses[-5:]})")
+    if not m1 > max(m0 + 0.15, 0.4):
+        fail(f"4i (A): mIoU {m0:.4f} -> {m1:.4f}, not above "
+             f"max(m0 + 0.15, 0.4)")
+    return {"params": p, "miou": (m0, m1), "bce": (losses[0], losses[-1])}
+
+
+def run_train(torch, dev, card: str, cfg=None, batch: int = TRAIN_BATCH,
+              cpu=None) -> dict:
+    """Path 4i: train, resume, hold the gradients against the CPU, then
+    serve the trained weights on the fused point (B1-B3)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import to_device
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import quant
+    from repro_torch.core.backend import prepare_params
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_grad_fn, make_train_fn
+    from repro_torch.launch.train import init_state, make_stream, train_loop
+    from repro_torch.models.layers import ExecPolicy
+    from repro_torch.models.vit import forward_vit
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = cfg or train_cfg()
+    cpu = cpu or torch.device("cpu")
+    shape = ShapeConfig("4i", 0, batch, "train")
+    stream = ImageStream(cfg.img_size, batch, n_classes=8, patch=cfg.patch,
+                         seed=0, device=dev)
+    say(f"[train] path 4i: {cfg.name} {cfg.img_size}x{cfg.img_size} + MGNet "
+        f"keep {cfg.mgnet_keep_ratio} on qat + xla + xla, training=True, "
+        f"batch {batch}, warmup {cfg.lr_warmup} of {cfg.lr_total}, "
+        f"remat {cfg.remat}, bf16 moments {not cfg.use_fp32_master}")
+    t_phase = time.perf_counter()
+    state0 = init_state(cfg, 0, dev)
+    mg = train_mgnet(torch, dev, cfg, state0["params"]["mgnet"], stream,
+                     card)
+    state0["params"]["mgnet"] = mg["params"]
+    clone = lambda st: tree_map(torch.clone, st)  # noqa: E731
+
+    # (B) the QAT phase: straight, resumed from a checkpoint, after a fault,
+    # all under deterministic algorithms
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        final, losses, flags = train_loop(cfg, shape, TRAIN_STEPS,
+                                          device=dev, state=clone(state0),
+                                          log_every=TRAIN_STEPS)
+        straight_s = time.perf_counter() - t0
+        say(f"[train] (B) {TRAIN_STEPS} QAT steps through train_loop / "
+            f"make_train_fn in {straight_s:.2f}s (host synthesis included); "
+            f"losses " + " ".join(f"{x:.4f}" for x in losses)
+            + f"; straggler flags {len(flags)} ({card})")
+        if not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
+            fail(f"4i (B): the loss did not fall ({losses[:5]} -> "
+                 f"{losses[-5:]})")
+        resumed = {}
+        for tag, fault in (("checkpoint", None), ("fault", TRAIN_FAULT_AT)):
+            root = f"{tmp}/{tag}"
+            mgr = CheckpointManager(root, every=TRAIN_RESUME_AT)
+            if fault is None:
+                _, first, _ = train_loop(cfg, shape, TRAIN_RESUME_AT,
+                                         device=dev, state=clone(state0),
+                                         ckpt=mgr, log_every=TRAIN_STEPS)
+            else:
+                try:
+                    train_loop(cfg, shape, TRAIN_STEPS, device=dev,
+                               state=clone(state0), ckpt=mgr,
+                               inject_fault_at=fault, log_every=TRAIN_STEPS)
+                    fail("4i (B): the injected fault did not raise")
+                except RuntimeError as e:
+                    say(f"[train] (B) fault at step {fault}: {e}")
+                mgr.wait()
+            t0 = time.perf_counter()
+            st, rest, _ = train_loop(cfg, shape, TRAIN_STEPS, device=dev,
+                                     state=clone(state0),
+                                     ckpt=CheckpointManager(root, every=10**9),
+                                     log_every=TRAIN_STEPS)
+            same_loss = rest == losses[TRAIN_RESUME_AT:]
+            same_state = all(
+                torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(final)))
+            resumed[tag] = same_loss and same_state
+            say(f"[train] (B) resumed after the {tag} from step "
+                f"{TRAIN_STEPS - len(rest)}: {len(rest)} steps in "
+                f"{time.perf_counter() - t0:.2f}s, losses bitwise the "
+                f"straight run's: {same_loss}, final state bitwise: "
+                f"{same_state}")
+            if not resumed[tag]:
+                fail(f"4i (B): the run resumed after the {tag} is not "
+                     f"bitwise the straight run")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (B') the straight run continued to TRAIN_LONG steps: 30 steps reach
+    # the 8-way prior, not the task; (D) serves these weights
+    step_fn = make_train_fn(cfg)
+    batch_at = make_stream(cfg, shape, 0, dev)
+    trained, long_losses = final, []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS, TRAIN_LONG):
+        trained, m = step_fn(trained, batch_at(step))
+        long_losses.append(float(m["loss"]))
+    say(f"[train] (B') continued to step {TRAIN_LONG} in "
+        f"{time.perf_counter() - t0:.2f}s: mean loss of the last 10 steps "
+        f"{sum(long_losses[-10:]) / len(long_losses[-10:]):.4f} ({card})")
+
+    # (C) one step's gradients on the card against the CPU
+    b0 = {k: v for k, v in stream.batch_at(0).items()
+          if k in ("images", "labels")}
+    grads_of = make_grad_fn(cfg)
+    lc, gc = grads_of(state0["params"], b0)
+    p_cpu = to_device(state0["params"], cpu)
+    b_cpu = {k: v.to(cpu) for k, v in b0.items()}
+    t0 = time.perf_counter()
+    lh, gh = grads_of(p_cpu, b_cpu)
+    cpu_s = time.perf_counter() - t0
+    b_ulp = dict(b_cpu, images=torch.nextafter(
+        b_cpu["images"], torch.tensor(float("inf"))))
+    lu, gu = grads_of(p_cpu, b_ulp)
+    rel_u, worst_u, _, _ = grad_distance(torch, gu, gh)
+    loss_u = abs(float(lu) - float(lh))
+    rel, worst, worst_name, n = grad_distance(torch, gc, gh)
+    dloss = abs(float(lc) - float(lh))
+
+    def agrees(r, c, dl):
+        return (r < GRAD_REL_L2 and c > GRAD_LEAF_CORR
+                and dl <= GRAD_LOSS_REL * abs(float(lh)))
+
+    say(f"[train] (C) one step's gradients, card against CPU ({n} leaves; "
+        f"a CPU step {cpu_s:.1f}s): global relative L2 {rel:.3e}, min leaf "
+        f"corr {worst:.6f} ({worst_name}), loss {float(lc):.6f} vs "
+        f"{float(lh):.6f} (diff {dloss:.3e}); the CPU against itself with "
+        f"its images one ulp up: relative L2 {rel_u:.3e}, min corr "
+        f"{worst_u:.6f}, loss diff {loss_u:.3e}; held to relative L2 < "
+        f"{GRAD_REL_L2}, corr > {GRAD_LEAF_CORR}, loss within "
+        f"{GRAD_LOSS_REL} relative")
+    if not agrees(rel, worst, dloss):
+        fail(f"4i (C): card vs CPU gradients rel L2 {rel}, corr {worst}, "
+             f"loss diff {dloss}")
+    # the planted fault: the inference fake quant in the qat entry
+    ste = quant.fake_quant_ste
+    quant.fake_quant_ste = quant.fake_quant
+    try:
+        _, gf = grads_of(state0["params"], b0)
+    finally:
+        quant.fake_quant_ste = ste
+    rel_f, worst_f, _, _ = grad_distance(torch, gf, gh)
+    qw = [t for name, t in zip(_leaf_names(gf), _leaves(gf))
+          if t.ndim >= 2 and t.numel() >= 128 and "mgnet" not in name
+          and name.split("/")[-1] in ("w", "wq", "wk", "wv", "wo", "w1",
+                                      "w2", "head")]
+    zero = min(float((t == 0).float().mean()) for t in qw)
+    caught = not agrees(rel_f, worst_f, 0.0)
+    say(f"[train] (C) planted fault (inference fake_quant in the qat entry): "
+        f"relative L2 {rel_f:.3e}, min leaf corr {worst_f:.4f}; every one of "
+        f"{len(qw)} quantized weight leaves at least {100 * zero:.3f}% zero "
+        f"gradients; caught: {caught}")
+    if not caught:
+        fail("4i (C): the planted zero-gradient fault passed the check")
+    del gc, gh, gu, gf, p_cpu
+
+    # readings: ms a step (CUDA events), host synthesis, peak memory, and a
+    # profiled step
+    st = clone(final)
+    host = ImageStream(cfg.img_size, batch, n_classes=8, patch=cfg.patch,
+                       seed=0)
+    t0 = time.perf_counter()
+    for i in range(5):
+        host.batch_at(100 + i)
+    synth_ms = (time.perf_counter() - t0) * 1e3 / 5
+    reading = {"synth_ms": synth_ms}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() / 2 ** 30
+        holder = [st]
+
+        def one():
+            holder[0], _ = step_fn(holder[0], b0)
+        ms = cuda_ms(one, iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reading.update(ms=ms, peak_gib=peak, step_gib=peak - live)
+        say(f"[train] a QAT step (batch {batch}, device batch, CUDA events): "
+            f"{ms:.3f} ms = {batch / ms * 1e3:.1f} images/s; the host's "
+            f"ImageStream synthesis {synth_ms:.3f} ms a batch; peak memory "
+            f"allocated {peak:.2f} GiB, {live:.2f} GiB of it live before "
+            f"the steps (the train state, earlier paths' caches), so "
+            f"{peak - live:.2f} GiB the steps' own ({card})")
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        tot = sum(e.self_device_time_total for e in events) / 1e3
+        gemm = sum(e.self_device_time_total for e in events
+                   if any(s in e.key.lower() for s in
+                          ("gemm", "sgemm", "cutlass", "xmma", "sm90_",
+                           "ampere_", "cublas"))) / 1e3
+        say(f"[train] a profiled step: device busy {tot:.3f} ms, GEMMs "
+            f"{gemm:.3f} ms ({100 * gemm / max(tot, 1e-9):.1f}%), the rest "
+            f"(fake-quant elementwise and reduce, attention, norms, AdamW) "
+            f"{tot - gemm:.3f} ms; {sum(e.count for e in events)} kernel "
+            f"launches of {len(events)} kinds ({card})")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            say(f"[train] {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+        reading.update(step_device_ms=tot, gemm_ms=gemm)
+    del st, step_fn
+
+    # (D) the trained weights served on the fused point (B1-B3)
+    fused_cfg = cfg.with_(matmul_backend="photonic_pallas",
+                          attn_backend="flash", ffn_backend="fused")
+    trained = trained["params"]
+    held = stream.batch_at(20000)
+    with torch.no_grad():
+        qat_logits, _ = forward_vit(trained, held["images"], cfg,
+                                    ExecPolicy.from_cfg(cfg, training=False),
+                                    device=dev)
+        cache = prepare_params(trained, bits=cfg.quant_bits)
+        _build.LAUNCHES.clear()
+        fused_logits, kept = forward_vit(
+            cache, held["images"], fused_cfg,
+            ExecPolicy.from_cfg(fused_cfg, training=False), device=dev)
+        launches = dict(_build.LAUNCHES)
+    a = fused_logits.double().cpu().flatten()
+    b = qat_logits.double().cpu().flatten()
+    c = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    top1 = float((fused_logits.argmax(-1) == qat_logits.argmax(-1))
+                 .float().mean())
+    labels = held["labels"].long()
+    acc_f = float((fused_logits.argmax(-1) == labels).float().mean())
+    acc_q = float((qat_logits.argmax(-1) == labels).float().mean())
+    say(f"[train] (D) the trained weights served on the fused point "
+        f"(photonic_pallas + flash + fused, {kept} patches kept) against the "
+        f"QAT forward (training=False) on a held-out batch of {batch}, "
+        f"after {TRAIN_LONG} steps: "
+        f"logits corr {c:.6f}, top-1 agreement {top1:.4f}; accuracy on the "
+        f"synthetic labels: fused {acc_f:.4f}, QAT {acc_q:.4f} (chance "
+        f"0.125); launches {launches} ({card})")
+    if not c > TRAINED_SERVE_CORR:
+        fail(f"4i (D): fused serve vs QAT forward corr {c}")
+    if dev.type == "cuda":
+        for name_ in VIT_KERNELS:
+            if launches.get(name_, 0) <= 0:
+                fail(f"4i (D): kernel {name_} was never launched")
+    say(f"[train] path 4i in {time.perf_counter() - t_phase:.2f}s ({card})")
+    return {"launches": launches, "losses": losses, "miou": mg["miou"],
+            "grad_rel": rel, "grad_corr": worst, "fault_rel": rel_f,
+            "serve_corr": c, "top1": top1, "acc": (acc_f, acc_q),
+            "resumed": resumed, **reading}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3341,6 +3728,9 @@ def _leaves(tree):
 
 
 def main() -> int:
+    # path 4i runs under deterministic algorithms, which need cuBLAS's
+    # fixed workspace, set before the first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     # -- 1. environment --------------------------------------------------
@@ -3780,6 +4170,16 @@ def main() -> int:
         f"the main paths with 4h's (A): "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
     del fleet
+    torch.cuda.empty_cache()
+
+    # -- 4i. [train]: ViT training on opto-vit-base-224 + MGNet (after 4h,
+    # before the profiled phases); (D)'s launches join the counts
+    train = run_train(torch, dev, card)
+    for entry in kernels:
+        entry["launches"] += train["launches"].get(entry["name"], 0)
+    say(f"[train] launches on the main paths with 4i's (D): "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del train
     torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After

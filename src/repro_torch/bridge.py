@@ -11,7 +11,9 @@ arrives as a ``(wq, scale, bits)`` tuple, or as any object with ``wq``,
 per-layer ``bits`` tuple, from a mixed-precision bit plan, included; the
 K-major copy ``wt`` is made once here).
 Scan-stacked ``blocks`` leaves keep their leading L axis: the models slice
-one layer per step.
+one layer per step. ``from_jax_state`` takes the reference's train state
+(``{"params", "opt": {"m", "v", "count"}, "step"}``) the same way: bf16
+moments bit for bit, ``count`` and ``step`` as 0-d int32.
 
 ``init_vit`` draws a ViT (+ MGNet) parameter tree of the reference's
 shapes and scales from ``numpy.random.default_rng(seed)``; ``init_lm``
@@ -30,8 +32,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import QuantizedWeight
 from repro_torch.device import resolve_device
 
-__all__ = ["from_jax_params", "to_device", "init_vit", "init_mgnet",
-           "init_lm"]
+__all__ = ["from_jax_params", "from_jax_state", "to_device", "init_vit",
+           "init_mgnet", "init_lm"]
 
 
 def _is_cached(leaf) -> bool:
@@ -57,6 +59,22 @@ def from_jax_params(tree, device=None):
         return _to_tensor(leaf).to(dev)
 
     return conv(tree)
+
+
+def from_jax_state(state: dict, device=None) -> dict:
+    """The reference's train state (``launch/train.py::init_state``, or a
+    step's output) as the port's: every leaf a tensor of the same dtype
+    and bits on ``device`` (default: the card)."""
+    if set(state) != {"params", "opt", "step"} or \
+            set(state["opt"]) != {"m", "v", "count"}:
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    out = from_jax_params(state, device)
+    for name, t in (("opt/count", out["opt"]["count"]),
+                    ("step", out["step"])):
+        if t.dtype != torch.int32 or t.ndim != 0:
+            raise ValueError(f"{name} is {t.dtype} of shape "
+                             f"{tuple(t.shape)}, not a 0-d int32")
+    return out
 
 
 def _to_tensor(leaf) -> torch.Tensor:

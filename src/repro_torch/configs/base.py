@@ -2,17 +2,24 @@
 (src/repro/configs/base.py) that the ported paths read, field names and
 defaults unchanged so a reader finds each counterpart.
 
-Two families are ported: ``vit`` (the near-sensor serving path) and
+Two families are ported: ``vit`` (the near-sensor serving path, and its
+training: QAT with the straight-through estimator, launch/steps.py) and
 ``dense`` (the decoder-only LM serving path: prefill + KV-cache decode).
-The other LM families and training knobs come with later slices of the
-port (ROADMAP.md queue A), each with the fields its path reads.
+The training knobs are the reference's: ``remat`` (activation
+checkpointing of each encoder layer), ``microbatch_steps`` (gradient
+accumulation), ``use_fp32_master`` (f32 AdamW moments; bf16 when off),
+``lr_warmup`` / ``lr_total`` (the warmup-cosine schedule) and
+``grad_accum_dtype`` (the microbatch accumulator). The other LM families
+come with later slices of the port (ROADMAP.md queue A), each with the
+fields its path reads. ``ShapeConfig`` is one run's (seq_len,
+global_batch, kind), as the reference's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["ArchConfig", "smoke_variant", "PORTED_FAMILIES"]
+__all__ = ["ArchConfig", "ShapeConfig", "smoke_variant", "PORTED_FAMILIES"]
 
 PORTED_FAMILIES = ("dense", "vit")
 
@@ -43,6 +50,15 @@ class ArchConfig:
     mgnet_embed: int = 192        # paper: 192/3 classification, 384/6 det.
     mgnet_heads: int = 3
 
+    # training & memory policy
+    remat: bool = True
+    microbatch_steps: int = 1            # gradient-accumulation steps
+    use_fp32_master: bool = False        # False: AdamW m / v stored bf16
+    lr_warmup: int = 100                 # warmup steps (schedule knob)
+    lr_total: int = 10000                # cosine-decay horizon
+    grad_accum_dtype: str = "f32"        # microbatch grad accumulator
+    #                                      ("bf16" halves its memory)
+
     # paper technique knobs
     quant_bits: int = 0                  # 0 = off; 8 = paper's QAT/photonic
     photonic: bool = False               # "" backend -> photonic_sim
@@ -72,12 +88,26 @@ class ArchConfig:
         return replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests, as the reference's:
     at most 4 layers, d=64, 4 heads, at most 2 KV heads, d_ff=128, vocab
-    256; a vit also gets 32x32 images in 8x8 patches."""
+    256, one microbatch, no remat; a vit also gets 32x32 images in 8x8
+    patches."""
     kw = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=4,
-              kv_heads=min(cfg.kv_heads, 2), d_ff=128, vocab=256)
+              kv_heads=min(cfg.kv_heads, 2), d_ff=128, vocab=256,
+              microbatch_steps=1, remat=False)
     if cfg.family == "vit":
         kw.update(img_size=32, patch=8)
     elif cfg.family not in PORTED_FAMILIES:

@@ -26,4 +26,5 @@ def get_config(variant: str = "base", img_size: int = 224,
         img_size=img_size, patch=16,
         quant_bits=quant_bits,
         mgnet=mgnet, mgnet_keep_ratio=mgnet_keep_ratio,
+        remat=False,
     )

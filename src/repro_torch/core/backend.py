@@ -34,6 +34,15 @@ reason (``_fused_ffn_ineligible_reason``): the reference warns once and
 runs the composed dispatch instead, which would hide the kernel the
 policy named (ROADMAP.md queue C, deviations by design).
 
+Training (``ExecPolicy.training``, the reference's default True) picks
+the ``qat`` entry's straight-through fake quant (``quant.fake_quant_ste``)
+over the inference one, whose round has a zero gradient; forward values
+are the same. A training policy that names a hand-written kernel
+(photonic_pallas, flash, fused) raises with the reason when an operand
+needs a gradient: none of those kernels has a backward
+(``_no_backward_reason``). So does a ``QuantizedWeight`` met by an operand
+that needs a gradient: a training tree holds raw float weights.
+
 Calibrated device noise (``ExecPolicy.noise``, a ``core.noise.NoiseSpec``)
 takes every matmul through ``_noisy_matmul`` on every backend: the tuned
 weights take the MR transmission error (drawn on the card by the
@@ -86,16 +95,22 @@ class ExecPolicy:
     (``core.noise.NoiseSpec``, hashable); None is the clean path. Under
     noise every matmul runs ``_noisy_matmul``, which needs an active noise
     scope (``core.noise.noise_scope``).
+
+    ``training`` (default True, as the reference's) selects the ``qat``
+    entry's straight-through fake quant; the serving entry points build
+    their policies with ``training=False``, as the reference's do.
     """
 
     __slots__ = ("quant_bits", "photonic", "backend", "attn_backend",
-                 "ffn_backend", "matmul_fn", "bit_plan", "noise")
+                 "ffn_backend", "matmul_fn", "bit_plan", "noise", "training")
 
     def __init__(self, quant_bits: int = 0, backend: str = "",
                  attn_backend: str = "", ffn_backend: str = "",
-                 bit_plan=None, photonic: bool = False, noise=None):
+                 bit_plan=None, photonic: bool = False, noise=None,
+                 training: bool = True):
         self.quant_bits = quant_bits
         self.photonic = photonic
+        self.training = bool(training)
         self.backend = backend or ("photonic_sim" if photonic else
                                    "qat" if quant_bits else "bf16")
         self.matmul_fn = _lookup(BACKENDS, "matmul", self.backend)
@@ -106,10 +121,11 @@ class ExecPolicy:
         self.noise = noise
 
     @staticmethod
-    def from_cfg(cfg) -> "ExecPolicy":
+    def from_cfg(cfg, training: bool = True) -> "ExecPolicy":
         return ExecPolicy(cfg.quant_bits, cfg.matmul_backend,
                           cfg.attn_backend, cfg.ffn_backend,
-                          cfg.bit_plan or None, cfg.photonic, cfg.noise)
+                          cfg.bit_plan or None, cfg.photonic, cfg.noise,
+                          training)
 
     def without_noise(self) -> "ExecPolicy":
         """A clean copy of this policy (noise stripped); self when already
@@ -117,7 +133,8 @@ class ExecPolicy:
         if self.noise is None:
             return self
         return ExecPolicy(self.quant_bits, self.backend, self.attn_backend,
-                          self.ffn_backend, self.bit_plan, self.photonic)
+                          self.ffn_backend, self.bit_plan, self.photonic,
+                          training=self.training)
 
     def gate_policy(self) -> "ExecPolicy":
         """Policy of the MGNet RoI gate: clean even under noise (noisy gate
@@ -131,7 +148,7 @@ class ExecPolicy:
         """Hashable identity of every dispatch-relevant knob."""
         return (self.backend, self.resolve_attn_backend(),
                 self.resolve_ffn_backend(), self.quant_bits, self.bit_plan,
-                self.noise)
+                self.noise, self.training)
 
     def resolve_attn_backend(self) -> str:
         return self.attn_backend or "xla"
@@ -148,7 +165,35 @@ class ExecPolicy:
         return (f"ExecPolicy(backend={self.backend!r}, "
                 f"attn={self.resolve_attn_backend()!r}, "
                 f"ffn={self.resolve_ffn_backend()!r}, bits={self.quant_bits}"
-                f"{plan}{noise})")
+                f"{plan}, training={self.training}{noise})")
+
+
+def _needs_grad(*ts) -> bool:
+    """Whether autograd records an op on these operands."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _no_backward_reason(p: ExecPolicy, entry: str, *ts) -> None:
+    """Raise when a training policy sends operands that need a gradient
+    to a hand-written kernel: none has a backward. The reference's own
+    train step cannot run on them either (its Pallas calls have no VJP)."""
+    p = p or _DEFAULT          # a direct call of an entry names none
+    if p.training and _needs_grad(*ts):
+        raise ValueError(
+            f"a training policy ({p!r}) sent operands that need a gradient "
+            f"to the {entry} kernel, which has no backward; train on the "
+            f"composed entries (qat or bf16 matmuls, xla attention, xla "
+            f"FFN) and serve the trained weights on the kernels")
+
+
+def _no_cached_weight(w, x, p: ExecPolicy) -> None:
+    """A ``QuantizedWeight`` in a training forward is an error, not a
+    dequantize: a training tree holds raw float weights."""
+    if isinstance(w, QuantizedWeight) and p.training and _needs_grad(x):
+        raise ValueError(
+            f"a QuantizedWeight {w!r} reached a training forward; train on "
+            f"the raw float params and run prepare_params on the result")
 
 
 
@@ -496,6 +541,7 @@ def _photonic_pallas_matmul(x, w, p: ExecPolicy):
     only the activations are quantized per call."""
     from repro_torch.kernels.ops import photonic_matmul_prequant
 
+    _no_backward_reason(p, "photonic matmul", x, w)
     bits = _weight_bits(w, p)
     qw = _resolve_wq(w, bits)
     y = photonic_matmul_prequant(x.float(), qw.wq, qw.scale.reshape(-1),
@@ -530,14 +576,16 @@ def _qat_matmul(x, w, p: ExecPolicy):
     """Fake-quant w8a8 in float (the reference's ``qat`` entry, paper §IV):
     the weight per output channel, the activations per tensor, then one f32
     product cast to ``x.dtype``. A cached weight is dequantized instead
-    (the cache already quantized it). On the card the f32 product runs
-    without TF32, as the entry points set it."""
+    (the cache already quantized it). A training policy takes the
+    straight-through fake quant, as the reference's. On the card the f32
+    product runs without TF32, as the entry points set it."""
     bits = p.quant_bits or 8
+    fq = quant.fake_quant_ste if p.training else quant.fake_quant
     if isinstance(w, QuantizedWeight):
         wq = w.dequantize().to(x.dtype)
     else:
-        wq = quant.fake_quant(w, bits=bits, axis=tuple(range(w.ndim - 1)))
-    xq = quant.fake_quant(x, bits=bits, axis=None)
+        wq = fq(w, bits=bits, axis=tuple(range(w.ndim - 1)))
+    xq = fq(x, bits=bits, axis=None)
     return torch.matmul(xq.float(), wq.float()).to(x.dtype)
 
 
@@ -592,9 +640,9 @@ def _noisy_matmul(x, w, p: ExecPolicy):
         wf = w.dequantize()
         xf = x.float()
     elif p.backend == "qat":
-        wf = quant.fake_quant(w.float(), bits=bits,
-                              axis=tuple(range(w.ndim - 1)))
-        xf = quant.fake_quant(x.float(), bits=bits, axis=None)
+        fq = quant.fake_quant_ste if p.training else quant.fake_quant
+        wf = fq(w.float(), bits=bits, axis=tuple(range(w.ndim - 1)))
+        xf = fq(x.float(), bits=bits, axis=None)
     else:
         wf = w.float()
         xf = x.float()
@@ -610,6 +658,7 @@ def matmul(x: torch.Tensor, w, policy: ExecPolicy | None = None) -> torch.Tensor
     """y = x @ w under the policy. x (..., d_in); w (d_in, d_out) tensor or
     cached ``QuantizedWeight``. A noisy policy takes ``_noisy_matmul``."""
     p = policy or _DEFAULT
+    _no_cached_weight(w, x, p)
     if p.noise is not None:
         return _noisy_matmul(x, w, p)
     return p.matmul_fn(x, w, p)
@@ -629,6 +678,7 @@ def _attend_flash(q, k, v, p: ExecPolicy, mask, kv_len, scale):
     streaming-softmax update, fully pruned KV tiles skipped."""
     from repro_torch.kernels.flash_attention import flash_attention_masked
 
+    _no_backward_reason(p, "flash attention", q, k, v)
     lead = q.shape[:-3]
     b = math.prod(lead)
     h, sq, d = q.shape[-3:]
@@ -745,6 +795,7 @@ def _ffn_fused(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
     them)."""
     from repro_torch.kernels.fused_ffn import fused_ffn
 
+    _no_backward_reason(p, "fused FFN", x, w1, b1, w2, b2)
     reason = _fused_ffn_ineligible_reason(w1, w2, p)
     if reason is not None:
         raise ValueError(f"the fused FFN was asked for but cannot run: "

@@ -184,7 +184,7 @@ def _scoring_policy(policy):
 
     return ExecPolicy(quant_bits=0, backend=policy.backend,
                       attn_backend=policy.attn_backend,
-                      ffn_backend=policy.ffn_backend)
+                      ffn_backend=policy.ffn_backend, training=False)
 
 
 def score_layer(x, raw_layer: dict, cfg, policy, candidates: tuple,

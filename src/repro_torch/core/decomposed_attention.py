@@ -30,8 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.backend import (ExecPolicy, QuantizedWeight, attend,
-                                      linear)
+from repro_torch.core.backend import (ExecPolicy, QuantizedWeight,
+                                      _no_backward_reason, attend, linear)
 
 __all__ = ["attention_scores_standard", "attention_scores_decomposed",
            "mhsa_standard", "mhsa_decomposed", "decomposition_flops"]
@@ -119,6 +119,9 @@ def mhsa_standard(x: torch.Tensor, params: dict, heads: int,
     ``linear`` and the core through ``attend``."""
     dm = x.shape[-1]
     p = policy or ExecPolicy()
+    if p.resolve_attn_backend() == "flash" and p.backend == "photonic_pallas":
+        _no_backward_reason(p, "fused attention", x,
+                            *(params[n] for n in ("wq", "wk", "wv")))
     reason = _fused_prequant_ineligible_reason(params, policy, x)
     if reason is None:
         from repro_torch.kernels.ops import fused_roi_attention_prequant

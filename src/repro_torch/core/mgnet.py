@@ -8,6 +8,12 @@ give per-patch region scores. Every weight matmul routes through
 matmul kernel like the backbone; the q.K^T and att.V activation products
 and the softmax stay plain PyTorch ops, as they stay XLA ops in the
 reference.
+
+Training (paper Sec. IV): ``bce_loss`` of the region scores against the
+box-derived patch labels. Under a training policy ``mgnet_scores`` is
+differentiable end to end; ``select_topk_patches`` passes gradients to the
+tokens through the gather and none to the scores (top-k indices carry
+none), as the reference's ``take_along_axis``.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from repro_torch.kernels.ref import gelu_tanh
 
 __all__ = ["MGNetConfig", "patchify", "mgnet_scores", "mgnet_mask",
            "select_topk_patches", "mask_budget", "frame_delta", "mask_iou",
-           "mgnet_logical_axes"]
+           "bce_loss", "mgnet_logical_axes"]
 
 
 @dataclass(frozen=True)
@@ -150,3 +156,11 @@ def mask_iou(pred: torch.Tensor, gt: torch.Tensor,
     inter = (pred * gt).sum(-1)
     union = torch.clamp(pred + gt, 0, 1).sum(-1)
     return (inter / (union + eps)).mean()
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy of region scores (pre-sigmoid) against the
+    box-derived {0, 1} patch labels, mean over every element."""
+    log_p = torch.nn.functional.logsigmoid(logits)
+    log_not_p = torch.nn.functional.logsigmoid(-logits)
+    return -torch.mean(labels * log_p + (1.0 - labels) * log_not_p)

@@ -8,9 +8,14 @@ is never produced. Codes are int8 for bits <= 8 and int32 above.
 
 ``fake_quant`` / ``fake_quant_ste`` (the ``qat`` matmul backend's
 quantize -> dequantize) and ``quantize_params`` divide by the scale as the
-reference does and return the input's dtype. Only their forward values
-are ported: the straight-through gradient of ``fake_quant_ste`` comes with
-training (ROADMAP.md queue A15).
+reference does and return the input's dtype. ``fake_quant`` is the
+inference form: its round has a zero gradient. ``fake_quant_ste`` is the
+training form, with the reference's gradient: the scale is detached (the
+reference's ``stop_gradient``), the round passes its gradient straight
+through (``_ste_round``), and the clip's gradient is ``jnp.clip``'s VJP,
+1 inside the range, 0 outside and 0.5 on either bound (``_jnp_clip``):
+``torch.clamp`` would give 1 there, and the absmax element lands exactly
+on the bound for most tensors (x / s = absmax / (absmax * f32(1/qmax))).
 """
 
 from __future__ import annotations
@@ -71,14 +76,52 @@ def fake_quant(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
     return (q * scale).to(x.dtype)
 
 
+class _SteRound(torch.autograd.Function):
+    """round half to even forward; the identity backward (Bengio et al.)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _JnpClip(torch.autograd.Function):
+    """``jnp.clip(x, lo, hi)``, i.e. min(max(x, lo), hi), with JAX's
+    gradient: each of max and min hands a tie half the gradient, so the
+    VJP is g where lo < x < hi, 0.5 g on either bound and 0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
+def _jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    return _JnpClip.apply(x, lo, hi)
+
+
 def fake_quant_ste(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
-    """The training form of ``fake_quant``: clip x / s, then round. Equal to
+    """The training form of ``fake_quant``: clip x / s, round, times s, with
+    the reference's gradient: s detached, the round straight through, the
+    clip's VJP that of ``jnp.clip`` (0.5 on the bounds). Equal to
     ``fake_quant`` in value (rounding and clipping to integer bounds
-    commute); the reference's straight-through gradient is not ported."""
-    scale = absmax_scale(x, bits=bits, axis=axis)
+    commute)."""
+    scale = absmax_scale(x, bits=bits, axis=axis).detach()
     qmin, qmax = quant_range(bits)
-    clipped = torch.clamp(x.float() / scale, qmin, qmax)
-    return (torch.round(clipped) * scale).to(x.dtype)
+    clipped = _jnp_clip(x.float() / scale, float(qmin), float(qmax))
+    return (_SteRound.apply(clipped) * scale).to(x.dtype)
 
 
 def quantize_params(params, bits: int = 8, min_size: int = 128):

@@ -1,11 +1,13 @@
-"""Synthetic video for near-sensor serving and its double-buffered ingest
-(the reference's src/repro/data/pipeline.py::VideoStream / video_fleet /
-prefetch_to_device).
+"""Synthetic video for near-sensor serving and its double-buffered ingest,
+and the synthetic RoI classification task for training (the reference's
+src/repro/data/pipeline.py::VideoStream / video_fleet / prefetch_to_device
+/ ImageStream / quadrant_labels).
 
-Frames are pure numpy: every frame is a pure function of (seed,
-frame_idx), drawn with the same generator calls as the reference, so both
-packages serve bit-identical frames. ``prefetch_to_device`` ships them to
-the card ahead of the consumer.
+Frames and batches are pure numpy: every frame is a pure function of
+(seed, frame_idx), every training batch of (seed, step), drawn with the
+same generator calls as the reference, so both packages see bit-identical
+data and a resumed run sees the batches the straight run saw.
+``prefetch_to_device`` ships frames to the card ahead of the consumer.
 """
 
 from __future__ import annotations
@@ -19,11 +21,75 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["VideoStream", "video_fleet", "prefetch_to_device"]
+__all__ = ["ImageStream", "quadrant_labels", "VideoStream", "video_fleet",
+           "prefetch_to_device"]
 
 
 def _host_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+@dataclass
+class ImageStream:
+    """Synthetic image-classification batches with planted RoI structure:
+    one bright box on a dark background; the label is a function of the
+    box's quadrant and texture, so MGNet has real signal to learn.
+
+    ``batch_at(step)`` returns {"images": (B, H, W, 3) f32, "labels": (B,)
+    int32, "patch_mask": (B, N) f32 (1 where a patch overlaps the box)}:
+    host numpy arrays, or tensors on ``device`` when one is given.
+    """
+
+    img_size: int
+    global_batch: int
+    n_classes: int = 10
+    patch: int = 16
+    seed: int = 0
+    device: object = None
+
+    def batch_at(self, step: int) -> dict:
+        rng = _host_rng(self.seed, step)
+        b, h = self.global_batch, self.img_size
+        imgs = rng.normal(0.0, 0.1, size=(b, h, h, 3)).astype(np.float32)
+        g = h // self.patch
+        patch_mask = np.zeros((b, g * g), np.float32)
+        labels = np.zeros((b,), np.int32)
+        for i in range(b):
+            bw = rng.integers(h // 4, h // 2)
+            bh = rng.integers(h // 4, h // 2)
+            y0 = rng.integers(0, h - bh)
+            x0 = rng.integers(0, h - bw)
+            tex = rng.integers(0, 5)
+            imgs[i, y0:y0 + bh, x0:x0 + bw] += 1.0 + 0.2 * tex
+            quad = 2 * ((y0 + bh / 2) > h / 2) + ((x0 + bw / 2) > h / 2)
+            labels[i] = int(quad * 2 + tex % 2)
+            py0, py1 = y0 // self.patch, (y0 + bh - 1) // self.patch
+            px0, px1 = x0 // self.patch, (x0 + bw - 1) // self.patch
+            m2 = np.zeros((g, g), np.float32)
+            m2[py0:py1 + 1, px0:px1 + 1] = 1.0
+            patch_mask[i] = m2.reshape(-1)
+        out = {"images": imgs, "labels": labels, "patch_mask": patch_mask}
+        if self.device is None:
+            return out
+        dev = resolve_device(self.device)
+        return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def quadrant_labels(patch_mask):
+    """4-class labels from the quadrant of the box mask's centroid (B, N) ->
+    (B,) int32: numpy in, numpy out; a tensor in, a tensor out."""
+    t = torch.as_tensor(patch_mask)
+    b, n = t.shape
+    g = int(np.sqrt(n))
+    m = t.reshape(b, g, g)
+    ys = torch.arange(g, device=t.device)[None, :, None]
+    xs = torch.arange(g, device=t.device)[None, None, :]
+    tot = m.sum((1, 2)) + 1e-6
+    cy = (m * ys).sum((1, 2)) / tot
+    cx = (m * xs).sum((1, 2)) / tot
+    mid = (g - 1) / 2.0
+    out = ((cy > mid).int() * 2 + (cx > mid).int())
+    return out.numpy() if isinstance(patch_mask, np.ndarray) else out
 
 
 @dataclass

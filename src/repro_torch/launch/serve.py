@@ -130,7 +130,7 @@ def main(argv=None):
     if dev.type == "cuda":
         full_precision_matmuls()
 
-    policy = ExecPolicy.from_cfg(cfg)
+    policy = ExecPolicy.from_cfg(cfg, training=False)
     params = model_api.init_model(args.seed, cfg, dev)
     if policy.is_photonic():
         # quantize-once weight cache: every matmul weight tuned before

@@ -2,6 +2,7 @@
 ported families only): one surface for the launch layer.
 
     init_model(seed, cfg, device)               -> params
+    loss_fn(params, batch, cfg, policy)         -> scalar loss (vit)
     prefill_fn(params, batch, cfg)              -> logits
     decode_fn(params, cache, tokens, pos, cfg)  -> (logits, cache)
     cache_axes_spec(cfg, batch, seq_len)        -> ({name: (shape, dtype)},
@@ -10,7 +11,9 @@ ported families only): one surface for the launch layer.
 
 ``dense`` runs models/transformer.py; ``vit`` routes to models/vit.py.
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
-queue A15. The parameters are the port's tree (``bridge.from_jax_params``
+queue A15. ``loss_fn`` (the train step's loss) is ported for ``vit``;
+the dense LM's (``lm_loss``) comes with dense-LM training, right after
+A14's LM half in queue A. The parameters are the port's tree (``bridge.from_jax_params``
 of the reference's, or ``init_model``); ``init_model`` does not replay
 the reference's ``jax.random`` draws.
 """
@@ -23,8 +26,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import ExecPolicy
 
-__all__ = ["init_model", "prefill_fn", "decode_fn", "cache_axes_spec",
-           "supports_decode"]
+__all__ = ["init_model", "loss_fn", "prefill_fn", "decode_fn",
+           "cache_axes_spec", "supports_decode"]
 
 _UNPORTED = ("moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -49,11 +52,39 @@ def init_model(seed: int, cfg: ArchConfig, device=None,
     raise _unported(cfg)
 
 
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy in f32: logsumexp minus the gold logit."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig,
+            policy: ExecPolicy | None = None) -> torch.Tensor:
+    """The training loss: ``batch["images"]`` (B, H, W, 3) and
+    ``batch["labels"]`` (B,) -> the mean cross-entropy of the ViT's logits
+    (the reference's ``vit`` branch). The forward runs where the images
+    live, on raw float params (a ``QuantizedWeight`` raises)."""
+    if cfg.family == "vit":
+        from repro_torch.models.vit import check_training_tree, forward_vit
+        check_training_tree(params)
+        logits, _ = forward_vit(params, batch["images"], cfg, policy,
+                                device=batch["images"].device)
+        return _xent(logits, batch["labels"])
+    if cfg.family == "dense":
+        raise NotImplementedError(
+            "the dense LM's training loss (lm_loss, on TokenStream batches) "
+            "is not ported to repro_torch yet: it comes with dense-LM "
+            "training, right after A14's LM half (ROADMAP.md queue A)")
+    raise _unported(cfg)
+
+
 def prefill_fn(params, batch: dict, cfg: ArchConfig,
                policy: ExecPolicy | None = None):
     """Inference forward over the full prompt: ``batch["tokens"]`` (B, S)
     -> logits (B, S, V) for dense; ``batch["images"]`` -> logits for vit."""
-    policy = policy or ExecPolicy.from_cfg(cfg)
+    policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     if cfg.family == "dense":
         logits, _ = tf_mod.forward_lm(params, batch["tokens"], cfg, policy)
         return logits
@@ -69,7 +100,7 @@ def decode_fn(params, cache: dict, tokens: torch.Tensor, pos: int,
               cfg: ArchConfig, policy: ExecPolicy | None = None):
     """One decode step (see ``transformer.decode_step``): the cache is
     written in place and returned."""
-    policy = policy or ExecPolicy.from_cfg(cfg)
+    policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     if cfg.family == "dense":
         return tf_mod.decode_step(params, cache, tokens, pos, cfg, policy)
     if cfg.family in _UNPORTED:

@@ -147,7 +147,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     tokens already in the cache. Returns (logits (B, V), cache): the cache
     dict is the argument, its layer slices written in place."""
     check_family(cfg)
-    policy = policy or ExecPolicy.from_cfg(cfg)
+    policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     pos = int(pos)
     x = embedding_lookup(params["embed"], tokens)
     tables = decode_rope(pos, cfg, x.device)

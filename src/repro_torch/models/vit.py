@@ -20,6 +20,17 @@ slice carries its own int widths (``QuantizedWeight.layer``): the loop is
 the port's counterpart of the reference's segmented scan over equal-bits
 runs.
 
+Training: under a training policy (``ExecPolicy.training``) with raw
+float params that need gradients, ``forward_vit`` is differentiable end
+to end through the composed entries (qat's straight-through fake quant,
+xla attention, xla FFN); it never reaches a weight cache or a graph (a
+``QuantizedWeight`` met by activations that need a gradient raises, and
+``models/api.py::loss_fn`` refuses one anywhere in its tree,
+``check_training_tree``),
+and ``cfg.remat`` checkpoints each encoder layer
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint``: values are unchanged.
+
 MGNet RoI pruning: patches are scored by MGNet and only the top-k
 (static budget int(keep_ratio * N)) enter encoder block 0; the [cls]
 token is always kept. ``forward_vit_masked`` is the mask-mode dense
@@ -68,7 +79,7 @@ from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "forward_vit_masked",
            "vit_matmul_shapes", "mgnet_config", "vit_logical_axes",
-           "data_split_calls"]
+           "data_split_calls", "check_training_tree"]
 
 # "split" -> data-split encodes run by this process with the batch split
 # over "data"; "whole" -> those that encoded the whole batch on every rank
@@ -206,6 +217,19 @@ def _fused_encoder_ineligible_reason(params: dict, cfg: ArchConfig,
     return None
 
 
+def check_training_tree(params) -> None:
+    """A training tree holds raw float tensors: a ``QuantizedWeight`` in
+    it is an error (train on the raw weights, then ``prepare_params``)."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            if isinstance(v, QuantizedWeight):
+                raise ValueError(
+                    f"params[{k!r}] is a QuantizedWeight in a training "
+                    f"tree; train on the raw float params and run "
+                    f"prepare_params on the result")
+            check_training_tree(v)
+
+
 def _check_device(params: dict, dev: torch.device) -> None:
     pdev = params["pos"].device
     if pdev.type != dev.type:
@@ -309,7 +333,13 @@ def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if patch_mask is not None:
         mask = torch.cat([patch_mask.new_ones(b, 1), patch_mask], dim=1)
     attn_kv = None if kv_len is None else int(kv_len) + 1   # + live [cls]
-    if policy.noise is None:
+    if policy.noise is None and cfg.remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        for i in range(cfg.n_layers):
+            x = checkpoint(encoder_layer_step, x,
+                           layer_view(params["blocks"], i), cfg, policy,
+                           mask, attn_kv, attn_kv, use_reentrant=False)
+    elif policy.noise is None:
         for i in range(cfg.n_layers):
             x = encoder_layer_step(x, layer_view(params["blocks"], i), cfg,
                                    policy, mask, attn_kv, attn_kv)

@@ -1,0 +1,154 @@
+"""AdamW + SGD and the learning-rate schedule, on trees of tensors (the
+reference's src/repro/optim/adamw.py, operation for operation).
+
+Trees are nested dicts of tensors. Every walk over leaves follows the
+reference's ``jax.tree_util`` order, dict keys sorted (``tree_leaves``):
+the cross-leaf sum of ``clip_by_global_norm`` adds the leaves' squares in
+that order, as any other order moves the norm by ulps.
+
+All update math is f32. Two storage modes for the moments, as the
+reference's: f32, or bf16 (``low_mem``), rounded to nearest even as
+``astype`` rounds; only storage is rounded. The bias corrections are f32
+powers ``b ** count`` of 0-d tensors, as the reference computes them.
+Python scalars enter f32 arithmetic as f32, as JAX's weak types do.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "sgd_init",
+           "sgd_update", "warmup_cosine", "clip_by_global_norm",
+           "tree_leaves", "tree_unflatten", "tree_map"]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, keys sorted at every level."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: list):
+    """``like``'s structure with its leaves taken in ``tree_leaves`` order
+    from ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    low_mem: bool = False          # bf16 m/v storage
+
+
+def _store_dtype(cfg: AdamWConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.low_mem else torch.float32
+
+
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    dt = _store_dtype(cfg)
+    dev = tree_leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
+                 lr_scale=1.0):
+    """Returns (new_params, new_state). All math f32; storage per cfg."""
+    count = state["count"] + 1
+    cf = count.float()
+    one = torch.ones((), dtype=torch.float32, device=cf.device)
+    b1c = 1.0 - (one * cfg.b1) ** cf
+    b2c = 1.0 - (one * cfg.b2) ** cf
+    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
+                                  device=cf.device)
+    store_dt = _store_dtype(cfg)
+
+    def upd(g, m, v, p):
+        gf = g.float()
+        mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+        vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+        mhat = mf / b1c
+        vhat = vf / b2c
+        step = mhat / (torch.sqrt(vhat) + cfg.eps)
+        pf = p.float()
+        pf = pf - lr * (step + cfg.weight_decay * pf)
+        return pf.to(p.dtype), mf.to(store_dt), vf.to(store_dt)
+
+    out = tree_map(lambda g, m, v, p: upd(g, m, v, p), grads, state["m"],
+                   state["v"], params)
+    pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
+    return pick(0), {"m": pick(1), "v": pick(2), "count": count}
+
+
+def sgd_init(params, momentum: float = 0.9) -> dict:
+    return {"mom": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)}
+
+
+@torch.no_grad()
+def sgd_update(grads, state: dict, params, lr: float,
+               momentum: float = 0.9):
+    def upd(g, mo, p):
+        mo = momentum * mo + g.float()
+        return (p.float() - lr * mo).to(p.dtype), mo
+
+    out = tree_map(upd, grads, state["mom"], params)
+    return (tree_map(lambda o: o[0], out),
+            {"mom": tree_map(lambda o: o[1], out)})
+
+
+def warmup_cosine(step, *, peak_lr_scale: float = 1.0, warmup: int = 100,
+                  total: int = 10000, floor: float = 0.1) -> torch.Tensor:
+    """LR multiplier (a 0-d f32 tensor): linear warmup, then cosine decay
+    to floor * peak. ``step`` an int or a 0-d tensor (its device kept)."""
+    s = torch.as_tensor(step).float()
+    warm = s / max(warmup, 1)
+    prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0, 1)
+    cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return peak_lr_scale * torch.where(s < warmup, warm, cos)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float = 1.0):
+    """(grads scaled so their global L2 norm is at most ``max_norm``, the
+    norm before scaling). The leaves' sums of squares are added in the
+    reference's leaf order."""
+    gn = 0
+    for leaf in tree_leaves(grads):
+        gn = gn + torch.sum(leaf.float() ** 2)
+    gn = torch.sqrt(gn)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

@@ -414,7 +414,7 @@ class StreamServer:
         self.device = self.mesh.device if self.mesh is not None else dev
         self._ctx = (ShardingCtx(self.mesh, rules_for_mesh(self.mesh))
                      if self.mesh is not None else None)
-        self.policy = ExecPolicy.from_cfg(cfg)
+        self.policy = ExecPolicy.from_cfg(cfg, training=False)
         # calibrated device noise: the server's DriftState and the device
         # state tensor every noisy stage reads (written before each one)
         self.noise: NoiseSpec | None = cfg.noise

@@ -47,17 +47,30 @@ and the N-major design's two launches) bitwise the call outside one; a
 2-rank data-mesh serve on the one card bitwise the unsharded eager serve,
 every B3 launch on the host-split binding; a graphed 2-worker fleet on
 one shared cache bitwise, job by job, solo serves; two spawned workers
-serve through their own graphs and compile no kernel.
+serve through their own graphs and compile no kernel. ViT training: a
+train step on the card against the same step on the CPU (the loss
+within 1%, the gradients within 0.25 relative L2, each leaf corr > 0.95:
+the gate's top-k routing, the rounding and the STE's gradient at the
+clip bound are discontinuous, so rounding differences move whole
+leaves),
+a run resumed from a checkpoint and after an injected fault bitwise the
+straight run under deterministic algorithms, and a training policy that
+names a kernel raising with the reason.
 """
 
 import gc
+import os
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+# the training tests run under deterministic algorithms, which need
+# cuBLAS's fixed workspace, set before the first cuBLAS handle
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -1631,3 +1644,123 @@ def test_spawned_fleet_workers_build_no_kernel(dev):
         info = router.last_worker_info[i]
         assert info["device"].startswith("cuda") and info["built"] == []
         assert info["graphs"] and info["launches"].get("fused_ffn", 0) > 0
+
+
+# --------------------------------------------------------------------------
+# ViT training
+# --------------------------------------------------------------------------
+
+def _train_cfg():
+    return smoke_variant(get_config("opto-vit-tiny")).with_(
+        n_layers=2, mgnet=True, mgnet_keep_ratio=0.5, mgnet_embed=32,
+        mgnet_heads=2, lr_warmup=4, lr_total=200)
+
+
+def _train_state(cfg, device):
+    from repro_torch.launch.train import init_state
+    return init_state(cfg, 0, device)
+
+
+def _grad_distance(ga, gb):
+    """(global relative L2 of ga against gb, min corr over gb's moving
+    leaves); a leaf gb leaves at 0 must be 0 in ga too."""
+    from repro_torch.optim.adamw import tree_leaves
+    num = den = 0.0
+    worst = 1.0
+    for a, h in zip(tree_leaves(ga), tree_leaves(gb)):
+        a, h = a.double().cpu().flatten(), h.double().cpu().flatten()
+        num += float(((a - h) ** 2).sum())
+        den += float((h ** 2).sum())
+        if float(h.norm()) > 0:
+            worst = min(worst, float(torch.corrcoef(torch.stack([a, h]))[0, 1]))
+        else:
+            assert not a.any()
+    return (num / den) ** 0.5, worst
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_against_the_cpu(dev):
+    """One step's loss and gradients at equal state and batch: the loss
+    within 1%, the gradients within 0.25 relative L2 and each leaf corr >
+    0.95 (chip_smoke.py 4i (C)'s bounds: the gate's top-k routing, the
+    rounding and the STE's 0.5 on the clip bound are discontinuous, so
+    rounding differences move whole leaves); MGNet's leaves get no
+    gradient on either device. The step then runs on the card."""
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.launch.steps import make_grad_fn, make_train_fn
+    cfg = _train_cfg()
+    state = _train_state(cfg, "cpu")
+    b = {k: v for k, v in ImageStream(32, 8, n_classes=8, patch=8,
+                                      seed=0, device="cpu").batch_at(0).items()
+         if k in ("images", "labels")}
+    grads_of = make_grad_fn(cfg)
+    lh, gh = grads_of(state["params"], b)
+    lc, gc_ = grads_of(to_device(state["params"], dev),
+                       {k: v.to(dev) for k, v in b.items()})
+    rel, corr = _grad_distance(gc_, gh)
+    msg = (f"card vs CPU: rel L2 {rel:.3e}, min corr {corr:.6f}, loss "
+           f"{float(lc):.6f} vs {float(lh):.6f}")
+    assert abs(float(lc) - float(lh)) <= 1e-2 * abs(float(lh)), msg
+    assert rel < 0.25 and corr > 0.95, msg
+    new, m = make_train_fn(cfg)(to_device(state, dev),
+                                {k: v.to(dev) for k, v in b.items()})
+    assert torch.isfinite(m["loss"]) and int(new["step"]) == 1
+
+
+@pytest.mark.gpu
+def test_train_resume_is_bitwise_under_deterministic_algorithms(dev,
+                                                                tmp_path):
+    """A straight 6-step run, one resumed from its step-3 checkpoint and
+    one resumed after a fault injected at step 4: equal losses and final
+    state, bit for bit, under ``torch.use_deterministic_algorithms``."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = _train_cfg()
+    shape = ShapeConfig("t", 0, 8, "train")
+    state0 = _train_state(cfg, dev)
+    clone = lambda st: tree_map(torch.clone, st)  # noqa: E731
+    torch.use_deterministic_algorithms(True)
+    try:
+        final, losses, _ = train_loop(cfg, shape, 6, device=dev,
+                                      state=clone(state0))
+        _, first, _ = train_loop(cfg, shape, 3, device=dev,
+                                 state=clone(state0),
+                                 ckpt=CheckpointManager(str(tmp_path / "a"),
+                                                        every=3))
+        with pytest.raises(RuntimeError, match="injected fault"):
+            train_loop(cfg, shape, 6, device=dev, state=clone(state0),
+                       ckpt=CheckpointManager(str(tmp_path / "b"), every=3),
+                       inject_fault_at=4)
+        for root, want in (("a", first), ("b", losses[:3])):
+            st, rest, _ = train_loop(cfg, shape, 6, device=dev,
+                                     state=clone(state0),
+                                     ckpt=CheckpointManager(
+                                         str(tmp_path / root), every=100))
+            assert want + rest == losses
+            for x, y in zip(tree_leaves(st), tree_leaves(final)):
+                assert torch.equal(x, y)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backends", [("photonic_pallas", "xla", "xla"),
+                                      ("qat", "flash", "xla"),
+                                      ("photonic_pallas", "flash", "fused")])
+def test_training_policy_on_a_kernel_raises_on_the_card(dev, backends):
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.launch.steps import make_train_fn
+    mm, at, ff = backends
+    cfg = _train_cfg().with_(matmul_backend=mm, attn_backend=at,
+                             ffn_backend=ff)
+    state = _train_state(cfg, dev)
+    b = {k: v for k, v in ImageStream(32, 4, n_classes=8, patch=8,
+                                      seed=0, device=dev).batch_at(0).items()
+         if k in ("images", "labels")}
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="which has no backward"):
+        make_train_fn(cfg)(state, b)
+    # raised before any kernel of the named entry launched a backward
+    assert _build.LAUNCHES.get("fused_ffn", 0) == before.get("fused_ffn", 0)
