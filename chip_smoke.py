@@ -216,6 +216,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         a step's CUDA-event ms and images/s on a device batch, the host's
         synthesis ms a batch, peak memory, a profiled step's GEMMs
         against the rest;
+     j. ``[lm_mesh]``, after 4i: qwen2-1.5b (4b's weights and prompt,
+        copied once to shared host memory) on ``make_host_mesh(1, 2)``
+        over 2 gloo ranks on the one card. (A) 4b's traffic through
+        ``generate`` and ``prefill_fn`` on the tensor-parallel layers:
+        each rank launches B6 4,480 and B5 28 times (6 query heads on one
+        KV head), both ranks' greedy tokens equal; the prefill logits and
+        the teacher-forced decode logits (the same 160 inputs through the
+        unsharded decode step) bitwise the control, the mesh's arithmetic
+        on one device (``tp_arithmetic``), and against the unsharded card
+        runs at every position within twice the control's distance from
+        1; two gross planted faults (wo's partial products unreduced,
+        each rank's heads on the other rank's KV head) must fall below
+        that, a subtle one (layer 0's wo partials rounded to bf16) must
+        break the bitwise check; tok/s and gloo ms a decode step beside
+        4b's. (B) the same prefill under
+        photonic_pallas bitwise the unsharded int8 prefill, B1 and B4
+        launches a rank. (C) the first 8 layers at batch 8 x seq 128 of
+        ``TokenStream`` (warmup 10): 20 steps through ``train_loop`` on
+        (1, 2), the loss falls; one step against the unsharded step on
+        the card (loss within 1e-3; gradient relative L2 within 4x the
+        control, the step on two half-batches averaged in f32; the
+        "copy to model" backward planted without its all-reduce must read
+        10x that); a run resumed from its step-10 checkpoint bitwise
+        under deterministic algorithms, the checkpoint (the logical
+        state) restored on one device bitwise. (D) a (2, 1) step against
+        the unsharded step on the whole batch. B5 and B6 are also checked
+        and timed at the per-rank shapes (phases 3 and 5);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -242,6 +269,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -771,6 +799,117 @@ def check_lm_kernels(torch, dev) -> dict:
     return err
 
 
+# B5 / B6 at path 4j's per-rank shapes (qwen2-1.5b on make_host_mesh(1, 2)):
+# each rank's 6 query heads read one KV head, a view of the whole 2-head
+# K / V (the prefill) or cache (the decode)
+TP_HEADS, TP_KV = 6, 1
+
+
+def check_tp_kernels(torch, dev) -> dict:
+    """Phase 3, B5 and B6 at 4j's per-rank shapes against their plain
+    versions, bf16 (1 bf16 ulp of the largest |o|) and f32 (2e-5): K / V
+    and the cache one KV head of a whole 2-head tensor, read by strides.
+    Returns kernel name -> max |kernel - plain|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.attention import blockwise_attention
+
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    err = {"flash_attention_causal": 0.0, "flash_decode": 0.0}
+    b, d = LM_BATCH, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for kv in (0, 1):
+            q = torch.randn(b, LM_PROMPT, TP_HEADS, d, generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn(b, LM_PROMPT, 2, d, generator=gen,
+                                device=dev).to(dtype)[:, :, kv:kv + 1]
+                    for _ in range(2))
+            got = blockwise_attention(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(
+                1, 2), v.transpose(1, 2)).transpose(1, 2)
+            e, ok, tol = held(torch, got, want)
+            say(f"[check] B5 4j rank KV head {kv} q({b},{LM_PROMPT},"
+                f"{TP_HEADS},{d}) K/V a head of (..,2,{d}) "
+                f"{str(dtype)[6:]}: max abs err {e:.3e} (tol {tol})")
+            if not ok:
+                fail(f"B5 at 4j's rank shape: max abs err {e}")
+            err["flash_attention_causal"] = max(
+                err["flash_attention_causal"], e)
+            qd = torch.randn(b, 1, TP_HEADS, d, generator=gen,
+                             device=dev).to(dtype)
+            kc, vc = (torch.randn(b, LM_CACHE, 2, d, generator=gen,
+                                  device=dev).to(dtype)[:, :, kv:kv + 1]
+                      for _ in range(2))
+            length = LM_PROMPT + LM_GEN
+            got = flash_decode(qd, kc, vc, length)
+            if not torch.equal(flash_decode(qd, kc, vc, length), got):
+                fail("B6 at 4j's rank shape: two calls differ")
+            e, ok, tol = held(torch, got,
+                              ref.flash_decode_ref(qd, kc, vc, length))
+            say(f"[check] B6 4j rank KV head {kv} q({b},1,{TP_HEADS},{d}) "
+                f"cache a head of ({b},{LM_CACHE},2,{d}) length {length} "
+                f"{str(dtype)[6:]}: max abs err {e:.3e} (tol {tol})")
+            if not ok:
+                fail(f"B6 at 4j's rank shape: max abs err {e}")
+            err["flash_decode"] = max(err["flash_decode"], e)
+    torch.cuda.synchronize()
+    return err
+
+
+def time_tp_kernels(torch, dev, card: str) -> dict:
+    """B5 and B6 at 4j's per-rank shapes (bf16, KV head 1 of 2): device
+    ms, bound, plain version and SDPA, each a sub-entry ``tp_rank`` of
+    the kernel's line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    b, sq, h, d, bf = LM_BATCH, LM_PROMPT, TP_HEADS, 128, torch.bfloat16
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(b, sq, 2, d, generator=gen, device=dev).to(bf)
+            [:, :, 1:2] for _ in range(2))
+    q5, k5, v5 = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = b * h * sq * (sq + 1) // 2
+    b5 = dict(shape=f"q({b},{sq},{h},{d}) KV 1 head of 2 bf16 causal",
+              fns=(lambda: flash_attention(q5, k5, v5),
+                   lambda: ref.flash_attention_ref(q5, k5, v5),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q5, k5, v5, is_causal=True, enable_gqa=True)),
+              ops=pairs * 4 * d / PEAK_BF16_FLOPS,
+              nbytes=2 * (2 * b * h * sq * d + 2 * b * sq * d) / PEAK_BYTES)
+    length = LM_PROMPT + LM_GEN
+    q6 = torch.randn(b, 1, h, d, generator=gen, device=dev).to(bf)
+    k6, v6 = (torch.randn(b, LM_CACHE, 2, d, generator=gen, device=dev)
+              .to(bf)[:, :, 1:2] for _ in range(2))
+    live = (torch.arange(LM_CACHE, device=dev) < length)[None, None, None]
+    b6 = dict(shape=f"q({b},1,{h},{d}) cache 1 head of ({b},{LM_CACHE},2,"
+                    f"{d}) length {length} bf16",
+              fns=(lambda: flash_decode(q6, k6, v6, length),
+                   lambda: ref.flash_decode_ref(q6, k6, v6, length),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q6.transpose(1, 2), k6.transpose(1, 2),
+                       v6.transpose(1, 2), attn_mask=live, enable_gqa=True)),
+              ops=b * h * length * 4 * d / PEAK_F32_FLOPS,
+              nbytes=2 * (2 * b * length * d + 2 * b * h * d) / PEAK_BYTES)
+    out = {}
+    for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
+        fn, plain_fn, lib_fn = row["fns"]
+        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
+        plain_ms, _ = device_ms(torch, plain_fn)
+        lib_ms, _ = device_ms(torch, lib_fn)
+        bound = max(row["ops"], row["nbytes"])
+        by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
+        say(f"[numbers] {kname} at 4j's rank shape {row['shape']}: kernel "
+            f"{ms:.5f} ms device (profiling passes {passes}), bound "
+            f"{bound * 1e3:.6f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.5f} ms ({card})")
+        out[kname] = {"shape": row["shape"], "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bound * 1e3,
+                      "bound_by": by}
+    return out
+
+
 def corr(torch, a, b) -> float:
     a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
     return float(torch.corrcoef(torch.stack([a, b]))[0, 1])
@@ -946,7 +1085,7 @@ def run_lm(torch, dev, card: str) -> dict:
         fail(f"card vs CPU decode-step logits correlation {c} <= 0.999")
     return {"launches": launches, "cfg": cfg, "params": params,
             "prompt": prompt, "cache": cache, "tok": tok, "pos": pos,
-            "tps": tps, "serve_s": serve_s}
+            "tps": tps, "serve_s": serve_s, "toks": toks}
 
 
 def check_b4(torch, dev) -> dict:
@@ -3382,6 +3521,16 @@ MGNET_LR = 3e-3           # AdamW on MGNet's leaves alone, constant rate
 GRAD_REL_L2 = 0.25
 GRAD_LEAF_CORR = 0.95
 GRAD_LOSS_REL = 1e-2
+# the tight check beside it, at smoke size (opto-vit-tiny cut to 2 layers,
+# batch 8 of 32x32 images) with MGNet's pruning off: where no fake-quant
+# code flips, card and CPU differ by their GEMMs' summation order only
+# (7.7e-7 measured, the CPU against itself with its matmuls summed in
+# another order 7.2e-7: scripts/qat_grad_gap.py). With pruning on, an
+# ulp-level input at a rounding boundary flips a code (one quant step) and
+# the flip cascades: 2.364e-3 on the card and in the CPU's own reordered
+# control alike
+GRAD_REL_L2_TIGHT = 1e-5
+GRAD_LOSS_REL_TIGHT = 1e-6
 TRAINED_SERVE_CORR = 0.99  # tests/test_vit_qat.py::test_execution_modes_agree
 
 
@@ -3464,6 +3613,44 @@ def train_mgnet(torch, dev, cfg, params: dict, stream, card: str) -> dict:
         fail(f"4i (A): mIoU {m0:.4f} -> {m1:.4f}, not above "
              f"max(m0 + 0.15, 0.4)")
     return {"params": p, "miou": (m0, m1), "bce": (losses[0], losses[-1])}
+
+
+def tight_grad_check(torch, dev, cpu) -> None:
+    """4i (C)'s tight check: one QAT step's loss and gradients at smoke size
+    with MGNet's pruning off (and, as a reading, on), card against CPU."""
+    from repro_torch.bridge import to_device
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import init_state
+
+    base = smoke_variant(get_config("opto-vit-tiny")).with_(
+        n_layers=2, lr_warmup=4, lr_total=200)
+    b = {k: v for k, v in ImageStream(32, 8, n_classes=8, patch=8, seed=0,
+                                      device=cpu).batch_at(0).items()
+         if k in ("images", "labels")}
+    read = {}
+    for tag, cfg in (("pruning off", base),
+                     ("pruning on", base.with_(
+                         mgnet=True, mgnet_keep_ratio=0.5, mgnet_embed=32,
+                         mgnet_heads=2))):
+        p = init_state(cfg, 0, cpu)["params"]
+        grads_of = make_grad_fn(cfg)
+        lh, gh = grads_of(p, b)
+        lc, gc = grads_of(to_device(p, dev), {k: v.to(dev)
+                                              for k, v in b.items()})
+        rel, worst, _, _ = grad_distance(torch, gc, gh)
+        dl = abs(float(lc) - float(lh)) / abs(float(lh))
+        read[tag] = (rel, dl)
+        say(f"[train] (C) smoke size, {tag}: card vs CPU gradient relative "
+            f"L2 {rel:.3e}, min leaf corr {worst:.7f}, loss relative diff "
+            f"{dl:.2e}")
+    rel, dl = read["pruning off"]
+    if not (rel < GRAD_REL_L2_TIGHT and dl <= GRAD_LOSS_REL_TIGHT):
+        fail(f"4i (C): the tight check (pruning off) reads relative L2 "
+             f"{rel}, loss {dl}: limits {GRAD_REL_L2_TIGHT}, "
+             f"{GRAD_LOSS_REL_TIGHT}")
 
 
 def run_train(torch, dev, card: str, cfg=None, batch: int = TRAIN_BATCH,
@@ -3624,6 +3811,7 @@ def run_train(torch, dev, card: str, cfg=None, batch: int = TRAIN_BATCH,
     if not caught:
         fail("4i (C): the planted zero-gradient fault passed the check")
     del gc, gh, gu, gf, p_cpu
+    tight_grad_check(torch, dev, cpu)
 
     # readings: ms a step (CUDA events), host synthesis, peak memory, and a
     # profiled step
@@ -3721,6 +3909,533 @@ def run_train(torch, dev, card: str, cfg=None, batch: int = TRAIN_BATCH,
             "resumed": resumed, **reading}
 
 
+# path 4j: qwen2-1.5b on the ("data", "model") mesh, 2 gloo ranks sharing
+# the one card. (A) / (B) serve at full depth with 4b's traffic; (C) / (D)
+# train at the reference CLI's batch 8 x seq 128 on the first
+# LMJ_TRAIN_LAYERS layers (a 28-layer train state's checkpoint is 9.3 GB,
+# written and read three times a run), warmup cut to 10 as 4i cuts it
+LMJ_TRAIN_LAYERS = 8
+LMJ_TRAIN_BATCH, LMJ_TRAIN_SEQ = 8, 128
+LMJ_TRAIN_STEPS, LMJ_RESUME_AT, LMJ_WARMUP = 20, 10, 10
+# (A)'s logits checks. The control is the mesh's arithmetic on one device
+# (``tp_arithmetic``). Tight: the mesh's prefill and teacher-forced decode
+# logits are bitwise it. Against the unsharded path: within twice the
+# control's distance of 1 at every position (min corr over the prefill
+# and the decode), the gross planted faults below that. On the H100 the
+# control reads 0.999019 / 0.998992 against the unsharded path (random
+# bf16 weights tie the logits, so one summation-order change moves them
+# ~1e-3 of corr) and the mesh is bitwise it; the subtle planted fault
+# reads 0.998182, inside the corr limit, and is caught only by the
+# bitwise check (PERF.md, PR 26)
+LMJ_CORR_FACTOR = 2
+# (C) / (D)'s gradient bound: this many times the control (the unsharded
+# step against the same step on two half-batches averaged in f32: the
+# bf16 class of the gradient). The tensor-parallel step rounds its f32
+# sums once where the unsharded backward adds bf16 terms: it reads 3.3x
+# the control at smoke size on the CPU (tests/test_torch_lm_mesh.py's
+# classes) and 2.3x at 8 layers on the H100 (3.33e-2 against 1.42e-2).
+# The planted backward fault must read 10x the bound (0.949 there)
+LMJ_GRAD_FACTOR = 4
+LMJ_LOSS_REL = 1e-3
+# (A)'s planted faults: wo's partial products left unreduced, and each
+# rank's query heads paired with the other rank's KV head, must fall
+# below the corr limit; the subtle one, layer 0's wo partial products
+# rounded to bf16 before the f32 sum, must break the bitwise check
+LMJ_FAULTS = ("wo's reduce skipped", "heads paired with the wrong KV head")
+LMJ_SUBTLE = "layer 0's wo partials rounded to bf16 before the sum"
+
+
+@contextlib.contextmanager
+def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
+    """The unsharded LM forward computing on one device what each rank of a
+    (1, n) mesh computes: the column-parallel wq / bq / w_gate / w_up in
+    their n column blocks (contiguous copies, as ``place_lm_params`` holds
+    them), the attention one call a rank's heads (``attention.kv_runs``),
+    the row-parallel wo / w_down contracted in their n row blocks, each
+    block's product in f32, summed in f32 in rank order and rounded once
+    (``layers.row_parallel_linear``). Where each GEMM and kernel depends
+    only on its own operands, the mesh's logits are bitwise these. The
+    control of 4j (A): its distance from the unsharded path sets the
+    limit, and the mesh is held to it bitwise."""
+    from repro_torch.distributed.sharding import Split
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import transformer
+
+    def key(w):
+        return w.data_ptr(), tuple(w.shape)
+
+    blocks = params["blocks"]
+    cols, rows = {}, set()
+    for i in range(cfg.n_layers):
+        for w in (blocks["attn"]["wq"][i], blocks["ffn"]["w_gate"][i],
+                  blocks["ffn"]["w_up"][i]):
+            s = w.shape[-1] // n
+            cols[key(w)] = [w[:, j * s:(j + 1) * s].contiguous()
+                            for j in range(n)]
+        rows.update(key(w) for w in (blocks["attn"]["wo"][i],
+                                     blocks["ffn"]["w_down"][i]))
+    real = (transformer.linear, ffn_mod.linear, transformer._attend,
+            transformer._decode)
+
+    def linear(x, w, b=None, policy=None):
+        if key(w) in cols:
+            s = w.shape[-1] // n
+            return torch.cat([real[0](x, wj, None if b is None else
+                                      b[j * s:(j + 1) * s], policy)
+                              for j, wj in enumerate(cols[key(w)])], -1)
+        if key(w) in rows:
+            k = w.shape[0] // n
+            y = None
+            for j in range(n):
+                p = torch.matmul(x[..., j * k:(j + 1) * k].float(),
+                                 w[j * k:(j + 1) * k].float())
+                y = p if y is None else y + p
+            return y.to(x.dtype)
+        return real[0](x, w, b, policy)
+
+    def per_rank(fn):
+        def heads(q, *rest):
+            h = q.shape[2] // n
+            return torch.cat([fn(q[:, :, j * h:(j + 1) * h].contiguous(),
+                                 *rest[:-1], Split(n, j, None))
+                              for j in range(n)], 2)
+        return heads
+
+    transformer.linear = ffn_mod.linear = linear
+    transformer._attend = per_rank(real[2])
+    transformer._decode = per_rank(real[3])
+    try:
+        yield
+    finally:
+        (transformer.linear, ffn_mod.linear, transformer._attend,
+         transformer._decode) = real
+
+
+def _tree_rel_l2(torch, ga: dict, gb: dict) -> float:
+    """Relative L2 of tree ga against gb, in f64 on the device."""
+    from repro_torch.optim.adamw import tree_leaves
+    num = den = 0.0
+    for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
+        a, b = a.double(), b.double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def lm_mesh_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
+                 gen: int = LM_GEN, cache_len: int = LM_CACHE,
+                 train_size: tuple = (LMJ_TRAIN_LAYERS, LMJ_TRAIN_BATCH,
+                                      LMJ_TRAIN_SEQ, LMJ_TRAIN_STEPS,
+                                      LMJ_RESUME_AT)) -> dict:
+    """One rank of path 4j (2 ranks on the one card; the sizes are 4b's
+    and the constants', smaller in a CPU rehearsal). Rank 0 holds the
+    unsharded references (the whole params on its device, no context) and
+    returns every reading; both ranks return their launch counts, tokens
+    and collective times."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.backend import prepare_params
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.models import attention, transformer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+
+    mesh = make_host_mesh(1, 2, device=device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        full_precision_matmuls()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    n_layers, t_batch, t_seq, t_steps, t_resume = train_size
+    b, plen = prompt_cpu.shape
+    r0 = dist.get_rank() == 0
+    whole = tree_map(lambda t: t.to(dev), cpu_params)
+    prompt = prompt_cpu.to(dev)
+    out = {"rank": dist.get_rank(), "backend": mesh.backend,
+           "mesh": (mesh.data, mesh.model), "device": str(dev)}
+
+    def no_ctx():
+        return sharding._installed(None)
+
+    # (A) serve: generate (B6) and prefill_fn (B5), the counted main path
+    with sharding.use_sharding(mesh):
+        local = transformer.place_lm_params(whole, cfg)
+        serve.generate(local, serve.init_cache(cfg, b, 8, dev),
+                       prompt[:, :4], 2, cfg)
+        model_api.prefill_fn(local, {"tokens": prompt[:, :16]}, cfg)
+        sync()
+        steps_in = []
+        real_decode = model_api.decode_fn
+
+        def recording(params, cache, tokens, pos, cfg_, policy=None):
+            lg, cache = real_decode(params, cache, tokens, pos, cfg_, policy)
+            steps_in.append((tokens, lg))
+            return lg, cache
+
+        cache = serve.init_cache(cfg, b, cache_len, dev)
+        collectives.STATS.clear()
+        _build.LAUNCHES.clear()
+        model_api.decode_fn = recording
+        t0 = time.perf_counter()
+        try:
+            toks, tps = serve.generate(local, cache, prompt, gen, cfg)
+        finally:
+            model_api.decode_fn = real_decode
+        sync()
+        out["serve_s"] = time.perf_counter() - t0
+        out["stats"] = dict(collectives.STATS)
+        full = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
+        sync()
+        out["launches"] = dict(_build.LAUNCHES)
+        out["tps"] = tps
+        out["toks"] = toks.cpu()
+        both = collectives.all_gather_cat(toks, mesh.group("model"), 0)
+        out["tokens_agree"] = all(torch.equal(t, toks)
+                                  for t in both.split(toks.shape[0]))
+        if r0:
+            def teacher_forced():
+                """The unsharded decode step on the same 160 inputs."""
+                pcache = serve.init_cache(cfg, b, cache_len, dev)
+                lgs = []
+                for pos, (tok, _) in enumerate(steps_in):
+                    lg, pcache = model_api.decode_fn(whole, pcache, tok, pos,
+                                                     cfg)
+                    lgs.append(lg)
+                return torch.stack(lgs, 1)
+
+            def gap(x, y):
+                return {"min_corr": float(position_corr(torch, x, y).min()),
+                        "max_abs": float((x.float() - y.float()).abs()
+                                         .max()),
+                        "bitwise": bool(torch.equal(x, y))}
+
+            with no_ctx():
+                plain = model_api.prefill_fn(whole, {"tokens": prompt}, cfg)
+                plg = teacher_forced()
+                with tp_arithmetic(torch, whole, cfg):
+                    ctl = model_api.prefill_fn(whole, {"tokens": prompt},
+                                               cfg)
+                    clg = teacher_forced()
+            tp_steps = torch.stack([lg for _, lg in steps_in], 1)
+            out["prefill_corr"] = position_corr(torch, full, plain).cpu()
+            out["prefill_argmax"] = float((full.argmax(-1) ==
+                                           plain.argmax(-1)).float().mean())
+            out["decode_corr"] = position_corr(torch, tp_steps, plg).cpu()
+            out["decode_argmax"] = float((tp_steps.argmax(-1) ==
+                                          plg.argmax(-1)).float().mean())
+            out["logits_control"] = {"prefill": gap(ctl, plain),
+                              "decode": gap(clg, plg)}
+            out["control_corr"] = min(v["min_corr"] for v in
+                                      out["logits_control"].values())
+            out["vs_control"] = {"prefill": gap(full, ctl),
+                                 "decode": gap(tp_steps, clg)}
+            del plg, clg, tp_steps
+        del steps_in, cache
+        # the planted faults, on both ranks (their collectives pair up)
+        saved = (transformer.row_parallel_linear, attention.kv_runs)
+        calls = [0]
+
+        def unreduced(x, w, policy, group):
+            return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+        def wrong_kv(h, hkv, split):
+            return [(q0, q1, (a + 1) % hkv, (a + 1) % hkv + b - a)
+                    for q0, q1, a, b in saved[1](h, hkv, split)]
+
+        def bf16_partials(x, w, policy, group):
+            calls[0] += 1
+            if calls[0] > 1:
+                return saved[0](x, w, policy, group)
+            partial = torch.matmul(x.float(), w.float()).to(x.dtype)
+            return collectives.reduce_from_model(partial.float(), group,
+                                                 x.dtype)
+
+        out["planted"] = {}
+        for tag in LMJ_FAULTS + (LMJ_SUBTLE,):
+            if tag == LMJ_SUBTLE:
+                transformer.row_parallel_linear = bf16_partials
+            elif tag.startswith("wo"):
+                transformer.row_parallel_linear = unreduced
+            else:
+                attention.kv_runs = wrong_kv
+            try:
+                lg = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
+            finally:
+                transformer.row_parallel_linear, attention.kv_runs = saved
+            if r0:
+                out["planted"][tag] = float(position_corr(torch, lg,
+                                                          plain).min())
+                if tag == LMJ_SUBTLE:
+                    out["subtle_vs_control"] = gap(lg, ctl)
+        del full, lg
+        if r0:
+            del plain, ctl
+
+        # (B) int8: the same prefill under photonic_pallas
+        cfg8 = cfg.with_(matmul_backend="photonic_pallas")
+        cache8 = prepare_params(whole, bits=8)
+        local8 = transformer.place_lm_params(cache8, cfg8)
+        model_api.prefill_fn(local8, {"tokens": prompt[:, :16]}, cfg8)
+        sync()
+        _build.LAUNCHES.clear()
+        tp8 = model_api.prefill_fn(local8, {"tokens": prompt}, cfg8)
+        sync()
+        out["launches8"] = dict(_build.LAUNCHES)
+        if r0:
+            with no_ctx():
+                one8 = model_api.prefill_fn(cache8, {"tokens": prompt}, cfg8)
+            out["int8_bitwise"] = bool(torch.equal(tp8, one8))
+            out["int8_maxdiff"] = float((tp8.float() - one8.float()).abs()
+                                        .max())
+            del one8
+        del cache8, local8, tp8, local
+
+    # (C) train on the first n_layers layers; (D) data-parallel
+    cfg_t = cfg.with_(n_layers=n_layers, lr_warmup=LMJ_WARMUP)
+    tparams = dict(whole, blocks=tree_map(
+        lambda t: t[:n_layers].clone(), whole["blocks"]))
+    del whole
+    torch.cuda.empty_cache()
+    shape = ShapeConfig("4j", t_seq, t_batch, "train")
+    batch = TokenStream(cfg.vocab, t_seq, t_batch, seed=0,
+                        device=dev).batch_at(0)
+    clone = lambda st: tree_map(torch.clone, st)  # noqa: E731
+    with sharding.use_sharding(mesh) as ctx:
+        p0 = transformer.place_lm_params(tparams, cfg_t)
+        state0 = {"params": p0, "opt": adamw_init(
+            p0, AdamWConfig(low_mem=not cfg_t.use_fp32_master)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        axes = steps.placement_axes(cfg_t, model_api.model_logical_axes(
+            cfg_t))
+        loss_tp, g_tp = steps.make_grad_fn(cfg_t)(p0, batch)
+        g_tp = steps.gather_tree(g_tp, axes, ctx)
+        saved = collectives.copy_to_model
+        collectives.copy_to_model = lambda x, group: x
+        try:
+            _, g_bad = steps.make_grad_fn(cfg_t)(p0, batch)
+        finally:
+            collectives.copy_to_model = saved
+        g_bad = steps.gather_tree(g_bad, axes, ctx)
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            final, losses, _ = train.train_loop(
+                cfg_t, shape, t_steps, device=dev,
+                state=clone(state0), log_every=t_steps)
+            sync()
+            out["train_s"] = time.perf_counter() - t0
+            root = f"{tmp}/ckpt"
+            train.train_loop(cfg_t, shape, t_resume, device=dev,
+                             state=clone(state0),
+                             ckpt=CheckpointManager(root,
+                                                    every=t_resume),
+                             log_every=t_steps)
+            t0 = time.perf_counter()
+            st, rest, _ = train.train_loop(
+                cfg_t, shape, t_steps, device=dev,
+                state=clone(state0),
+                ckpt=CheckpointManager(root, every=10 ** 9),
+                log_every=t_steps)
+            out["resume_s"] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["losses"] = losses
+        out["resumed_bitwise"] = rest == losses[t_resume:] and all(
+            torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(final)))
+        st_axes = steps.placement_axes(cfg_t, steps.state_logical_axes(cfg_t))
+        logical = steps.gather_tree(st, st_axes, ctx)
+        if r0:
+            back, step = restore(f"{root}/step_{t_steps}", logical)
+            out["restored_step"] = step
+            out["restored_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(_leaves(back),
+                                                  _leaves(logical)))
+            del back
+        del logical, st, final, state0, p0
+
+    mesh21 = make_host_mesh(2, 1, device=device)
+    with sharding.use_sharding(mesh21) as ctx21:
+        p21 = transformer.place_lm_params(tparams, cfg_t)
+        b21 = TokenStream(cfg.vocab, t_seq, t_batch, seed=0,
+                          ctx=ctx21, device=dev).batch_at(0)
+        loss_dp, g_dp = steps.make_grad_fn(cfg_t)(p21, b21)
+    if r0:
+        with no_ctx():
+            grads_of = steps.make_grad_fn(cfg_t)
+            loss1, g1 = grads_of(tparams, batch)
+            half = t_batch // 2
+            la, ga = grads_of(tparams, {k: v[:half] for k, v in
+                                        batch.items()})
+            lb, gb = grads_of(tparams, {k: v[half:] for k, v in
+                                        batch.items()})
+            g_ctl = tree_map(lambda a, b: ((a.float() + b.float()) / 2)
+                             .to(a.dtype), ga, gb)
+        out.update(
+            loss_tp=float(loss_tp), loss_dp=float(loss_dp),
+            loss1=float(loss1), loss_ctl=float((la + lb) / 2),
+            control=_tree_rel_l2(torch, g_ctl, g1),
+            tp_rel=_tree_rel_l2(torch, g_tp, g1),
+            planted_rel=_tree_rel_l2(torch, g_bad, g1),
+            dp_rel=_tree_rel_l2(torch, g_dp, g1),
+            dp_vs_control=_tree_rel_l2(torch, g_dp, g_ctl))
+    return out
+
+
+def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
+    """Path 4j: 4b's qwen2-1.5b weights and prompt on the (1, 2) and
+    (2, 1) meshes, 2 gloo ranks on the one card, against the unsharded
+    runs on the card."""
+    import tempfile
+    import shutil
+
+    from repro_torch.bridge import to_device
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = lm["cfg"]
+    t_phase = time.perf_counter()
+    params = to_device(lm["params"], "cpu")
+    for t in _leaves(params):
+        t.share_memory_()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    try:
+        ranks = spawn_ranks(lm_mesh_rank, 2, params, cfg,
+                            lm["prompt"].cpu(), tmp, "cuda", device="cuda",
+                            timeout_s=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    r0 = ranks[0]
+    say(f"[lm_mesh] path 4j: {cfg.name} on make_host_mesh(1, 2), 2 ranks, "
+        f"backend {r0['backend']}, both on {r0['device']} ({card})")
+    # (A)
+    want = {"flash_decode": (LM_PROMPT + LM_GEN) * cfg.n_layers,
+            "flash_attention_causal": cfg.n_layers}
+    for i, r in enumerate(ranks):
+        st = r["stats"]
+        gloo_ms = 1e3 * sum(v for k, v in st.items() if k.endswith("_s")) \
+            / (LM_PROMPT + LM_GEN)
+        say(f"[lm_mesh] (A) rank {i}: generate {LM_BATCH} x ({LM_PROMPT} + "
+            f"{LM_GEN}) in {r['serve_s']:.3f}s, decode loop {r['tps']:.2f} "
+            f"tok/s (4b unsharded: {lm['tps']:.2f}); collectives "
+            f"{gloo_ms:.3f} ms a decode step ({ {k: v for k, v in st.items() if not k.endswith('_s')} }); "
+            f"launches {r['launches']} ({card})")
+        for k, n in want.items():
+            if r["launches"].get(k, 0) != n:
+                fail(f"4j (A) rank {i}: {k} launched "
+                     f"{r['launches'].get(k, 0)} times, expected {n}")
+        if not r["tokens_agree"]:
+            fail(f"4j (A): rank {i}'s tokens differ from its model group's")
+    if not torch.equal(ranks[0]["toks"], ranks[1]["toks"]):
+        fail("4j (A): the two ranks generated different tokens")
+    same_as_4b = float((ranks[0]["toks"] == lm["toks"].cpu()).float().mean())
+    pc, dc = r0["prefill_corr"], r0["decode_corr"]
+    limit = 1 - LMJ_CORR_FACTOR * (1 - r0["control_corr"])
+
+    def shown(h):
+        return (f"min corr {h['min_corr']:.6f}, max abs diff "
+                f"{h['max_abs']:.4g}, bitwise {h['bitwise']}")
+
+    say(f"[lm_mesh] (A) prefill logits vs the unsharded card prefill: min "
+        f"corr over {pc.numel()} positions {float(pc.min()):.6f}, argmax "
+        f"agrees {100 * r0['prefill_argmax']:.2f}%; teacher-forced decode vs "
+        f"the unsharded decode step on the same {dc.numel()} inputs: min corr "
+        f"{float(dc.min()):.6f}, argmax agrees "
+        f"{100 * r0['decode_argmax']:.2f}%; greedy tokens equal on both "
+        f"ranks, {100 * same_as_4b:.2f}% equal to 4b's unsharded ones "
+        f"({card})")
+    say(f"[lm_mesh] (A) control, the mesh's arithmetic on one device "
+        f"(tp_arithmetic: column blocks, heads a rank's run, wo / w_down in "
+        f"two f32 row blocks) vs the unsharded path: prefill "
+        f"{shown(r0['logits_control']['prefill'])}; decode "
+        f"{shown(r0['logits_control']['decode'])}; so the limit is corr > "
+        f"{limit:.6f} everywhere. The mesh vs that control: prefill "
+        f"{shown(r0['vs_control']['prefill'])}; decode "
+        f"{shown(r0['vs_control']['decode'])}")
+    if not (float(pc.min()) > limit and float(dc.min()) > limit):
+        fail(f"4j (A): prefill min corr {float(pc.min())}, decode min corr "
+             f"{float(dc.min())}")
+    for tag, c in r0["planted"].items():
+        say(f"[lm_mesh] (A) planted fault, {tag}: prefill min corr {c:.6f} "
+            f"vs the unsharded prefill"
+            + (f"; vs the control {shown(r0['subtle_vs_control'])}"
+               if tag == LMJ_SUBTLE else ""))
+        if tag in LMJ_FAULTS and c > limit:
+            fail(f"4j (A): the planted fault ({tag}) passes the "
+                 f"{limit} limit")
+    # (B)
+    say(f"[lm_mesh] (B) int8 prefill (photonic_pallas) on the mesh bitwise "
+        f"the unsharded int8 prefill: {r0['int8_bitwise']} (max diff "
+        f"{r0['int8_maxdiff']:.3e}); launches a rank: "
+        + "; ".join(f"rank {i} {r['launches8']}" for i, r in enumerate(ranks)))
+    if not r0["int8_bitwise"]:
+        fail("4j (B): the int8 tensor-parallel prefill is not bitwise")
+    for i, r in enumerate(ranks):
+        if r["launches8"].get("photonic_matmul", 0) <= 0:
+            fail(f"4j (B) rank {i}: photonic_matmul never launched")
+    # (C)
+    losses = r0["losses"]
+    bound = LMJ_GRAD_FACTOR * r0["control"]
+    say(f"[lm_mesh] (C) train, {LMJ_TRAIN_LAYERS} of {cfg.n_layers} layers, "
+        f"batch {LMJ_TRAIN_BATCH} x {LMJ_TRAIN_SEQ}, warmup {LMJ_WARMUP}: "
+        f"{LMJ_TRAIN_STEPS} steps through train_loop on (1, 2) in "
+        f"{r0['train_s']:.2f}s ({1e3 * r0['train_s'] / LMJ_TRAIN_STEPS:.1f} "
+        f"ms a step); losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f" ({card})")
+    if not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
+        fail(f"4j (C): the loss did not fall ({losses})")
+    say(f"[lm_mesh] (C) one step against the unsharded step on the card: "
+        f"loss {r0['loss_tp']:.6f} vs {r0['loss1']:.6f}; gradient relative "
+        f"L2 {r0['tp_rel']:.3e} against a bound of {bound:.3e} = "
+        f"{LMJ_GRAD_FACTOR} x the control {r0['control']:.3e} (the step on "
+        f"two half-batches averaged in f32); planted fault (copy to model "
+        f"with no backward all-reduce) {r0['planted_rel']:.3e}")
+    if abs(r0["loss_tp"] - r0["loss1"]) > LMJ_LOSS_REL * abs(r0["loss1"]):
+        fail(f"4j (C): loss {r0['loss_tp']} vs {r0['loss1']}")
+    if not r0["tp_rel"] <= bound:
+        fail(f"4j (C): gradient rel L2 {r0['tp_rel']} above {bound}")
+    if not r0["planted_rel"] >= 10 * bound:
+        fail(f"4j (C): the planted backward fault reads "
+             f"{r0['planted_rel']}, not 10x the bound {bound}")
+    say(f"[lm_mesh] (C) resumed from the step-{LMJ_RESUME_AT} checkpoint "
+        f"in {r0['resume_s']:.2f}s: losses and state bitwise the straight "
+        f"run's: {r0['resumed_bitwise']}; the (1, 2) checkpoint at step "
+        f"{r0['restored_step']} restored on one device bitwise the gathered "
+        f"state: {r0['restored_bitwise']}")
+    if not (r0["resumed_bitwise"] and r0["restored_bitwise"]):
+        fail("4j (C): a resume or a one-device restore is not bitwise")
+    # (D)
+    say(f"[lm_mesh] (D) a (2, 1) step against the unsharded step on the "
+        f"whole batch: loss {r0['loss_dp']:.6f} vs {r0['loss1']:.6f}, "
+        f"gradient relative L2 {r0['dp_rel']:.3e} (bound {bound:.3e}); "
+        f"against the two-half-batch control {r0['dp_vs_control']:.3e}")
+    if abs(r0["loss_dp"] - r0["loss1"]) > LMJ_LOSS_REL * abs(r0["loss1"]):
+        fail(f"4j (D): loss {r0['loss_dp']} vs {r0['loss1']}")
+    if not r0["dp_rel"] <= bound:
+        fail(f"4j (D): gradient rel L2 {r0['dp_rel']} above {bound}")
+    # (A)'s tight check, after every reading is printed: the mesh's prefill
+    # and teacher-forced decode logits bitwise its arithmetic on one device,
+    # which the subtle planted fault must break
+    if not all(v["bitwise"] for v in r0["vs_control"].values()):
+        fail(f"4j (A): the mesh's logits are not bitwise its arithmetic on "
+             f"one device: {r0['vs_control']}")
+    if r0["subtle_vs_control"]["bitwise"]:
+        fail(f"4j (A): the planted fault ({LMJ_SUBTLE}) is bitwise the "
+             f"control")
+    say(f"[lm_mesh] path 4j in {time.perf_counter() - t_phase:.2f}s ({card})")
+    return {"ranks": ranks, "launches": r0["launches"],
+            "launches8": r0["launches8"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3779,6 +4494,8 @@ def main() -> int:
     # -- 3. kernel checks --------------------------------------------------
     errs = check_kernels(torch, dev)
     errs.update(check_lm_kernels(torch, dev))
+    for kname, e in check_tp_kernels(torch, dev).items():
+        errs[kname] = max(errs[kname], e)
     errs.update(check_b4(torch, dev))
     # B1 and B3 at the bit plan's widths
     plan_calls = plan_kernel_calls(torch, dev)
@@ -4093,6 +4810,10 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in plan_ms:
             entry["ms_by_bits"] = plan_ms[entry["name"]]
+    tp_ms = time_tp_kernels(torch, dev, card)
+    for entry in kernels:
+        if entry["name"] in tp_ms:
+            entry["tp_rank"] = tp_ms[entry["name"]]
 
     # -- 4d. [composed]: the composed dispatch, Eq. 2 and the dense
     # baseline on opto-vit-base-224 (after the kernel table, before the
@@ -4180,6 +4901,22 @@ def main() -> int:
     say(f"[train] launches on the main paths with 4i's (D): "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
     del train
+    torch.cuda.empty_cache()
+
+    # -- 4j. [lm_mesh]: qwen2-1.5b tensor- and data-parallel on 2 gloo
+    # ranks on the card (after 4i, before the profiled phases); rank 0's
+    # (A) and (B) launches join the counts, and each kernel of its path
+    # records them under ``tp_rank``
+    lm_mesh = run_lm_mesh(torch, dev, card, lm)
+    for entry in kernels:
+        n = (lm_mesh["launches"].get(entry["name"], 0)
+             + lm_mesh["launches8"].get(entry["name"], 0))
+        entry["launches"] += n
+        if "tp_rank" in entry:
+            entry["tp_rank"]["launches"] = n
+    say(f"[lm_mesh] launches on the main paths with 4j's rank 0: "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del lm_mesh
     torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After

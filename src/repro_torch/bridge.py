@@ -135,13 +135,15 @@ def init_mgnet(rng: np.random.Generator, cfg) -> dict:
     }
 
 
-def init_vit(seed: int, cfg: ArchConfig, n_classes: int = 1000) -> dict:
+def init_vit(seed: int, cfg: ArchConfig, n_classes: int = 1000,
+             rng=None) -> dict:
     """Numpy param tree of the reference's ``init_vit`` shapes and scales
     (stacked ``blocks`` with a leading L axis), drawn from
-    ``numpy.random.default_rng(seed)``. Feed it to ``from_jax_params``."""
+    ``numpy.random.default_rng(seed)`` (or ``rng``, anything with its
+    ``standard_normal``). Feed it to ``from_jax_params``."""
     from repro_torch.models.vit import mgnet_config
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     n_in = 3 * cfg.patch ** 2
     n = (cfg.img_size // cfg.patch) ** 2

@@ -1,7 +1,8 @@
 """Synthetic video for near-sensor serving and its double-buffered ingest,
-and the synthetic RoI classification task for training (the reference's
-src/repro/data/pipeline.py::VideoStream / video_fleet / prefetch_to_device
-/ ImageStream / quadrant_labels).
+the synthetic RoI classification task and the synthetic LM token stream
+for training (the reference's src/repro/data/pipeline.py::VideoStream /
+video_fleet / prefetch_to_device / ImageStream / quadrant_labels /
+TokenStream / lm_batch_specs).
 
 Frames and batches are pure numpy: every frame is a pure function of
 (seed, frame_idx), every training batch of (seed, step), drawn with the
@@ -21,12 +22,66 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ImageStream", "quadrant_labels", "VideoStream", "video_fleet",
-           "prefetch_to_device"]
+__all__ = ["TokenStream", "lm_batch_specs", "ImageStream", "quadrant_labels",
+           "VideoStream", "video_fleet", "prefetch_to_device"]
 
 
 def _host_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+@dataclass
+class TokenStream:
+    """Synthetic LM batches: {"tokens": (B, S) int32, "labels": (B, S)
+    int32}, a random walk over the vocab (steps of 1-6 from a random
+    start, so the loss can fall), labels the tokens shifted left by one
+    (the last wraps). Host numpy, or tensors on ``device``.
+
+    Under a sharding context ``ctx`` each rank gets its block of the
+    global batch: rows [d B / D, (d + 1) B / D) along "batch"'s mesh axes
+    (``sharding.named_sharding``), the whole batch where they do not
+    divide B, as the reference's ``named_sharding(("batch", "seq"))``
+    places it."""
+
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    ctx: object = None
+    device: object = None
+
+    def batch_at(self, step: int) -> dict:
+        rng = _host_rng(self.seed, step)
+        b, s = self.global_batch, self.seq_len
+        base = rng.integers(0, self.vocab, size=(b, 1), dtype=np.int32)
+        steps = rng.integers(1, 7, size=(b, s), dtype=np.int32)
+        tokens = ((base + np.cumsum(steps, axis=1)) % self.vocab
+                  ).astype(np.int32)
+        out = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+        if self.ctx is not None:
+            from repro_torch.distributed.sharding import named_sharding
+            out = {k: named_sharding(v.shape, ("batch", "seq"),
+                                     self.ctx).block(torch.from_numpy(v))
+                   .numpy() for k, v in out.items()}
+        if self.device is None:
+            return out
+        dev = resolve_device(self.device)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in out.items()}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def lm_batch_specs(shape_cfg, dtype=torch.int32) -> dict:
+    """An LM batch's shapes and dtypes as ``meta`` tensors (the reference's
+    ShapeDtypeStructs)."""
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+    return {k: torch.empty((b, s), dtype=dtype, device="meta")
+            for k in ("tokens", "labels")}
 
 
 @dataclass

@@ -19,6 +19,18 @@ src/repro/distributed/collectives.py), on ``torch.distributed``.
     All-gather over a group, concatenated in group-rank order (exact data
     movement).
 
+``copy_to_model`` / ``reduce_from_model``
+    The tensor-parallel LM layers' two autograd-aware collectives over the
+    "model" group. ``copy_to_model`` goes before a column-parallel
+    projection (wq, w_gate, w_up; and on the K / V every rank computes
+    whole but reads in part): identity forward, the gradient all-reduced
+    backward, since each rank's block of the product sees only part of
+    it. ``reduce_from_model`` goes after a row-parallel one (wo,
+    w_down): the partial products all-reduced forward, identity backward.
+    Both reduce in f32 and round once to the operand's dtype, as the
+    unsharded bf16 GEMM rounds its f32 accumulate once: a tensor-parallel
+    layer differs from the unsharded one by the order of its f32 sums only.
+
 ``scoped_absmax_scale`` / ``scoped_amax``
     What the kernels' wrappers call for a per-launch absmax: the scope the
     installed sharding context names (``sharding.absmax_scope``, set where
@@ -56,7 +68,7 @@ from repro_torch.distributed import sharding
 
 __all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
            "all_gather_cat", "all_reduce", "scoped_absmax_scale",
-           "scoped_amax"]
+           "scoped_amax", "copy_to_model", "reduce_from_model"]
 
 # op name -> calls, and op name + "_s" -> host seconds, since the last
 # STATS.clear()
@@ -146,3 +158,41 @@ def exact_int_psum(x: torch.Tensor, group) -> torch.Tensor:
                         f"{x.dtype}): float partial sums do not reduce "
                         f"bitwise-exactly")
     return all_reduce(x, dist.ReduceOp.SUM, group, "int_psum")
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.float(), dist.ReduceOp.SUM, ctx.group,
+                          "tp_grad_sum").to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.in_dtype = x.dtype
+        return all_reduce(x.float(), dist.ReduceOp.SUM, group,
+                          "tp_sum").to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over ``group`` in
+    f32 and rounded once to its dtype."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(partial: torch.Tensor, group,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The partial products of a row-parallel projection summed over
+    ``group`` in f32 and rounded once to ``dtype`` (default: the
+    partial's); identity backward."""
+    return _ReduceFromModel.apply(partial, group, dtype or partial.dtype)

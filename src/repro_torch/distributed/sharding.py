@@ -22,6 +22,16 @@ by ``absmax_scope`` around the split region), and the kernels' wrappers
 reduce each absmax over it (``collectives.scoped_absmax_scale``), so each
 rank quantizes with the scale of the whole launch. Without a group every
 scope is the rank's own tensor, as unsharded.
+
+The four tables are the reference's and ``rules_for_mesh`` picks among
+them as the reference does. A model runs under ``DATA_RULES`` and
+``MODEL_RULES``; under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` a mesh axis
+of size > 1 that maps FSDP ("p_embed"), the vocab or the KV cache's
+"kv_seq" makes ``check_model_rules`` raise: those layouts come with the
+next slice (ROADMAP.md queue A, item 1). ``split_of`` is what the
+tensor-parallel LM layers ask: this rank's block of a logical dim, or None
+where the dim stays whole (no context, no rule, a size-1 axis, or a dim
+the axis does not divide).
 """
 
 from __future__ import annotations
@@ -35,8 +45,46 @@ from typing import Mapping, Sequence
 import torch
 
 __all__ = ["ShardingCtx", "use_sharding", "current_ctx", "absmax_scope",
-           "absmax_group", "logical_spec", "local_shard", "DATA_RULES",
-           "MODEL_RULES", "rules_for_mesh", "validate_rules"]
+           "absmax_group", "logical_spec", "local_shard", "named_sharding",
+           "param_spec", "BlockSpec", "Split", "split_of",
+           "check_model_rules", "DEFAULT_RULES", "MULTIPOD_RULES",
+           "DATA_RULES", "MODEL_RULES", "rules_for_mesh", "validate_rules"]
+
+# Default logical->mesh axis rules, single-pod (data, model) mesh.
+# FSDP: parameter "embed"/"mlp_in" dims shard over data; TP dims over model.
+DEFAULT_RULES: dict[str, str | tuple[str, ...] | None] = {
+    # activations
+    "batch": "data",
+    "seq": None,
+    "kv_seq": "model",        # decode-time KV cache seq sharding (flash-decode)
+    "embed": None,
+    "heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_cap": None,
+    # parameters (FSDP axis = data; TP axis = model)
+    "p_embed": "data",
+    "p_heads": "model",
+    "p_mlp": "model",
+    "p_vocab": "model",
+    "p_experts": "model",
+    "p_layers": None,
+    "p_state": None,
+}
+
+# Multi-pod: pod joins data-parallel batch + FSDP axes.
+MULTIPOD_RULES = dict(DEFAULT_RULES)
+MULTIPOD_RULES.update({
+    "batch": ("pod", "data"),
+    "p_embed": ("pod", "data"),
+})
+
+# logical axes whose split the model layers of this port do not run yet:
+# FSDP of the params, the vocab-split head and loss, the kv_seq-split
+# decode cache, and the experts (ROADMAP.md queue A, item 1; A15)
+_NOT_RUN = ("p_embed", "p_vocab", "vocab", "kv_seq", "experts", "p_experts")
 
 # Pure data parallelism over a 1-D ("data",) mesh: only the batch axis
 # shards, every other logical axis replicates. This is the serving
@@ -46,7 +94,8 @@ __all__ = ["ShardingCtx", "use_sharding", "current_ctx", "absmax_scope",
 DATA_RULES: dict[str, str | None] = {"batch": "data"}
 
 # Model-sharded serving over a 2-D ("data", "model") mesh
-# (launch.mesh.make_serving_mesh(model=M)): the encode batch axis still
+# (launch.mesh.make_serving_mesh(model=M), make_host_mesh): the batch axis
+# data-parallelizes; for the ViT encode the
 # data-parallelizes, while attention heads and the FFN hidden dim split
 # over "model" — wq/wk/wv/w1 column-shard and w2 row-shards (their output
 # columns / input rows are the head / d_ff axis via the vit logical
@@ -55,9 +104,11 @@ DATA_RULES: dict[str, str | None] = {"batch": "data"}
 # matmul kernel). "p_embed" is deliberately unmapped: inference weights
 # replicate on their embed dims (no FSDP — the prepared int8 cache is
 # small), and the kernels' per-launch activation absmax scopes stay
-# global via collectives.replicated_absmax_scale. The reference's other
-# tables (single- and multi-pod training) come with the meshes that read
-# them (ROADMAP.md A14, LM half).
+# global via collectives.replicated_absmax_scale. For the LM (models/
+# transformer.py) the query heads (wq's columns, bq, wo's rows) and the
+# SwiGLU hidden dim (w_gate / w_up columns, w_down rows) split over
+# "model"; wk / wv, the tied embedding, the norms and the KV cache stay
+# whole on every rank.
 MODEL_RULES: dict[str, str | None] = {
     "batch": "data",
     "heads": "model",
@@ -89,26 +140,30 @@ def validate_rules(mesh, rules: Mapping) -> None:
 
 
 def rules_for_mesh(mesh) -> Mapping | None:
-    """Explicit mesh-shape -> rules selection (no silent fallback):
+    """Explicit mesh-shape -> rules selection (no silent fallback), the
+    reference's:
 
       * ``None`` mesh            -> ``None`` (annotations disabled)
+      * any mesh with a "pod"    -> MULTIPOD_RULES
       * 1-D ("data",)            -> DATA_RULES  (batch-only DP serving)
-      * 2-D ("data", "model")    -> MODEL_RULES (model-sharded serving)
+      * 2-D ("data", "model")    -> MODEL_RULES (model-sharded serving,
+                                    tensor-parallel LM)
+      * anything else            -> DEFAULT_RULES
 
     The chosen table is validated against the mesh: every size > 1 mesh
-    axis must be used by some rule, else ValueError. The reference's
-    "pod" and default training tables wait for the meshes that read them
-    (ROADMAP.md A14, LM half): any other axes raise here."""
+    axis must be used by some rule, else ValueError. A model runs under
+    the last two tables only where ``check_model_rules`` passes."""
     if mesh is None:
         return None
     axes = tuple(mesh.axis_names)
-    if axes == ("data",):
+    if "pod" in axes:
+        rules = MULTIPOD_RULES
+    elif axes == ("data",):
         rules = DATA_RULES
     elif axes == ("data", "model"):
         rules = MODEL_RULES
     else:
-        raise ValueError(f"no sharding rules for mesh axes {axes!r}: the "
-                         f"port serves on ('data',) and ('data', 'model')")
+        rules = DEFAULT_RULES
     validate_rules(mesh, rules)
     return rules
 
@@ -175,7 +230,24 @@ def absmax_group():
 
 
 def _axis_size(mesh, rule) -> int:
-    return 1 if rule is None else mesh.shape[rule]
+    """Ranks along a rule's mesh axes (an axis the mesh lacks counts 1)."""
+    if rule is None:
+        return 1
+    n = 1
+    for r in (rule if isinstance(rule, tuple) else (rule,)):
+        n *= mesh.shape.get(r, 1)
+    return n
+
+
+def _axis_coord(mesh, rule) -> int:
+    """This rank's block index along ``rule``: a tuple of mesh axes is one
+    axis, its first the slowest (the reference's PartitionSpec order)."""
+    if not isinstance(rule, tuple):
+        return mesh.coord(rule)
+    i = 0
+    for r in rule:
+        i = i * mesh.shape[r] + mesh.coord(r)
+    return i
 
 
 def logical_spec(shape: Sequence[int], logical_axes: Sequence[str | None],
@@ -200,5 +272,85 @@ def local_shard(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
             continue
         n = _axis_size(mesh, rule)
         step = x.shape[dim] // n
-        x = x.narrow(dim, mesh.coord(rule) * step, step)
+        x = x.narrow(dim, _axis_coord(mesh, rule) * step, step)
     return x
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    """This rank's block of a global tensor: the port's counterpart of the
+    reference's ``NamedSharding`` (a mesh and one mesh rule or None a
+    dim). Each rank holds its block only."""
+
+    mesh: object
+    spec: tuple
+
+    def local_shape(self, shape: Sequence[int]) -> tuple:
+        return tuple(d // _axis_size(self.mesh, r)
+                     for d, r in zip(shape, self.spec))
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        return local_shard(x, self.spec, self.mesh)
+
+
+def named_sharding(shape: Sequence[int], logical_axes: Sequence[str | None],
+                   ctx: ShardingCtx) -> BlockSpec:
+    """The ``BlockSpec`` of a tensor of ``shape`` with ``logical_axes``
+    under the ctx rules (``logical_spec``'s divisibility fallback)."""
+    return BlockSpec(ctx.mesh, logical_spec(shape, logical_axes, ctx))
+
+
+def param_spec(path: str, shape: tuple[int, ...], ctx: ShardingCtx):
+    """The reference's heuristic, which it never implemented either."""
+    raise NotImplementedError("use configs.param_logical_axes instead")
+
+
+@dataclass(frozen=True)
+class Split:
+    """This rank's block of a logical dim split over one mesh axis."""
+
+    n: int            # ranks along the axis
+    index: int        # this rank's block
+    group: object     # the axis's process group
+
+    def block(self, size: int) -> tuple[int, int]:
+        """[start, stop) of this rank's block of a dim of ``size``."""
+        step = size // self.n
+        return self.index * step, (self.index + 1) * step
+
+
+def split_of(logical_axis: str, size: int) -> Split | None:
+    """How the installed context splits a logical dim of ``size`` units (a
+    param axis such as "p_heads" with ``size`` the head count): None where
+    it stays whole on every rank (no context, no rule, a size-1 mesh
+    axis, or an axis that does not divide ``size``, the reference's
+    ``shard`` fallback)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return None
+    rule = ctx.rules.get(logical_axis)
+    if rule is None:
+        return None
+    n = _axis_size(ctx.mesh, rule)
+    if n == 1 or size % n:
+        return None
+    return Split(n, _axis_coord(ctx.mesh, rule), ctx.mesh.group(rule))
+
+
+def check_model_rules(ctx: ShardingCtx | None = None) -> None:
+    """Raise unless the model layers of this port run under the ctx (by
+    default the installed one): no mesh axis of size > 1 may map FSDP
+    ("p_embed"), the vocab, the KV cache's "kv_seq" or the experts, which
+    ``DEFAULT_RULES`` and ``MULTIPOD_RULES`` map."""
+    ctx = current_ctx() if ctx is None else ctx
+    if ctx is None:
+        return
+    live = [ax for ax in _NOT_RUN
+            if _axis_size(ctx.mesh, ctx.rules.get(ax)) > 1]
+    if live:
+        raise NotImplementedError(
+            f"logical axes {live} split over the mesh {dict(ctx.mesh.shape)}"
+            f": FSDP over 'data', the vocab-split head and loss and the "
+            f"kv_seq-split decode (DEFAULT_RULES / MULTIPOD_RULES) come with "
+            f"the next slice of the port (ROADMAP.md queue A, item 1); "
+            f"models run under DATA_RULES and MODEL_RULES")

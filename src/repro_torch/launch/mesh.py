@@ -1,5 +1,5 @@
-"""Serving mesh over a world of ranks (the reference's
-src/repro/launch/mesh.py, serving subset), and how ranks start.
+"""Meshes over a world of ranks (the reference's src/repro/launch/mesh.py),
+and how ranks start.
 
 The reference is single-controller: one process sees every device and
 ``jax.make_mesh`` lays them out. The port is SPMD: one process per rank,
@@ -30,13 +30,22 @@ With ``model`` <= 1 on a world of W > 1 ranks the mesh is the 1-D
 replicated cache and encodes its rows of each flush
 (``models/vit.py::encode_tokens``, under ``sharding.DATA_RULES``).
 
-Not ported yet (ROADMAP.md A14, LM half): ``make_production_mesh`` (TPU
-pods) and ``make_host_mesh``.
+``make_host_mesh(data, model)`` is the LM entry points' ("data",
+"model") mesh: the reference clamps the axes to the device count, the
+port to the world size, and then raises where the clamped mesh would
+leave ranks out (a rank in no group would hang every collective; ROADMAP.md
+records this as a deviation by design). On a world of one it is a (1, 1)
+mesh with no process group, on which nothing is split.
+``make_production_mesh`` lays (16, 16) ("data", "model") or (2, 16, 16)
+("pod", "data", "model") over a world of 256 or 512 ranks: a rank's
+coordinates are then (p, d, m) with rank = (p * D + d) * M + m, and every
+combination of axes has its group.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import tempfile
 import time
@@ -47,17 +56,22 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ServingMesh", "make_serving_mesh", "choose_backend",
-           "rank_device", "init_rank", "init_from_env",
+__all__ = ["ServingMesh", "make_serving_mesh", "make_host_mesh",
+           "host_mesh_shape", "make_production_mesh", "batch_shard_count",
+           "choose_backend", "rank_device", "init_rank", "init_from_env",
            "spawn_ranks", "DEFAULT_TIMEOUT_S"]
 
 # the timeout of every collective (init_process_group) and of spawn_ranks
 DEFAULT_TIMEOUT_S = 300.0
 
 
+_AXES = ("pod", "data", "model")
+
+
 @dataclass
 class ServingMesh:
-    """One rank's view of the (data, model) serving mesh."""
+    """One rank's view of a ("data", "model") or ("pod", "data", "model")
+    mesh."""
 
     data: int                  # D: ranks along "data"
     model: int                 # M: ranks along "model"
@@ -67,26 +81,31 @@ class ServingMesh:
     backend: str
     groups: dict = field(repr=False)   # axes tuple -> process group
     # the mesh's axes as the reference names them: ("data",) for the 1-D
-    # data mesh (model = 1), else ("data", "model")
+    # data mesh (model = 1), ("pod", "data", "model") for a multi-pod one,
+    # else ("data", "model")
     axis_names: tuple = ("data", "model")
+    pod: int = 1               # P: ranks along "pod"
+    p: int = 0                 # this rank's coordinate along "pod"
 
     @property
     def shape(self) -> dict[str, int]:
-        sizes = {"data": self.data, "model": self.model}
+        sizes = {"pod": self.pod, "data": self.data, "model": self.model}
         return {ax: sizes[ax] for ax in self.axis_names}
 
     @property
     def world(self) -> int:
-        return self.data * self.model
+        return self.pod * self.data * self.model
 
     def coord(self, axis: str) -> int:
-        return {"data": self.d, "model": self.m}[axis]
+        return {"pod": self.p, "data": self.d, "model": self.m}[axis]
 
     def group(self, axes):
-        """The process group of one mesh axis or of a tuple of them."""
+        """The process group of one mesh axis or of a tuple of them (None
+        on a mesh of one rank, where no collective runs)."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
-        if set(key) == {"data", "model"}:
-            key = ("data", "model")
+        key = tuple(ax for ax in _AXES if ax in key)
+        if self.world == 1:
+            return None
         return self.groups[key]
 
 
@@ -180,22 +199,99 @@ def make_serving_mesh(model: int = 1, device=None) -> ServingMesh | None:
 
 
 def _build_mesh(n_data: int, n_model: int, device,
-                axis_names: tuple = ("data", "model")) -> ServingMesh:
+                axis_names: tuple = ("data", "model"),
+                n_pod: int = 1) -> ServingMesh:
     rank = dist.get_rank()
-    d, m = divmod(rank, n_model)
+    sizes = (n_pod, n_data, n_model)
+    p, rest = divmod(rank, n_data * n_model)
+    d, m = divmod(rest, n_model)
+    coords = (p, d, m)
     groups = {}
-    # every rank creates every group, in the same order
-    for dd in range(n_data):
-        g = dist.new_group([dd * n_model + mm for mm in range(n_model)])
-        if dd == d:
-            groups[("model",)] = g
-    for mm in range(n_model):
-        g = dist.new_group([dd * n_model + mm for dd in range(n_data)])
-        if mm == m:
-            groups[("data",)] = g
-    groups[("data", "model")] = dist.group.WORLD
+    # every rank creates every group, in the same order: for each proper
+    # subset of the axes, one group per setting of the other axes
+    for k in (2, 1, 0) if n_pod > 1 else (2, 1):   # "model", "data", "pod"
+        groups[(_AXES[k],)] = _axis_groups(sizes, coords, (k,))
+    if n_pod > 1:
+        for ks in ((0, 1), (0, 2), (1, 2)):
+            groups[tuple(_AXES[k] for k in ks)] = _axis_groups(sizes, coords,
+                                                               ks)
+    else:
+        groups[("data", "model")] = dist.group.WORLD
+    groups[_AXES] = dist.group.WORLD
     return ServingMesh(n_data, n_model, d, m, rank_device(device),
-                       dist.get_backend(), groups, axis_names)
+                       dist.get_backend(), groups, axis_names, n_pod, p)
+
+
+def _axis_groups(sizes: tuple, coords: tuple, ks: tuple):
+    """Create the groups of the axes ``ks`` (each holds the ranks that
+    agree on every other axis), in one order on every rank; return this
+    rank's."""
+    others = [k for k in range(3) if k not in ks]
+    mine = None
+    for fixed in itertools.product(*(range(sizes[k]) for k in others)):
+        ranks = []
+        for moving in itertools.product(*(range(sizes[k]) for k in ks)):
+            c = [0, 0, 0]
+            for k, v in zip(others, fixed):
+                c[k] = v
+            for k, v in zip(ks, moving):
+                c[k] = v
+            ranks.append((c[0] * sizes[1] + c[1]) * sizes[2] + c[2])
+        g = dist.new_group(ranks)
+        if all(coords[k] == v for k, v in zip(others, fixed)):
+            mine = g
+    return mine
+
+
+def host_mesh_shape(data: int, model: int, n: int) -> tuple[int, int]:
+    """The reference's ``make_host_mesh`` clamp over ``n`` devices (here
+    ranks): data to at most n, model to what the rest allows, at least 1."""
+    data = min(data, n)
+    model = max(1, min(model, n // data))
+    return data, model
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   device=None) -> ServingMesh:
+    """The ("data", "model") mesh over every rank of the process group (a
+    world of one without one), clamped as the reference's. Raises where
+    the clamped mesh leaves ranks out. Every rank must call this, in the
+    same order."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data, model = host_mesh_shape(data, model, n)
+    if data * model != n:
+        raise ValueError(
+            f"make_host_mesh({data}, {model}) after clamping covers "
+            f"{data * model} of {n} ranks: a rank in no group would hang "
+            f"every collective; ask for a mesh of the whole world")
+    if n == 1:
+        # named, not resolved: the entry point that runs on it resolves it
+        return ServingMesh(1, 1, 0, 0, torch.device(
+            "cuda" if device is None else device), "none", {})
+    return _build_mesh(data, model, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> ServingMesh:
+    """(16, 16) ("data", "model") over 256 ranks, or (2, 16, 16) ("pod",
+    "data", "model") over 512, as the reference's; raises for any other
+    world."""
+    pods = 2 if multi_pod else 1
+    want = pods * 16 * 16
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n != want:
+        raise ValueError(f"the production mesh {(pods,) * multi_pod + (16, 16)}"
+                         f" needs a world of {want} ranks, have {n}")
+    axes = _AXES if multi_pod else ("data", "model")
+    return _build_mesh(16, 16, device, axes, n_pod=pods)
+
+
+def batch_shard_count(mesh) -> int:
+    """Ranks along the batch (data-parallel) axes: pod x data."""
+    n = mesh.shape["data"]
+    if "pod" in mesh.axis_names:
+        n *= mesh.shape["pod"]
+    return n
 
 
 def _rank_entry(rank: int, fn, world: int, store: str, device, timeout_s,

@@ -1,12 +1,19 @@
 """LM serving driver: prefill the prompt into the KV cache, then decode
-token by token (the reference's src/repro/launch/serve.py, one device).
+token by token (the reference's src/repro/launch/serve.py).
 
 ``prefill_into_cache`` steps the decode function over the prompt's
 positions, as the reference's ``_prefill_scan`` does, so every prompt
 token runs the flash decode kernel once per layer; ``models/api.py::
 prefill_fn`` is the full-prompt forward (the causal flash attention
 kernel). ``generate`` decodes greedily or samples from an explicit
-``torch.Generator``. There is no mesh: sharding is ROADMAP.md queue A14.
+``torch.Generator``. Under a sharding context both run the
+tensor-parallel layers (models/transformer.py) on this rank's blocks of
+the params (``transformer.place_lm_params``) and its rows of the batch
+and cache (``init_cache``); the logits are whole on every rank of a
+"model" group, so its ranks pick the same tokens. ``main`` serves on
+``make_host_mesh(--data-par, --model-par)``, as the reference's, starting
+its ranks with ``launch/mesh.py::spawn_ranks`` (or joining torchrun's),
+and checks that the ranks of each "model" group generated equal tokens.
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain PyTorch versions).
 
@@ -15,29 +22,44 @@ Usage:
         --batch 4 --prompt-len 128 --gen 32 --cache-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --model-par 2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.configs.registry import get_config
 from repro_torch.core.backend import BACKENDS, prepare_params
 from repro_torch.device import full_precision_matmuls, resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (current_ctx, named_sharding,
+                                              use_sharding)
+from repro_torch.launch.mesh import (init_from_env, make_host_mesh,
+                                     spawn_ranks)
 from repro_torch.models import api as model_api
 from repro_torch.models.layers import ExecPolicy
+from repro_torch.models.transformer import place_lm_params
 
 __all__ = ["init_cache", "prefill_into_cache", "generate", "main"]
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
-    """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``."""
+    """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``;
+    under a sharding context this rank's block (its rows)."""
     dev = resolve_device(device)
-    shapes, _ = model_api.cache_axes_spec(cfg, batch, seq_len)
+    shapes, axes = model_api.cache_axes_spec(cfg, batch, seq_len)
+    ctx = current_ctx()
+    if ctx is not None:
+        shapes = {k: (named_sharding(s, axes[k], ctx).local_shape(s), d)
+                  for k, (s, d) in shapes.items()}
     return {k: torch.zeros(s, dtype=d, device=dev)
             for k, (s, d) in shapes.items()}
 
@@ -96,6 +118,46 @@ def generate(params, cache: dict, prompt: torch.Tensor, n_tokens: int,
     return torch.cat(out, dim=1), (b * n_tokens) / dt if dt > 0 else 0.0
 
 
+def _serve_ranks(cfg: ArchConfig, args) -> tuple:
+    """One rank of ``main``: the host mesh, the weights (placed), this
+    rank's rows of the prompt and cache, ``generate``. Returns (this
+    rank's tokens, tok/s, the "model" group's tokens agree)."""
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        full_precision_matmuls()
+    mesh = make_host_mesh(args.data_par, args.model_par, device=args.device)
+    policy = ExecPolicy.from_cfg(cfg, training=False)
+    with use_sharding(mesh) as ctx:
+        params = model_api.init_model(args.seed, cfg, dev)
+        if policy.is_photonic():
+            # quantize-once weight cache: every matmul weight tuned before
+            # serving, so a token does only activation quant + int8 matmul
+            # + dequant (embeddings and norms stay as they are)
+            params = prepare_params(params, bits=cfg.quant_bits or 8)
+            if _rank0():
+                print(f"[serve] backend={policy.backend} "
+                      "(weights pre-quantized once)")
+        params = place_lm_params(params, cfg)
+        cache = init_cache(cfg, args.batch, args.cache_len, dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                               generator=gen, device=dev)
+        prompt = named_sharding(prompt.shape, ("batch", "seq"),
+                                ctx).block(prompt)
+        toks, tps = generate(params, cache, prompt, args.gen, cfg,
+                             policy=policy)
+        agree = True
+        if mesh.model > 1:
+            group = collectives.all_gather_cat(toks, mesh.group("model"), 0)
+            agree = all(torch.equal(t, toks) for t in group.split(
+                toks.shape[0]))
+    return toks.cpu(), tps, agree
+
+
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b")
@@ -105,6 +167,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--data-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompt")
     ap.add_argument("--backend", default="",
@@ -126,27 +190,29 @@ def main(argv=None):
         raise SystemExit(f"{args.arch} has no decode step")
     if args.prompt_len + args.gen > args.cache_len:
         raise SystemExit("--prompt-len + --gen must fit in --cache-len")
+    world = args.data_par * args.model_par
+    if world > 1 and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        ranks = spawn_ranks(_serve_ranks, world, cfg, args,
+                            device=args.device, timeout_s=24 * 3600)
+    else:
+        init_from_env(args.device)
+        ranks = [_serve_ranks(cfg, args)]
+    if not all(agree for _, _, agree in ranks):
+        raise RuntimeError("the ranks of a 'model' group generated different "
+                           "tokens")
+    # each data rank's rows, in order (the whole batch where the data
+    # axis does not divide it)
+    split = args.data_par > 1 and args.batch % args.data_par == 0
+    toks = (torch.cat([t for t, _, _ in ranks[::args.model_par]]) if split
+            else ranks[0][0])
+    if not _rank0():
+        return toks
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        full_precision_matmuls()
-
-    policy = ExecPolicy.from_cfg(cfg, training=False)
-    params = model_api.init_model(args.seed, cfg, dev)
-    if policy.is_photonic():
-        # quantize-once weight cache: every matmul weight tuned before
-        # serving, so a token does only activation quant + int8 matmul +
-        # dequant (embeddings and norms stay as they are)
-        params = prepare_params(params, bits=cfg.quant_bits or 8)
-        print(f"[serve] backend={policy.backend} "
-              "(weights pre-quantized once)")
-    cache = init_cache(cfg, args.batch, args.cache_len, dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=gen, device=dev)
-    toks, tps = generate(params, cache, prompt, args.gen, cfg, policy=policy)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[serve] {cfg.name} on {where}: generated {tuple(toks.shape)} "
-          f"tokens at {tps:.1f} tok/s (batch {args.batch})")
+    print(f"[serve] {cfg.name} on {where}, mesh (data, model) = "
+          f"({args.data_par}, {args.model_par}): generated "
+          f"{tuple(toks.shape)} tokens at {ranks[0][1]:.1f} tok/s a rank "
+          f"(batch {args.batch})")
     print("[serve] first sequence:", toks[0, :16].tolist())
     return toks
 

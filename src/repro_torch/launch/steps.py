@@ -1,7 +1,10 @@
-"""The train step of the port (the reference's src/repro/launch/steps.py::
-make_train_fn, operation for operation).
+"""Step builders of the port (the reference's src/repro/launch/steps.py):
+the train step, and on a mesh the sharded train / prefill / serve steps.
 
     state = {"params", "opt": {"m", "v", "count"}, "step"}
+
+``make_train_fn`` is the reference's ``make_train_fn``, operation for
+operation:
 
   * the loss's gradient over the flattened param leaves
     (``torch.autograd.grad``, the reference's ``value_and_grad``); a leaf
@@ -17,28 +20,177 @@ make_train_fn, operation for operation).
 
 The step runs on the composed entries of a training policy
 (``ExecPolicy.from_cfg(cfg, training=True)``): no hand-written kernel has
-a backward, and the reference's train step reaches none. The train mesh
-(``make_train_step``, ``abstract_state``, the shardings) comes with A14's
-LM half (ROADMAP.md queue A).
+a backward, and the reference's train step reaches none.
+
+On a mesh. The reference is single-controller: ``jit`` with
+``NamedSharding``s lays one global state over the devices. Here each
+rank holds its own block (SPMD), and a step built under an installed
+sharding context (``make_train_fn``, or ``make_train_step(cfg, shape,
+ctx)``) also:
+
+  * means the gradients over "data" (an f32 sum over the data group
+    divided by its size, rounded once to each leaf's dtype), and reports
+    the loss as the global batch's mean the same way;
+  * clips by the norm of the logical gradient: the sums of squares of the
+    leaves split over "model" are added over "model" once, the whole
+    leaves' once (``optim/adamw.py::clip_by_global_norm``).
+
+The builders return ``(fn, specs)`` where ``specs`` are ``meta`` tensors
+of this rank's local shapes and dtypes (the reference's sharded
+ShapeDtypeStructs); ``fn`` installs the context around each call.
+``abstract_params`` / ``abstract_state`` are the reference's
+``eval_shape`` trees as ``meta`` tensors, drawn from nothing. The dry
+run's ``build_cell`` comes with A15 (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.sharding import ShardingCtx, named_sharding
 from repro_torch.models import api as model_api
+from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import ExecPolicy
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      clip_by_global_norm, tree_leaves,
                                      tree_map, tree_unflatten, warmup_cosine)
 
-__all__ = ["make_grad_fn", "make_train_fn"]
+__all__ = ["abstract_params", "abstract_state", "state_logical_axes",
+           "placement_axes", "tree_shardings", "tree_specs",
+           "batch_arg_specs", "gather_tree", "make_grad_fn",
+           "make_train_fn", "make_train_step", "make_prefill_step",
+           "make_serve_step"]
 
 
-def make_grad_fn(cfg: ArchConfig):
-    """``grads_of(params, batch) -> (loss, grads)``: the train step's loss
-    and gradient tree (microbatched as ``cfg`` says), before the clip."""
+# --------------------------------------------------------------------------
+# abstract state and shardings
+# --------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+class _MetaRng:
+    """A stand-in for ``bridge.init_vit``'s numpy generator whose draws are
+    ``meta`` tensors: the tree's shapes and dtypes, nothing drawn."""
+
+    def standard_normal(self, shape, dtype=np.float32):
+        return _meta(shape, torch.float32)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    """The param tree's shapes and dtypes as ``meta`` tensors (the
+    reference's ``eval_shape`` of ``init_model``; the ViT's 1000 classes
+    and f32)."""
+    if cfg.family == "dense":
+        tf_mod.check_family(cfg)
+        return tree_map(lambda s: _meta(s, dtype), tf_mod.lm_shapes(cfg))
+    if cfg.family == "vit":
+        from repro_torch import bridge
+        tree = bridge.init_vit(0, cfg, 1000, rng=_MetaRng())
+        return tree_map(lambda a: a if isinstance(a, torch.Tensor)
+                        else _meta(a.shape, torch.float32), tree)
+    raise model_api._unported(cfg)
+
+
+def abstract_state(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    """The train state's shapes and dtypes (the reference's
+    ``abstract_state``): AdamW's moments bf16 unless
+    ``cfg.use_fp32_master``, an int32 count and step."""
+    params = abstract_params(cfg, dtype)
+    mdt = torch.float32 if cfg.use_fp32_master else torch.bfloat16
+    mom = tree_map(lambda p: _meta(p.shape, mdt), params)
+    return {"params": params,
+            "opt": {"m": mom, "v": tree_map(lambda t: t, mom),
+                    "count": _meta((), torch.int32)},
+            "step": _meta((), torch.int32)}
+
+
+def state_logical_axes(cfg: ArchConfig) -> dict:
+    """The logical-axis tree of ``abstract_state`` (opt m / v mirror the
+    params), the reference's."""
+    pax = model_api.model_logical_axes(cfg)
+    return {"params": pax, "opt": {"m": pax, "v": pax, "count": ()},
+            "step": ()}
+
+
+def placement_axes(cfg: ArchConfig, axes):
+    """``axes`` as this rank places them under the installed context: for
+    the dense LM the tensor-parallel axes it cannot split dropped
+    (``transformer.lm_placement_axes``)."""
+    if cfg.family == "dense":
+        return tf_mod.lm_placement_axes(cfg, axes)
+    return axes
+
+
+def _axes_map(fn, axes_tree, *trees):
+    """``fn`` over the leaves of ``axes_tree`` (tuples are leaves) and the
+    matching leaves of ``trees``, in the first tree's structure."""
+    if isinstance(axes_tree, dict):
+        keys = trees[0] if trees else axes_tree
+        return {k: _axes_map(fn, axes_tree[k], *(t[k] for t in trees))
+                for k in keys}
+    return fn(axes_tree, *trees)
+
+
+def tree_shardings(axes_tree, shape_tree, ctx: ShardingCtx):
+    """A ``sharding.BlockSpec`` tree from (logical axes, shaped leaves)."""
+    return _axes_map(lambda ax, s: named_sharding(s.shape, ax, ctx),
+                     axes_tree, shape_tree)
+
+
+def tree_specs(shape_tree, sharding_tree):
+    """``meta`` tensors of each leaf's local shape and dtype."""
+    return tree_map(lambda s, sh: _meta(sh.local_shape(s.shape), s.dtype),
+                    shape_tree, sharding_tree)
+
+
+def batch_arg_specs(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
+    """(local ``meta`` specs, ``BlockSpec``s) of one cell's batch."""
+    specs, shards = {}, {}
+    for k, (shp, dt, axes) in model_api.batch_specs(cfg, shape).items():
+        shards[k] = named_sharding(shp, axes, ctx)
+        specs[k] = _meta(shards[k].local_shape(shp), dt)
+    return specs, shards
+
+
+def gather_tree(tree, axes, ctx: ShardingCtx | None):
+    """The whole (logical) tensors of a tree of this rank's blocks placed
+    under ``axes`` (``placement_axes``): each split dim all-gathered over
+    its mesh axes, in rank order. Every rank of the split's groups must
+    call it."""
+    if ctx is None:
+        return tree
+
+    def whole(ax, t):
+        for dim, rule in enumerate(ctx.spec(*ax)):
+            if rule is not None and sharding._axis_size(ctx.mesh, rule) > 1:
+                t = collectives.all_gather_cat(t, ctx.mesh.group(rule), dim)
+        return t
+    return _axes_map(whole, axes, tree)
+
+
+def _split_leaves(axes, ctx: ShardingCtx):
+    """A bool tree: which leaves hold a block of a dim split over
+    "model"."""
+    def split(ax):
+        return any(r is not None and "model" in (r if isinstance(r, tuple)
+                                                 else (r,))
+                   for r in ctx.spec(*ax))
+    return _axes_map(split, axes)
+
+
+# --------------------------------------------------------------------------
+# the train step
+# --------------------------------------------------------------------------
+
+def _local_grad_fn(cfg: ArchConfig):
+    """``grads_of(params, batch) -> (loss, grads)`` on this rank's rows,
+    microbatched as ``cfg`` says."""
     policy = ExecPolicy.from_cfg(cfg, training=True)
     k = max(cfg.microbatch_steps, 1)
 
@@ -73,17 +225,69 @@ def make_grad_fn(cfg: ArchConfig):
     return grads_of
 
 
+def _data_mean(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``t`` meaned over the data group: an f32 sum divided by ``n``,
+    rounded once to ``t.dtype``."""
+    s = collectives.all_reduce(t.float(), dist.ReduceOp.SUM, group,
+                               "dp_mean")
+    return (s / n).to(t.dtype)
+
+
+def _mesh_facts(cfg: ArchConfig):
+    """(data group, its size, split-leaf tree, model group) of the
+    installed context for a train step (Nones without one)."""
+    ctx = sharding.current_ctx()
+    if ctx is None:
+        return None, 1, None, None
+    sharding.check_model_rules(ctx)
+    mesh = ctx.mesh
+    if mesh.world > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"training {cfg.name} on a mesh of {mesh.world} ranks: the "
+            f"train mesh runs the dense LM (the ViT trains on one device; "
+            f"ROADMAP.md queue A, item 1)")
+    data_g, split, model_g = None, None, None
+    n_data = sharding._axis_size(mesh, ctx.rules.get("batch"))
+    if n_data > 1:
+        data_g = mesh.group(ctx.rules["batch"])
+    if mesh.shape.get("model", 1) > 1:
+        axes = placement_axes(cfg, model_api.model_logical_axes(cfg))
+        split, model_g = _split_leaves(axes, ctx), mesh.group("model")
+    return data_g, n_data, split, model_g
+
+
+def make_grad_fn(cfg: ArchConfig):
+    """``grads_of(params, batch) -> (loss, grads)``: the train step's loss
+    and gradient tree (microbatched as ``cfg`` says), before the clip.
+    Built under a sharding context: this rank's blocks of the mesh's
+    gradient and the global batch's loss (both meaned over "data")."""
+    grads_of = _local_grad_fn(cfg)
+    data_g, n_data, _, _ = _mesh_facts(cfg)
+    if data_g is None:
+        return grads_of
+
+    def mesh_grads_of(params, batch):
+        loss, g = grads_of(params, batch)
+        return (_data_mean(loss, data_g, n_data),
+                tree_map(lambda t: _data_mean(t, data_g, n_data), g))
+
+    return mesh_grads_of
+
+
 def make_train_fn(cfg: ArchConfig):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: a
     new state of new tensors (the argument is not written). ``batch``
-    holds tensors on the params' device."""
+    holds tensors on the params' device. Built under a sharding context it
+    is that mesh's step (the module docstring): gradients and loss meaned
+    over "data", the norm of the logical gradient."""
     ocfg = AdamWConfig(low_mem=not cfg.use_fp32_master)
     grads_of = make_grad_fn(cfg)
+    _, _, split, model_g = _mesh_facts(cfg)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         loss, g = grads_of(params, batch)
-        g, gnorm = clip_by_global_norm(g, 1.0)
+        g, gnorm = clip_by_global_norm(g, 1.0, split, model_g)
         lr = warmup_cosine(state["step"] + 1, warmup=cfg.lr_warmup,
                            total=cfg.lr_total)
         new_params, new_opt = adamw_update(g, state["opt"], params, ocfg, lr)
@@ -92,3 +296,65 @@ def make_train_fn(cfg: ArchConfig):
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _under(ctx: ShardingCtx, fn):
+    """``fn`` with ``ctx`` installed around each call."""
+    def call(*args):
+        with sharding._installed(ctx):
+            return fn(*args)
+    return call
+
+
+def make_train_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
+    """(train step on this rank's blocks, (state specs, batch specs))."""
+    st_abs = abstract_state(cfg)
+    with sharding._installed(ctx):
+        st_ax = placement_axes(cfg, state_logical_axes(cfg))
+        fn = make_train_fn(cfg)
+    st_specs = tree_specs(st_abs, tree_shardings(st_ax, st_abs, ctx))
+    b_specs, _ = batch_arg_specs(cfg, shape, ctx)
+    return _under(ctx, fn), (st_specs, b_specs)
+
+
+def _param_specs(cfg: ArchConfig, ctx: ShardingCtx):
+    p_abs = abstract_params(cfg)
+    with sharding._installed(ctx):
+        p_ax = placement_axes(cfg, model_api.model_logical_axes(cfg))
+    return tree_specs(p_abs, tree_shardings(p_ax, p_abs, ctx))
+
+
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
+    """(prefill on this rank's blocks -> this rank's rows of the logits,
+    (param specs, batch specs))."""
+    policy = ExecPolicy.from_cfg(cfg, training=False)
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return model_api.prefill_fn(params, batch, cfg, policy)
+
+    b_specs, _ = batch_arg_specs(cfg, shape, ctx)
+    return _under(ctx, prefill), (_param_specs(cfg, ctx), b_specs)
+
+
+def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
+    """One-token decode against a ``shape.seq_len`` cache: (step(params,
+    cache, tokens, pos) -> (logits, cache), (param specs, cache specs,
+    token spec, pos spec)); the cache is this rank's rows, whole over
+    "model"."""
+    policy = ExecPolicy.from_cfg(cfg, training=False)
+    shapes, axes = model_api.cache_axes_spec(cfg, shape.global_batch,
+                                             shape.seq_len)
+    c_specs = {k: _meta(named_sharding(shp, axes[k], ctx).local_shape(shp),
+                        dt) for k, (shp, dt) in shapes.items()}
+    tshape = (shape.global_batch, 1)
+    t_spec = _meta(named_sharding(tshape, model_api.BATCH_AXES[
+        "decode_tokens"], ctx).local_shape(tshape), torch.int32)
+
+    def serve_step(params, cache, tokens, pos):
+        with torch.no_grad():
+            return model_api.decode_fn(params, cache, tokens, pos, cfg,
+                                       policy)
+
+    return _under(ctx, serve_step), (_param_specs(cfg, ctx), c_specs, t_spec,
+                                     _meta((), torch.int32))

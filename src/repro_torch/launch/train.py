@@ -2,76 +2,104 @@
 the train state, the (seed, step)-indexed batch stream, the loop with
 checkpoints, fault injection and the straggler detector, and the CLI.
 
-    python -m repro_torch.launch.train --arch opto-vit-tiny --smoke \\
-        --device cpu --steps 20
+    python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
+        --device cpu --model-par 2
+    python -m repro_torch.launch.train --arch qwen2-1.5b --model-par 2
     python -m repro_torch.launch.train --arch opto-vit-base --steps 200 \\
         --batch 32 --ckpt-dir /tmp/ckpt --ckpt-every 50
 
-The ViT family trains (QAT with the straight-through estimator on the
-composed entries, launch/steps.py); dense-LM training comes right after
-A14's LM half and the other families with A15 (ROADMAP.md queue A), and
-each raises naming its item. The loop runs on one device with no sharding
-context; under one it raises: the train mesh comes with A14's LM half
-(the reference's loop asserts a context, and its host mesh is refused by
-``use_sharding``). Entry points run on the card unless ``device="cpu"``.
+Two families train: the dense LM (``lm_loss`` on ``TokenStream``
+batches, bf16 weights) and the ViT (QAT with the straight-through
+estimator on the composed entries, launch/steps.py); the others raise
+naming A15 (ROADMAP.md queue A). The loop runs with or without a sharding
+context. Under one (``main`` installs ``make_host_mesh(--data-par,
+--model-par)``, as the reference's) each rank trains its blocks of the
+state on its rows of every batch; the ViT trains on a mesh of one rank.
+A checkpoint holds the logical arrays (gathered over "model", written by
+rank 0), so it restores on any mesh through ``restore(..., ctx, axes)``.
+``main`` starts its ranks with ``launch/mesh.py::spawn_ranks``, or joins
+torchrun's (``init_from_env``). Entry points run on the card unless
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, ShapeConfig, smoke_variant
 from repro_torch.configs.registry import get_config
-from repro_torch.data.pipeline import ImageStream
+from repro_torch.data.pipeline import ImageStream, TokenStream
 from repro_torch.device import full_precision_matmuls, resolve_device
 from repro_torch.distributed.fault_tolerance import StragglerDetector
-from repro_torch.distributed.sharding import current_ctx
-from repro_torch.launch.steps import make_train_fn
+from repro_torch.distributed.sharding import current_ctx, use_sharding
+from repro_torch.launch.mesh import (init_from_env, make_host_mesh,
+                                     spawn_ranks)
+from repro_torch.core.backend import place_params
+from repro_torch.launch.steps import (gather_tree, make_train_fn,
+                                      placement_axes, state_logical_axes)
 from repro_torch.models import api as model_api
-from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
 
 __all__ = ["init_state", "make_stream", "train_loop", "main"]
 
 
 def _check_trainable(cfg: ArchConfig) -> None:
-    if cfg.family == "dense":
-        raise NotImplementedError(
-            f"training {cfg.name} (dense LM: lm_loss on TokenStream batches) "
-            f"is not ported to repro_torch yet: it comes with dense-LM "
-            f"training, right after A14's LM half (ROADMAP.md queue A)")
-    if cfg.family != "vit":
+    if cfg.family not in ("dense", "vit"):
         raise NotImplementedError(
             f"training family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP.md queue A15); trainable: vit")
+            f"repro_torch yet (ROADMAP.md queue A15); trainable: dense, vit")
 
 
 def init_state(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """{"params", "opt": AdamW state, "step": 0} on ``device`` (default: the
-    card); the params drawn by ``bridge.init_vit``'s numpy initializer
-    (1000 classes, as the reference's ``init_model``)."""
+    card): the dense LM's params drawn by ``bridge.init_lm``, the ViT's by
+    ``bridge.init_vit``'s numpy initializer (1000 classes, as the
+    reference's ``init_model``). Under a sharding context every rank draws
+    the same whole params and keeps its blocks."""
     _check_trainable(cfg)
     dev = resolve_device(device)
     ocfg = AdamWConfig(low_mem=not cfg.use_fp32_master)
     params = model_api.init_model(seed, cfg, dev)
+    ctx = current_ctx()
+    if ctx is not None:
+        params = place_params(params, placement_axes(
+            cfg, model_api.model_logical_axes(cfg)), ctx)
     return {"params": params, "opt": adamw_init(params, ocfg),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def make_stream(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                 device=None):
-    """``step -> batch``, a pure function of (seed, step): for the ViT
-    ``{"images", "labels"}`` of ``ImageStream`` (8 classes) on ``device``
-    (default: the card)."""
+    """``step -> batch``, a pure function of (seed, step), on ``device``
+    (default: the card): for the dense LM ``TokenStream``'s {"tokens",
+    "labels"} (this rank's rows under a sharding context), for the ViT
+    ``{"images", "labels"}`` of ``ImageStream`` (8 classes)."""
     _check_trainable(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        ts = TokenStream(cfg.vocab, shape.seq_len, shape.global_batch,
+                         seed=seed, ctx=current_ctx(), device=dev)
+        return ts.batch_at
     ims = ImageStream(cfg.img_size, shape.global_batch, n_classes=8,
-                      patch=cfg.patch, seed=seed,
-                      device=resolve_device(device))
+                      patch=cfg.patch, seed=seed, device=dev)
     return lambda step: {k: v for k, v in ims.batch_at(step).items()
                          if k in ("images", "labels")}
+
+
+def _writer() -> bool:
+    """Whether this rank writes checkpoints: rank 0, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier(ctx) -> None:
+    if ctx is not None and ctx.mesh.world > 1:
+        dist.barrier()
 
 
 def train_loop(cfg: ArchConfig, shape: ShapeConfig, n_steps: int,
@@ -83,11 +111,15 @@ def train_loop(cfg: ArchConfig, shape: ShapeConfig, n_steps: int,
     ``init_state(cfg, seed)``), or from ``ckpt``'s newest checkpoint when
     it has one; ``ckpt`` saves every ``every`` steps and at the end. At
     step ``inject_fault_at`` it raises before the step runs (a simulated
-    preemption)."""
-    if current_ctx() is not None:
-        raise ValueError(
-            "train_loop runs on one device with no sharding context; the "
-            "train mesh comes with A14's LM half (ROADMAP.md queue A)")
+    preemption).
+
+    Under a sharding context ``state`` is this rank's blocks
+    (``init_state`` under the same context), each step the mesh's
+    (``make_train_fn``), and a checkpoint the logical state: gathered over
+    the split axes on every rank, written by rank 0, restored as this
+    rank's blocks; the ranks meet at a barrier after the last save and
+    before an injected fault raises."""
+    ctx = current_ctx()
     dev = resolve_device(device)
     if dev.type == "cuda":
         full_precision_matmuls()
@@ -95,18 +127,34 @@ def train_loop(cfg: ArchConfig, shape: ShapeConfig, n_steps: int,
     batch_at = make_stream(cfg, shape, seed, dev)
     if state is None:
         state = init_state(cfg, seed, dev)
+    axes = (None if ctx is None else
+            placement_axes(cfg, state_logical_axes(cfg)))
+
+    def save(step, force=False):
+        if ctx is None:
+            ckpt.maybe_save(step, state, force=force)
+        elif force or (step and step % ckpt.every == 0):
+            tree = gather_tree(state, axes, ctx)
+            if _writer():
+                ckpt.maybe_save(step, tree, force=force)
 
     start = 0
     if ckpt is not None:
-        restored, s0 = ckpt.restore_latest(state)
+        restored, s0 = ckpt.restore_latest(state, ctx, axes)
         if restored is not None:
+            if ctx is not None:
+                restored = tree_map(lambda t: t.contiguous(), restored)
             state, start = restored, s0
-            print(f"[train] resumed from step {start}")
+            if _writer():
+                print(f"[train] resumed from step {start}")
 
     det = StragglerDetector()
     losses = []
     for step in range(start, n_steps):
         if inject_fault_at is not None and step == inject_fault_at:
+            if ckpt is not None and ctx is not None:
+                ckpt.wait()
+                _barrier(ctx)
             raise RuntimeError("injected fault (preemption simulation)")
         batch = batch_at(step)
         with det.timer(det, step):
@@ -114,18 +162,37 @@ def train_loop(cfg: ArchConfig, shape: ShapeConfig, n_steps: int,
         loss = float(metrics["loss"])
         losses.append(loss)
         if ckpt is not None:
-            ckpt.maybe_save(step + 1, state)
-        if step % log_every == 0 or step == n_steps - 1:
+            save(step + 1)
+        if _writer() and (step % log_every == 0 or step == n_steps - 1):
             print(f"[train] step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics['grad_norm']):7.3f}")
     if ckpt is not None:
-        ckpt.maybe_save(n_steps, state, force=True)
+        save(n_steps, force=True)
         ckpt.wait()
+        _barrier(ctx)
     return state, losses, det.flags
 
 
+def _train_ranks(cfg: ArchConfig, shape: ShapeConfig, n_steps: int,
+                 seed: int, ckpt_dir, ckpt_every: int, data: int,
+                 model: int, device) -> tuple:
+    """One rank of ``main``: the host mesh, then ``train_loop`` under it.
+    Returns (losses, straggler flags, seconds)."""
+    mesh = make_host_mesh(data, model, device=device)
+    ckpt = (CheckpointManager(ckpt_dir, every=ckpt_every)
+            if ckpt_dir else None)
+    with use_sharding(mesh):
+        t0 = time.time()
+        _, losses, flags = train_loop(cfg, shape, n_steps, seed=seed,
+                                      ckpt=ckpt, device=device)
+    return losses, flags, time.time() - t0
+
+
 def main(argv=None) -> None:
-    """The reference's flags and defaults, plus ``--device``."""
+    """The reference's flags and defaults, plus ``--device``. The run is
+    ``make_host_mesh(--data-par, --model-par)``'s: one rank a mesh
+    position, started here by ``spawn_ranks`` (each rank on the card, or
+    all on the CPU with ``--device cpu``) or by torchrun."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true",
@@ -143,11 +210,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.data_par > 1 or args.model_par > 1:
-        raise NotImplementedError(
-            f"--data-par {args.data_par} / --model-par {args.model_par}: the "
-            f"train mesh is not ported to repro_torch yet; it comes with "
-            f"A14's LM half (ROADMAP.md queue A)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
@@ -156,13 +218,22 @@ def main(argv=None) -> None:
     if args.d_model:
         cfg = cfg.with_(d_model=args.d_model)
     _check_trainable(cfg)
+    world = args.data_par * args.model_par
+    if world > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"--data-par {args.data_par} / --model-par {args.model_par} for "
+            f"{cfg.name}: the train mesh runs the dense LM; the ViT trains "
+            f"on one device (ROADMAP.md queue A, item 1)")
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
-            if args.ckpt_dir else None)
-    t0 = time.time()
-    state, losses, flags = train_loop(cfg, shape, args.steps, seed=args.seed,
-                                      ckpt=ckpt, device=args.device)
-    dt = time.time() - t0
+    run = (cfg, shape, args.steps, args.seed, args.ckpt_dir, args.ckpt_every,
+           args.data_par, args.model_par, args.device)
+    if world > 1 and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        losses, flags, dt = spawn_ranks(_train_ranks, world, *run,
+                                        device=args.device,
+                                        timeout_s=24 * 3600)[0]
+    else:
+        init_from_env(args.device)
+        losses, flags, dt = _train_ranks(*run)
     print(f"[train] {args.steps} steps in {dt:.1f}s "
           f"({dt / max(len(losses), 1) * 1e3:.0f} ms/step); "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "

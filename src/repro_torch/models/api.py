@@ -2,20 +2,22 @@
 ported families only): one surface for the launch layer.
 
     init_model(seed, cfg, device)               -> params
-    loss_fn(params, batch, cfg, policy)         -> scalar loss (vit)
+    model_logical_axes(cfg)                     -> logical-axis tree
+    loss_fn(params, batch, cfg, policy)         -> scalar loss
     prefill_fn(params, batch, cfg)              -> logits
     decode_fn(params, cache, tokens, pos, cfg)  -> (logits, cache)
+    batch_specs(cfg, shape)                     -> {name: (shape, dtype,
+                                                    logical axes)}
     cache_axes_spec(cfg, batch, seq_len)        -> ({name: (shape, dtype)},
                                                     {name: logical axes})
     supports_decode(cfg)
 
-``dense`` runs models/transformer.py; ``vit`` routes to models/vit.py.
+``dense`` runs models/transformer.py (tensor- and data-parallel under a
+("data", "model") sharding context); ``vit`` routes to models/vit.py.
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
-queue A15. ``loss_fn`` (the train step's loss) is ported for ``vit``;
-the dense LM's (``lm_loss``) comes with dense-LM training, right after
-A14's LM half in queue A. The parameters are the port's tree (``bridge.from_jax_params``
-of the reference's, or ``init_model``); ``init_model`` does not replay
-the reference's ``jax.random`` draws.
+queue A15. The parameters are the port's tree
+(``bridge.from_jax_params`` of the reference's, or ``init_model``);
+``init_model`` does not replay the reference's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -26,10 +28,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import ExecPolicy
 
-__all__ = ["init_model", "loss_fn", "prefill_fn", "decode_fn",
-           "cache_axes_spec", "supports_decode"]
+__all__ = ["init_model", "model_logical_axes", "loss_fn", "prefill_fn",
+           "decode_fn", "batch_specs", "cache_axes_spec", "supports_decode",
+           "BATCH_AXES"]
 
 _UNPORTED = ("moe", "ssm", "hybrid", "encdec", "vlm")
+
+# logical axes of every batch key (rank must match the array)
+BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "frames": ("batch", "seq", None),
+    "img_embeds": ("batch", None, None),
+    "images": ("batch", None, None, None),
+    "decode_tokens": ("batch", None),
+}
 
 
 def _unported(cfg: ArchConfig):
@@ -52,6 +65,38 @@ def init_model(seed: int, cfg: ArchConfig, device=None,
     raise _unported(cfg)
 
 
+def model_logical_axes(cfg: ArchConfig) -> dict:
+    """The logical-axis tree of ``init_model``'s params, the reference's."""
+    if cfg.family == "dense":
+        return tf_mod.lm_logical_axes(cfg)
+    if cfg.family == "vit":
+        from repro_torch.models.vit import vit_logical_axes
+        return vit_logical_axes(cfg)
+    raise _unported(cfg)
+
+
+def batch_specs(cfg: ArchConfig, shape) -> dict:
+    """{key: (shape, dtype, logical axes)} of one cell's batch (a decode
+    cell's is the one-token step's input), as the reference's."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": ((b, 1), torch.int32, BATCH_AXES["decode_tokens"])}
+    out = {}
+    if cfg.family == "dense":
+        out["tokens"] = ((b, s), torch.int32, BATCH_AXES["tokens"])
+    elif cfg.family == "vit":
+        out["images"] = ((b, cfg.img_size, cfg.img_size, 3), torch.float32,
+                         BATCH_AXES["images"])
+    else:
+        raise _unported(cfg)
+    if shape.kind == "train":
+        if cfg.family == "vit":
+            out["labels"] = ((b,), torch.int32, ("batch",))
+        else:
+            out["labels"] = ((b, s), torch.int32, BATCH_AXES["labels"])
+    return out
+
+
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy in f32: logsumexp minus the gold logit."""
     lf = logits.float()
@@ -62,9 +107,10 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params, batch: dict, cfg: ArchConfig,
             policy: ExecPolicy | None = None) -> torch.Tensor:
-    """The training loss: ``batch["images"]`` (B, H, W, 3) and
-    ``batch["labels"]`` (B,) -> the mean cross-entropy of the ViT's logits
-    (the reference's ``vit`` branch). The forward runs where the images
+    """The training loss. dense: ``transformer.lm_loss`` of
+    ``batch["tokens"]`` / ``batch["labels"]`` (B, S). vit:
+    ``batch["images"]`` (B, H, W, 3) and ``batch["labels"]`` (B,) -> the
+    mean cross-entropy of the ViT's logits, the forward where the images
     live, on raw float params (a ``QuantizedWeight`` raises)."""
     if cfg.family == "vit":
         from repro_torch.models.vit import check_training_tree, forward_vit
@@ -73,10 +119,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig,
                                 device=batch["images"].device)
         return _xent(logits, batch["labels"])
     if cfg.family == "dense":
-        raise NotImplementedError(
-            "the dense LM's training loss (lm_loss, on TokenStream batches) "
-            "is not ported to repro_torch yet: it comes with dense-LM "
-            "training, right after A14's LM half (ROADMAP.md queue A)")
+        return tf_mod.lm_loss(params, batch, cfg, policy)
     raise _unported(cfg)
 
 

@@ -9,14 +9,28 @@ CPU; the reference's XLA scan and its ``full_attention`` fallback at or
 below one KV block compute the same function (the tests hold the plain
 version against ``full_attention``). ``decode_attention`` runs the flash
 decode kernel on the card and its plain version on the CPU.
+
+Neither kernel has a backward. A training policy's prefill (the LM's
+training step) takes ``plain_attention``, the kernel's plain version, on
+either device (``transformer.attn_forward`` chooses by the policy), as the
+reference trains through its XLA attention and reaches no Pallas kernel;
+operands that need a gradient reaching ``blockwise_attention`` raise.
+
+Under a "model" split of the query heads (the tensor-parallel LM) each
+rank holds a block of the query heads and the whole K / V; ``kv_runs``
+pairs the block with the KV heads it reads (models/transformer.py
+launches once a run).
 """
 
 from __future__ import annotations
 
+from repro_torch.core.backend import _needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["blockwise_attention", "decode_attention", "update_kv_cache"]
+__all__ = ["blockwise_attention", "plain_attention", "decode_attention",
+           "update_kv_cache", "kv_runs"]
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=0):
@@ -29,9 +43,27 @@ def blockwise_attention(q, k, v, *, causal=True, window=0):
     among ways to compute this same function, so the port takes none).
     On the CPU: the kernel's plain version. Queries start at key 0. The
     head/sequence swap is a view both ways: the kernel reads by strides
-    and writes its output in q's layout."""
+    and writes its output in q's layout. Operands that need a gradient
+    raise on either device: the kernel has no backward (a training policy
+    takes ``plain_attention``)."""
+    if _needs_grad(q, k, v):
+        raise ValueError(
+            "operands that need a gradient reached the causal flash "
+            "attention kernel, which has no backward; a training policy "
+            "trains through plain_attention, and a serving forward runs "
+            "under torch.no_grad() or on weights that need no gradient")
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def plain_attention(q, k, v, *, causal=True, window=0):
+    """``blockwise_attention``'s function through the kernel's plain
+    version (kernels/ref.py::flash_attention_ref) on either device, under
+    autograd: the attention of a training policy."""
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
     return out.transpose(1, 2)
 
 
@@ -63,3 +95,25 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos: int):
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def kv_runs(n_heads: int, kv_heads: int, split=None) -> list[tuple]:
+    """The runs of this rank's query heads that share a uniform GQA group:
+    ``(q0, q1, kv0, kv1)``, local query heads [q0, q1) reading KV heads
+    [kv0, kv1) of the whole K / V (query head i reads KV head
+    i // (H / Hkv)). Without a split, one run of every head. A block that
+    covers whole groups is one run; one inside a group is one run of that
+    KV head; a block that straddles groups (H 6, Hkv 3 over 2 ranks: rank
+    0's heads 0-2 read KV heads 0, 0, 1) gives one run per KV head."""
+    if split is None:
+        return [(0, n_heads, 0, kv_heads)]
+    g = n_heads // kv_heads
+    h0, h1 = split.block(n_heads)
+    if h0 % g == 0 and h1 % g == 0:
+        return [(0, h1 - h0, h0 // g, h1 // g)]
+    runs = []
+    for kv in range(h0 // g, (h1 - 1) // g + 1):
+        a, b = max(h0, kv * g), min(h1, (kv + 1) * g)
+        runs.append((a - h0, b - h0, kv, kv + 1))
+    return runs
+

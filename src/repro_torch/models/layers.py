@@ -1,6 +1,8 @@
 """Shared building blocks (the reference's src/repro/models/layers.py,
 serving subset). ``linear``/``ExecPolicy``/``QuantizedWeight`` live in
 core/backend.py and are re-exported here for the model layers.
+``row_parallel_linear`` is the tensor-parallel LM's row-split projection
+(wo, w_down) under a "model" split.
 
 Every cast sits where the reference has it: the norms compute in f32 and
 cast back to ``x.dtype`` before the gain; RoPE tables are f32 and the
@@ -14,7 +16,8 @@ import torch
 from repro_torch.core.backend import ExecPolicy, QuantizedWeight, linear
 
 __all__ = ["layernorm", "rmsnorm", "rope", "apply_rope", "embedding_lookup",
-           "layer_view", "linear", "ExecPolicy", "QuantizedWeight"]
+           "layer_view", "linear", "row_parallel_linear", "ExecPolicy",
+           "QuantizedWeight"]
 
 
 def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -69,3 +72,45 @@ def layer_view(blocks, i: int):
     if isinstance(blocks, QuantizedWeight):
         return blocks.layer(i)
     return blocks[i]
+
+
+def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
+                        group) -> torch.Tensor:
+    """y = x @ w where x's last dim and w's rows are this rank's block of a
+    contraction split over ``group`` ("model"): the whole product on every
+    rank, in ``x.dtype``.
+
+    bf16: each rank's partial product in f32 (exact products of the bf16
+    operands, an f32 accumulate), summed over the group in f32 and rounded
+    once (``collectives.reduce_from_model``), as the unsharded GEMM rounds
+    its f32 accumulate once. photonic_pallas: the activations quantized at
+    the scale of the whole launch (the absmax scope's group, else
+    ``group``), the int32 accumulates summed exactly over the group and
+    dequantized after (``sharded_encoder.int8_linear_sharded``), so the
+    result is bitwise the unsharded kernel's. Other backends raise."""
+    from repro_torch.core import backend
+    from repro_torch.distributed import collectives, sharding
+
+    p = policy or ExecPolicy()
+    if p.noise is None and p.backend == "bf16":
+        wf = (w.dequantize().to(x.dtype) if isinstance(w, QuantizedWeight)
+              else w)
+        partial = torch.matmul(x.float(), wf.float())
+        return collectives.reduce_from_model(partial, group, x.dtype)
+    if p.noise is None and p.backend == "photonic_pallas":
+        from repro_torch.models.sharded_encoder import int8_linear_sharded
+
+        backend._no_backward_reason(p, "photonic matmul", x, w)
+        bits = backend._weight_bits(w, p)
+        qw = backend._resolve_wq(w, bits)
+        lead = x.shape[:-1]
+        y = int8_linear_sharded(
+            x.reshape(-1, x.shape[-1]).float(), qw.wq, qw.scale.reshape(-1),
+            bits=bits, scale_group=sharding.absmax_group() or group,
+            psum_group=group)
+        return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    raise NotImplementedError(
+        f"a row-parallel projection under {p!r}: the tensor-parallel LM runs "
+        f"the bf16 and photonic_pallas matmuls; the other backends under a "
+        f"'model' split come with the next slice (ROADMAP.md queue A, item "
+        f"1)")

@@ -7,6 +7,25 @@ Python and hand each one a view of its slice (no copy). The decode cache
 is ``{"k", "v"}`` of shape (L, B, S, Hkv, D); ``decode_step`` writes each
 layer's new K/V row into it in place and returns the same dict.
 
+Tensor parallelism. Under an installed sharding context whose rules split
+"p_heads" / "p_mlp" over a "model" axis (``MODEL_RULES`` on a ("data",
+"model") mesh) each rank holds its block of the query heads (wq's
+columns, bq, wo's rows) and of the SwiGLU hidden dim (w_gate / w_up
+columns, w_down rows), placed by ``place_lm_params``; wk / wv, the tied
+embedding, the norms and the KV cache stay whole, so every rank computes
+the whole K and V. ``collectives.copy_to_model`` goes before the
+column-parallel projections and on the K / V a rank reads in part, and
+the row-parallel wo / w_down reduce over "model" (``layers.
+row_parallel_linear``), so the residual stream and the logits are whole on
+every rank. An axis that does not divide the heads (or d_ff) leaves that
+block whole, with no reduce, as the reference's ``shard`` drops it. The
+batch splits over "data": each rank runs its rows. Without a context the
+code path is the unsharded one.
+
+``lm_loss`` is the training loss; ``cfg.remat`` checkpoints each layer
+under autograd (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint``: values are unchanged.
+
 The other families (moe / ssm / hybrid) raise ``NotImplementedError``
 naming ROADMAP.md queue A15, as does the reference's ring-buffer window
 cache (hybrid only) and the decomposed (Eq. 2) attention.
@@ -14,19 +33,26 @@ cache (hybrid only) and the decomposed (Eq. 2) attention.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives, sharding
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.attention import (blockwise_attention,
-                                          decode_attention, update_kv_cache)
+                                          decode_attention, plain_attention,
+                                          update_kv_cache)
 from repro_torch.models.layers import (ExecPolicy, apply_rope,
                                        embedding_lookup, layer_view, linear,
-                                       rmsnorm, rope)
+                                       rmsnorm, rope, row_parallel_linear)
 
-__all__ = ["attention_shapes", "attn_forward", "decode_rope", "attn_decode",
-           "dense_layer_fwd", "forward_lm", "cache_spec", "decode_step",
-           "check_family"]
+__all__ = ["attention_shapes", "lm_shapes", "attention_logical_axes",
+           "dense_layer_axes", "lm_logical_axes", "lm_placement_axes",
+           "place_lm_params", "heads_split", "mlp_split", "attn_forward",
+           "decode_rope", "attn_decode", "dense_layer_fwd", "forward_lm",
+           "lm_loss", "cache_spec", "decode_step", "check_family"]
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -55,24 +81,173 @@ def attention_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
-def _project_qkv(p, x, cfg, policy, positions):
+def lm_shapes(cfg: ArchConfig) -> dict:
+    """The param tree's leaf shapes (``init_lm``'s, without drawing)."""
+    d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    shapes = {"embed": (cfg.vocab, d), "final_ln": (d,),
+              "blocks": {"ln1": (L, d), "ln2": (L, d),
+                         "attn": {k: (L,) + v for k, v in
+                                  attention_shapes(cfg).items()},
+                         "ffn": {"w_gate": (L, d, dff), "w_up": (L, d, dff),
+                                 "w_down": (L, dff, d)}}}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab)
+    return shapes
+
+
+def attention_logical_axes(cfg: ArchConfig) -> dict:
+    """The reference's: the query heads on "p_heads" (wq's columns, bq,
+    wo's rows); wk / wv whole."""
+    ax = {"wq": ("p_embed", "p_heads"), "wk": ("p_embed", None),
+          "wv": ("p_embed", None), "wo": ("p_heads", "p_embed")}
+    if cfg.qkv_bias:
+        ax.update({"bq": ("p_heads",), "bk": (None,), "bv": (None,)})
+    return ax
+
+
+def dense_layer_axes(cfg: ArchConfig) -> dict:
+    return {"ln1": (None,), "attn": attention_logical_axes(cfg),
+            "ln2": (None,), "ffn": ffn_mod.swiglu_logical_axes()}
+
+
+def _prepend(tree, axis="p_layers"):
+    if isinstance(tree, dict):
+        return {k: _prepend(v, axis) for k, v in tree.items()}
+    return (axis,) + tuple(tree)
+
+
+def lm_logical_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of every param leaf, the reference's tree (dense)."""
+    check_family(cfg)
+    ax = {"embed": ("p_vocab", "p_embed"), "final_ln": (None,),
+          "blocks": _prepend(dense_layer_axes(cfg))}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("p_embed", "p_vocab")
+    return ax
+
+
+def heads_split(cfg: ArchConfig):
+    """This rank's block of the query heads (``sharding.split_of``), or
+    None where every rank holds all of them."""
+    return sharding.split_of("p_heads", cfg.n_heads)
+
+
+def mlp_split(cfg: ArchConfig):
+    """This rank's block of the SwiGLU hidden dim, or None."""
+    return sharding.split_of("p_mlp", cfg.d_ff)
+
+
+def lm_placement_axes(cfg: ArchConfig, axes: dict | None = None) -> dict:
+    """``axes`` (default ``lm_logical_axes``; a train state's tree too) with
+    the tensor-parallel axes the installed context cannot split dropped:
+    "p_heads" unless ``heads_split`` (a model axis may divide wq's columns
+    but not the heads), "p_mlp" unless ``mlp_split``."""
+    drop = set()
+    if heads_split(cfg) is None:
+        drop.add("p_heads")
+    if mlp_split(cfg) is None:
+        drop.add("p_mlp")
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return tuple(None if a in drop else a for a in t)
+    return walk(lm_logical_axes(cfg) if axes is None else axes)
+
+
+def place_lm_params(params: dict, cfg: ArchConfig) -> dict:
+    """This rank's blocks of a whole param tree (raw or ``prepare_params``'d)
+    under the installed context; the tree itself without one."""
+    ctx = sharding.current_ctx()
+    if ctx is None:
+        return params
+    from repro_torch.core.backend import place_params
+    sharding.check_model_rules(ctx)
+    return place_params(params, lm_placement_axes(cfg), ctx)
+
+
+def _model_scope(policy):
+    """Under a mesh of more than one rank a photonic policy takes every
+    per-launch activation absmax over the whole mesh (the rows split over
+    "data", the row-parallel contractions over "model"): the unsharded
+    launch's scale on every rank."""
+    ctx = sharding.current_ctx()
+    if ctx is None:
+        return contextlib.nullcontext()
+    sharding.check_model_rules(ctx)
+    if not policy.is_photonic() or ctx.mesh.world == 1:
+        return contextlib.nullcontext()
+    return sharding.absmax_scope(ctx.mesh.group(tuple(ctx.mesh.axis_names)))
+
+
+def _project_qkv(p, x, cfg, policy, positions, split):
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = linear(x, p["wq"], p.get("bq"), policy).reshape(b, s, h, hd)
+    hkv, hd = cfg.kv_heads, cfg.head_dim
+    h = cfg.n_heads if split is None else cfg.n_heads // split.n
+    xq = x if split is None else collectives.copy_to_model(x, split.group)
+    q = linear(xq, p["wq"], p.get("bq"), policy).reshape(b, s, h, hd)
     k = linear(x, p["wk"], p.get("bk"), policy).reshape(b, s, hkv, hd)
     v = linear(x, p["wv"], p.get("bv"), policy).reshape(b, s, hkv, hd)
     cos, sin = rope(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def attn_forward(p, x, cfg: ArchConfig, policy):
-    """Full-sequence causal self attention (prefill). Returns (out, (k, v))."""
+def _kv_read_in_part(k, v, split):
+    """Under a head split each rank reads part of the whole K / V, so
+    their gradient is summed over "model" (one reduce for both)."""
+    if split is None:
+        return k, v
+    kv = collectives.copy_to_model(torch.stack([k, v]), split.group)
+    return kv[0], kv[1]
+
+
+def _attend(q, k, v, cfg: ArchConfig, policy, split) -> torch.Tensor:
+    """Causal attention of q (B, S, h, D), this rank's heads, against the
+    whole k / v (B, S, Hkv, D). A serving policy launches the flash
+    attention kernel (``blockwise_attention``), a training policy takes
+    its plain version (``plain_attention``: no kernel has a backward, and
+    the reference trains through its XLA attention). Under a head split
+    one call a ``attention.kv_runs`` run; the head slices are views."""
+    attend = plain_attention if policy.training else blockwise_attention
+    if split is None:
+        return attend(q, k, v, causal=True)
+    outs = [attend(q[:, :, q0:q1], k[:, :, a:b], v[:, :, a:b], causal=True)
+            for q0, q1, a, b in attn_mod.kv_runs(cfg.n_heads, cfg.kv_heads,
+                                                 split)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _decode(q, k_cache, v_cache, length: int, cfg: ArchConfig,
+            split) -> torch.Tensor:
+    """``decode_attention`` against the whole caches (B, S, Hkv, D); under
+    a head split one call a run, the caches sliced to its KV heads (views
+    the kernel reads by strides)."""
+    if split is None:
+        return decode_attention(q, k_cache, v_cache, length)
+    outs = [decode_attention(q[:, :, q0:q1], k_cache[:, :, a:b],
+                             v_cache[:, :, a:b], length)
+            for q0, q1, a, b in attn_mod.kv_runs(cfg.n_heads, cfg.kv_heads,
+                                                 split)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _out_proj(o, w, policy, split):
+    if split is None:
+        return linear(o, w, policy=policy)
+    return row_parallel_linear(o, w, policy, split.group)
+
+
+def attn_forward(p, x, cfg: ArchConfig, policy, split=None):
+    """Full-sequence causal self attention (prefill, training). ``split``
+    is this rank's block of the query heads (``heads_split``), None for
+    all of them. Returns (out, (k, v)): the whole K / V on every rank."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, policy, positions)
-    o = blockwise_attention(q, k, v, causal=True)
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return linear(o, p["wo"], policy=policy), (k, v)
+    q, k, v = _project_qkv(p, x, cfg, policy, positions, split)
+    kr, vr = _kv_read_in_part(k, v, split)
+    o = _attend(q, kr, vr, cfg, policy, split)
+    o = o.reshape(b, s, q.shape[2] * cfg.head_dim)
+    return _out_proj(o, p["wo"], policy, split), (k, v)
 
 
 def decode_rope(pos: int, cfg: ArchConfig, device):
@@ -84,31 +259,38 @@ def decode_rope(pos: int, cfg: ArchConfig, device):
 
 
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
-                rope_tables):
+                rope_tables, split=None):
     """One-token attention at position ``pos`` (host int); writes the new
     K/V into the caches in place. ``rope_tables`` is ``decode_rope(pos)``,
-    built once per step by the caller. Returns (out, cache_k, cache_v)."""
+    built once per step by the caller; ``split`` this rank's block of the
+    query heads (``heads_split``). Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
-    h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = linear(x, p["wq"], p.get("bq"), policy).reshape(b, 1, h, hd)
+    hkv, hd = cfg.kv_heads, cfg.head_dim
+    h = cfg.n_heads if split is None else cfg.n_heads // split.n
+    xq = x if split is None else collectives.copy_to_model(x, split.group)
+    q = linear(xq, p["wq"], p.get("bq"), policy).reshape(b, 1, h, hd)
     k = linear(x, p["wk"], p.get("bk"), policy).reshape(b, 1, hkv, hd)
     v = linear(x, p["wv"], p.get("bv"), policy).reshape(b, 1, hkv, hd)
     cos, sin = rope_tables
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
-    o = decode_attention(q, cache_k, cache_v, pos + 1)
+    o = _decode(q, cache_k, cache_v, pos + 1, cfg, split)
     o = o.reshape(b, 1, h * hd)
-    return linear(o, p["wo"], policy=policy), cache_k, cache_v
+    return _out_proj(o, p["wo"], policy, split), cache_k, cache_v
 
 
-def dense_layer_fwd(p, x, cfg: ArchConfig, policy):
-    """Pre-norm residual layer: attention, then SwiGLU."""
+def dense_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None)):
+    """Pre-norm residual layer: attention, then SwiGLU. ``splits`` is
+    (``heads_split``, ``mlp_split``), read once a forward: a remat's
+    recompute runs in the backward, where no context need be installed
+    (the card's backward runs on autograd's device thread)."""
+    heads, mlp = splits
     h, _ = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                        policy)
+                        policy, heads)
     x = x + h
     return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
-                              policy)
+                              policy, split=mlp)
 
 
 def _head(params, cfg):
@@ -122,19 +304,45 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """tokens (B, S) -> (logits (B, S, V), aux loss 0.0), as the reference."""
     check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg)
-    x = embedding_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x = dense_layer_fwd(layer_view(params["blocks"], i), x, cfg, policy)
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    logits = linear(x, _head(params, cfg), policy=policy)
+    with _model_scope(policy):
+        x = embedding_lookup(params["embed"], tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
+        splits = (heads_split(cfg), mlp_split(cfg))
+        for i in range(cfg.n_layers):
+            lp = layer_view(params["blocks"], i)
+            if remat:
+                from torch.utils.checkpoint import checkpoint
+                x = checkpoint(dense_layer_fwd, lp, x, cfg, policy, splits,
+                               use_reentrant=False)
+            else:
+                x = dense_layer_fwd(lp, x, cfg, policy, splits)
+        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+        logits = linear(x, _head(params, cfg), policy=policy)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
+            policy: ExecPolicy | None = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (both (B, S)): the f32 logsumexp minus the gold
+    logit, meaned over this rank's rows, plus ``aux_weight`` times the
+    forward's aux loss (0 for dense), as the reference's."""
+    logits, aux = forward_lm(params, batch["tokens"], cfg, policy)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    return (lse - gold).mean() + aux_weight * aux
 
 
 def cache_spec(cfg: ArchConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16) -> tuple[dict, dict]:
     """(shapes, logical_axes) of the decode cache: K and V of shape
-    (L, B, S, Hkv, D). The axes are the reference's names; the port has no
-    mesh yet (ROADMAP.md queue A14), so nothing reads them."""
+    (L, B, S, Hkv, D), the reference's axes. ``launch/steps.py::
+    make_serve_step`` reads them: under ``MODEL_RULES`` the cache splits
+    its batch over "data" and is whole over "model" (every rank computes
+    the whole K / V); a "kv_seq" split (``DEFAULT_RULES``) is the next
+    slice's."""
     check_family(cfg)
     shape = (cfg.n_layers, batch, seq_len, cfg.kv_heads, cfg.head_dim)
     axes = ("p_layers", "batch", "kv_seq", None, None)
@@ -149,16 +357,20 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     pos = int(pos)
-    x = embedding_lookup(params["embed"], tokens)
-    tables = decode_rope(pos, cfg, x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_view(params["blocks"], i)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        o, _, _ = attn_decode(lp["attn"], h, cache["k"][i], cache["v"][i],
-                              pos, cfg, policy, tables)
-        x = x + o
-        x = x + ffn_mod.swiglu(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                               policy)
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    logits = linear(x, _head(params, cfg), policy=policy)[:, 0]
+    heads, mlp = heads_split(cfg), mlp_split(cfg)
+    with _model_scope(policy):
+        x = embedding_lookup(params["embed"], tokens)
+        tables = decode_rope(pos, cfg, x.device)
+        for i in range(cfg.n_layers):
+            lp = layer_view(params["blocks"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            o, _, _ = attn_decode(lp["attn"], h, cache["k"][i],
+                                  cache["v"][i], pos, cfg, policy, tables,
+                                  heads)
+            x = x + o
+            x = x + ffn_mod.swiglu(lp["ffn"],
+                                   rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                                   policy, split=mlp)
+        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+        logits = linear(x, _head(params, cfg), policy=policy)[:, 0]
     return logits, cache

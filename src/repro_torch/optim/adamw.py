@@ -142,13 +142,33 @@ def warmup_cosine(step, *, peak_lr_scale: float = 1.0, warmup: int = 100,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float = 1.0):
+def clip_by_global_norm(grads, max_norm: float = 1.0, split=None,
+                        group=None):
     """(grads scaled so their global L2 norm is at most ``max_norm``, the
     norm before scaling). The leaves' sums of squares are added in the
-    reference's leaf order."""
+    reference's leaf order.
+
+    ``split`` (a tree of bools like ``grads``) marks the leaves that hold
+    this rank's block of a leaf split over ``group`` (the tensor-parallel
+    "model" axis): their sums of squares are added over the group once,
+    the whole leaves' once, so the norm is the logical gradient's on
+    every rank."""
     gn = 0
-    for leaf in tree_leaves(grads):
-        gn = gn + torch.sum(leaf.float() ** 2)
+    if split is None:
+        for leaf in tree_leaves(grads):
+            gn = gn + torch.sum(leaf.float() ** 2)
+    else:
+        from repro_torch.distributed import collectives
+        part = 0
+        for leaf, sp in zip(tree_leaves(grads), tree_leaves(split)):
+            if sp:
+                part = part + torch.sum(leaf.float() ** 2)
+            else:
+                gn = gn + torch.sum(leaf.float() ** 2)
+        if torch.is_tensor(part):
+            import torch.distributed as dist
+            gn = gn + collectives.all_reduce(part, dist.ReduceOp.SUM, group,
+                                             "grad_norm_sum")
     gn = torch.sqrt(gn)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

@@ -259,3 +259,170 @@ def suite(x_halves: np.ndarray, ffn_cases: list, raw: dict, cfg,
             "ffn": ffn_sharded(ffn_cases),
             "encode": encode_sharded(raw, cfg, requests),
             "serve": serve_sharded(raw, n_streams, n_frames, phase)}
+
+
+# --------------------------------------------------------------------------
+# the tensor- and data-parallel LM (test_torch_lm_mesh.py)
+# --------------------------------------------------------------------------
+
+def _np32(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return _np32(tree)
+
+
+def _lm_grads(cfg, local, batch, ctx) -> tuple:
+    """(global loss, the logical gradient tree as f32 numpy, grad norm):
+    this rank's blocks' mesh gradient gathered over "model"."""
+    from repro_torch.launch import steps
+
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import clip_by_global_norm
+
+    loss, g = steps.make_grad_fn(cfg)(local, batch)
+    axes = steps.placement_axes(cfg, api.model_logical_axes(cfg))
+    whole = steps.gather_tree(g, axes, ctx)
+    _, _, split, model_g = steps._mesh_facts(cfg)
+    _, gn = clip_by_global_norm(g, 1.0, split, model_g)
+    return float(loss), _np_tree(whole), float(gn)
+
+
+def lm_mesh_suite(tree: dict, cfg, prompt: np.ndarray, forced: np.ndarray,
+                  batch: dict, cache_len: int, extra: dict,
+                  ckpt_dir: str) -> dict:
+    """One rank of the (2, 2) ("data", "model") mesh on the CPU: the
+    tensor- and data-parallel LM's prefill and teacher-forced decode
+    logits (this rank's rows), one train step's gradient (logical), the
+    int8 prefill against the unsharded one, the extra configs
+    (``extra``: name -> (cfg, params)) against their unsharded runs, a
+    planted fault, and a checkpoint of 2 sharded train steps."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.models.attention import kv_runs
+    from repro_torch.optim.adamw import tree_leaves
+
+    mesh = make_host_mesh(2, 2, device="cpu")
+    out = {"coords": (mesh.d, mesh.m), "shape": mesh.shape,
+           "jax_loaded": "jax" in sys.modules,
+           "repro_loaded": any(m == "repro" or m.startswith("repro.")
+                               for m in sys.modules)}
+    with use_sharding(mesh) as ctx:
+        rows = sharding.named_sharding(prompt.shape, ("batch", "seq"), ctx)
+
+        def mine(a):
+            return rows.block(torch.from_numpy(np.ascontiguousarray(a)))
+
+        local = transformer.place_lm_params(tree, cfg)
+        out["wq_shape"] = tuple(local["blocks"]["attn"]["wq"].shape)
+        out["w_down_shape"] = tuple(local["blocks"]["ffn"]["w_down"].shape)
+        with torch.no_grad():
+            out["prefill"] = _np32(api.prefill_fn(
+                local, {"tokens": mine(prompt)}, cfg))
+            # teacher-forced decode: the prompt through the decode step,
+            # then the given tokens, so a near-tie cannot cascade
+            cache = serve.init_cache(cfg, prompt.shape[0], cache_len, "cpu")
+            out["cache_shape"] = tuple(cache["k"].shape)
+            lg, cache = serve.prefill_into_cache(local, cache, mine(prompt),
+                                                 cfg)
+            steps_ = [lg]
+            f = mine(forced)
+            for t in range(f.shape[1]):
+                lg, cache = api.decode_fn(local, cache, f[:, t:t + 1],
+                                          prompt.shape[1] + t, cfg)
+                steps_.append(lg)
+            out["decode"] = _np32(torch.stack(steps_, 1))
+            # greedy generation: the ranks of a model group must agree
+            gcache = serve.init_cache(cfg, prompt.shape[0], cache_len, "cpu")
+            out["greedy"] = serve.generate(local, gcache, mine(prompt), 4,
+                                           cfg)[0].numpy()
+
+        tb = {k: mine(v) for k, v in batch.items()}
+        out["loss"], out["grads"], out["gnorm"] = _lm_grads(cfg, local, tb,
+                                                            ctx)
+        saved = collectives.copy_to_model
+        collectives.copy_to_model = lambda x, group: x
+        try:
+            _, out["grads_planted"], _ = _lm_grads(cfg, local, tb, ctx)
+        finally:
+            collectives.copy_to_model = saved
+
+        # int8: the tensor- and data-parallel prefill on the prepared cache
+        # against the unsharded one on the whole batch (no context)
+        cfg8 = cfg.with_(matmul_backend="photonic_pallas")
+        cache8 = prepare_params(tree, bits=8)
+        with torch.no_grad():
+            tp8 = api.prefill_fn(transformer.place_lm_params(cache8, cfg8),
+                                 {"tokens": mine(prompt)}, cfg8)
+            with sharding._installed(None):
+                whole8 = api.prefill_fn(cache8, {"tokens": torch.from_numpy(
+                    prompt)}, cfg8)
+        out["int8_bitwise"] = torch.equal(tp8, rows.block(whole8))
+        out["int8_maxdiff"] = float((tp8.float() - rows.block(
+            whole8).float()).abs().max())
+
+        # the extra configs (straddling GQA groups, a model axis that does
+        # not divide the heads or d_ff) against their unsharded runs
+        out["extra"] = {}
+        for name, (xcfg, xtree) in extra.items():
+            xl = transformer.place_lm_params(xtree, xcfg)
+            with torch.no_grad():
+                tp = api.prefill_fn(xl, {"tokens": mine(prompt)}, xcfg)
+                with sharding._installed(None):
+                    one = api.prefill_fn(xtree, {"tokens": torch.from_numpy(
+                        prompt)}, xcfg)
+            loss, grads, _ = _lm_grads(xcfg, xl, tb, ctx)
+            with sharding._installed(None):
+                l1, g1 = steps.make_grad_fn(xcfg)(
+                    xtree, {k: torch.from_numpy(v) for k, v in
+                            batch.items()})
+            out["extra"][name] = {
+                "prefill": _np32(tp), "unsharded": _np32(rows.block(one)),
+                "loss": loss, "loss1": float(l1), "grads": grads,
+                "grads1": _np_tree(g1),
+                "runs": kv_runs(xcfg.n_heads, xcfg.kv_heads,
+                                transformer.heads_split(xcfg)),
+                "wq_shape": tuple(xl["blocks"]["attn"]["wq"].shape),
+                "w_gate_shape": tuple(xl["blocks"]["ffn"]["w_gate"].shape)}
+
+        # 2 sharded train steps with a checkpoint each step; the state
+        # gathered; the checkpoint restored into this rank's blocks
+        shape = ShapeConfig("mesh", prompt.shape[1], prompt.shape[0],
+                            "train")
+        state0 = train.init_state(cfg, 0, "cpu")
+        final, losses, _ = train.train_loop(
+            cfg, shape, 2, device="cpu", state=state0,
+            ckpt=CheckpointManager(ckpt_dir, every=1))
+        axes = steps.placement_axes(cfg, steps.state_logical_axes(cfg))
+        out["losses"] = losses
+        out["final"] = _np_tree(steps.gather_tree(final, axes, ctx))
+        back, step = restore(f"{ckpt_dir}/step_2", final, ctx, axes)
+        out["restored_step"] = step
+        out["restored_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(final)))
+    return out
+
+
+def lm_tp_prefill(params: dict, cfg, prompt, device: str) -> dict:
+    """One rank of a (1, 2) mesh: the tensor-parallel prefill's logits
+    (f32 numpy) and this rank's kernel launches."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.optim.adamw import tree_map
+
+    mesh = make_host_mesh(1, 2, device=device)
+    whole = tree_map(lambda t: t.to(mesh.device), params)
+    with use_sharding(mesh), torch.no_grad():
+        local = transformer.place_lm_params(whole, cfg)
+        api.prefill_fn(local, {"tokens": prompt[:, :8].to(mesh.device)}, cfg)
+        _build.LAUNCHES.clear()
+        logits = api.prefill_fn(local, {"tokens": prompt.to(mesh.device)},
+                                cfg)
+    return {"logits": _np32(logits), "launches": dict(_build.LAUNCHES)}

@@ -135,13 +135,18 @@ def test_validate_rules_matches_reference(mesh, rules):
 
 
 def test_rules_for_other_meshes_raise():
-    """The reference's "pod" and default training tables wait for the
-    LM half of A14: the port names the meshes it serves on instead of
-    picking a table no path reads."""
+    """A "pod" mesh gets the reference's MULTIPOD_RULES and any other axes
+    its DEFAULT_RULES; a model run under either with a size > 1 axis that
+    maps FSDP, the vocab or kv_seq raises, naming the next slice."""
     mesh = _mesh(("pod", "data", "model"), pod=2, data=2, model=2)
     assert jsharding.rules_for_mesh(mesh) is jsharding.MULTIPOD_RULES
-    with pytest.raises(ValueError, match="no sharding rules for mesh axes"):
-        tsharding.rules_for_mesh(mesh)
+    assert tsharding.rules_for_mesh(mesh) == jsharding.MULTIPOD_RULES
+    other = _mesh(("x", "model"), x=1, model=2)
+    assert tsharding.rules_for_mesh(other) == jsharding.DEFAULT_RULES
+    for m in (mesh, other):
+        ctx = tsharding.ShardingCtx(m, tsharding.rules_for_mesh(m))
+        with pytest.raises(NotImplementedError, match="next slice"):
+            tsharding.check_model_rules(ctx)
 
 
 def test_absmax_scope_needs_a_context():

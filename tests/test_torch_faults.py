@@ -472,15 +472,48 @@ def test_load_shedding_counts_its_drops(env):
         assert r.frames + r.shed_frames == N_FRAMES and not r.poisoned
 
 
-def test_injected_stalls_are_flagged(env):
+class _FakeClock:
+    """The server's ``time`` module on a clock that only the injected
+    stalls (``sleep``) and a fixed step an encode advance: flush walls are
+    then a pure function of the stalls, whatever the host's load."""
+
+    STEP_S = 1e-3
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def sleep(self, s: float) -> None:
+        self.now += s
+
+    def __getattr__(self, name):          # anything else: the real module
+        import time
+        return getattr(time, name)
+
+
+def test_injected_stalls_are_flagged(env, monkeypatch):
     """Every stall once the detector has its 10 samples is flagged (the
-    flush index is the telemetry's ``seq``). The stall is 1 s: on a CPU
-    host shared with other test workers a smoke flush's wall time spreads
-    by up to hundreds of ms, which a shorter stall need not clear (median
-    + 5 MAD); the card's 4g flags 50 ms stalls against a ~2.7 ms flush."""
+    flush index is the telemetry's ``seq``). The server reads a fake clock
+    (``_FakeClock``): each encode advances it by 1 ms and each injected
+    1 s stall by 1 s, so every clean flush's wall is 1 ms and every
+    stalled one's 1.001 s, on any host; a real clock on a CPU shared with
+    other test workers spreads a smoke flush's wall by hundreds of ms. The
+    card's 4g flags 50 ms stalls against a ~2.7 ms flush on a real
+    clock."""
     stall_s = 1.0
     srv = _server(env["params"], watchdog=True,
                   faults=FaultSpec(stall_rate=0.15, stall_s=stall_s, seed=6))
+    clock = _FakeClock()
+    monkeypatch.setattr(tserver, "time", clock)
+    encode = srv._encode
+
+    def timed_encode(*a, **kw):
+        clock.now += clock.STEP_S
+        return encode(*a, **kw)
+
+    srv._encode = timed_encode
     inj, stalled = srv._injector, []
     real = inj.stall_s
 

@@ -1682,10 +1682,11 @@ def _grad_distance(ga, gb):
 def test_train_step_on_the_card_against_the_cpu(dev):
     """One step's loss and gradients at equal state and batch: the loss
     within 1%, the gradients within 0.25 relative L2 and each leaf corr >
-    0.95 (chip_smoke.py 4i (C)'s bounds: the gate's top-k routing, the
-    rounding and the STE's 0.5 on the clip bound are discontinuous, so
-    rounding differences move whole leaves); MGNet's leaves get no
-    gradient on either device. The step then runs on the card."""
+    0.95 (chip_smoke.py 4i (C)'s bounds: the gate's top-k routing and the
+    fake quant's rounding are discontinuous, so rounding differences move
+    whole leaves); MGNet's leaves get no gradient on either device. With
+    MGNet's pruning off, the tight check: relative L2 < 1e-5, the loss
+    within 1e-6. The step then runs on the card."""
     from repro_torch.data.pipeline import ImageStream
     from repro_torch.launch.steps import make_grad_fn, make_train_fn
     cfg = _train_cfg()
@@ -1702,6 +1703,17 @@ def test_train_step_on_the_card_against_the_cpu(dev):
            f"{float(lc):.6f} vs {float(lh):.6f}")
     assert abs(float(lc) - float(lh)) <= 1e-2 * abs(float(lh)), msg
     assert rel < 0.25 and corr > 0.95, msg
+    # the tight check, MGNet's pruning off: no fake-quant code flips, so
+    # the GEMMs' summation order is the whole difference (measured
+    # 7.7e-7, scripts/qat_grad_gap.py)
+    off = cfg.with_(mgnet=False)
+    p_off = _train_state(off, "cpu")["params"]
+    lh, gh = make_grad_fn(off)(p_off, b)
+    lc, gc_ = make_grad_fn(off)(to_device(p_off, dev),
+                                {k: v.to(dev) for k, v in b.items()})
+    rel, corr = _grad_distance(gc_, gh)
+    assert rel < 1e-5, rel
+    assert abs(float(lc) - float(lh)) <= 1e-6 * abs(float(lh))
     new, m = make_train_fn(cfg)(to_device(state, dev),
                                 {k: v.to(dev) for k, v in b.items()})
     assert torch.isfinite(m["loss"]) and int(new["step"]) == 1
@@ -1764,3 +1776,60 @@ def test_training_policy_on_a_kernel_raises_on_the_card(dev, backends):
         make_train_fn(cfg)(state, b)
     # raised before any kernel of the named entry launched a backward
     assert _build.LAUNCHES.get("fused_ffn", 0) == before.get("fused_ffn", 0)
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel LM (chip_smoke.py 4j)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lm_kernels_at_tensor_parallel_rank_shapes(dev, kv, dtype):
+    """B5 and B6 at a qwen2-1.5b rank's shapes on make_host_mesh(1, 2):
+    6 query heads reading one KV head, a view of the whole 2-head K / V
+    and cache, against their plain versions (bf16: 1 ulp of max |o|;
+    f32: 2e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(kv)
+    q = torch.randn(4, 128, 6, 128, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(4, 128, 2, 128, generator=gen, device=dev)
+            .to(dtype)[:, :, kv:kv + 1] for _ in range(2))
+    got = blockwise_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)).transpose(1, 2)
+    qd = torch.randn(4, 1, 6, 128, generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn(4, 512, 2, 128, generator=gen, device=dev)
+              .to(dtype)[:, :, kv:kv + 1] for _ in range(2))
+    got6 = flash_decode(qd, kc, vc, 160)
+    want6 = ref.flash_decode_ref(qd, kc, vc, 160)
+    for g, w in ((got, want), (got6, want6)):
+        err = (g.float() - w.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            tol = 2.0 ** (np.floor(np.log2(w.float().abs().max().item())) - 7)
+        else:
+            tol = 2e-5 * (1 + w.abs().max().item())
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_prefill_on_two_ranks_of_the_card(dev):
+    """qwen2-1.5b at full width cut to 2 layers on make_host_mesh(1, 2), 2
+    gloo ranks on the card: each rank's logits corr > 0.999 with equal
+    argmax against the unsharded card prefill, the ranks equal, B5 once a
+    layer on each rank."""
+    cfg = get_config("qwen2-1.5b").with_(n_layers=2)
+    params = init_lm(0, cfg, "cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(0))
+    ranks = spawn_ranks(_torch_ranks.lm_tp_prefill, 2, params, cfg, prompt,
+                        "cuda", device="cuda", timeout_s=600)
+    with torch.no_grad():
+        want = model_api.prefill_fn(to_device(params, dev),
+                                    {"tokens": prompt.to(dev)}, cfg).float()
+    want = want.cpu().numpy()
+    np.testing.assert_array_equal(ranks[0]["logits"], ranks[1]["logits"])
+    for r in ranks:
+        got = r["logits"]
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+        assert (got.argmax(-1) == want.argmax(-1)).mean() > 0.99
+        assert r["launches"].get("flash_attention_causal", 0) == 2

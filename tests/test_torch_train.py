@@ -669,15 +669,19 @@ def test_remat_leaves_values_and_gradients_unchanged(ref):
 
 
 def test_train_loop_refuses_a_sharding_context():
+    """The ViT trains on one device: a train step under a context of more
+    than one rank raises, naming the train mesh's item (the dense LM's
+    train mesh is test_torch_lm_mesh.py's)."""
     from repro_torch.distributed import sharding
 
     class _Mesh:
         shape = {"data": 2}
         axis_names = ("data",)
+        world = 2
 
     with sharding._installed(sharding.ShardingCtx(_Mesh(),
                                                   sharding.DATA_RULES)):
-        with pytest.raises(ValueError, match="A14's LM half"):
+        with pytest.raises(NotImplementedError, match="queue A, item 1"):
             ttrain.train_loop(_tcfg(), SHAPE, 1, device="cpu")
 
 
@@ -719,9 +723,10 @@ def test_mains_parse_the_same_argv(monkeypatch):
     assert (ts.name, ts.seq_len, ts.global_batch, ts.kind) == \
         (js.name, js.seq_len, js.global_batch, js.kind)
     assert (tn, tseed, troot, tev) == (jn, jseed, jroot, jev)
-    for bad, match in ((["--arch", "qwen2-1.5b", "--smoke"], "dense-LM"),
-                       (["--arch", "opto-vit-tiny", "--data-par", "2"],
-                        "A14's LM half")):
+    for bad, match in ((["--arch", "opto-vit-tiny", "--data-par", "2"],
+                        "the train mesh runs the dense LM"),
+                       (["--arch", "opto-vit-tiny", "--model-par", "2"],
+                        "the train mesh runs the dense LM")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.main(bad)
 
