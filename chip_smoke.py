@@ -243,6 +243,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         state) restored on one device bitwise. (D) a (2, 1) step against
         the unsharded step on the whole batch. B5 and B6 are also checked
         and timed at the per-rank shapes (phases 3 and 5);
+     k. ``[lm_fsdp]``, after 4j: 4b's qwen2-1.5b weights (full width, the
+        first 4 of 28 layers) and prompt under
+        ``DEFAULT_RULES`` on ``make_host_mesh(2, 2)`` and ``MULTIPOD_RULES``
+        on a (pod 2, data 1, model 2) mesh, 4 gloo ranks on the one card:
+        the params FSDP-split over the batch axes and gathered a layer at
+        a time, the vocab and the decode cache's sequence over "model".
+        (A) 4b's traffic against a cache of 256 (128 rows a rank: the
+        prompt on model rank 0, every generated token on rank 1):
+        B6's partial entry 640 and B5 4 times a rank, no whole-cache
+        B6, each model group's tokens equal; the prefill and the
+        teacher-forced decode logits within twice the distance of 4j's
+        control (``tp_arithmetic``) from the unsharded card runs at every
+        position; the planted fault (the decode merge drops the last
+        rank's partial) must fall below that; tok/s, gloo ms a decode
+        step by op, MB the FSDP gathers put on a rank a step and peak
+        memory beside 4j's. (B) the int8 prefill bitwise the unsharded
+        one. (C) 4j's batch and steps under FSDP: one step's gradient within
+        4x the two-half-batch control (an FSDP backward that keeps its own
+        block must read 10x that), every rank's loss equal (a vocab loss
+        that shifts by its own block's max must break that), 20 steps
+        through ``train_loop``, the step-10 resume bitwise, the logical
+        checkpoint restored on one device bitwise. (D) on the pod mesh:
+        the prefill, 8 greedy tokens after the prompt's first 8 (a cache
+        of 16), one step and 3 train steps against (A)'s and (C)'s
+        unsharded runs. B6's partial entry is also checked at 4b's
+        shapes split in two (phase 3: lengths 1, row0, row0 + 1 and S,
+        the halves merged against ``flash_decode_ref``) and timed at 4k's
+        rank shape (phase 5);
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -263,7 +291,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      graphs and eagerly, and of 8 decode steps;
   6. one JSON line ``{"kernels": [...]}`` with each kernel's largest
      absolute error against its plain version and the tolerance held
-     (seven kernels: B1-B6 and noise_draw);
+     (eight entries: B1-B6, B6's partial entry and noise_draw);
   7. last line: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -298,6 +326,9 @@ REPLACES = {
     "fused_ffn": "src/repro/kernels/fused_ffn.py:92",
     "flash_attention_causal": "src/repro/kernels/flash_attention.py:57",
     "flash_decode": "src/repro/kernels/flash_decode.py:35",
+    # B6's partial entry, for a cache split along its sequence: the
+    # reference composes the cross-shard merge outside this kernel
+    "flash_decode_partial": "src/repro/kernels/flash_decode.py:35",
     "dequant_epilogue": "src/repro/kernels/fused_ffn.py:236",
     # no TPU kernel: the jax.random draws of the reference's noise model
     "noise_draw": "src/repro/core/noise.py:192",
@@ -320,6 +351,7 @@ SYMBOLS = {
     "flash_attention_causal": ("flash_attention_causal_kernel",
                                "flash_attention_causal_mma_kernel"),
     "flash_decode": ("flash_decode_cluster_kernel",),
+    "flash_decode_partial": ("flash_decode_cluster_kernel",),
     "dequant_epilogue": ("dequant_epilogue_kernel",),
     "noise_draw": ("noise_transmission_kernel", "noise_readout_shot_kernel",
                    "noise_draw_bits_kernel"),
@@ -330,6 +362,9 @@ TOLERANCES = {
     "fused_ffn": "one quant step: rtol = atol = 1e-2 and corr > 0.9999",
     "flash_attention_causal": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
     "flash_decode": "f32 rtol = atol = 2e-5; bf16 1 ulp of max |o|",
+    "flash_decode_partial": ("o and lse f32 rtol = atol = 2e-5; an empty "
+                             "range o = 0, lse = NEG_INF exactly; merged, "
+                             "flash_decode's"),
     "dequant_epilogue": "bitwise",
     "noise_draw": ("bits bitwise; multiplier 1e-6 absolute; codes bitwise "
                    "f32(w) * multiplier; shot readout 1e-6 relative"),
@@ -341,6 +376,7 @@ SOURCES = {
     "flash_attention_causal":
         "src/repro_torch/kernels/csrc/flash_attention_causal.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "flash_decode_partial": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "dequant_epilogue": "src/repro_torch/kernels/csrc/dequant_epilogue.cu",
     "noise_draw": "src/repro_torch/kernels/csrc/noise_draw.cu",
 }
@@ -908,6 +944,123 @@ def time_tp_kernels(torch, dev, card: str) -> dict:
                       "library_ms": lib_ms, "bound_ms": bound * 1e3,
                       "bound_by": by}
     return out
+
+
+def check_partial_kernel(torch, dev) -> float:
+    """Phase 3, B6's partial entry at 4b's decode shapes split in two (q
+    (4, 1, 12, 128), each half of a (4, 512, 2, 128) cache), lengths 1,
+    row0, row0 + 1 and S, bf16 and f32, against its plain version: o and
+    lse within 2e-5, an empty range exactly o = 0 and lse = NEG_INF, two
+    calls bitwise, and the halves merged (``attention.merge_partials``)
+    against ``flash_decode_ref`` within B6's tolerance. Returns the max
+    |kernel - plain| over o and lse."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.models.attention import merge_partials
+
+    gen = torch.Generator(device=dev).manual_seed(4343)
+    half = LM_CACHE // 2
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(LM_BATCH, 1, 12, 128, generator=gen,
+                        device=dev).to(dtype)
+        kc, vc = (torch.randn(LM_BATCH, LM_CACHE, 2, 128, generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        for length in (1, half, half + 1, LM_CACHE):
+            parts = []
+            for row0 in (0, half):
+                kr, vr = kc[:, row0:row0 + half], vc[:, row0:row0 + half]
+                o, lse = flash_decode_partial(q, kr, vr, row0, length)
+                again = flash_decode_partial(q, kr, vr, row0, length)
+                if not (torch.equal(again[0], o) and torch.equal(again[1],
+                                                                 lse)):
+                    fail("B6 partial: two calls on the same inputs differ")
+                wo, wl = ref.flash_decode_partial_ref(q, kr, vr, row0,
+                                                      length)
+                e = max((o - wo).abs().max().item(),
+                        (lse - wl).abs().max().item())
+                ok = (torch.allclose(o, wo, rtol=2e-5, atol=2e-5)
+                      and torch.allclose(lse, wl, rtol=2e-5, atol=2e-5))
+                if row0 >= length:
+                    ok = ok and bool((o == 0).all()) and bool(
+                        (lse == ref.NEG_INF).all())
+                say(f"[check] B6 partial rows [{row0}, {row0 + half}) of "
+                    f"S={LM_CACHE} q({LM_BATCH},1,12,128) length {length} "
+                    f"{str(dtype)[6:]}: max abs err {e:.3e} (tol 2e-5"
+                    + (", empty: o = 0, lse = NEG_INF" if row0 >= length
+                       else "") + ")")
+                if not ok:
+                    fail(f"B6 partial rows from {row0}, length {length}: "
+                         f"max abs err {e}")
+                err = max(err, e)
+                parts.append((o, lse))
+            merged = merge_partials(torch.stack([o for o, _ in parts]),
+                                    torch.stack([l for _, l in parts]))
+            e, ok, tol = held(torch, merged.to(dtype),
+                              ref.flash_decode_ref(q, kc, vc, length))
+            say(f"[check] B6 partial, both halves merged, length {length} "
+                f"{str(dtype)[6:]}: max abs err {e:.3e} (tol {tol})")
+            if not ok:
+                fail(f"B6 partial merged, length {length}: max abs err {e}")
+    torch.cuda.synchronize()
+    return err
+
+
+def time_partial_kernel(torch, dev, card: str) -> dict:
+    """B6's partial entry at 4k's rank shape (qwen2-1.5b under
+    DEFAULT_RULES on (2, 2): 2 batch rows, all 12 query heads after q's
+    gather, the rank's 128 of 256 cache rows, bf16), at model rank 0's
+    rows with length 160 (all 128 valid) and model rank 1's (32 valid):
+    device and event ms, bound (the bytes of the valid rows, q and the f32
+    outputs; its f32 work), plain version and SDPA over the same valid
+    rows (which returns no lse). Returns the kernels-line entry."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+
+    gen = torch.Generator(device=dev).manual_seed(78)
+    b, h, d = LM_BATCH // 2, 12, 128
+    rows, length = LMK_CACHE // 2, LM_PROMPT + LM_GEN
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    kr, vr = (torch.randn(b, rows, 2, d, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    out = {}
+    for tag, row0 in (("model rank 0", 0), ("model rank 1", rows)):
+        valid = max(0, min(length - row0, rows))
+        kv, vv = (t[:, :valid].transpose(1, 2) for t in (kr, vr))
+        fns = (lambda: flash_decode_partial(q, kr, vr, row0, length),
+               lambda: ref.flash_decode_partial_ref(q, kr, vr, row0, length),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q.transpose(1, 2), kv, vv, enable_gqa=True))
+        ops = b * h * valid * 4 * d / PEAK_F32_FLOPS
+        nbytes = (2 * (2 * b * valid * 2 * d + b * h * d)
+                  + 4 * (b * h * d + b * h)) / PEAK_BYTES
+        ms, passes = device_ms(torch, fns[0], SYMBOLS["flash_decode_partial"],
+                               counter="flash_decode_partial")
+        event_ms = cuda_ms(fns[0])
+        plain_ms, _ = device_ms(torch, fns[1])
+        lib_ms, _ = device_ms(torch, fns[2])
+        bound = max(ops, nbytes)
+        by = "operations" if ops >= nbytes else "bytes"
+        say(f"[numbers] flash_decode_partial at 4k's rank shape, {tag}: q({b},"
+            f"1,{h},{d}) rows [{row0}, {row0 + rows}) of a ({b},{LMK_CACHE},2,"
+            f"{d}) cache, length {length} ({valid} valid) bf16: kernel "
+            f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} "
+            f"ms CUDA-event, wrapper included), bound {bound * 1e3:.6f} ms "
+            f"({by}), plain {plain_ms:.4f} ms, SDPA over the valid rows "
+            f"{lib_ms:.5f} ms (no lse) ({card})")
+        out[tag] = {"shape": f"q({b},1,{h},{d}) rows [{row0}, {row0 + rows}) "
+                             f"length {length} ({valid} valid) bf16",
+                    "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound * 1e3,
+                    "bound_by": by}
+    main = out["model rank 0"]
+    return {"name": "flash_decode_partial", "route": "cuda",
+            "source": SOURCES["flash_decode_partial"],
+            "replaces": REPLACES["flash_decode_partial"], "launches": 0,
+            "max_abs_err": 0.0, "tol": TOLERANCES["flash_decode_partial"],
+            **{k: main[k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shape": main["shape"], "rank1": out["model rank 1"]}
 
 
 def corr(torch, a, b) -> float:
@@ -4085,6 +4238,8 @@ def lm_mesh_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
         cache = serve.init_cache(cfg, b, cache_len, dev)
         collectives.STATS.clear()
         _build.LAUNCHES.clear()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         model_api.decode_fn = recording
         t0 = time.perf_counter()
         try:
@@ -4097,6 +4252,8 @@ def lm_mesh_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
         full = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
         sync()
         out["launches"] = dict(_build.LAUNCHES)
+        out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                          if dev.type == "cuda" else 0.0)
         out["tps"] = tps
         out["toks"] = toks.cpu()
         both = collectives.all_gather_cat(toks, mesh.group("model"), 0)
@@ -4328,7 +4485,8 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
             f"{LM_GEN}) in {r['serve_s']:.3f}s, decode loop {r['tps']:.2f} "
             f"tok/s (4b unsharded: {lm['tps']:.2f}); collectives "
             f"{gloo_ms:.3f} ms a decode step ({ {k: v for k, v in st.items() if not k.endswith('_s')} }); "
-            f"launches {r['launches']} ({card})")
+            f"peak memory {r['peak_gb']:.3f} GB; launches {r['launches']} "
+            f"({card})")
         for k, n in want.items():
             if r["launches"].get(k, 0) != n:
                 fail(f"4j (A) rank {i}: {k} launched "
@@ -4433,7 +4591,582 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
              f"control")
     say(f"[lm_mesh] path 4j in {time.perf_counter() - t_phase:.2f}s ({card})")
     return {"ranks": ranks, "launches": r0["launches"],
-            "launches8": r0["launches8"]}
+            "launches8": r0["launches8"],
+            "peak_gb": [r["peak_gb"] for r in ranks]}
+
+
+# path 4k: qwen2-1.5b at full width, cut to LMK_LAYERS layers, under
+# DEFAULT_RULES on make_host_mesh(2, 2) and under MULTIPOD_RULES on a (pod
+# 2, data 1, model 2) mesh, 4 gloo ranks sharing the one card: the params
+# FSDP-split over the batch axes and gathered a layer at a time, the vocab
+# and the decode cache's sequence over "model". The cut: every decode step
+# gathers every layer's weights (46.8 MB a layer a rank) through gloo on
+# the host; at 8 layers a decode step took 0.9 s, a train step 7.2 s and
+# 4k 487 s on an H100 (PERF.md, the 4k findings), so 4k at 8 would take
+# the whole run to ~85% of its limit. (A) 4b's batch 4, prompt 128 and 32 greedy tokens against
+# a cache of LMK_CACHE rows, 128 a rank: the prompt fills model rank 0's
+# rows and every generated token lands on rank 1 (its first decode step
+# has exactly one valid row there). (C) 4j's batch, steps and warmup. (D)
+# the pod mesh: the prefill, LMK_MP_GEN greedy tokens after the prompt's
+# first LMK_MP_PROMPT (a cache of LMK_MP_CACHE, half a rank) and
+# LMK_MP_STEPS train steps
+LMK_LAYERS = 4
+LMK_CACHE = 256
+LMK_MP_PROMPT, LMK_MP_GEN, LMK_MP_CACHE, LMK_MP_STEPS = 8, 8, 16, 3
+# decode steps re-run under the planted merge fault (from the prompt's
+# end: the steps whose keys lie on model rank 1 too)
+LMK_PLANTED_STEPS = 8
+LMK_FAULTS = {"merge": "the decode merge drops the last rank's partial",
+              "fsdp": "the FSDP backward keeps its own block, no "
+                      "reduce-scatter",
+              "vocab": "the vocab loss takes the max of its local block"}
+
+
+def lm_fsdp_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
+                 gen: int = LM_GEN, cache_len: int = LMK_CACHE,
+                 train_size: tuple = (LMK_LAYERS, LMJ_TRAIN_BATCH,
+                                      LMJ_TRAIN_SEQ, LMJ_TRAIN_STEPS,
+                                      LMJ_RESUME_AT),
+                 mp_size: tuple = (LMK_MP_PROMPT, LMK_MP_GEN, LMK_MP_CACHE,
+                                   LMK_MP_STEPS)) -> dict:
+    """One rank of path 4k (4 ranks on the one card; the sizes are 4b's
+    and the constants', smaller in a CPU rehearsal). Rank 0 holds the
+    unsharded references (the whole params on its device, no context)
+    and returns every reading; every rank returns its launch counts,
+    cache shape, collective times and peak memory."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.backend import prepare_params
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.models import attention, transformer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+
+    mesh = make_host_mesh(2, 2, device=device)
+    pod_mesh = _build_mesh(1, 2, device, _AXES, n_pod=2)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        full_precision_matmuls()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    n_layers, t_batch, t_seq, t_steps, t_resume = train_size
+    mp_prompt, mp_gen, mp_cache, mp_steps = mp_size
+    b, plen = prompt_cpu.shape
+    r0 = dist.get_rank() == 0
+    cfg = cfg.with_(n_layers=n_layers)
+    whole = dict(tree_map(lambda t: t.to(dev), {
+        k: v for k, v in cpu_params.items() if k != "blocks"}),
+        blocks=tree_map(lambda t: t[:n_layers].to(dev),
+                        cpu_params["blocks"]))
+    prompt = prompt_cpu.to(dev)
+    out = {"rank": dist.get_rank(), "backend": mesh.backend,
+           "device": str(dev)}
+    t_rank = time.perf_counter()
+
+    def progress(what):
+        if r0:
+            say(f"[lm_fsdp] rank 0: {what} at "
+                f"{time.perf_counter() - t_rank:.1f}s")
+
+    def no_ctx():
+        return sharding._installed(None)
+
+    def whole_of(t, ctx):
+        """The whole tensor of this rank's (rows, vocab) block."""
+        t = collectives.all_gather_cat(t.contiguous(),
+                                       ctx.mesh.group("model"), -1)
+        return collectives.all_gather_cat(t, ctx.mesh.group(
+            ctx.rules["batch"]), 0)
+
+    def rows_of(t, ctx):
+        return collectives.all_gather_cat(t.contiguous(), ctx.mesh.group(
+            ctx.rules["batch"]), 0)
+
+    def recorded(fn):
+        """``fn()`` with every decode step's (tokens, logits) recorded."""
+        seen, real = [], model_api.decode_fn
+
+        def rec(params, cache, tokens, pos, cfg_, policy=None):
+            lg, cache = real(params, cache, tokens, pos, cfg_, policy)
+            seen.append((tokens, lg))
+            return lg, cache
+        model_api.decode_fn = rec
+        try:
+            res = fn()
+        finally:
+            model_api.decode_fn = real
+        return res, seen
+
+    def teacher_forced(params, toks, cache_rows):
+        """The unsharded decode step on the given inputs (B, n)."""
+        pcache = serve.init_cache(cfg, toks.shape[0], cache_rows, dev)
+        lgs = []
+        for pos in range(toks.shape[1]):
+            lg, pcache = model_api.decode_fn(params, pcache,
+                                             toks[:, pos:pos + 1], pos, cfg)
+            lgs.append(lg)
+        return torch.stack(lgs, 1)
+
+    def gap(x, y):
+        return {"min_corr": float(position_corr(torch, x, y).min()),
+                "argmax": float((x.argmax(-1) == y.argmax(-1)).float()
+                                .mean()),
+                "max_abs": float((x.float() - y.float()).abs().max())}
+
+    # (A) serve under DEFAULT_RULES: generate (B6's partial entry) and
+    # prefill_fn (B5), the counted main path
+    with sharding.use_sharding(mesh, sharding.DEFAULT_RULES) as ctx:
+        local = transformer.place_lm_params(whole, cfg)
+        rows = sharding.named_sharding(prompt.shape, ("batch", "seq"), ctx)
+        mine = rows.block(prompt)
+        serve.generate(local, serve.init_cache(cfg, b, 8, dev), mine[:, :4],
+                       4, cfg)
+        model_api.prefill_fn(local, {"tokens": mine[:, :16]}, cfg)
+        sync()
+        cache = serve.init_cache(cfg, b, cache_len, dev)
+        out["cache_shape"] = tuple(cache["k"].shape)
+        collectives.STATS.clear()
+        _build.LAUNCHES.clear()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (toks, tps), steps_in = recorded(
+            lambda: serve.generate(local, cache, mine, gen, cfg))
+        sync()
+        out["serve_s"] = time.perf_counter() - t0
+        out["stats"] = dict(collectives.STATS)
+        full = model_api.prefill_fn(local, {"tokens": mine}, cfg)
+        sync()
+        out["launches"] = dict(_build.LAUNCHES)
+        out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                          if cuda else 0.0)
+        out["tps"] = tps
+        out["toks"] = toks.cpu()
+        both = collectives.all_gather_cat(toks, mesh.group("model"), 0)
+        out["tokens_agree"] = all(torch.equal(t, toks)
+                                  for t in both.split(toks.shape[0]))
+        # the bytes the FSDP gathers of one decode step put on this rank:
+        # each gathered leaf whole over "data", every layer and the table
+        fsdp = transformer.fsdp_split(cfg).n
+
+        def gathered(tree, ax):
+            if isinstance(ax, dict):
+                return sum(gathered(tree[k], ax[k]) for k in ax)
+            return (tree.numel() * tree.element_size() * fsdp
+                    if "p_embed" in ax else 0)
+        out["gathered_mb"] = gathered(
+            local, transformer.lm_placement_axes(cfg)) / 1e6
+        inputs = rows_of(torch.cat([t for t, _ in steps_in], 1), ctx)
+        tp_steps = whole_of(torch.stack([lg for _, lg in steps_in], 1), ctx)
+        full = whole_of(full, ctx)
+        out["toks_all"] = rows_of(toks, ctx).cpu()
+        if r0:
+            with no_ctx():
+                plain = model_api.prefill_fn(whole, {"tokens": prompt}, cfg)
+                plg = teacher_forced(whole, inputs, cache_len)
+                with tp_arithmetic(torch, whole, cfg):
+                    ctl = model_api.prefill_fn(whole, {"tokens": prompt},
+                                               cfg)
+                    clg = teacher_forced(whole, inputs, cache_len)
+            out["vs_plain"] = {"prefill": gap(full, plain),
+                               "decode": gap(tp_steps, plg)}
+            out["control"] = {"prefill": gap(ctl, plain),
+                              "decode": gap(clg, plg)}
+            del ctl, clg
+        del tp_steps, full
+        # the planted merge fault: the steps from the prompt's end again
+        # (their keys on both model ranks), the cache the counted run's
+        merge = attention.merge_partials
+        attention.merge_partials = lambda o, lse: merge(o[:-1], lse[:-1])
+        n_bad = min(LMK_PLANTED_STEPS, gen)
+        try:
+            lgs = []
+            for pos in range(plen, plen + n_bad):
+                lg, cache = model_api.decode_fn(local, cache,
+                                                steps_in[pos][0], pos, cfg)
+                lgs.append(lg)
+        finally:
+            attention.merge_partials = merge
+        bad = whole_of(torch.stack(lgs, 1), ctx)
+        if r0:
+            out["planted_merge"] = gap(bad, plg[:, plen:plen + n_bad])
+        del steps_in, cache, bad, lgs, local
+        progress("(A) done")
+
+        # (B) int8: the same prefill under photonic_pallas
+        cfg8 = cfg.with_(matmul_backend="photonic_pallas")
+        cache8 = prepare_params(whole, bits=8)
+        local8 = transformer.place_lm_params(cache8, cfg8)
+        if not r0:
+            del cache8
+        model_api.prefill_fn(local8, {"tokens": mine[:, :16]}, cfg8)
+        sync()
+        _build.LAUNCHES.clear()
+        tp8 = model_api.prefill_fn(local8, {"tokens": mine}, cfg8)
+        sync()
+        out["launches8"] = dict(_build.LAUNCHES)
+        tp8 = whole_of(tp8, ctx)
+        if r0:
+            with no_ctx():
+                one8 = model_api.prefill_fn(cache8, {"tokens": prompt}, cfg8)
+            out["int8_bitwise"] = bool(torch.equal(tp8, one8))
+            out["int8_maxdiff"] = float((tp8.float() - one8.float()).abs()
+                                        .max())
+            del one8, cache8
+        del local8, tp8
+        progress("(B) done")
+
+    # (D) serving on the pod mesh under MULTIPOD_RULES: the prefill, and
+    # greedy tokens after the prompt's first mp_prompt on a short cache
+    with sharding.use_sharding(pod_mesh) as pctx:
+        out["pod_rules"] = pctx.rules is sharding.MULTIPOD_RULES
+        plocal = transformer.place_lm_params(whole, cfg)
+        prows = sharding.named_sharding(prompt.shape, ("batch", "seq"), pctx)
+        pmine = prows.block(prompt)
+        _build.LAUNCHES.clear()
+        pfull = whole_of(model_api.prefill_fn(plocal, {"tokens": pmine}, cfg),
+                         pctx)
+        pcache = serve.init_cache(cfg, b, mp_cache, dev)
+        out["pod_cache_shape"] = tuple(pcache["k"].shape)
+        (ptoks, _), psteps = recorded(lambda: serve.generate(
+            plocal, pcache, pmine[:, :mp_prompt], mp_gen, cfg))
+        out["pod_launches"] = dict(_build.LAUNCHES)
+        pin = rows_of(torch.cat([t for t, _ in psteps], 1), pctx)
+        plgs = whole_of(torch.stack([lg for _, lg in psteps], 1), pctx)
+        both = collectives.all_gather_cat(ptoks, pod_mesh.group("model"), 0)
+        out["pod_tokens_agree"] = all(torch.equal(t, ptoks)
+                                      for t in both.split(ptoks.shape[0]))
+        if r0:
+            with no_ctx():
+                pplain = teacher_forced(whole, pin, mp_cache)
+            out["pod_vs_plain"] = {"prefill": gap(pfull, plain),
+                                   "decode": gap(plgs, pplain)}
+            del plain, plg, pplain
+        del plocal, pcache, pfull, plgs, psteps
+        progress("(D) serving done")
+
+    # (C) train under DEFAULT_RULES
+    cfg_t = cfg.with_(lr_warmup=LMJ_WARMUP)
+    tparams = whole
+    shape = ShapeConfig("4k", t_seq, t_batch, "train")
+    batch = TokenStream(cfg.vocab, t_seq, t_batch, seed=0,
+                        device=dev).batch_at(0)
+    clone = lambda st: tree_map(torch.clone, st)  # noqa: E731
+    axes = None
+
+    def grads(cfg_, params, ctx_):
+        rows_ = TokenStream(cfg.vocab, t_seq, t_batch, seed=0, ctx=ctx_,
+                            device=dev).batch_at(0)
+        loss, g = steps.make_grad_fn(cfg_)(params, rows_)
+        return float(loss), steps.gather_tree(g, axes, ctx_)
+
+    with sharding.use_sharding(mesh, sharding.DEFAULT_RULES) as ctx:
+        p0 = transformer.place_lm_params(tparams, cfg_t)
+        out["fsdp_shape"] = tuple(p0["blocks"]["attn"]["wq"].shape)
+        state0 = {"params": p0, "opt": adamw_init(
+            p0, AdamWConfig(low_mem=not cfg_t.use_fp32_master)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        axes = steps.placement_axes(cfg_t, model_api.model_logical_axes(
+            cfg_t))
+        loss_tp, g_tp = grads(cfg_t, p0, ctx)
+        n = transformer.fsdp_split(cfg_t).n
+
+        def no_reduce(g, group, dim):
+            step = g.shape[dim] // n
+            part = g.narrow(dim, dist.get_rank(group) * step, step)
+            return (part.float() / n).to(g.dtype)
+
+        planted = {}
+        for key, (mod, name, fn) in {
+                "fsdp": (collectives, "reduce_scatter_mean", no_reduce),
+                "vocab": (collectives, "vocab_max",
+                          lambda x, group: x.detach())}.items():
+            saved = getattr(mod, name)
+            setattr(mod, name, fn)
+            try:
+                planted[key] = grads(cfg_t, p0, ctx)
+            finally:
+                setattr(mod, name, saved)
+        # every rank's loss: the model group's ranks must agree bitwise
+        out["loss_tp_rank"] = loss_tp
+        out["loss_vocab_fault_rank"] = planted["vocab"][0]
+        progress("(C) one step's gradients and the planted faults done")
+        # the straight run checkpoints at t_resume (and its end); the
+        # resumed run starts from a copy of that checkpoint alone
+        root, again = f"{tmp}/ckpt", f"{tmp}/resume"
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            final, losses, _ = train.train_loop(
+                cfg_t, shape, t_steps, device=dev, state=clone(state0),
+                ckpt=CheckpointManager(root, every=t_resume),
+                log_every=t_steps)
+            sync()
+            out["train_s"] = time.perf_counter() - t0
+            if r0:
+                shutil.copytree(f"{root}/step_{t_resume}",
+                                f"{again}/step_{t_resume}")
+            dist.barrier()
+            progress("(C) the straight run done")
+            st, rest, _ = train.train_loop(
+                cfg_t, shape, t_steps, device=dev, state=clone(state0),
+                ckpt=CheckpointManager(again, every=10 ** 9),
+                log_every=t_steps)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["losses"] = losses
+        out["resumed_bitwise"] = rest == losses[t_resume:] and all(
+            torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(final)))
+        st_axes = steps.placement_axes(cfg_t, steps.state_logical_axes(cfg_t))
+        logical = steps.gather_tree(st, st_axes, ctx)
+        if r0:
+            back, step = restore(f"{again}/step_{t_steps}", logical)
+            out["restored_step"] = step
+            out["restored_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(_leaves(back),
+                                                  _leaves(logical)))
+            del back
+        del logical, st, final, state0, p0
+
+    # (D) training on the pod mesh
+    with sharding.use_sharding(pod_mesh) as pctx:
+        pp = transformer.place_lm_params(tparams, cfg_t)
+        loss_mp, g_mp = grads(cfg_t, pp, pctx)
+        pstate = {"params": pp, "opt": adamw_init(
+            pp, AdamWConfig(low_mem=not cfg_t.use_fp32_master)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        _, mp_losses, _ = train.train_loop(cfg_t, shape, mp_steps,
+                                           device=dev, state=pstate,
+                                           log_every=t_steps)
+        out["mp_losses"] = mp_losses
+        del pp, pstate
+        progress("(D) training done")
+    if r0:
+        with no_ctx():
+            grads_of = steps.make_grad_fn(cfg_t)
+            loss1, g1 = grads_of(tparams, batch)
+            half = t_batch // 2
+            la, ga = grads_of(tparams, {k: v[:half] for k, v in
+                                        batch.items()})
+            lb, gb = grads_of(tparams, {k: v[half:] for k, v in
+                                        batch.items()})
+            g_ctl = tree_map(lambda a, b: ((a.float() + b.float()) / 2)
+                             .to(a.dtype), ga, gb)
+        out.update(
+            loss_tp=loss_tp, loss_mp=loss_mp, loss1=float(loss1),
+            loss_ctl=float((la + lb) / 2),
+            grad_control=_tree_rel_l2(torch, g_ctl, g1),
+            tp_rel=_tree_rel_l2(torch, g_tp, g1),
+            mp_rel=_tree_rel_l2(torch, g_mp, g1),
+            planted_train={k: {"loss": v[0], "rel": _tree_rel_l2(
+                torch, v[1], g1)} for k, v in planted.items()})
+    return out
+
+
+def run_lm_fsdp(torch, dev, card: str, lm: dict, peak_4j: list) -> dict:
+    """Path 4k: 4b's qwen2-1.5b weights and prompt under DEFAULT_RULES on
+    (2, 2) and MULTIPOD_RULES on (2, 1, 2), 4 gloo ranks on the one card,
+    against the unsharded runs on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import to_device
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = lm["cfg"]
+    t_phase = time.perf_counter()
+    params = to_device(lm["params"], "cpu")
+    for t in _leaves(params):
+        t.share_memory_()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_fsdp_")
+    try:
+        ranks = spawn_ranks(lm_fsdp_rank, 4, params, cfg,
+                            lm["prompt"].cpu(), tmp, "cuda", device="cuda",
+                            timeout_s=1000)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    r0 = ranks[0]
+    report_lm_fsdp(torch, ranks, cfg, card, lm["tps"], lm["toks"].cpu(),
+                   peak_4j)
+    say(f"[lm_fsdp] path 4k in {time.perf_counter() - t_phase:.2f}s ({card})")
+    return {"launches": r0["launches"], "launches8": r0["launches8"],
+            "peak_gb": [r["peak_gb"] for r in ranks]}
+
+
+def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
+                   toks_4b, peak_4j: list) -> None:
+    """4k's readings and checks (rank 0 holds the comparisons)."""
+    r0 = ranks[0]
+    steps = LM_PROMPT + LM_GEN
+    depth = LMK_LAYERS
+    say(f"[lm_fsdp] path 4k: {cfg.name} at full width, {depth} of "
+        f"{cfg.n_layers} layers, under DEFAULT_RULES on (data 2, model 2) "
+        f"and MULTIPOD_RULES on (pod 2, data 1, model 2), 4 ranks, backend "
+        f"{r0['backend']}, all on {r0['device']} ({card})")
+    # (A)
+    rows = LMK_CACHE // 2
+    for i, r in enumerate(ranks):
+        st = r["stats"]
+        ops = {k: v for k, v in st.items() if not k.endswith("_s")}
+        by_op = ", ".join(f"{k} {1e3 * st[k + '_s'] / steps:.2f}"
+                          for k in sorted(ops))
+        gloo_ms = 1e3 * sum(v for k, v in st.items() if k.endswith("_s")) \
+            / steps
+        say(f"[lm_fsdp] (A) rank {i}: generate {LM_BATCH} x ({LM_PROMPT} + "
+            f"{LM_GEN}) in {r['serve_s']:.3f}s, decode loop {r['tps']:.2f} "
+            f"tok/s (4b unsharded at {cfg.n_layers} layers: {tps_4b:.2f}); "
+            f"collectives "
+            f"{gloo_ms:.2f} ms a decode step, by op (ms a step): {by_op}; "
+            f"calls {ops}; FSDP gathers {r['gathered_mb']:.1f} MB a decode "
+            f"step; cache {r['cache_shape']}; peak memory "
+            f"{r['peak_gb']:.3f} GB (4j's ranks: "
+            + ", ".join(f"{g:.3f}" for g in peak_4j)
+            + f" GB); launches {r['launches']} ({card})")
+        want = {"flash_decode_partial": steps * depth,
+                "flash_attention_causal": depth}
+        for k, n in want.items():
+            if r["launches"].get(k, 0) != n:
+                fail(f"4k (A) rank {i}: {k} launched "
+                     f"{r['launches'].get(k, 0)} times, expected {n}")
+        if r["launches"].get("flash_decode", 0):
+            fail(f"4k (A) rank {i}: the whole-cache B6 entry launched")
+        if r["cache_shape"] != (depth, LM_BATCH // 2, rows,
+                                cfg.kv_heads, cfg.head_dim):
+            fail(f"4k (A) rank {i}: cache {r['cache_shape']}, not "
+                 f"{rows} rows of 2 batch rows")
+        if not r["tokens_agree"]:
+            fail(f"4k (A): rank {i}'s tokens differ from its model group's")
+    same = float((r0["toks_all"] == toks_4b).float().mean())
+    ctl = min(v["min_corr"] for v in r0["control"].values())
+    limit = 1 - LMJ_CORR_FACTOR * (1 - ctl)
+
+    def shown(h):
+        return (f"min corr {h['min_corr']:.6f}, argmax "
+                f"{100 * h['argmax']:.2f}%, max abs diff {h['max_abs']:.4g}")
+
+    say(f"[lm_fsdp] (A) vs the unsharded card run: prefill "
+        f"{shown(r0['vs_plain']['prefill'])}; teacher-forced decode over "
+        f"{steps} steps {shown(r0['vs_plain']['decode'])}; control (4j's "
+        f"tensor-parallel arithmetic on one device) prefill "
+        f"{shown(r0['control']['prefill'])}, decode "
+        f"{shown(r0['control']['decode'])}; limit corr > {limit:.6f}; "
+        f"greedy tokens equal in every model group, {100 * same:.2f}% equal "
+        f"to 4b's ({card})")
+    for k, h in r0["vs_plain"].items():
+        if not h["min_corr"] > limit:
+            fail(f"4k (A) {k}: min corr {h['min_corr']} <= {limit}")
+    pm = r0["planted_merge"]
+    say(f"[lm_fsdp] (A) planted fault, {LMK_FAULTS['merge']}: decode "
+        f"steps {LM_PROMPT}-{LM_PROMPT + LMK_PLANTED_STEPS - 1} "
+        f"{shown(pm)}")
+    if pm["min_corr"] > limit:
+        fail(f"4k (A): the planted fault ({LMK_FAULTS['merge']}) passes "
+             f"the {limit} limit")
+    # (B)
+    say(f"[lm_fsdp] (B) int8 prefill (photonic_pallas) on the FSDP mesh "
+        f"bitwise the unsharded int8 prefill: {r0['int8_bitwise']} (max diff "
+        f"{r0['int8_maxdiff']:.3e}); launches a rank: "
+        + "; ".join(f"rank {i} {r['launches8']}"
+                    for i, r in enumerate(ranks)))
+    if not r0["int8_bitwise"]:
+        fail("4k (B): the int8 FSDP prefill is not bitwise")
+    for i, r in enumerate(ranks):
+        if r["launches8"].get("photonic_matmul", 0) <= 0:
+            fail(f"4k (B) rank {i}: photonic_matmul never launched")
+    # (C)
+    losses = r0["losses"]
+    bound = LMJ_GRAD_FACTOR * r0["grad_control"]
+    loss_gap = abs(r0["loss_tp"] - r0["loss1"])
+    say(f"[lm_fsdp] (C) train, {depth} of {cfg.n_layers} layers, "
+        f"batch {LMJ_TRAIN_BATCH} x {LMJ_TRAIN_SEQ}, warmup {LMJ_WARMUP}, "
+        f"FSDP blocks {r0['fsdp_shape']}: {LMJ_TRAIN_STEPS} steps through "
+        f"train_loop in {r0['train_s']:.2f}s "
+        f"({1e3 * r0['train_s'] / LMJ_TRAIN_STEPS:.1f} ms a step); losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f" ({card})")
+    if not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
+        fail(f"4k (C): the loss did not fall ({losses})")
+    say(f"[lm_fsdp] (C) one step against the unsharded step on the card: "
+        f"loss {r0['loss_tp']:.6f} vs {r0['loss1']:.6f} (gap {loss_gap:.3e}; "
+        f"the two-half-batch control {r0['loss_ctl']:.6f}); gradient "
+        f"relative L2 {r0['tp_rel']:.3e} against a bound of {bound:.3e} = "
+        f"{LMJ_GRAD_FACTOR} x the control {r0['grad_control']:.3e}")
+    if loss_gap > LMJ_LOSS_REL * abs(r0["loss1"]):
+        fail(f"4k (C): loss {r0['loss_tp']} vs {r0['loss1']}")
+    if not r0["tp_rel"] <= bound:
+        fail(f"4k (C): gradient rel L2 {r0['tp_rel']} above {bound}")
+    for key in ("fsdp", "vocab"):
+        p = r0["planted_train"][key]
+        say(f"[lm_fsdp] (C) planted fault, {LMK_FAULTS[key]}: loss "
+            f"{p['loss']:.6f} (gap {abs(p['loss'] - r0['loss1']):.3e}), "
+            f"gradient relative L2 {p['rel']:.3e}")
+    if not r0["planted_train"]["fsdp"]["rel"] >= 10 * bound:
+        fail(f"4k (C): the planted FSDP fault reads "
+             f"{r0['planted_train']['fsdp']['rel']}, not 10x {bound}")
+    # the vocab-parallel loss is the same on every rank (its max and sums
+    # are all-reduced); a rank that shifts by its own block's max
+    # disagrees with the others (at these widths that fault moves the loss
+    # and the gradient too little for their bounds: it is caught here)
+    healthy = [r["loss_tp_rank"] for r in ranks]
+    faulty = [r["loss_vocab_fault_rank"] for r in ranks]
+    say(f"[lm_fsdp] (C) the step's loss on each rank: {healthy}; under the "
+        f"planted fault ({LMK_FAULTS['vocab']}): {faulty}")
+    if len(set(healthy)) != 1:
+        fail(f"4k (C): the ranks' losses differ: {healthy}")
+    if len(set(faulty)) == 1:
+        fail(f"4k (C): the planted vocab-loss fault leaves every rank's "
+             f"loss equal: {faulty}")
+    say(f"[lm_fsdp] (C) resumed from the step-{LMJ_RESUME_AT} checkpoint: "
+        f"losses and state bitwise the straight run's: "
+        f"{r0['resumed_bitwise']}; the logical checkpoint at step "
+        f"{r0['restored_step']} restored on one device bitwise the gathered "
+        f"state: {r0['restored_bitwise']}")
+    if not (r0["resumed_bitwise"] and r0["restored_bitwise"]):
+        fail("4k (C): a resume or a one-device restore is not bitwise")
+    # (D)
+    pv = r0["pod_vs_plain"]
+    say(f"[lm_fsdp] (D) pod mesh, MULTIPOD_RULES {r0['pod_rules']}: prefill "
+        f"vs (A)'s unsharded prefill {shown(pv['prefill'])}; {LMK_MP_GEN} "
+        f"greedy tokens after {LMK_MP_PROMPT} prompt tokens (cache "
+        f"{LMK_MP_CACHE}, {r0['pod_cache_shape']} a rank), teacher-forced "
+        f"unsharded decode {shown(pv['decode'])}; launches "
+        f"{r0['pod_launches']}; one step: loss {r0['loss_mp']:.6f} vs "
+        f"{r0['loss1']:.6f}, gradient relative L2 {r0['mp_rel']:.3e} (bound "
+        f"{bound:.3e}); {LMK_MP_STEPS} steps' losses "
+        + " ".join(f"{x:.4f}" for x in r0["mp_losses"]) + " vs (C)'s "
+        + " ".join(f"{x:.4f}" for x in losses[:LMK_MP_STEPS]))
+    if not r0["pod_rules"]:
+        fail("4k (D): the pod mesh did not take MULTIPOD_RULES")
+    for k, h in pv.items():
+        if not h["min_corr"] > limit:
+            fail(f"4k (D) {k}: min corr {h['min_corr']} <= {limit}")
+    if not all(r["pod_tokens_agree"] for r in ranks):
+        fail("4k (D): a model group's tokens differ")
+    for r in ranks:
+        if r["pod_launches"].get("flash_decode_partial", 0) != (
+                LMK_MP_PROMPT + LMK_MP_GEN) * depth:
+            fail(f"4k (D): flash_decode_partial launched "
+                 f"{r['pod_launches'].get('flash_decode_partial', 0)} times")
+    if abs(r0["loss_mp"] - r0["loss1"]) > LMJ_LOSS_REL * abs(r0["loss1"]):
+        fail(f"4k (D): loss {r0['loss_mp']} vs {r0['loss1']}")
+    if not r0["mp_rel"] <= bound:
+        fail(f"4k (D): gradient rel L2 {r0['mp_rel']} above {bound}")
+    for a, b in zip(r0["mp_losses"], losses):
+        if abs(a - b) > LMJ_LOSS_REL * abs(b):
+            fail(f"4k (D): train losses {r0['mp_losses']} vs (C)'s {losses}")
 
 
 def _leaves(tree):
@@ -4496,6 +5229,7 @@ def main() -> int:
     errs.update(check_lm_kernels(torch, dev))
     for kname, e in check_tp_kernels(torch, dev).items():
         errs[kname] = max(errs[kname], e)
+    errs["flash_decode_partial"] = check_partial_kernel(torch, dev)
     errs.update(check_b4(torch, dev))
     # B1 and B3 at the bit plan's widths
     plan_calls = plan_kernel_calls(torch, dev)
@@ -4814,6 +5548,9 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in tp_ms:
             entry["tp_rank"] = tp_ms[entry["name"]]
+    # B6's partial entry at 4k's rank shape; its launches come with 4k
+    partial_entry = time_partial_kernel(torch, dev, card)
+    partial_entry["max_abs_err"] = errs["flash_decode_partial"]
 
     # -- 4d. [composed]: the composed dispatch, Eq. 2 and the dense
     # baseline on opto-vit-base-224 (after the kernel table, before the
@@ -4916,7 +5653,24 @@ def main() -> int:
             entry["tp_rank"]["launches"] = n
     say(f"[lm_mesh] launches on the main paths with 4j's rank 0: "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    peak_4j = lm_mesh["peak_gb"]
     del lm_mesh
+    torch.cuda.empty_cache()
+
+    # -- 4k. [lm_fsdp]: qwen2-1.5b under DEFAULT_RULES / MULTIPOD_RULES on
+    # 4 gloo ranks on the card (after 4j, before the profiled phases);
+    # rank 0's (A) and (B) launches join the counts, B6's partial entry
+    # its own
+    lm_fsdp = run_lm_fsdp(torch, dev, card, lm, peak_4j)
+    for entry in kernels:
+        entry["launches"] += (lm_fsdp["launches"].get(entry["name"], 0)
+                              + lm_fsdp["launches8"].get(entry["name"], 0))
+    partial_entry["launches"] = lm_fsdp["launches"].get(
+        "flash_decode_partial", 0)
+    kernels.append(partial_entry)
+    say(f"[lm_fsdp] launches on the main paths with 4k's rank 0: "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del lm_fsdp
     torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After

@@ -41,7 +41,8 @@ class TokenStream:
     global batch: rows [d B / D, (d + 1) B / D) along "batch"'s mesh axes
     (``sharding.named_sharding``), the whole batch where they do not
     divide B, as the reference's ``named_sharding(("batch", "seq"))``
-    places it."""
+    places it. Under ``MULTIPOD_RULES`` "batch" is ("pod", "data"): one
+    axis of P x D ranks, block index p D + d."""
 
     vocab: int
     seq_len: int

@@ -31,6 +31,25 @@ src/repro/distributed/collectives.py), on ``torch.distributed``.
     unsharded bf16 GEMM rounds its f32 accumulate once: a tensor-parallel
     layer differs from the unsharded one by the order of its f32 sums only.
 
+``fsdp_gather`` / ``reduce_scatter_mean``
+    The FSDP collectives (``DEFAULT_RULES`` / ``MULTIPOD_RULES``: the
+    params' "p_embed" dim split over the batch axes), direct on the card
+    under gloo (Backends). ``fsdp_gather``
+    all-gathers a param's blocks where a layer uses it; its backward is
+    ``reduce_scatter_mean``: the gradient summed over the group in f32,
+    this rank's block kept, divided by the group's size and rounded once
+    to the param's dtype. That is the train step's data-parallel mean
+    (the FSDP group is the batch's), done once, as ``launch/steps.py``'s
+    ``_data_mean`` rounds the whole leaves' once. Gloo has no
+    reduce-scatter in every PyTorch release, so the sum is an all-reduce
+    of which each rank keeps its block: the same f32 sum.
+
+``vocab_max`` / ``vocab_sum``
+    The vocab-parallel loss's reduces over "model": the max of the f32
+    logits (no gradient: the logsumexp's shift), and the f32 sums of the
+    exps and of the gold logit, identity backward (each rank's block gets
+    the gradient of the replicated sum), as ``reduce_from_model``.
+
 ``scoped_absmax_scale`` / ``scoped_amax``
     What the kernels' wrappers call for a per-launch absmax: the scope the
     installed sharding context names (``sharding.absmax_scope``, set where
@@ -47,12 +66,18 @@ slower: in one call on an H100 (700 W), ``scripts/collectives_ab.py``
 served opto-vit-large over 2 ranks on the one card at 8.46-8.52
 frames/s with 320-327 ms of collectives a flush staged, against
 5.85-6.16 frames/s and 503-530 ms with gloo on the CUDA tensors (2 runs
-each, interleaved).
+each, interleaved). The FSDP ops move a layer's weights (tens of MB),
+where it is the other way round: ``direct=True`` hands gloo the CUDA
+tensor (``scripts/fsdp_collectives_ab.py``, 4 ranks on one H100, 700 W,
+2 readings a way a rank: a 23.4 MB all-gather over 2 ranks 61.2-66.0 ms
+direct against 100.0-119.4 ms staged, a 93.6 MB f32 all-reduce
+153.3-175.8 against 186.3-295.1 ms).
 
 Timing. ``STATS`` counts calls and host seconds per op. A staged op
 synchronizes the card before the clock starts (its copy to the host
 would wait for the card's pending work anyway), so the seconds are the
-op's own, copies included; an NCCL op's seconds are its enqueue only.
+op's own, copies included; a direct gloo op on the card is timed to the
+end of its copy back; an NCCL op's seconds are its enqueue only.
 """
 
 from __future__ import annotations
@@ -68,43 +93,57 @@ from repro_torch.distributed import sharding
 
 __all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
            "all_gather_cat", "all_reduce", "scoped_absmax_scale",
-           "scoped_amax", "copy_to_model", "reduce_from_model"]
+           "scoped_amax", "copy_to_model", "reduce_from_model",
+           "fsdp_gather", "reduce_scatter_mean", "vocab_max", "vocab_sum"]
 
 # op name -> calls, and op name + "_s" -> host seconds, since the last
 # STATS.clear()
 STATS: collections.Counter = collections.Counter()
 
 
-def _staged(t: torch.Tensor, group) -> bool:
-    """Whether an op on ``t`` over ``group`` goes through host memory (a
-    CUDA tensor under gloo), after synchronizing the card (see Timing)."""
+def _gloo_cuda(t: torch.Tensor, group) -> bool:
+    """Whether an op on ``t`` over ``group`` is gloo's on a CUDA tensor,
+    after synchronizing the card (see Timing)."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
         torch.cuda.synchronize(t.device)
         return True
     return False
 
 
-def all_reduce(t: torch.Tensor, op, group, name: str = "all_reduce"
-               ) -> torch.Tensor:
-    """A new tensor: ``t`` all-reduced with ``op`` over ``group``."""
+def _done(t: torch.Tensor, direct_gloo: bool) -> None:
+    """A direct gloo op ends with copies on the card: time it to there."""
+    if direct_gloo:
+        torch.cuda.synchronize(t.device)
+
+
+def all_reduce(t: torch.Tensor, op, group, name: str = "all_reduce",
+               direct: bool = False) -> torch.Tensor:
+    """A new tensor: ``t`` all-reduced with ``op`` over ``group``
+    (``direct``: see Backends)."""
     if dist.get_world_size(group) == 1:
         return t
-    staged = _staged(t, group)
+    gloo_cuda = _gloo_cuda(t, group)
+    staged = gloo_cuda and not direct
     t0 = time.perf_counter()
     out = t.detach().cpu() if staged else t.detach().clone()
     dist.all_reduce(out, op=op, group=group)
     out = out.to(t.device)
+    _done(out, gloo_cuda and direct)
     STATS[name] += 1
     STATS[name + "_s"] += time.perf_counter() - t0
     return out
 
 
-def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in group-rank order."""
+def all_gather_cat(x: torch.Tensor, group, dim: int,
+                   name: str = "all_gather",
+                   direct: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order
+    (``direct``: see Backends)."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
-    staged = _staged(x, group)
+    gloo_cuda = _gloo_cuda(x, group)
+    staged = gloo_cuda and not direct
     t0 = time.perf_counter()
     src = x.detach().contiguous()
     if staged:
@@ -112,8 +151,9 @@ def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim).to(x.device)
-    STATS["all_gather"] += 1
-    STATS["all_gather_s"] += time.perf_counter() - t0
+    _done(out, gloo_cuda and direct)
+    STATS[name] += 1
+    STATS[name + "_s"] += time.perf_counter() - t0
     return out
 
 
@@ -174,14 +214,25 @@ class _CopyToModel(torch.autograd.Function):
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dtype):
+    def forward(ctx, x, group, dtype, name):
         ctx.in_dtype = x.dtype
         return all_reduce(x.float(), dist.ReduceOp.SUM, group,
-                          "tp_sum").to(dtype)
+                          name).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.in_dtype), None, None
+        return g.to(ctx.in_dtype), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim, "fsdp_gather", direct=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_mean(g, ctx.group, ctx.dim), None, None
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
@@ -195,4 +246,33 @@ def reduce_from_model(partial: torch.Tensor, group,
     """The partial products of a row-parallel projection summed over
     ``group`` in f32 and rounded once to ``dtype`` (default: the
     partial's); identity backward."""
-    return _ReduceFromModel.apply(partial, group, dtype or partial.dtype)
+    return _ReduceFromModel.apply(partial, group, dtype or partial.dtype,
+                                  "tp_sum")
+
+
+def fsdp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A param's blocks along ``dim`` all-gathered over ``group`` (the FSDP
+    axes) in group-rank order; backward, ``reduce_scatter_mean``."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _FsdpGather.apply(x, group, dim)
+
+
+def reduce_scatter_mean(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``g`` summed over ``group`` in
+    f32, divided by the group's size and rounded once to ``g.dtype``."""
+    n = dist.get_world_size(group)
+    s = all_reduce(g.float(), dist.ReduceOp.SUM, group, "fsdp_grad_sum",
+                   direct=True)
+    step = g.shape[dim] // n
+    return (s.narrow(dim, dist.get_rank(group) * step, step) / n).to(g.dtype)
+
+
+def vocab_max(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` MAX-reduced over ``group`` (no gradient)."""
+    return all_reduce(x.detach(), dist.ReduceOp.MAX, group, "vocab_max")
+
+
+def vocab_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """An f32 ``x`` SUM-reduced over ``group``; identity backward."""
+    return _ReduceFromModel.apply(x, group, x.dtype, "vocab_sum")

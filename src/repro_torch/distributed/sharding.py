@@ -24,14 +24,17 @@ rank quantizes with the scale of the whole launch. Without a group every
 scope is the rank's own tensor, as unsharded.
 
 The four tables are the reference's and ``rules_for_mesh`` picks among
-them as the reference does. A model runs under ``DATA_RULES`` and
-``MODEL_RULES``; under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` a mesh axis
-of size > 1 that maps FSDP ("p_embed"), the vocab or the KV cache's
-"kv_seq" makes ``check_model_rules`` raise: those layouts come with the
-next slice (ROADMAP.md queue A, item 1). ``split_of`` is what the
-tensor-parallel LM layers ask: this rank's block of a logical dim, or None
-where the dim stays whole (no context, no rule, a size-1 axis, or a dim
-the axis does not divide).
+them as the reference does. The dense LM runs under all four: under
+``DEFAULT_RULES`` / ``MULTIPOD_RULES`` its params are FSDP-split over
+"p_embed"'s axes ("data", or ("pod", "data")) and gathered a layer at a
+time, its embedding and head split on the vocab over "model", and its
+decode cache on "kv_seq" over "model" (models/transformer.py). The ViT
+takes ``DATA_RULES`` and ``MODEL_RULES`` only, and no model has an
+experts axis yet: ``check_model_rules`` raises for those (ROADMAP.md
+queue A, item 1; A15). ``split_of`` is what the sharded LM layers ask:
+this rank's block of a logical dim, or None where the dim stays whole (no
+context, no rule, a size-1 axis, or a dim the axes do not divide); a rule
+that names a tuple of mesh axes is one axis, its first the slowest.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import torch
 
 __all__ = ["ShardingCtx", "use_sharding", "current_ctx", "absmax_scope",
            "absmax_group", "logical_spec", "local_shard", "named_sharding",
-           "param_spec", "BlockSpec", "Split", "split_of",
+           "param_spec", "BlockSpec", "Split", "split_of", "axis_size",
            "check_model_rules", "DEFAULT_RULES", "MULTIPOD_RULES",
            "DATA_RULES", "MODEL_RULES", "rules_for_mesh", "validate_rules"]
 
@@ -81,10 +84,13 @@ MULTIPOD_RULES.update({
     "p_embed": ("pod", "data"),
 })
 
-# logical axes whose split the model layers of this port do not run yet:
-# FSDP of the params, the vocab-split head and loss, the kv_seq-split
-# decode cache, and the experts (ROADMAP.md queue A, item 1; A15)
-_NOT_RUN = ("p_embed", "p_vocab", "vocab", "kv_seq", "experts", "p_experts")
+# logical axes a family's layers cannot run split yet: the dense LM runs
+# under every table (it has no experts axis); the ViT only under
+# DATA_RULES / MODEL_RULES (ROADMAP.md queue A, item 1); any other family
+# not the experts split (the moe family, ROADMAP.md queue A15)
+_EXPERTS = ("experts", "p_experts")
+_NOT_RUN = {"dense": (),
+            "vit": ("p_embed", "p_vocab", "vocab", "kv_seq") + _EXPERTS}
 
 # Pure data parallelism over a 1-D ("data",) mesh: only the batch axis
 # shards, every other logical axis replicates. This is the serving
@@ -151,8 +157,8 @@ def rules_for_mesh(mesh) -> Mapping | None:
       * anything else            -> DEFAULT_RULES
 
     The chosen table is validated against the mesh: every size > 1 mesh
-    axis must be used by some rule, else ValueError. A model runs under
-    the last two tables only where ``check_model_rules`` passes."""
+    axis must be used by some rule, else ValueError. A model runs under a
+    table where ``check_model_rules`` passes for its family."""
     if mesh is None:
         return None
     axes = tuple(mesh.axis_names)
@@ -307,11 +313,12 @@ def param_spec(path: str, shape: tuple[int, ...], ctx: ShardingCtx):
 
 @dataclass(frozen=True)
 class Split:
-    """This rank's block of a logical dim split over one mesh axis."""
+    """This rank's block of a logical dim split over a mesh axis (or a
+    tuple of them, one axis with its first the slowest)."""
 
-    n: int            # ranks along the axis
+    n: int            # ranks along the axes
     index: int        # this rank's block
-    group: object     # the axis's process group
+    group: object     # the axes' process group
 
     def block(self, size: int) -> tuple[int, int]:
         """[start, stop) of this rank's block of a dim of ``size``."""
@@ -324,7 +331,9 @@ def split_of(logical_axis: str, size: int) -> Split | None:
     param axis such as "p_heads" with ``size`` the head count): None where
     it stays whole on every rank (no context, no rule, a size-1 mesh
     axis, or an axis that does not divide ``size``, the reference's
-    ``shard`` fallback)."""
+    ``shard`` fallback). A tuple rule (MULTIPOD's ("pod", "data")) is one
+    axis of their product's ranks, block index p * D + d, group the
+    ranks that agree on every other mesh axis."""
     ctx = current_ctx()
     if ctx is None:
         return None
@@ -337,20 +346,38 @@ def split_of(logical_axis: str, size: int) -> Split | None:
     return Split(n, _axis_coord(ctx.mesh, rule), ctx.mesh.group(rule))
 
 
-def check_model_rules(ctx: ShardingCtx | None = None) -> None:
-    """Raise unless the model layers of this port run under the ctx (by
-    default the installed one): no mesh axis of size > 1 may map FSDP
-    ("p_embed"), the vocab, the KV cache's "kv_seq" or the experts, which
-    ``DEFAULT_RULES`` and ``MULTIPOD_RULES`` map."""
+def axis_size(logical_axis: str) -> int:
+    """Ranks the installed context splits a logical axis over (1 without a
+    context or a rule)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return 1
+    return _axis_size(ctx.mesh, ctx.rules.get(logical_axis))
+
+
+def check_model_rules(ctx: ShardingCtx | None = None,
+                      family: str = "dense") -> None:
+    """Raise unless the ``family``'s layers of this port run under the ctx
+    (by default the installed one). The dense LM runs under every table;
+    the ViT under ``DATA_RULES`` / ``MODEL_RULES`` only: no mesh axis of
+    size > 1 may map FSDP ("p_embed"), the vocab, the KV cache's "kv_seq"
+    or the experts, which ``DEFAULT_RULES`` and ``MULTIPOD_RULES`` map;
+    any other family no experts split."""
     ctx = current_ctx() if ctx is None else ctx
     if ctx is None:
         return
-    live = [ax for ax in _NOT_RUN
+    live = [ax for ax in _NOT_RUN.get(family, _EXPERTS)
             if _axis_size(ctx.mesh, ctx.rules.get(ax)) > 1]
-    if live:
+    if not live:
+        return
+    if family == "vit":
         raise NotImplementedError(
-            f"logical axes {live} split over the mesh {dict(ctx.mesh.shape)}"
-            f": FSDP over 'data', the vocab-split head and loss and the "
-            f"kv_seq-split decode (DEFAULT_RULES / MULTIPOD_RULES) come with "
-            f"the next slice of the port (ROADMAP.md queue A, item 1); "
-            f"models run under DATA_RULES and MODEL_RULES")
+            f"the vit model with logical axes {live} split over the mesh "
+            f"{dict(ctx.mesh.shape)}: the ViT runs under DATA_RULES and "
+            f"MODEL_RULES only; its FSDP / vocab / kv_seq layouts "
+            f"(DEFAULT_RULES / MULTIPOD_RULES) are not ported (ROADMAP.md "
+            f"queue A, item 1)")
+    raise NotImplementedError(
+        f"the {family} model with logical axes {live} split over the mesh "
+        f"{dict(ctx.mesh.shape)}: the experts split comes with the moe "
+        f"family (ROADMAP.md queue A15)")

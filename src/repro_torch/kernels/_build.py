@@ -108,6 +108,10 @@ _SIGNATURES = {
     + (_FLOAT, _VOID),
     "flash_decode_bf16": (_VOID,) * 4 + (_I64_PTR,) + (_INT,) * 5
     + (_FLOAT, _VOID),
+    "flash_decode_partial_f32": (_VOID,) * 5 + (_I64_PTR,) + (_INT,) * 5
+    + (_FLOAT, _VOID),
+    "flash_decode_partial_bf16": (_VOID,) * 5 + (_I64_PTR,) + (_INT,) * 5
+    + (_FLOAT, _VOID),
     "dequant_epilogue_s32": (_VOID,) * 4 + (_INT,) * 2 + (_VOID,),
     "noise_transmission_s8": (_VOID, _VOID, _I64, _VOID, _UINT_PTR, _INT)
     + (_UINT,) * 3 + (_FLOAT,) * 6 + (_INT, _VOID),

@@ -10,6 +10,14 @@
 //
 // Replaces: src/repro/kernels/flash_decode.py::flash_decode_kernel.
 //
+// The partial entry (flash_decode_partial_*) is the same kernel for a cache
+// split along its sequence over ranks: the caller passes this rank's rows
+// and the count of them below the global length; rank 0 of the cluster
+// writes o = acc / l in f32 and lse = m + log(l) instead of the output in
+// T, and for a range with no valid row (l = 0: every block kept m = NEG_INF)
+// o = 0 and lse = NEG_INF, so the merge across ranks (plain torch ops)
+// gives it weight exp(NEG_INF - lse) = 0, with no 0 / 0 and no inf - inf.
+//
 // What bounds it on an H100: at the LM decode shape (B 4, Hkv 2, 160 of
 // 512 cache rows, head dim 128, bf16) a call must read 0.66 MB of K/V:
 // 0.2 us at 3.35 TB/s, and does 0.16 MFLOP. So bytes, and far above them
@@ -51,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -135,11 +145,13 @@ __device__ __forceinline__ void fma4(float4& a, const float4& x, float f) {
 }
 
 // NV: 16-byte vectors per lane per row (1, or 2 for f32 rows of 33-64
-// vectors, i.e. head dims 129-256)
-template <typename T, int NV>
+// vectors, i.e. head dims 129-256). kPartial: the partial entry (TO = float,
+// lse written); else TO = T and lse is unused.
+template <typename T, typename TO, int NV, bool kPartial>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 flash_decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                            const T* __restrict__ vc, T* __restrict__ out,
+                            const T* __restrict__ vc, TO* __restrict__ out,
+                            float* __restrict__ lse,
                             int H, int Hkv, int D, int length, long long ksb,
                             long long kss, long long ksh, long long vsb,
                             long long vss, long long vsh, float sqrt_d) {
@@ -324,7 +336,12 @@ flash_decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       weigh(kCluster, g_m, g_l, wt, f_m, f_l, tid);
       __syncthreads();
       const int rows = min(kRows, G - g0);
-      T* op = out + ((long long)b * H + (long long)hk * G + g0) * D;
+      TO* op = out + ((long long)b * H + (long long)hk * G + g0) * D;
+      if (kPartial && tid < rows) {
+        const float l = f_l[tid];
+        lse[(long long)b * H + (long long)hk * G + g0 + tid] =
+            l > 0.f ? f_m[tid] + logf(l) : kNegInf;
+      }
       for (int i = tid; i < rows * D / 4; i += kThreads) {
         const int r = 4 * i / D;
         float4 x[kCluster];
@@ -336,18 +353,20 @@ flash_decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
         for (int c = 0; c < kCluster; ++c) fma4(a, x[c], wt[c * kRows + r]);
         const float l = f_l[r];
-        store(op + 4 * i, a.x / l);
-        store(op + 4 * i + 1, a.y / l);
-        store(op + 4 * i + 2, a.z / l);
-        store(op + 4 * i + 3, a.w / l);
+        if (kPartial && !(l > 0.f)) a = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float d = kPartial && !(l > 0.f) ? 1.f : l;
+        store(op + 4 * i, a.x / d);
+        store(op + 4 * i + 1, a.y / d);
+        store(op + 4 * i + 2, a.z / d);
+        store(op + 4 * i + 3, a.w / d);
       }
     }
     cluster.sync();                        // rank 0 is done reading
   }
 }
 
-template <typename T, int NV>
-int launch_nv(const T* q, const T* kc, const T* vc, T* out,
+template <typename T, typename TO, int NV, bool kPartial>
+int launch_nv(const T* q, const T* kc, const T* vc, TO* out, float* lse,
               const long long* st, int B, int H, int Hkv, int D, int length,
               float sqrt_d, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kWarps + 2) * kRows * D +
@@ -355,35 +374,37 @@ int launch_nv(const T* q, const T* kc, const T* vc, T* out,
                                                 4) * kRows);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_cluster_kernel<T, NV>,
+        flash_decode_cluster_kernel<T, TO, NV, kPartial>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // grid x: one cluster of kCluster blocks, as __cluster_dims__ sets
-  flash_decode_cluster_kernel<T, NV>
+  flash_decode_cluster_kernel<T, TO, NV, kPartial>
       <<<dim3(kCluster, B * Hkv), kThreads, smem, stream>>>(
-          q, kc, vc, out, H, Hkv, D, length, st[0], st[1], st[2], st[3],
+          q, kc, vc, out, lse, H, Hkv, D, length, st[0], st[1], st[2], st[3],
           st[4], st[5], sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kPartial>
 int launch(const void* q, const void* kc, const void* vc, void* out,
-           const long long* st, int B, int H, int Hkv, int D, int length,
-           float sqrt_d, void* stream) {
+           float* lse, const long long* st, int B, int H, int Hkv, int D,
+           int length, float sqrt_d, void* stream) {
+  using TO = typename std::conditional<kPartial, float, T>::type;
   constexpr int VEC = 16 / sizeof(T);
   const int nvec = D / VEC;
-  if (D % VEC != 0 || nvec > 64)
+  if (D % VEC != 0 || nvec > 64 || length < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(kc);
   const T* vt = static_cast<const T*>(vc);
-  T* ot = static_cast<T*>(out);
+  TO* ot = static_cast<TO*>(out);
   if (nvec <= 32)
-    return launch_nv<T, 1>(qt, kt, vt, ot, st, B, H, Hkv, D, length, sqrt_d,
-                           s);
-  return launch_nv<T, 2>(qt, kt, vt, ot, st, B, H, Hkv, D, length, sqrt_d, s);
+    return launch_nv<T, TO, 1, kPartial>(qt, kt, vt, ot, lse, st, B, H, Hkv,
+                                         D, length, sqrt_d, s);
+  return launch_nv<T, TO, 2, kPartial>(qt, kt, vt, ot, lse, st, B, H, Hkv, D,
+                                       length, sqrt_d, s);
 }
 
 }  // namespace
@@ -395,14 +416,36 @@ extern "C" int flash_decode_f32(const void* q, const void* kc, const void* vc,
                                 void* out, const long long* strides, int B,
                                 int H, int Hkv, int D, int length,
                                 float sqrt_d, void* stream) {
-  return launch<float>(q, kc, vc, out, strides, B, H, Hkv, D, length, sqrt_d,
-                       stream);
+  return launch<float, false>(q, kc, vc, out, nullptr, strides, B, H, Hkv, D,
+                              length, sqrt_d, stream);
 }
 
 extern "C" int flash_decode_bf16(const void* q, const void* kc, const void* vc,
                                  void* out, const long long* strides, int B,
                                  int H, int Hkv, int D, int length,
                                  float sqrt_d, void* stream) {
-  return launch<__nv_bfloat16>(q, kc, vc, out, strides, B, H, Hkv, D, length,
-                               sqrt_d, stream);
+  return launch<__nv_bfloat16, false>(q, kc, vc, out, nullptr, strides, B, H,
+                                      Hkv, D, length, sqrt_d, stream);
+}
+
+// the partial entry: kc / vc are this rank's rows of the split cache and
+// `length` the count of them that are valid (0 allowed); out (B, 1, H, D)
+// f32, lse (B, H) f32
+extern "C" int flash_decode_partial_f32(const void* q, const void* kc,
+                                        const void* vc, void* out, void* lse,
+                                        const long long* strides, int B, int H,
+                                        int Hkv, int D, int length,
+                                        float sqrt_d, void* stream) {
+  return launch<float, true>(q, kc, vc, out, static_cast<float*>(lse),
+                             strides, B, H, Hkv, D, length, sqrt_d, stream);
+}
+
+extern "C" int flash_decode_partial_bf16(const void* q, const void* kc,
+                                         const void* vc, void* out, void* lse,
+                                         const long long* strides, int B,
+                                         int H, int Hkv, int D, int length,
+                                         float sqrt_d, void* stream) {
+  return launch<__nv_bfloat16, true>(q, kc, vc, out, static_cast<float*>(lse),
+                                     strides, B, H, Hkv, D, length, sqrt_d,
+                                     stream);
 }

@@ -16,6 +16,14 @@ Unlike the TPU wrapper, which transposes the cache to (B * Hkv, S, D)
 before its grid and needs S to be a multiple of its block, the kernel
 reads the (B, S, Hkv, D) cache where it lies, by strides, and masks any S.
 ``length`` is a host int: a decode loop knows it without asking the card.
+
+``flash_decode_partial`` is B6's entry for a cache split along its
+sequence (``DEFAULT_RULES``' "kv_seq" over "model"): the same cluster
+walk over this rank's valid rows, written unnormalized of the other
+ranks as (o f32, lse f32), which the caller merges across ranks
+(models/attention.py::merge_partials), as the reference composes the
+flash-decoding merge outside its kernel. Its plain version is
+``kernels/ref.py::flash_decode_partial_ref``.
 """
 
 from __future__ import annotations
@@ -25,9 +33,10 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_decode_ref
+from repro_torch.kernels.ref import flash_decode_partial_ref, flash_decode_ref
 
-__all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "flash_decode"]
+__all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "flash_decode",
+           "flash_decode_partial"]
 
 MAX_HEAD_DIM = 256    # D bound: a lane holds at most two 16-byte vectors a row
 MAX_GROUP = 32        # G = H / Hkv bound: query rows go 8 to a pass
@@ -46,6 +55,50 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     4 f32) and the caches' pointers and (batch, row, head) strides must be
     16-byte aligned, else it raises.
     """
+    length = _host_length(length)
+    s = _check_shapes(q, k_cache, v_cache)
+    if not 1 <= length <= s:
+        raise ValueError(f"length {length} outside [1, {s}]")
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, length)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch("flash_decode", q, k_cache, v_cache, out, None, length)
+    return out
+
+
+def flash_decode_partial(q: torch.Tensor, k_rows: torch.Tensor,
+                         v_rows: torch.Tensor, row0: int,
+                         length: int) -> tuple:
+    """q (B, 1, H, D); k/v_rows (B, S_r, Hkv, D), rows [row0, row0 + S_r)
+    of a cache split along its sequence; ``length`` (host int) the global
+    count of valid rows. Returns (o (B, 1, H, D) f32, lse (B, H) f32):
+    the attention over this range's valid rows, normalized by their own
+    sum, and m + log(l). Rows at global positions >= ``length`` are masked
+    and never read; a range with none valid (``length <= row0``) gives o
+    = 0 and lse = NEG_INF. Same operands and checks as ``flash_decode``."""
+    length, row0 = _host_length(length), _host_length(row0)
+    s = _check_shapes(q, k_rows, v_rows)
+    if row0 < 0 or length < 0:
+        raise ValueError(f"row0 {row0} and length {length} must be >= 0")
+    if q.device.type == "cpu":
+        return flash_decode_partial_ref(q, k_rows, v_rows, row0, length)
+    b, _, h, d = q.shape
+    o = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    _launch("flash_decode_partial", q, k_rows, v_rows, o, lse,
+            max(0, min(length - row0, s)))
+    return o, lse
+
+
+def _host_length(n) -> int:
+    if isinstance(n, torch.Tensor):
+        raise TypeError("length and row0 must be host ints: a device scalar "
+                        "would make every decode step wait on the card")
+    return int(n)
+
+
+def _check_shapes(q, k_cache, v_cache) -> int:
+    """The cache's S, after checking the shapes and devices."""
     b, one, h, d = q.shape
     _, s, hkv, _ = k_cache.shape
     if not (one == 1 and h % hkv == 0 and k_cache.shape[0] == b
@@ -54,19 +107,20 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)} k_cache "
                          f"{tuple(k_cache.shape)} v_cache "
                          f"{tuple(v_cache.shape)}")
-    if isinstance(length, torch.Tensor):
-        raise TypeError("length must be a host int: a device scalar would "
-                        "make every decode step wait on the card")
-    length = int(length)
-    if not 1 <= length <= s:
-        raise ValueError(f"length {length} outside [1, {s}]")
     dev = q.device
     if any(t.device != dev for t in (k_cache, v_cache)):
         raise ValueError("q and the caches must share one device")
-    if dev.type == "cpu":
-        return flash_decode_ref(q, k_cache, v_cache, length)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_decode runs on cuda or cpu, not {dev}")
+    return s
+
+
+def _launch(entry: str, q, k_cache, v_cache, out, lse, length: int) -> None:
+    """One launch of the cluster kernel over the first ``length`` rows of
+    the caches: the normalized output in q's dtype (``lse`` None), or the
+    partial entry's f32 (o, lse)."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
     if q.dtype not in _build.DTYPE_SUFFIX or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise TypeError(f"the CUDA kernel takes q and the caches all f32 or "
@@ -84,13 +138,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if not all(_build.aligned16(t, 3) for t in (q, k_cache, v_cache)):
         raise ValueError("the kernel needs 16-byte aligned q and cache "
                          "pointers and (batch, row, head) strides")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = _build.strides_arg(*k_cache.stride()[:3], *v_cache.stride()[:3])
-    entry = "flash_decode_" + _build.DTYPE_SUFFIX[q.dtype]
-    err = getattr(_build.library(), entry)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        strides, b, h, hkv, d, length, float(math.sqrt(d)),
-        _build.stream_ptr(dev))
-    _build.check(err, entry)
-    _build.LAUNCHES["flash_decode"] += 1
-    return out
+    sym = entry + "_" + _build.DTYPE_SUFFIX[q.dtype]
+    fn = getattr(_build.library(), sym)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr()) + (() if lse is None else (lse.data_ptr(),))
+    err = fn(*ptrs, strides, b, h, hkv, d, length, float(math.sqrt(d)),
+             _build.stream_ptr(q.device))
+    _build.check(err, sym)
+    _build.LAUNCHES[entry] += 1

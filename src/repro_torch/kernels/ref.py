@@ -25,7 +25,8 @@ __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "int_accumulate_ref", "dequant_epilogue_ref",
            "photonic_matmul_ref",
            "flash_attention_masked_ref", "flash_attention_ref",
-           "flash_decode_ref", "flash_attention_tc_ref",
+           "flash_decode_ref", "flash_decode_partial_ref",
+           "flash_attention_tc_ref",
            "tf32_rna", "flash_attention_masked_tc_ref",
            "flash_decode_split_ref", "fused_ffn_ref", "slice_live",
            "restore_dead", "transmission_codes_ref", "readout_shot_ref",
@@ -169,6 +170,37 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()) / l
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def flash_decode_partial_ref(q: torch.Tensor, k_rows: torch.Tensor,
+                             v_rows: torch.Tensor, row0: int,
+                             length: int) -> tuple:
+    """B6's partial entry: one-token GQA attention against rows [row0,
+    row0 + S_r) of a KV cache split along its sequence, global positions
+    >= ``length`` masked, in the op order of ``flash_decode_ref`` over
+    those rows: q / sqrt(D), scores, masked rows NEG_INF, the max m,
+    p = exp(s - m), l = sum p, o = PV / l; and lse = m + log(l). A range
+    with no valid row gives o = 0 and lse = NEG_INF (the reference's
+    formula there would average the masked rows and give lse = -1e30
+    + log(S_r) = -1e30 in f32: a merge weight of exactly 0 either way).
+
+    q (B, 1, H, D); k/v_rows (B, S_r, Hkv, D) -> (o (B, 1, H, D) f32,
+    lse (B, H) f32)."""
+    b, _, h, d = q.shape
+    s_r, hkv = k_rows.shape[1], k_rows.shape[2]
+    g = h // hkv
+    qf = q.reshape(b, hkv, g, d).float() / math.sqrt(d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k_rows.float())
+    valid = torch.arange(s_r, device=q.device) + row0 < length
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_rows.float()) / l
+    some = l > 0
+    o = torch.where(some, o, 0.0)
+    lse = torch.where(some, m + torch.log(l), NEG_INF)
+    return o.reshape(b, 1, h, d), lse.reshape(b, h)
 
 
 def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

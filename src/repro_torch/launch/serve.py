@@ -6,11 +6,15 @@ positions, as the reference's ``_prefill_scan`` does, so every prompt
 token runs the flash decode kernel once per layer; ``models/api.py::
 prefill_fn`` is the full-prompt forward (the causal flash attention
 kernel). ``generate`` decodes greedily or samples from an explicit
-``torch.Generator``. Under a sharding context both run the
-tensor-parallel layers (models/transformer.py) on this rank's blocks of
-the params (``transformer.place_lm_params``) and its rows of the batch
-and cache (``init_cache``); the logits are whole on every rank of a
-"model" group, so its ranks pick the same tokens. ``main`` serves on
+``torch.Generator``. Under a sharding context both run the sharded
+layers (models/transformer.py) on this rank's blocks of the params
+(``transformer.place_lm_params``) and its rows of the batch and cache
+(``init_cache``; under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` the cache's
+sequence splits over "model" too, and the prompt's rows land on the
+ranks that own them). The ranks of a "model" group pick the same tokens:
+the logits are whole on each, or under a vocab split each rank's block,
+of which ``generate`` takes the argmax across the group (greedy) or
+gathers the whole row (sampling). ``main`` serves on
 ``make_host_mesh(--data-par, --model-par)``, as the reference's, starting
 its ranks with ``launch/mesh.py::spawn_ranks`` (or joining torchrun's),
 and checks that the ranks of each "model" group generated equal tokens.
@@ -46,14 +50,15 @@ from repro_torch.launch.mesh import (init_from_env, make_host_mesh,
                                      spawn_ranks)
 from repro_torch.models import api as model_api
 from repro_torch.models.layers import ExecPolicy
-from repro_torch.models.transformer import place_lm_params
+from repro_torch.models.transformer import place_lm_params, vocab_split
 
 __all__ = ["init_cache", "prefill_into_cache", "generate", "main"]
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
     """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``;
-    under a sharding context this rank's block (its rows)."""
+    under a sharding context this rank's block: its batch rows, and under
+    a "kv_seq" split its seq_len / M rows of the sequence."""
     dev = resolve_device(device)
     shapes, axes = model_api.cache_axes_spec(cfg, batch, seq_len)
     ctx = current_ctx()
@@ -68,7 +73,8 @@ def prefill_into_cache(params, cache: dict, prompt: torch.Tensor,
                        cfg: ArchConfig, policy: ExecPolicy | None = None):
     """Write the prompt (B, P) into the cache by stepping ``decode_fn``
     over positions 0..P-1. Returns (last-position logits (B, V), cache);
-    the cache is filled in place."""
+    the cache is filled in place (under a sequence split each rank keeps
+    the prompt's rows it owns)."""
     logits = None
     for pos in range(prompt.shape[1]):
         logits, cache = model_api.decode_fn(params, cache,
@@ -94,10 +100,13 @@ def generate(params, cache: dict, prompt: torch.Tensor, n_tokens: int,
     if not greedy and generator is None:
         raise ValueError("sampling needs an explicit torch.Generator")
     b, plen = prompt.shape
+    vs = vocab_split(cfg)
 
     def pick(logits):
         if greedy:
-            return logits.argmax(-1, keepdim=True)
+            return _argmax(logits, vs)
+        if vs is not None:
+            logits = collectives.all_gather_cat(logits, vs.group, -1)
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.multinomial(probs, 1, generator=generator)
 
@@ -116,6 +125,23 @@ def generate(params, cache: dict, prompt: torch.Tensor, n_tokens: int,
         torch.cuda.synchronize(prompt.device)
     dt = time.perf_counter() - t0
     return torch.cat(out, dim=1), (b * n_tokens) / dt if dt > 0 else 0.0
+
+
+def _argmax(logits: torch.Tensor, split) -> torch.Tensor:
+    """(B, 1) argmax of (B, V) logits, or under a vocab split of this
+    rank's block (B, V / n): each rank's max and its global index
+    gathered over the split's group, the first rank with the largest
+    value taken (``argmax``'s first maximum over the whole row)."""
+    if split is None:
+        return logits.argmax(-1, keepdim=True)
+    idx = logits.argmax(-1)
+    vals = torch.gather(logits, -1, idx[:, None])[:, 0]
+    mine = torch.stack([vals.float(),
+                        (idx + split.index * logits.shape[-1]).float()], -1)
+    every = collectives.all_gather_cat(mine[None], split.group, 0,
+                                       "vocab_argmax")
+    best = every[..., 0].argmax(0, keepdim=True)
+    return torch.gather(every[..., 1], 0, best)[0].long()[:, None]
 
 
 def _serve_ranks(cfg: ArchConfig, args) -> tuple:

@@ -28,12 +28,16 @@ rank holds its own block (SPMD), and a step built under an installed
 sharding context (``make_train_fn``, or ``make_train_step(cfg, shape,
 ctx)``) also:
 
-  * means the gradients over "data" (an f32 sum over the data group
-    divided by its size, rounded once to each leaf's dtype), and reports
-    the loss as the global batch's mean the same way;
+  * means the gradients over the batch axes ("data", or MULTIPOD's
+    ("pod", "data")): an f32 sum over their group divided by its size,
+    rounded once to each leaf's dtype; an FSDP-split leaf (a dim on
+    "p_embed", ``DEFAULT_RULES`` / ``MULTIPOD_RULES``) gets its block of
+    that mean from its gather's backward, a reduce-scatter
+    (``collectives.reduce_scatter_mean``), a whole leaf from an all-reduce
+    (``_data_mean``); the loss is reported as the global batch's mean;
   * clips by the norm of the logical gradient: the sums of squares of the
-    leaves split over "model" are added over "model" once, the whole
-    leaves' once (``optim/adamw.py::clip_by_global_norm``).
+    leaves split over the same mesh axes are added over those axes once,
+    the whole leaves' once (``optim/adamw.py::clip_by_global_norm``).
 
 The builders return ``(fn, specs)`` where ``specs`` are ``meta`` tensors
 of this rank's local shapes and dtypes (the reference's sharded
@@ -161,26 +165,34 @@ def batch_arg_specs(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
 def gather_tree(tree, axes, ctx: ShardingCtx | None):
     """The whole (logical) tensors of a tree of this rank's blocks placed
     under ``axes`` (``placement_axes``): each split dim all-gathered over
-    its mesh axes, in rank order. Every rank of the split's groups must
-    call it."""
+    its mesh axes (a tuple rule such as ("pod", "data") over their one
+    group, block index p * D + d), in rank order; an FSDP leaf's "p_embed"
+    dim and a vocab block alike (state-sized: direct on the card under
+    gloo, ``collectives``' Backends). Every rank of the split's groups
+    must call it."""
     if ctx is None:
         return tree
 
     def whole(ax, t):
         for dim, rule in enumerate(ctx.spec(*ax)):
             if rule is not None and sharding._axis_size(ctx.mesh, rule) > 1:
-                t = collectives.all_gather_cat(t, ctx.mesh.group(rule), dim)
+                t = collectives.all_gather_cat(t, ctx.mesh.group(rule), dim,
+                                               direct=True)
         return t
     return _axes_map(whole, axes, tree)
 
 
 def _split_leaves(axes, ctx: ShardingCtx):
-    """A bool tree: which leaves hold a block of a dim split over
-    "model"."""
+    """A tree of the mesh axes (of size > 1, in the mesh's order) each
+    leaf placed under ``axes`` is split over; () for a whole leaf."""
     def split(ax):
-        return any(r is not None and "model" in (r if isinstance(r, tuple)
-                                                 else (r,))
-                   for r in ctx.spec(*ax))
+        used = set()
+        for r in ctx.spec(*ax):
+            for a in () if r is None else (r if isinstance(r, tuple)
+                                           else (r,)):
+                if ctx.mesh.shape.get(a, 1) > 1:
+                    used.add(a)
+        return tuple(a for a in ctx.mesh.axis_names if a in used)
     return _axes_map(split, axes)
 
 
@@ -234,42 +246,67 @@ def _data_mean(t: torch.Tensor, group, n: int) -> torch.Tensor:
 
 
 def _mesh_facts(cfg: ArchConfig):
-    """(data group, its size, split-leaf tree, model group) of the
-    installed context for a train step (Nones without one)."""
+    """(batch group, its size, split-leaf tree, {mesh axes: group}) of the
+    installed context for a train step (Nones without one): the tree
+    names the mesh axes each leaf is split over (``_split_leaves``), the
+    dict the group of each such tuple."""
     ctx = sharding.current_ctx()
     if ctx is None:
         return None, 1, None, None
-    sharding.check_model_rules(ctx)
     mesh = ctx.mesh
     if mesh.world > 1 and cfg.family != "dense":
         raise NotImplementedError(
             f"training {cfg.name} on a mesh of {mesh.world} ranks: the "
             f"train mesh runs the dense LM (the ViT trains on one device; "
             f"ROADMAP.md queue A, item 1)")
-    data_g, split, model_g = None, None, None
+    sharding.check_model_rules(ctx)
+    if (tf_mod.fsdp_split(cfg) is not None
+            and ctx.rules.get("p_embed") != ctx.rules.get("batch")):
+        raise NotImplementedError(
+            f"FSDP over {ctx.rules.get('p_embed')!r} with the batch over "
+            f"{ctx.rules.get('batch')!r}: the gather's backward means the "
+            f"gradient over the batch's axes, so the two must be one")
+    data_g, split, groups = None, None, None
     n_data = sharding._axis_size(mesh, ctx.rules.get("batch"))
     if n_data > 1:
         data_g = mesh.group(ctx.rules["batch"])
-    if mesh.shape.get("model", 1) > 1:
+    if mesh.world > 1:
         axes = placement_axes(cfg, model_api.model_logical_axes(cfg))
-        split, model_g = _split_leaves(axes, ctx), mesh.group("model")
-    return data_g, n_data, split, model_g
+        split = _split_leaves(axes, ctx)
+        groups = {k: mesh.group(k) for k in set(tree_leaves(split)) if k}
+    return data_g, n_data, split, groups
+
+
+def _fsdp_leaves(cfg: ArchConfig):
+    """A bool tree: the leaves FSDP-split under the installed context (a
+    dim on "p_embed"), whose gradient the gather's backward means; None
+    where nothing is."""
+    if tf_mod.fsdp_split(cfg) is None:
+        return None
+    axes = placement_axes(cfg, model_api.model_logical_axes(cfg))
+    return _axes_map(lambda ax: "p_embed" in ax, axes)
 
 
 def make_grad_fn(cfg: ArchConfig):
     """``grads_of(params, batch) -> (loss, grads)``: the train step's loss
     and gradient tree (microbatched as ``cfg`` says), before the clip.
     Built under a sharding context: this rank's blocks of the mesh's
-    gradient and the global batch's loss (both meaned over "data")."""
+    gradient and the global batch's loss (both meaned over the batch
+    axes: an FSDP leaf's in its gather's backward, the others here)."""
     grads_of = _local_grad_fn(cfg)
     data_g, n_data, _, _ = _mesh_facts(cfg)
     if data_g is None:
         return grads_of
+    fsdp = _fsdp_leaves(cfg)
+
+    def mean(t):
+        return _data_mean(t, data_g, n_data)
 
     def mesh_grads_of(params, batch):
         loss, g = grads_of(params, batch)
-        return (_data_mean(loss, data_g, n_data),
-                tree_map(lambda t: _data_mean(t, data_g, n_data), g))
+        g = (tree_map(mean, g) if fsdp is None else
+             tree_map(lambda t, f: t if f else mean(t), g, fsdp))
+        return mean(loss), g
 
     return mesh_grads_of
 
@@ -279,15 +316,15 @@ def make_train_fn(cfg: ArchConfig):
     new state of new tensors (the argument is not written). ``batch``
     holds tensors on the params' device. Built under a sharding context it
     is that mesh's step (the module docstring): gradients and loss meaned
-    over "data", the norm of the logical gradient."""
+    over the batch axes, the norm of the logical gradient."""
     ocfg = AdamWConfig(low_mem=not cfg.use_fp32_master)
     grads_of = make_grad_fn(cfg)
-    _, _, split, model_g = _mesh_facts(cfg)
+    _, _, split, groups = _mesh_facts(cfg)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         loss, g = grads_of(params, batch)
-        g, gnorm = clip_by_global_norm(g, 1.0, split, model_g)
+        g, gnorm = clip_by_global_norm(g, 1.0, split, groups)
         lr = warmup_cosine(state["step"] + 1, warmup=cfg.lr_warmup,
                            total=cfg.lr_total)
         new_params, new_opt = adamw_update(g, state["opt"], params, ocfg, lr)
@@ -340,11 +377,14 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
 def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
     """One-token decode against a ``shape.seq_len`` cache: (step(params,
     cache, tokens, pos) -> (logits, cache), (param specs, cache specs,
-    token spec, pos spec)); the cache is this rank's rows, whole over
-    "model"."""
+    token spec, pos spec)); the cache is this rank's batch rows, and under
+    ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` its S / M rows of the
+    sequence (whole over "model" under ``MODEL_RULES``); the logits are
+    this rank's vocab block where the vocab splits."""
     policy = ExecPolicy.from_cfg(cfg, training=False)
-    shapes, axes = model_api.cache_axes_spec(cfg, shape.global_batch,
-                                             shape.seq_len)
+    with sharding._installed(ctx):
+        shapes, axes = model_api.cache_axes_spec(cfg, shape.global_batch,
+                                                 shape.seq_len)
     c_specs = {k: _meta(named_sharding(shp, axes[k], ctx).local_shape(shp),
                         dt) for k, (shp, dt) in shapes.items()}
     tshape = (shape.global_batch, 1)

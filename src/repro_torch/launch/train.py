@@ -13,10 +13,14 @@ batches, bf16 weights) and the ViT (QAT with the straight-through
 estimator on the composed entries, launch/steps.py); the others raise
 naming A15 (ROADMAP.md queue A). The loop runs with or without a sharding
 context. Under one (``main`` installs ``make_host_mesh(--data-par,
---model-par)``, as the reference's) each rank trains its blocks of the
-state on its rows of every batch; the ViT trains on a mesh of one rank.
-A checkpoint holds the logical arrays (gathered over "model", written by
-rank 0), so it restores on any mesh through ``restore(..., ctx, axes)``.
+--model-par)``, as the reference's, with ``MODEL_RULES``; a caller may
+install ``DEFAULT_RULES`` or a pod mesh's ``MULTIPOD_RULES``, under which
+the params and AdamW's moments are also FSDP-split over the batch axes
+and the vocab over "model") each rank trains its blocks of the state on
+its rows of every batch; the ViT trains on a mesh of one rank. A
+checkpoint holds the logical arrays (each split dim gathered over its
+mesh axes, FSDP blocks included, written by rank 0), so it restores on
+any mesh, or on one device, through ``restore(..., ctx, axes)``.
 ``main`` starts its ranks with ``launch/mesh.py::spawn_ranks``, or joins
 torchrun's (``init_from_env``). Entry points run on the card unless
 ``device="cpu"``.

@@ -12,8 +12,13 @@ ported families only): one surface for the launch layer.
                                                     {name: logical axes})
     supports_decode(cfg)
 
-``dense`` runs models/transformer.py (tensor- and data-parallel under a
-("data", "model") sharding context); ``vit`` routes to models/vit.py.
+``dense`` runs models/transformer.py: tensor- and data-parallel under a
+("data", "model") context with ``MODEL_RULES``; under ``DEFAULT_RULES`` /
+``MULTIPOD_RULES`` also FSDP-split over the batch axes, vocab-split over
+"model" (``prefill_fn`` / ``decode_fn`` return this rank's vocab block of
+the logits, ``loss_fn`` reduces the logsumexp and the gold logit over
+"model") with the decode cache split along its sequence. ``vit`` routes
+to models/vit.py.
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
 queue A15. The parameters are the port's tree
 (``bridge.from_jax_params`` of the reference's, or ``init_model``);
@@ -97,12 +102,12 @@ def batch_specs(cfg: ArchConfig, shape) -> dict:
     return out
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy in f32: logsumexp minus the gold logit."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          split=None) -> torch.Tensor:
+    """Mean softmax cross-entropy in f32: logsumexp minus the gold logit;
+    vocab-parallel where ``split`` says ``logits`` is this rank's vocab
+    block (``transformer.cross_entropy``)."""
+    return tf_mod.cross_entropy(logits, labels, split).mean()
 
 
 def loss_fn(params, batch: dict, cfg: ArchConfig,
@@ -126,7 +131,8 @@ def loss_fn(params, batch: dict, cfg: ArchConfig,
 def prefill_fn(params, batch: dict, cfg: ArchConfig,
                policy: ExecPolicy | None = None):
     """Inference forward over the full prompt: ``batch["tokens"]`` (B, S)
-    -> logits (B, S, V) for dense; ``batch["images"]`` -> logits for vit."""
+    -> logits (B, S, V) for dense (this rank's vocab block (B, S, V / n)
+    under a vocab split); ``batch["images"]`` -> logits for vit."""
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     if cfg.family == "dense":
         logits, _ = tf_mod.forward_lm(params, batch["tokens"], cfg, policy)
@@ -142,7 +148,8 @@ def prefill_fn(params, batch: dict, cfg: ArchConfig,
 def decode_fn(params, cache: dict, tokens: torch.Tensor, pos: int,
               cfg: ArchConfig, policy: ExecPolicy | None = None):
     """One decode step (see ``transformer.decode_step``): the cache is
-    written in place and returned."""
+    written in place and returned; under a vocab split the logits are
+    this rank's block."""
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     if cfg.family == "dense":
         return tf_mod.decode_step(params, cache, tokens, pos, cfg, policy)
@@ -157,7 +164,9 @@ def supports_decode(cfg: ArchConfig) -> bool:
 
 def cache_axes_spec(cfg: ArchConfig, batch: int, seq_len: int,
                     dtype=torch.bfloat16):
-    """(shapes {name: (shape, dtype)}, axes {name: logical axes})."""
+    """(shapes {name: (shape, dtype)}, axes {name: logical axes}): the
+    whole cache's; ``launch/serve.py::init_cache`` places them (the
+    sequence over "kv_seq"'s axes under ``DEFAULT_RULES``)."""
     if cfg.family == "dense":
         return tf_mod.cache_spec(cfg, batch, seq_len, dtype)
     if cfg.family in _UNPORTED:

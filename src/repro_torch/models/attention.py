@@ -20,17 +20,29 @@ Under a "model" split of the query heads (the tensor-parallel LM) each
 rank holds a block of the query heads and the whole K / V; ``kv_runs``
 pairs the block with the KV heads it reads (models/transformer.py
 launches once a run).
+
+Under a "kv_seq" split of the decode cache (``DEFAULT_RULES``: the
+sequence over "model", the reference's flash-decoding layout) each rank
+holds rows [row0, row0 + S / M) of every cache. ``update_kv_cache``
+writes the new token's row on the rank that owns its position only;
+``decode_attention`` takes B6's partial entry over the rank's rows
+(``kernels/flash_decode.py::flash_decode_partial``), all-gathers the
+partials (B x H x (D + 1) f32 a rank) and merges them in f32
+(``merge_partials``), as the reference composes the merge outside its
+kernel (src/repro/kernels/flash_decode.py:16-17).
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.backend import _needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["blockwise_attention", "plain_attention", "decode_attention",
-           "update_kv_cache", "kv_runs"]
+           "merge_partials", "update_kv_cache", "kv_runs"]
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=0):
@@ -67,31 +79,70 @@ def plain_attention(q, k, v, *, causal=True, window=0):
     return out.transpose(1, 2)
 
 
-def decode_attention(q, k_cache, v_cache, length: int, *, window=0):
+def decode_attention(q, k_cache, v_cache, length: int, *, window=0,
+                     seq=None):
     """One-token attention against a KV cache. q (B, 1, H, D); k/v_cache
     (B, S, Hkv, D); ``length`` a host int count of valid cache rows (the
     new token's K/V already written at ``length - 1``). Returns
     (B, 1, H, D) in q.dtype.
 
     On the card: the flash decode kernel, which reads only the first
-    ``length`` rows; on the CPU its plain version. ``window > 0`` (the
-    hybrid family's local attention) is not ported yet."""
+    ``length`` rows; on the CPU its plain version. ``seq`` (a
+    ``sharding.Split`` of the cache's sequence) says the caches are this
+    rank's rows of a split cache and ``length`` the global count: B6's
+    partial entry over them, merged with every rank's of ``seq.group``
+    (each rank must call it), the output of all q's heads. ``window > 0``
+    (the hybrid family's local attention) is not ported yet."""
     if window > 0:
         raise NotImplementedError(
             "decode_attention with a local window is hybrid-only and not "
             "ported yet (ROADMAP.md queue A15)")
-    return flash_decode(q, k_cache, v_cache, length)
+    if seq is None:
+        return flash_decode(q, k_cache, v_cache, length)
+    from repro_torch.distributed import collectives
+
+    o, lse = flash_decode_partial(q, k_cache, v_cache,
+                                  seq.index * k_cache.shape[1], length)
+    b, _, h, d = o.shape
+    mine = torch.cat([o.reshape(b, h, d), lse[..., None]], -1)[None]
+    parts = collectives.all_gather_cat(mine, seq.group, 0, "decode_partials")
+    return merge_partials(parts[..., :d].reshape(-1, b, 1, h, d),
+                          parts[..., d]).to(q.dtype)
 
 
-def update_kv_cache(k_cache, v_cache, k_new, v_new, pos: int):
+def merge_partials(o, lse):
+    """The flash-decoding merge of R ranks' partials, in f32 and in rank
+    order: o (R, B, 1, H, D) and lse (R, B, H) -> (B, 1, H, D) f32, with
+    lse* = max + log sum exp(lse_r - max) and o = sum exp(lse_r - lse*)
+    o_r. A rank with no valid row (lse_r = NEG_INF) weighs exactly 0."""
+    m = lse.amax(0)
+    total = m + torch.log(torch.exp(lse - m).sum(0))
+    w = torch.exp(lse - total)
+    out = w[0, :, None, :, None] * o[0]
+    for r in range(1, o.shape[0]):
+        out = out + w[r, :, None, :, None] * o[r]
+    return out
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, pos: int, seq=None):
     """Write the new token's K/V (B, 1, Hkv, D) at row ``pos`` of the
-    caches (B, S, Hkv, D) and return them.
+    caches (B, S, Hkv, D) and return them. Under ``seq`` (the caches this
+    rank's rows of a sequence split) only the rank that owns ``pos``
+    writes, at ``pos - row0``.
 
     The write is in place: the returned tensors are the arguments (the
     reference returns new arrays). That is safe for the port's callers,
     because ``decode_step`` hands each layer a view of the stacked cache
     and ``launch/serve.py::generate`` never reads a cache from before a
     step again; a caller that needs the old cache copies it first."""
+    if seq is not None:
+        rows = k_cache.shape[1]
+        if not 0 <= pos < rows * seq.n:
+            raise IndexError(f"position {pos} outside a cache of "
+                             f"{rows * seq.n} rows")
+        pos -= seq.index * rows
+        if not 0 <= pos < rows:
+            return k_cache, v_cache
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache

@@ -2,7 +2,9 @@
 serving subset). ``linear``/``ExecPolicy``/``QuantizedWeight`` live in
 core/backend.py and are re-exported here for the model layers.
 ``row_parallel_linear`` is the tensor-parallel LM's row-split projection
-(wo, w_down) under a "model" split.
+(wo, w_down) under a "model" split; ``embedding_lookup`` takes a vocab
+split of the table and ``fsdp_layer`` gathers a layer's FSDP-split
+params where the layer is used (``DEFAULT_RULES`` / ``MULTIPOD_RULES``).
 
 Every cast sits where the reference has it: the norms compute in f32 and
 cast back to ``x.dtype`` before the gain; RoPE tables are f32 and the
@@ -16,8 +18,8 @@ import torch
 from repro_torch.core.backend import ExecPolicy, QuantizedWeight, linear
 
 __all__ = ["layernorm", "rmsnorm", "rope", "apply_rope", "embedding_lookup",
-           "layer_view", "linear", "row_parallel_linear", "ExecPolicy",
-           "QuantizedWeight"]
+           "layer_view", "fsdp_layer", "linear", "row_parallel_linear",
+           "ExecPolicy", "QuantizedWeight"]
 
 
 def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -59,9 +61,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Gather rows of ``table`` (V, d) at ``ids`` (...) -> (..., d)."""
-    return table[ids]
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     split=None) -> torch.Tensor:
+    """Gather rows of ``table`` (V, d) at ``ids`` (...) -> (..., d).
+
+    ``split`` (a ``sharding.Split`` of the vocab over "model") says the
+    table is this rank's block of rows [v0, v0 + V / n): an id outside it
+    gives a zero row, and the rows are summed over the split's group.
+    Exactly one rank contributes each row, so the f32 sum rounded to the
+    table's dtype is exact; its backward is the identity (every rank of
+    the group holds the same gradient of the whole rows)."""
+    if split is None:
+        return table[ids]
+    from repro_torch.distributed import collectives
+
+    n = table.shape[0]
+    local = ids - split.index * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    part = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return collectives.reduce_from_model(part, split.group)
 
 
 def layer_view(blocks, i: int):
@@ -72,6 +92,40 @@ def layer_view(blocks, i: int):
     if isinstance(blocks, QuantizedWeight):
         return blocks.layer(i)
     return blocks[i]
+
+
+def fsdp_layer(p, axes, split, d_model: int):
+    """A layer's params with every FSDP-split dim gathered: ``p`` a dict of
+    this rank's blocks (tensors or ``QuantizedWeight``s), ``axes`` their
+    logical axes (without "p_layers"), ``split`` the "p_embed" split (None:
+    ``p`` unchanged). A dim named "p_embed" is d_model wide, so it is a
+    block where it holds d_model / n; a ``QuantizedWeight`` gathers its
+    codes, its K-major copy by the swapped dim and its scale where the
+    scale's dim is that block (wo, w_down: the scale is per column). The
+    gather's backward reduce-scatters the gradient
+    (``collectives.fsdp_gather``)."""
+    if split is None:
+        return p
+    from repro_torch.distributed.collectives import fsdp_gather
+
+    def gather(t, dim):
+        if t.shape[dim] * split.n != d_model:
+            return t
+        return fsdp_gather(t, split.group, dim)
+
+    def walk(w, ax):
+        if isinstance(w, dict):
+            return {k: walk(v, ax[k]) for k, v in w.items()}
+        if "p_embed" not in ax:
+            return w
+        dim = ax.index("p_embed")
+        if isinstance(w, QuantizedWeight):
+            nd = w.wq.ndim
+            swapped = {nd - 1: nd - 2, nd - 2: nd - 1}.get(dim, dim)
+            return QuantizedWeight(gather(w.wq, dim), gather(w.scale, dim),
+                                   w.bits, gather(w.wt, swapped))
+        return gather(w, dim)
+    return walk(p, axes)
 
 
 def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
@@ -111,6 +165,6 @@ def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)
     raise NotImplementedError(
         f"a row-parallel projection under {p!r}: the tensor-parallel LM runs "
-        f"the bf16 and photonic_pallas matmuls; the other backends under a "
-        f"'model' split come with the next slice (ROADMAP.md queue A, item "
-        f"1)")
+        f"the bf16 and photonic_pallas matmuls; the qat, photonic_sim and "
+        f"noisy matmuls under a 'model' split are not ported (ROADMAP.md "
+        f"queue A, item 1)")

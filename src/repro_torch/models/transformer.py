@@ -11,16 +11,37 @@ Tensor parallelism. Under an installed sharding context whose rules split
 "p_heads" / "p_mlp" over a "model" axis (``MODEL_RULES`` on a ("data",
 "model") mesh) each rank holds its block of the query heads (wq's
 columns, bq, wo's rows) and of the SwiGLU hidden dim (w_gate / w_up
-columns, w_down rows), placed by ``place_lm_params``; wk / wv, the tied
-embedding, the norms and the KV cache stay whole, so every rank computes
-the whole K and V. ``collectives.copy_to_model`` goes before the
-column-parallel projections and on the K / V a rank reads in part, and
-the row-parallel wo / w_down reduce over "model" (``layers.
-row_parallel_linear``), so the residual stream and the logits are whole on
-every rank. An axis that does not divide the heads (or d_ff) leaves that
-block whole, with no reduce, as the reference's ``shard`` drops it. The
-batch splits over "data": each rank runs its rows. Without a context the
-code path is the unsharded one.
+columns, w_down rows), placed by ``place_lm_params``; wk / wv, the norms
+and (under ``MODEL_RULES``) the tied embedding and the KV cache stay
+whole, so every rank computes the whole K and V. ``collectives.
+copy_to_model`` goes before the column-parallel projections and on the
+K / V a rank reads in part, and the row-parallel wo / w_down reduce over
+"model" (``layers.row_parallel_linear``), so the residual stream is whole
+on every rank. An axis that does not divide the heads (or d_ff) leaves
+that block whole, with no reduce, as the reference's ``shard`` drops it.
+The batch splits over "data": each rank runs its rows. Without a context
+the code path is the unsharded one.
+
+FSDP, the vocab and the sequence (``DEFAULT_RULES`` / ``MULTIPOD_RULES``).
+Every param dim on "p_embed" (d_model) is split over the batch axes
+("data", or ("pod", "data")): a rank holds 1 / n of its rows or columns.
+``forward_lm`` and ``decode_step`` gather each layer's blocks where the
+layer runs (``layers.fsdp_layer``), so a rank holds one layer whole at a
+time, and the gather's backward reduce-scatters the gradient
+(``collectives.fsdp_gather``). The tied embedding splits its vocab rows
+over "model" too: the lookup is vocab-parallel (``layers.
+embedding_lookup``), the head gives this rank's vocab block of the logits
+(``_head``; ``forward_lm`` and ``decode_step`` return that block), and
+``lm_loss`` is vocab-parallel (``cross_entropy``: an f32 max and a sum
+of exps over "model", the gold logit from the rank that owns it). The
+decode cache splits its sequence over "model" ("kv_seq"): a rank holds
+S / M rows of every layer, the new row is written by its owner, and the
+attention is B6's partial entry over the rank's rows for every query
+head (q all-gathered over "model"), merged across the ranks
+(``attention.decode_attention``), of which each rank keeps its heads for
+the row-parallel wo. Every activation absmax of a photonic policy stays
+scoped to the whole mesh (``_model_scope``), so the int8 prefill is
+bitwise the unsharded one.
 
 ``lm_loss`` is the training loss; ``cfg.remat`` checkpoints each layer
 under autograd (``torch.utils.checkpoint``, non-reentrant), as the
@@ -45,13 +66,15 @@ from repro_torch.models.attention import (blockwise_attention,
                                           decode_attention, plain_attention,
                                           update_kv_cache)
 from repro_torch.models.layers import (ExecPolicy, apply_rope,
-                                       embedding_lookup, layer_view, linear,
-                                       rmsnorm, rope, row_parallel_linear)
+                                       embedding_lookup, fsdp_layer,
+                                       layer_view, linear, rmsnorm, rope,
+                                       row_parallel_linear)
 
 __all__ = ["attention_shapes", "lm_shapes", "attention_logical_axes",
            "dense_layer_axes", "lm_logical_axes", "lm_placement_axes",
-           "place_lm_params", "heads_split", "mlp_split", "attn_forward",
-           "decode_rope", "attn_decode", "dense_layer_fwd", "forward_lm",
+           "place_lm_params", "heads_split", "mlp_split", "fsdp_split",
+           "vocab_split", "seq_split", "attn_forward", "decode_rope",
+           "attn_decode", "dense_layer_fwd", "forward_lm", "cross_entropy",
            "lm_loss", "cache_spec", "decode_step", "check_family"]
 
 
@@ -137,16 +160,38 @@ def mlp_split(cfg: ArchConfig):
     return sharding.split_of("p_mlp", cfg.d_ff)
 
 
+def fsdp_split(cfg: ArchConfig):
+    """This rank's block of d_model, the "p_embed" dim every layer's
+    params are FSDP-split on, or None where they stay whole."""
+    return sharding.split_of("p_embed", cfg.d_model)
+
+
+def vocab_split(cfg: ArchConfig):
+    """This rank's block of the vocab (the embedding's rows, the head's
+    columns and the logits' last dim), or None."""
+    return sharding.split_of("p_vocab", cfg.vocab)
+
+
+def seq_split(rows: int):
+    """This rank's block of a decode cache's sequence, for a cache of
+    ``rows`` local rows (the whole cache's rows are ``rows`` times the
+    "kv_seq" axis's ranks: ``cache_spec`` refuses a length they do not
+    divide), or None."""
+    return sharding.split_of("kv_seq", rows * sharding.axis_size("kv_seq"))
+
+
 def lm_placement_axes(cfg: ArchConfig, axes: dict | None = None) -> dict:
     """``axes`` (default ``lm_logical_axes``; a train state's tree too) with
-    the tensor-parallel axes the installed context cannot split dropped:
-    "p_heads" unless ``heads_split`` (a model axis may divide wq's columns
-    but not the heads), "p_mlp" unless ``mlp_split``."""
+    the axes the installed context cannot split dropped: "p_heads" unless
+    ``heads_split`` (a model axis may divide wq's columns but not the
+    heads), "p_mlp" unless ``mlp_split``, "p_embed" unless ``fsdp_split``
+    and "p_vocab" unless ``vocab_split``."""
     drop = set()
-    if heads_split(cfg) is None:
-        drop.add("p_heads")
-    if mlp_split(cfg) is None:
-        drop.add("p_mlp")
+    for ax, split in (("p_heads", heads_split(cfg)), ("p_mlp", mlp_split(cfg)),
+                      ("p_embed", fsdp_split(cfg)),
+                      ("p_vocab", vocab_split(cfg))):
+        if split is None:
+            drop.add(ax)
 
     def walk(t):
         if isinstance(t, dict):
@@ -231,6 +276,20 @@ def _decode(q, k_cache, v_cache, length: int, cfg: ArchConfig,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
+def _decode_seq(q, k_rows, v_rows, length: int, cfg: ArchConfig, split,
+                seq) -> torch.Tensor:
+    """``decode_attention`` against this rank's rows of caches split along
+    their sequence (``seq``): every query head attends the rows (q
+    all-gathered over the head split's group, in head order), the
+    partials merge across ``seq``'s group, and the rank keeps its heads."""
+    if split is None:
+        return decode_attention(q, k_rows, v_rows, length, seq=seq)
+    q_all = collectives.all_gather_cat(q, split.group, 2, "decode_q")
+    o = decode_attention(q_all, k_rows, v_rows, length, seq=seq)
+    h0, h1 = split.block(cfg.n_heads)
+    return o[:, :, h0:h1]
+
+
 def _out_proj(o, w, policy, split):
     if split is None:
         return linear(o, w, policy=policy)
@@ -259,11 +318,12 @@ def decode_rope(pos: int, cfg: ArchConfig, device):
 
 
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
-                rope_tables, split=None):
+                rope_tables, split=None, seq=None):
     """One-token attention at position ``pos`` (host int); writes the new
     K/V into the caches in place. ``rope_tables`` is ``decode_rope(pos)``,
     built once per step by the caller; ``split`` this rank's block of the
-    query heads (``heads_split``). Returns (out, cache_k, cache_v)."""
+    query heads (``heads_split``), ``seq`` of the caches' rows
+    (``seq_split``). Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     hkv, hd = cfg.kv_heads, cfg.head_dim
     h = cfg.n_heads if split is None else cfg.n_heads // split.n
@@ -274,18 +334,23 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     cos, sin = rope_tables
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
-    o = _decode(q, cache_k, cache_v, pos + 1, cfg, split)
+    cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos, seq)
+    o = (_decode(q, cache_k, cache_v, pos + 1, cfg, split) if seq is None
+         else _decode_seq(q, cache_k, cache_v, pos + 1, cfg, split, seq))
     o = o.reshape(b, 1, h * hd)
     return _out_proj(o, p["wo"], policy, split), cache_k, cache_v
 
 
-def dense_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None)):
+def dense_layer_fwd(p, x, cfg: ArchConfig, policy,
+                    splits=(None, None, None)):
     """Pre-norm residual layer: attention, then SwiGLU. ``splits`` is
-    (``heads_split``, ``mlp_split``), read once a forward: a remat's
-    recompute runs in the backward, where no context need be installed
-    (the card's backward runs on autograd's device thread)."""
-    heads, mlp = splits
+    (``heads_split``, ``mlp_split``, ``fsdp_split``), read once a forward:
+    a remat's recompute runs in the backward, where no context need be
+    installed (the card's backward runs on autograd's device thread).
+    ``p`` is this rank's blocks of the layer, FSDP-gathered here, so a
+    remat's recompute gathers again."""
+    heads, mlp, fsdp = splits
+    p = fsdp_layer(p, dense_layer_axes(cfg), fsdp, cfg.d_model)
     h, _ = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
                         policy, heads)
     x = x + h
@@ -293,21 +358,43 @@ def dense_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None)):
                               policy, split=mlp)
 
 
-def _head(params, cfg):
-    """The LM head weight: the tied embedding's transposed view (never a
-    contiguous copy: it is vocab x d_model) or ``lm_head``."""
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _embed_table(params, cfg, fsdp):
+    """The embedding (this rank's vocab block under a vocab split) with its
+    FSDP-split d_model gathered: the lookup's table and the tied head's."""
+    return fsdp_layer({"embed": params["embed"]},
+                      {"embed": ("p_vocab", "p_embed")}, fsdp,
+                      cfg.d_model)["embed"]
+
+
+def _head(params, table, cfg, fsdp, x, policy):
+    """The LM head's logits of ``x``: the tied embedding's transposed view
+    (never a contiguous copy: it is vocab x d_model) or ``lm_head``
+    (FSDP-gathered). Under a vocab split the head is this rank's columns
+    and the logits its vocab block; ``x`` is whole on every rank of the
+    split, so its gradient is summed over it (``copy_to_model``)."""
+    if cfg.tie_embeddings:
+        w = table.T
+    else:
+        w = fsdp_layer({"w": params["lm_head"]}, {"w": ("p_embed", "p_vocab")},
+                       fsdp, cfg.d_model)["w"]
+    vs = vocab_split(cfg)
+    if vs is not None:
+        x = collectives.copy_to_model(x, vs.group)
+    return linear(x, w, policy=policy)
 
 
 def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                policy: ExecPolicy | None = None):
-    """tokens (B, S) -> (logits (B, S, V), aux loss 0.0), as the reference."""
+    """tokens (B, S) -> (logits (B, S, V), aux loss 0.0), as the reference;
+    under a vocab split the logits are this rank's block (B, S, V / n)."""
     check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg)
     with _model_scope(policy):
-        x = embedding_lookup(params["embed"], tokens)
+        fsdp = fsdp_split(cfg)
+        table = _embed_table(params, cfg, fsdp)
+        x = embedding_lookup(table, tokens, vocab_split(cfg))
         remat = cfg.remat and torch.is_grad_enabled()
-        splits = (heads_split(cfg), mlp_split(cfg))
+        splits = (heads_split(cfg), mlp_split(cfg), fsdp)
         for i in range(cfg.n_layers):
             lp = layer_view(params["blocks"], i)
             if remat:
@@ -317,8 +404,31 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             else:
                 x = dense_layer_fwd(lp, x, cfg, policy, splits)
         x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-        logits = linear(x, _head(params, cfg), policy=policy)
+        logits = _head(params, table, cfg, fsdp, x, policy)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  split=None) -> torch.Tensor:
+    """Per-token softmax cross-entropy in f32: the logsumexp minus the gold
+    logit, (...). ``split`` (``vocab_split``) says ``logits`` is this
+    rank's vocab block: the max of the f32 logits over the split's group
+    (no gradient), the sum of exp(logits - max) summed over it, and the
+    gold logit from the rank whose block holds the label (zero on the
+    others, summed); every rank of the group gets the same values."""
+    lf = logits.float()
+    if split is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        return lse - torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    n = lf.shape[-1]
+    m = collectives.vocab_max(lf.amax(-1), split.group)
+    lse = m + torch.log(collectives.vocab_sum(
+        torch.exp(lf - m[..., None]).sum(-1), split.group))
+    local = labels.long() - split.index * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = collectives.vocab_sum(torch.where(mine, gold, 0.0), split.group)
+    return lse - gold
 
 
 def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
@@ -326,24 +436,29 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (both (B, S)): the f32 logsumexp minus the gold
-    logit, meaned over this rank's rows, plus ``aux_weight`` times the
-    forward's aux loss (0 for dense), as the reference's."""
+    logit (vocab-parallel under a vocab split, ``cross_entropy``), meaned
+    over this rank's rows, plus ``aux_weight`` times the forward's aux
+    loss (0 for dense), as the reference's."""
     logits, aux = forward_lm(params, batch["tokens"], cfg, policy)
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
-    return (lse - gold).mean() + aux_weight * aux
+    nll = cross_entropy(logits, batch["labels"], vocab_split(cfg))
+    return nll.mean() + aux_weight * aux
 
 
 def cache_spec(cfg: ArchConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16) -> tuple[dict, dict]:
     """(shapes, logical_axes) of the decode cache: K and V of shape
-    (L, B, S, Hkv, D), the reference's axes. ``launch/steps.py::
-    make_serve_step`` reads them: under ``MODEL_RULES`` the cache splits
-    its batch over "data" and is whole over "model" (every rank computes
-    the whole K / V); a "kv_seq" split (``DEFAULT_RULES``) is the next
-    slice's."""
+    (L, B, S, Hkv, D), the reference's axes ("p_layers", "batch",
+    "kv_seq", None, None). ``launch/serve.py::init_cache`` and ``launch/
+    steps.py::make_serve_step`` place them: the batch over "data", and
+    under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` the sequence over
+    "model" (S / M rows a rank). A length the "kv_seq" axis does not
+    divide raises (the reference would keep that cache whole; the decode
+    tells a rank's rows from the local shape)."""
     check_family(cfg)
+    n = sharding.axis_size("kv_seq")
+    if seq_len % n:
+        raise ValueError(f"a cache of {seq_len} rows does not split over the "
+                         f"{n} ranks of 'kv_seq'")
     shape = (cfg.n_layers, batch, seq_len, cfg.kv_heads, cfg.head_dim)
     axes = ("p_layers", "batch", "kv_seq", None, None)
     return {"k": (shape, dtype), "v": (shape, dtype)}, {"k": axes, "v": axes}
@@ -353,24 +468,30 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig, policy: ExecPolicy | None = None):
     """One decode step. tokens (B, 1) int; ``pos`` (host int) the number of
     tokens already in the cache. Returns (logits (B, V), cache): the cache
-    dict is the argument, its layer slices written in place."""
+    dict is the argument, its layer slices written in place. Under a vocab
+    split the logits are this rank's block (B, V / n); under a sequence
+    split the cache is this rank's rows and ``pos`` global."""
     check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     pos = int(pos)
-    heads, mlp = heads_split(cfg), mlp_split(cfg)
+    heads, mlp, fsdp = heads_split(cfg), mlp_split(cfg), fsdp_split(cfg)
+    seq = seq_split(cache["k"].shape[2])
+    axes = dense_layer_axes(cfg)
     with _model_scope(policy):
-        x = embedding_lookup(params["embed"], tokens)
+        table = _embed_table(params, cfg, fsdp)
+        x = embedding_lookup(table, tokens, vocab_split(cfg))
         tables = decode_rope(pos, cfg, x.device)
         for i in range(cfg.n_layers):
-            lp = layer_view(params["blocks"], i)
+            lp = fsdp_layer(layer_view(params["blocks"], i), axes, fsdp,
+                            cfg.d_model)
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             o, _, _ = attn_decode(lp["attn"], h, cache["k"][i],
                                   cache["v"][i], pos, cfg, policy, tables,
-                                  heads)
+                                  heads, seq)
             x = x + o
             x = x + ffn_mod.swiglu(lp["ffn"],
                                    rmsnorm(x, lp["ln2"], cfg.norm_eps),
                                    policy, split=mlp)
         x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-        logits = linear(x, _head(params, cfg), policy=policy)[:, 0]
+        logits = _head(params, table, cfg, fsdp, x, policy)[:, 0]
     return logits, cache

@@ -70,7 +70,8 @@ from repro_torch.core.decomposed_attention import (mhsa_decomposed,
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import absmax_scope, current_ctx
+from repro_torch.distributed.sharding import (absmax_scope,
+                                              check_model_rules, current_ctx)
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import sharded_encoder
 from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
@@ -273,6 +274,7 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if patch_mask is not None:
         patch_mask = torch.as_tensor(patch_mask).to(dev)
     ctx = current_ctx()
+    check_model_rules(ctx, "vit")
     if ctx is not None and ctx.mesh.shape.get("model", 1) > 1:
         sreason = (_fused_encoder_ineligible_reason(params, cfg, policy)
                    or sharded_encoder.sharded_encode_ineligible_reason(

@@ -148,27 +148,29 @@ def clip_by_global_norm(grads, max_norm: float = 1.0, split=None,
     norm before scaling). The leaves' sums of squares are added in the
     reference's leaf order.
 
-    ``split`` (a tree of bools like ``grads``) marks the leaves that hold
-    this rank's block of a leaf split over ``group`` (the tensor-parallel
-    "model" axis): their sums of squares are added over the group once,
-    the whole leaves' once, so the norm is the logical gradient's on
-    every rank."""
+    ``split`` (a tree like ``grads``) names what each leaf is a block of:
+    a false value (``()``) for a whole leaf, else a key of ``group``, a
+    dict of process groups (the mesh axes the leaf is split over, as
+    ``launch/steps.py::_split_leaves`` gives them, to that axes' group).
+    The blocks' sums of squares of each key are added in leaf order and
+    summed over its group once, the keys in sorted order, after the whole
+    leaves', so the norm is the logical gradient's on every rank."""
     gn = 0
-    if split is None:
-        for leaf in tree_leaves(grads):
-            gn = gn + torch.sum(leaf.float() ** 2)
-    else:
+    parts: dict = {}
+    for leaf, sp in zip(tree_leaves(grads), tree_leaves(split) if split
+                        is not None else [()] * len(tree_leaves(grads))):
+        sq = torch.sum(leaf.float() ** 2)
+        if sp:
+            parts[sp] = parts.get(sp, 0) + sq
+        else:
+            gn = gn + sq
+    if parts:
+        import torch.distributed as dist
+
         from repro_torch.distributed import collectives
-        part = 0
-        for leaf, sp in zip(tree_leaves(grads), tree_leaves(split)):
-            if sp:
-                part = part + torch.sum(leaf.float() ** 2)
-            else:
-                gn = gn + torch.sum(leaf.float() ** 2)
-        if torch.is_tensor(part):
-            import torch.distributed as dist
-            gn = gn + collectives.all_reduce(part, dist.ReduceOp.SUM, group,
-                                             "grad_norm_sum")
+        for sp in sorted(parts):
+            gn = gn + collectives.all_reduce(parts[sp], dist.ReduceOp.SUM,
+                                             group[sp], "grad_norm_sum")
     gn = torch.sqrt(gn)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

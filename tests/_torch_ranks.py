@@ -1,5 +1,7 @@
 """Rank bodies for the port's multi-rank tests (``test_torch_sharding.py``,
-``test_torch_data_mesh.py``, ``test_torch_gpu.py``), run by
+``test_torch_data_mesh.py``, ``test_torch_lm_mesh.py``,
+``test_torch_lm_fsdp.py``, ``test_torch_lm_multipod.py``,
+``test_torch_gpu.py``), run by
 ``repro_torch.launch.mesh.spawn_ranks``.
 
 A spawned rank imports this module by name to find its function, so it
@@ -426,3 +428,158 @@ def lm_tp_prefill(params: dict, cfg, prompt, device: str) -> dict:
         logits = api.prefill_fn(local, {"tokens": prompt.to(mesh.device)},
                                 cfg)
     return {"logits": _np32(logits), "launches": dict(_build.LAUNCHES)}
+
+
+# --------------------------------------------------------------------------
+# the dense LM under DEFAULT_RULES / MULTIPOD_RULES (test_torch_lm_fsdp.py,
+# test_torch_lm_multipod.py)
+# --------------------------------------------------------------------------
+
+def _fsdp_mesh(pod: bool):
+    """(mesh, rules): the (2, 2) ("data", "model") mesh under
+    DEFAULT_RULES, or the (2, 1, 2) ("pod", "data", "model") mesh, whose
+    rules_for_mesh choice is MULTIPOD_RULES."""
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+
+    if pod:
+        mesh = _build_mesh(1, 2, "cpu", _AXES, n_pod=2)
+        return mesh, rules_for_mesh(mesh)
+    return make_host_mesh(2, 2, device="cpu"), sharding.DEFAULT_RULES
+
+
+def lm_fsdp_suite(tree: dict, cfg, prompt: np.ndarray, forced: np.ndarray,
+                  batch: dict, cache_len: int, ckpt_dir: str | None,
+                  pod: bool = False) -> dict:
+    """One rank of the dense LM on a mesh under DEFAULT_RULES ((2, 2)) or
+    MULTIPOD_RULES ((2, 1, 2), ``pod``): this rank's block (its batch rows,
+    its vocab block) of the prefill and teacher-forced decode logits, its
+    greedy tokens, one train step's loss, logical gradient and clip norm,
+    its blocks' and cache's shapes, the int8 prefill against the
+    unsharded one; and with a ``ckpt_dir`` the planted faults (an FSDP
+    backward with no reduce-scatter, a vocab loss with the max of the
+    local block, a decode merge that drops the last rank's partial) and a
+    checkpoint of 2 train steps."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.models import api, attention, transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    mesh, rules = _fsdp_mesh(pod)
+    out = {"shape": mesh.shape, "jax_loaded": "jax" in sys.modules,
+           "repro_loaded": any(m == "repro" or m.startswith("repro.")
+                               for m in sys.modules)}
+    with use_sharding(mesh, rules) as ctx:
+        out["rules"] = dict(ctx.rules)
+        rows = sharding.named_sharding(prompt.shape, ("batch", "seq"), ctx)
+        out["coords"] = (sharding._axis_coord(mesh, rules["batch"]), mesh.m)
+
+        def mine(a):
+            return rows.block(torch.from_numpy(np.ascontiguousarray(a)))
+
+        local = transformer.place_lm_params(tree, cfg)
+        out["shapes"] = {k: tuple(v.shape) for k, v in (
+            ("embed", local["embed"]), ("wq", local["blocks"]["attn"]["wq"]),
+            ("wk", local["blocks"]["attn"]["wk"]),
+            ("wo", local["blocks"]["attn"]["wo"]),
+            ("w_up", local["blocks"]["ffn"]["w_up"]),
+            ("w_down", local["blocks"]["ffn"]["w_down"]),
+            ("ln1", local["blocks"]["ln1"]))}
+
+        def teacher_forced():
+            cache = serve.init_cache(cfg, prompt.shape[0], cache_len, "cpu")
+            lg, cache = serve.prefill_into_cache(local, cache, mine(prompt),
+                                                 cfg)
+            lgs, f = [lg], mine(forced)
+            for t in range(f.shape[1]):
+                lg, cache = api.decode_fn(local, cache, f[:, t:t + 1],
+                                          prompt.shape[1] + t, cfg)
+                lgs.append(lg)
+            return _np32(torch.stack(lgs, 1)), cache
+
+        with torch.no_grad():
+            out["prefill"] = _np32(api.prefill_fn(
+                local, {"tokens": mine(prompt)}, cfg))
+            out["decode"], cache = teacher_forced()
+            out["cache_shape"] = tuple(cache["k"].shape)
+            gcache = serve.init_cache(cfg, prompt.shape[0], cache_len, "cpu")
+            out["greedy"] = serve.generate(local, gcache, mine(prompt),
+                                           forced.shape[1], cfg)[0].numpy()
+            scache = serve.init_cache(cfg, prompt.shape[0], cache_len, "cpu")
+            out["sampled"] = serve.generate(
+                local, scache, mine(prompt), 2, cfg, greedy=False,
+                generator=torch.Generator().manual_seed(0))[0].numpy()
+
+        tb = {k: mine(v) for k, v in batch.items()}
+        out["loss"], out["grads"], out["gnorm"] = _lm_grads(cfg, local, tb,
+                                                            ctx)
+
+        # int8: the prefill on the prepared cache against the unsharded
+        # one on the whole batch (no context), this rank's block of it
+        cfg8 = cfg.with_(matmul_backend="photonic_pallas")
+        cache8 = prepare_params(tree, bits=8)
+        with torch.no_grad():
+            got8 = api.prefill_fn(transformer.place_lm_params(cache8, cfg8),
+                                  {"tokens": mine(prompt)}, cfg8)
+            with sharding._installed(None):
+                whole8 = api.prefill_fn(cache8, {"tokens": torch.from_numpy(
+                    prompt)}, cfg8)
+        want8 = sharding.local_shard(
+            whole8, sharding.logical_spec(whole8.shape, ("batch", None,
+                                                         "p_vocab"), ctx),
+            mesh)
+        out["int8_bitwise"] = torch.equal(got8, want8)
+        out["int8_maxdiff"] = float((got8.float() - want8.float()).abs()
+                                    .max())
+        if ckpt_dir is None:
+            return out
+
+        # the planted faults, each on every rank (their collectives pair up)
+        n = transformer.fsdp_split(cfg).n
+
+        def fsdp_no_reduce(g, group, dim):
+            step = g.shape[dim] // n
+            part = g.narrow(dim, torch.distributed.get_rank(group) * step,
+                            step)
+            return (part.float() / n).to(g.dtype)
+
+        merge = attention.merge_partials
+        planted = {"fsdp backward without its reduce-scatter": (
+                       collectives, "reduce_scatter_mean", fsdp_no_reduce),
+                   "vocab loss with the local block's max": (
+                       collectives, "vocab_max", lambda x, group: x.detach()),
+                   "decode merge without the last rank's partial": (
+                       attention, "merge_partials",
+                       lambda o, lse: merge(o[:-1], lse[:-1]))}
+        out["planted"] = {}
+        for tag, (mod, name, fn) in planted.items():
+            saved = getattr(mod, name)
+            setattr(mod, name, fn)
+            try:
+                if tag.startswith("decode"):
+                    with torch.no_grad():
+                        out["planted"][tag] = teacher_forced()[0]
+                else:
+                    out["planted"][tag] = _lm_grads(cfg, local, tb, ctx)
+            finally:
+                setattr(mod, name, saved)
+
+        # 2 train steps with a checkpoint each step; the state gathered;
+        # the checkpoint restored into this rank's blocks
+        shape = ShapeConfig("fsdp", prompt.shape[1], prompt.shape[0],
+                            "train")
+        final, losses, _ = train.train_loop(
+            cfg, shape, 2, device="cpu", state=train.init_state(cfg, 0,
+                                                                "cpu"),
+            ckpt=CheckpointManager(ckpt_dir, every=1))
+        axes = steps.placement_axes(cfg, steps.state_logical_axes(cfg))
+        out["losses"] = losses
+        out["final"] = _np_tree(steps.gather_tree(final, axes, ctx))
+        out["m_shape"] = tuple(final["opt"]["m"]["blocks"]["attn"]["wq"]
+                               .shape)
+        back, step = restore(f"{ckpt_dir}/step_2", final, ctx, axes)
+        out["restored_step"] = step
+        out["restored_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(final)))
+    return out

@@ -136,8 +136,9 @@ def test_validate_rules_matches_reference(mesh, rules):
 
 def test_rules_for_other_meshes_raise():
     """A "pod" mesh gets the reference's MULTIPOD_RULES and any other axes
-    its DEFAULT_RULES; a model run under either with a size > 1 axis that
-    maps FSDP, the vocab or kv_seq raises, naming the next slice."""
+    its DEFAULT_RULES; the ViT under either with a size > 1 axis that maps
+    FSDP, the vocab or kv_seq raises, naming what is not ported (the dense
+    LM runs under both: tests/test_torch_lm_fsdp.py)."""
     mesh = _mesh(("pod", "data", "model"), pod=2, data=2, model=2)
     assert jsharding.rules_for_mesh(mesh) is jsharding.MULTIPOD_RULES
     assert tsharding.rules_for_mesh(mesh) == jsharding.MULTIPOD_RULES
@@ -145,8 +146,10 @@ def test_rules_for_other_meshes_raise():
     assert tsharding.rules_for_mesh(other) == jsharding.DEFAULT_RULES
     for m in (mesh, other):
         ctx = tsharding.ShardingCtx(m, tsharding.rules_for_mesh(m))
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tsharding.check_model_rules(ctx)
+        tsharding.check_model_rules(ctx)
+        with pytest.raises(NotImplementedError,
+                           match="ViT runs under DATA_RULES and MODEL_RULES"):
+            tsharding.check_model_rules(ctx, "vit")
 
 
 def test_absmax_scope_needs_a_context():

@@ -12,7 +12,10 @@ against their 3xTF32 emulation); fused FFN one hidden quant step, its K-major en
 bitwise against its first design (both also at bit-plan widths 6 and
 4); the int32 accumulate bitwise;
 causal flash attention and flash decode f32 rtol = atol = 2e-5, bf16
-within 1 bf16 ulp of the largest |o|, and each bitwise from call to call; end-to-end logits card vs CPU
+within 1 bf16 ulp of the largest |o|, and each bitwise from call to call
+(flash decode's partial entry: o and lse f32 within 2e-5 of its plain
+version, an empty range exactly o = 0 and lse = NEG_INF, the ranges
+merged within flash decode's tolerance); end-to-end logits card vs CPU
 correlation > 0.999; the dequant epilogue bitwise; the model-sharded FFN
 over 2 ranks on the one card bitwise against the unsharded twin on the
 card (an exact int32 accumulate and the same elementwise ops); a CUDA
@@ -89,12 +92,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_masked, masked_entry_for)
 from repro_torch.kernels.flash_attention import \
     flash_attention  # noqa: E402
-from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
+from repro_torch.kernels.flash_decode import (flash_decode,  # noqa: E402
+                                               flash_decode_partial)
 from repro_torch.kernels.fused_ffn import (  # noqa: E402
     dequant_epilogue, ffn_entry_for, fused_ffn, fused_ffn_nmajor,
     fused_ffn_xla, int_accumulate)
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
-from repro_torch.models.attention import blockwise_attention  # noqa: E402
+from repro_torch.models.attention import (blockwise_attention,  # noqa: E402
+                                          merge_partials)
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.ops import photonic_matmul_prequant  # noqa: E402
@@ -541,6 +546,46 @@ def test_flash_decode_cluster_boundaries(dev, length, g, d):
         got = flash_decode(q, kc, vc, length)
         _assert_held(got, ref.flash_decode_ref(q, kc, vc, length))
         assert torch.equal(flash_decode(q, kc, vc, length), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ranges,length", [
+    (2, 1), (2, 128), (2, 129), (2, 256), (2, 160),   # 4k's rank shape
+    (4, 1), (4, 64), (4, 65), (4, 200), (4, 256)])
+def test_flash_decode_partial_kernel(dev, ranges, length, dtype):
+    """B6's partial entry over each of ``ranges`` row ranges of a 256-row
+    cache (qwen2-1.5b's H 12, Hkv 2, D 128, batch 2: 4k's per-rank rows
+    at 2 ranges), against ``flash_decode_partial_ref``: o and lse f32,
+    rtol = atol = 2e-5; a range with no valid row o = 0 and lse = NEG_INF
+    exactly; each call bitwise from call to call and counted once; the
+    ranges merged against ``flash_decode_ref`` on the whole cache within
+    B6's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(ranges * 1000 + length)
+    q = torch.randn(2, 1, 12, 128, generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn(2, 256, 2, 128, generator=gen, device=dev)
+              .to(dtype) for _ in range(2))
+    rows = 256 // ranges
+    os_, lses = [], []
+    for r in range(ranges):
+        kr, vr = kc[:, r * rows:(r + 1) * rows], vc[:, r * rows:(r + 1) * rows]
+        before = _build.LAUNCHES["flash_decode_partial"]
+        o, lse = flash_decode_partial(q, kr, vr, r * rows, length)
+        assert _build.LAUNCHES["flash_decode_partial"] == before + 1
+        assert o.dtype == lse.dtype == torch.float32
+        want_o, want_lse = ref.flash_decode_partial_ref(q, kr, vr, r * rows,
+                                                        length)
+        if r * rows >= length:
+            assert torch.equal(o, torch.zeros_like(o))
+            assert bool((lse == ref.NEG_INF).all())
+        torch.testing.assert_close(o, want_o, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+        again = flash_decode_partial(q, kr, vr, r * rows, length)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+        os_.append(o)
+        lses.append(lse)
+    merged = merge_partials(torch.stack(os_), torch.stack(lses)).to(dtype)
+    _assert_held(merged, ref.flash_decode_ref(q, kc, vc, length))
 
 
 @pytest.mark.gpu

@@ -393,12 +393,60 @@ def test_named_sharding_and_step_specs_are_local_blocks():
     assert tuple(t.shape) == (4, 1) and tuple(pos.shape) == ()
 
 
-def test_default_and_multipod_rules_raise_naming_the_next_slice():
-    """The tables are chosen and read; a model under a size > 1 axis that
-    maps FSDP, the vocab or kv_seq raises. The reference's param_spec
-    raises, and the port's."""
+@pytest.mark.parametrize("pod", [False, True])
+def test_fsdp_step_specs_split_embed_vocab_and_kv_seq(pod):
+    """A (2, 2) fake mesh under DEFAULT_RULES, or a (2, 1, 2) pod mesh under
+    MULTIPOD_RULES: every "p_embed" dim (d 64) is halved over the batch
+    axes, the vocab, query heads and d_ff over "model", the moments as
+    their params, the decode cache's batch over the batch axes and its
+    sequence over "model"."""
+    keys = [("data",), ("model",), ("data", "model"), ("pod",),
+            ("pod", "data"), ("pod", "model"), ("pod", "data", "model")]
+    groups = dict.fromkeys(keys)
+    if pod:
+        mesh = tmesh.ServingMesh(1, 2, 0, 1, torch.device("cpu"), "gloo",
+                                 groups, ("pod", "data", "model"), 2, 1)
+        rules = tsharding.rules_for_mesh(mesh)
+        assert rules is tsharding.MULTIPOD_RULES
+    else:
+        mesh = tmesh.ServingMesh(2, 2, 1, 1, torch.device("cpu"), "gloo",
+                                 groups)
+        rules = tsharding.DEFAULT_RULES
+    ctx = tsharding.ShardingCtx(mesh, rules)
     cfg = _tcfg()
-    params = ttf.lm_shapes(cfg)
+    _, (st, b) = tsteps.make_train_step(cfg, ShapeConfig("t", 16, 8,
+                                                         "train"), ctx)
+    p = st["params"]
+    assert tuple(p["embed"].shape) == (128, 32)
+    assert tuple(p["blocks"]["attn"]["wq"].shape) == (2, 32, 32)
+    assert tuple(p["blocks"]["attn"]["wk"].shape) == (2, 32, 32)
+    assert tuple(p["blocks"]["attn"]["wo"].shape) == (2, 32, 32)
+    assert tuple(p["blocks"]["ffn"]["w_down"].shape) == (2, 64, 32)
+    assert tuple(p["blocks"]["ln1"].shape) == (2, 64)
+    assert tuple(st["opt"]["v"]["embed"].shape) == (128, 32)
+    assert tuple(b["tokens"].shape) == (4, 16)
+    _, (pp, c, t, _) = tsteps.make_serve_step(cfg, ShapeConfig(
+        "d", 32, 8, "decode"), ctx)
+    assert tuple(c["k"].shape) == (2, 4, 16, 2, 16)
+    assert tuple(t.shape) == (4, 1)
+    assert tuple(pp["embed"].shape) == (128, 32)
+    _, (pf, bf) = tsteps.make_prefill_step(cfg, ShapeConfig(
+        "p", 16, 8, "prefill"), ctx)
+    assert tuple(pf["blocks"]["ffn"]["w_up"].shape) == (2, 32, 64)
+    assert tuple(bf["tokens"].shape) == (4, 16)
+    # a cache length the "kv_seq" axis does not divide is refused
+    with pytest.raises(ValueError, match="does not split"):
+        tsteps.make_serve_step(cfg, ShapeConfig("d", 31, 8, "decode"), ctx)
+
+
+def test_default_and_multipod_rules_raise_for_experts_and_the_vit():
+    """The tables are chosen and read; the dense LM runs under them
+    (tests/test_torch_lm_fsdp.py, test_torch_lm_multipod.py), while a
+    size > 1 axis that maps the experts raises for any other family,
+    naming A15, and one that maps FSDP, the vocab, kv_seq or the experts
+    raises for the ViT, naming queue A, item 1, as does ViT training on
+    a mesh. The reference's param_spec raises, and the port's."""
+    vit = tsmoke(tget("opto-vit-tiny"))
     for axes, shape in ((("data", "model"), dict(data=2, model=1)),
                         (("x", "model"), dict(x=1, model=2)),
                         (("pod", "data", "model"),
@@ -408,16 +456,22 @@ def test_default_and_multipod_rules_raise_naming_the_next_slice():
         rules = (tsharding.DEFAULT_RULES if "pod" not in axes
                  else tsharding.MULTIPOD_RULES)
         ctx = tsharding.ShardingCtx(mesh, rules)
+        tsharding.check_model_rules(ctx)
+        with pytest.raises(NotImplementedError, match="queue A, item 1"):
+            tsharding.check_model_rules(ctx, "vit")
         with tsharding._installed(ctx):
-            with pytest.raises(NotImplementedError, match="next slice"):
-                ttf.forward_lm(params, torch.zeros(1, 4, dtype=torch.long),
-                               cfg)
-            with pytest.raises(NotImplementedError, match="next slice"):
-                tsteps.make_train_fn(cfg)
-    # a (1, 1) default mesh splits nothing and runs
+            with pytest.raises(NotImplementedError, match="queue A, item 1"):
+                tsteps.make_train_fn(vit)
+        if shape.get("model", 1) > 1:
+            with pytest.raises(NotImplementedError, match="A15"):
+                tsharding.check_model_rules(ctx, "moe")
+        else:
+            tsharding.check_model_rules(ctx, "moe")
+    # a (1, 1) default mesh splits nothing and runs every family
     mesh = _fake_mesh(("x", "model"), x=1, model=1)
-    tsharding.check_model_rules(tsharding.ShardingCtx(
-        mesh, tsharding.DEFAULT_RULES))
+    for family in ("dense", "vit", "moe"):
+        tsharding.check_model_rules(tsharding.ShardingCtx(
+            mesh, tsharding.DEFAULT_RULES), family)
     for mod in (tsharding, jsharding):
         with pytest.raises(NotImplementedError):
             mod.param_spec("blocks/attn/wq", (64, 64), None)
