@@ -271,6 +271,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         shapes split in two (phase 3: lengths 1, row0, row0 + 1 and S,
         the halves merged against ``flash_decode_ref``) and timed at 4k's
         rank shape (phase 5);
+     l. ``[vit_mesh]``, after 4k: opto-vit-base-224 + MGNet (keep 0.33)
+        QAT training (qat + xla + xla, AdamW, a global batch of 32 of
+        ``ImageStream(224, 32, n_classes=8)``) on gloo ranks on the one
+        card, all 12 layers: (A) ``DATA_RULES`` on (data 2) and (B)
+        ``MODEL_RULES`` on (data 1, model 2) in one spawn of 2 ranks,
+        (C) ``DEFAULT_RULES`` on (2, 2) and (D) ``MULTIPOD_RULES`` on
+        (pod 2, data 1, model 2) in one spawn of 4. Each: one step,
+        pruning off, against the one-device step on the card, beside
+        five order controls (the qat contractions summed in 2, 3, 4, 6
+        and 8 blocks; at full size a code flip cascades and they read
+        ~2e-2): the gradient and the loss within 4x the controls'
+        largest; the checks that do not cascade, each bitwise: every
+        weight scale of the forward's fake quants the one-device
+        forward's, every activation scale the whole mesh's (the MAX of
+        the rank-local absmaxes), every FSDP block's gradient the
+        group's mean of the gathered weight's; and on the same mesh at
+        smoke size the tight check: within 4x the 2-block control and
+        under 1e-4, the loss within 1e-6, every rank's loss equal.
+        Planted faults (A) rank-local activation scales, (B) w2's weight
+        absmax without its MAX over "model", (C) the FSDP backward
+        without its reduce-scatter must each read 10x the tight bound
+        and fail their bitwise check at full size;
+        ms a train step
+        (CUDA events), gloo ms by op (the absmax MAXes apart), MB the
+        FSDP gathers put on a rank, peak memory. (B) also the
+        photonic_sim row-parallel entry at w2's shape bitwise the
+        unsharded one; (C) 4 steps through ``train_loop`` (pruning on),
+        the step-2 resume bitwise, the logical checkpoint restored on one
+        device bitwise. (E) (C)'s weights gathered, prepared and served
+        on B1-B3 at the fused point against the QAT forward: corr >
+        0.999, equal accuracy;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -5169,6 +5200,675 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
             fail(f"4k (D): train losses {r0['mp_losses']} vs (C)'s {losses}")
 
 
+# path 4l: ViT QAT training on every mesh. opto-vit-base-224 + MGNet (keep
+# 0.33) at full width and all 12 layers on qat + xla + xla, AdamW, a
+# global batch of 32 of ImageStream(224, 32, n_classes=8), gloo ranks
+# sharing the one card as 4j / 4k: (A) DATA_RULES on ("data",) 2 and (B)
+# MODEL_RULES on (data 1, model 2) in one spawn of 2 ranks; (C)
+# DEFAULT_RULES on (2, 2) and (D) MULTIPOD_RULES on (pod 2, data 1, model
+# 2) in one spawn of 4; (E) (C)'s trained weights served on B1-B3. Each
+# phase holds one step, pruning off (keep 1.0), against the one-device
+# step on the card beside its order controls: the one-device step with
+# its qat contractions summed in n blocks, n in VM_ORDERS
+# (scripts/qat_grad_gap.py). At full size a code at a rounding boundary
+# flips under any change of summation order and the flip cascades (a
+# control reads ~2e-2, PERF.md §6 PR 28), which hides a planted fault in
+# the gradient; there the gradient and the loss are held to
+# VM_CONTROL_FACTOR x the controls' largest reading, and the checks that
+# do not cascade carry the proof: every weight scale of the forward's
+# fake quants bitwise the one-device forward's (a MAX is exact), every
+# activation scale bitwise the whole mesh's (the MAX over every rank of
+# the rank-local absmax; the activations themselves drift as the
+# gradient does, so their scales move ~1e-2 from the one-device
+# forward's), and every FSDP block's gradient bitwise this rank's block
+# of the group's mean of the gathered weight's gradient. Beside it the tight
+# check runs on the same mesh at smoke size (opto-vit-tiny cut to 2
+# layers, batch 8 of 32x32, as 4i (C)'s), where no code flips: within
+# VM_CONTROL_FACTOR x the control and under VM_GRAD_LIMIT, the loss
+# within VM_LOSS_REL. Each planted fault must miss that bound by
+# VM_FAULT_FACTOR x, and fail its check at full size: (A) the activation
+# scales', (B) the weight scales', (C) the FSDP blocks' bitwise equality.
+VM_BATCH = 32
+VM_STEPS, VM_RESUME_AT = 4, 2     # (C)'s train_loop: straight, resumed
+VM_SMOKE_BATCH = 8
+# the order controls' blocks: all at full size (the spread of the flips'
+# cascade), the first alone at smoke size (more blocks flip a code there
+# too)
+VM_ORDERS = (2, 3, 4, 6, 8)
+VM_CONTROL_FACTOR = 4
+VM_GRAD_LIMIT = 1e-4
+VM_LOSS_REL = 1e-6
+VM_FAULT_FACTOR = 10
+VM_SERVE_CORR = 0.999
+VM_FAULTS = {"A": "rank-local activation scales",
+             "B": "w2's weight absmax without its MAX over model",
+             "C": "the FSDP backward without its reduce-scatter"}
+VM_TABLES = {"A": "DATA_RULES on (data 2)",
+             "B": "MODEL_RULES on (data 1, model 2)",
+             "C": "DEFAULT_RULES on (data 2, model 2)",
+             "D": "MULTIPOD_RULES on (pod 2, data 1, model 2)"}
+
+
+@contextlib.contextmanager
+def _patched(owner, name: str, value):
+    """``owner.name`` (``owner[name]`` for a dict) set to ``value`` for the
+    block."""
+    get = owner.get if isinstance(owner, dict) else (
+        lambda k: getattr(owner, k))
+    put = owner.__setitem__ if isinstance(owner, dict) else (
+        lambda k, v: setattr(owner, k, v))
+    saved = get(name)
+    put(name, value)
+    try:
+        yield
+    finally:
+        put(name, saved)
+
+
+def _scale_recorder(quant, rec: list):
+    """``quant.fake_quant_ste`` appending each call's (per tensor, scale,
+    the rank-local absmax of a per-tensor call, bits), on the CPU, to
+    ``rec``: the forward's fake-quant scales in call order."""
+    real = quant.fake_quant_ste
+
+    def fq(x, bits=8, axis=None, scale=None):
+        if scale is None:
+            scale = quant.absmax_scale(x, bits=bits, axis=axis)
+        amax = (x.detach().abs().amax().float().cpu() if axis is None
+                else None)
+        rec.append((axis is None, scale.detach().float().cpu().reshape(-1),
+                    amax, bits))
+        return real(x, bits, axis, scale)
+    return fq
+
+
+def _scope_gap(dist, quant, rec: list) -> float:
+    """The largest relative gap of a recorded activation scale from the
+    whole mesh's: max(MAX over every rank of the rank-local absmax, eps)
+    times f32(1/qmax), the MAX taken here over the default group. 0 where
+    every activation scale is the global batch's."""
+    import torch
+    acts = [(s, a, bits) for per_tensor, s, a, bits in rec if per_tensor]
+    amax = torch.stack([a for _, a, _ in acts])
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    worst = 0.0
+    for (s, _, bits), m in zip(acts, amax):
+        want = torch.clamp_min(m, 1e-8) * quant.inv_qmax(bits)
+        worst = max(worst, float(((s - want).abs() / want).max()))
+    return worst
+
+
+def _scale_gaps(got: list, want: list, m: int) -> tuple:
+    """(the activation scales' largest relative gap, the weight scales')
+    of ``got`` (a forward's record) against ``want`` (the one-device
+    forward's); a weight whose columns are model rank ``m``'s block is
+    held to that block of the whole. Records of other calls: inf."""
+    if [r[0] for r in got] != [r[0] for r in want]:
+        return float("inf"), float("inf")
+    gaps = {True: 0.0, False: 0.0}
+    for (per_tensor, g, *_), (_, w, *_) in zip(got, want):
+        if g.numel() != w.numel():
+            w = w[m * g.numel():(m + 1) * g.numel()]
+        gap = float(((g.double() - w.double()).abs() / w.double()).max())
+        gaps[per_tensor] = max(gaps[per_tensor], gap)
+    return gaps[True], gaps[False]
+
+
+def _fsdp_probe(collectives, seen: list):
+    """``collectives.fsdp_gather`` recording, for each gather, the
+    gathered weight's gradient and the one its backward hands this rank's
+    block."""
+    real = collectives.fsdp_gather
+
+    def gather(x, group, dim):
+        block = x.view_as(x)
+        whole = real(block, group, dim)
+        rec = {"group": group, "dim": dim}
+        whole.register_hook(
+            lambda g: rec.__setitem__("whole", g.detach().clone()))
+        block.register_hook(
+            lambda g: rec.__setitem__("block", g.detach().clone()))
+        seen.append(rec)
+        return whole
+    return gather
+
+
+def _fsdp_gap(dist, seen: list) -> float:
+    """The largest relative L2 gap of a block's gradient from this rank's
+    block of the group's mean of the gathered weight's gradient (f32 sum
+    over the group, divided by its size, rounded once): 0 where the FSDP
+    backward reduce-scatters."""
+    worst = 0.0
+    for rec in seen:
+        g = rec["whole"].float().cpu()
+        dist.all_reduce(g, group=rec["group"])
+        n = dist.get_world_size(rec["group"])
+        step = g.shape[rec["dim"]] // n
+        want = (g.narrow(rec["dim"], dist.get_rank(rec["group"]) * step, step)
+                / n).to(rec["block"].dtype).double()
+        got = rec["block"].cpu().double()
+        worst = max(worst, float((got - want).norm() / want.norm()))
+    return worst
+
+
+def vit_mesh_smoke_cfg():
+    """4l's tight check's config: 4i (C)'s (opto-vit-tiny at smoke size,
+    2 layers) with MGNet present and its pruning off."""
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.configs.registry import get_config
+    return smoke_variant(get_config("opto-vit-tiny")).with_(
+        n_layers=2, quant_bits=8, mgnet=True, mgnet_keep_ratio=1.0,
+        mgnet_embed=32, mgnet_heads=2)
+
+
+def vit_mesh_rank(cpu_params: dict, cfg, tmp: str, device: str,
+                  tables: str) -> dict:
+    """One rank of path 4l's phases ``tables`` ("AB" on 2 ranks, "CD" on
+    4). Rank 0 also runs the one-device steps and their order controls on
+    the whole params (no context) and returns the distances; every rank
+    its scale and FSDP gaps, losses, step time, collective times and peak
+    memory a phase."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from qat_grad_gap import qat_split_in
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import quant
+    from repro_torch.core.backend import ExecPolicy, place_params
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+    from repro_torch.launch.train import init_state
+    from repro_torch.models import api as model_api
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init, tree_leaves,
+                                         tree_map)
+
+    if tables == "AB":
+        meshes = {"A": (_build_mesh(2, 1, device, axis_names=("data",)),
+                        sharding.DATA_RULES),
+                  "B": (make_host_mesh(1, 2, device=device),
+                        sharding.MODEL_RULES)}
+    else:
+        meshes = {"C": (make_host_mesh(2, 2, device=device),
+                        sharding.DEFAULT_RULES),
+                  "D": (_build_mesh(1, 2, device, _AXES, n_pod=2),
+                        sharding.MULTIPOD_RULES)}
+    first = next(iter(meshes.values()))[0]
+    dev = first.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        full_precision_matmuls()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    r0 = dist.get_rank() == 0
+    out = {"rank": dist.get_rank(), "backend": first.backend,
+           "device": str(dev)}
+    t_rank = time.perf_counter()
+
+    def progress(what):
+        if r0:
+            say(f"[vit_mesh] rank 0: {what} at "
+                f"{time.perf_counter() - t_rank:.1f}s")
+
+    # the two sizes: full (the path) and smoke (the tight check)
+    full = cfg.with_(mgnet_keep_ratio=1.0)
+    smoke = vit_mesh_smoke_cfg()
+    sizes = {"full": (full, tree_map(lambda t: t.to(dev), cpu_params),
+                      VM_BATCH),
+             "smoke": (smoke, init_state(smoke, 0, dev)["params"],
+                       VM_SMOKE_BATCH)}
+
+    def batch_of(c, b, ctx=None):
+        s = ImageStream(c.img_size, b, n_classes=8, patch=c.patch, seed=0,
+                        device=dev, ctx=ctx)
+        return {k: v for k, v in s.batch_at(0).items()
+                if k in ("images", "labels")}
+
+    def recorded(rec):
+        return _patched(quant, "fake_quant_ste", _scale_recorder(quant, rec))
+
+    # the one-device steps, their scales and their order controls (rank 0)
+    one = {}
+    if r0:
+        with sharding._installed(None):
+            for size, (c, whole, b) in sizes.items():
+                gb = batch_of(c, b)
+                grads_of = steps.make_grad_fn(c)
+                grads_of(whole, gb)                       # warm-up
+                rec = []
+                with recorded(rec):
+                    loss, g = grads_of(whole, gb)
+                loss = float(loss)
+                controls = []
+                # at smoke size the one order that flips no code: the
+                # tight check's class
+                orders = VM_ORDERS if size == "full" else VM_ORDERS[:1]
+                for parts in orders:
+                    rec_c = []
+                    # a fresh step: its policy binds the entry it sees
+                    with _patched(backend_mod.BACKENDS, "qat",
+                                  qat_split_in(parts)), recorded(rec_c):
+                        loss_c, g_c = steps.make_grad_fn(c)(whole, gb)
+                    controls.append({
+                        "parts": parts, "grad": grad_distance(torch, g_c, g)[0],
+                        "loss": abs(float(loss_c) - loss) / abs(loss),
+                        "act": _scale_gaps(rec_c, rec, 0)[0]})
+                    del g_c
+                one[size] = {"loss": loss, "g": g, "controls": controls,
+                             "scales": rec}
+        progress("the one-device steps and their controls done")
+    # every rank holds the one-device forward's scales at full size
+    box = [one["full"].pop("scales") if r0 else None]
+    dist.broadcast_object_list(box, src=0)
+    want_scales = box[0]
+
+    def fsdp_no_reduce(g, group, dim):
+        n = dist.get_world_size(group)
+        step = g.shape[dim] // n
+        return (g.narrow(dim, dist.get_rank(group) * step, step).float()
+                / n).to(g.dtype)
+
+    whole_scale = collectives.replicated_absmax_scale
+
+    def local_weight_scale(x, bits, group, eps=1e-8, axis=None):
+        # an activation's MAX kept, a row-split weight's per-column one not
+        if axis is None:
+            return whole_scale(x, bits, group, eps)
+        return quant.absmax_scale(x, bits=bits, axis=axis)
+
+    planted = {"A": (sharding, "absmax_group", lambda: None),
+               "B": (collectives, "replicated_absmax_scale",
+                     local_weight_scale),
+               "C": (collectives, "reduce_scatter_mean", fsdp_no_reduce)}
+
+    def probed(grads_of, local, rows, m):
+        """One gradient with its fake-quant scales and FSDP blocks
+        recorded: (the gradient, the gaps: the scales' from the one-device
+        forward's, the activation scales' from the whole mesh's and the
+        FSDP blocks' (None without FSDP))."""
+        rec, seen = [], []
+        with recorded(rec), _patched(collectives, "fsdp_gather",
+                                     _fsdp_probe(collectives, seen)):
+            _, g = grads_of(local, rows)
+        act, wgt = _scale_gaps(rec, want_scales, m)
+        return g, {"act": act, "weight": wgt,
+                   "scope": _scope_gap(dist, quant, rec),
+                   "fsdp": _fsdp_gap(dist, seen) if seen else None}
+
+    for tag, (mesh, rules) in meshes.items():
+        res = {}
+        with sharding.use_sharding(mesh, rules) as ctx:
+            for size, (c, whole, b) in sizes.items():
+                axes = steps.placement_axes(c, model_api.model_logical_axes(c))
+                local = place_params(whole, axes, ctx)
+                rows = batch_of(c, b, ctx)
+                grads_of = steps.make_grad_fn(c)
+                got = {}
+                if size == "full":
+                    got["local"] = {k: tuple(v.shape) for k, v in (
+                        ("wq", local["blocks"]["attn"]["wq"]),
+                        ("w2", local["blocks"]["ffn"]["w2"]),
+                        ("head", local["head"]), ("images", rows["images"]))}
+                    # the warm-up, probed
+                    _, got["gaps"] = probed(grads_of, local, rows, mesh.m)
+                    sync()
+                    collectives.STATS.clear()
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                loss, g = grads_of(local, rows)
+                sync()
+                got["grad_s"] = time.perf_counter() - t0
+                got["loss"] = float(loss)
+                if size == "full":
+                    got["stats"] = dict(collectives.STATS)
+                    got["peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                      / 1e9 if cuda else 0.0)
+                    split = sharding.split_of("p_embed", c.d_model)
+
+                    def gathered(tree, ax):
+                        if isinstance(ax, dict):
+                            return sum(gathered(tree[k], ax[k]) for k in ax)
+                        return (tree.numel() * tree.element_size() * split.n
+                                if "p_embed" in ax else 0)
+                    got["gathered_mb"] = (gathered(local, axes) / 1e6
+                                          if split is not None else 0.0)
+                g = steps.gather_tree(g, axes, ctx)
+                if r0:
+                    got["dist"] = grad_distance(torch, g, one[size]["g"])
+                    got["one"] = {k: v for k, v in one[size].items()
+                                  if k != "g"}
+                del g
+                if tag in planted:
+                    with _patched(*planted[tag]):
+                        if size == "full":
+                            gf, got["fault_gaps"] = probed(grads_of, local,
+                                                           rows, mesh.m)
+                        else:
+                            _, gf = grads_of(local, rows)
+                    gf = steps.gather_tree(gf, axes, ctx)
+                    if r0:
+                        got["fault"] = grad_distance(torch, gf,
+                                                     one[size]["g"])
+                    del gf
+                if size == "full":
+                    # ms a train step (CUDA events, 2 steps after 1)
+                    holder = [{"params": local, "opt": adamw_init(
+                        local, AdamWConfig(low_mem=not c.use_fp32_master)),
+                        "step": torch.zeros((), dtype=torch.int32,
+                                            device=dev)}]
+                    step_fn = steps.make_train_fn(c)
+
+                    def one_step():
+                        holder[0], _ = step_fn(holder[0], rows)
+                    got["step_ms"] = (cuda_ms(one_step, iters=2, warmup=1)
+                                      if cuda else 0.0)
+                    del holder, step_fn
+                res[size] = got
+            progress(f"({tag}) steps done")
+            if tag == "B":
+                # the photonic_sim forward's row-parallel entry at w2's
+                # shape: bitwise the unsharded entry
+                from repro_torch.models.layers import row_parallel_linear
+                gen = torch.Generator(device=dev).manual_seed(3)
+                m = VM_BATCH * ((cfg.img_size // cfg.patch) ** 2 + 1)
+                h = torch.randn(m, cfg.d_ff, generator=gen, device=dev)
+                w2 = sizes["full"][1]["blocks"]["ffn"]["w2"][0]
+                k0, k1 = (mesh.m * cfg.d_ff // 2,
+                          (mesh.m + 1) * cfg.d_ff // 2)
+                pol = ExecPolicy(8, "photonic_sim", training=False)
+                with sharding.mesh_scope(), torch.no_grad():
+                    y = row_parallel_linear(h[:, k0:k1], w2[k0:k1], pol,
+                                            mesh.group("model"))
+                    with sharding._installed(None):
+                        y1 = backend_mod.linear(h, w2, policy=pol)
+                res["sim_bitwise"] = bool(torch.equal(y, y1))
+                res["sim_maxdiff"] = float((y - y1).abs().max())
+                res["sim_shape"] = (m, cfg.d_ff, cfg.d_model)
+                del h, y, y1
+            if tag == "C":
+                # 4 steps through train_loop with pruning on, checkpointed
+                # at the resume step; a resumed run from a copy of that
+                # checkpoint alone; the logical state restored on one
+                # device
+                tcfg = cfg.with_(lr_warmup=10)
+                shape = ShapeConfig("4l", 0, VM_BATCH, "train")
+                axes = steps.placement_axes(tcfg, model_api.model_logical_axes(
+                    tcfg))
+                st_axes = steps.placement_axes(tcfg,
+                                               steps.state_logical_axes(tcfg))
+                p0 = place_params(sizes["full"][1], axes, ctx)
+                state0 = {"params": p0, "opt": adamw_init(p0, AdamWConfig(
+                    low_mem=not tcfg.use_fp32_master)),
+                    "step": torch.zeros((), dtype=torch.int32, device=dev)}
+                clone = lambda s: tree_map(torch.clone, s)  # noqa: E731
+                root, again = f"{tmp}/ckpt", f"{tmp}/resume"
+                torch.use_deterministic_algorithms(True)
+                try:
+                    t0 = time.perf_counter()
+                    final, losses, _ = train.train_loop(
+                        tcfg, shape, VM_STEPS, device=dev,
+                        state=clone(state0),
+                        ckpt=CheckpointManager(root, every=VM_RESUME_AT),
+                        log_every=VM_STEPS)
+                    sync()
+                    res["train_s"] = time.perf_counter() - t0
+                    if r0:
+                        shutil.copytree(f"{root}/step_{VM_RESUME_AT}",
+                                        f"{again}/step_{VM_RESUME_AT}")
+                    dist.barrier()
+                    st2, rest, _ = train.train_loop(
+                        tcfg, shape, VM_STEPS, device=dev,
+                        state=clone(state0),
+                        ckpt=CheckpointManager(again, every=10 ** 9),
+                        log_every=VM_STEPS)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                res["losses"] = losses
+                res["resumed_bitwise"] = rest == losses[VM_RESUME_AT:] and all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(st2),
+                                                      tree_leaves(final)))
+                logical = steps.gather_tree(st2, st_axes, ctx)
+                if r0:
+                    back, step = restore(f"{again}/step_{VM_STEPS}", logical)
+                    res["restored"] = (step, all(
+                        torch.equal(a, b) for a, b in zip(
+                            tree_leaves(back), tree_leaves(logical))))
+                    res["trained"] = tree_map(lambda t: t.cpu(),
+                                              logical["params"])
+                    del back
+                del logical, st2, final, state0, p0
+                progress("(C) train_loop, resume and restore done")
+        out[tag] = res
+    return out
+
+
+def run_vit_mesh(torch, dev, card: str) -> dict:
+    """Path 4l: (A)-(D) in two spawns of gloo ranks on the one card, then
+    (E) on the parent's card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.backend import prepare_params
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import init_state
+    from repro_torch.models.layers import ExecPolicy
+    from repro_torch.models.vit import forward_vit
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = train_cfg()
+    t_phase = time.perf_counter()
+    say(f"[vit_mesh] path 4l: {cfg.name} {cfg.img_size}x{cfg.img_size} + "
+        f"MGNet keep {cfg.mgnet_keep_ratio} on qat + xla + xla, training=True, "
+        f"global batch {VM_BATCH}, {cfg.n_layers} layers; gloo ranks on the "
+        f"one card; the tight checks at smoke size beside each ({card})")
+    params = init_state(cfg, 0, "cpu")["params"]
+    for t in _leaves(params):
+        t.share_memory_()
+    ranks = {}
+    for tables, world in (("AB", 2), ("CD", 4)):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_vit_mesh_")
+        t0 = time.perf_counter()
+        try:
+            got = spawn_ranks(vit_mesh_rank, world, params, cfg, tmp, "cuda",
+                              tables, device="cuda", timeout_s=900)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        say(f"[vit_mesh] the {world}-rank spawn ({tables}) in "
+            f"{time.perf_counter() - t0:.2f}s, backend {got[0]['backend']}, "
+            f"all on {got[0]['device']}")
+        for tag in tables:
+            ranks[tag] = [r[tag] for r in got]
+    del params
+    failures = report_vit_mesh(ranks, card)
+    trained = ranks["C"][0]["trained"]
+
+    # (E) (C)'s trained weights gathered to one device, prepared into the
+    # quantize-once cache and served on the fused point (B1-B3)
+    fused_cfg = cfg.with_(matmul_backend="photonic_pallas",
+                          attn_backend="flash", ffn_backend="fused")
+    trained = tree_map(lambda t: t.to(dev), trained)
+    held = ImageStream(cfg.img_size, VM_BATCH, n_classes=8, patch=cfg.patch,
+                       seed=0, device=dev).batch_at(20000)
+    with torch.no_grad():
+        qat_logits, _ = forward_vit(trained, held["images"], cfg,
+                                    ExecPolicy.from_cfg(cfg, training=False),
+                                    device=dev)
+        cache = prepare_params(trained, bits=cfg.quant_bits)
+        _build.LAUNCHES.clear()
+        fused_logits, kept = forward_vit(
+            cache, held["images"], fused_cfg,
+            ExecPolicy.from_cfg(fused_cfg, training=False), device=dev)
+        launches = dict(_build.LAUNCHES)
+    c = corr(torch, fused_logits, qat_logits)
+    labels = held["labels"].long()
+    acc_f = float((fused_logits.argmax(-1) == labels).float().mean())
+    acc_q = float((qat_logits.argmax(-1) == labels).float().mean())
+    top1 = float((fused_logits.argmax(-1) == qat_logits.argmax(-1)).float()
+                 .mean())
+    say(f"[vit_mesh] (E) (C)'s weights after {VM_STEPS} steps gathered to "
+        f"one device and served on the fused point (photonic_pallas + flash "
+        f"+ fused, {kept} patches kept) against the QAT forward "
+        f"(training=False) on a held-out batch of {VM_BATCH}: logits corr "
+        f"{c:.6f}, top-1 agreement {top1:.4f}; accuracy on the synthetic "
+        f"labels: fused {acc_f:.4f}, QAT {acc_q:.4f}; launches {launches} "
+        f"({card})")
+    if not c > VM_SERVE_CORR:
+        failures.append(f"4l (E): fused serve vs QAT forward corr {c}")
+    if acc_f != acc_q:
+        failures.append(f"4l (E): fused accuracy {acc_f} != QAT accuracy "
+                        f"{acc_q}")
+    for name_ in VIT_KERNELS:
+        if launches.get(name_, 0) <= 0:
+            failures.append(f"4l (E): kernel {name_} was never launched")
+    say(f"[vit_mesh] path 4l in {time.perf_counter() - t_phase:.2f}s ({card})")
+    if failures:
+        fail("; ".join(failures))
+    return {"launches": launches, "serve_corr": c}
+
+
+def report_vit_mesh(ranks: dict, card: str) -> list:
+    """4l (A)-(D)'s readings, then their checks (rank 0 holds the
+    distances, every rank its scale and FSDP gaps): the list of what
+    failed."""
+    failures = []
+    for tag, rs in ranks.items():
+        r0 = rs[0]
+        for size in ("full", "smoke"):
+            got = r0[size]
+            one = got["one"]
+            ctls = one["controls"]
+            ctl = max(x["grad"] for x in ctls)
+            ctl_loss = max(x["loss"] for x in ctls)
+            rel, worst, worst_name, n = got["dist"]
+            dl = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+            tight = size == "smoke"
+            bound = VM_CONTROL_FACTOR * ctl
+            loss_bound = VM_CONTROL_FACTOR * ctl_loss
+            if tight:
+                bound, loss_bound = min(bound, VM_GRAD_LIMIT), VM_LOSS_REL
+            say(f"[vit_mesh] ({tag}) {VM_TABLES[tag]}, {len(rs)} ranks, "
+                f"{size}: one step's gradient (pruning off) against the "
+                f"one-device step on the card: relative L2 {rel:.4e}, min "
+                f"leaf corr {worst:.8f} ({worst_name}, {n} leaves), loss "
+                f"{got['loss']:.6f} vs {one['loss']:.6f} (relative "
+                f"{dl:.4e}); the order controls (qat contractions in n "
+                f"blocks) gradient / loss / activation-scale gap "
+                + ", ".join(f"n={x['parts']}: {x['grad']:.4e} / "
+                            f"{x['loss']:.4e} / {x['act']:.4e}"
+                            for x in ctls)
+                + f"; held to {bound:.4e} and {loss_bound:.4e} ({card})")
+            if not (rel <= bound and dl <= loss_bound):
+                failures.append(f"4l ({tag}) {size}: gradient relative L2 "
+                                f"{rel} (bound {bound}), loss relative {dl} "
+                                f"(bound {loss_bound})")
+            if "fault" in got:
+                frel = got["fault"][0]
+                say(f"[vit_mesh] ({tag}) {size}, planted fault "
+                    f"({VM_FAULTS[tag]}): gradient relative L2 {frel:.4e} "
+                    f"= {_times(frel, bound):.1f}x the bound")
+                if tight and not frel > VM_FAULT_FACTOR * bound:
+                    failures.append(f"4l ({tag}): the planted fault "
+                                    f"({VM_FAULTS[tag]}) read {frel}, not "
+                                    f"{VM_FAULT_FACTOR}x beyond {bound}")
+            if len({r[size]["loss"] for r in rs}) != 1:
+                failures.append(f"4l ({tag}) {size}: the ranks' losses "
+                                f"differ: {[r[size]['loss'] for r in rs]}")
+        failures += _report_vit_mesh_scales(tag, rs, card)
+        for i, r in enumerate(rs):
+            got = r["full"]
+            st = got["stats"]
+            ops = {k: f"{1e3 * st[k + '_s']:.1f} ms / {st[k]}"
+                   for k in sorted(st) if not k.endswith("_s")}
+            say(f"[vit_mesh] ({tag}) rank {i}: local {got['local']}; a train "
+                f"step {got['step_ms']:.1f} ms (CUDA events); one gradient "
+                f"{1e3 * got['grad_s']:.1f} ms, gloo by op (ms / calls) "
+                f"{ops}; FSDP gathers {got['gathered_mb']:.1f} MB onto the "
+                f"rank; peak memory {got['peak_gb']:.3f} GB ({card})")
+        if tag == "B":
+            say(f"[vit_mesh] (B) the photonic_sim row-parallel entry at w2's "
+                f"{r0['sim_shape']}: bitwise the unsharded entry "
+                f"{r0['sim_bitwise']} (max diff {r0['sim_maxdiff']})")
+            if not all(r["sim_bitwise"] for r in rs):
+                failures.append("4l (B): the photonic_sim row-parallel "
+                                "entry is not bitwise the unsharded one")
+        if tag == "C":
+            say(f"[vit_mesh] (C) {VM_STEPS} steps through train_loop (pruning "
+                f"on) in {r0['train_s']:.2f}s: losses "
+                + " ".join(f"{x:.4f}" for x in r0["losses"])
+                + f"; resumed from step {VM_RESUME_AT} bitwise "
+                f"{r0['resumed_bitwise']}; one-device restore of the "
+                f"gathered state {r0['restored']}")
+            if not all(r["resumed_bitwise"] for r in rs):
+                failures.append("4l (C): the resumed run is not bitwise the "
+                                "straight one")
+            if len({tuple(r["losses"]) for r in rs}) != 1:
+                failures.append("4l (C): the ranks' train losses differ")
+            if r0["restored"] != (VM_STEPS, True):
+                failures.append(f"4l (C): the one-device restore read "
+                                f"{r0['restored']}")
+    return failures
+
+
+def _times(x: float, bound: float) -> float:
+    """x in multiples of ``bound`` (inf over a bound of 0)."""
+    return x / bound if bound else float("inf")
+
+
+def _report_vit_mesh_scales(tag: str, rs: list, card: str) -> list:
+    """4l's full-size checks that do not cascade, over every rank: every
+    weight scale of the forward's fake quants bitwise the one-device
+    forward's, every activation scale bitwise the whole mesh's (the MAX of
+    the rank-local absmaxes), every FSDP block's gradient bitwise the
+    group's mean; beside them the activation scales' gap from the
+    one-device forward's (a reading: the activations drift as the
+    gradient does) and the planted fault's gaps. The list of what
+    failed."""
+    failures = []
+    ctl_act = max(x["act"] for x in rs[0]["full"]["one"]["controls"])
+
+    def worst(key):
+        gaps = [r["full"][key] for r in rs]
+        return {k: (None if gaps[0][k] is None
+                    else max(g[k] for g in gaps)) for k in gaps[0]}
+
+    def line(g):
+        return (f"weight scales {g['weight']:.4e} from the one-device "
+                f"forward's, activation scales {g['scope']:.4e} from the "
+                f"whole mesh's, FSDP blocks "
+                + ("none gathered" if g["fsdp"] is None
+                   else f"{g['fsdp']:.4e}")
+                + f" from the group's mean (relative); activation scales "
+                f"{g['act']:.4e} from the one-device forward's")
+    g = worst("gaps")
+    say(f"[vit_mesh] ({tag}) full, the checks that do not cascade over "
+        f"{len(rs)} ranks (each held bitwise): {line(g)} (a reading; the "
+        f"order controls' largest {ctl_act:.4e}) ({card})")
+    for k in ("weight", "scope", "fsdp"):
+        if g[k] not in (None, 0.0):
+            failures.append(f"4l ({tag}) full: the {k} gap {g[k]} is not 0")
+    if "fault_gaps" in rs[0]["full"]:
+        f = worst("fault_gaps")
+        say(f"[vit_mesh] ({tag}) full, planted fault ({VM_FAULTS[tag]}): "
+            f"{line(f)} ({card})")
+        key = {"A": "scope", "B": "weight", "C": "fsdp"}[tag]
+        if not (f[key] or 0.0) > 0.0:
+            failures.append(f"4l ({tag}) full: the planted fault "
+                            f"({VM_FAULTS[tag]}) passed its check ({key})")
+    return failures
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -5671,6 +6371,17 @@ def main() -> int:
     say(f"[lm_fsdp] launches on the main paths with 4k's rank 0: "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
     del lm_fsdp
+    torch.cuda.empty_cache()
+
+    # -- 4l. [vit_mesh]: ViT QAT training under DATA_RULES, MODEL_RULES,
+    # DEFAULT_RULES and MULTIPOD_RULES on gloo ranks on the card (after 4k,
+    # before the profiled phases); (E)'s launches join the counts
+    vit_mesh = run_vit_mesh(torch, dev, card)
+    for entry in kernels:
+        entry["launches"] += vit_mesh["launches"].get(entry["name"], 0)
+    say(f"[vit_mesh] launches on the main paths with 4l's (E): "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del vit_mesh
     torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After

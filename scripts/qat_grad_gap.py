@@ -52,37 +52,48 @@ def cfg_of(pruned: bool):
     return cfg
 
 
-def _split(a, b):
-    k = a.shape[-1] // 2
-    return a[..., :k] @ b[:k] + a[..., k:] @ b[k:]
+def _split(a, b, parts=2):
+    """a @ b with the contraction summed in ``parts`` blocks, in order."""
+    out = None
+    for ak, bk in zip(torch.tensor_split(a, parts, dim=-1),
+                      torch.tensor_split(b, parts, dim=0)):
+        out = ak @ bk if out is None else out + ak @ bk
+    return out
 
 
 class _SplitMatmul(torch.autograd.Function):
-    """a @ b with the contraction summed in two halves, forward and
+    """a @ b with the contraction summed in ``parts`` blocks, forward and
     backward."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, parts):
         ctx.save_for_backward(a, b)
-        return _split(a, b)
+        ctx.parts = parts
+        return _split(a, b, parts)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        ga = _split(g, b.transpose(-1, -2))
+        ga = _split(g, b.transpose(-1, -2), ctx.parts)
         gb = _split(a.reshape(-1, a.shape[-1]).transpose(0, 1),
-                    g.reshape(-1, g.shape[-1]))
-        return ga, gb
+                    g.reshape(-1, g.shape[-1]), ctx.parts)
+        return ga, gb, None
 
 
-def _qat_split(x, w, p):
+def qat_split_in(parts: int):
     """The qat matmul backend (fake-quantized operands, an f32 product)
-    with the product in another summation order."""
-    bits = p.quant_bits or 8
-    fq = quant.fake_quant_ste if p.training else quant.fake_quant
-    wq = fq(w, bits=bits, axis=tuple(range(w.ndim - 1)))
-    xq = fq(x, bits=bits, axis=None)
-    return _SplitMatmul.apply(xq.float(), wq.float()).to(x.dtype)
+    with the product's contractions summed in ``parts`` blocks."""
+    def entry(x, w, p):
+        bits = p.quant_bits or 8
+        fq = quant.fake_quant_ste if p.training else quant.fake_quant
+        wq = fq(w, bits=bits, axis=tuple(range(w.ndim - 1)))
+        xq = fq(x, bits=bits, axis=None)
+        return _SplitMatmul.apply(xq.float(), wq.float(), parts).to(x.dtype)
+    return entry
+
+
+# the control: the contractions summed in two halves
+_qat_split = qat_split_in(2)
 
 
 def step(cfg, state, batch, order=False):

@@ -66,7 +66,7 @@ __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
            "prepare_params", "place_params", "NON_MATMUL_KEYS",
            "MATMUL_WEIGHT_EXTRA", "int_accumulate_exact",
            "int_accumulate_sim", "int_accumulate_pallas",
-           "get_backend", "get_attention_backend", "get_ffn_backend",
+           "qat_product", "photonic_sim_accumulate", "get_backend", "get_attention_backend", "get_ffn_backend",
            "available_backends", "available_attention_backends",
            "available_ffn_backends", "matmul", "linear", "attend", "ffn"]
 
@@ -572,38 +572,67 @@ def _bf16_matmul(x, w, p: ExecPolicy):
 BACKENDS["bf16"] = _bf16_matmul
 
 
-def _qat_matmul(x, w, p: ExecPolicy):
-    """Fake-quant w8a8 in float (the reference's ``qat`` entry, paper §IV):
-    the weight per output channel, the activations per tensor, then one f32
-    product cast to ``x.dtype``. A cached weight is dequantized instead
-    (the cache already quantized it). A training policy takes the
-    straight-through fake quant, as the reference's. On the card the f32
-    product runs without TF32, as the entry points set it."""
+def qat_product(x, w, p: ExecPolicy, sw=None) -> torch.Tensor:
+    """The ``qat`` entry's f32 product, before its cast: the weight
+    fake-quantized per output channel at ``sw`` (default its own absmax
+    scale), the activations per tensor at ``scoped_absmax_scale``. A
+    cached weight is dequantized instead (the cache already quantized
+    it). A training policy takes the straight-through fake quant."""
+    from repro_torch.distributed.collectives import scoped_absmax_scale
+
     bits = p.quant_bits or 8
     fq = quant.fake_quant_ste if p.training else quant.fake_quant
     if isinstance(w, QuantizedWeight):
         wq = w.dequantize().to(x.dtype)
     else:
-        wq = fq(w, bits=bits, axis=tuple(range(w.ndim - 1)))
-    xq = fq(x, bits=bits, axis=None)
-    return torch.matmul(xq.float(), wq.float()).to(x.dtype)
+        wq = fq(w, bits=bits, axis=tuple(range(w.ndim - 1)), scale=sw)
+    xq = fq(x, bits=bits, axis=None, scale=scoped_absmax_scale(x, bits))
+    return torch.matmul(xq.float(), wq.float())
+
+
+def _qat_matmul(x, w, p: ExecPolicy):
+    """Fake-quant w8a8 in float (the reference's ``qat`` entry, paper §IV):
+    the weight per output channel, the activations per tensor, then one f32
+    product cast to ``x.dtype`` (``qat_product``). A training policy takes
+    the straight-through fake quant, as the reference's. On the card the
+    f32 product runs without TF32, as the entry points set it. Inside an
+    absmax scope (``sharding.absmax_scope``: x's rows split over ranks)
+    the activation scale is the whole tensor's, MAX-reduced over the
+    scope's group outside autograd; without one it is ``x``'s own."""
+    return qat_product(x, w, p).to(x.dtype)
 
 
 BACKENDS["qat"] = _qat_matmul
 
 
+def photonic_sim_accumulate(x2, w, p: ExecPolicy, sw=None) -> tuple:
+    """The ``photonic_sim`` entry before its dequant: (the int32
+    accumulate of x2's per-tensor codes at ``scoped_absmax_scale`` against
+    the weight's codes over 32-wavelength K chunks, sx, sw). ``sw`` is a
+    raw weight's per-output-channel scale (default its own absmax scale);
+    a cached weight carries its own."""
+    from repro_torch.distributed.collectives import scoped_absmax_scale
+
+    bits = _weight_bits(w, p)
+    if isinstance(w, QuantizedWeight) or sw is None:
+        qw = _resolve_wq(w, bits)
+        wq, sw = qw.wq, qw.scale
+    else:
+        wq = quant.quantize(w.float(), sw, bits=bits)
+    sx = scoped_absmax_scale(x2, bits)
+    acc = int_accumulate_sim(quant.quantize(x2, sx, bits=bits), wq)
+    return acc, sx, sw
+
+
 def _photonic_sim_matmul(x, w, p: ExecPolicy):
     """The chunk-walking w8a8 oracle: per-tensor activation codes, the
     int32 accumulate over 32-wavelength K chunks (``int_accumulate_sim``),
-    then the dequant (f32(acc) * sx) * sw[n], as the kernel's epilogue."""
-    bits = _weight_bits(w, p)
-    qw = _resolve_wq(w, bits)
+    then the dequant (f32(acc) * sx) * sw[n], as the kernel's epilogue.
+    Inside an absmax scope sx is the whole split tensor's, as ``qat``'s."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).float()
-    sx = quant.absmax_scale(x2, bits=bits)
-    xq = quant.quantize(x2, sx, bits=bits)
-    acc = int_accumulate_sim(xq, qw.wq)
-    y = acc.float() * sx * qw.scale.reshape(1, -1)
+    acc, sx, sw = photonic_sim_accumulate(
+        x.reshape(-1, x.shape[-1]).float(), w, p)
+    y = acc.float() * sx * sw.reshape(1, -1)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 

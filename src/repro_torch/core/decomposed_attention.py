@@ -34,7 +34,7 @@ from repro_torch.core.backend import (ExecPolicy, QuantizedWeight,
                                       _no_backward_reason, attend, linear)
 
 __all__ = ["attention_scores_standard", "attention_scores_decomposed",
-           "mhsa_standard", "mhsa_decomposed", "decomposition_flops"]
+           "attention_heads", "mhsa_standard", "mhsa_decomposed", "decomposition_flops"]
 
 
 def _as_array(w) -> torch.Tensor:
@@ -104,6 +104,21 @@ def _fused_prequant_ineligible_reason(params: dict,
     return None
 
 
+def attention_heads(x: torch.Tensor, params: dict, heads: int,
+                    policy: ExecPolicy | None = None,
+                    mask: torch.Tensor | None = None,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """The standard dataflow's merged head outputs before wo, (..., n,
+    heads * dh): the Q/K/V projections through ``linear`` and the core
+    through ``attend``. ``heads`` is the count wq/wk/wv's columns hold
+    (this rank's under a head split)."""
+    q = _heads_split(linear(x, params["wq"], policy=policy), heads)
+    k = _heads_split(linear(x, params["wk"], policy=policy), heads)
+    v = _heads_split(linear(x, params["wv"], policy=policy), heads)
+    o = attend(q, k, v, policy, mask=mask, kv_len=kv_len)  # (..., h, n, dh)
+    return o.transpose(-2, -3).reshape(*x.shape[:-1], -1)
+
+
 def mhsa_standard(x: torch.Tensor, params: dict, heads: int,
                   policy: ExecPolicy | None = None,
                   mask: torch.Tensor | None = None,
@@ -116,8 +131,7 @@ def mhsa_standard(x: torch.Tensor, params: dict, heads: int,
     with cached Q/K/V the fused serving branch runs (three int8
     projections into the flash kernel); with that pair and weights it
     cannot take, this raises. Otherwise the four projections go through
-    ``linear`` and the core through ``attend``."""
-    dm = x.shape[-1]
+    ``linear`` and the core through ``attend`` (``attention_heads``)."""
     p = policy or ExecPolicy()
     if p.resolve_attn_backend() == "flash" and p.backend == "photonic_pallas":
         _no_backward_reason(p, "fused attention", x,
@@ -139,11 +153,7 @@ def mhsa_standard(x: torch.Tensor, params: dict, heads: int,
     if p.resolve_attn_backend() == "flash" and p.backend == "photonic_pallas":
         raise ValueError(f"the fused attention branch (photonic_pallas + "
                          f"flash) was asked for but cannot run: {reason}")
-    q = _heads_split(linear(x, params["wq"], policy=policy), heads)
-    k = _heads_split(linear(x, params["wk"], policy=policy), heads)
-    v = _heads_split(linear(x, params["wv"], policy=policy), heads)
-    o = attend(q, k, v, policy, mask=mask, kv_len=kv_len)  # (..., h, n, dh)
-    o = o.transpose(-2, -3).reshape(*x.shape[:-1], dm)
+    o = attention_heads(x, params, heads, policy, mask, kv_len)
     return linear(o, params["wo"], policy=policy)
 
 

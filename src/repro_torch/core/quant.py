@@ -8,7 +8,10 @@ is never produced. Codes are int8 for bits <= 8 and int32 above.
 
 ``fake_quant`` / ``fake_quant_ste`` (the ``qat`` matmul backend's
 quantize -> dequantize) and ``quantize_params`` divide by the scale as the
-reference does and return the input's dtype. ``fake_quant`` is the
+reference does and return the input's dtype. Both take a precomputed
+``scale`` in place of ``absmax_scale(x)``: the one of a tensor split over
+ranks, MAX-reduced over them (``distributed/collectives.py``), as the
+reference's GSPMD reduces every absmax over the whole logical array. ``fake_quant`` is the
 inference form: its round has a zero gradient. ``fake_quant_ste`` is the
 training form, with the reference's gradient: the scale is detached (the
 reference's ``stop_gradient``), the round passes its gradient straight
@@ -65,12 +68,14 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def fake_quant(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits: int = 8, axis=None,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
     """quantize -> dequantize in ``x.dtype``: round(x / s), clipped to the
     balanced range, times s (the inference path). ``x / s`` is taken in
     f32, as the reference promotes a low-precision x against its f32
-    scale."""
-    scale = absmax_scale(x, bits=bits, axis=axis)
+    scale. ``scale`` (default ``absmax_scale(x, bits, axis)``) is s."""
+    if scale is None:
+        scale = absmax_scale(x, bits=bits, axis=axis)
     qmin, qmax = quant_range(bits)
     q = torch.clamp(torch.round(x.float() / scale), qmin, qmax)
     return (q * scale).to(x.dtype)
@@ -112,13 +117,16 @@ def _jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return _JnpClip.apply(x, lo, hi)
 
 
-def fake_quant_ste(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+def fake_quant_ste(x: torch.Tensor, bits: int = 8, axis=None,
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
     """The training form of ``fake_quant``: clip x / s, round, times s, with
     the reference's gradient: s detached, the round straight through, the
     clip's VJP that of ``jnp.clip`` (0.5 on the bounds). Equal to
     ``fake_quant`` in value (rounding and clipping to integer bounds
-    commute)."""
-    scale = absmax_scale(x, bits=bits, axis=axis).detach()
+    commute). ``scale`` as ``fake_quant``'s."""
+    if scale is None:
+        scale = absmax_scale(x, bits=bits, axis=axis)
+    scale = scale.detach()
     qmin, qmax = quant_range(bits)
     clipped = _jnp_clip(x.float() / scale, float(qmin), float(qmax))
     return (_SteRound.apply(clipped) * scale).to(x.dtype)

@@ -30,6 +30,18 @@ def _host_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
 
 
+def _rank_rows(out: dict, ctx) -> dict:
+    """This rank's block of rows of each whole batch array under the
+    sharding context ``ctx`` (its block along "batch"'s mesh axes; the
+    whole array where they do not divide its rows); ``out`` without one."""
+    if ctx is None:
+        return out
+    from repro_torch.distributed.sharding import named_sharding
+    return {k: named_sharding(v.shape, ("batch",) + (None,) * (v.ndim - 1),
+                              ctx).block(torch.from_numpy(v)).numpy()
+            for k, v in out.items()}
+
+
 @dataclass
 class TokenStream:
     """Synthetic LM batches: {"tokens": (B, S) int32, "labels": (B, S)
@@ -58,12 +70,8 @@ class TokenStream:
         steps = rng.integers(1, 7, size=(b, s), dtype=np.int32)
         tokens = ((base + np.cumsum(steps, axis=1)) % self.vocab
                   ).astype(np.int32)
-        out = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
-        if self.ctx is not None:
-            from repro_torch.distributed.sharding import named_sharding
-            out = {k: named_sharding(v.shape, ("batch", "seq"),
-                                     self.ctx).block(torch.from_numpy(v))
-                   .numpy() for k, v in out.items()}
+        out = _rank_rows({"tokens": tokens,
+                          "labels": np.roll(tokens, -1, axis=1)}, self.ctx)
         if self.device is None:
             return out
         dev = resolve_device(self.device)
@@ -94,6 +102,11 @@ class ImageStream:
     ``batch_at(step)`` returns {"images": (B, H, W, 3) f32, "labels": (B,)
     int32, "patch_mask": (B, N) f32 (1 where a patch overlaps the box)}:
     host numpy arrays, or tensors on ``device`` when one is given.
+
+    The rows are drawn in sequence from one generator, so under a
+    sharding context ``ctx`` each rank synthesizes the whole batch and
+    keeps its block of rows along "batch"'s mesh axes, as
+    ``TokenStream``: bitwise the global batch's rows.
     """
 
     img_size: int
@@ -102,6 +115,7 @@ class ImageStream:
     patch: int = 16
     seed: int = 0
     device: object = None
+    ctx: object = None
 
     def batch_at(self, step: int) -> dict:
         rng = _host_rng(self.seed, step)
@@ -124,11 +138,13 @@ class ImageStream:
             m2 = np.zeros((g, g), np.float32)
             m2[py0:py1 + 1, px0:px1 + 1] = 1.0
             patch_mask[i] = m2.reshape(-1)
-        out = {"images": imgs, "labels": labels, "patch_mask": patch_mask}
+        out = _rank_rows({"images": imgs, "labels": labels,
+                          "patch_mask": patch_mask}, self.ctx)
         if self.device is None:
             return out
         dev = resolve_device(self.device)
-        return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in out.items()}
 
 
 def quadrant_labels(patch_mask):

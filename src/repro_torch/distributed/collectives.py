@@ -2,8 +2,9 @@
 src/repro/distributed/collectives.py), on ``torch.distributed``.
 
 ``replicated_absmax_scale``
-    Per-launch activation absmax scale with a *global* scope: the local
-    absmax is all-reduced with MAX over the given process group before the
+    Per-launch activation absmax scale (or a row-split weight's
+    per-output-channel one) with a *global* scope: the local absmax is
+    all-reduced with MAX over the given process group before the
     epsilon clamp and the reciprocal multiply. max is exact and the ops
     after it are ``core.quant.absmax_scale``'s, in its order, so every rank
     computes the f32 scale of the unsharded launch and quantizes to the
@@ -30,6 +31,13 @@ src/repro/distributed/collectives.py), on ``torch.distributed``.
     Both reduce in f32 and round once to the operand's dtype, as the
     unsharded bf16 GEMM rounds its f32 accumulate once: a tensor-parallel
     layer differs from the unsharded one by the order of its f32 sums only.
+
+``gather_from_model``
+    The merged head outputs of a tensor-parallel attention all-gathered
+    over "model" before a replicated projection (the ViT's wo): every
+    rank then computes the same downstream, so the backward is this
+    rank's slice of the gradient, no sum (summing would multiply it by
+    the group's size).
 
 ``fsdp_gather`` / ``reduce_scatter_mean``
     The FSDP collectives (``DEFAULT_RULES`` / ``MULTIPOD_RULES``: the
@@ -94,7 +102,7 @@ from repro_torch.distributed import sharding
 __all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
            "all_gather_cat", "all_reduce", "scoped_absmax_scale",
            "scoped_amax", "copy_to_model", "reduce_from_model",
-           "fsdp_gather", "reduce_scatter_mean", "vocab_max", "vocab_sum"]
+           "gather_from_model", "fsdp_gather", "reduce_scatter_mean", "vocab_max", "vocab_sum"]
 
 # op name -> calls, and op name + "_s" -> host seconds, since the last
 # STATS.clear()
@@ -158,13 +166,16 @@ def all_gather_cat(x: torch.Tensor, group, dim: int,
 
 
 def replicated_absmax_scale(x: torch.Tensor, bits: int, group,
-                            eps: float = 1e-8) -> torch.Tensor:
-    """The scale ``quant.absmax_scale(x_whole, bits)`` of the tensor whose
-    rows are split over ``group``, on every rank: max(|x|) locally, MAX
-    over the group, then max(., eps) and the multiply by f32(1/qmax) (never
-    a divide). Pass the group of every mesh axis the launch's rows are
-    split over, "model" included."""
-    amax = x.abs().amax()
+                            eps: float = 1e-8, axis=None) -> torch.Tensor:
+    """The scale ``quant.absmax_scale(x_whole, bits, axis)`` of the tensor
+    split over ``group`` along the dims ``axis`` reduces (None: all of
+    them, per tensor; -2: a weight's per-output-channel scale over rows
+    split over the group), on every rank: max(|x|) locally, MAX over the
+    group outside autograd, then max(., eps) and the multiply by
+    f32(1/qmax) (never a divide). For an activation pass the group of
+    every mesh axis the launch's rows are split over, "model" included."""
+    a = x.detach().abs()
+    amax = a.amax() if axis is None else a.amax(dim=axis, keepdim=True)
     amax = all_reduce(amax, dist.ReduceOp.MAX, group, "absmax_max")
     return torch.clamp_min(amax, eps).float() * quant.inv_qmax(bits)
 
@@ -224,6 +235,19 @@ class _ReduceFromModel(torch.autograd.Function):
         return g.to(ctx.in_dtype), None, None, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim, "tp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        step = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        return (g.narrow(ctx.dim, dist.get_rank(ctx.group) * step, step),
+                None, None)
+
+
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -248,6 +272,12 @@ def reduce_from_model(partial: torch.Tensor, group,
     partial's); identity backward."""
     return _ReduceFromModel.apply(partial, group, dtype or partial.dtype,
                                   "tp_sum")
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` over ``group``, in
+    group-rank order; backward, this rank's slice of the gradient."""
+    return _GatherFromModel.apply(x, group, dim % x.ndim)
 
 
 def fsdp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:

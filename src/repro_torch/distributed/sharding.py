@@ -23,15 +23,23 @@ reduce each absmax over it (``collectives.scoped_absmax_scale``), so each
 rank quantizes with the scale of the whole launch. Without a group every
 scope is the rank's own tensor, as unsharded.
 
+A composed forward on a mesh (the models' training forwards) runs inside
+``mesh_scope``: the absmax scope of the whole mesh, so every activation
+absmax is the global batch's and a row-parallel contraction's whole
+row's. ``bound`` carries the installed context into a remat's recompute,
+which runs on autograd's thread, where the thread-local context is
+absent.
+
 The four tables are the reference's and ``rules_for_mesh`` picks among
-them as the reference does. The dense LM runs under all four: under
-``DEFAULT_RULES`` / ``MULTIPOD_RULES`` its params are FSDP-split over
-"p_embed"'s axes ("data", or ("pod", "data")) and gathered a layer at a
-time, its embedding and head split on the vocab over "model", and its
-decode cache on "kv_seq" over "model" (models/transformer.py). The ViT
-takes ``DATA_RULES`` and ``MODEL_RULES`` only, and no model has an
-experts axis yet: ``check_model_rules`` raises for those (ROADMAP.md
-queue A, item 1; A15). ``split_of`` is what the sharded LM layers ask:
+them as the reference does. The dense LM and the ViT run under all four:
+under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` their params are FSDP-split
+over "p_embed"'s axes ("data", or ("pod", "data")) and gathered a layer
+at a time; the LM's embedding and head split on the vocab over "model",
+and its decode cache on "kv_seq" over "model" (models/transformer.py).
+The ViT's fused serving encode runs under ``DATA_RULES`` /
+``MODEL_RULES`` only (models/vit.py raises under the FSDP tables). No
+model has an experts axis yet: ``check_model_rules`` raises for that
+(A15). ``split_of`` is what the sharded layers ask:
 this rank's block of a logical dim, or None where the dim stays whole (no
 context, no rule, a size-1 axis, or a dim the axes do not divide); a rule
 that names a tuple of mesh axes is one axis, its first the slowest.
@@ -48,7 +56,7 @@ from typing import Mapping, Sequence
 import torch
 
 __all__ = ["ShardingCtx", "use_sharding", "current_ctx", "absmax_scope",
-           "absmax_group", "logical_spec", "local_shard", "named_sharding",
+           "absmax_group", "mesh_scope", "bound", "logical_spec", "local_shard", "named_sharding",
            "param_spec", "BlockSpec", "Split", "split_of", "axis_size",
            "check_model_rules", "DEFAULT_RULES", "MULTIPOD_RULES",
            "DATA_RULES", "MODEL_RULES", "rules_for_mesh", "validate_rules"]
@@ -84,13 +92,12 @@ MULTIPOD_RULES.update({
     "p_embed": ("pod", "data"),
 })
 
-# logical axes a family's layers cannot run split yet: the dense LM runs
-# under every table (it has no experts axis); the ViT only under
-# DATA_RULES / MODEL_RULES (ROADMAP.md queue A, item 1); any other family
-# not the experts split (the moe family, ROADMAP.md queue A15)
+# logical axes a family's layers cannot run split yet: the dense LM and
+# the ViT run under every table (neither has an experts axis, and the
+# ViT carries no vocab or KV cache); any other family not the experts
+# split (the moe family, ROADMAP.md queue A15)
 _EXPERTS = ("experts", "p_experts")
-_NOT_RUN = {"dense": (),
-            "vit": ("p_embed", "p_vocab", "vocab", "kv_seq") + _EXPERTS}
+_NOT_RUN = {"dense": (), "vit": ()}
 
 # Pure data parallelism over a 1-D ("data",) mesh: only the batch axis
 # shards, every other logical axis replicates. This is the serving
@@ -235,6 +242,31 @@ def absmax_group():
     return None if ctx is None else ctx.absmax_group
 
 
+def mesh_scope():
+    """The absmax scope of the whole installed mesh (every per-launch
+    absmax MAX-reduced over every rank: the rows split over the batch
+    axes, a row-parallel contraction over "model", and MAX of equal
+    values where a tensor is whole over an axis), inside a context of
+    more than one rank and no scope yet; else a no-op."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh.world == 1 or ctx.absmax_group is not None:
+        return contextlib.nullcontext()
+    return absmax_scope(ctx.mesh.group(tuple(ctx.mesh.axis_names)))
+
+
+def bound(fn):
+    """``fn`` with the context installed now (its absmax scope included)
+    installed around each call: a remat's recompute (``torch.utils.
+    checkpoint``) calls it from autograd's thread, where the thread-local
+    context is absent, and must quantize and gather as the forward did."""
+    ctx = current_ctx()
+
+    def call(*args, **kwargs):
+        with _installed(ctx):
+            return fn(*args, **kwargs)
+    return call
+
+
 def _axis_size(mesh, rule) -> int:
     """Ranks along a rule's mesh axes (an axis the mesh lacks counts 1)."""
     if rule is None:
@@ -358,11 +390,8 @@ def axis_size(logical_axis: str) -> int:
 def check_model_rules(ctx: ShardingCtx | None = None,
                       family: str = "dense") -> None:
     """Raise unless the ``family``'s layers of this port run under the ctx
-    (by default the installed one). The dense LM runs under every table;
-    the ViT under ``DATA_RULES`` / ``MODEL_RULES`` only: no mesh axis of
-    size > 1 may map FSDP ("p_embed"), the vocab, the KV cache's "kv_seq"
-    or the experts, which ``DEFAULT_RULES`` and ``MULTIPOD_RULES`` map;
-    any other family no experts split."""
+    (by default the installed one). The dense LM and the ViT run under
+    every table; any other family no experts split."""
     ctx = current_ctx() if ctx is None else ctx
     if ctx is None:
         return
@@ -370,13 +399,6 @@ def check_model_rules(ctx: ShardingCtx | None = None,
             if _axis_size(ctx.mesh, ctx.rules.get(ax)) > 1]
     if not live:
         return
-    if family == "vit":
-        raise NotImplementedError(
-            f"the vit model with logical axes {live} split over the mesh "
-            f"{dict(ctx.mesh.shape)}: the ViT runs under DATA_RULES and "
-            f"MODEL_RULES only; its FSDP / vocab / kv_seq layouts "
-            f"(DEFAULT_RULES / MULTIPOD_RULES) are not ported (ROADMAP.md "
-            f"queue A, item 1)")
     raise NotImplementedError(
         f"the {family} model with logical axes {live} split over the mesh "
         f"{dict(ctx.mesh.shape)}: the experts split comes with the moe "

@@ -24,9 +24,11 @@ a backward, and the reference's train step reaches none.
 
 On a mesh. The reference is single-controller: ``jit`` with
 ``NamedSharding``s lays one global state over the devices. Here each
-rank holds its own block (SPMD), and a step built under an installed
-sharding context (``make_train_fn``, or ``make_train_step(cfg, shape,
-ctx)``) also:
+rank holds its own block (SPMD), under any of the four tables for the
+dense LM and the ViT, and a step built under an installed sharding
+context (``make_train_fn``, or ``make_train_step(cfg, shape, ctx)``)
+runs the model's mesh forward on this rank's rows (every fake-quant
+scale the global batch's: ``sharding.mesh_scope``) and also:
 
   * means the gradients over the batch axes ("data", or MULTIPOD's
     ("pod", "data")): an f32 sum over their group divided by its size,
@@ -123,11 +125,14 @@ def state_logical_axes(cfg: ArchConfig) -> dict:
 
 
 def placement_axes(cfg: ArchConfig, axes):
-    """``axes`` as this rank places them under the installed context: for
-    the dense LM the tensor-parallel axes it cannot split dropped
-    (``transformer.lm_placement_axes``)."""
+    """``axes`` as this rank places them under the installed context: the
+    axes the model cannot split there dropped (``transformer.
+    lm_placement_axes``, ``vit.vit_placement_axes``)."""
     if cfg.family == "dense":
         return tf_mod.lm_placement_axes(cfg, axes)
+    if cfg.family == "vit":
+        from repro_torch.models.vit import vit_placement_axes
+        return vit_placement_axes(cfg, axes)
     return axes
 
 
@@ -254,12 +259,12 @@ def _mesh_facts(cfg: ArchConfig):
     if ctx is None:
         return None, 1, None, None
     mesh = ctx.mesh
-    if mesh.world > 1 and cfg.family != "dense":
+    if mesh.world > 1 and cfg.family == "vit" and cfg.noise is not None:
         raise NotImplementedError(
-            f"training {cfg.name} on a mesh of {mesh.world} ranks: the "
-            f"train mesh runs the dense LM (the ViT trains on one device; "
-            f"ROADMAP.md queue A, item 1)")
-    sharding.check_model_rules(ctx)
+            f"training {cfg.name} under calibrated device noise on a mesh "
+            f"of {mesh.world} ranks: noisy matmuls on a mesh are not ported "
+            f"(ROADMAP.md queue A, item 1)")
+    sharding.check_model_rules(ctx, cfg.family)
     if (tf_mod.fsdp_split(cfg) is not None
             and ctx.rules.get("p_embed") != ctx.rules.get("batch")):
         raise NotImplementedError(
@@ -268,6 +273,13 @@ def _mesh_facts(cfg: ArchConfig):
             f"gradient over the batch's axes, so the two must be one")
     data_g, split, groups = None, None, None
     n_data = sharding._axis_size(mesh, ctx.rules.get("batch"))
+    if (n_data > 1 and cfg.microbatch_steps > 1
+            and ExecPolicy.from_cfg(cfg).backend != "bf16"):
+        raise NotImplementedError(
+            f"{cfg.microbatch_steps} microbatches of a quantizing step over "
+            f"{n_data} batch ranks: a rank splits its own rows, so a "
+            f"microbatch's fake-quant scales would span other rows than the "
+            f"reference's global microbatch (ROADMAP.md queue A, item 1)")
     if n_data > 1:
         data_g = mesh.group(ctx.rules["batch"])
     if mesh.world > 1:

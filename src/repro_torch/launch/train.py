@@ -7,18 +7,20 @@ checkpoints, fault injection and the straggler detector, and the CLI.
     python -m repro_torch.launch.train --arch qwen2-1.5b --model-par 2
     python -m repro_torch.launch.train --arch opto-vit-base --steps 200 \\
         --batch 32 --ckpt-dir /tmp/ckpt --ckpt-every 50
+    python -m repro_torch.launch.train --arch opto-vit-base --batch 32 \\
+        --data-par 2 --model-par 2
 
 Two families train: the dense LM (``lm_loss`` on ``TokenStream``
 batches, bf16 weights) and the ViT (QAT with the straight-through
-estimator on the composed entries, launch/steps.py); the others raise
-naming A15 (ROADMAP.md queue A). The loop runs with or without a sharding
-context. Under one (``main`` installs ``make_host_mesh(--data-par,
---model-par)``, as the reference's, with ``MODEL_RULES``; a caller may
-install ``DEFAULT_RULES`` or a pod mesh's ``MULTIPOD_RULES``, under which
-the params and AdamW's moments are also FSDP-split over the batch axes
-and the vocab over "model") each rank trains its blocks of the state on
-its rows of every batch; the ViT trains on a mesh of one rank. A
-checkpoint holds the logical arrays (each split dim gathered over its
+estimator on the composed entries, launch/steps.py, on ``ImageStream``
+batches); the others raise naming A15 (ROADMAP.md queue A). The loop
+runs with or without a sharding context. Under one (``main`` installs
+``make_host_mesh(--data-par, --model-par)``, as the reference's, with
+``MODEL_RULES``; a caller may install ``DATA_RULES``, ``DEFAULT_RULES`` or
+a pod mesh's ``MULTIPOD_RULES``, under the last two of which the params
+and AdamW's moments are also FSDP-split over the batch axes, and the
+LM's vocab over "model") each rank trains its blocks of the state on its
+rows of every batch. A checkpoint holds the logical arrays (each split dim gathered over its
 mesh axes, FSDP blocks included, written by rank 0), so it restores on
 any mesh, or on one device, through ``restore(..., ctx, axes)``.
 ``main`` starts its ranks with ``launch/mesh.py::spawn_ranks``, or joins
@@ -82,8 +84,8 @@ def make_stream(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                 device=None):
     """``step -> batch``, a pure function of (seed, step), on ``device``
     (default: the card): for the dense LM ``TokenStream``'s {"tokens",
-    "labels"} (this rank's rows under a sharding context), for the ViT
-    ``{"images", "labels"}`` of ``ImageStream`` (8 classes)."""
+    "labels"}, for the ViT ``{"images", "labels"}`` of ``ImageStream`` (8
+    classes); this rank's rows under a sharding context."""
     _check_trainable(cfg)
     dev = resolve_device(device)
     if cfg.family == "dense":
@@ -91,7 +93,8 @@ def make_stream(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                          seed=seed, ctx=current_ctx(), device=dev)
         return ts.batch_at
     ims = ImageStream(cfg.img_size, shape.global_batch, n_classes=8,
-                      patch=cfg.patch, seed=seed, device=dev)
+                      patch=cfg.patch, seed=seed, device=dev,
+                      ctx=current_ctx())
     return lambda step: {k: v for k, v in ims.batch_at(step).items()
                          if k in ("images", "labels")}
 
@@ -223,11 +226,9 @@ def main(argv=None) -> None:
         cfg = cfg.with_(d_model=args.d_model)
     _check_trainable(cfg)
     world = args.data_par * args.model_par
-    if world > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"--data-par {args.data_par} / --model-par {args.model_par} for "
-            f"{cfg.name}: the train mesh runs the dense LM; the ViT trains "
-            f"on one device (ROADMAP.md queue A, item 1)")
+    if args.batch % args.data_par:
+        raise ValueError(f"--batch {args.batch} does not split over "
+                         f"--data-par {args.data_par} ranks")
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     run = (cfg, shape, args.steps, args.seed, args.ckpt_dir, args.ckpt_every,
            args.data_par, args.model_par, args.device)

@@ -1,8 +1,10 @@
 """Feed-forward blocks (the reference's src/repro/models/ffn.py): SwiGLU,
 the LM default, and the GELU-MLP the ViT routes through the FFN registry
-of core/backend.py. Under a "model" split of the hidden dim (the
-tensor-parallel LM) SwiGLU takes this rank's w_gate / w_up columns and
-w_down rows and reduces w_down's partial products over the split."""
+of core/backend.py. Under a "model" split of the hidden dim SwiGLU (the
+tensor-parallel LM) takes this rank's w_gate / w_up columns and w_down
+rows, and the GELU-MLP (the tensor-parallel ViT) this rank's w1 columns
+with b1 and w2 rows; each reduces its down projection's partial products
+over the split (``layers.row_parallel_linear``)."""
 
 from __future__ import annotations
 
@@ -49,8 +51,29 @@ def mlp_logical_axes() -> dict:
 
 
 def mlp(params: dict, x: torch.Tensor, policy: ExecPolicy | None = None,
-        live_rows: int | None = None) -> torch.Tensor:
+        live_rows: int | None = None, split=None) -> torch.Tensor:
     """x (..., n, d) -> (..., n, d). ``live_rows`` is the packed serving
-    hint: only the first token rows are computed, the rest return 0."""
-    return ffn_dispatch(x, params["w1"], params["b1"], params["w2"],
-                        params["b2"], policy, live_rows=live_rows)
+    hint: only the first token rows are computed, the rest return 0.
+
+    ``split`` (a ``sharding.Split`` of d_ff over "model") says the params
+    hold this rank's w1 columns, b1 and w2 rows: the composed ``xla``
+    dataflow (w1 column-parallel after ``collectives.copy_to_model``, the
+    tanh GELU in f32, w2 row-parallel, then the whole b2), in the
+    unsharded entry's order of casts and adds. The fused FFN's split
+    runs in the sharded encoder (models/sharded_encoder.py) and raises
+    here."""
+    if split is None:
+        return ffn_dispatch(x, params["w1"], params["b1"], params["w2"],
+                            params["b2"], policy, live_rows=live_rows)
+    from repro_torch.kernels.ref import gelu_tanh
+
+    p = policy or ExecPolicy()
+    if p.resolve_ffn_backend() != "xla":
+        raise NotImplementedError(
+            f"the {p.resolve_ffn_backend()!r} FFN under a 'model' split of "
+            f"d_ff outside the sharded encoder: the split MLP is the "
+            f"composed 'xla' dataflow")
+    xin = collectives.copy_to_model(x, split.group)
+    h = linear(xin, params["w1"], params["b1"], p)
+    h = gelu_tanh(h.float()).to(x.dtype)
+    return row_parallel_linear(h, params["w2"], p, split.group) + params["b2"]

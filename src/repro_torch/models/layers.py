@@ -1,8 +1,8 @@
 """Shared building blocks (the reference's src/repro/models/layers.py,
 serving subset). ``linear``/``ExecPolicy``/``QuantizedWeight`` live in
 core/backend.py and are re-exported here for the model layers.
-``row_parallel_linear`` is the tensor-parallel LM's row-split projection
-(wo, w_down) under a "model" split; ``embedding_lookup`` takes a vocab
+``row_parallel_linear`` is the tensor-parallel row-split projection (the
+LM's wo and w_down, the ViT's w2) under a "model" split; ``embedding_lookup`` takes a vocab
 split of the table and ``fsdp_layer`` gathers a layer's FSDP-split
 params where the layer is used (``DEFAULT_RULES`` / ``MULTIPOD_RULES``).
 
@@ -132,17 +132,28 @@ def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
                         group) -> torch.Tensor:
     """y = x @ w where x's last dim and w's rows are this rank's block of a
     contraction split over ``group`` ("model"): the whole product on every
-    rank, in ``x.dtype``.
+    rank, in ``x.dtype``. The activation's per-tensor scale of a
+    quantizing entry is the whole launch's: MAX-reduced over the absmax
+    scope's group (``sharding.mesh_scope``: the whole mesh, "model"
+    included), else over ``group``.
 
     bf16: each rank's partial product in f32 (exact products of the bf16
     operands, an f32 accumulate), summed over the group in f32 and rounded
     once (``collectives.reduce_from_model``), as the unsharded GEMM rounds
-    its f32 accumulate once. photonic_pallas: the activations quantized at
-    the scale of the whole launch (the absmax scope's group, else
-    ``group``), the int32 accumulates summed exactly over the group and
-    dequantized after (``sharded_encoder.int8_linear_sharded``), so the
-    result is bitwise the unsharded kernel's. Other backends raise."""
-    from repro_torch.core import backend
+    its f32 accumulate once. qat: the weight fake-quantized at the whole
+    weight's per-column scale (``collectives.replicated_absmax_scale`` over
+    ``group``, ``axis=-2``), the activations at the whole launch's, the f32
+    partial products (``backend.qat_product``) reduced as bf16's; the
+    result differs from the unsharded entry by the order of the f32 sum
+    only, and the gradient is the straight-through one of the same
+    scales. photonic_sim and photonic_pallas: the codes at those scales,
+    the int32 accumulates summed exactly over the group and dequantized
+    after (``backend.photonic_sim_accumulate`` and
+    ``collectives.exact_int_psum``, ``sharded_encoder.
+    int8_linear_sharded``), so the result is bitwise the unsharded
+    entry's. A cached weight carries its whole scale. Noisy matmuls
+    raise."""
+    from repro_torch.core import backend, quant
     from repro_torch.distributed import collectives, sharding
 
     p = policy or ExecPolicy()
@@ -151,20 +162,36 @@ def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
               else w)
         partial = torch.matmul(x.float(), wf.float())
         return collectives.reduce_from_model(partial, group, x.dtype)
-    if p.noise is None and p.backend == "photonic_pallas":
-        from repro_torch.models.sharded_encoder import int8_linear_sharded
-
-        backend._no_backward_reason(p, "photonic matmul", x, w)
-        bits = backend._weight_bits(w, p)
-        qw = backend._resolve_wq(w, bits)
+    if p.noise is not None or p.backend not in ("qat", "photonic_sim",
+                                                "photonic_pallas"):
+        raise NotImplementedError(
+            f"a row-parallel projection under {p!r}: noisy matmuls under a "
+            f"'model' split are not ported (their draws are keyed on the "
+            f"whole weight; ROADMAP.md queue A, item 1)")
+    bits = (p.quant_bits or 8 if p.backend == "qat"
+            else backend._weight_bits(w, p))
+    sw = (None if isinstance(w, QuantizedWeight) else
+          collectives.replicated_absmax_scale(w, bits, group, axis=-2))
+    # the activation's scale: the absmax scope's group, else the split's
+    with sharding.absmax_scope(sharding.absmax_group() or group):
+        if p.backend == "qat":
+            return collectives.reduce_from_model(
+                backend.qat_product(x, w, p, sw), group, x.dtype)
         lead = x.shape[:-1]
-        y = int8_linear_sharded(
-            x.reshape(-1, x.shape[-1]).float(), qw.wq, qw.scale.reshape(-1),
-            bits=bits, scale_group=sharding.absmax_group() or group,
-            psum_group=group)
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        if p.backend == "photonic_sim":
+            acc, sx, sw = backend.photonic_sim_accumulate(x2, w, p, sw)
+            acc = collectives.exact_int_psum(acc, group)
+            y = acc.float() * sx * sw.reshape(1, -1)
+        else:
+            from repro_torch.models.sharded_encoder import int8_linear_sharded
+
+            backend._no_backward_reason(p, "photonic matmul", x, w)
+            if isinstance(w, QuantizedWeight):
+                wq, sw = w.wq, w.scale
+            else:
+                wq = quant.quantize(w.float(), sw, bits=bits)
+            y = int8_linear_sharded(x2, wq, sw.reshape(-1), bits=bits,
+                                    scale_group=sharding.absmax_group(),
+                                    psum_group=group)
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)
-    raise NotImplementedError(
-        f"a row-parallel projection under {p!r}: the tensor-parallel LM runs "
-        f"the bf16 and photonic_pallas matmuls; the qat, photonic_sim and "
-        f"noisy matmuls under a 'model' split are not ported (ROADMAP.md "
-        f"queue A, item 1)")

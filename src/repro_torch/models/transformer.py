@@ -39,9 +39,10 @@ S / M rows of every layer, the new row is written by its owner, and the
 attention is B6's partial entry over the rank's rows for every query
 head (q all-gathered over "model"), merged across the ranks
 (``attention.decode_attention``), of which each rank keeps its heads for
-the row-parallel wo. Every activation absmax of a photonic policy stays
+the row-parallel wo. Every activation absmax of a quantizing policy stays
 scoped to the whole mesh (``_model_scope``), so the int8 prefill is
-bitwise the unsharded one.
+bitwise the unsharded one and a qat step's scales are the global
+batch's; a remat's recompute re-enters the scope (``sharding.bound``).
 
 ``lm_loss`` is the training loss; ``cfg.remat`` checkpoints each layer
 under autograd (``torch.utils.checkpoint``, non-reentrant), as the
@@ -212,17 +213,18 @@ def place_lm_params(params: dict, cfg: ArchConfig) -> dict:
 
 
 def _model_scope(policy):
-    """Under a mesh of more than one rank a photonic policy takes every
-    per-launch activation absmax over the whole mesh (the rows split over
-    "data", the row-parallel contractions over "model"): the unsharded
-    launch's scale on every rank."""
+    """Under a mesh of more than one rank a quantizing policy (qat,
+    photonic_sim, photonic_pallas) takes every per-launch activation
+    absmax over the whole mesh (the rows split over "data", the
+    row-parallel contractions over "model": ``sharding.mesh_scope``): the
+    unsharded launch's scale on every rank."""
     ctx = sharding.current_ctx()
     if ctx is None:
         return contextlib.nullcontext()
     sharding.check_model_rules(ctx)
-    if not policy.is_photonic() or ctx.mesh.world == 1:
+    if policy.backend == "bf16":
         return contextlib.nullcontext()
-    return sharding.absmax_scope(ctx.mesh.group(tuple(ctx.mesh.axis_names)))
+    return sharding.mesh_scope()
 
 
 def _project_qkv(p, x, cfg, policy, positions, split):
@@ -399,8 +401,8 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             lp = layer_view(params["blocks"], i)
             if remat:
                 from torch.utils.checkpoint import checkpoint
-                x = checkpoint(dense_layer_fwd, lp, x, cfg, policy, splits,
-                               use_reentrant=False)
+                x = checkpoint(sharding.bound(dense_layer_fwd), lp, x, cfg,
+                               policy, splits, use_reentrant=False)
             else:
                 x = dense_layer_fwd(lp, x, cfg, policy, splits)
         x = rmsnorm(x, params["final_ln"], cfg.norm_eps)

@@ -46,40 +46,66 @@ index, and the counter moves on by one body's calls a run; the head takes
 the next. The MGNet gate scores under ``policy.gate_policy()`` (clean
 unless the spec's ``noisy_gate``).
 
-Under a sharding context whose "model" axis has more than one rank,
-``encode_tokens`` runs the model-sharded encoder
-(models/sharded_encoder.py) instead; ``vit_logical_axes`` names the axes
-``core.backend.place_params`` shards the params by. Under the 1-D
-("data",) mesh it runs the data-split encode (``_data_split_encode``):
-each rank encodes its rows of the batch on the replicated params, with
-every per-launch absmax scope MAX-reduced over "data", and the logits
-are all-gathered.
+On a mesh, serving. Under a sharding context whose "model" axis has
+more than one rank, ``encode_tokens`` on the fused serving point runs the
+model-sharded encoder (models/sharded_encoder.py) instead;
+``vit_logical_axes`` names the axes ``core.backend.place_params`` shards
+the params by. Under the 1-D ("data",) mesh it runs the data-split
+encode (``_data_split_encode``): each rank encodes its rows of the batch
+on the replicated params, with every per-launch absmax scope MAX-reduced
+over "data", and the logits are all-gathered. Under ``DEFAULT_RULES`` /
+``MULTIPOD_RULES`` the fused serving encode raises (ROADMAP.md queue A,
+item 1).
+
+On a mesh, every other policy (the composed entries: training, the
+reference's ``vit_logical_axes`` under GSPMD) runs SPMD: each rank holds
+its rows of the batch ("batch" over the batch axes) and its blocks of the
+params as ``vit_placement_axes`` places them, and the whole forward (the
+patch embed, MGNet's gate, the trunk, the head) runs inside the absmax
+scope of the whole mesh (``sharding.mesh_scope``), so every fake-quant
+scale is the global batch's, as GSPMD's. Under a "model" split of the
+heads ("p_heads") the input goes through ``collectives.copy_to_model``,
+wq / wk / wv give this rank's heads, and their merged outputs are
+all-gathered over "model" before the whole wo
+(``collectives.gather_from_model``: its backward is this rank's slice);
+under a split of d_ff ("p_mlp") w1 is column- and w2 row-parallel
+(``ffn.mlp``); LN, wo, cls, pos, the head and MGNet stay whole on every
+"model" rank. Under FSDP ("p_embed" over the batch axes) each layer's
+leaves, the patch embed's and the head are gathered where they are used
+(``layers.fsdp_layer``; the gather's backward is the reduce-scatter
+mean). A remat's recompute re-enters the context and the scope
+(``sharding.bound``). Noisy matmuls on a mesh raise (ROADMAP.md queue A,
+item 1).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import mgnet as mgnet_mod
 from repro_torch.core import noise as noise_mod
-from repro_torch.core.decomposed_attention import (mhsa_decomposed,
+from repro_torch.core.decomposed_attention import (attention_heads,
+                                                   mhsa_decomposed,
                                                    mhsa_standard)
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (absmax_scope,
-                                              check_model_rules, current_ctx)
+from repro_torch.distributed.sharding import (absmax_scope, bound,
+                                              check_model_rules, current_ctx,
+                                              mesh_scope, split_of)
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import sharded_encoder
-from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, layernorm,
-                                       layer_view, linear)
+from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, fsdp_layer,
+                                       layernorm, layer_view, linear)
 
 __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "forward_vit_masked",
            "vit_matmul_shapes", "mgnet_config", "vit_logical_axes",
+           "vit_layer_axes", "vit_splits", "vit_placement_axes",
            "data_split_calls", "check_training_tree"]
 
 # "split" -> data-split encodes run by this process with the batch split
@@ -102,34 +128,70 @@ def mgnet_config(cfg: ArchConfig) -> MGNetConfig:
                        embed=cfg.mgnet_embed, heads=cfg.mgnet_heads)
 
 
+# logical axes of the patch embed's and the head's leaves
+_PATCH_AXES = {"w": (None, "p_embed"), "b": ("p_embed",)}
+_HEAD_AXES = {"head": ("p_embed", None)}
+
+
+def vit_layer_axes() -> dict:
+    """Logical axes of one encoder layer's leaves (``vit_logical_axes``'s
+    blocks without "p_layers"). wq/wk/wv output columns are head-major, so
+    a "model" mesh axis splits them into whole head groups; wo is
+    deliberately not tagged on its head-major rows: the sharded encoder
+    consumes it whole after all-gathering the merged head outputs (its
+    dequant runs inside the photonic matmul kernel, so a row split could
+    not reduce the int32 accumulates before the dequant), and the
+    composed mesh trunk does the same."""
+    return {"ln1_g": (None,), "ln1_b": (None,),
+            "attn": {"wq": ("p_embed", "p_heads"),
+                     "wk": ("p_embed", "p_heads"),
+                     "wv": ("p_embed", "p_heads"), "wo": (None, "p_embed")},
+            "ln2_g": (None,), "ln2_b": (None,),
+            "ffn": ffn_mod.mlp_logical_axes()}
+
+
 def vit_logical_axes(cfg: ArchConfig) -> dict:
     """Logical axes of every param leaf (stacked ``blocks`` leaves lead with
-    "p_layers"). wq/wk/wv output columns are head-major, so a "model" mesh
-    axis splits them into whole head groups; wo is deliberately not tagged
-    on its head-major rows: the sharded encoder consumes it whole after
-    all-gathering the merged head outputs (its dequant runs inside the
-    photonic matmul kernel, so a row split could not reduce the int32
-    accumulates before the dequant)."""
-    layer = {"ln1_g": (None,), "ln1_b": (None,),
-             "attn": {"wq": ("p_embed", "p_heads"),
-                      "wk": ("p_embed", "p_heads"),
-                      "wv": ("p_embed", "p_heads"), "wo": (None, "p_embed")},
-             "ln2_g": (None,), "ln2_b": (None,),
-             "ffn": ffn_mod.mlp_logical_axes()}
-
+    "p_layers"; one layer's are ``vit_layer_axes``)."""
     def stacked(tree):
         if isinstance(tree, dict):
             return {k: stacked(v) for k, v in tree.items()}
         return ("p_layers",) + tuple(tree)
 
-    ax = {"patch_embed": {"w": (None, "p_embed"), "b": ("p_embed",)},
+    ax = {"patch_embed": dict(_PATCH_AXES),
           "cls": (None, None, None), "pos": (None, None, None),
-          "blocks": stacked(layer),
+          "blocks": stacked(vit_layer_axes()),
           "final_ln_g": (None,), "final_ln_b": (None,),
-          "head": ("p_embed", None)}
+          "head": _HEAD_AXES["head"]}
     if cfg.mgnet:
         ax["mgnet"] = mgnet_mod.mgnet_logical_axes()
     return ax
+
+
+def vit_splits(cfg: ArchConfig) -> tuple:
+    """(heads, d_ff, d_model) splits of the installed context
+    (``sharding.split_of`` of "p_heads" over the head count, "p_mlp" over
+    d_ff, "p_embed" over d_model, the FSDP split): None where a dim stays
+    whole. Read once a forward and passed down, so a remat's recompute
+    sees the forward's."""
+    return (split_of("p_heads", cfg.n_heads), split_of("p_mlp", cfg.d_ff),
+            split_of("p_embed", cfg.d_model))
+
+
+def vit_placement_axes(cfg: ArchConfig, axes: dict | None = None) -> dict:
+    """``axes`` (default ``vit_logical_axes``; a train state's tree too)
+    with the axes the installed context cannot split dropped: "p_heads"
+    where the model axis does not divide the heads (it may divide wq's
+    columns all the same), "p_mlp" where it does not divide d_ff, and
+    "p_embed" where the FSDP axes do not divide d_model."""
+    drop = {ax for ax, split in zip(("p_heads", "p_mlp", "p_embed"),
+                                    vit_splits(cfg)) if split is None}
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return tuple(None if a in drop else a for a in t)
+    return walk(vit_logical_axes(cfg) if axes is None else axes)
 
 
 def embed_patches(params: dict, images: torch.Tensor, cfg: ArchConfig,
@@ -139,26 +201,53 @@ def embed_patches(params: dict, images: torch.Tensor, cfg: ArchConfig,
     positions."""
     policy = policy or ExecPolicy.from_cfg(cfg)
     pt = patchify(images, cfg.patch)                      # (B, N, p*p*3)
-    x = linear(pt, params["patch_embed"]["w"], params["patch_embed"]["b"],
-               policy)
+    pe = fsdp_layer(params["patch_embed"], _PATCH_AXES,
+                    split_of("p_embed", cfg.d_model), cfg.d_model)
+    x = linear(pt, pe["w"], pe["b"], policy)
     return x + params["pos"][:, 1: x.shape[1] + 1]
+
+
+def _split_attention(h: torch.Tensor, p: dict, cfg: ArchConfig,
+                     policy: ExecPolicy, mask, kv_len, split) -> torch.Tensor:
+    """The standard MHSA on this rank's heads (``split``): the input's
+    gradient summed over "model", the merged heads all-gathered over it
+    (backward: this rank's slice) before the whole wo."""
+    if cfg.attn_impl != "standard":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} (Eq. 2) under a 'model' split of "
+            f"the heads: the composed mesh trunk runs the standard dataflow")
+    x = collectives.copy_to_model(h, split.group)
+    o = attention_heads(x, p, cfg.n_heads // split.n, policy, mask, kv_len)
+    o = collectives.gather_from_model(o, split.group, -1)
+    return linear(o, p["wo"], policy=policy)
 
 
 def encoder_layer_step(carry: torch.Tensor, lp: dict, cfg: ArchConfig,
                        policy: ExecPolicy,
                        mask: torch.Tensor | None = None,
                        attn_kv: int | None = None,
-                       ffn_live: int | None = None) -> torch.Tensor:
+                       ffn_live: int | None = None,
+                       splits: tuple | None = None) -> torch.Tensor:
     """One encoder layer: LN -> MHSA (standard, or Eq. 2 under
     ``attn_impl="decomposed"``) -> residual -> LN -> FFN -> residual.
-    ``lp`` is one layer's param slice."""
+    ``lp`` is one layer's param slice; ``splits`` the mesh trunk's
+    ``vit_splits`` (this rank's heads, d_ff and FSDP blocks), None
+    unsharded. ``lp``'s FSDP blocks are gathered here, so a remat's
+    recompute gathers again."""
+    heads, mlp, fsdp = splits or (None, None, None)
+    if fsdp is not None:
+        lp = fsdp_layer(lp, vit_layer_axes(), fsdp, cfg.d_model)
     h = layernorm(carry, lp["ln1_g"], lp["ln1_b"], cfg.norm_eps)
-    mhsa = (mhsa_decomposed if cfg.attn_impl == "decomposed"
-            else mhsa_standard)
-    o = mhsa(h, lp["attn"], cfg.n_heads, policy, mask, attn_kv)
+    if heads is None:
+        mhsa = (mhsa_decomposed if cfg.attn_impl == "decomposed"
+                else mhsa_standard)
+        o = mhsa(h, lp["attn"], cfg.n_heads, policy, mask, attn_kv)
+    else:
+        o = _split_attention(h, lp["attn"], cfg, policy, mask, attn_kv, heads)
     carry = carry + o.to(carry.dtype)
     h2 = layernorm(carry, lp["ln2_g"], lp["ln2_b"], cfg.norm_eps)
-    return carry + ffn_mod.mlp(lp["ffn"], h2, policy, live_rows=ffn_live)
+    return carry + ffn_mod.mlp(lp["ffn"], h2, policy, live_rows=ffn_live,
+                               split=mlp)
 
 
 def _blocks_qw_leaves(blocks) -> list:
@@ -258,12 +347,14 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     (the reference warns once and composes).
 
     Under a sharding context with a "model" axis of more than one rank
-    the encode runs model-sharded (``sharded_encoder.sharded_encode``) on
-    this rank's shard of the params, on the fused point only. If that
-    path cannot run, this raises with the reason: the port never serves
+    the fused point's encode runs model-sharded (``sharded_encoder.
+    sharded_encode``) on this rank's shard of the params. If that path
+    cannot run, this raises with the reason: the port never serves
     unsharded when sharding was asked for (the reference warns once and
     falls back). Under the 1-D ("data",) mesh it runs the data-split
-    encode (``_data_split_encode``), on the fused point only too.
+    encode (``_data_split_encode``). Every other policy on a mesh runs
+    the composed mesh trunk (the module docstring): ``tokens`` are then
+    this rank's rows and the logits its rows'.
     """
     dev = resolve_device(device)
     _check_device(params, dev)
@@ -274,7 +365,10 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if patch_mask is not None:
         patch_mask = torch.as_tensor(patch_mask).to(dev)
     ctx = current_ctx()
-    check_model_rules(ctx, "vit")
+    if _on_mesh(params, cfg, policy, ctx):
+        with mesh_scope():
+            return _encode_local(params, tokens, cfg, policy, patch_mask,
+                                 kv_len, vit_splits(cfg))
     if ctx is not None and ctx.mesh.shape.get("model", 1) > 1:
         sreason = (_fused_encoder_ineligible_reason(params, cfg, policy)
                    or sharded_encoder.sharded_encode_ineligible_reason(
@@ -292,6 +386,32 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         return _data_split_encode(params, tokens, cfg, policy, patch_mask,
                                   kv_len, ctx)
     return _encode_local(params, tokens, cfg, policy, patch_mask, kv_len)
+
+
+def _on_mesh(params: dict, cfg: ArchConfig, policy: ExecPolicy,
+             ctx) -> bool:
+    """Whether a forward under ``ctx`` runs the composed mesh trunk: a
+    context of more than one rank and a policy off the fused serving
+    point. Raises where a forward on the mesh cannot run: the fused
+    encode under FSDP ("p_embed" split: ``DEFAULT_RULES`` /
+    ``MULTIPOD_RULES``), a noisy policy."""
+    if ctx is None or ctx.mesh.world == 1:
+        return False
+    check_model_rules(ctx, "vit")
+    if _fused_encoder_ineligible_reason(params, cfg, policy) is None:
+        if split_of("p_embed", cfg.d_model) is not None:
+            raise NotImplementedError(
+                f"the ViT's fused serving encode under {dict(ctx.rules)} on "
+                f"the mesh {dict(ctx.mesh.shape)}: FSDP ('p_embed' split) "
+                f"serving is not ported; serve under DATA_RULES or "
+                f"MODEL_RULES (ROADMAP.md queue A, item 1)")
+        return False
+    if policy.noise is not None:
+        raise NotImplementedError(
+            f"a noisy ViT forward on the mesh {dict(ctx.mesh.shape)}: noisy "
+            f"matmuls on a mesh are not ported (their draws are keyed on the "
+            f"whole weight and the whole launch; ROADMAP.md queue A, item 1)")
+    return True
 
 
 def _data_split_encode(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -326,8 +446,11 @@ def _data_split_encode(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                   policy: ExecPolicy, patch_mask: torch.Tensor | None,
-                  kv_len: int | None) -> torch.Tensor:
-    """The unsharded encoder trunk on this rank's tokens -> logits."""
+                  kv_len: int | None, splits: tuple | None = None
+                  ) -> torch.Tensor:
+    """The encoder trunk on this rank's tokens -> logits: unsharded, or
+    the composed mesh trunk on this rank's blocks (``splits``, the
+    ``vit_splits`` of the installed context)."""
     b, _, d = tokens.shape
     cls = params["cls"].expand(b, 1, d) + params["pos"][:, :1]
     x = torch.cat([cls.to(tokens.dtype), tokens], dim=1)
@@ -337,14 +460,15 @@ def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     attn_kv = None if kv_len is None else int(kv_len) + 1   # + live [cls]
     if policy.noise is None and cfg.remat and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
+        step = bound(encoder_layer_step)
         for i in range(cfg.n_layers):
-            x = checkpoint(encoder_layer_step, x,
-                           layer_view(params["blocks"], i), cfg, policy,
-                           mask, attn_kv, attn_kv, use_reentrant=False)
+            x = checkpoint(step, x, layer_view(params["blocks"], i), cfg,
+                           policy, mask, attn_kv, attn_kv, splits,
+                           use_reentrant=False)
     elif policy.noise is None:
         for i in range(cfg.n_layers):
             x = encoder_layer_step(x, layer_view(params["blocks"], i), cfg,
-                                   policy, mask, attn_kv, attn_kv)
+                                   policy, mask, attn_kv, attn_kv, splits)
     else:
         sc = noise_mod.current_scope()
         for lo, hi in _bit_segments(params["blocks"], cfg.n_layers):
@@ -357,7 +481,9 @@ def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                                            cfg, policy, mask, attn_kv,
                                            attn_kv)
     x = layernorm(x, params["final_ln_g"], params["final_ln_b"], cfg.norm_eps)
-    return linear(x[:, 0], params["head"], policy=policy)
+    head = fsdp_layer({"head": params["head"]}, _HEAD_AXES,
+                      None if splits is None else splits[2], cfg.d_model)
+    return linear(x[:, 0], head["head"], policy=policy)
 
 
 def forward_vit(params: dict, images: torch.Tensor, cfg: ArchConfig,
@@ -366,20 +492,32 @@ def forward_vit(params: dict, images: torch.Tensor, cfg: ArchConfig,
 
     With cfg.mgnet, MGNet scores patches and a static top-k budget of
     int(keep_ratio * N) enters the encoder (the paper's masked inference).
+    On a mesh off the fused point (the composed mesh trunk) ``images``
+    are this rank's rows, and the whole forward, MGNet's gate included,
+    runs inside the mesh's absmax scope.
     """
     dev = resolve_device(device)
     _check_device(params, dev)
     images = torch.as_tensor(images).to(dev)
     policy = policy or ExecPolicy.from_cfg(cfg)
-    x = embed_patches(params, images, cfg, policy)
-    n = x.shape[1]
-    kept = n
-    if cfg.mgnet and cfg.mgnet_keep_ratio < 1.0:
-        scores = mgnet_scores(params["mgnet"], images, mgnet_config(cfg),
-                              policy.gate_policy())
-        kept = max(1, int(cfg.mgnet_keep_ratio * n))
-        x, _ = mgnet_mod.select_topk_patches(scores, x, kept)
-    return encode_tokens(params, x, cfg, policy, device=dev), kept
+    with _forward_scope(params, cfg, policy):
+        x = embed_patches(params, images, cfg, policy)
+        n = x.shape[1]
+        kept = n
+        if cfg.mgnet and cfg.mgnet_keep_ratio < 1.0:
+            scores = mgnet_scores(params["mgnet"], images, mgnet_config(cfg),
+                                  policy.gate_policy())
+            kept = max(1, int(cfg.mgnet_keep_ratio * n))
+            x, _ = mgnet_mod.select_topk_patches(scores, x, kept)
+        return encode_tokens(params, x, cfg, policy, device=dev), kept
+
+
+def _forward_scope(params: dict, cfg: ArchConfig, policy: ExecPolicy):
+    """The mesh's absmax scope where the forward runs the composed mesh
+    trunk, else a no-op."""
+    if _on_mesh(params, cfg, policy, current_ctx()):
+        return mesh_scope()
+    return contextlib.nullcontext()
 
 
 def forward_vit_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -403,9 +541,10 @@ def forward_vit_masked(params: dict, images: torch.Tensor,
     _check_device(params, dev)
     images = torch.as_tensor(images).to(dev)
     policy = policy or ExecPolicy.from_cfg(cfg)
-    x = embed_patches(params, images, cfg, policy)
-    return encode_tokens(params, x, cfg, policy, patch_mask,
-                         device=dev), x.shape[1]
+    with _forward_scope(params, cfg, policy):
+        x = embed_patches(params, images, cfg, policy)
+        return encode_tokens(params, x, cfg, policy, patch_mask,
+                             device=dev), x.shape[1]
 
 
 def vit_matmul_shapes(cfg: ArchConfig, kept_patches: int | None = None,

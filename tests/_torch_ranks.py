@@ -1,7 +1,7 @@
 """Rank bodies for the port's multi-rank tests (``test_torch_sharding.py``,
 ``test_torch_data_mesh.py``, ``test_torch_lm_mesh.py``,
 ``test_torch_lm_fsdp.py``, ``test_torch_lm_multipod.py``,
-``test_torch_gpu.py``), run by
+``test_torch_vit_mesh.py``, ``test_torch_gpu.py``), run by
 ``repro_torch.launch.mesh.spawn_ranks``.
 
 A spawned rank imports this module by name to find its function, so it
@@ -582,4 +582,210 @@ def lm_fsdp_suite(tree: dict, cfg, prompt: np.ndarray, forced: np.ndarray,
         out["restored_bitwise"] = all(
             torch.equal(a, b) for a, b in zip(tree_leaves(back),
                                               tree_leaves(final)))
+    return out
+
+
+# --------------------------------------------------------------------------
+# ViT training on every mesh (test_torch_vit_mesh.py)
+# --------------------------------------------------------------------------
+
+VIT_FAULTS = {"data": "rank-local activation scales",
+              "model": "w2's weight absmax without its MAX over model",
+              "default": "the FSDP backward without its reduce-scatter"}
+
+
+def _vit_meshes() -> dict:
+    """The four tables' meshes over the same 4 ranks: ("data",) 4 under
+    DATA_RULES, (2, 2) under MODEL_RULES and DEFAULT_RULES, (2, 1, 2)
+    ("pod", "data", "model") under MULTIPOD_RULES."""
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+
+    data = _build_mesh(4, 1, "cpu", axis_names=("data",))
+    dm = make_host_mesh(2, 2, device="cpu")
+    pod = _build_mesh(1, 2, "cpu", _AXES, n_pod=2)
+    return {"data": (data, sharding.DATA_RULES),
+            "model": (dm, sharding.MODEL_RULES),
+            "default": (dm, sharding.DEFAULT_RULES),
+            "multipod": (pod, sharding.MULTIPOD_RULES)}
+
+
+def _vit_step(cfg, state, batch, ctx) -> dict:
+    """One mesh train step on this rank's blocks of ``state`` and rows of
+    ``batch`` (whole, numpy): the global loss, the clip norm and the new
+    first moment (logical: 0.1 x the clipped gradient with f32 moments),
+    and the shapes this rank holds."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+
+    st_axes = steps.placement_axes(cfg, steps.state_logical_axes(cfg))
+    local = place_params(state, st_axes, ctx)
+    rows = {k: named_sharding_rows(v, ctx) for k, v in batch.items()}
+    new, m = steps.make_train_fn(cfg)(local, rows)
+    p_axes = steps.placement_axes(cfg, api.model_logical_axes(cfg))
+    return {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+            "m": _np_tree(steps.gather_tree(new["opt"]["m"], p_axes, ctx)),
+            "local": {k: tuple(v.shape) for k, v in (
+                ("wq", local["params"]["blocks"]["attn"]["wq"]),
+                ("wo", local["params"]["blocks"]["attn"]["wo"]),
+                ("w1", local["params"]["blocks"]["ffn"]["w1"]),
+                ("w2", local["params"]["blocks"]["ffn"]["w2"]),
+                ("patch_w", local["params"]["patch_embed"]["w"]),
+                ("head", local["params"]["head"]),
+                ("images", rows["images"]))}}
+
+
+def named_sharding_rows(a: np.ndarray, ctx) -> torch.Tensor:
+    """This rank's rows of a whole batch array (its block along "batch")."""
+    spec = sharding.named_sharding(a.shape, ("batch",) + (None,) * (
+        a.ndim - 1), ctx)
+    return spec.block(torch.from_numpy(np.ascontiguousarray(a))).contiguous()
+
+
+def _row_parallel_cases(cases: list, ctx) -> list:
+    """``row_parallel_linear`` on this rank's rows of x and block of the
+    contraction (rows split over the batch axes, K over "model") inside
+    the mesh's scope, the outputs' rows gathered, as f32: one array a case
+    (x, w, policy kwargs, "f32" or "bf16")."""
+    from repro_torch.launch.steps import gather_tree
+    from repro_torch.models.layers import row_parallel_linear
+
+    mesh = ctx.mesh
+    out = []
+    for x, w, kw, dt in cases:
+        k = w.shape[0] // mesh.model
+        ks = slice(mesh.m * k, (mesh.m + 1) * k)
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        xl = named_sharding_rows(x, ctx)[:, ks].to(dtype)
+        wl = torch.from_numpy(np.ascontiguousarray(w[ks])).to(dtype)
+        with sharding.mesh_scope(), torch.no_grad():
+            y = row_parallel_linear(xl, wl, ExecPolicy(**kw),
+                                    mesh.group("model"))
+        out.append(_np32(gather_tree(y, ("batch", None), ctx)))
+    return out
+
+
+def vit_mesh_suite(states: dict, cfgs: dict, batch: dict, rp_cases: list,
+                   lm: tuple, ckpt_dir: str) -> dict:
+    """One rank of the ViT's training on all four tables (``_vit_meshes``):
+    each case of ``cfgs`` (name -> cfg, its whole train state in
+    ``states``) one mesh step on ``batch``; the planted faults
+    (``VIT_FAULTS``, on the "plain" case); ``rp_cases`` through
+    ``row_parallel_linear`` and the "plain" step under remat under
+    MODEL_RULES; the dense LM ``lm`` =
+    (cfg, whole params, numpy batch) one qat gradient under MODEL_RULES;
+    and 2 train steps under DEFAULT_RULES checkpointed each step into
+    ``ckpt_dir``, gathered."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.optim.adamw import tree_leaves
+
+    meshes = _vit_meshes()
+    out = {"jax_loaded": "jax" in sys.modules,
+           "repro_loaded": any(m == "repro" or m.startswith("repro.")
+                               for m in sys.modules),
+           "steps": {}, "planted": {}}
+
+    def fsdp_no_reduce(g, group, dim):
+        n = torch.distributed.get_world_size(group)
+        step = g.shape[dim] // n
+        part = g.narrow(dim, torch.distributed.get_rank(group) * step, step)
+        return (part.float() / n).to(g.dtype)
+
+    whole_scale = collectives.replicated_absmax_scale
+
+    def local_weight_scale(x, bits, group, eps=1e-8, axis=None):
+        # an activation's MAX kept, a row-split weight's per-column one not
+        if axis is None:
+            return whole_scale(x, bits, group, eps)
+        from repro_torch.core import quant
+        return quant.absmax_scale(x, bits=bits, axis=axis)
+
+    planted = {"data": (sharding, "absmax_group", lambda: None),
+               "model": (collectives, "replicated_absmax_scale",
+                         local_weight_scale),
+               "default": (collectives, "reduce_scatter_mean",
+                           fsdp_no_reduce)}
+    for table, (mesh, rules) in meshes.items():
+        with use_sharding(mesh, rules) as ctx:
+            for name, cfg in cfgs.items():
+                out["steps"][(table, name)] = _vit_step(cfg, states[name],
+                                                        batch, ctx)
+            if table in planted:
+                mod, attr, fn = planted[table]
+                saved = getattr(mod, attr)
+                setattr(mod, attr, fn)
+                try:
+                    out["planted"][table] = _vit_step(
+                        cfgs["plain"], states["plain"], batch, ctx)["m"]
+                finally:
+                    setattr(mod, attr, saved)
+            if table == "model":
+                out["remat"] = _vit_step(cfgs["plain"].with_(remat=True),
+                                         states["plain"], batch, ctx)
+                out["row_parallel"] = _row_parallel_cases(rp_cases, ctx)
+                lcfg, ltree, lbatch = lm
+                from repro_torch.models import transformer
+                loss, g, _ = _lm_grads(lcfg, transformer.place_lm_params(
+                    ltree, lcfg), {k: named_sharding_rows(v, ctx)
+                                   for k, v in lbatch.items()}, ctx)
+                out["lm_qat"] = (loss, g)
+            if table == "default":
+                cfg = cfgs["plain"]
+                shape = ShapeConfig("vit_mesh", 0, batch["labels"].shape[0],
+                                    "train")
+                axes = steps.placement_axes(cfg, steps.state_logical_axes(cfg))
+                final, losses, _ = train.train_loop(
+                    cfg, shape, 2, device="cpu",
+                    state=place_params(states["plain"], axes, ctx),
+                    ckpt=CheckpointManager(ckpt_dir, every=1))
+                out["losses"] = losses
+                out["final"] = _np_tree(steps.gather_tree(final, axes, ctx))
+                back, step = restore(f"{ckpt_dir}/step_2", final, ctx, axes)
+                out["restored"] = (step, all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                      tree_leaves(final))))
+    return out
+
+
+def vit_mesh_card(params: dict, cfg, batch: dict,
+                  device: str = "cuda") -> dict:
+    """One rank of the (data 1, model 2) mesh under MODEL_RULES on
+    ``device``: one step's global loss and logical gradient (numpy) on
+    this rank's blocks of the whole ``params`` and ``batch``, and whether
+    the photonic_sim row-parallel entry at w2's shape is bitwise the
+    unsharded entry."""
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.layers import row_parallel_linear
+    from repro_torch.optim.adamw import tree_map
+
+    mesh = make_host_mesh(1, 2, device=device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        full_precision_matmuls()
+    whole = tree_map(lambda t: t.to(dev), params)
+    out = {}
+    with use_sharding(mesh, sharding.MODEL_RULES) as ctx:
+        axes = steps.placement_axes(cfg, api.model_logical_axes(cfg))
+        local = place_params(whole, axes, ctx)
+        rows = {k: named_sharding_rows(v, ctx).to(dev)
+                for k, v in batch.items()}
+        loss, g = steps.make_grad_fn(cfg)(local, rows)
+        out["loss"] = float(loss)
+        out["grads"] = _np_tree(steps.gather_tree(g, axes, ctx))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        h = torch.randn(6304, cfg.d_ff, generator=gen, device=dev)
+        w2 = whole["blocks"]["ffn"]["w2"][0]
+        k = cfg.d_ff // 2
+        ks = slice(mesh.m * k, (mesh.m + 1) * k)
+        pol = ExecPolicy(8, "photonic_sim", training=False)
+        with sharding.mesh_scope(), torch.no_grad():
+            y = row_parallel_linear(h[:, ks], w2[ks], pol,
+                                    mesh.group("model"))
+            with sharding._installed(None):
+                y1 = pol.matmul_fn(h, w2, pol)
+        out["sim_bitwise"] = bool(torch.equal(y, y1))
     return out

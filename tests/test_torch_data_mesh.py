@@ -136,9 +136,10 @@ def test_validate_rules_matches_reference(mesh, rules):
 
 def test_rules_for_other_meshes_raise():
     """A "pod" mesh gets the reference's MULTIPOD_RULES and any other axes
-    its DEFAULT_RULES; the ViT under either with a size > 1 axis that maps
-    FSDP, the vocab or kv_seq raises, naming what is not ported (the dense
-    LM runs under both: tests/test_torch_lm_fsdp.py)."""
+    its DEFAULT_RULES; the dense LM and the ViT run under both
+    (tests/test_torch_lm_fsdp.py, test_torch_vit_mesh.py), while a family
+    with experts raises there, the "model" axis splitting them, naming
+    what is not ported."""
     mesh = _mesh(("pod", "data", "model"), pod=2, data=2, model=2)
     assert jsharding.rules_for_mesh(mesh) is jsharding.MULTIPOD_RULES
     assert tsharding.rules_for_mesh(mesh) == jsharding.MULTIPOD_RULES
@@ -147,9 +148,9 @@ def test_rules_for_other_meshes_raise():
     for m in (mesh, other):
         ctx = tsharding.ShardingCtx(m, tsharding.rules_for_mesh(m))
         tsharding.check_model_rules(ctx)
-        with pytest.raises(NotImplementedError,
-                           match="ViT runs under DATA_RULES and MODEL_RULES"):
-            tsharding.check_model_rules(ctx, "vit")
+        tsharding.check_model_rules(ctx, "vit")
+        with pytest.raises(NotImplementedError, match="queue A15"):
+            tsharding.check_model_rules(ctx, "moe")
 
 
 def test_absmax_scope_needs_a_context():

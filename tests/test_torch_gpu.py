@@ -1878,3 +1878,64 @@ def test_tensor_parallel_prefill_on_two_ranks_of_the_card(dev):
         assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
         assert (got.argmax(-1) == want.argmax(-1)).mean() > 0.99
         assert r["launches"].get("flash_attention_causal", 0) == 2
+
+
+# --------------------------------------------------------------------------
+# ViT QAT training on every mesh (path 4l's checks at smoke size)
+# --------------------------------------------------------------------------
+
+def _vit_mesh_smoke():
+    cfg = smoke_variant(get_config("opto-vit-tiny")).with_(
+        n_layers=2, quant_bits=8, mgnet=True, mgnet_keep_ratio=1.0,
+        mgnet_embed=32, mgnet_heads=2)
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.launch.train import init_state
+    b = ImageStream(32, 8, n_classes=8, patch=8, seed=0).batch_at(0)
+    return (cfg, init_state(cfg, 0, "cpu")["params"],
+            {k: b[k] for k in ("images", "labels")})
+
+
+def _global_rel_l2(a, b):
+    from repro_torch.optim.adamw import tree_leaves
+    num = sum(float(((np.float64(x) - y) ** 2).sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float((np.float64(y) ** 2).sum()) for y in tree_leaves(b))
+    return (num / den) ** 0.5
+
+
+@pytest.mark.gpu
+def test_vit_mesh_step_under_remat_on_the_card_against_one_device(dev):
+    """One QAT step's gradient (MGNet's pruning off) under MODEL_RULES with
+    ``cfg.remat`` on 2 gloo ranks sharing the card, against the one-device
+    step on the card: within 4x the control (the one-device step with its
+    qat products summed in another order) and under 1e-4, the loss within
+    1e-6, the ranks' losses equal; the photonic_sim row-parallel entry at
+    w2's shape bitwise the unsharded entry. The recompute runs on
+    autograd's device thread and must re-enter the context and the
+    absmax scope (``sharding.bound``). chip_smoke.py's path 4l holds the
+    same step without remat under all four tables."""
+    from repro_torch.core import backend
+    from repro_torch.launch.steps import make_grad_fn
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from qat_grad_gap import _qat_split
+
+    cfg, params, batch = _vit_mesh_smoke()
+    ranks = spawn_ranks(_torch_ranks.vit_mesh_card, 2, params,
+                        cfg.with_(remat=True), batch, "cuda",
+                        device="cuda", timeout_s=600)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    p = to_device(params, dev)
+    loss1, g1 = make_grad_fn(cfg)(p, on)
+    saved = backend.BACKENDS["qat"]
+    backend.BACKENDS["qat"] = _qat_split
+    try:
+        _, g_ctl = make_grad_fn(cfg)(p, on)
+    finally:
+        backend.BACKENDS["qat"] = saved
+    g1 = _torch_ranks._np_tree(g1)
+    control = _global_rel_l2(_torch_ranks._np_tree(g_ctl), g1)
+    rel = _global_rel_l2(ranks[0]["grads"], g1)
+    assert rel <= 4 * control and rel < 1e-4, (rel, control)
+    assert abs(ranks[0]["loss"] - float(loss1)) <= 1e-6 * abs(float(loss1))
+    assert len({r["loss"] for r in ranks}) == 1
+    assert all(r["sim_bitwise"] for r in ranks)

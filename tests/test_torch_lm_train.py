@@ -440,28 +440,38 @@ def test_fsdp_step_specs_split_embed_vocab_and_kv_seq(pod):
 
 
 def test_default_and_multipod_rules_raise_for_experts_and_the_vit():
-    """The tables are chosen and read; the dense LM runs under them
-    (tests/test_torch_lm_fsdp.py, test_torch_lm_multipod.py), while a
-    size > 1 axis that maps the experts raises for any other family,
-    naming A15, and one that maps FSDP, the vocab, kv_seq or the experts
-    raises for the ViT, naming queue A, item 1, as does ViT training on
-    a mesh. The reference's param_spec raises, and the port's."""
+    """The tables are chosen and read; the dense LM and the ViT run under
+    them (tests/test_torch_lm_fsdp.py, test_torch_lm_multipod.py,
+    test_torch_vit_mesh.py), while a size > 1 axis that maps the experts
+    raises for any other family, naming A15, and the ViT's fused serving
+    encode raises where "p_embed" splits, naming queue A, item 1. The
+    reference's param_spec raises, and the port's."""
+    from repro_torch.core.backend import ExecPolicy, prepare_params
+    from repro_torch.launch.train import init_state
+    from repro_torch.models.vit import encode_tokens
+
     vit = tsmoke(tget("opto-vit-tiny"))
+    cache = prepare_params(init_state(vit, 0, "cpu")["params"], bits=8)
+    fused = ExecPolicy(8, "photonic_pallas", "flash", "fused",
+                       training=False)
     for axes, shape in ((("data", "model"), dict(data=2, model=1)),
                         (("x", "model"), dict(x=1, model=2)),
                         (("pod", "data", "model"),
                          dict(pod=2, data=1, model=1))):
         mesh = types.SimpleNamespace(axis_names=axes, shape=shape,
-                                     world=2)
+                                     world=2, coord=lambda ax: 0,
+                                     group=lambda axes: None)
         rules = (tsharding.DEFAULT_RULES if "pod" not in axes
                  else tsharding.MULTIPOD_RULES)
         ctx = tsharding.ShardingCtx(mesh, rules)
         tsharding.check_model_rules(ctx)
-        with pytest.raises(NotImplementedError, match="queue A, item 1"):
-            tsharding.check_model_rules(ctx, "vit")
-        with tsharding._installed(ctx):
-            with pytest.raises(NotImplementedError, match="queue A, item 1"):
-                tsteps.make_train_fn(vit)
+        tsharding.check_model_rules(ctx, "vit")
+        if tsharding._axis_size(mesh, rules["p_embed"]) > 1:
+            with tsharding._installed(ctx):
+                with pytest.raises(NotImplementedError,
+                                   match="queue A, item 1"):
+                    encode_tokens(cache, torch.zeros(2, 16, 64), vit, fused,
+                                  device="cpu")
         if shape.get("model", 1) > 1:
             with pytest.raises(NotImplementedError, match="A15"):
                 tsharding.check_model_rules(ctx, "moe")

@@ -669,9 +669,11 @@ def test_remat_leaves_values_and_gradients_unchanged(ref):
 
 
 def test_train_loop_refuses_a_sharding_context():
-    """The ViT trains on one device: a train step under a context of more
-    than one rank raises, naming the train mesh's item (the dense LM's
-    train mesh is test_torch_lm_mesh.py's)."""
+    """The ViT trains under every table (tests/test_torch_vit_mesh.py), but
+    not under calibrated device noise: a noisy train step under a context
+    of more than one rank raises before any collective, naming the mesh's
+    remaining item."""
+    from repro_torch.core.noise import NoiseSpec
     from repro_torch.distributed import sharding
 
     class _Mesh:
@@ -682,7 +684,8 @@ def test_train_loop_refuses_a_sharding_context():
     with sharding._installed(sharding.ShardingCtx(_Mesh(),
                                                   sharding.DATA_RULES)):
         with pytest.raises(NotImplementedError, match="queue A, item 1"):
-            ttrain.train_loop(_tcfg(), SHAPE, 1, device="cpu")
+            ttrain.train_loop(_tcfg(noise=NoiseSpec()), SHAPE, 1,
+                              device="cpu")
 
 
 def test_mains_parse_the_same_argv(monkeypatch):
@@ -723,11 +726,14 @@ def test_mains_parse_the_same_argv(monkeypatch):
     assert (ts.name, ts.seq_len, ts.global_batch, ts.kind) == \
         (js.name, js.seq_len, js.global_batch, js.kind)
     assert (tn, tseed, troot, tev) == (jn, jseed, jroot, jev)
-    for bad, match in ((["--arch", "opto-vit-tiny", "--data-par", "2"],
-                        "the train mesh runs the dense LM"),
-                       (["--arch", "opto-vit-tiny", "--model-par", "2"],
-                        "the train mesh runs the dense LM")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the ViT trains on a mesh too; a batch the data axis does not split
+    # is refused before any rank starts
+    for bad, match in ((["--arch", "opto-vit-tiny", "--data-par", "3"],
+                        "does not split over --data-par 3"),
+                       (["--arch", "opto-vit-tiny", "--batch", "2",
+                         "--data-par", "4", "--model-par", "2"],
+                        "does not split over --data-par 4")):
+        with pytest.raises(ValueError, match=match):
             ttrain.main(bad)
 
 
