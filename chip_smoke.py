@@ -78,7 +78,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         same flush served unsharded on the card; the ranks warm eagerly
         and capture no graph (two planted faults, one
         that skips the int32 all-reduce and one that leaves the absmax
-        scopes local to the rank, must fail that check);
+        scopes local to the rank, must fail that check); (B) then 8
+        frames of one stream served on the same ranks under 4e (B)'s
+        noise point (photonic_pallas + xla + xla, the default NoiseSpec)
+        with ``model_shards=2``: the whole cache on each rank, no sharded
+        encode, every flush's logits bitwise the same frames served noisy
+        on one device;
      d. ``[composed]``, after the kernel table: B2's wide tensor-core
         entry at Eq. 2's (D, Dv) = (768, 64) with one shared key head and v
         a strided head view (scale 1.0, all keys live and a scattered mask
@@ -104,7 +109,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      e. ``[noise]``, after 4d: the noise-draw kernel against its plain
         version at (768, 768), (768, 3072), (3072, 768) and (197, 50)
         (bits bitwise, the multiplier within 1e-6, codes bitwise f32(w)
-        times it, the shot readout within 1e-6 relative); then
+        times it, the shot readout within 1e-6 relative, and each half of
+        a (788, 3072) readout drawn at its offset bitwise its rows of the
+        one-launch draw); then
         opto-vit-base-224 served as 4a's traffic through the graphed
         server under calibrated device noise: (A) photonic_sim + flash +
         xla FFN with drift 0.01 nm a frame, wander 0.01 nm and a 0.08 nm
@@ -186,7 +193,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         eager card serve, B1 inside the split only at half a flush's rows,
         every B3 launch through its host-split binding, and the newest
         flush re-encoded with the absmax scopes left local to the rank
-        (a planted fault) not bitwise. Readings: worker walls, aggregate
+        (a planted fault) not bitwise. (E) on the same ranks, 2 rounds of
+        4a's traffic under each policy off the fused point: 4e (A)'s noise
+        point (photonic_sim + flash + xla, drift, wander, recalibration)
+        and 4d (a)'s composed photonic_pallas + xla + xla: every flush's
+        logits on both ranks bitwise the mesh's arithmetic on one device
+        (``split_arithmetic``: the two row blocks as two threads, each
+        launch under the whole flush's scales, each readout at its block's
+        offset), within twice that control's distance of the unsplit
+        one-device encode; under noise B2 and noise_draw on both ranks,
+        the newest flush's readouts' shot multipliers bitwise each rank's
+        rows of the one-launch draw, both ranks at one DriftState after
+        the same recalibrations, and readouts planted at offset 0 not
+        bitwise. Readings: worker walls, aggregate
         frames/s of 4 workers (cost, rr) against one server with all 8
         streams (the reference's gates, 1.5x and 1.15x, are structural and
         not applied), the data mesh's frames/s and collective ms a flush;
@@ -212,7 +231,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         (photonic_pallas + flash + fused) against the QAT forward
         (training=False) on a held-out batch: corr > 0.99, top-1
         agreement and both accuracies printed (after the straight run is
-        continued to 200 steps), B1-B3 launched. Readings:
+        continued to 100 steps), B1-B3 launched. Readings:
         a step's CUDA-event ms and images/s on a device batch, the host's
         synthesis ms a batch, peak memory, a profiled step's GEMMs
         against the rest;
@@ -262,8 +281,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         one. (C) 4j's batch and steps under FSDP: one step's gradient within
         4x the two-half-batch control (an FSDP backward that keeps its own
         block must read 10x that), every rank's loss equal (a vocab loss
-        that shifts by its own block's max must break that), 20 steps
-        through ``train_loop``, the step-10 resume bitwise, the logical
+        that shifts by its own block's max must break that), 10 steps
+        through ``train_loop``, the step-5 resume bitwise, the logical
         checkpoint restored on one device bitwise. (D) on the pod mesh:
         the prefill, 8 greedy tokens after the prompt's first 8 (a cache
         of 16), one step and 3 train steps against (A)'s and (C)'s
@@ -301,7 +320,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         the step-2 resume bitwise, the logical checkpoint restored on one
         device bitwise. (E) (C)'s weights gathered, prepared and served
         on B1-B3 at the fused point against the QAT forward: corr >
-        0.999, equal accuracy;
+        0.999, equal accuracy. (F) inside (C)'s and (D)'s contexts, (C)'s
+        trained blocks gathered (``steps.gather_tree``), prepared and
+        served on the fused point (``vit.serving_cache``: model-sharded
+        on (2, 2) with B1, B2 and B4 twice a layer; split over ("pod",
+        "data") on the pod mesh with B1-B3, B3 on its host-split
+        binding): logits bitwise the one-device fused forward of the same
+        cache on every rank, and on the pod mesh the absmax scope left
+        local (a planted fault) not bitwise. (G) on (A)'s ranks, one step
+        of 2 microbatches (pruning off) at both sizes, each rank's rows
+        its share of every global microbatch: weight scales and
+        activation scopes bitwise, each microbatch's first activation
+        scale bitwise the one-device 2-microbatch step's, the gradient
+        within 4x its 2-block order control;
+        the rank-local row split (each rank microbatching its own block)
+        planted must fail the scale check;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -330,6 +363,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1456,7 +1490,44 @@ def sharded_rank(params: dict, cfg, sc, device: str) -> dict:
             flush_log=[(k, n) for _, k, n in server.flush_log],
             predictions=[run["results"][s.sid].predictions
                          for s in run["sessions"]])
+    del server, run
+    out["noisy"] = noisy_flushes(noisy_large_cfg(cfg), sc, params, device)
     return out
+
+
+def noisy_large_cfg(cfg):
+    """4c (B)'s config: ``cfg`` under 4e (B)'s noise point
+    (photonic_pallas + xla + xla, the default NoiseSpec)."""
+    from repro_torch.core.noise import NoiseSpec
+    return cfg.with_(matmul_backend="photonic_pallas", attn_backend="xla",
+                     ffn_backend="xla", noise=NoiseSpec())
+
+
+def noisy_flushes(cfg, sc, params, device) -> dict:
+    """4c (B): ``NOISY_FRAMES`` frames of one stream served eagerly under
+    ``cfg`` (a noise point) and ``sc`` (``model_shards=2`` on the ranks,
+    none in the parent): every flush's logits, the launches, the sharded
+    encodes and the shape of the first layer's wq this rank holds."""
+    from repro_torch.data.pipeline import video_fleet
+    from repro_torch.kernels import _build
+    from repro_torch.models import sharded_encoder
+    from repro_torch.serving.server import ServerConfig, StreamServer
+
+    sc = ServerConfig.from_serving(sc, warm_start=False)
+    server = StreamServer(cfg, sc, params=params, n_classes=10,
+                          device=device)
+    flushes = log_flushes(server)
+    server.add_session(video_fleet(1, img_size=cfg.img_size,
+                                   patch=cfg.patch, cut_every=32)[0],
+                       n_frames=NOISY_FRAMES)
+    _build.LAUNCHES.clear()
+    calls = sharded_encoder.sharded_encode_calls()
+    server.serve()
+    return {"flushes": flushes, "launches": dict(_build.LAUNCHES),
+            "sharded": sharded_encoder.sharded_encode_calls() - calls,
+            "wq": tuple(server.params["blocks"]["attn"]["wq"].wq.shape),
+            "mesh": (None if server.mesh is None
+                     else tuple(server.mesh.shape.values()))}
 
 
 def run_sharded(torch, dev, card: str, cfg) -> dict:
@@ -1532,6 +1603,30 @@ def run_sharded(torch, dev, card: str, cfg) -> dict:
         if c > FLUSH_CORR:
             fail(f"the planted fault ({tag}) passes the {FLUSH_CORR} limit, "
                  f"which therefore cannot catch it")
+
+    # (B) noisy flushes under model_shards=2 against one device's
+    from repro_torch.serving.session import ServingConfig as _SC
+    one = noisy_flushes(noisy_large_cfg(cfg), _SC(**{
+        k: getattr(sc, k) for k in ("bucket_fractions", "microbatch",
+                                    "chunk")}), params, dev)
+    keys = list(one["flushes"])
+    for i, r in enumerate(ranks):
+        nb = r["noisy"]
+        same = (list(nb["flushes"]) == keys and all(
+            torch.equal(nb["flushes"][k], one["flushes"][k]) for k in keys))
+        la = nb["launches"]
+        say(f"[sharded] (B) rank {i}, mesh {nb['mesh']}, {cfg.name} under "
+            f"4e (B)'s noise point (photonic_pallas + xla + xla): "
+            f"{len(keys)} noisy flushes of {NOISY_FRAMES} frames bitwise "
+            f"the one-device noisy serve: {same}; whole wq {nb['wq']}, "
+            f"{nb['sharded']} sharded encodes; launches {la} ({card})")
+        if not keys or not same:
+            fail(f"[sharded] (B) rank {i}: the noisy model_shards serve is "
+                 f"not bitwise the one-device serve")
+        if (nb["sharded"] or la.get("noise_draw", 0) <= 0
+                or la.get("dequant_epilogue", 0) or nb["wq"] != one["wq"]):
+            fail(f"[sharded] (B) rank {i}: sharded {nb['sharded']}, wq "
+                 f"{nb['wq']} vs {one['wq']}, launches {la}")
     return {"ranks": ranks, "plain": plain, "cfg": cfg, "min_corr": min(cors),
             "agree": agree / total}
 
@@ -2488,6 +2583,30 @@ def check_noise_kernel(torch, dev) -> float:
                      f"f32(w) * M")
             worst = max(worst, e_card, e_cpu)
         say(f"[check] noise_draw ({k},{n}): bits bitwise (2 keys)")
+    # the shot entry at an offset (a rank's rows of a readout split along
+    # its batch, 4h (E)): each half of a (788, 3072) readout drawn at its
+    # offset bitwise its rows of the one-launch draw, and within 1e-6
+    # relative of the plain version at that offset
+    spec = noise.NoiseSpec(**NOISE_KW)
+    call = noise_call(dev, spec)
+    st = call.state_tensor(dev)
+    y = torch.randn(788, 3072, generator=gen, device=dev)
+    whole = noise_draw.readout_shot(y.clone(), call, spec.shot_sigma)
+    for j in range(2):
+        rows = slice(j * 394, (j + 1) * 394)
+        off = j * 394 * 3072
+        part = noise_draw.readout_shot(y[rows].clone(), call,
+                                       spec.shot_sigma, off)
+        plain = ref.readout_shot_ref(y[rows], st, call.salts, call.counter,
+                                     spec.shot_sigma, off)
+        e = float((part - plain).abs().max() / y[rows].abs().max())
+        same = bool(torch.equal(part, whole[rows]))
+        say(f"[check] noise_draw shot (394,3072) at offset {off}: bitwise "
+            f"its rows of the one-launch draw {same}; {e:.3e} relative "
+            f"from its plain version there")
+        if not same or e > 1e-6:
+            fail(f"noise_draw shot at offset {off}: rows bitwise {same}, "
+                 f"{e:.3e} from the plain version")
     return worst
 
 
@@ -2538,8 +2657,13 @@ def time_noise_kernel(torch, dev, card: str) -> dict:
     shot_ms, _ = device_ms(torch, lambda: noise_draw.readout_shot(
         y, call, spec.shot_sigma), ("noise_readout_shot_kernel",),
         counter="noise_draw.shot")
+    half = y[:394].clone()
+    shot_off_ms, _ = device_ms(torch, lambda: noise_draw.readout_shot(
+        half, call, spec.shot_sigma, 394 * 3072),
+        ("noise_readout_shot_kernel",), counter="noise_draw.shot")
     say(f"[numbers] noise_draw shot readout (788,3072) in place: "
-        f"{shot_ms:.4f} ms device ({card})")
+        f"{shot_ms:.4f} ms device; a rank's half (394,3072) at its offset "
+        f"{shot_off_ms:.4f} ms device ({card})")
     head = by_shape["(3072,768)"]
     return {"name": "noise_draw", "route": "cuda",
             "source": SOURCES["noise_draw"],
@@ -2549,7 +2673,7 @@ def time_noise_kernel(torch, dev, card: str) -> dict:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
             "randn_ms": head["randn_ms"], "ms_by_shape": by_shape,
-            "shot_ms": shot_ms}
+            "shot_ms": shot_ms, "shot_offset_ms": shot_off_ms}
 
 
 def noisy_eager(torch, server, t):
@@ -3415,6 +3539,86 @@ def fleet_round(torch, router, spec, solo: dict, tag: str,
             "launches": launches, "warning": dead[0]}
 
 
+def split_arithmetic(torch, fn, device, n: int = 2):
+    """``fn()`` (a serving forward of a whole flush) computed on one device
+    as the n ranks of the 1-D ("data",) n mesh compute it: n threads, each
+    one rank (its own thread-local sharding context over a ("data",) mesh
+    whose groups are the threads, and whatever scope ``fn`` installs), so
+    every launch holds that rank's rows, each absmax scope is MAX-reduced
+    over the threads, each readout draws at that rank's offset and the
+    logits are gathered in rank order, through host barriers instead of
+    gloo. Returns rank 0's result. The control of 4h (E): where each
+    kernel depends only on its own operands, the mesh's logits are bitwise
+    these."""
+    import threading
+
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import DATA_RULES, use_sharding
+    from repro_torch.launch.mesh import ServingMesh
+
+    class Threads:
+        def __init__(self):
+            self.bar = threading.Barrier(n, timeout=300)
+            self.slots = [None] * n
+            self.local = threading.local()
+
+        def exchange(self, t):
+            self.slots[self.local.rank] = t
+            self.bar.wait()
+            parts = list(self.slots)
+            self.bar.wait()
+            return parts
+
+    group = Threads()
+    real_reduce, real_gather = (collectives.all_reduce,
+                                collectives.all_gather_cat)
+
+    def all_reduce(t, op, grp, name="all_reduce", direct=False):
+        if grp is not group:
+            return real_reduce(t, op, grp, name, direct)
+        out = None
+        for part in group.exchange(t.detach()):
+            out = part.clone() if out is None else (
+                torch.maximum(out, part) if op == dist.ReduceOp.MAX
+                else out + part)
+        return out
+
+    def all_gather_cat(x, grp, dim, name="all_gather", direct=False):
+        if grp is not group:
+            return real_gather(x, grp, dim, name, direct)
+        return torch.cat(group.exchange(x.detach().contiguous()), dim)
+
+    out, errors = [None] * n, []
+
+    def rank(j):
+        group.local.rank = j
+        mesh = ServingMesh(n, 1, j, 0, torch.device(device), "threads",
+                           {("data",): group, ("data", "model"): group,
+                            ("pod", "data", "model"): group},
+                           axis_names=("data",))
+        try:
+            with use_sharding(mesh, DATA_RULES):
+                out[j] = fn()
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+            group.bar.abort()
+    collectives.all_reduce = all_reduce
+    collectives.all_gather_cat = all_gather_cat
+    try:
+        threads = [threading.Thread(target=rank, args=(j,)) for j in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        collectives.all_reduce = real_reduce
+        collectives.all_gather_cat = real_gather
+    if errors:
+        raise errors[0]
+    return out[0]
+
+
 def data_mesh_rank(params: dict, cfg, sc, device: str) -> dict:
     """One rank of path 4h (D): 4a's traffic on the 1-D data mesh (mesh
     "auto", no model shards). Checks its own launches (B1 inside the split
@@ -3478,6 +3682,93 @@ def data_mesh_rank(params: dict, cfg, sc, device: str) -> dict:
                    flush_log=[(k, n) for _, k, n in server.flush_log],
                    predictions=[run["results"][s.sid].predictions
                                 for s in run["sessions"]])
+    del server, run
+    from repro_torch.core.noise import NoiseSpec
+    out["E"] = {tag: data_mesh_policy(cfg.with_(
+        **kw, noise=NoiseSpec(**NOISE_KW) if tag == "noisy" else None),
+        sc, params, device) for tag, kw in MESH_POLICIES.items()}
+    return out
+
+
+def data_mesh_policy(cfg, sc, params, device: str) -> dict:
+    """One rank of 4h (E): 4a's traffic for ``MESH_ROUNDS`` rounds on the
+    data mesh under a policy off the fused point (``cfg``), every flush's
+    tokens, DriftState and logits logged. Every rank re-encodes the newest
+    flush on the mesh with each readout drawn at offset 0 (a planted
+    fault) and holds each readout's shot multipliers of that flush (the
+    calls recorded) bitwise against its rows of the one-launch draw. Rank
+    0 then computes every flush on its own card twice: the mesh's
+    arithmetic (``split_arithmetic``: the two row blocks apart, each
+    launch under the whole flush's scales, each readout at the block's
+    offset) and the unsplit encode. Returns the launches of the serve,
+    the shot check, the flush logits (and, on rank 0, the controls)."""
+    import torch
+    from repro_torch.core import noise
+    from repro_torch.data.pipeline import video_fleet
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import _build, noise_draw
+    from repro_torch.models.vit import forward_vit_tokens
+    from repro_torch.serving.server import StreamServer
+
+    server = StreamServer(cfg, sc, params=params, n_classes=10,
+                          device=device)
+    mesh, dev = server.mesh, server.device
+    if mesh.axis_names != ("data",) or server.graphs:
+        raise RuntimeError(f"mesh {mesh.axis_names}, graphs "
+                           f"{sorted(server.graphs)}")
+    logged, finish = {}, server._finish
+
+    def finish_and_log(fb, by_sid):
+        finish(fb, by_sid)
+        logged[tuple(fb.frame_idx)] = (fb.tokens.clone(), server.last_drift,
+                                       server.last_logits.float().cpu())
+    server._finish = finish_and_log
+    for i, st in enumerate(video_fleet(2, img_size=cfg.img_size,
+                                       patch=cfg.patch, cut_every=32)):
+        server.add_session(st, n_frames=32, start=16 * i)
+    _build.LAUNCHES.clear()
+    server.serve(max_rounds=MESH_ROUNDS)
+    launches = dict(_build.LAUNCHES)
+
+    def encode(tokens, state):
+        scope = (noise.noise_scope(state) if state is not None
+                 else contextlib.nullcontext())
+        with scope, torch.no_grad():
+            return forward_vit_tokens(server.params, tokens, cfg,
+                                      server.policy, device=dev)[0]
+
+    newest = list(logged)[-1]
+    tokens, state, _ = logged[newest]
+    calls, real_shot = [], noise_draw.readout_shot
+
+    def shot(y, call, sigma, offset=0):
+        calls.append((call, tuple(y.shape), sigma, offset))
+        return real_shot(y, call, sigma, offset)
+    with sharding.use_sharding(mesh), \
+            _patched(sharding, "draw_offset", lambda numel: 0), \
+            _patched(noise_draw, "readout_shot", shot):
+        planted = encode(tokens, state).float().cpu()
+    shots = []
+    for call, shape, sigma, _ in calls[:SHOT_CHECKS]:
+        mine = real_shot(torch.ones(shape, device=dev), call, sigma,
+                         mesh.d * math.prod(shape))
+        whole = real_shot(torch.ones((mesh.data * shape[0],) + shape[1:],
+                                     device=dev), call, sigma)
+        rows = slice(mesh.d * shape[0], (mesh.d + 1) * shape[0])
+        shots.append(bool(torch.equal(mine, whole[rows])))
+    out = {"launches": launches, "n_flush": len(logged), "shots": shots,
+           "logits": {k: v[2] for k, v in logged.items()},
+           "planted": planted, "newest": newest,
+           "recalibrations": server.recalibrations,
+           "drift": None if server.drift is None else server.drift.words()}
+    if mesh.d == 0:
+        ctl, plain = {}, {}
+        for k, (t, st, _) in logged.items():
+            ctl[k] = split_arithmetic(torch, lambda: encode(t, st), dev,
+                                      mesh.data).float().cpu()
+            with sharding._installed(None):
+                plain[k] = encode(t, st).float().cpu()
+        out.update(control=ctl, unsplit=plain)
     return out
 
 
@@ -3681,8 +3972,103 @@ def run_fleet(torch, dev, card: str, cfg, sc, params, fused) -> dict:
         f"{planted_err:.3e} (caught); spawn + serve {mesh_s:.1f}s ({card})")
     out["mesh"] = {"ranks": ranks, "plain_fps": 64 / plain["wall"]}
     del plain
+    out["policies"] = report_data_mesh_policies(torch, ranks, card)
     return out
 
+
+def report_data_mesh_policies(torch, ranks: list, card: str) -> dict:
+    """4h (E)'s checks: every flush of each policy off the fused point on
+    both ranks bitwise the mesh's arithmetic on one device (rank 0's
+    ``split_arithmetic``); against the unsplit one-device encode within
+    twice that control's distance (1 - corr); under noise the planted
+    offset-0 readouts break the bitwise check, each rank's shot
+    multipliers are bitwise its rows of the one-launch draw, the ranks
+    end at one DriftState after the same recalibrations, and B2 and
+    noise_draw launched on both ranks; composed, B1 and no B3."""
+    readings = {}
+    for tag in MESH_POLICIES:
+        e0, e1 = (r["E"][tag] for r in ranks)
+        keys = list(e0["control"])
+        if not keys or list(e1["logits"]) != keys:
+            fail(f"[fleet] (E) {tag}: flushes {len(keys)} / "
+                 f"{len(e1['logits'])}")
+        same = [torch.equal(e0["logits"][k], e0["control"][k])
+                and torch.equal(e1["logits"][k], e0["logits"][k])
+                for k in keys]
+        c_mesh = min(corr(torch, e0["logits"][k], e0["unsplit"][k])
+                     for k in keys)
+        c_ctl = min(corr(torch, e0["control"][k], e0["unsplit"][k])
+                    for k in keys)
+        n_unsplit = sum(torch.equal(e0["logits"][k], e0["unsplit"][k])
+                        for k in keys)
+        say(f"[fleet] (E) {tag} on the data mesh (2 ranks, {len(keys)} "
+            f"flushes in {MESH_ROUNDS} rounds of 4a's traffic): "
+            f"{same.count(True)} of {len(keys)} flushes bitwise the mesh's "
+            f"arithmetic on one device on both ranks; against the unsplit "
+            f"one-device encode min corr {c_mesh:.9f} (control "
+            f"{c_ctl:.9f}, limit 1 - 2 x its distance; {n_unsplit} flushes "
+            f"bitwise it); launches rank 0 {e0['launches']}, rank 1 "
+            f"{e1['launches']} ({card})")
+        if not all(same):
+            fail(f"[fleet] (E) {tag}: {same.count(False)} flushes differ "
+                 f"from the mesh's arithmetic on one device")
+        if 1.0 - c_mesh > 2.0 * (1.0 - c_ctl):
+            fail(f"[fleet] (E) {tag}: corr {c_mesh} against the unsplit "
+                 f"encode beyond twice the control's distance ({c_ctl})")
+        for i, e in enumerate((e0, e1)):
+            la = e["launches"]
+            if tag == "noisy":
+                bad = (la.get("noise_draw", 0) <= 0
+                       or la.get("flash_attention_masked", 0) <= 0
+                       or la.get("photonic_matmul", 0)
+                       or la.get("fused_ffn", 0))
+            else:
+                bad = (la.get("photonic_matmul", 0) <= 0
+                       or la.get("fused_ffn", 0)
+                       or la.get("flash_attention_masked", 0))
+            if bad:
+                fail(f"[fleet] (E) {tag} rank {i} launches {la}")
+        if tag == "noisy":
+            want = e0["control"][e0["newest"]]
+            gap = float((e0["planted"] - want).abs().max())
+            shots = e0["shots"] + e1["shots"]
+            say(f"[fleet] (E) noisy: {sum(shots)} of {len(shots)} recorded "
+                f"readouts' shot multipliers bitwise the ranks' rows of "
+                f"the one-launch draw; planted offset-0 readouts: newest "
+                f"flush max |diff| {gap:.3e} from the control; "
+                f"{e0['recalibrations']} recalibrations on each rank "
+                f"({card})")
+            if torch.equal(e0["planted"], want):
+                fail("[fleet] (E) the planted offset-0 readouts pass the "
+                     "bitwise check, which therefore cannot catch them")
+            if not shots or not all(shots):
+                fail(f"[fleet] (E) shot multipliers {shots}")
+            if (e0["recalibrations"] != e1["recalibrations"]
+                    or e0["recalibrations"] < 1
+                    or (e0["drift"] != e1["drift"]).any()):
+                fail(f"[fleet] (E) the ranks' drift states diverge: "
+                     f"{e0['recalibrations']} / {e1['recalibrations']} "
+                     f"recalibrations")
+        readings[tag] = {"flushes": len(keys), "corr": c_mesh,
+                         "control_corr": c_ctl, "bitwise_unsplit": n_unsplit}
+    return readings
+
+
+# path 4c (B): frames of one stream served noisy under model_shards=2
+NOISY_FRAMES = 8
+
+# path 4h (E): the policies off the fused point on the data mesh, 4a's
+# traffic for a few rounds each: 4e (A)'s noise point (photonic_sim +
+# flash + xla under NOISE_KW: drift, wander, a recalibration bound) and
+# 4d (a)'s clean composed point (photonic_pallas + xla + xla); the shot
+# readouts of the newest flush held against the one-launch draw
+MESH_POLICIES = {
+    "noisy": dict(matmul_backend="photonic_sim", attn_backend="flash",
+                  ffn_backend="xla"),
+    "composed": dict(matmul_backend="photonic_pallas", attn_backend="xla",
+                     ffn_backend="xla")}
+MESH_ROUNDS = 2
+SHOT_CHECKS = 8
 
 # path 4i: ViT training on opto-vit-base-224 + MGNet at the config's keep
 # ratio (0.33) on qat + xla + xla, training=True, batch 32 of
@@ -3692,7 +4078,7 @@ TRAIN_BATCH = 32
 TRAIN_STEPS = 30          # the QAT phase's straight run
 TRAIN_RESUME_AT = 10      # the checkpoint the resumed runs start from
 TRAIN_FAULT_AT = 13       # the injected fault (after the step-10 save)
-TRAIN_LONG = 200          # the straight run continued, for (D)'s weights
+TRAIN_LONG = 100          # the straight run continued, for (D)'s weights
 MGNET_STEPS = 40
 MGNET_LR = 3e-3           # AdamW on MGNet's leaves alone, constant rate
 # the card's gradients against the CPU's at equal inputs and state: the
@@ -4637,12 +5023,19 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
 # the whole run to ~85% of its limit. (A) 4b's batch 4, prompt 128 and 32 greedy tokens against
 # a cache of LMK_CACHE rows, 128 a rank: the prompt fills model rank 0's
 # rows and every generated token lands on rank 1 (its first decode step
-# has exactly one valid row there). (C) 4j's batch, steps and warmup. (D)
-# the pod mesh: the prefill, LMK_MP_GEN greedy tokens after the prompt's
-# first LMK_MP_PROMPT (a cache of LMK_MP_CACHE, half a rank) and
-# LMK_MP_STEPS train steps
+# has exactly one valid row there). (C) 4j's batch, LMK_TRAIN_STEPS steps
+# (3.7 s each) after a warmup of LMK_WARMUP, so most steps run at the
+# peak rate and the loss check has power, with the resume from
+# LMK_RESUME_AT. (D) the pod mesh: the prefill,
+# LMK_MP_GEN greedy tokens after the prompt's first LMK_MP_PROMPT (a cache
+# of LMK_MP_CACHE, half a rank) and LMK_MP_STEPS train steps
 LMK_LAYERS = 4
 LMK_CACHE = 256
+LMK_TRAIN_STEPS, LMK_RESUME_AT, LMK_WARMUP = 10, 5, 2
+# step 0's batch's loss after the LMK_TRAIN_STEPS steps must lie this far
+# below its loss before them (weights that did not train give 0 exactly;
+# the stream's five-step means fell 1.05e-2 at warmup 2)
+LMK_BATCH0_FALL = 1e-2
 LMK_MP_PROMPT, LMK_MP_GEN, LMK_MP_CACHE, LMK_MP_STEPS = 8, 8, 16, 3
 # decode steps re-run under the planted merge fault (from the prompt's
 # end: the steps whose keys lie on model rank 1 too)
@@ -4656,8 +5049,8 @@ LMK_FAULTS = {"merge": "the decode merge drops the last rank's partial",
 def lm_fsdp_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
                  gen: int = LM_GEN, cache_len: int = LMK_CACHE,
                  train_size: tuple = (LMK_LAYERS, LMJ_TRAIN_BATCH,
-                                      LMJ_TRAIN_SEQ, LMJ_TRAIN_STEPS,
-                                      LMJ_RESUME_AT),
+                                      LMJ_TRAIN_SEQ, LMK_TRAIN_STEPS,
+                                      LMK_RESUME_AT),
                  mp_size: tuple = (LMK_MP_PROMPT, LMK_MP_GEN, LMK_MP_CACHE,
                                    LMK_MP_STEPS)) -> dict:
     """One rank of path 4k (4 ranks on the one card; the sizes are 4b's
@@ -4890,7 +5283,7 @@ def lm_fsdp_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
         progress("(D) serving done")
 
     # (C) train under DEFAULT_RULES
-    cfg_t = cfg.with_(lr_warmup=LMJ_WARMUP)
+    cfg_t = cfg.with_(lr_warmup=LMK_WARMUP)
     tparams = whole
     shape = ShapeConfig("4k", t_seq, t_batch, "train")
     batch = TokenStream(cfg.vocab, t_seq, t_batch, seed=0,
@@ -4959,6 +5352,9 @@ def lm_fsdp_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
         finally:
             torch.use_deterministic_algorithms(False)
         out["losses"] = losses
+        # step 0's batch again after training: its loss moves only with the
+        # weights (the stream's move ~0.03 from batch to batch)
+        out["batch0_after"] = grads(cfg_t, final["params"], ctx)[0]
         out["resumed_bitwise"] = rest == losses[t_resume:] and all(
             torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(final)))
         st_axes = steps.placement_axes(cfg_t, steps.state_logical_axes(cfg_t))
@@ -5123,13 +5519,19 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
     bound = LMJ_GRAD_FACTOR * r0["grad_control"]
     loss_gap = abs(r0["loss_tp"] - r0["loss1"])
     say(f"[lm_fsdp] (C) train, {depth} of {cfg.n_layers} layers, "
-        f"batch {LMJ_TRAIN_BATCH} x {LMJ_TRAIN_SEQ}, warmup {LMJ_WARMUP}, "
-        f"FSDP blocks {r0['fsdp_shape']}: {LMJ_TRAIN_STEPS} steps through "
+        f"batch {LMJ_TRAIN_BATCH} x {LMJ_TRAIN_SEQ}, warmup {LMK_WARMUP}, "
+        f"FSDP blocks {r0['fsdp_shape']}: {LMK_TRAIN_STEPS} steps through "
         f"train_loop in {r0['train_s']:.2f}s "
-        f"({1e3 * r0['train_s'] / LMJ_TRAIN_STEPS:.1f} ms a step); losses "
+        f"({1e3 * r0['train_s'] / LMK_TRAIN_STEPS:.1f} ms a step); losses "
         + " ".join(f"{x:.4f}" for x in losses) + f" ({card})")
     if not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
         fail(f"4k (C): the loss did not fall ({losses})")
+    drop = r0["loss_tp_rank"] - r0["batch0_after"]
+    say(f"[lm_fsdp] (C) step 0's batch after {LMK_TRAIN_STEPS} steps: loss "
+        f"{r0['batch0_after']:.6f} against {r0['loss_tp_rank']:.6f} before "
+        f"(a fall of {drop:.4e}, at least {LMK_BATCH0_FALL:.0e})")
+    if not drop >= LMK_BATCH0_FALL:
+        fail(f"4k (C): step 0's batch's loss fell {drop} after training")
     say(f"[lm_fsdp] (C) one step against the unsharded step on the card: "
         f"loss {r0['loss_tp']:.6f} vs {r0['loss1']:.6f} (gap {loss_gap:.3e}; "
         f"the two-half-batch control {r0['loss_ctl']:.6f}); gradient "
@@ -5160,7 +5562,7 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
     if len(set(faulty)) == 1:
         fail(f"4k (C): the planted vocab-loss fault leaves every rank's "
              f"loss equal: {faulty}")
-    say(f"[lm_fsdp] (C) resumed from the step-{LMJ_RESUME_AT} checkpoint: "
+    say(f"[lm_fsdp] (C) resumed from the step-{LMK_RESUME_AT} checkpoint: "
         f"losses and state bitwise the straight run's: "
         f"{r0['resumed_bitwise']}; the logical checkpoint at step "
         f"{r0['restored_step']} restored on one device bitwise the gathered "
@@ -5229,6 +5631,14 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
 # VM_FAULT_FACTOR x, and fail its check at full size: (A) the activation
 # scales', (B) the weight scales', (C) the FSDP blocks' bitwise equality.
 VM_BATCH = 32
+VM_MICRO = 2                      # (G)'s microbatches a step
+# (G) at smoke size: each later activation scale's relative gap from the
+# one-device step's (a rank's GEMMs at half the rows: 3.4333e-7 on the
+# H100; the planted row split 2.9157e-1)
+VM_MICRO_ACT_LIMIT = 1e-5
+# (F)'s launch counts read: B1-B3, B4, B3's host-split binding
+F_KERNELS = ("photonic_matmul", "flash_attention_masked", "fused_ffn",
+             "dequant_epilogue", "fused_ffn.kmajor.split")
 VM_STEPS, VM_RESUME_AT = 4, 2     # (C)'s train_loop: straight, resumed
 VM_SMOKE_BATCH = 8
 # the order controls' blocks: all at full size (the spread of the flips'
@@ -5432,6 +5842,10 @@ def vit_mesh_rank(cpu_params: dict, cfg, tmp: str, device: str,
                         device=dev, ctx=ctx)
         return {k: v for k, v in s.batch_at(0).items()
                 if k in ("images", "labels")}
+
+    # (F)'s flush: (E)'s held-out batch, whole on every rank
+    held = ImageStream(cfg.img_size, VM_BATCH, n_classes=8, patch=cfg.patch,
+                       seed=0, device=dev).batch_at(20000)["images"]
 
     def recorded(rec):
         return _patched(quant, "fake_quant_ste", _scale_recorder(quant, rec))
@@ -5646,10 +6060,161 @@ def vit_mesh_rank(cpu_params: dict, cfg, tmp: str, device: str,
                     res["trained"] = tree_map(lambda t: t.cpu(),
                                               logical["params"])
                     del back
-                del logical, st2, final, state0, p0
+                del logical, st2, state0, p0
                 progress("(C) train_loop, resume and restore done")
+                # (F) the trained blocks gathered, prepared and served on
+                # the fused point inside the same context
+                res["fused"] = fused_mesh_serve(torch, final["params"], tcfg,
+                                                ctx, held, False)
+                trained = res["fused"].pop("whole")
+                del final
+                progress("(F) the fused serve under (C) done")
+            if tag == "D":
+                # (F) (C)'s trained weights placed as the pod mesh's
+                # blocks, gathered over ("pod", "data"), prepared, served;
+                # the planted fault leaves the absmax scope local
+                axes = steps.placement_axes(cfg, model_api.model_logical_axes(
+                    cfg))
+                res["fused"] = fused_mesh_serve(
+                    torch, place_params(trained, axes, ctx), cfg, ctx, held,
+                    True)
+                del res["fused"]["whole"], trained
+                progress("(F) the fused serve under (D) done")
         out[tag] = res
+    if tables == "AB":
+        out["G"] = microbatched_mesh_steps(
+            torch, dist, sizes, meshes["A"], batch_of, recorded, dev, r0)
+        progress("(G) the microbatched steps done")
     return out
+
+
+def fused_mesh_serve(torch, blocks: dict, cfg, ctx, images, plant: bool
+                     ) -> dict:
+    """4l (F) on one rank: whole weights from this rank's blocks under
+    ``ctx`` (``steps.gather_tree``), prepared into the quantize-once cache,
+    put in the form the fused encode under ``ctx`` reads
+    (``vit.serving_cache``: "model" shards under DEFAULT_RULES on (2, 2),
+    whole on the pod mesh) and served on ``images`` by ``forward_vit`` on
+    the fused point; its logits against the one-device fused forward of
+    the same cache, its launches, and with ``plant`` the same serve with
+    every absmax scope left local to the rank."""
+    from repro_torch.core.backend import ExecPolicy, prepare_params
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.vit import forward_vit, serving_cache
+
+    fused = cfg.with_(matmul_backend="photonic_pallas", attn_backend="flash",
+                      ffn_backend="fused")
+    pol = ExecPolicy.from_cfg(fused, training=False)
+    dev = images.device
+    with torch.no_grad():
+        whole = steps.gather_tree(blocks, steps.placement_axes(
+            cfg, api.model_logical_axes(cfg)), ctx)
+        cache = prepare_params(whole, bits=cfg.quant_bits)
+        served = serving_cache(cache, fused, pol, ctx)
+        _build.LAUNCHES.clear()
+        logits, kept = forward_vit(served, images, fused, pol, device=dev)
+        launches = dict(_build.LAUNCHES)
+        planted = None
+        if plant:
+            with _patched(sharding, "absmax_group", lambda: None):
+                planted = forward_vit(served, images, fused, pol,
+                                      device=dev)[0]
+        with sharding._installed(None):
+            one, _ = forward_vit(cache, images, fused, pol, device=dev)
+    return {"bitwise": bool(torch.equal(logits, one)),
+            "max_diff": float((logits - one).abs().max()),
+            "planted_equal": (None if planted is None
+                              else bool(torch.equal(planted, one))),
+            "planted_diff": (None if planted is None
+                             else float((planted - one).abs().max())),
+            "launches": launches, "kept": kept, "shape": tuple(logits.shape),
+            "finite": bool(torch.isfinite(logits).all()),
+            "wq": tuple(served["blocks"]["attn"]["wq"].wq.shape),
+            "whole": whole}
+
+
+def microbatched_mesh_steps(torch, dist, sizes: dict, mesh_rules, batch_of,
+                            recorded, dev, r0: bool) -> dict:
+    """4l (G) on one rank of (A)'s mesh (DATA_RULES on (data 2)): at each
+    size one gradient with ``VM_MICRO`` microbatches (pruning off), this
+    rank's rows its share of every global microbatch (``ImageStream(
+    microbatches=)``), its fake-quant scales recorded: their gaps from
+    the one-device k-microbatch step's (rank 0 computes it, with its
+    2-block summation-order control, and hands its scales to every
+    rank; its control's scale gaps beside them), the activation scales'
+    from the whole mesh's, the first activation scale of each microbatch
+    (the images', before any GEMM) apart; and the same with the
+    rank-local row split (each rank microbatching its own block: the
+    planted fault)."""
+    import sys as _sys
+    _sys.path.insert(0, str(ROOT / "scripts"))
+    from qat_grad_gap import qat_split_in
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import quant
+    from repro_torch.data.pipeline import ImageStream
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+
+    mesh, rules = mesh_rules
+    res = {}
+
+    def firsts(rec):
+        acts = [r[1] for r in rec if r[0]]
+        per = len(acts) // VM_MICRO
+        return [acts[i * per] for i in range(VM_MICRO)]
+
+    for size, (c, whole, b) in sizes.items():
+        ck = c.with_(microbatch_steps=VM_MICRO)
+        got = {}
+        if r0:
+            with sharding._installed(None):
+                gb = batch_of(c, b)
+                rec1 = []
+                with recorded(rec1):
+                    loss1, g1 = steps.make_grad_fn(ck)(whole, gb)
+                controls, control_act = [], []
+                for parts in VM_ORDERS[:1]:
+                    rec_c = []
+                    with _patched(backend_mod.BACKENDS, "qat",
+                                  qat_split_in(parts)), recorded(rec_c):
+                        _, g_c = steps.make_grad_fn(ck)(whole, gb)
+                    controls.append(grad_distance(torch, g_c, g1)[0])
+                    control_act.append(_scale_gaps(rec_c, rec1, 0)[0])
+                    del g_c, rec_c
+        box = [rec1 if r0 else None]
+        dist.broadcast_object_list(box, src=0)
+        want = box[0]
+        with sharding.use_sharding(mesh, rules) as ctx:
+            def rows_of(k):
+                st = ImageStream(c.img_size, b, n_classes=8, patch=c.patch,
+                                 seed=0, device=dev, ctx=ctx, microbatches=k)
+                return {n: v for n, v in st.batch_at(0).items()
+                        if n in ("images", "labels")}
+            rec = []
+            with recorded(rec):
+                loss, g = steps.make_grad_fn(ck)(whole, rows_of(VM_MICRO))
+            got["act"], got["weight"] = _scale_gaps(rec, want, 0)
+            got["scope"] = _scope_gap(dist, quant, rec)
+            got["first_equal"] = all(torch.equal(x, y) for x, y in zip(
+                firsts(rec), firsts(want)))
+            got["loss"] = float(loss)
+            bad = []
+            with recorded(bad):
+                steps.make_grad_fn(ck)(whole, rows_of(1))
+            got["fault_act"] = _scale_gaps(bad, want, 0)[0]
+            got["fault_first_equal"] = all(torch.equal(x, y) for x, y in zip(
+                firsts(bad), firsts(want)))
+        if r0:
+            got["dist"] = grad_distance(torch, g, g1)
+            got["controls"] = controls
+            got["control_act"] = max(control_act)
+            got["one_loss"] = float(loss1)
+        del g
+        res[size] = got
+    return res
 
 
 def run_vit_mesh(torch, dev, card: str) -> dict:
@@ -5690,8 +6255,12 @@ def run_vit_mesh(torch, dev, card: str) -> dict:
             f"all on {got[0]['device']}")
         for tag in tables:
             ranks[tag] = [r[tag] for r in got]
+        if tables == "AB":
+            micro = [r["G"] for r in got]
     del params
     failures = report_vit_mesh(ranks, card)
+    failures += report_vit_mesh_fused(ranks, card)
+    failures += report_vit_mesh_micro(micro, card)
     trained = ranks["C"][0]["trained"]
 
     # (E) (C)'s trained weights gathered to one device, prepared into the
@@ -5818,6 +6387,112 @@ def report_vit_mesh(ranks: dict, card: str) -> list:
             if r0["restored"] != (VM_STEPS, True):
                 failures.append(f"4l (C): the one-device restore read "
                                 f"{r0['restored']}")
+    return failures
+
+
+def report_vit_mesh_fused(ranks: dict, card: str) -> list:
+    """4l (F)'s checks: on every rank the fused serve under (C)'s
+    DEFAULT_RULES (model-sharded: B1, B2 and B4 twice a layer, no B3) and
+    (D)'s MULTIPOD_RULES (split over ("pod", "data"): B1-B3, every B3 on
+    its host-split binding) gives logits bitwise the one-device fused
+    forward of the same cache, finite, of the batch's shape; the pod
+    mesh's absmax scope left local must break that. The failures."""
+    failures = []
+    layers = train_cfg().n_layers
+    for tag, rule in (("C", "DEFAULT_RULES on (2, 2)"),
+                      ("D", "MULTIPOD_RULES on (2, 1, 2)")):
+        for i, r in enumerate(ranks[tag]):
+            f = r["fused"]
+            la = f["launches"]
+            say(f"[vit_mesh] (F) {rule}, rank {i}: (C)'s trained weights "
+                f"gathered, prepared and served on the fused point "
+                f"({f['kept']} patches kept, wq {f['wq']} a rank): logits "
+                f"{f['shape']} bitwise the one-device fused forward "
+                f"{f['bitwise']} (max diff {f['max_diff']:.3e}); launches "
+                f"{ {k: la.get(k, 0) for k in F_KERNELS} }"
+                + ("" if f["planted_diff"] is None else
+                   f"; planted local absmax scope: max diff "
+                   f"{f['planted_diff']:.3e}") + f" ({card})")
+            if not (f["bitwise"] and f["finite"]):
+                failures.append(f"4l (F) {tag} rank {i}: the fused serve is "
+                                f"not bitwise the one-device forward")
+            b1, b2 = (la.get("photonic_matmul", 0),
+                      la.get("flash_attention_masked", 0))
+            b3, b4 = la.get("fused_ffn", 0), la.get("dequant_epilogue", 0)
+            if tag == "C":
+                bad = b1 <= 0 or b2 <= 0 or b3 or b4 != 2 * layers
+            else:
+                bad = (b1 <= 0 or b2 <= 0 or b3 != layers or b4
+                       or la.get("fused_ffn.kmajor.split", 0) != b3)
+            if bad:
+                failures.append(f"4l (F) {tag} rank {i}: launches {la}")
+            if tag == "D" and f["planted_equal"]:
+                failures.append(f"4l (F) D rank {i}: the planted local "
+                                f"absmax scope passes the bitwise check")
+    return failures
+
+
+def report_vit_mesh_micro(ranks: list, card: str) -> list:
+    """4l (G)'s checks over (A)'s two ranks: at each size the k = 2
+    step's weight scales and activation scopes bitwise (0 gaps), each
+    microbatch's first activation scale (the images', before any GEMM)
+    bitwise the one-device k = 2 step's; at smoke size every later
+    activation scale within ``VM_MICRO_ACT_LIMIT`` of the one-device
+    step's (a rank's GEMMs run at half the rows, in another summation
+    order: not bitwise on the card, bitwise on the CPU); the gradient
+    within 4x the 2-block order control (at smoke size also under
+    ``VM_GRAD_LIMIT``), the ranks' losses equal; the rank-local row split
+    planted must fail the first-scale check and, at smoke size, miss the
+    later scales' limit. At full size the later scales' gap is a reading
+    beside the order control's (the flips' cascade moves both). The
+    failures."""
+    failures = []
+    for size in ("full", "smoke"):
+        rs = [r[size] for r in ranks]
+        r0 = rs[0]
+        rel, worst, worst_name, n = r0["dist"]
+        ctl = max(r0["controls"])
+        bound = VM_CONTROL_FACTOR * ctl
+        if size == "smoke":
+            bound = min(bound, VM_GRAD_LIMIT)
+        act = max(r["act"] for r in rs)
+        say(f"[vit_mesh] (G) DATA_RULES on (data 2), {size}, {VM_MICRO} "
+            f"microbatches (pruning off), each rank's rows its share of "
+            f"every global microbatch: gradient against the one-device "
+            f"{VM_MICRO}-microbatch step relative L2 {rel:.4e} (min leaf "
+            f"corr {worst:.8f}, {worst_name}), order control "
+            + ", ".join(f"{x:.4e}" for x in r0["controls"])
+            + f", held to {bound:.4e}; scale gaps over the ranks: weight "
+            f"{max(r['weight'] for r in rs):.4e}, activation scope "
+            f"{max(r['scope'] for r in rs):.4e}, each microbatch's first "
+            f"activation scale bitwise {all(r['first_equal'] for r in rs)}, "
+            f"the later ones from the one-device step's {act:.4e} "
+            + (f"(held to {VM_MICRO_ACT_LIMIT:.0e})" if size == "smoke"
+               else "(a reading)")
+            + f", the order control's {r0['control_act']:.4e}; "
+            f"planted rank-local row split: activation gap "
+            f"{max(r['fault_act'] for r in rs):.4e}, first scales bitwise "
+            f"{all(r['fault_first_equal'] for r in rs)} ({card})")
+        if not rel <= bound:
+            failures.append(f"4l (G) {size}: gradient {rel} beyond {bound}")
+        if len({r["loss"] for r in rs}) != 1:
+            failures.append(f"4l (G) {size}: the ranks' losses differ")
+        for r in rs:
+            if r["weight"] or r["scope"] or not r["first_equal"]:
+                failures.append(f"4l (G) {size}: a scale is not bitwise "
+                                f"(weight {r['weight']}, scope "
+                                f"{r['scope']}, first {r['first_equal']})")
+            if r["fault_first_equal"] or not r["fault_act"] > 0:
+                failures.append(f"4l (G) {size}: the planted row split "
+                                f"passes the scale check")
+            if size == "smoke" and not r["act"] <= VM_MICRO_ACT_LIMIT:
+                failures.append(f"4l (G) smoke: a later activation scale "
+                                f"is {r['act']} from the one-device step's, "
+                                f"beyond {VM_MICRO_ACT_LIMIT}")
+            if size == "smoke" and not r["fault_act"] > VM_MICRO_ACT_LIMIT:
+                failures.append(f"4l (G) smoke: the planted row split's "
+                                f"later scales ({r['fault_act']}) pass "
+                                f"{VM_MICRO_ACT_LIMIT}")
     return failures
 
 

@@ -29,6 +29,10 @@ src/repro/core/backend.py, its noise dispatch aside).
   * ``place_params`` - slices the prepared tree down to one rank's shard
     of a model-sharded serving mesh.
 
+Each registry entry is added by its decorator (``register_backend``,
+``register_attention_backend``, ``register_ffn_backend``), the built-in
+ones as a user's: an ``ExecPolicy`` built afterwards chooses it by name.
+
 A fused entry asked for with weights it cannot take raises with the
 reason (``_fused_ffn_ineligible_reason``): the reference warns once and
 runs the composed dispatch instead, which would hide the kernel the
@@ -66,7 +70,9 @@ __all__ = ["ExecPolicy", "QuantizedWeight", "quantize_weight",
            "prepare_params", "place_params", "NON_MATMUL_KEYS",
            "MATMUL_WEIGHT_EXTRA", "int_accumulate_exact",
            "int_accumulate_sim", "int_accumulate_pallas",
-           "qat_product", "photonic_sim_accumulate", "get_backend", "get_attention_backend", "get_ffn_backend",
+           "qat_product", "photonic_sim_accumulate", "register_backend",
+           "register_attention_backend", "register_ffn_backend",
+           "get_backend", "get_attention_backend", "get_ffn_backend",
            "available_backends", "available_attention_backends",
            "available_ffn_backends", "matmul", "linear", "attend", "ffn"]
 
@@ -459,6 +465,31 @@ ATTN_BACKENDS: dict[str, Callable] = {}
 FFN_BACKENDS: dict[str, Callable] = {}
 
 
+def _registrar(registry: dict, name: str):
+    def deco(fn):
+        registry[name] = fn
+        return fn
+    return deco
+
+
+def register_backend(name: str):
+    """Decorator: register ``fn(x, w, policy)`` as the matmul backend
+    ``name`` (an ``ExecPolicy(backend=name)`` built afterwards takes it)."""
+    return _registrar(BACKENDS, name)
+
+
+def register_attention_backend(name: str):
+    """Decorator: register ``fn(q, k, v, policy, mask, kv_len, scale)`` as
+    the attention backend ``name``."""
+    return _registrar(ATTN_BACKENDS, name)
+
+
+def register_ffn_backend(name: str):
+    """Decorator: register ``fn(x, w1, b1, w2, b2, policy, live_rows)`` as
+    the FFN backend ``name``."""
+    return _registrar(FFN_BACKENDS, name)
+
+
 def _lookup(registry: dict, kind: str, name: str) -> Callable:
     if name in registry:
         return registry[name]
@@ -536,6 +567,7 @@ def int_accumulate_pallas(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+@register_backend("photonic_pallas")
 def _photonic_pallas_matmul(x, w, p: ExecPolicy):
     """The int8 photonic matmul kernel; with a cached ``QuantizedWeight``
     only the activations are quantized per call."""
@@ -549,9 +581,7 @@ def _photonic_pallas_matmul(x, w, p: ExecPolicy):
     return y.to(x.dtype)
 
 
-BACKENDS["photonic_pallas"] = _photonic_pallas_matmul
-
-
+@register_backend("bf16")
 def _bf16_matmul(x, w, p: ExecPolicy):
     """Plain dot with f32 accumulation and one rounding to ``x.dtype``; a
     cached ``QuantizedWeight`` is dequantized (f32 codes x scale) and cast
@@ -567,9 +597,6 @@ def _bf16_matmul(x, w, p: ExecPolicy):
             and x.dtype in (torch.bfloat16, torch.float16)):
         return torch.matmul(x, w)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
-
-
-BACKENDS["bf16"] = _bf16_matmul
 
 
 def qat_product(x, w, p: ExecPolicy, sw=None) -> torch.Tensor:
@@ -590,6 +617,7 @@ def qat_product(x, w, p: ExecPolicy, sw=None) -> torch.Tensor:
     return torch.matmul(xq.float(), wq.float())
 
 
+@register_backend("qat")
 def _qat_matmul(x, w, p: ExecPolicy):
     """Fake-quant w8a8 in float (the reference's ``qat`` entry, paper §IV):
     the weight per output channel, the activations per tensor, then one f32
@@ -600,9 +628,6 @@ def _qat_matmul(x, w, p: ExecPolicy):
     the activation scale is the whole tensor's, MAX-reduced over the
     scope's group outside autograd; without one it is ``x``'s own."""
     return qat_product(x, w, p).to(x.dtype)
-
-
-BACKENDS["qat"] = _qat_matmul
 
 
 def photonic_sim_accumulate(x2, w, p: ExecPolicy, sw=None) -> tuple:
@@ -624,6 +649,7 @@ def photonic_sim_accumulate(x2, w, p: ExecPolicy, sw=None) -> tuple:
     return acc, sx, sw
 
 
+@register_backend("photonic_sim")
 def _photonic_sim_matmul(x, w, p: ExecPolicy):
     """The chunk-walking w8a8 oracle: per-tensor activation codes, the
     int32 accumulate over 32-wavelength K chunks (``int_accumulate_sim``),
@@ -634,9 +660,6 @@ def _photonic_sim_matmul(x, w, p: ExecPolicy):
         x.reshape(-1, x.shape[-1]).float(), w, p)
     y = acc.float() * sx * sw.reshape(1, -1)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
-
-
-BACKENDS["photonic_sim"] = _photonic_sim_matmul
 
 
 def _noisy_matmul(x, w, p: ExecPolicy):
@@ -669,9 +692,11 @@ def _noisy_matmul(x, w, p: ExecPolicy):
         wf = w.dequantize()
         xf = x.float()
     elif p.backend == "qat":
+        from repro_torch.distributed.collectives import scoped_absmax_scale
         fq = quant.fake_quant_ste if p.training else quant.fake_quant
         wf = fq(w.float(), bits=bits, axis=tuple(range(w.ndim - 1)))
-        xf = fq(x.float(), bits=bits, axis=None)
+        xf = x.float()
+        xf = fq(xf, bits=bits, axis=None, scale=scoped_absmax_scale(xf, bits))
     else:
         wf = w.float()
         xf = x.float()
@@ -702,6 +727,7 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None,
     return y
 
 
+@register_attention_backend("flash")
 def _attend_flash(q, k, v, p: ExecPolicy, mask, kv_len, scale):
     """Fused RoI-masked flash attention: masked keys applied inside the
     streaming-softmax update, fully pruned KV tiles skipped."""
@@ -722,9 +748,7 @@ def _attend_flash(q, k, v, p: ExecPolicy, mask, kv_len, scale):
     return out.reshape(*lead, h, sq, vf.shape[-1])
 
 
-ATTN_BACKENDS["flash"] = _attend_flash
-
-
+@register_attention_backend("xla")
 def _attend_xla(q, k, v, p: ExecPolicy, mask, kv_len, scale):
     """The materialized-score dataflow, plain PyTorch as the reference
     computes it outside any kernel: the full (Sq, Skv) scores, a large
@@ -752,9 +776,6 @@ def _attend_xla(q, k, v, p: ExecPolicy, mask, kv_len, scale):
     return o
 
 
-ATTN_BACKENDS["xla"] = _attend_xla
-
-
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            policy: ExecPolicy | None = None, *,
            mask: torch.Tensor | None = None, kv_len: int | None = None,
@@ -773,6 +794,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                            kv_len, scale)
 
 
+@register_ffn_backend("xla")
 def _ffn_xla(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
     """The composed dataflow: two ``linear`` dispatches with the tanh GELU
     in f32 between them, cast to ``x.dtype`` after the bias and after the
@@ -783,9 +805,6 @@ def _ffn_xla(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
     h = linear(x, w1, b1, policy=p)
     h = gelu_tanh(h.float()).to(x.dtype)
     return linear(h, w2, b2, policy=p)
-
-
-FFN_BACKENDS["xla"] = _ffn_xla
 
 
 def _fused_ffn_ineligible_reason(w1, w2,
@@ -816,6 +835,7 @@ def _fused_ffn_ineligible_reason(w1, w2,
     return None
 
 
+@register_ffn_backend("fused")
 def _ffn_fused(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
     """The fused int8 photonic FFN over per-layer cached weights. Weights
     it cannot take raise with the reason (the reference falls back to the
@@ -833,9 +853,6 @@ def _ffn_fused(x, w1, b1, w2, b2, p: ExecPolicy, live_rows):
                      w2.wq, w2.scale.reshape(-1), b2,
                      bits=(w1.bits, w2.bits), live_rows=live_rows,
                      w1t=w1.wt, w2t=w2.wt)
-
-
-FFN_BACKENDS["fused"] = _ffn_fused
 
 
 def ffn(x: torch.Tensor, w1, b1: torch.Tensor, w2, b2: torch.Tensor,

@@ -466,12 +466,24 @@ def readout_noise(y: torch.Tensor, spec: NoiseSpec, call: NoiseCall,
     """Shot noise on the BPD accumulate (y * (1 + shot_sigma * n), n drawn
     from the call's shot key by the noise-draw kernel, in place on y when
     it is a contiguous f32 tensor: the callers pass their fresh readout)
-    and an optional range-limited ADC requant."""
+    and an optional range-limited ADC requant.
+
+    Inside a data split (``sharding.absmax_scope(group, block)``: the
+    launch's rows split evenly over the group in rank order, y this rank's
+    rows with the batch leading) n is this rank's block of the whole
+    launch's draw (``sharding.draw_offset``), as GSPMD partitions
+    ``jax.random``, and the ADC's absmax is the whole launch's
+    (``collectives.scoped_absmax_scale``). Every noisy output of the
+    encode is such a readout: the transmission error is drawn on the
+    weight, whole on every rank, and the analog walk draws nothing."""
     if spec.shot_sigma > 0.0:
+        from repro_torch.distributed.sharding import draw_offset
         from repro_torch.kernels.noise_draw import readout_shot
-        y = readout_shot(y.float().contiguous(), call, spec.shot_sigma)
+        y = y.float().contiguous()
+        y = readout_shot(y, call, spec.shot_sigma, draw_offset(y.numel()))
     if spec.adc_quantize_output:
         from repro_torch.core import quant
-        s = quant.absmax_scale(y, bits=bits)
+        from repro_torch.distributed.collectives import scoped_absmax_scale
+        s = scoped_absmax_scale(y, bits)
         y = quant.dequantize(quant.quantize(y, s, bits=bits), s)
     return y

@@ -111,17 +111,21 @@ def _threefry_tensors(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
 _CPU_CHUNK = 1 << 18
 
 
-def random_bits(key, shape, device=None) -> torch.Tensor:
+def random_bits(key, shape, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as an int64 tensor of
-    32-bit values; a tensor key keeps its device."""
+    32-bit values; a tensor key keeps its device. With ``offset`` the
+    elements [offset, offset + prod(shape)) of the flat index of a larger
+    draw under the same key (the block a rank holds of a draw partitioned
+    along its leading dim, as GSPMD's partitioned ``jax.random`` computes
+    it)."""
     if isinstance(key[0], torch.Tensor):
         device = key[0].device
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.int64, device=device)
     step = _CPU_CHUNK if out.device.type == "cpu" else max(n, 1)
     for c0 in range(0, n, step):
-        idx = torch.arange(c0, min(n, c0 + step), dtype=torch.int64,
-                           device=device)
+        idx = torch.arange(offset + c0, offset + min(n, c0 + step),
+                           dtype=torch.int64, device=device)
         y0, y1 = _threefry_tensors(key[0], key[1], idx >> 32,
                                    idx & MASK32)
         out[c0:c0 + step] = y0.bitwise_xor_(y1)
@@ -144,13 +148,13 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, f32, minval, maxval)``: f * (hi -
     lo) + lo as one fused multiply-add (hi - lo rounded to f32 first),
-    clipped below at lo."""
+    clipped below at lo. ``offset`` as ``random_bits``'s."""
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    f = bits_to_unit(random_bits(key, shape, device))
+    f = bits_to_unit(random_bits(key, shape, device, offset))
     return torch.clamp_min(fma(f, span, float(lo)), float(lo))
 
 
@@ -168,6 +172,8 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, r)
 
 
-def normal(key, shape, device=None) -> torch.Tensor:
-    """``jax.random.normal(key, shape, f32)``."""
-    return SQRT2 * erfinv_f32(uniform(key, shape, NORMAL_LO, 1.0, device))
+def normal(key, shape, device=None, offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape, f32)`` (at ``offset``: as
+    ``random_bits``)."""
+    return SQRT2 * erfinv_f32(uniform(key, shape, NORMAL_LO, 1.0, device,
+                                      offset))

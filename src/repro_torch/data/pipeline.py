@@ -30,16 +30,42 @@ def _host_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
 
 
-def _rank_rows(out: dict, ctx) -> dict:
-    """This rank's block of rows of each whole batch array under the
-    sharding context ``ctx`` (its block along "batch"'s mesh axes; the
-    whole array where they do not divide its rows); ``out`` without one."""
+def _rank_rows(out: dict, ctx, microbatches: int = 1) -> dict:
+    """This rank's rows of each whole batch array under the sharding
+    context ``ctx``; ``out`` without one.
+
+    One microbatch: its block along "batch"'s mesh axes, rows [j B/D,
+    (j+1) B/D) for the rank at block j of D (the whole array where D does
+    not divide B). ``microbatches`` = k > 1 (``cfg.microbatch_steps``):
+    its share of every global microbatch, rows [i B/k + j B/(kD),
+    i B/k + (j+1) B/(kD)) for i = 0..k-1, so the step's local microbatch i
+    is this rank's rows of the reference's microbatch i (a slice of the
+    global batch) and its scales, taken over the mesh, are that global
+    microbatch's; raises where kD does not divide B."""
     if ctx is None:
         return out
-    from repro_torch.distributed.sharding import named_sharding
-    return {k: named_sharding(v.shape, ("batch",) + (None,) * (v.ndim - 1),
-                              ctx).block(torch.from_numpy(v)).numpy()
-            for k, v in out.items()}
+    from repro_torch.distributed import sharding
+    rule = ctx.rules.get("batch")
+    n = sharding._axis_size(ctx.mesh, rule)
+    k = max(int(microbatches), 1)
+    if k == 1 or n == 1:
+        return {key: sharding.named_sharding(
+            v.shape, ("batch",) + (None,) * (v.ndim - 1), ctx).block(
+                torch.from_numpy(v)).numpy() for key, v in out.items()}
+    j = sharding._axis_coord(ctx.mesh, rule)
+    res = {}
+    for key, v in out.items():
+        b = v.shape[0]
+        if b % (k * n):
+            raise ValueError(
+                f"{key} {tuple(v.shape)}: a batch of {b} rows in {k} "
+                f"microbatches over {n} batch ranks needs rows a multiple "
+                f"of {k * n}")
+        per = b // (k * n)
+        res[key] = np.concatenate([v[i * (b // k) + j * per:
+                                     i * (b // k) + (j + 1) * per]
+                                   for i in range(k)])
+    return res
 
 
 @dataclass
@@ -54,7 +80,9 @@ class TokenStream:
     (``sharding.named_sharding``), the whole batch where they do not
     divide B, as the reference's ``named_sharding(("batch", "seq"))``
     places it. Under ``MULTIPOD_RULES`` "batch" is ("pod", "data"): one
-    axis of P x D ranks, block index p D + d."""
+    axis of P x D ranks, block index p D + d. With ``microbatches`` = k >
+    1 (the train step's ``cfg.microbatch_steps``) each rank gets its share
+    of every global microbatch instead (``_rank_rows``)."""
 
     vocab: int
     seq_len: int
@@ -62,6 +90,7 @@ class TokenStream:
     seed: int = 0
     ctx: object = None
     device: object = None
+    microbatches: int = 1
 
     def batch_at(self, step: int) -> dict:
         rng = _host_rng(self.seed, step)
@@ -71,7 +100,8 @@ class TokenStream:
         tokens = ((base + np.cumsum(steps, axis=1)) % self.vocab
                   ).astype(np.int32)
         out = _rank_rows({"tokens": tokens,
-                          "labels": np.roll(tokens, -1, axis=1)}, self.ctx)
+                          "labels": np.roll(tokens, -1, axis=1)}, self.ctx,
+                         self.microbatches)
         if self.device is None:
             return out
         dev = resolve_device(self.device)
@@ -106,7 +136,8 @@ class ImageStream:
     The rows are drawn in sequence from one generator, so under a
     sharding context ``ctx`` each rank synthesizes the whole batch and
     keeps its block of rows along "batch"'s mesh axes, as
-    ``TokenStream``: bitwise the global batch's rows.
+    ``TokenStream`` (with ``microbatches`` = k > 1, its share of every
+    global microbatch): bitwise the global batch's rows.
     """
 
     img_size: int
@@ -116,6 +147,7 @@ class ImageStream:
     seed: int = 0
     device: object = None
     ctx: object = None
+    microbatches: int = 1
 
     def batch_at(self, step: int) -> dict:
         rng = _host_rng(self.seed, step)
@@ -139,7 +171,8 @@ class ImageStream:
             m2[py0:py1 + 1, px0:px1 + 1] = 1.0
             patch_mask[i] = m2.reshape(-1)
         out = _rank_rows({"images": imgs, "labels": labels,
-                          "patch_mask": patch_mask}, self.ctx)
+                          "patch_mask": patch_mask}, self.ctx,
+                         self.microbatches)
         if self.device is None:
             return out
         dev = resolve_device(self.device)

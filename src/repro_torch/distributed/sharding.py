@@ -56,8 +56,9 @@ from typing import Mapping, Sequence
 import torch
 
 __all__ = ["ShardingCtx", "use_sharding", "current_ctx", "absmax_scope",
-           "absmax_group", "mesh_scope", "bound", "logical_spec", "local_shard", "named_sharding",
-           "param_spec", "BlockSpec", "Split", "split_of", "axis_size",
+           "absmax_group", "draw_offset", "mesh_scope", "bound",
+           "logical_spec", "local_shard", "named_sharding", "param_spec",
+           "BlockSpec", "Split", "split_of", "axis_size",
            "check_model_rules", "DEFAULT_RULES", "MULTIPOD_RULES",
            "DATA_RULES", "MODEL_RULES", "rules_for_mesh", "validate_rules"]
 
@@ -188,6 +189,9 @@ class ShardingCtx:
     # the process group a launch's rows are split over, inside a split
     # region (absmax_scope): every per-launch absmax reduces over it
     absmax_group: object = None
+    # this rank's block of those rows (its index in the group's rank
+    # order): a noisy draw over a launch's rows starts at block x numel
+    row_block: int = 0
 
     def spec(self, *logical_axes: str | None) -> tuple:
         """Mesh axes (or None) of each logical axis."""
@@ -225,14 +229,19 @@ def use_sharding(mesh, rules: Mapping | None = None):
     return _installed(ShardingCtx(mesh, rules))
 
 
-def absmax_scope(group):
+def absmax_scope(group, block: int = 0):
     """Inside the installed context, a region whose launches hold rows
     split over ``group``: every per-launch activation absmax (and B3's
-    hidden absmax) is MAX-reduced over it. Raises without a context."""
+    hidden absmax) is MAX-reduced over it. ``block`` is this rank's block
+    of the rows when every launch's rows are split evenly in the group's
+    rank order (the data-split encode): a noisy draw over a launch's
+    output then starts at ``block`` times its local numel
+    (``draw_offset``). Raises without a context."""
     ctx = current_ctx()
     if ctx is None:
         raise RuntimeError("absmax_scope needs an installed sharding context")
-    return _installed(dataclasses.replace(ctx, absmax_group=group))
+    return _installed(dataclasses.replace(ctx, absmax_group=group,
+                                          row_block=int(block)))
 
 
 def absmax_group():
@@ -240,6 +249,14 @@ def absmax_group():
     is this rank's own tensor)."""
     ctx = current_ctx()
     return None if ctx is None else ctx.absmax_group
+
+
+def draw_offset(numel: int) -> int:
+    """Where this rank's block of a launch's output of ``numel`` local
+    elements starts in the flat index of the whole launch's output: the
+    absmax scope's ``row_block`` x ``numel`` (0 outside a split)."""
+    ctx = current_ctx()
+    return 0 if ctx is None else ctx.row_block * int(numel)
 
 
 def mesh_scope():

@@ -117,7 +117,7 @@ _SIGNATURES = {
     + (_UINT,) * 3 + (_FLOAT,) * 6 + (_INT, _VOID),
     "noise_transmission_f32": (_VOID, _VOID, _I64, _VOID, _UINT_PTR, _INT)
     + (_UINT,) * 3 + (_FLOAT,) * 6 + (_INT, _VOID),
-    "noise_readout_shot": (_VOID, _I64, _VOID, _UINT_PTR, _INT, _UINT,
+    "noise_readout_shot": (_VOID, _I64, _I64, _VOID, _UINT_PTR, _INT, _UINT,
                            _FLOAT, _VOID),
     "noise_draw_bits": (_VOID, _I64, _VOID, _UINT_PTR, _INT, _UINT, _UINT,
                         _VOID),

@@ -17,8 +17,10 @@
 //     normal(fpv_key), g(d) = delta^2 / (d^2 + delta^2). One multiply by the
 //     codes, the reference's own rounding, so the fused product is bitwise
 //     the unfused one.
-//   noise_readout_shot: y[i] *= 1 + sigma_s n_s[i] in place,
-//     n_s = normal(fold_in(kc, SHOT)).
+//   noise_readout_shot: y[i] *= 1 + sigma_s n_s[offset + i] in place,
+//     n_s = normal(fold_in(kc, SHOT)) over the flat index of a draw whose
+//     elements [offset, offset + n) y holds (a rank's rows of a flush split
+//     along its batch: the draw GSPMD partitions; offset 0 unsplit).
 //   noise_draw_bits: out[i] = random_bits(key)[i] under the draw key (folded
 //     once more when fold != 0), for holding the generator bitwise.
 //
@@ -231,7 +233,7 @@ noise_transmission_kernel(const T* __restrict__ w, float* __restrict__ out,
 }
 
 __global__ void __launch_bounds__(kThreads)
-noise_readout_shot_kernel(float* __restrict__ y, int64_t n,
+noise_readout_shot_kernel(float* __restrict__ y, int64_t n, int64_t offset,
                           const int32_t* __restrict__ state, Salts salts,
                           uint32_t counter, float sigma) {
   __shared__ Key s_ks;
@@ -242,7 +244,8 @@ noise_readout_shot_kernel(float* __restrict__ y, int64_t n,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride)
-    y[i] = __fmul_rn(y[i], __fmaf_rn(normal_at(ks, i), sigma, 1.0f));
+    y[i] = __fmul_rn(y[i],
+                     __fmaf_rn(normal_at(ks, offset + i), sigma, 1.0f));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -321,14 +324,14 @@ extern "C" int noise_transmission_f32(
                                     two_q, channels, stream);
 }
 
-extern "C" int noise_readout_shot(void* y, long long n,
+extern "C" int noise_readout_shot(void* y, long long n, long long offset,
                                   const void* state, const unsigned* salts,
                                   int n_salts, unsigned counter, float sigma,
                                   void* stream) {
   if (n_salts > kMaxSalts) return static_cast<int>(cudaErrorInvalidValue);
   noise_readout_shot_kernel<<<grid_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(y), n, static_cast<const int32_t*>(state),
+      static_cast<float*>(y), n, offset, static_cast<const int32_t*>(state),
       make_salts(salts, n_salts), counter, sigma);
   return static_cast<int>(cudaGetLastError());
 }

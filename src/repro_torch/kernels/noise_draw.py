@@ -18,7 +18,10 @@ what an eager call draws at the state the tensor holds when it replays.
 
   * ``transmission_codes(w, call, spec)``: f32(w) * M for a (K, N) weight
     (int8 codes or f32), M the drifted transmission multiplier;
-  * ``readout_shot(y, call, sigma)``: y *= 1 + sigma * n, in place;
+  * ``readout_shot(y, call, sigma, offset)``: y *= 1 + sigma * n, in
+    place, n the draw's elements from ``offset`` on (0 unsplit; a rank's
+    block of a launch split along its batch rows: GSPMD's partitioned
+    draw);
   * ``draw_bits(state, salts, counter, fold, shape)``: the generator's raw
     bits under a draw key, for holding it bitwise.
 
@@ -100,9 +103,12 @@ def transmission_codes(w: torch.Tensor, call, spec) -> torch.Tensor:
     return out
 
 
-def readout_shot(y: torch.Tensor, call, sigma: float) -> torch.Tensor:
+def readout_shot(y: torch.Tensor, call, sigma: float,
+                 offset: int = 0) -> torch.Tensor:
     """y (any shape, f32, contiguous) *= 1 + sigma * n in place, n the
-    call's shot normals over y's flat index. Returns y."""
+    call's shot normals over y's flat index, starting at ``offset`` of a
+    larger draw's (a rank's rows of a launch split over ranks). Returns
+    y."""
     if y.dtype != torch.float32 or not y.is_contiguous():
         raise TypeError("readout_shot takes a contiguous f32 tensor")
     dev = y.device
@@ -110,13 +116,13 @@ def readout_shot(y: torch.Tensor, call, sigma: float) -> torch.Tensor:
     _check_call(call.salts, state, dev)
     if dev.type == "cpu":
         return y.copy_(readout_shot_ref(y, state, call.salts, call.counter,
-                                        sigma))
+                                        sigma, offset))
     if dev.type != "cuda":
         raise ValueError(f"readout_shot runs on cuda or cpu, not {dev}")
     if y.numel() == 0:
         return y
     err = _build.library().noise_readout_shot(
-        y.data_ptr(), y.numel(), state.data_ptr(),
+        y.data_ptr(), y.numel(), int(offset), state.data_ptr(),
         _build.words_arg(*call.salts), len(call.salts), call.counter,
         float(np.float32(sigma)), _build.stream_ptr(dev))
     _build.check(err, "noise_readout_shot")

@@ -71,6 +71,8 @@ def photonic_matmul_prequant_noisy(x: torch.Tensor, wq: torch.Tensor,
     its plain version on the CPU) walk the wavelength chunks as floats
     (``core.photonic.analog_accumulate``), then acc * sx * sw, shot noise
     and, with ``spec.adc_quantize_output``, an ADC requant at ``bits``.
+    Inside a data split the activation scale is the whole launch's and
+    the shot draw this rank's block of it (``core.noise.readout_noise``).
     Returns (..., N) f32."""
     from repro_torch.core.noise import readout_noise
     from repro_torch.core.photonic import analog_accumulate
@@ -79,7 +81,7 @@ def photonic_matmul_prequant_noisy(x: torch.Tensor, wq: torch.Tensor,
     lead = x.shape[:-1]
     k, n = wq.shape
     x2 = x.reshape(-1, k).float()
-    sx = quant.absmax_scale(x2, bits=bits)
+    sx = scoped_absmax_scale(x2, bits)
     xq = quant.quantize(x2, sx, bits=bits)
     acc = analog_accumulate(xq, transmission_codes(wq, call, spec),
                             chunk=chunk)

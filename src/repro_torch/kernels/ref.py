@@ -431,12 +431,14 @@ def transmission_codes_ref(w: torch.Tensor, state: torch.Tensor,
 
 
 def readout_shot_ref(y: torch.Tensor, state: torch.Tensor, salts: tuple,
-                     counter: int, sigma: float) -> torch.Tensor:
+                     counter: int, sigma: float,
+                     offset: int = 0) -> torch.Tensor:
     """y * (1 + sigma * n), n = normal(fold_in(draw key, SHOT)) over y's
-    shape, as one fused multiply-add."""
+    shape, as one fused multiply-add; with ``offset``, n is the elements
+    [offset, offset + y.numel()) of a larger draw's flat index."""
     from repro_torch.core import noise, threefry
     ks = noise.shot_key(noise.state_draw_key(state, salts, counter))
-    n = threefry.normal(ks, tuple(y.shape))
+    n = threefry.normal(ks, tuple(y.shape), offset=offset)
     return y * threefry.fma(n, float(np.float32(sigma)), 1.0)
 
 

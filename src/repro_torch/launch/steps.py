@@ -13,7 +13,10 @@ operation:
   * ``cfg.microbatch_steps`` k > 1 splits the batch into k sequential
     microbatches of B / k rows, accumulates the gradients in
     ``cfg.grad_accum_dtype`` and divides by k (the reference's
-    ``lax.scan``);
+    ``lax.scan``); on a mesh each rank's rows are its share of every
+    global microbatch (``data/pipeline.py::_rank_rows``), so local
+    microbatch i is its rows of the reference's microbatch i, quantized
+    at that global microbatch's scales (``sharding.mesh_scope``);
   * global-norm clip at 1.0, the warmup-cosine multiplier at step + 1
     (``warmup_cosine(0)`` is 0, which would waste the first step), AdamW
     with bf16 moments unless ``cfg.use_fp32_master``.
@@ -262,7 +265,7 @@ def _mesh_facts(cfg: ArchConfig):
     if mesh.world > 1 and cfg.family == "vit" and cfg.noise is not None:
         raise NotImplementedError(
             f"training {cfg.name} under calibrated device noise on a mesh "
-            f"of {mesh.world} ranks: noisy matmuls on a mesh are not ported "
+            f"of {mesh.world} ranks: noisy training on a mesh is not ported "
             f"(ROADMAP.md queue A, item 1)")
     sharding.check_model_rules(ctx, cfg.family)
     if (tf_mod.fsdp_split(cfg) is not None
@@ -273,13 +276,6 @@ def _mesh_facts(cfg: ArchConfig):
             f"gradient over the batch's axes, so the two must be one")
     data_g, split, groups = None, None, None
     n_data = sharding._axis_size(mesh, ctx.rules.get("batch"))
-    if (n_data > 1 and cfg.microbatch_steps > 1
-            and ExecPolicy.from_cfg(cfg).backend != "bf16"):
-        raise NotImplementedError(
-            f"{cfg.microbatch_steps} microbatches of a quantizing step over "
-            f"{n_data} batch ranks: a rank splits its own rows, so a "
-            f"microbatch's fake-quant scales would span other rows than the "
-            f"reference's global microbatch (ROADMAP.md queue A, item 1)")
     if n_data > 1:
         data_g = mesh.group(ctx.rules["batch"])
     if mesh.world > 1:
@@ -367,7 +363,12 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
 
 
 def _param_specs(cfg: ArchConfig, ctx: ShardingCtx):
+    """The serving steps' param specs: this rank's blocks, or for the ViT
+    the whole tree (its serving forward on a mesh reads whole weights:
+    ``models/vit.py::_mesh_route``)."""
     p_abs = abstract_params(cfg)
+    if cfg.family == "vit":
+        return p_abs
     with sharding._installed(ctx):
         p_ax = placement_axes(cfg, model_api.model_logical_axes(cfg))
     return tree_specs(p_abs, tree_shardings(p_ax, p_abs, ctx))
@@ -375,14 +376,19 @@ def _param_specs(cfg: ArchConfig, ctx: ShardingCtx):
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, ctx: ShardingCtx):
     """(prefill on this rank's blocks -> this rank's rows of the logits,
-    (param specs, batch specs))."""
+    (param specs, batch specs)); the ViT's on whole weights and the whole
+    batch -> the whole batch's logits (its data-split encode)."""
     policy = ExecPolicy.from_cfg(cfg, training=False)
 
     def prefill(params, batch):
         with torch.no_grad():
             return model_api.prefill_fn(params, batch, cfg, policy)
 
-    b_specs, _ = batch_arg_specs(cfg, shape, ctx)
+    if cfg.family == "vit":
+        b_specs = {k: _meta(shp, dt) for k, (shp, dt, _)
+                   in model_api.batch_specs(cfg, shape).items()}
+    else:
+        b_specs, _ = batch_arg_specs(cfg, shape, ctx)
     return _under(ctx, prefill), (_param_specs(cfg, ctx), b_specs)
 
 

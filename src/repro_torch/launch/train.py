@@ -85,16 +85,18 @@ def make_stream(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
     """``step -> batch``, a pure function of (seed, step), on ``device``
     (default: the card): for the dense LM ``TokenStream``'s {"tokens",
     "labels"}, for the ViT ``{"images", "labels"}`` of ``ImageStream`` (8
-    classes); this rank's rows under a sharding context."""
+    classes); this rank's rows under a sharding context (its share of
+    every microbatch with ``cfg.microbatch_steps`` > 1)."""
     _check_trainable(cfg)
     dev = resolve_device(device)
     if cfg.family == "dense":
         ts = TokenStream(cfg.vocab, shape.seq_len, shape.global_batch,
-                         seed=seed, ctx=current_ctx(), device=dev)
+                         seed=seed, ctx=current_ctx(), device=dev,
+                         microbatches=cfg.microbatch_steps)
         return ts.batch_at
     ims = ImageStream(cfg.img_size, shape.global_batch, n_classes=8,
                       patch=cfg.patch, seed=seed, device=dev,
-                      ctx=current_ctx())
+                      ctx=current_ctx(), microbatches=cfg.microbatch_steps)
     return lambda step: {k: v for k, v in ims.batch_at(step).items()
                          if k in ("images", "labels")}
 

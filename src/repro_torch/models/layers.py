@@ -152,7 +152,7 @@ def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
     ``collectives.exact_int_psum``, ``sharded_encoder.
     int8_linear_sharded``), so the result is bitwise the unsharded
     entry's. A cached weight carries its whole scale. Noisy matmuls
-    raise."""
+    raise (a noisy serving forward on a mesh keeps its weights whole)."""
     from repro_torch.core import backend, quant
     from repro_torch.distributed import collectives, sharding
 
@@ -165,9 +165,10 @@ def row_parallel_linear(x: torch.Tensor, w, policy: ExecPolicy,
     if p.noise is not None or p.backend not in ("qat", "photonic_sim",
                                                 "photonic_pallas"):
         raise NotImplementedError(
-            f"a row-parallel projection under {p!r}: noisy matmuls under a "
-            f"'model' split are not ported (their draws are keyed on the "
-            f"whole weight; ROADMAP.md queue A, item 1)")
+            f"a row-parallel projection under {p!r}: a noisy matmul on "
+            f"model-split weights is noisy training on a mesh, which is "
+            f"not ported (its draws are keyed on the whole weight; "
+            f"ROADMAP.md queue A, item 1)")
     bits = (p.quant_bits or 8 if p.backend == "qat"
             else backend._weight_bits(w, p))
     sw = (None if isinstance(w, QuantizedWeight) else

@@ -46,24 +46,31 @@ index, and the counter moves on by one body's calls a run; the head takes
 the next. The MGNet gate scores under ``policy.gate_policy()`` (clean
 unless the spec's ``noisy_gate``).
 
-On a mesh, serving. Under a sharding context whose "model" axis has
-more than one rank, ``encode_tokens`` on the fused serving point runs the
-model-sharded encoder (models/sharded_encoder.py) instead;
-``vit_logical_axes`` names the axes ``core.backend.place_params`` shards
-the params by. Under the 1-D ("data",) mesh it runs the data-split
-encode (``_data_split_encode``): each rank encodes its rows of the batch
-on the replicated params, with every per-launch absmax scope MAX-reduced
-over "data", and the logits are all-gathered. Under ``DEFAULT_RULES`` /
-``MULTIPOD_RULES`` the fused serving encode raises (ROADMAP.md queue A,
-item 1).
+On a mesh, serving (``training=False``), as the reference serves: on a
+("data", "model") mesh whose "model" axis has more than one rank,
+``encode_tokens`` on the fused serving point runs the model-sharded
+encoder (models/sharded_encoder.py) under any table, on the cache
+``serving_cache`` places by ``vit_logical_axes`` under ``MODEL_RULES``
+(the reference's shard_map has its own specs); weights held as a
+training state's blocks are gathered first (``launch.steps.gather_tree``),
+so every scale is the whole weight's. Every other serving forward (the fused
+point on the 1-D data mesh or on the pod mesh, every policy off it:
+composed, and calibrated noise) runs the data-split encode
+(``_data_split_encode``): each rank encodes its rows of the batch along
+the batch axes ("data", or ("pod", "data")) on whole weights,
+replicated over "model", with every per-launch absmax scope MAX-reduced
+over those axes, every noisy readout drawn at the rank's block of the
+whole launch's draw, and the logits all-gathered in rank order; the
+patch embed and MGNet's gate run whole on every rank.
 
-On a mesh, every other policy (the composed entries: training, the
-reference's ``vit_logical_axes`` under GSPMD) runs SPMD: each rank holds
-its rows of the batch ("batch" over the batch axes) and its blocks of the
-params as ``vit_placement_axes`` places them, and the whole forward (the
-patch embed, MGNet's gate, the trunk, the head) runs inside the absmax
-scope of the whole mesh (``sharding.mesh_scope``), so every fake-quant
-scale is the global batch's, as GSPMD's. Under a "model" split of the
+On a mesh, training (a training policy off the fused point: the
+composed entries, the reference's ``vit_logical_axes`` under GSPMD) runs
+SPMD: each rank holds its rows of the batch ("batch" over the batch
+axes) and its blocks of the params as ``vit_placement_axes`` places
+them, and the whole forward (the patch embed, MGNet's gate, the trunk,
+the head) runs inside the absmax scope of the whole mesh
+(``sharding.mesh_scope``), so every fake-quant scale is the global
+batch's, as GSPMD's. Under a "model" split of the
 heads ("p_heads") the input goes through ``collectives.copy_to_model``,
 wq / wk / wv give this rank's heads, and their merged outputs are
 all-gathered over "model" before the whole wo
@@ -74,8 +81,8 @@ under a split of d_ff ("p_mlp") w1 is column- and w2 row-parallel
 leaves, the patch embed's and the head are gathered where they are used
 (``layers.fsdp_layer``; the gather's backward is the reduce-scatter
 mean). A remat's recompute re-enters the context and the scope
-(``sharding.bound``). Noisy matmuls on a mesh raise (ROADMAP.md queue A,
-item 1).
+(``sharding.bound``). Noisy training on a mesh raises (ROADMAP.md queue
+A, item 1).
 """
 
 from __future__ import annotations
@@ -94,9 +101,10 @@ from repro_torch.core.decomposed_attention import (attention_heads,
 from repro_torch.core.mgnet import MGNetConfig, mgnet_scores, patchify
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (absmax_scope, bound,
-                                              check_model_rules, current_ctx,
-                                              mesh_scope, split_of)
+from repro_torch.distributed.sharding import (absmax_scope, axis_size,
+                                              bound, check_model_rules,
+                                              current_ctx, mesh_scope,
+                                              split_of)
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import sharded_encoder
 from repro_torch.models.layers import (ExecPolicy, QuantizedWeight, fsdp_layer,
@@ -106,7 +114,8 @@ __all__ = ["embed_patches", "encoder_layer_step", "encode_tokens",
            "forward_vit", "forward_vit_tokens", "forward_vit_masked",
            "vit_matmul_shapes", "mgnet_config", "vit_logical_axes",
            "vit_layer_axes", "vit_splits", "vit_placement_axes",
-           "data_split_calls", "check_training_tree"]
+           "data_split_calls", "serving_cache",
+           "check_training_tree"]
 
 # "split" -> data-split encodes run by this process with the batch split
 # over "data"; "whole" -> those that encoded the whole batch on every rank
@@ -198,11 +207,14 @@ def embed_patches(params: dict, images: torch.Tensor, cfg: ArchConfig,
                   policy: ExecPolicy | None = None) -> torch.Tensor:
     """images (B, H, W, 3) -> position-embedded patch tokens (B, N, d). The
     pos table is added before any pruning, so gathered subsets keep their
-    positions."""
+    positions. Under an FSDP split the composed mesh trunk gathers the
+    patch embed first; every other forward holds it whole."""
     policy = policy or ExecPolicy.from_cfg(cfg)
     pt = patchify(images, cfg.patch)                      # (B, N, p*p*3)
-    pe = fsdp_layer(params["patch_embed"], _PATCH_AXES,
-                    split_of("p_embed", cfg.d_model), cfg.d_model)
+    split = split_of("p_embed", cfg.d_model)
+    if split is not None and not _trunk(params, cfg, policy):
+        split = None
+    pe = fsdp_layer(params["patch_embed"], _PATCH_AXES, split, cfg.d_model)
     x = linear(pt, pe["w"], pe["b"], policy)
     return x + params["pos"][:, 1: x.shape[1] + 1]
 
@@ -346,15 +358,18 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     the fused FFN) whose weights it cannot take raises with the reason
     (the reference warns once and composes).
 
-    Under a sharding context with a "model" axis of more than one rank
-    the fused point's encode runs model-sharded (``sharded_encoder.
-    sharded_encode``) on this rank's shard of the params. If that path
-    cannot run, this raises with the reason: the port never serves
-    unsharded when sharding was asked for (the reference warns once and
-    falls back). Under the 1-D ("data",) mesh it runs the data-split
-    encode (``_data_split_encode``). Every other policy on a mesh runs
-    the composed mesh trunk (the module docstring): ``tokens`` are then
-    this rank's rows and the logits its rows'.
+    On a mesh (``_mesh_route``): on a ("data", "model") mesh with model
+    > 1 the fused point's encode runs model-sharded (``sharded_encoder.
+    sharded_encode``) on this rank's shard of the cache
+    (``serving_cache``), under any table; if that path cannot run, this
+    raises with the reason (the reference warns once and falls back).
+    Every other serving policy (the fused point on the 1-D data mesh or
+    the pod mesh, any policy off it, noise included) runs the data-split
+    encode over the batch axes (``_data_split_encode``) on whole weights:
+    ``tokens`` are the whole flush and the logits the whole flush's. A
+    training policy off the fused point runs the composed mesh trunk (the
+    module docstring): ``tokens`` are then this rank's rows and the
+    logits its rows'.
     """
     dev = resolve_device(device)
     _check_device(params, dev)
@@ -365,83 +380,115 @@ def encode_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     if patch_mask is not None:
         patch_mask = torch.as_tensor(patch_mask).to(dev)
     ctx = current_ctx()
-    if _on_mesh(params, cfg, policy, ctx):
+    route = _mesh_route(params, cfg, policy, ctx)
+    if route == "trunk":
         with mesh_scope():
             return _encode_local(params, tokens, cfg, policy, patch_mask,
                                  kv_len, vit_splits(cfg))
-    if ctx is not None and ctx.mesh.shape.get("model", 1) > 1:
-        sreason = (_fused_encoder_ineligible_reason(params, cfg, policy)
-                   or sharded_encoder.sharded_encode_ineligible_reason(
-                       params, cfg, policy, ctx))
-        if sreason is not None:
-            raise ValueError(f"the model-sharded encode cannot run: "
-                             f"{sreason}")
+    if route == "sharded":
         return sharded_encoder.sharded_encode(params, tokens, cfg, policy,
                                               patch_mask, kv_len, ctx)
-    if (ctx is not None and ctx.absmax_group is None
-            and ctx.mesh.shape["data"] > 1):
-        reason = _fused_encoder_ineligible_reason(params, cfg, policy)
-        if reason is not None:
-            raise ValueError(f"the data-split encode cannot run: {reason}")
+    if route == "split":
         return _data_split_encode(params, tokens, cfg, policy, patch_mask,
-                                  kv_len, ctx)
+                                  kv_len)
     return _encode_local(params, tokens, cfg, policy, patch_mask, kv_len)
 
 
-def _on_mesh(params: dict, cfg: ArchConfig, policy: ExecPolicy,
-             ctx) -> bool:
-    """Whether a forward under ``ctx`` runs the composed mesh trunk: a
-    context of more than one rank and a policy off the fused serving
-    point. Raises where a forward on the mesh cannot run: the fused
-    encode under FSDP ("p_embed" split: ``DEFAULT_RULES`` /
-    ``MULTIPOD_RULES``), a noisy policy."""
+def _mesh_route(params: dict, cfg: ArchConfig, policy: ExecPolicy,
+                ctx) -> str:
+    """How a forward under ``ctx`` runs, as the reference's does:
+
+      * "local": no context of more than one rank, or a serving forward
+        inside a split region already (an absmax scope);
+      * "trunk": a training policy off the fused point: the composed mesh
+        trunk on this rank's rows and blocks (the module docstring);
+      * "sharded": the fused point on a ("data", "model") mesh with model
+        > 1, under any table: ``sharded_encoder.sharded_encode`` on the
+        cache ``serving_cache`` places (the reference's shard_map has its
+        own specs); raises where it cannot run (the reference warns and
+        serves unsharded);
+      * "split": every other serving forward: the data-split encode over
+        the batch axes on whole weights (``_data_split_encode``), the
+        reference's batch placement with the weights replicated.
+
+    Noisy training on a mesh raises: without a noise scope the
+    reference's own refusal, with one naming where it waits."""
     if ctx is None or ctx.mesh.world == 1:
-        return False
+        return "local"
     check_model_rules(ctx, "vit")
-    if _fused_encoder_ineligible_reason(params, cfg, policy) is None:
-        if split_of("p_embed", cfg.d_model) is not None:
+    fused = _fused_encoder_ineligible_reason(params, cfg, policy) is None
+    if not fused and policy.training:
+        if policy.noise is not None:
+            if noise_mod.current_scope() is None:
+                noise_mod.next_call_keys(policy.noise)    # raises
             raise NotImplementedError(
-                f"the ViT's fused serving encode under {dict(ctx.rules)} on "
-                f"the mesh {dict(ctx.mesh.shape)}: FSDP ('p_embed' split) "
-                f"serving is not ported; serve under DATA_RULES or "
-                f"MODEL_RULES (ROADMAP.md queue A, item 1)")
-        return False
-    if policy.noise is not None:
-        raise NotImplementedError(
-            f"a noisy ViT forward on the mesh {dict(ctx.mesh.shape)}: noisy "
-            f"matmuls on a mesh are not ported (their draws are keyed on the "
-            f"whole weight and the whole launch; ROADMAP.md queue A, item 1)")
-    return True
+                f"a noisy ViT training forward on the mesh "
+                f"{dict(ctx.mesh.shape)}: noisy training on a mesh is not "
+                f"ported (it needs block draws of model-split weights and "
+                f"a backward through the noisy walk; ROADMAP.md queue A, "
+                f"item 1); serving policies (training=False) run noisy on "
+                f"every mesh")
+        return "trunk"
+    if (fused and tuple(ctx.mesh.axis_names) == ("data", "model")
+            and ctx.mesh.shape["model"] > 1):
+        sreason = sharded_encoder.sharded_encode_ineligible_reason(
+            params, cfg, policy, ctx)
+        if sreason is not None:
+            raise ValueError(f"the model-sharded encode cannot run: "
+                             f"{sreason}")
+        return "sharded"
+    return "split" if ctx.absmax_group is None else "local"
+
+
+def serving_cache(cache: dict, cfg: ArchConfig, policy: ExecPolicy,
+                  ctx) -> dict:
+    """The form of a whole prepared cache that a serving forward under
+    ``ctx`` reads: this rank's "model" shard where it runs the
+    model-sharded encode (placed by ``vit_logical_axes`` under
+    ``MODEL_RULES``, the sharded encoder's own specs, whatever the
+    context's table), else the cache itself (whole on every rank). The
+    caller prepares the cache from whole weights, so every per-channel
+    scale is the whole weight's: a training state's blocks go through
+    ``launch.steps.gather_tree`` first."""
+    if ctx is None or _mesh_route(cache, cfg, policy, ctx) != "sharded":
+        return cache
+    from repro_torch.core.backend import place_params
+    from repro_torch.distributed.sharding import MODEL_RULES, ShardingCtx
+    return place_params(cache, vit_logical_axes(cfg),
+                        ShardingCtx(ctx.mesh, MODEL_RULES))
 
 
 def _data_split_encode(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                        policy: ExecPolicy, patch_mask: torch.Tensor | None,
-                       kv_len: int | None, ctx) -> torch.Tensor:
-    """The encode on the 1-D ("data",) mesh, the port's form of the
-    reference's batch placement (``StreamServer._place``): every rank holds
-    the whole flush; rank d encodes rows [d B/D, (d+1) B/D) inside an
-    absmax scope over "data", so each launch quantizes with the scale of
-    the whole flush (the reference's GSPMD reduces every absmax over the
-    global array), and the logits are all-gathered over "data" in rank
-    order. Every other op is row-local, so the result is bitwise the
-    unsplit encode. A batch that does not divide D is encoded whole on
-    every rank, with no collective (each scope is then the whole flush
-    already)."""
-    mesh = ctx.mesh
-    n_data = mesh.shape["data"]
-    b = tokens.shape[0]
-    if b % n_data:
-        _DATA_CALLS["whole"] += 1
+                       kv_len: int | None) -> torch.Tensor:
+    """The encode split over the batch axes ("batch"'s rule: "data", or
+    ("pod", "data")), the port's form of the reference's batch placement
+    (``StreamServer._place``) with the weights replicated: every rank
+    holds the whole flush and the whole weights; the rank at block j of
+    the batch axes (``Split.index``, p D + d on the pod mesh) encodes rows
+    [j B/n, (j+1) B/n) inside an absmax scope over their group, so each
+    launch quantizes with the scale of the whole flush (the reference's
+    GSPMD reduces every absmax over the global array) and each noisy
+    readout draws its block of the whole launch's draw (``absmax_scope``'s
+    block, ``core.noise.readout_noise``); the logits are all-gathered in
+    rank order. "model" ranks compute the same rows. Every other op is
+    row-local, so the result is the unsplit encode's arithmetic. A batch
+    that does not divide n is encoded whole on every rank, with no
+    collective and every draw at offset 0 (each scope is then the whole
+    flush already)."""
+    n = axis_size("batch")
+    split = split_of("batch", tokens.shape[0])
+    if split is None:
+        if n > 1:
+            _DATA_CALLS["whole"] += 1
         return _encode_local(params, tokens, cfg, policy, patch_mask, kv_len)
-    per = b // n_data
-    rows = slice(mesh.d * per, (mesh.d + 1) * per)
-    group = mesh.group("data")
-    with absmax_scope(group):
-        logits = _encode_local(params, tokens[rows], cfg, policy,
+    lo, hi = split.block(tokens.shape[0])
+    with absmax_scope(split.group, split.index):
+        logits = _encode_local(params, tokens[lo:hi], cfg, policy,
                                None if patch_mask is None
-                               else patch_mask[rows], kv_len)
+                               else patch_mask[lo:hi], kv_len)
     _DATA_CALLS["split"] += 1
-    return collectives.all_gather_cat(logits, group, dim=0)
+    return collectives.all_gather_cat(logits, split.group, dim=0)
 
 
 def _encode_local(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -500,7 +547,8 @@ def forward_vit(params: dict, images: torch.Tensor, cfg: ArchConfig,
     _check_device(params, dev)
     images = torch.as_tensor(images).to(dev)
     policy = policy or ExecPolicy.from_cfg(cfg)
-    with _forward_scope(params, cfg, policy):
+    trunk = _trunk(params, cfg, policy)
+    with mesh_scope() if trunk else contextlib.nullcontext():
         x = embed_patches(params, images, cfg, policy)
         n = x.shape[1]
         kept = n
@@ -512,12 +560,10 @@ def forward_vit(params: dict, images: torch.Tensor, cfg: ArchConfig,
         return encode_tokens(params, x, cfg, policy, device=dev), kept
 
 
-def _forward_scope(params: dict, cfg: ArchConfig, policy: ExecPolicy):
-    """The mesh's absmax scope where the forward runs the composed mesh
-    trunk, else a no-op."""
-    if _on_mesh(params, cfg, policy, current_ctx()):
-        return mesh_scope()
-    return contextlib.nullcontext()
+def _trunk(params: dict, cfg: ArchConfig, policy: ExecPolicy) -> bool:
+    """Whether a forward under the installed context runs the composed
+    mesh trunk (``_mesh_route``), inside the mesh's absmax scope."""
+    return _mesh_route(params, cfg, policy, current_ctx()) == "trunk"
 
 
 def forward_vit_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -541,7 +587,8 @@ def forward_vit_masked(params: dict, images: torch.Tensor,
     _check_device(params, dev)
     images = torch.as_tensor(images).to(dev)
     policy = policy or ExecPolicy.from_cfg(cfg)
-    with _forward_scope(params, cfg, policy):
+    trunk = _trunk(params, cfg, policy)
+    with mesh_scope() if trunk else contextlib.nullcontext():
         x = embed_patches(params, images, cfg, policy)
         return encode_tokens(params, x, cfg, policy, patch_mask,
                              device=dev), x.shape[1]

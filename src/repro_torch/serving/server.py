@@ -48,8 +48,11 @@ of a ``torch.distributed`` world of W = D x M ranks runs this same loop
 over the same streams. The gate, embed, routing and micro-batcher are
 deterministic and run replicated; only the encode is sharded, over the
 2-D ("data", "model") mesh of ``launch.mesh.make_serving_mesh``, on this
-rank's shard of the weight cache (``place_params``), through
-``models/sharded_encoder.py``. Every rank ends with the same predictions.
+rank's shard of the weight cache (``models/vit.py::serving_cache``),
+through ``models/sharded_encoder.py``. Every other policy (composed, or
+noisy) holds the whole cache and runs the data-split encode below over
+"data", replicated over "model". Every rank ends with the same
+predictions.
 Its collectives go through gloo and the host, which no CUDA graph can
 hold, so a sharded server warms eagerly and captures nothing.
 
@@ -62,9 +65,14 @@ MAX-reduced over "data" (B1's activation scales, B3's x and hidden
 scales through B3's host-split binding) and the logits all-gathered
 (``models/vit.py::encode_tokens``), so every rank's predictions are
 bitwise the unsharded serve's; a flush whose B does not divide D is
-encoded whole on every rank. Only the fused serving point can take the
-split: another policy raises with the reason (never a quiet replicated
-serve). Its ranks warm eagerly, as a model-sharded server's do.
+encoded whole on every rank. Every policy one device serves takes the
+split: composed ones scope their activation absmaxes the same way, and
+under noise each rank's readout shot draws are its rows of the whole
+flush's draw (``core/noise.py::readout_noise``), so the split serve is
+the unsplit serve's arithmetic. A policy that asks for the fused FFN
+with weights the fused encode cannot take raises with the reason at
+construction (never a quiet composed serve). Its ranks warm eagerly, as
+a model-sharded server's do.
 ``mesh="off"`` builds no mesh: each rank then serves on its own.
 
 Mixed precision (``ServerConfig.bit_plan``, ``--bit-plan``): the shared
@@ -98,8 +106,9 @@ The gate scores clean unless ``noisy_gate``; ``calibrate_bits`` scores
 clean. The fused entries are the clean digital contract and raise under
 noise: a noisy server names composed backends (``photonic_sim`` or
 ``photonic_pallas`` matmuls, ``flash`` or ``xla`` attention, ``xla`` FFN;
-photonic_pallas + flash raises too). Noise with ``model_shards`` > 1
-raises.
+photonic_pallas + flash raises too). On a mesh every rank holds the same
+``DriftState`` and state tensor, advances them a flush as one device
+does and recalibrates at the same flush; the encode splits over "data".
 
 The serving control plane (``ServerConfig.autotune``, ``--autotune``;
 ``serving/control/``): ``autotune_prepare`` probes which buckets the
@@ -192,8 +201,7 @@ from repro_torch.checkpoint.checkpoint import latest_step, restore_flat
 from repro_torch.checkpoint.checkpoint import save as _ckpt_save
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.core import bitalloc
-from repro_torch.core.backend import (ExecPolicy, place_params,
-                                      prepare_params)
+from repro_torch.core.backend import ExecPolicy, prepare_params
 from repro_torch.core.mgnet import mask_budget, mgnet_scores
 from repro_torch.core.noise import DriftState, NoiseSpec, noise_scope
 from repro_torch.data.pipeline import VideoStream, video_fleet
@@ -208,7 +216,7 @@ from repro_torch.models.sharded_encoder import \
 from repro_torch.models.vit import (_fused_encoder_ineligible_reason,
                                     embed_patches, forward_vit_masked,
                                     forward_vit_tokens, mgnet_config,
-                                    vit_logical_axes)
+                                    serving_cache)
 from repro_torch.serving.buckets import BucketLadder
 from repro_torch.serving.mask_cache import TemporalMaskCache
 from repro_torch.serving.control import (Controller, ControllerConfig,
@@ -385,7 +393,8 @@ class StreamServer:
     its defaults, warm start included). With ``model_shards`` > 1 this
     process is one rank of a model-sharded mesh: it serves on
     ``cuda:(LOCAL_RANK % device_count)`` (or the CPU) and keeps only its
-    shard of the cache. On a world of several ranks without model shards
+    shard of the cache on the fused point (the whole cache under any other
+    policy). On a world of several ranks without model shards
     (``mesh="auto"``) it is one rank of the 1-D data mesh, on that device,
     with the whole cache.
     """
@@ -478,31 +487,33 @@ class StreamServer:
             self.warm_start()
 
     def _maybe_place(self, params):
-        """This rank's shard of the prepared cache on a model-sharded mesh
-        (the whole cache without one, or on the data mesh). The cache is
-        prepared whole first, so every per-out-channel scale is the
-        unsharded one. Raises with the reason when the mesh's encode
-        cannot run: a mesh never serves unsharded or replicated quietly."""
+        """The cache as this rank's encode reads it (``vit.serving_cache``):
+        on a model-sharded mesh the fused point's "model" shard, prepared
+        whole first so every per-out-channel scale is the unsharded one;
+        everywhere else the whole cache (every other policy, noisy ones
+        included, and the fused point on the data mesh run the data-split
+        encode, replicated over "model"). A policy that asks for the fused
+        FFN raises with the reason where the mesh's fused encode cannot
+        take the weights, as one device raises at its first encode: a mesh
+        never serves another encode quietly."""
         if self._ctx is None:
             return params
-        if self.mesh.axis_names == ("data",):
+        sharded = self.mesh.axis_names == ("data", "model")
+        if self.policy.resolve_ffn_backend() == "fused":
             reason = _fused_encoder_ineligible_reason(params, self.cfg,
                                                       self.policy)
+            if reason is None and sharded:
+                reason = sharded_encode_ineligible_reason(
+                    params, self.cfg, self.policy, self._ctx)
+            if reason is not None and sharded:
+                raise ValueError(
+                    f"model_shards={self.serve_cfg.model_shards} asks for "
+                    f"the model-sharded encode, which cannot run: {reason}")
             if reason is not None:
                 raise ValueError(
                     f"mesh='auto' on {self.mesh.world} ranks asks for the "
                     f"data-split encode, which cannot run: {reason}")
-            return params
-        reason = (_fused_encoder_ineligible_reason(params, self.cfg,
-                                                   self.policy)
-                  or sharded_encode_ineligible_reason(params, self.cfg,
-                                                      self.policy,
-                                                      self._ctx))
-        if reason is not None:
-            raise ValueError(
-                f"model_shards={self.serve_cfg.model_shards} asks for the "
-                f"model-sharded encode, which cannot run: {reason}")
-        return place_params(params, vit_logical_axes(self.cfg), self._ctx)
+        return serving_cache(params, self.cfg, self.policy, self._ctx)
 
     def _prepare(self, plan) -> dict:
         """The cache quantized from the raw weights under ``plan`` (None:

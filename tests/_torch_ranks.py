@@ -11,6 +11,7 @@ plain Python values.
 """
 
 import contextlib
+import dataclasses
 import sys
 
 import numpy as np
@@ -225,8 +226,9 @@ def serve_sharded(raw: dict, n_streams: int, n_frames: int,
     """The smoke config served model-sharded over every rank (2 streams by
     default), what ``model_shards=2`` on an ineligible config raises, and
     a server without model shards on this multi-rank world: the 1-D data
-    mesh's serve of the same traffic, and what it raises under a policy
-    the data-split encode cannot take."""
+    mesh's serve of the same traffic, and its serve under a composed
+    policy (the xla FFN) beside the same policy served on one rank alone
+    (``mesh="off"``)."""
     cfg = smoke_cfg()
     sc = ServerConfig(microbatch=4, chunk=8, model_shards=2)
     server = StreamServer(cfg, sc, params=from_jax_params(raw, "cpu"),
@@ -247,10 +249,13 @@ def serve_sharded(raw: dict, n_streams: int, n_frames: int,
                 cfg, ServerConfig(microbatch=4, chunk=8),
                 params=from_jax_params(raw, "cpu"), device="cpu"),
                 n_streams, n_frames, phase, cut_every=16)["predictions"],
-            "unsharded_ineligible": _raises(lambda: StreamServer(
-                cfg.with_(ffn_backend="xla"),
-                ServerConfig(microbatch=4, chunk=8),
-                params=from_jax_params(raw, "cpu"), device="cpu"))}
+            "unsharded_composed": {
+                mesh: serve_streams(StreamServer(
+                    cfg.with_(ffn_backend="xla"),
+                    ServerConfig(microbatch=4, chunk=8, mesh=mesh),
+                    params=from_jax_params(raw, "cpu"), device="cpu"),
+                    n_streams, n_frames, phase, cut_every=16)
+                for mesh in ("auto", "off")}}
 
 
 def suite(x_halves: np.ndarray, ffn_cases: list, raw: dict, cfg,
@@ -664,8 +669,40 @@ def _row_parallel_cases(cases: list, ctx) -> list:
     return out
 
 
+def fused_serve(whole: dict, cfg, tokens: np.ndarray, ctx) -> dict:
+    """The fused serving encode of ``tokens`` under ``ctx`` on a cache
+    prepared from ``whole`` (a train state's params) as a trainer holds
+    it: placed as blocks, gathered back (``steps.gather_tree``), prepared,
+    and put in the form the encode reads (``vit.serving_cache``); beside
+    it the one-device encode of the same cache, and the same mesh encode
+    with every absmax scope left local to the rank (a planted fault)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api, vit
+
+    fused = cfg.with_(matmul_backend="photonic_pallas", attn_backend="flash",
+                      ffn_backend="fused")
+    pol = ExecPolicy.from_cfg(fused, training=False)
+    axes = steps.placement_axes(cfg, api.model_logical_axes(cfg))
+    blocks = place_params(whole, axes, ctx)
+    cache = prepare_params(steps.gather_tree(blocks, axes, ctx), bits=8)
+    served = vit.serving_cache(cache, fused, pol, ctx)
+    toks = torch.from_numpy(tokens)
+    before = (sharded_encoder.sharded_encode_calls(), data_split_calls())
+    with torch.no_grad():
+        mesh = encode_tokens(served, toks, fused, pol, device="cpu")
+        with local_absmax_scopes():
+            planted = encode_tokens(served, toks, fused, pol, device="cpu")
+        with sharding._installed(None):
+            one = encode_tokens(cache, toks, fused, pol, device="cpu")
+    return {"mesh": mesh.numpy(), "one": one.numpy(),
+            "planted": planted.numpy(),
+            "sharded": sharded_encoder.sharded_encode_calls() - before[0],
+            "split": data_split_calls()["split"] - before[1]["split"],
+            "wq": tuple(served["blocks"]["attn"]["wq"].wq.shape)}
+
+
 def vit_mesh_suite(states: dict, cfgs: dict, batch: dict, rp_cases: list,
-                   lm: tuple, ckpt_dir: str) -> dict:
+                   lm: tuple, ckpt_dir: str, tokens: np.ndarray) -> dict:
     """One rank of the ViT's training on all four tables (``_vit_meshes``):
     each case of ``cfgs`` (name -> cfg, its whole train state in
     ``states``) one mesh step on ``batch``; the planted faults
@@ -673,8 +710,10 @@ def vit_mesh_suite(states: dict, cfgs: dict, batch: dict, rp_cases: list,
     ``row_parallel_linear`` and the "plain" step under remat under
     MODEL_RULES; the dense LM ``lm`` =
     (cfg, whole params, numpy batch) one qat gradient under MODEL_RULES;
-    and 2 train steps under DEFAULT_RULES checkpointed each step into
-    ``ckpt_dir``, gathered."""
+    2 train steps under DEFAULT_RULES checkpointed each step into
+    ``ckpt_dir``, gathered; and under DEFAULT_RULES and MULTIPOD_RULES the
+    "plain" params served on the fused point (``fused_serve`` of
+    ``tokens``)."""
     from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps, train
@@ -684,7 +723,7 @@ def vit_mesh_suite(states: dict, cfgs: dict, batch: dict, rp_cases: list,
     out = {"jax_loaded": "jax" in sys.modules,
            "repro_loaded": any(m == "repro" or m.startswith("repro.")
                                for m in sys.modules),
-           "steps": {}, "planted": {}}
+           "steps": {}, "planted": {}, "fused": {}}
 
     def fsdp_no_reduce(g, group, dim):
         n = torch.distributed.get_world_size(group)
@@ -730,6 +769,9 @@ def vit_mesh_suite(states: dict, cfgs: dict, batch: dict, rp_cases: list,
                     ltree, lcfg), {k: named_sharding_rows(v, ctx)
                                    for k, v in lbatch.items()}, ctx)
                 out["lm_qat"] = (loss, g)
+            if table in ("default", "multipod"):
+                out["fused"][table] = fused_serve(
+                    states["plain"]["params"], cfgs["plain"], tokens, ctx)
             if table == "default":
                 cfg = cfgs["plain"]
                 shape = ShapeConfig("vit_mesh", 0, batch["labels"].shape[0],
@@ -788,4 +830,127 @@ def vit_mesh_card(params: dict, cfg, batch: dict,
             with sharding._installed(None):
                 y1 = pol.matmul_fn(h, w2, pol)
         out["sim_bitwise"] = bool(torch.equal(y, y1))
+    return out
+
+
+# --------------------------------------------------------------------------
+# every serving policy on the serving meshes and microbatched quantizing
+# steps over batch ranks (test_torch_serve_mesh.py)
+# --------------------------------------------------------------------------
+
+def scale_recorder(rec: list):
+    """A ``quant.fake_quant_ste`` that appends each per-tensor call's scale
+    (as numpy) to ``rec``: a step's activation scales in call order."""
+    from repro_torch.core import quant
+    real = quant.fake_quant_ste
+
+    def fq(x, bits=8, axis=None, scale=None):
+        if scale is None:
+            scale = quant.absmax_scale(x, bits=bits, axis=axis)
+        if axis is None:
+            rec.append(scale.detach().float().cpu().numpy().reshape(-1))
+        return real(x, bits, axis, scale)
+    return fq
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def serve_logged(cfg, sc, raw: dict, n_streams: int, n_frames: int,
+                 phase: int) -> dict:
+    """``serve_streams`` on a server of (cfg, sc) over the raw ``raw``
+    tree, with each flush's DriftState words and tokens, and the server's
+    recalibrations and final state."""
+    server = StreamServer(cfg, sc, params=from_jax_params(raw, "cpu"),
+                          device="cpu")
+    states, tokens, finish = {}, {}, server._finish
+
+    def finish_and_log(fb, by_sid):
+        finish(fb, by_sid)
+        key = tuple(fb.frame_idx)
+        states[key] = server.last_drift.words()
+        tokens[key] = fb.tokens.cpu().numpy()
+    server._finish = finish_and_log
+    out = serve_streams(server, n_streams, n_frames, phase, cut_every=16)
+    out.update(states=states, tokens=tokens,
+               recalibrations=server.recalibrations,
+               final=server.drift.words(),
+               mesh=None if server.mesh is None else dict(server.mesh.shape))
+    return out
+
+
+def microbatched_steps(cases: dict, lm: dict) -> dict:
+    """One quantizing train step of each ViT case (name -> (cfg with
+    ``microbatch_steps`` 2, whole numpy train state, whole numpy batch))
+    and one gradient of each dense LM case of ``lm`` (name -> (cfg, whole
+    params, numpy batch)) under DATA_RULES on the ("data",) mesh of every
+    rank, each rank's rows its share of every global microbatch
+    (``pipeline._rank_rows``): the global loss, the new first moment (ViT)
+    or gradient and its norm (LM) and the activation scales in call order;
+    and the ViT's "plain" step on the rank-local row split of one
+    microbatch (a planted fault)."""
+    from repro_torch.data.pipeline import _rank_rows
+    from repro_torch.launch import steps
+    from repro_torch.core import quant
+
+    mesh = make_serving_mesh(model=1, device="cpu")
+    out = {}
+    with use_sharding(mesh, sharding.DATA_RULES) as ctx:
+        def step(cfg, state, batch, k):
+            rows = {n: torch.from_numpy(v) for n, v in
+                    _rank_rows(batch, ctx, k).items()}
+            st = place_params(state, steps.placement_axes(
+                cfg, steps.state_logical_axes(cfg)), ctx)
+            rec = []
+            with patched(quant, "fake_quant_ste", scale_recorder(rec)):
+                new, m = steps.make_train_fn(cfg)(st, rows)
+            return {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+                    "m": _np_tree(new["opt"]["m"]), "scales": rec,
+                    "rows": tuple(rows["labels"].shape)}
+        for name, (cfg, state, batch) in cases.items():
+            out[name] = step(cfg, state, batch, cfg.microbatch_steps)
+        cfg, state, batch = cases["plain"]
+        out["planted"] = step(cfg, state, batch, 1)
+        out["lm"] = {}
+        for name, (lcfg, ltree, lbatch) in lm.items():
+            rows = {n: torch.from_numpy(v) for n, v in
+                    _rank_rows(lbatch, ctx, lcfg.microbatch_steps).items()}
+            rec = []
+            with patched(quant, "fake_quant_ste", scale_recorder(rec)):
+                loss, g, gn = _lm_grads(lcfg, ltree, rows, ctx)
+            out["lm"][name] = {"loss": loss, "grads": g, "gnorm": gn,
+                               "scales": rec}
+        out["uneven"] = _raises(lambda: _rank_rows(
+            {"labels": np.zeros(6, np.int32)}, ctx, 2))
+    return out
+
+
+def serve_mesh_suite(raw: dict, noisy_cfgs: dict, n_streams: int,
+                     n_frames: int, phase: int, mb_cases: dict,
+                     lm: dict) -> dict:
+    """Everything the 2-rank CPU tests of ``test_torch_serve_mesh.py``
+    read, from one spawn: each noisy config of ``noisy_cfgs`` served on the
+    data mesh ("data" 2) and on this rank alone (``mesh="off"``), "pallas"
+    also on the model_shards mesh (1, 2); the data mesh's serve with every
+    readout drawn at offset 0 (a planted fault); ``microbatched_steps``."""
+    sc = ServerConfig(microbatch=4, chunk=8, warm_start=False)
+    out = {"modules": sorted(m.split(".")[0] for m in sys.modules)}
+    for tag, cfg in noisy_cfgs.items():
+        meshes = {"data": {}, "off": {"mesh": "off"}}
+        if tag == "pallas":
+            meshes["model"] = {"model_shards": 2}
+        out[tag] = {mesh: serve_logged(cfg, dataclasses.replace(sc, **kw),
+                                       raw, n_streams, n_frames, phase)
+                    for mesh, kw in meshes.items()}
+    with patched(sharding, "draw_offset", lambda n: 0):
+        out["offset0"] = serve_logged(noisy_cfgs["sim"], sc, raw, n_streams,
+                                      n_frames, phase)
+    out["steps"] = microbatched_steps(mb_cases, lm)
     return out

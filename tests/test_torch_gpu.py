@@ -1207,6 +1207,53 @@ def test_noise_draw_kernel(dev, k, n, spec):
     assert float((yy - want).abs().max()) <= 1e-6 * float(y.abs().max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2 * 768, 3 * 768 + 5, 2 ** 32 + 3])
+def test_noise_readout_shot_at_an_offset(dev, offset):
+    """The shot entry at a flat-index offset (a rank's rows of a readout
+    split along its batch): a block of rows drawn at its offset is bitwise
+    those rows of the whole readout's draw, and within the entry's 1e-6
+    relative class of its plain version at the same offset; at offset 0
+    the block draws other noise."""
+    spec = NOISE_SPEC
+    call = _noise_call(dev, spec)
+    state = call.state_tensor(dev)
+    gen = torch.Generator(device=dev).manual_seed(offset % 997)
+    y = torch.randn(8, 768, generator=gen, device=dev)
+    block = y[2:4].clone()
+    before = _build.LAUNCHES["noise_draw.shot"]
+    got = noise_draw.readout_shot(block.clone(), call, spec.shot_sigma,
+                                  offset)
+    assert _build.LAUNCHES["noise_draw.shot"] == before + 1
+    want = ref.readout_shot_ref(block, state, call.salts, call.counter,
+                                spec.shot_sigma, offset)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        block.abs().max())
+    if offset == 2 * 768:
+        whole = noise_draw.readout_shot(y.clone(), call, spec.shot_sigma)
+        assert torch.equal(got, whole[2:4])
+    if offset:
+        assert not torch.equal(got, noise_draw.readout_shot(
+            block.clone(), call, spec.shot_sigma))
+
+
+@pytest.mark.gpu
+def test_noise_readout_shot_rows_are_the_whole_draws_rows(dev):
+    """Each of 4 row blocks of a (4 x 197, 768) readout drawn at its
+    offset: bitwise its rows of the one-launch draw (the data-split
+    encode's readouts)."""
+    spec = NOISE_SPEC
+    call = _noise_call(dev, spec)
+    y = torch.randn(4 * 197, 768, generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    whole = noise_draw.readout_shot(y.clone(), call, spec.shot_sigma)
+    for j in range(4):
+        rows = slice(j * 197, (j + 1) * 197)
+        part = noise_draw.readout_shot(y[rows].clone(), call,
+                                       spec.shot_sigma, j * 197 * 768)
+        assert torch.equal(part, whole[rows])
+
+
 def _noisy_server(dev):
     cfg = serving_cfg("base", 224).with_(matmul_backend="photonic_sim",
                                          ffn_backend="xla", noise=NOISE_SPEC)

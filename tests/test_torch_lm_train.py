@@ -443,12 +443,16 @@ def test_default_and_multipod_rules_raise_for_experts_and_the_vit():
     """The tables are chosen and read; the dense LM and the ViT run under
     them (tests/test_torch_lm_fsdp.py, test_torch_lm_multipod.py,
     test_torch_vit_mesh.py), while a size > 1 axis that maps the experts
-    raises for any other family, naming A15, and the ViT's fused serving
-    encode raises where "p_embed" splits, naming queue A, item 1. The
-    reference's param_spec raises, and the port's."""
+    raises for any other family, naming A15. The ViT's fused serving
+    encode, which raised where "p_embed" splits, takes the reference's
+    route: the data-split encode over the batch axes on these meshes
+    (model 1, or no "data" axis), the model-sharded encode on ("data",
+    "model") with model > 1, whatever the table (its runs:
+    test_torch_vit_mesh.py). The reference's param_spec raises, and the
+    port's."""
     from repro_torch.core.backend import ExecPolicy, prepare_params
     from repro_torch.launch.train import init_state
-    from repro_torch.models.vit import encode_tokens
+    from repro_torch.models.vit import _mesh_route
 
     vit = tsmoke(tget("opto-vit-tiny"))
     cache = prepare_params(init_state(vit, 0, "cpu")["params"], bits=8)
@@ -466,22 +470,23 @@ def test_default_and_multipod_rules_raise_for_experts_and_the_vit():
         ctx = tsharding.ShardingCtx(mesh, rules)
         tsharding.check_model_rules(ctx)
         tsharding.check_model_rules(ctx, "vit")
-        if tsharding._axis_size(mesh, rules["p_embed"]) > 1:
-            with tsharding._installed(ctx):
-                with pytest.raises(NotImplementedError,
-                                   match="queue A, item 1"):
-                    encode_tokens(cache, torch.zeros(2, 16, 64), vit, fused,
-                                  device="cpu")
+        assert _mesh_route(cache, vit, fused, ctx) == "split"
         if shape.get("model", 1) > 1:
             with pytest.raises(NotImplementedError, match="A15"):
                 tsharding.check_model_rules(ctx, "moe")
         else:
             tsharding.check_model_rules(ctx, "moe")
-    # a (1, 1) default mesh splits nothing and runs every family
+    # a (1, 1) default mesh splits nothing and runs every family; a
+    # (2, 2) one runs the fused encode model-sharded under DEFAULT_RULES
     mesh = _fake_mesh(("x", "model"), x=1, model=1)
     for family in ("dense", "vit", "moe"):
         tsharding.check_model_rules(tsharding.ShardingCtx(
             mesh, tsharding.DEFAULT_RULES), family)
+    two = types.SimpleNamespace(axis_names=("data", "model"),
+                                shape=dict(data=2, model=2), world=4,
+                                coord=lambda ax: 0, group=lambda axes: None)
+    assert _mesh_route(cache, vit, fused, tsharding.ShardingCtx(
+        two, tsharding.DEFAULT_RULES)) == "sharded"
     for mod in (tsharding, jsharding):
         with pytest.raises(NotImplementedError):
             mod.param_spec("blocks/attn/wq", (64, 64), None)

@@ -442,12 +442,17 @@ def test_server_without_model_shards_on_many_ranks_raises(two_ranks,
     """No quiet replica per rank: a world of 2 ranks with no model shards
     serves on the 1-D data mesh, whose predictions are the reference's
     (and the port's unsharded ones, which the model-sharded test holds
-    to it), and raises with the reason under a policy the data-split
-    encode cannot take (the xla FFN)."""
+    to it). A policy off the fused point (the xla FFN), which raised here
+    before every serving policy ran on the mesh, serves split over "data"
+    too: predictions, flush log and every flush's logits bitwise the same
+    policy's serve on one rank alone."""
     for r in two_ranks.out:
         assert r["serve"]["unsharded"] == reference.predictions
-        assert r["serve"]["unsharded_ineligible"] == (
-            "mesh='auto' on 2 ranks asks for the data-split encode, which "
-            "cannot run: backends ('photonic_pallas', 'flash', 'xla') are "
-            "not the fused serving triple ('photonic_pallas', 'flash', "
-            "'fused')")
+        got = r["serve"]["unsharded_composed"]["auto"]
+        want = r["serve"]["unsharded_composed"]["off"]
+        assert got["predictions"] == want["predictions"]
+        assert got["flush_log"] == want["flush_log"]
+        assert got["logits"].keys() == want["logits"].keys()
+        for k in want["logits"]:
+            np.testing.assert_array_equal(got["logits"][k],
+                                          want["logits"][k])

@@ -47,7 +47,13 @@ Tolerances, the classes of ``test_torch_train.py::STEP_TOL``:
   * planted faults, each against the unsharded gradient: rank-local
     activation scales (DATA_RULES), w2's weight absmax without its MAX
     over "model" (MODEL_RULES) and the FSDP backward without its
-    reduce-scatter (DEFAULT_RULES) must each miss 1e-5 by 10x.
+    reduce-scatter (DEFAULT_RULES) must each miss 1e-5 by 10x;
+  * the fused serving encode under DEFAULT_RULES and MULTIPOD_RULES, on
+    a cache the ranks gather from their blocks and prepare: bitwise the
+    port's one-device encode of that cache (both encoders' contract),
+    and against the reference's fused encode on one device the
+    end-to-end class (corr > 0.999, equal top-1: PyTorch's and XLA's
+    float ops differ by an ulp, so a requant may flip a code).
 """
 
 import sys
@@ -66,6 +72,7 @@ from repro.configs.registry import get_config as jget
 from repro.core import backend as jbackend
 from repro.data import pipeline as jpipe
 from repro.launch import steps as jsteps
+from repro.models import vit as jvit
 from repro.models.layers import ExecPolicy as JPolicy
 
 from repro_torch import bridge
@@ -74,7 +81,9 @@ from repro_torch.configs.base import smoke_variant as tsmoke
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.core import backend as tbackend
 from repro_torch.core.backend import ExecPolicy, prepare_params
+from repro_torch.core import noise as tnoise
 from repro_torch.core.noise import NoiseSpec
+from repro_torch.data import pipeline as tpipe
 from repro_torch.data.pipeline import ImageStream
 from repro_torch.distributed import sharding
 from repro_torch.launch import steps as tsteps
@@ -114,6 +123,8 @@ _W = _RNG.standard_normal((128, 64)).astype(np.float32)
 RP_CASES = [(_X, _W, dict(quant_bits=8, backend="photonic_sim"), "f32"),
             (_X, _W, dict(quant_bits=8, backend="qat"), "f32"),
             (_X, 0.05 * _W, dict(quant_bits=8, backend="qat"), "bf16")]
+# the fused serving encode's flush: 4 frames of 16 patch tokens
+TOKENS = _RNG.standard_normal((4, 16, 64)).astype(np.float32)
 
 
 def _jcfg(**kw):
@@ -126,6 +137,17 @@ def _tcfg(**kw):
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _jcache(tree):
+    """The port's prepared cache as the reference's."""
+    if isinstance(tree, dict):
+        return {k: _jcache(v) for k, v in tree.items()}
+    if isinstance(tree, tbackend.QuantizedWeight):
+        return jbackend.QuantizedWeight(jnp.asarray(tree.wq.numpy()),
+                                        jnp.asarray(tree.scale.numpy()),
+                                        tree.bits)
+    return jnp.asarray(tree.numpy())
 
 
 def _train_state(params: dict) -> dict:
@@ -223,11 +245,21 @@ def env(tmp_path_factory):
     _, lg = tsteps.make_grad_fn(lcfg)(ltree, {k: torch.from_numpy(v)
                                               for k, v in lbatch.items()})
     out["lm_one"] = _torch_ranks._np_tree(lg)
+    # the reference's fused serving encode of TOKENS on one device, on
+    # the cache of the plain params
+    fcfg = dict(matmul_backend="photonic_pallas", attn_backend="flash",
+                ffn_backend="fused")
+    jcfg = _jcfg(**fcfg)
+    cache = prepare_params(bridge.from_jax_params(
+        jstates["plain"]["params"], "cpu"), bits=8)
+    out["fused_ref"] = np.asarray(jvit.encode_tokens(
+        _jcache(cache), jnp.asarray(TOKENS), jcfg,
+        JPolicy.from_cfg(jcfg, training=False)))
     ckpt = str(tmp_path_factory.mktemp("vit_mesh_ckpt"))
     out["ranks"] = spawn_ranks(
         _torch_ranks.vit_mesh_suite, 4, states,
         {name: _tcfg(**kw) for name, kw in CASES.items()}, batch, RP_CASES,
-        (lcfg, ltree, lbatch), ckpt, device="cpu",
+        (lcfg, ltree, lbatch), ckpt, TOKENS, device="cpu",
         timeout_s=SPAWN_TIMEOUT_S)
     out["ckpt"] = ckpt
     return out
@@ -412,36 +444,57 @@ def test_vit_placement_axes_drop_what_cannot_split():
     assert ax["head"] == (None, None)
 
 
-def test_fused_serving_and_noise_on_a_mesh_raise():
-    """The ViT trains under every table, but its fused serving encode under
-    an FSDP table and a noisy forward on any mesh raise, naming ROADMAP.md
-    queue A, item 1."""
+def test_fused_serving_and_noise_on_a_mesh_raise(env):
+    """The ViT's fused serving encode runs under the FSDP tables, inside
+    the context it trains in: under DEFAULT_RULES on (2, 2) the
+    model-sharded encode (each rank 2 of the 4 heads' wq columns), under
+    MULTIPOD_RULES on (2, 1, 2) the data-split encode over ("pod",
+    "data") on the whole cache, each on a cache its ranks gathered from
+    their blocks and prepared. Its logits are bitwise the port's
+    one-device encode of the same cache and in the reference's
+    end-to-end class (corr > 0.999, equal top-1); the pod mesh's absmax
+    scope left local to the rank breaks the equality. What still raises:
+    noisy training on a mesh, naming queue A, item 1 (the reference's own
+    "no noise scope" refusal where no scope is installed)."""
+    want = env["fused_ref"]
+    for table, wq in (("default", (2, 64, 32)), ("multipod", (2, 64, 64))):
+        for r in env["ranks"]:
+            f = r["fused"][table]
+            np.testing.assert_array_equal(f["mesh"], f["one"])
+            assert f["wq"] == wq
+            assert (f["sharded"], f["split"]) == (
+                (2, 0) if table == "default" else (0, 2))
+            assert np.corrcoef(f["mesh"].ravel(), want.ravel())[0, 1] > 0.999
+            assert (f["mesh"].argmax(-1) == want.argmax(-1)).all()
+            if table == "multipod":
+                assert not np.array_equal(f["planted"], f["one"])
     cfg = _tcfg()
-    fused = ExecPolicy(8, "photonic_pallas", "flash", "fused",
-                       training=False)
-    cache = prepare_params(ttrain.init_state(cfg, 0, "cpu")["params"], bits=8)
-    tokens = torch.zeros(2, 16, 64)
-    for rules, shape in ((sharding.DEFAULT_RULES, dict(data=2, model=2)),
-                         (sharding.MULTIPOD_RULES,
-                          dict(pod=2, data=1, model=1))):
-        sharding.check_model_rules(_fake_ctx(rules, **shape), "vit")
-        with sharding._installed(_fake_ctx(rules, **shape)):
-            with pytest.raises(NotImplementedError, match="queue A, item 1"):
-                tvit.encode_tokens(cache, tokens, cfg, fused, device="cpu")
     noisy = cfg.with_(noise=NoiseSpec())
+    params = ttrain.init_state(cfg, 0, "cpu")["params"]
     with sharding._installed(_fake_ctx(sharding.DATA_RULES, data=2)):
         with pytest.raises(NotImplementedError, match="queue A, item 1"):
             tsteps.make_train_fn(noisy)
-        with pytest.raises(NotImplementedError, match="queue A, item 1"):
-            tvit.forward_vit(ttrain.init_state(cfg, 0, "cpu")["params"],
-                             torch.zeros(2, 32, 32, 3), cfg,
+        with pytest.raises(RuntimeError, match="no noise scope"):
+            tvit.forward_vit(params, torch.zeros(2, 32, 32, 3), cfg,
                              ExecPolicy.from_cfg(noisy), device="cpu")
+        with tnoise.noise_scope(tnoise.DriftState.init(0)):
+            with pytest.raises(NotImplementedError, match="queue A, item 1"):
+                tvit.forward_vit(params, torch.zeros(2, 32, 32, 3), cfg,
+                                 ExecPolicy.from_cfg(noisy), device="cpu")
 
 
 def test_microbatched_quantizing_step_over_batch_ranks_raises():
-    """A rank microbatches its own rows, so a quantizing microbatch's
-    scales would span other rows than the reference's global microbatch:
-    refused, naming queue A, item 1; one microbatch, or bf16, runs."""
-    with sharding._installed(_fake_ctx(sharding.DATA_RULES, data=2)):
-        with pytest.raises(NotImplementedError, match="queue A, item 1"):
-            tsteps.make_train_fn(_tcfg(microbatch_steps=2))
+    """A microbatched quantizing step builds on batch ranks (it was
+    refused before ranks dealt their rows by microbatch): each rank's
+    rows are its share of every global microbatch, so local microbatch i
+    is its rows of the reference's microbatch i; a batch kD does not
+    divide raises with the shapes (the ranks' steps:
+    tests/test_torch_serve_mesh.py)."""
+    ctx = _fake_ctx(sharding.DATA_RULES, data=2)       # this rank: d = 1
+    batch = {"labels": np.arange(8, dtype=np.int32)}
+    with sharding._installed(ctx):
+        tsteps.make_train_fn(_tcfg(microbatch_steps=2))
+    assert tpipe._rank_rows(batch, ctx, 2)["labels"].tolist() == [2, 3, 6, 7]
+    assert tpipe._rank_rows(batch, ctx, 1)["labels"].tolist() == [4, 5, 6, 7]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tpipe._rank_rows({"labels": np.arange(6, dtype=np.int32)}, ctx, 2)
