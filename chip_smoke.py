@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
      nvcc, printing ``-Xptxas -v`` (registers, shared memory, spills);
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224 and
-     qwen2-1.5b widths, at ragged shapes and, for B1, B2, B5 and B6, at
+     card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224,
+     qwen2-1.5b and recurrentgemma-9b widths (B5's bf16 entry at head dim
+     256 under the 2048-key window, B6 at D 256 / G 16 on a ring and on a
+     window view; a bf16 call at head dim 112 or 160 must raise), at
+     ragged shapes and, for B1, B2, B5 and B6, at
      their tiles', rings' and splits' edges (B6 also bitwise from call to
      call; B2 also in the (B, S, H, D) layout read by strides and, on
      both tensor-core entries, against its 3xTF32 emulation (the wide
@@ -251,7 +254,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         break the bitwise check; tok/s and gloo ms a decode step beside
         4b's. (B) the same prefill under
         photonic_pallas bitwise the unsharded int8 prefill, B1 and B4
-        launches a rank. (C) the first 8 layers at batch 8 x seq 128 of
+        launches a rank. (C) the first 4 layers at batch 8 x seq 128 of
         ``TokenStream`` (warmup 10): 20 steps through ``train_loop`` on
         (1, 2), the loss falls; one step against the unsharded step on
         the card (loss within 1e-3; gradient relative L2 within 4x the
@@ -263,14 +266,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         the unsharded step on the whole batch. B5 and B6 are also checked
         and timed at the per-rank shapes (phases 3 and 5);
      k. ``[lm_fsdp]``, after 4j: 4b's qwen2-1.5b weights (full width, the
-        first 4 of 28 layers) and prompt under
+        first 2 of 28 layers) and prompt under
         ``DEFAULT_RULES`` on ``make_host_mesh(2, 2)`` and ``MULTIPOD_RULES``
         on a (pod 2, data 1, model 2) mesh, 4 gloo ranks on the one card:
         the params FSDP-split over the batch axes and gathered a layer at
         a time, the vocab and the decode cache's sequence over "model".
         (A) 4b's traffic against a cache of 256 (128 rows a rank: the
         prompt on model rank 0, every generated token on rank 1):
-        B6's partial entry 640 and B5 4 times a rank, no whole-cache
+        B6's partial entry 320 and B5 2 times a rank, no whole-cache
         B6, each model group's tokens equal; the prefill and the
         teacher-forced decode logits within twice the distance of 4j's
         control (``tp_arithmetic``) from the unsharded card runs at every
@@ -293,7 +296,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      l. ``[vit_mesh]``, after 4k: opto-vit-base-224 + MGNet (keep 0.33)
         QAT training (qat + xla + xla, AdamW, a global batch of 32 of
         ``ImageStream(224, 32, n_classes=8)``) on gloo ranks on the one
-        card, all 12 layers: (A) ``DATA_RULES`` on (data 2) and (B)
+        card, 6 of its 12 layers: (A) ``DATA_RULES`` on (data 2) and (B)
         ``MODEL_RULES`` on (data 1, model 2) in one spawn of 2 ranks,
         (C) ``DEFAULT_RULES`` on (2, 2) and (D) ``MULTIPOD_RULES`` on
         (pod 2, data 1, model 2) in one spawn of 4. Each: one step,
@@ -335,13 +338,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         within 4x its 2-block order control;
         the rank-local row split (each rank microbatching its own block)
         planted must fail the scale check;
+     m. ``[hybrid]``, after 4l: recurrentgemma-9b at full width (38
+        layers, d 4096, 16 heads on one KV head, head dim 256, d_ff
+        12288, vocab 256000, window 2048; random bf16 weights from seed
+        0, ~20.9 GB) through ``generate`` / ``prefill_fn`` /
+        ``decode_fn``. (A) 4b's traffic on a 512-slot ring: B6 160 x 12
+        and B5 12 times, prefill_fn against the decode loop at every
+        prompt position and the last decode step on the CPU, each within
+        twice the distance of its control on the card (the kernel
+        replaced by its plain version: the model's own rounding reads
+        ~0.9988 there, under 4b's 0.999) and above 0.99 everywhere; tok/s
+        and the card's busy share over 8 steps. (B) the same 160
+        positions on a 128-slot ring, which wraps, against prefill_fn
+        under window 128 in the same way (every position and the
+        generated ones); the ring written one slot off and B6 over a
+        linear 160-row cache (no window) planted must fail. (C) one
+        4096-token prompt on B5 under the 2048-key window against the
+        plain attention (last corr > 0.999, every position > 0.99),
+        tok/s and peak memory; window 0 planted must agree below
+        position 2048 (> 0.999) and fail from it;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
      their type and bytes over 3.35 TB/s; B2 at the TF32 rate of its
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
-     calls (B3 also its first design and each of its three launches; B1
+     calls (B5 and B6 also at recurrentgemma-9b's shapes, the kernels
+     line's ``hybrid`` entries; B3 also its first design and each of its
+     three launches; B1
      also at path d's three shapes, B2's wide entry also at Eq. 2's
      shape with its 3xTF32 bound, both in the kernels line as
      ``ms_by_shape`` / ``wide_eq2``); the noise-draw kernel (after 4e)
@@ -1304,6 +1328,558 @@ def run_lm(torch, dev, card: str) -> dict:
     return {"launches": launches, "cfg": cfg, "params": params,
             "prompt": prompt, "cache": cache, "tok": tok, "pos": pos,
             "tps": tps, "serve_s": serve_s, "toks": toks}
+
+
+# path 4m: the hybrid family, recurrentgemma-9b at full width (38 layers,
+# d 4096, 16 heads on one KV head, head dim 256, d_ff 12288, vocab 256000,
+# window 2048; random bf16 weights from seed 0). (A) 4b's traffic on a
+# 512-slot ring (the window does not bind); (B) the same 160 positions on
+# a ring of HY_RING slots, which wraps; (C) one prompt of HY_LONG tokens,
+# where B5's 2048-key window binds
+HY_RING = 128
+HY_LONG = 4096
+# (A), (B) and the CPU step are held against a control on the card, the
+# same computation with the kernel replaced by its plain version: at
+# recurrentgemma-9b's width (38 layers, random bf16 weights) the model's
+# own rounding puts the prefill 0.99875 and the card 0.9990 from the
+# decode loop and from the CPU (PERF.md §6, the hybrid), under 4b's absolute
+# 0.999. The kernel path must lie within HY_CORR_FACTOR times the
+# control's distance from 1 at the last position and at the worst, and
+# above 0.99 at every position, with the last argmax in all rows but one
+HY_CORR_FACTOR = 2
+# B5 / B6 at recurrentgemma's shapes: 16 query heads on one KV head, D 256
+HY_HEADS, HY_KV, HY_D, HY_WINDOW = 16, 1, 256, 2048
+
+
+def hybrid_window_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of one head of a causal prefill of s
+    tokens under a window: sum over i of min(i + 1, window)."""
+    w = min(s, window)
+    return w * (w + 1) // 2 + (s - w) * window
+
+
+def check_hybrid_kernels(torch, dev) -> dict:
+    """Phase 3, B5's bf16 entry at head dim 256 and B6 at D 256 / G 16
+    (recurrentgemma-9b) against their plain versions at ``held``'s bf16
+    tolerance: B5 at (1, 16, 4096, 256) on one KV head under the 2048-key
+    window, in the model's (B, S, H, D) layout, ragged Sq = Skv of 1, 63,
+    65 and 129, window 8 at G 1 and the 64-key / 64-row tile edges; B6 at
+    lengths 1, 128, 160 and 512 on a ring (a layer's view of the stacked
+    (L, B, W, 1, 256) ring, read over its first min(pos + 1, W) slots,
+    held against the reference's ring decode ``ring_decode_ref``) and on
+    the strided view of a linear cache's last ``window`` rows, each call
+    twice and bitwise equal. A bf16 call at a head dim the entry does not
+    take (112, 160) must raise. Returns kernel name -> max |kernel -
+    plain|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.attention import (blockwise_attention,
+                                              decode_attention,
+                                              ring_decode_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(4444)
+    err = {"flash_attention_causal": 0.0, "flash_decode": 0.0}
+    bf, d = torch.bfloat16, HY_D
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    def b5(tag, b, h, hkv, sq, skv, window, causal=True, layout="bhsd"):
+        if layout == "bhsd":
+            q, k, v = rnd(b, h, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+        else:
+            q, k, v = rnd(b, sq, h, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+            got = blockwise_attention(q, k, v, causal=causal,
+                                      window=window).transpose(1, 2)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        e, ok, tol = held(torch, got, want)
+        say(f"[check] B5 D 256 {tag:<24s} q({b},{h},{sq},{d}) Hkv={hkv} "
+            f"Skv={skv} bf16 causal={causal} window={window}: max abs err "
+            f"{e:.3e} (tol {tol})")
+        if not ok:
+            fail(f"B5 at D 256, {tag}: max abs err {e}")
+        err["flash_attention_causal"] = max(err["flash_attention_causal"], e)
+
+    b5("recurrentgemma prefill", 1, HY_HEADS, HY_KV, HY_LONG, HY_LONG,
+       HY_WINDOW, layout="bshd")
+    for s_ in (1, 63, 65, 129):
+        b5("ragged", 2, HY_HEADS, HY_KV, s_, s_, HY_WINDOW)
+    b5("window 8, G = 1", 1, 2, 2, 200, 200, 8)
+    for s_ in (64, 127, 256):
+        b5("tile edge, G = 1", 1, 2, 2, s_, s_, 0)
+    b5("window 64 at a tile edge", 1, HY_HEADS, HY_KV, 257, 257, 64)
+    b5("non-causal", 1, 4, 1, 65, 130, 0, causal=False)
+    for bad in (112, 160):
+        q = torch.zeros(1, 2, 8, bad, dtype=bf, device=dev)
+        try:
+            flash_attention(q, q, q)
+        except ValueError as exc:
+            say(f"[check] B5 bf16 at head dim {bad} raises: {exc}")
+        else:
+            fail(f"B5's bf16 entry took head dim {bad} without raising")
+
+    b, w = LM_BATCH, LM_CACHE
+    for length in (1, 128, 160, 512):
+        q = rnd(b, 1, HY_HEADS, d)
+        ring = rnd(2, b, w, HY_KV, d)[1]        # a layer's view of the stack
+        vring = rnd(2, b, w, HY_KV, d)[1]
+        pos = length - 1 if length < w else 700  # 512: the ring has wrapped
+        got = ring_decode_attention(q, ring, vring, pos)
+        if not torch.equal(ring_decode_attention(q, ring, vring, pos), got):
+            fail(f"B6 on the ring, length {length}: two calls differ")
+        e, ok, tol = held(torch, got, ref.ring_decode_ref(q, ring, vring, pos))
+        say(f"[check] B6 D 256 G 16 ring view q({b},1,{HY_HEADS},{d}) ring "
+            f"({b},{w},{HY_KV},{d}) of a stack, pos {pos} (length {length}) "
+            f"bf16: max abs err {e:.3e} (tol {tol})")
+        if not ok:
+            fail(f"B6 on the ring, length {length}: max abs err {e}")
+        err["flash_decode"] = max(err["flash_decode"], e)
+        kc, vc = rnd(b, 1024, HY_KV, d), rnd(b, 1024, HY_KV, d)
+        n = length + 100                         # a window over a longer cache
+        got = decode_attention(q, kc, vc, n, window=length)
+        if not torch.equal(decode_attention(q, kc, vc, n, window=length), got):
+            fail(f"B6 on a window view, window {length}: two calls differ")
+        want = ref.flash_decode_ref(q, kc[:, n - length:n], vc[:, n - length:n],
+                                    length)
+        e, ok, tol = held(torch, got, want)
+        say(f"[check] B6 D 256 G 16 window view rows [{n - length}, {n}) of "
+            f"({b},1024,{HY_KV},{d}) bf16: max abs err {e:.3e} (tol {tol})")
+        if not ok:
+            fail(f"B6 on a window view, window {length}: max abs err {e}")
+        err["flash_decode"] = max(err["flash_decode"], e)
+    # the window view is B6 itself, not a copy: the same call on the rows
+    got = flash_decode(q, kc[:, 412:512], vc[:, 412:512], 100)
+    if not torch.equal(got, decode_attention(q, kc, vc, 512, window=100)):
+        fail("B6 on a window view differs from B6 on the same rows")
+    torch.cuda.synchronize()
+    return err
+
+
+def time_hybrid_kernels(torch, dev, card: str) -> dict:
+    """B5 and B6 at recurrentgemma-9b's shapes (bf16): B5 over 4m (C)'s
+    prompt, q (1, 16, 4096, 256) on one KV head under the 2048-key window;
+    B6 at 4m (A)'s last decode step, q (4, 1, 16, 256) over 160 of a
+    512-slot ring. Device and event ms, bound (B5's visible pairs at the
+    bf16 rate against its bytes; B6's valid rows' bytes against its f32
+    work), the plain version and SDPA (B5 with a bool window mask, which
+    skips nothing: a yardstick only; B6 over the valid rows). Returns
+    kernel name -> the kernels-line sub-entry ``hybrid``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(79)
+    bf, d, h, s = torch.bfloat16, HY_D, HY_HEADS, HY_LONG
+    q, k, v = (torch.randn(1, s, hh, d, generator=gen, device=dev).to(bf)
+               .transpose(1, 2) for hh in (h, HY_KV, HY_KV))
+    pos = torch.arange(s, device=dev)
+    vis = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                            < HY_WINDOW)
+    pairs = h * hybrid_window_pairs(s, HY_WINDOW)
+    b5 = dict(shape=f"q(1,{h},{s},{d}) Hkv {HY_KV} bf16 window {HY_WINDOW}",
+              fns=(lambda: flash_attention(q, k, v, window=HY_WINDOW),
+                   lambda: ref.flash_attention_ref(q, k, v, window=HY_WINDOW),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, v, attn_mask=vis, enable_gqa=True)),
+              ops=pairs * 4 * d / PEAK_BF16_FLOPS,
+              nbytes=2 * (2 * h * s * d + 2 * HY_KV * s * d) / PEAK_BYTES,
+              lib="F.scaled_dot_product_attention(bool window mask)")
+    b, w, length = LM_BATCH, LM_CACHE, LM_PROMPT + LM_GEN
+    q6 = torch.randn(b, 1, h, d, generator=gen, device=dev).to(bf)
+    k6, v6 = (torch.randn(b, w, HY_KV, d, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    b6 = dict(shape=f"q({b},1,{h},{d}) ring ({b},{w},{HY_KV},{d}) length "
+                    f"{length} bf16",
+              fns=(lambda: flash_decode(q6, k6, v6, length),
+                   lambda: ref.ring_decode_ref(q6, k6, v6, length - 1),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q6.transpose(1, 2), k6[:, :length].transpose(1, 2),
+                       v6[:, :length].transpose(1, 2), enable_gqa=True)),
+              ops=b * h * length * 4 * d / PEAK_F32_FLOPS,
+              nbytes=2 * (2 * b * length * HY_KV * d + 2 * b * h * d)
+              / PEAK_BYTES,
+              lib="F.scaled_dot_product_attention over the valid rows")
+    out = {}
+    for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
+        fn, plain_fn, lib_fn = row["fns"]
+        iters = 10 if kname == "flash_attention_causal" else 50
+        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname,
+                               iters=iters)
+        event_ms = cuda_ms(fn, iters=iters)
+        plain_ms, _ = device_ms(torch, plain_fn, iters=iters)
+        lib_ms, _ = device_ms(torch, lib_fn, iters=iters)
+        bound = max(row["ops"], row["nbytes"])
+        by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
+        say(f"[numbers] {kname} at recurrentgemma-9b's {row['shape']}: "
+            f"kernel {ms:.5f} ms device (profiling passes {passes}; "
+            f"{event_ms:.5f} ms CUDA-event, wrapper included), bound "
+            f"{bound * 1e3:.6f} ms ({by}; ops {row['ops'] * 1e3:.6f} ms, "
+            f"bytes {row['nbytes'] * 1e3:.6f} ms), plain {plain_ms:.4f} ms, "
+            f"{row['lib']} {lib_ms:.5f} ms ({card})")
+        out[kname] = {"shape": row["shape"], "ms": ms, "event_ms": event_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound * 1e3, "bound_by": by}
+    del vis
+    return out
+
+
+def position_corr_chunked(torch, a, b, chunk: int = 256):
+    """``position_corr`` over position chunks (a (1, 4096, 256000) pair in
+    float64 would take 16 GB at once)."""
+    return torch.cat([position_corr(torch, a[:, i:i + chunk], b[:, i:i + chunk])
+                      for i in range(0, a.shape[1], chunk)])
+
+
+def corr_reading(pc, top, lo: int = 0) -> dict:
+    """The prefill-vs-reference reading over positions [lo, P): the last
+    position's corr and argmax agreement (rows), the least corr."""
+    return {"last_corr": float(pc[-1]), "last_argmax": int(top[:, -1].sum()),
+            "min_corr": float(pc[lo:].min()),
+            "argmax_share": float(top[:, lo:].float().mean())}
+
+
+def corr_passes(r, rows: int) -> bool:
+    """4b's limits: last position corr > 0.999 with argmax equal in all
+    rows but one (at least 1 of 1), every position corr > 0.99."""
+    return (r["last_corr"] > 0.999 and r["last_argmax"] >= max(rows - 1, 1)
+            and r["min_corr"] > 0.99)
+
+
+def within_control(r, ctl, rows: int) -> bool:
+    """``r`` within HY_CORR_FACTOR times the control ``ctl``'s distance
+    from 1 at the last position and at the least, every position above
+    0.99 and the last argmax in all rows but one (at least 1 of 1)."""
+    return (1 - r["last_corr"] <= HY_CORR_FACTOR * (1 - ctl["last_corr"])
+            and 1 - r["min_corr"] <= HY_CORR_FACTOR * (1 - ctl["min_corr"])
+            and r["min_corr"] > 0.99
+            and r["last_argmax"] >= max(rows - 1, 1))
+
+
+def run_hybrid(torch, dev, card: str) -> dict:
+    """Phase 4m, ``[hybrid]``: recurrentgemma-9b at full width through the
+    LM entry points. (A) 4b's traffic (batch 4, prompt 128, 32 greedy
+    tokens) on a 512-slot ring: launches, prefill_fn against the decode
+    loop at every prompt position, the last decode step on the CPU, tok/s
+    and the card's busy share over 8 decode steps. (B) the same 160
+    positions on a 128-slot ring, which wraps: each generated position's
+    decode logits against prefill_fn over the 160 tokens under window 128;
+    the ring written one slot off and B6 over a linear 160-row cache (no
+    window) planted, each must fail. (C) batch 1, a 4096-token prompt:
+    prefill_fn on B5 under the 2048-key window against the same forward on
+    the plain attention; window 0 planted must agree below position 2048
+    and fail from it. Returns the launch counts of (A)'s counted run and
+    the readings."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate, init_cache
+    from repro_torch.models import api as model_api
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer
+    from repro_torch.bridge import to_device
+
+    t_phase = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b")
+    nsb = cfg.n_layers // 3
+    t0 = time.perf_counter()
+    params = model_api.init_model(0, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[hybrid] {cfg.name}: {cfg.n_layers} layers ({nsb} x (rec, rec, "
+        f"attn) + {cfg.n_layers % 3} rec), d={cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.kv_heads} KV (head dim {cfg.head_dim}), d_ff="
+        f"{cfg.d_ff}, LRU width {cfg.lru_dim}, vocab {cfg.vocab}, window "
+        f"{cfg.window}; {n_params / 1e9:.3f} G params (bf16, lambda / b_a / "
+        f"b_x f32) from init_lm(seed=0) on the card in "
+        f"{time.perf_counter() - t0:.2f}s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev)
+    # warm-up (cuBLAS handles and heuristics at the decode shapes), not
+    # counted: 4 prompt tokens + 2 generated on a scratch cache
+    generate(params, init_cache(cfg, LM_BATCH, 8, dev), prompt[:, :4], 2, cfg)
+    model_api.prefill_fn(params, {"tokens": prompt[:, :16]}, cfg)
+    torch.cuda.synchronize()
+
+    # -- (A) 4b's traffic on a 512-slot ring. Every decode step's logits
+    # are kept as generate runs (the prompt's steps are prefill_into_cache's),
+    # and the cache before the last step (position 159) is copied
+    cache = init_cache(cfg, LM_BATCH, LM_CACHE, dev)
+    steps = LM_PROMPT + LM_GEN
+    stepped, before_last = [], {}
+    real_decode = model_api.decode_fn
+
+    def recording(params_, cache_, tok_, pos_, cfg_, policy=None):
+        if pos_ == steps - 1:
+            before_last.update({k: v.clone() for k, v in cache_.items()})
+        lg, cache_ = real_decode(params_, cache_, tok_, pos_, cfg_, policy)
+        stepped.append(lg)
+        return lg, cache_
+
+    _build.LAUNCHES.clear()
+    model_api.decode_fn = recording
+    t0 = time.perf_counter()
+    try:
+        toks, tps = generate(params, cache, prompt, LM_GEN, cfg)
+    finally:
+        model_api.decode_fn = real_decode
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = model_api.prefill_fn(params, {"tokens": prompt}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    say(f"[hybrid] (A) launches: {launches}")
+    want = {"flash_decode": steps * nsb, "flash_attention_causal": nsb}
+    for k, n in want.items():
+        if launches.get(k, 0) != n:
+            fail(f"[hybrid] {k} launched {launches.get(k, 0)} times, "
+                 f"expected {n}")
+    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fail(f"[hybrid] generated tokens {tuple(toks.shape)} outside the "
+             f"vocab")
+    if tuple(full.shape) != (LM_BATCH, LM_PROMPT, cfg.vocab) or not bool(
+            torch.isfinite(full.float()).all()):
+        fail(f"[hybrid] prefill_fn logits {tuple(full.shape)} not finite")
+    say(f"[hybrid] (A) generate: {LM_BATCH} x ({LM_PROMPT} prompt + "
+        f"{LM_GEN} greedy) in {serve_s:.3f}s ({steps} decode steps), decode "
+        f"loop {tps:.2f} tok/s; prefill_fn over the prompt "
+        f"{prefill_s * 1e3:.3f} ms incl. its first call at this shape = "
+        f"{LM_BATCH * LM_PROMPT / prefill_s:.1f} tok/s ({card})")
+    say(f"[hybrid] (A) first sequence: {toks[0, :16].tolist()}")
+
+    seq = torch.cat([prompt, toks], 1)            # the 160 positions' tokens
+
+    def decode_loop(cfg_, rows, n):
+        """decode_fn over positions 0..n-1 of ``seq`` on a fresh cache of
+        ``rows``: the logits (B, n, V)."""
+        c = init_cache(cfg_, LM_BATCH, rows, dev)
+        out = []
+        for p in range(n):
+            lg, c = model_api.decode_fn(params, c, seq[:, p:p + 1], p, cfg_)
+            out.append(lg)
+        return torch.stack(out, 1)
+
+    def reading(tag, logits, ref_logits, lo=0):
+        pc = position_corr_chunked(torch, logits, ref_logits)
+        top = logits.argmax(-1) == ref_logits.argmax(-1)
+        r = corr_reading(pc, top, lo)
+        say(f"[hybrid] {tag}: last position corr {r['last_corr']:.6f}, "
+            f"argmax {r['last_argmax']} of {logits.shape[0]}; over positions "
+            f"[{lo}, {logits.shape[1]}) min corr {r['min_corr']:.6f}, argmax "
+            f"agrees in {100 * r['argmax_share']:.2f}% of rows")
+        return r
+
+    # B5's prefill against B6's decode steps at every prompt position; the
+    # same prefill through the plain attention on the card is the control
+    loop = torch.stack(stepped, 1)
+    del stepped
+    real = reading("(A) prefill_fn (B5) vs decode_fn (B6) over the prompt",
+                   full, loop[:, :LM_PROMPT])
+    saved = transformer.blockwise_attention
+    try:
+        transformer.blockwise_attention = attn_mod.plain_attention
+        control = reading("(A) control: prefill_fn on the plain attention vs "
+                          "decode_fn (B6)", model_api.prefill_fn(
+                              params, {"tokens": prompt}, cfg),
+                          loop[:, :LM_PROMPT])
+    finally:
+        transformer.blockwise_attention = saved
+    if not within_control(real, control, LM_BATCH):
+        fail(f"[hybrid] (A) prefill_fn vs the decode loop: {real}, beyond "
+             f"{HY_CORR_FACTOR}x the control's distance ({control})")
+    del loop
+    # the last decode step (pos 159) on the card and on the CPU (plain
+    # versions) from copies of the params and of the cache before it; the
+    # same card step on the ring's plain version is the control
+    pos, tok = steps - 1, toks[:, -1:]
+    before = {k: v.clone() for k, v in before_last.items()}
+    cpu_cache = {k: v.to("cpu", copy=True) for k, v in before_last.items()}
+    card_logits, _ = model_api.decode_fn(params, before_last, tok, pos, cfg)
+    from repro_torch.kernels.ref import ring_decode_ref
+    saved = transformer.ring_decode_attention
+    try:
+        transformer.ring_decode_attention = ring_decode_ref
+        plain_logits, _ = model_api.decode_fn(params, before, tok, pos, cfg)
+    finally:
+        transformer.ring_decode_attention = saved
+    del before
+    t0 = time.perf_counter()
+    cpu_params = to_device(params, "cpu")
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, _ = model_api.decode_fn(cpu_params, cpu_cache, tok.cpu(), pos,
+                                        cfg)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params, cpu_cache
+    c = corr(torch, card_logits, cpu_logits)
+    c_ctl = corr(torch, plain_logits, cpu_logits)
+    agree = int((card_logits.cpu().argmax(-1) == cpu_logits.argmax(-1)).sum())
+    say(f"[hybrid] (A) last decode step (pos {pos}) re-run on the CPU with "
+        f"the plain versions ({copy_s:.1f}s to copy the params, {cpu_s:.1f}s "
+        f"the step): logits corr {c:.6f} (control, the card's step on the "
+        f"ring's plain version: {c_ctl:.6f}), argmax agrees in {agree} of "
+        f"{LM_BATCH} rows, max abs diff "
+        f"{(card_logits.cpu().float() - cpu_logits.float()).abs().max().item():.3e}")
+    if not (1 - c <= HY_CORR_FACTOR * (1 - c_ctl) and c > 0.99
+            and agree >= LM_BATCH - 1):
+        fail(f"[hybrid] card vs CPU decode-step logits: corr {c}, control "
+             f"{c_ctl}, argmax {agree} of {LM_BATCH}")
+    # steady-state decode step and the card's busy share over 8 steps
+    step_ms = cuda_ms(lambda: model_api.decode_fn(params, before_last, tok,
+                                                  pos, cfg), iters=10,
+                      warmup=2)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(8):
+            model_api.decode_fn(params, cache, tok, pos + 1 + i, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    say(f"[hybrid] (A) one decode step {step_ms:.3f} ms (CUDA events) = "
+        f"{LM_BATCH / step_ms * 1e3:.2f} tok/s steady state; 8 steps under "
+        f"the profiler: wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
+        f"({100 * dev_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in events) / 8:.0f} kernel launches a step "
+        f"({card})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    del before_last, cache, full
+
+    # -- (B) the ring wraps: 160 positions on 128 slots (positions 128-159
+    # overwrite slots 0-31), held at every position against prefill_fn
+    # under window 128 (each reading also over the generated positions
+    # alone). A ring written at a consistent wrong slot holds the same
+    # keys once it has wrapped (softmax ignores their order), so that
+    # fault shows where the ring has not wrapped yet: each prompt position
+    # reads a zero slot in place of its own key
+    ring_cfg = cfg.with_(window=HY_RING)
+    want_b = model_api.prefill_fn(params, {"tokens": seq}, ring_cfg)
+
+    def ring_reading(tag, logits):
+        r = reading(tag, logits, want_b)
+        r["generated"] = reading(f"{tag}, generated positions only", logits,
+                                 want_b, LM_PROMPT)
+        return r
+
+    on_ring = decode_loop(cfg, HY_RING, steps)
+    wrap = ring_reading(f"(B) decode on a {HY_RING}-slot ring vs prefill_fn "
+                        f"under window {HY_RING}", on_ring)
+    saved = transformer.blockwise_attention
+    try:
+        transformer.blockwise_attention = attn_mod.plain_attention
+        want_plain = model_api.prefill_fn(params, {"tokens": seq}, ring_cfg)
+    finally:
+        transformer.blockwise_attention = saved
+    ctl_b = reading("(B) control: prefill_fn on the plain attention under "
+                    f"window {HY_RING} vs the ring", on_ring, want_plain)
+    ctl_b["generated"] = reading("(B) control, generated positions only",
+                                 on_ring, want_plain, LM_PROMPT)
+    del want_plain
+
+    def ring_passes(r):
+        return (within_control(r, ctl_b, LM_BATCH)
+                and within_control(r["generated"], ctl_b["generated"],
+                                   LM_BATCH))
+
+    if not ring_passes(wrap):
+        fail(f"[hybrid] (B) the wrapped ring vs the windowed prefill: {wrap}, "
+             f"beyond {HY_CORR_FACTOR}x the control's distance ({ctl_b})")
+    del on_ring
+    faults = {}
+    saved = transformer.ring_slot
+    try:
+        transformer.ring_slot = lambda p, w: (p + 1) % w
+        planted = decode_loop(cfg, HY_RING, steps)
+    finally:
+        transformer.ring_slot = saved
+    faults["ring written one slot off"] = ring_reading(
+        "(B) planted fault: the ring written one slot off", planted)
+    del planted
+    planted = decode_loop(cfg.with_(window=0), steps, steps)
+    faults["B6 over a linear 160-row cache, no window"] = ring_reading(
+        "(B) planted fault: B6 at length pos + 1 over a linear 160-row cache",
+        planted)
+    del planted, want_b
+    for tag, r in faults.items():
+        if ring_passes(r):
+            fail(f"[hybrid] (B) the planted fault ({tag}) passes the ring's "
+                 f"limits, which therefore cannot catch it: {r}")
+
+    # -- (C) the window binds: one 4096-token prompt on B5 under the
+    # 2048-key window against the plain attention on the card
+    long = torch.randint(0, cfg.vocab, (1, HY_LONG), generator=gen,
+                         device=dev)
+    model_api.prefill_fn(params, {"tokens": long[:, :256]}, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    kern = model_api.prefill_fn(params, {"tokens": long}, cfg)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    long_launches = _build.LAUNCHES.get("flash_attention_causal", 0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if long_launches != nsb:
+        fail(f"[hybrid] (C) B5 launched {long_launches} times, expected "
+             f"{nsb}")
+    if not bool(torch.isfinite(kern.float()).all()):
+        fail("[hybrid] (C) prefill logits not finite")
+    saved = transformer.blockwise_attention
+    try:
+        transformer.blockwise_attention = attn_mod.plain_attention
+        plain = model_api.prefill_fn(params, {"tokens": long}, cfg)
+    finally:
+        transformer.blockwise_attention = saved
+    say(f"[hybrid] (C) prefill_fn over 1 x {HY_LONG} tokens on B5 (window "
+        f"{cfg.window}, {long_launches} launches): {long_s * 1e3:.3f} ms = "
+        f"{HY_LONG / long_s:.1f} tok/s; peak memory {peak_gb:.2f} GiB "
+        f"({card})")
+    win = reading("(C) B5 under the window vs the plain attention", kern,
+                  plain)
+    if not corr_passes(win, 1):
+        fail(f"[hybrid] (C) B5's windowed prefill vs the plain one: {win}")
+    del kern
+    causal = model_api.prefill_fn(params, {"tokens": long},
+                                  cfg.with_(window=0))
+    pc = position_corr_chunked(torch, causal, plain)
+    top = causal.argmax(-1) == plain.argmax(-1)
+    before = corr_reading(pc[:HY_WINDOW], top[:, :HY_WINDOW])
+    after = corr_reading(pc, top, HY_WINDOW)
+    say(f"[hybrid] (C) planted fault, window 0 (plain causal) vs the plain "
+        f"windowed attention: positions < {HY_WINDOW} min corr "
+        f"{before['min_corr']:.6f}; positions >= {HY_WINDOW}: min corr "
+        f"{after['min_corr']:.6f}, last {after['last_corr']:.6f}, argmax "
+        f"{100 * after['argmax_share']:.2f}%")
+    if not before["min_corr"] > 0.999:
+        fail(f"[hybrid] (C) window 0 disagrees before position {HY_WINDOW}: "
+             f"{before}")
+    if corr_passes(after, 1):
+        fail(f"[hybrid] (C) window 0 passes from position {HY_WINDOW} on, so "
+             f"the check cannot tell the window was applied: {after}")
+    del causal, plain, params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"[hybrid] path 4m in {phase_s:.1f}s ({card})")
+    return {"launches": launches, "tps": tps, "step_ms": step_ms,
+            "busy": dev_ms / wall_ms, "prefill_tps": LM_BATCH * LM_PROMPT
+            / prefill_s, "long_tps": HY_LONG / long_s, "peak_gb": peak_gb,
+            "phase_s": phase_s, "A": real, "A_control": control,
+            "cpu_corr": c, "cpu_control": c_ctl, "B": wrap,
+            "B_control": ctl_b, "C": win, "faults": faults}
 
 
 def check_b4(torch, dev) -> dict:
@@ -4483,8 +5059,10 @@ def run_train(torch, dev, card: str, cfg=None, batch: int = TRAIN_BATCH,
 # the one card. (A) / (B) serve at full depth with 4b's traffic; (C) / (D)
 # train at the reference CLI's batch 8 x seq 128 on the first
 # LMJ_TRAIN_LAYERS layers (a 28-layer train state's checkpoint is 9.3 GB,
-# written and read three times a run), warmup cut to 10 as 4i cuts it
-LMJ_TRAIN_LAYERS = 8
+# written and read three times a run; 8 layers until 4m's recurrentgemma-9b
+# took the script's time past ~1,050 of its 1,200 s: PERF.md §4 lists the
+# cut and what it saved), warmup cut to 10 as 4i cuts it
+LMJ_TRAIN_LAYERS = 4
 LMJ_TRAIN_BATCH, LMJ_TRAIN_SEQ = 8, 128
 LMJ_TRAIN_STEPS, LMJ_RESUME_AT, LMJ_WARMUP = 20, 10, 10
 # (A)'s logits checks. The control is the mesh's arithmetic on one device
@@ -4564,10 +5142,10 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
         return real[0](x, w, b, policy)
 
     def per_rank(fn):
-        def heads(q, *rest):
+        def heads(q, *rest, **kw):
             h = q.shape[2] // n
             return torch.cat([fn(q[:, :, j * h:(j + 1) * h].contiguous(),
-                                 *rest[:-1], Split(n, j, None))
+                                 *rest[:-1], Split(n, j, None), **kw)
                               for j in range(n)], 2)
         return heads
 
@@ -5020,7 +5598,9 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
 # gathers every layer's weights (46.8 MB a layer a rank) through gloo on
 # the host; at 8 layers a decode step took 0.9 s, a train step 7.2 s and
 # 4k 487 s on an H100 (PERF.md, the 4k findings), so 4k at 8 would take
-# the whole run to ~85% of its limit. (A) 4b's batch 4, prompt 128 and 32 greedy tokens against
+# the whole run to ~85% of its limit; at 4 layers 4k took 309 s of a
+# 1,148 s run once 4m's recurrentgemma-9b joined it, so it runs 2 layers
+# (PERF.md §4 lists the cut and what it saved). (A) 4b's batch 4, prompt 128 and 32 greedy tokens against
 # a cache of LMK_CACHE rows, 128 a rank: the prompt fills model rank 0's
 # rows and every generated token lands on rank 1 (its first decode step
 # has exactly one valid row there). (C) 4j's batch, LMK_TRAIN_STEPS steps
@@ -5029,7 +5609,7 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
 # LMK_RESUME_AT. (D) the pod mesh: the prefill,
 # LMK_MP_GEN greedy tokens after the prompt's first LMK_MP_PROMPT (a cache
 # of LMK_MP_CACHE, half a rank) and LMK_MP_STEPS train steps
-LMK_LAYERS = 4
+LMK_LAYERS = 2
 LMK_CACHE = 256
 LMK_TRAIN_STEPS, LMK_RESUME_AT, LMK_WARMUP = 10, 5, 2
 # step 0's batch's loss after the LMK_TRAIN_STEPS steps must lie this far
@@ -5603,7 +6183,10 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
 
 
 # path 4l: ViT QAT training on every mesh. opto-vit-base-224 + MGNet (keep
-# 0.33) at full width and all 12 layers on qat + xla + xla, AdamW, a
+# 0.33) at full width, cut to VM_LAYERS of its 12 layers (its gloo time
+# scales with the blocks; 4m's recurrentgemma-9b took the script past
+# ~1,050 of its 1,200 s at 12: PERF.md §4 lists the cut), on qat + xla +
+# xla, AdamW, a
 # global batch of 32 of ImageStream(224, 32, n_classes=8), gloo ranks
 # sharing the one card as 4j / 4k: (A) DATA_RULES on ("data",) 2 and (B)
 # MODEL_RULES on (data 1, model 2) in one spawn of 2 ranks; (C)
@@ -5631,6 +6214,7 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
 # VM_FAULT_FACTOR x, and fail its check at full size: (A) the activation
 # scales', (B) the weight scales', (C) the FSDP blocks' bitwise equality.
 VM_BATCH = 32
+VM_LAYERS = 6
 VM_MICRO = 2                      # (G)'s microbatches a step
 # (G) at smoke size: each later activation scale's relative gap from the
 # one-device step's (a rank's GEMMs at half the rows: 3.4333e-7 on the
@@ -6217,6 +6801,11 @@ def microbatched_mesh_steps(torch, dist, sizes: dict, mesh_rules, batch_of,
     return res
 
 
+def vit_mesh_cfg():
+    """4l's config: 4i's (``train_cfg``) at VM_LAYERS layers."""
+    return train_cfg().with_(n_layers=VM_LAYERS)
+
+
 def run_vit_mesh(torch, dev, card: str) -> dict:
     """Path 4l: (A)-(D) in two spawns of gloo ranks on the one card, then
     (E) on the parent's card."""
@@ -6232,7 +6821,7 @@ def run_vit_mesh(torch, dev, card: str) -> dict:
     from repro_torch.models.vit import forward_vit
     from repro_torch.optim.adamw import tree_map
 
-    cfg = train_cfg()
+    cfg = vit_mesh_cfg()
     t_phase = time.perf_counter()
     say(f"[vit_mesh] path 4l: {cfg.name} {cfg.img_size}x{cfg.img_size} + "
         f"MGNet keep {cfg.mgnet_keep_ratio} on qat + xla + xla, training=True, "
@@ -6398,7 +6987,7 @@ def report_vit_mesh_fused(ranks: dict, card: str) -> list:
     forward of the same cache, finite, of the batch's shape; the pod
     mesh's absmax scope left local must break that. The failures."""
     failures = []
-    layers = train_cfg().n_layers
+    layers = vit_mesh_cfg().n_layers
     for tag, rule in (("C", "DEFAULT_RULES on (2, 2)"),
                       ("D", "MULTIPOD_RULES on (2, 1, 2)")):
         for i, r in enumerate(ranks[tag]):
@@ -6603,6 +7192,8 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     errs.update(check_lm_kernels(torch, dev))
     for kname, e in check_tp_kernels(torch, dev).items():
+        errs[kname] = max(errs[kname], e)
+    for kname, e in check_hybrid_kernels(torch, dev).items():
         errs[kname] = max(errs[kname], e)
     errs["flash_decode_partial"] = check_partial_kernel(torch, dev)
     errs.update(check_b4(torch, dev))
@@ -6923,6 +7514,11 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in tp_ms:
             entry["tp_rank"] = tp_ms[entry["name"]]
+    # B5 / B6 at recurrentgemma-9b's shapes; their launches come with 4m
+    hy_ms = time_hybrid_kernels(torch, dev, card)
+    for entry in kernels:
+        if entry["name"] in hy_ms:
+            entry["hybrid"] = hy_ms[entry["name"]]
     # B6's partial entry at 4k's rank shape; its launches come with 4k
     partial_entry = time_partial_kernel(torch, dev, card)
     partial_entry["max_abs_err"] = errs["flash_decode_partial"]
@@ -7057,6 +7653,26 @@ def main() -> int:
     say(f"[vit_mesh] launches on the main paths with 4l's (E): "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
     del vit_mesh
+    torch.cuda.empty_cache()
+
+    # -- 4m. [hybrid]: recurrentgemma-9b at full width on B5 / B6 (after 4l,
+    # before the profiled phases); (A)'s launches join the counts, and
+    # B5's and B6's ``hybrid`` entries record them
+    hybrid = run_hybrid(torch, dev, card)
+    for entry in kernels:
+        n = hybrid["launches"].get(entry["name"], 0)
+        entry["launches"] += n
+        if "hybrid" in entry:
+            entry["hybrid"]["launches"] = n
+    say(f"[hybrid] launches on the main paths with 4m's (A): "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    say(f"[numbers] recurrentgemma-9b decode: {hybrid['tps']:.2f} tok/s over "
+        f"the generate loop ({LM_BATCH} x {LM_GEN}), one step "
+        f"{hybrid['step_ms']:.3f} ms, card busy {100 * hybrid['busy']:.1f}% "
+        f"under the profiler; prefill {hybrid['prefill_tps']:.1f} tok/s at "
+        f"{LM_BATCH} x {LM_PROMPT} (first call), "
+        f"{hybrid['long_tps']:.1f} tok/s at 1 x {HY_LONG} ({card})")
+    del hybrid
     torch.cuda.empty_cache()
 
     # each flush's device time, from the profiler over its replays. After

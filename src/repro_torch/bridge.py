@@ -17,8 +17,10 @@ moments bit for bit, ``count`` and ``step`` as 0-d int32.
 
 ``init_vit`` draws a ViT (+ MGNet) parameter tree of the reference's
 shapes and scales from ``numpy.random.default_rng(seed)``; ``init_lm``
-draws a dense LM tree on the target device from a seeded
-``torch.Generator`` (numpy would take minutes over 1.5 G normals). Neither
+draws a dense or hybrid LM tree on the target device from a seeded
+``torch.Generator`` (numpy would take minutes over 1.5 G normals; the
+hybrid's recurrentgemma-9b has 10.4 G), each leaf in the reference's
+dtype (a hybrid's ``lambda``, ``b_a`` and ``b_x`` stay f32). Neither
 reproduces the reference's ``jax.random`` draws: the port's tests bridge
 the reference's own params instead.
 """
@@ -173,8 +175,9 @@ def init_vit(seed: int, cfg: ArchConfig, n_classes: int = 1000,
 
 def init_lm(seed: int, cfg: ArchConfig, device=None,
             dtype=torch.bfloat16) -> dict:
-    """A dense LM param tree of the reference's shapes and scales
-    (``init_lm``/``init_dense_layer``/``init_attention``/``init_swiglu``):
+    """An LM param tree of the reference's shapes and scales
+    (``init_lm``/``init_dense_layer``/``init_attention``/``init_swiglu``,
+    and for a hybrid ``init_rec_layer``/``init_rglru``):
     embed N(0, 0.02); every matmul weight He-normal over its fan-in;
     biases 0; norm gains 1; stacked ``blocks`` with a leading L axis; an
     ``lm_head`` only without tied embeddings. Drawn in f32 from a
@@ -196,6 +199,9 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
+    if cfg.family == "hybrid":
+        return _init_hybrid(gen, cfg, dev, dtype, normal, he, const)
+
     attn = {}
     for name, shape in attention_shapes(cfg).items():
         attn[name] = he((L,) + shape) if len(shape) == 2 else \
@@ -213,4 +219,42 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = he((d, cfg.vocab))
+    return params
+
+
+def _init_hybrid(gen, cfg: ArchConfig, dev, dtype, normal, he, const) -> dict:
+    """``init_lm``'s hybrid tree (the reference's ``init_lm`` hybrid
+    branch, ``init_rec_layer``, ``init_dense_layer``): embed, the untied
+    head, then ``blocks`` of (rec0, rec1, attn) super-blocks and the
+    tail's recurrent layers, every leaf stacked on its leading axis."""
+    from repro_torch.models import rglru
+    from repro_torch.models.transformer import attention_shapes, hybrid_counts
+
+    d, dff = cfg.d_model, cfg.d_ff
+    nsb, rem = hybrid_counts(cfg)
+    params = {"embed": normal((cfg.vocab, d), 0.02),
+              "final_ln": const((d,), 1.0)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he((d, cfg.vocab))
+
+    def ffn(n):
+        return {"w_gate": he((n, d, dff)), "w_up": he((n, d, dff)),
+                "w_down": he((n, dff, d))}
+
+    def rec_layer(n):
+        return {"ln1": const((n, d), 1.0),
+                "rec": rglru.init_rglru(gen, cfg, n, dev, dtype),
+                "ln2": const((n, d), 1.0), "ffn": ffn(n)}
+
+    def attn_layer(n):
+        attn = {name: he((n,) + shape) if len(shape) == 2 else
+                const((n,) + shape, 0.0)
+                for name, shape in attention_shapes(cfg).items()}
+        return {"ln1": const((n, d), 1.0), "attn": attn,
+                "ln2": const((n, d), 1.0), "ffn": ffn(n)}
+
+    params["blocks"] = {"rec0": rec_layer(nsb), "rec1": rec_layer(nsb),
+                        "attn": attn_layer(nsb)}
+    if rem:
+        params["tail_blocks"] = rec_layer(rem)
     return params

@@ -2,9 +2,12 @@
 (src/repro/configs/base.py) that the ported paths read, field names and
 defaults unchanged so a reader finds each counterpart.
 
-Two families are ported: ``vit`` (the near-sensor serving path, and its
-training: QAT with the straight-through estimator, launch/steps.py) and
-``dense`` (the decoder-only LM serving path: prefill + KV-cache decode).
+Three families are ported: ``vit`` (the near-sensor serving path, and
+its training: QAT with the straight-through estimator, launch/steps.py),
+``dense`` (the decoder-only LM serving path: prefill + KV-cache decode)
+and ``hybrid`` (RecurrentGemma serving: RG-LRU layers with a local
+attention layer every third, ``attn_every``, over a ``window``-token
+ring; ``lru_width`` / ``lru_dim`` and ``conv_kernel`` size the recurrence).
 The training knobs are the reference's: ``remat`` (activation
 checkpointing of each encoder layer), ``microbatch_steps`` (gradient
 accumulation), ``use_fp32_master`` (f32 AdamW moments; bf16 when off),
@@ -21,13 +24,13 @@ from dataclasses import dataclass, replace
 
 __all__ = ["ArchConfig", "ShapeConfig", "smoke_variant", "PORTED_FAMILIES"]
 
-PORTED_FAMILIES = ("dense", "vit")
+PORTED_FAMILIES = ("dense", "vit", "hybrid")
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | vit (ported); moe | ssm | hybrid |
+    family: str                 # dense | vit | hybrid (ported); moe | ssm |
     #                             encdec | vlm raise at the model entry points
     n_layers: int
     d_model: int
@@ -41,6 +44,11 @@ class ArchConfig:
     rope_theta: float = 500000.0
     attn_impl: str = "standard"          # standard | decomposed (Eq. 2)
     window: int = 0                      # local-attention window (hybrid)
+    attn_every: int = 0                  # hybrid: attn layer every k-th layer
+
+    # recurrence (hybrid)
+    conv_kernel: int = 4                 # the RG-LRU's short causal conv
+    lru_width: int = 0                   # 0 -> d_model
 
     # vit / paper-specific
     img_size: int = 224
@@ -84,6 +92,10 @@ class ArchConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def lru_dim(self) -> int:
+        return self.lru_width or self.d_model
+
     def with_(self, **kw) -> "ArchConfig":
         return replace(self, **kw)
 
@@ -102,14 +114,17 @@ class ShapeConfig:
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests, as the reference's:
-    at most 4 layers, d=64, 4 heads, at most 2 KV heads, d_ff=128, vocab
-    256, one microbatch, no remat; a vit also gets 32x32 images in 8x8
-    patches."""
-    kw = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=4,
-              kv_heads=min(cfg.kv_heads, 2), d_ff=128, vocab=256,
-              microbatch_steps=1, remat=False)
+    at most 4 layers (a hybrid 3: one (rec, rec, attn) super-block), d=64,
+    4 heads, at most 2 KV heads, d_ff=128, vocab 256, one microbatch, no
+    remat; a vit also gets 32x32 images in 8x8 patches, a hybrid an LRU
+    width of 64 and a 16-token window."""
+    kw = dict(n_layers=min(cfg.n_layers, 4) if cfg.family != "hybrid" else 3,
+              d_model=64, n_heads=4, kv_heads=min(cfg.kv_heads, 2), d_ff=128,
+              vocab=256, microbatch_steps=1, remat=False)
     if cfg.family == "vit":
         kw.update(img_size=32, patch=8)
+    elif cfg.family == "hybrid":
+        kw.update(lru_width=64, window=16, attn_every=3)
     elif cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here (the reference's
 src/repro/configs/registry.py, ported ids only).
 
-Ported: ``qwen2-1.5b`` (dense LM) and the paper's own backbones
-``opto-vit-{tiny,small,base,large}``. Every other id the reference knows
+Ported: ``qwen2-1.5b`` (dense LM), ``recurrentgemma-9b`` (hybrid LM) and
+the paper's own backbones ``opto-vit-{tiny,small,base,large}``. Every other id the reference knows
 raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -27,13 +27,16 @@ ARCH_IDS = [
     "opto-vit-tiny", "opto-vit-small", "opto-vit-base", "opto-vit-large",
 ]
 
-PORTED_ARCH_IDS = ("qwen2-1.5b", "opto-vit-tiny", "opto-vit-small",
-                   "opto-vit-base", "opto-vit-large")
+PORTED_ARCH_IDS = ("qwen2-1.5b", "recurrentgemma-9b", "opto-vit-tiny",
+                   "opto-vit-small", "opto-vit-base", "opto-vit-large")
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id == "qwen2-1.5b":
         from repro_torch.configs.qwen2_1_5b import get_config as get
+        return get()
+    if arch_id == "recurrentgemma-9b":
+        from repro_torch.configs.recurrentgemma_9b import get_config as get
         return get()
     if arch_id in PORTED_ARCH_IDS:
         from repro_torch.configs.opto_vit import get_config as get

@@ -12,7 +12,9 @@
 // shape. A block of 4 warps owns a 64-row query tile of one (batch, head);
 // each warp owns 16 rows (2 warps and 32-row tiles, 192 blocks at the
 // prefill shape, measured slower). Q arrives once
-// through cp.async and stays in registers as ldmatrix A fragments. K and V
+// through cp.async; at D <= 128 it stays in registers as ldmatrix A
+// fragments, at D = 256 in shared memory, re-read by ldmatrix each k-step
+// (see "D = 256" below). K and V
 // move in 64-key tiles through a 2-stage cp.async ring in dynamic shared
 // memory, 16-byte chunks, the next tile in flight while this one is used;
 // rows past Skv are zero-filled through the src-size operand and never
@@ -29,8 +31,24 @@
 // softmax lives in registers: a row's max and sum by quad shuffles, expf,
 // NEG_INF = -1e30, p exactly 0 for hidden keys, so a row with no visible
 // key keeps l = 0 and writes exactly 0 (o times 1 / max(l, 1e-30)). D in
-// {16, 64, 128}; the wrapper raises on any other D and on 16-byte
+// {16, 64, 128, 256}; the wrapper raises on any other D and on 16-byte
 // misalignment.
+//
+// D = 256 (recurrentgemma-9b: 16 query heads on one KV head, a 2048-key
+// window). The register file is what binds: a warp's 16 rows of f32 O take
+// 32 n-tiles x 4 = 128 registers a thread, S 32 more, and Q's fragments
+// would take 16 k-steps x 4 = 64 on top, past the 255 a thread may hold.
+// So Q stays in shared memory (its 32 KB tile, swizzled as K and V) and
+// each k-step of Q K^T reads its A fragment with one ldmatrix.x4, beside
+// the four it already issues for K; O and S stay in registers. Shared
+// memory is 32 KB of Q plus two stages of K and V at 32 KB each: 160 KB,
+// one block an SM within the 227 KB opt-in. The tile walk, the masks and
+// the hi/lo split of P are the other head dims' unchanged; under a window
+// the walk starts at the first tile that meets the first row's window, so
+// at S 4096 and W 2048 a block of the last rows walks 33 of 64 tiles. That
+// prefill (16 heads) has 100.7 M visible (query, key) pairs: 0.104 ms of
+// bf16 tensor-core work against 0.021 ms of bytes, so operations bound it,
+// and one block an SM with 4 warps of mma.sync keeps it far from that.
 //
 // Numerics against the TPU kernel, which scales q in f32 and multiplies in
 // f32: here q and k are bf16, so each product q_d k_d is exact in f32 and
@@ -328,7 +346,10 @@ flash_attention_causal_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int w0 = q0 + warp * 16;           // the warp's first row
   const int row_a = w0 + (lane >> 2), row_b = row_a + 8;
   const int col = 2 * (lane & 3);          // a fragment's column pair
-  uint32_t qf[kKSteps][4];
+  // Q's A fragments in registers (D <= 128), or re-read from shared
+  // memory each k-step (D = 256: the registers hold O and S)
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qf[kQInRegs ? kKSteps : 1][4];
   float o[kDTiles][4];
 #pragma unroll
   for (int n = 0; n < kDTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -347,9 +368,9 @@ flash_attention_causal_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait_all_but_one();           // this tile (and Q) have landed
     __syncthreads();
 
-    if (t == t_lo) {
+    if (kQInRegs && t == t_lo) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
+      for (int kk = 0; kk < (kQInRegs ? kKSteps : 0); ++kk)
         ldmatrix_x4(qf[kk], sQ + swz<D>(warp * 16 + (lane & 15),
                                         2 * kk + (lane >> 4)));
     }
@@ -366,13 +387,21 @@ flash_attention_causal_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t qa[4];
+        if (kQInRegs) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) qa[r] = qf[kQInRegs ? kk : 0][r];
+        } else {
+          ldmatrix_x4(qa, sQ + swz<D>(warp * 16 + (lane & 15),
+                                      2 * kk + (lane >> 4)));
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t bk[4];
           ldmatrix_x4(bk, sK + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                       2 * kk + ((lane >> 3) & 1)));
-          mma(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma(s[2 * np], qa, bk[0], bk[1]);
+          mma(s[2 * np + 1], qa, bk[2], bk[3]);
         }
       }
       // scale, mask, the rows' maxima (a row's values sit in one quad)
@@ -495,6 +524,8 @@ int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                Skv, causal, window, scale, stream);
     case 128: return launch<128>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, Sq,
                                  Skv, causal, window, scale, stream);
+    case 256: return launch<256>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, Sq,
+                                 Skv, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -522,7 +553,7 @@ extern "C" int flash_attention_causal_f32(const void* q, const void* k,
                       scale, static_cast<cudaStream_t>(stream));
 }
 
-// D in {16, 64, 128}, every pointer and stride 16-byte aligned (the wrapper
+// D in {16, 64, 128, 256}, every pointer and stride 16-byte aligned (the wrapper
 // checks both)
 extern "C" int flash_attention_causal_bf16(const void* q, const void* k,
                                            const void* v, void* out,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the six ported kernels (the numerics
 contracts), counterparts of src/repro/kernels/ref.py, of the reference's
-XLA twins and of its decode attention, and of the port's noise-draw
-kernel (the reference's jax.random draws of core/noise.py).
+XLA twins and of its decode attention (its ring-buffer decode too), and
+of the port's noise-draw kernel (the reference's jax.random draws of
+core/noise.py).
 
 Each function here is the same function as its CUDA kernel. The wrappers
 take them for tensors on the CPU, the tests hold them against the
@@ -25,7 +26,7 @@ __all__ = ["NEG_INF", "prefix_key_mask", "expand_kv_heads", "gelu_tanh",
            "int_accumulate_ref", "dequant_epilogue_ref",
            "photonic_matmul_ref",
            "flash_attention_masked_ref", "flash_attention_ref",
-           "flash_decode_ref", "flash_decode_partial_ref",
+           "flash_decode_ref", "flash_decode_partial_ref", "ring_decode_ref",
            "flash_attention_tc_ref",
            "tf32_rna", "flash_attention_masked_tc_ref",
            "flash_decode_split_ref", "fused_ffn_ref", "slice_live",
@@ -169,6 +170,33 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.exp(scores - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()) / l
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def ring_decode_ref(q: torch.Tensor, k_ring: torch.Tensor,
+                    v_ring: torch.Tensor, pos: int) -> torch.Tensor:
+    """One-token GQA attention over a ring-buffer window cache, the
+    reference's ``_ring_decode_attention`` in f32: slot s of W holds the
+    latest absolute position p <= ``pos`` with p mod W == s, valid iff
+    p >= 0; q / sqrt(D), scores, invalid slots NEG_INF, max-subtracted
+    exp, PV, divided by the sum. The valid slots are exactly the first
+    min(pos + 1, W), so B6 over that many rows computes this function.
+
+    q (B, 1, H, D); k/v_ring (B, W, Hkv, D) -> (B, 1, H, D) in q.dtype."""
+    b, _, h, d = q.shape
+    w, hkv = k_ring.shape[1], k_ring.shape[2]
+    slots = torch.arange(w, device=q.device)
+    cur = pos % w
+    abs_pos = torch.where(slots <= cur, pos - cur + slots,
+                          pos - cur + slots - w)
+    valid = abs_pos >= 0
+    qf = q.reshape(b, hkv, h // hkv, d).float() / math.sqrt(d)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k_ring.float())
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_ring.float())
+    o = o / p.sum(-1, keepdim=True)
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -21,9 +21,18 @@ and checks that the ranks of each "model" group generated equal tokens.
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain PyTorch versions).
 
+The hybrid family (``--arch recurrentgemma-9b``) serves outside any mesh:
+its cache is the recurrent states and a ring of min(window, cache len)
+slots per attention layer, so ``--cache-len`` may be shorter than the
+prompt and the generated tokens (positions past it overwrite the ring's
+oldest slots, the reference's ring for a cache shorter than the window).
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 4 --prompt-len 128 --gen 32 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --batch 4 --prompt-len 128 --gen 32 \\
+        --cache-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -56,9 +65,11 @@ __all__ = ["init_cache", "prefill_into_cache", "generate", "main"]
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
-    """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``;
-    under a sharding context this rank's block: its batch rows, and under
-    a "kv_seq" split its seq_len / M rows of the sequence."""
+    """Zeroed decode cache of ``cache_axes_spec``'s shapes on ``device``
+    (a hybrid's: f32 recurrent states, bf16 conv states and attention
+    rings of min(window, seq_len) slots); under a sharding context this
+    rank's block: its batch rows, and under a "kv_seq" split its
+    seq_len / M rows of the sequence."""
     dev = resolve_device(device)
     shapes, axes = model_api.cache_axes_spec(cfg, batch, seq_len)
     ctx = current_ctx()
@@ -214,7 +225,7 @@ def main(argv=None):
         cfg = cfg.with_(matmul_backend=args.backend)
     if not model_api.supports_decode(cfg):
         raise SystemExit(f"{args.arch} has no decode step")
-    if args.prompt_len + args.gen > args.cache_len:
+    if args.prompt_len + args.gen > args.cache_len and cfg.family == "dense":
         raise SystemExit("--prompt-len + --gen must fit in --cache-len")
     world = args.data_par * args.model_par
     if world > 1 and int(os.environ.get("WORLD_SIZE", "1")) <= 1:

@@ -18,7 +18,10 @@ ported families only): one surface for the launch layer.
 "model" (``prefill_fn`` / ``decode_fn`` return this rank's vocab block of
 the logits, ``loss_fn`` reduces the logsumexp and the gold logit over
 "model") with the decode cache split along its sequence. ``vit`` routes
-to models/vit.py.
+to models/vit.py. ``hybrid`` (RecurrentGemma) serves through the same
+LM entry points outside any mesh: ``prefill_fn`` / ``decode_fn`` on its
+RG-LRU layers and local-attention ring; its training and its meshes
+raise naming queue A15.
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
 queue A15. The parameters are the port's tree
 (``bridge.from_jax_params`` of the reference's, or ``init_model``);
@@ -37,7 +40,8 @@ __all__ = ["init_model", "model_logical_axes", "loss_fn", "prefill_fn",
            "decode_fn", "batch_specs", "cache_axes_spec", "supports_decode",
            "BATCH_AXES"]
 
-_UNPORTED = ("moe", "ssm", "hybrid", "encdec", "vlm")
+_UNPORTED = ("moe", "ssm", "encdec", "vlm")
+_LM_FAMILIES = ("dense", "hybrid")
 
 # logical axes of every batch key (rank must match the array)
 BATCH_AXES = {
@@ -53,7 +57,7 @@ BATCH_AXES = {
 def _unported(cfg: ArchConfig):
     return NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
-        f"yet (ROADMAP.md queue A15); ported: dense, vit")
+        f"yet (ROADMAP.md queue A15); ported: dense, hybrid, vit")
 
 
 def init_model(seed: int, cfg: ArchConfig, device=None,
@@ -62,7 +66,7 @@ def init_model(seed: int, cfg: ArchConfig, device=None,
     ``device`` (default: the card)."""
     from repro_torch import bridge
 
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         return bridge.init_lm(seed, cfg, device, dtype)
     if cfg.family == "vit":
         return bridge.from_jax_params(bridge.init_vit(seed, cfg, n_classes),
@@ -72,7 +76,7 @@ def init_model(seed: int, cfg: ArchConfig, device=None,
 
 def model_logical_axes(cfg: ArchConfig) -> dict:
     """The logical-axis tree of ``init_model``'s params, the reference's."""
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         return tf_mod.lm_logical_axes(cfg)
     if cfg.family == "vit":
         from repro_torch.models.vit import vit_logical_axes
@@ -87,7 +91,7 @@ def batch_specs(cfg: ArchConfig, shape) -> dict:
     if shape.kind == "decode":
         return {"tokens": ((b, 1), torch.int32, BATCH_AXES["decode_tokens"])}
     out = {}
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         out["tokens"] = ((b, s), torch.int32, BATCH_AXES["tokens"])
     elif cfg.family == "vit":
         out["images"] = ((b, cfg.img_size, cfg.img_size, 3), torch.float32,
@@ -123,7 +127,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig,
         logits, _ = forward_vit(params, batch["images"], cfg, policy,
                                 device=batch["images"].device)
         return _xent(logits, batch["labels"])
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         return tf_mod.lm_loss(params, batch, cfg, policy)
     raise _unported(cfg)
 
@@ -131,10 +135,11 @@ def loss_fn(params, batch: dict, cfg: ArchConfig,
 def prefill_fn(params, batch: dict, cfg: ArchConfig,
                policy: ExecPolicy | None = None):
     """Inference forward over the full prompt: ``batch["tokens"]`` (B, S)
-    -> logits (B, S, V) for dense (this rank's vocab block (B, S, V / n)
-    under a vocab split); ``batch["images"]`` -> logits for vit."""
+    -> logits (B, S, V) for dense and hybrid (a dense LM's under a vocab
+    split this rank's block (B, S, V / n)); ``batch["images"]`` -> logits
+    for vit."""
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         logits, _ = tf_mod.forward_lm(params, batch["tokens"], cfg, policy)
         return logits
     if cfg.family == "vit":
@@ -151,7 +156,7 @@ def decode_fn(params, cache: dict, tokens: torch.Tensor, pos: int,
     written in place and returned; under a vocab split the logits are
     this rank's block."""
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         return tf_mod.decode_step(params, cache, tokens, pos, cfg, policy)
     if cfg.family in _UNPORTED:
         raise _unported(cfg)
@@ -166,8 +171,9 @@ def cache_axes_spec(cfg: ArchConfig, batch: int, seq_len: int,
                     dtype=torch.bfloat16):
     """(shapes {name: (shape, dtype)}, axes {name: logical axes}): the
     whole cache's; ``launch/serve.py::init_cache`` places them (the
-    sequence over "kv_seq"'s axes under ``DEFAULT_RULES``)."""
-    if cfg.family == "dense":
+    sequence over "kv_seq"'s axes under ``DEFAULT_RULES``); a hybrid's
+    recurrent states and attention rings (``transformer.cache_spec``)."""
+    if cfg.family in _LM_FAMILIES:
         return tf_mod.cache_spec(cfg, batch, seq_len, dtype)
     if cfg.family in _UNPORTED:
         raise _unported(cfg)

@@ -21,6 +21,15 @@ rank holds a block of the query heads and the whole K / V; ``kv_runs``
 pairs the block with the KV heads it reads (models/transformer.py
 launches once a run).
 
+The hybrid family's local attention reads a ring-buffer cache of W =
+min(window, S) slots, slot pos mod W holding position pos
+(``ring_decode_attention``). RoPE is applied to each key when it is
+written, so the softmax does not depend on the order of the slots, and
+the valid slots are exactly the first min(pos + 1, W): B6 runs on the
+ring unchanged with that length. A window over a linear cache
+(``decode_attention(window=)``) runs B6 on the view of its last
+``window`` valid rows.
+
 Under a "kv_seq" split of the decode cache (``DEFAULT_RULES``: the
 sequence over "model", the reference's flash-decoding layout) each rank
 holds rows [row0, row0 + S / M) of every cache. ``update_kv_cache``
@@ -39,10 +48,11 @@ import torch
 from repro_torch.core.backend import _needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, ring_decode_ref
 
 __all__ = ["blockwise_attention", "plain_attention", "decode_attention",
-           "merge_partials", "update_kv_cache", "kv_runs"]
+           "ring_decode_attention", "merge_partials", "update_kv_cache",
+           "kv_runs"]
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=0):
@@ -92,11 +102,17 @@ def decode_attention(q, k_cache, v_cache, length: int, *, window=0,
     rank's rows of a split cache and ``length`` the global count: B6's
     partial entry over them, merged with every rank's of ``seq.group``
     (each rank must call it), the output of all q's heads. ``window > 0``
-    (the hybrid family's local attention) is not ported yet."""
+    attends the last ``window`` valid rows, [length - window, length), as
+    the reference's mask: B6 on that view of the caches (no sequence
+    split)."""
     if window > 0:
-        raise NotImplementedError(
-            "decode_attention with a local window is hybrid-only and not "
-            "ported yet (ROADMAP.md queue A15)")
+        if seq is not None:
+            raise NotImplementedError(
+                "a local-window decode over a sequence-split cache (ROADMAP.md "
+                "queue A15: hybrid on the meshes)")
+        lo = max(0, length - window)
+        return flash_decode(q, k_cache[:, lo:length], v_cache[:, lo:length],
+                            length - lo)
     if seq is None:
         return flash_decode(q, k_cache, v_cache, length)
     from repro_torch.distributed import collectives
@@ -108,6 +124,17 @@ def decode_attention(q, k_cache, v_cache, length: int, *, window=0,
     parts = collectives.all_gather_cat(mine, seq.group, 0, "decode_partials")
     return merge_partials(parts[..., :d].reshape(-1, b, 1, h, d),
                           parts[..., d]).to(q.dtype)
+
+
+def ring_decode_attention(q, k_ring, v_ring, pos: int):
+    """One-token attention at position ``pos`` (host int) over a ring
+    cache (B, W, Hkv, D) whose slot pos mod W already holds the new K/V.
+    On the card: the flash decode kernel over the first min(pos + 1, W)
+    slots; on the CPU the ring's plain version (``ref.ring_decode_ref``,
+    the reference's ring decode in f32), the same function."""
+    if q.device.type == "cpu":
+        return ring_decode_ref(q, k_ring, v_ring, pos)
+    return flash_decode(q, k_ring, v_ring, min(pos + 1, k_ring.shape[1]))
 
 
 def merge_partials(o, lse):

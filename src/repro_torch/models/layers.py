@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.backend import ExecPolicy, QuantizedWeight, linear
 
 __all__ = ["layernorm", "rmsnorm", "rope", "apply_rope", "embedding_lookup",
-           "layer_view", "fsdp_layer", "linear", "row_parallel_linear",
+           "causal_conv1d", "layer_view", "fsdp_layer", "linear", "row_parallel_linear",
            "ExecPolicy", "QuantizedWeight"]
 
 
@@ -82,6 +82,27 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     part = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                           device=rows.device))
     return collectives.reduce_from_model(part, split.group)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv (the Griffin / Mamba short conv). x (B, S, C);
+    w (K, C); ``state`` (B, K - 1, C), the last K - 1 inputs of the
+    sequence so far, or None for zeros. Returns (y (B, S, C) in x.dtype,
+    the new state: the last K - 1 rows of [state, x]), so a decode step
+    (S = 1) rolls the state. The reference's op order: K products of x's
+    dtype summed left to right from the zero pad, each rounded to that
+    dtype, so eager runs agree bitwise."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros(x.shape[:-2] + (k - 1, x.shape[-1]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=-2)                    # (B, S + K - 1, C)
+    s = x.shape[-2]
+    y = sum(xp[..., i:i + s, :] * w[i] for i in range(k))
+    return y.to(x.dtype), xp[..., -(k - 1):, :]
 
 
 def layer_view(blocks, i: int):

@@ -48,9 +48,21 @@ batch's; a remat's recompute re-enters the scope (``sharding.bound``).
 under autograd (``torch.utils.checkpoint``, non-reentrant), as the
 reference's ``jax.checkpoint``: values are unchanged.
 
-The other families (moe / ssm / hybrid) raise ``NotImplementedError``
-naming ROADMAP.md queue A15, as does the reference's ring-buffer window
-cache (hybrid only) and the decomposed (Eq. 2) attention.
+The hybrid family (RecurrentGemma) serves outside any mesh: ``blocks``
+stacks (rec0, rec1, attn) super-blocks on a leading axis and
+``tail_blocks`` the remainder's recurrent layers, as the reference's
+scan over super-blocks does. A recurrent layer is the RG-LRU block
+(models/rglru.py) and a SwiGLU; the attention layer is the dense layer
+with a local ``window`` (B5's window in the prefill). Its decode cache
+holds each super-block's two recurrent states (``rec_h`` f32,
+``rec_conv``) and a ring of ``min(window, S)`` K / V slots (``attn_k``,
+``attn_v``), written at slot ``pos mod W`` and read by B6 over its first
+``min(pos + 1, W)`` slots (``attention.ring_decode_attention``); the
+tail's states are ``tail_h`` / ``tail_conv``.
+
+The other families (moe / ssm) raise ``NotImplementedError`` naming
+ROADMAP.md queue A15, as do the decomposed (Eq. 2) attention and a
+hybrid under a sharding context or a training policy.
 """
 
 from __future__ import annotations
@@ -63,8 +75,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives, sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.attention import (blockwise_attention,
                                           decode_attention, plain_attention,
+                                          ring_decode_attention,
                                           update_kv_cache)
 from repro_torch.models.layers import (ExecPolicy, apply_rope,
                                        embedding_lookup, fsdp_layer,
@@ -76,23 +90,38 @@ __all__ = ["attention_shapes", "lm_shapes", "attention_logical_axes",
            "place_lm_params", "heads_split", "mlp_split", "fsdp_split",
            "vocab_split", "seq_split", "attn_forward", "decode_rope",
            "attn_decode", "dense_layer_fwd", "forward_lm", "cross_entropy",
-           "lm_loss", "cache_spec", "decode_step", "check_family"]
+           "lm_loss", "cache_spec", "decode_step", "check_family",
+           "rec_layer_axes", "rec_layer_fwd", "rec_layer_step", "ring_slot"]
 
 
-def check_family(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense LM the port carries."""
-    if cfg.family != "dense":
+def check_family(cfg: ArchConfig, policy: ExecPolicy | None = None) -> None:
+    """Raise unless ``cfg`` is an LM the port carries: dense, or hybrid
+    on one rank (no context, or a mesh of one) under a serving
+    ``policy``."""
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"LM family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue A15); ported: dense")
+            f"(ROADMAP.md queue A15); ported: dense, hybrid")
     if cfg.attn_impl != "standard":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (paper Eq. 2) is not ported for "
             f"the LM yet (ROADMAP.md queue A15)")
-    if cfg.window:
+    if cfg.family == "dense":
+        if cfg.window:
+            raise NotImplementedError(
+                "a local-attention window is hybrid-only: the dense LM "
+                "attends causally (ROADMAP.md queue A15)")
+        return
+    ctx = sharding.current_ctx()
+    if ctx is not None and ctx.mesh.world > 1:
         raise NotImplementedError(
-            "a local-attention window is hybrid-only and not ported yet "
-            "(ROADMAP.md queue A15)")
+            f"the hybrid family ({cfg.name}) under a sharding context is "
+            f"not ported yet (ROADMAP.md queue A15: hybrid on the meshes)")
+    if policy is not None and policy.training:
+        raise NotImplementedError(
+            f"training the hybrid family ({cfg.name}) is not ported yet "
+            f"(ROADMAP.md queue A15: hybrid training); serve it under "
+            f"ExecPolicy.from_cfg(cfg, training=False)")
 
 
 def attention_shapes(cfg: ArchConfig) -> dict:
@@ -105,15 +134,47 @@ def attention_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+def _stacked(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stacked(v, n) for k, v in tree.items()}
+    return (n,) + tuple(tree)
+
+
+def dense_layer_shapes(cfg: ArchConfig) -> dict:
+    """One dense layer's leaf shapes (the hybrid's attention layer too)."""
+    d, dff = cfg.d_model, cfg.d_ff
+    return {"ln1": (d,), "attn": attention_shapes(cfg), "ln2": (d,),
+            "ffn": {"w_gate": (d, dff), "w_up": (d, dff), "w_down": (dff, d)}}
+
+
+def rec_layer_shapes(cfg: ArchConfig) -> dict:
+    """One recurrent layer's leaf shapes: the RG-LRU block and a SwiGLU."""
+    layer = dense_layer_shapes(cfg)
+    del layer["attn"]
+    return {"ln1": layer["ln1"], "rec": rglru_mod.rglru_shapes(cfg),
+            "ln2": layer["ln2"], "ffn": layer["ffn"]}
+
+
+def hybrid_counts(cfg: ArchConfig) -> tuple[int, int]:
+    """(super-blocks of (rec, rec, attn), tail recurrent layers)."""
+    return cfg.n_layers // 3, cfg.n_layers % 3
+
+
 def lm_shapes(cfg: ArchConfig) -> dict:
-    """The param tree's leaf shapes (``init_lm``'s, without drawing)."""
-    d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-    shapes = {"embed": (cfg.vocab, d), "final_ln": (d,),
-              "blocks": {"ln1": (L, d), "ln2": (L, d),
-                         "attn": {k: (L,) + v for k, v in
-                                  attention_shapes(cfg).items()},
-                         "ffn": {"w_gate": (L, d, dff), "w_up": (L, d, dff),
-                                 "w_down": (L, dff, d)}}}
+    """The param tree's leaf shapes (``init_lm``'s, without drawing). A
+    hybrid's ``blocks`` are (rec0, rec1, attn) super-blocks stacked on a
+    leading axis, its ``tail_blocks`` the remainder's recurrent layers."""
+    d = cfg.d_model
+    shapes = {"embed": (cfg.vocab, d), "final_ln": (d,)}
+    if cfg.family == "hybrid":
+        nsb, rem = hybrid_counts(cfg)
+        rec = rec_layer_shapes(cfg)
+        shapes["blocks"] = _stacked({"rec0": rec, "rec1": rec,
+                                     "attn": dense_layer_shapes(cfg)}, nsb)
+        if rem:
+            shapes["tail_blocks"] = _stacked(rec, rem)
+    else:
+        shapes["blocks"] = _stacked(dense_layer_shapes(cfg), cfg.n_layers)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
     return shapes
@@ -140,11 +201,23 @@ def _prepend(tree, axis="p_layers"):
     return (axis,) + tuple(tree)
 
 
+def rec_layer_axes(cfg: ArchConfig) -> dict:
+    return {"ln1": (None,), "rec": rglru_mod.rglru_logical_axes(cfg),
+            "ln2": (None,), "ffn": ffn_mod.swiglu_logical_axes()}
+
+
 def lm_logical_axes(cfg: ArchConfig) -> dict:
-    """Logical axes of every param leaf, the reference's tree (dense)."""
+    """Logical axes of every param leaf, the reference's tree."""
     check_family(cfg)
-    ax = {"embed": ("p_vocab", "p_embed"), "final_ln": (None,),
-          "blocks": _prepend(dense_layer_axes(cfg))}
+    ax = {"embed": ("p_vocab", "p_embed"), "final_ln": (None,)}
+    if cfg.family == "hybrid":
+        ax["blocks"] = _prepend({"rec0": rec_layer_axes(cfg),
+                                 "rec1": rec_layer_axes(cfg),
+                                 "attn": dense_layer_axes(cfg)})
+        if hybrid_counts(cfg)[1]:
+            ax["tail_blocks"] = _prepend(rec_layer_axes(cfg))
+    else:
+        ax["blocks"] = _prepend(dense_layer_axes(cfg))
     if not cfg.tie_embeddings:
         ax["lm_head"] = ("p_embed", "p_vocab")
     return ax
@@ -248,16 +321,18 @@ def _kv_read_in_part(k, v, split):
     return kv[0], kv[1]
 
 
-def _attend(q, k, v, cfg: ArchConfig, policy, split) -> torch.Tensor:
-    """Causal attention of q (B, S, h, D), this rank's heads, against the
-    whole k / v (B, S, Hkv, D). A serving policy launches the flash
-    attention kernel (``blockwise_attention``), a training policy takes
-    its plain version (``plain_attention``: no kernel has a backward, and
-    the reference trains through its XLA attention). Under a head split
-    one call a ``attention.kv_runs`` run; the head slices are views."""
+def _attend(q, k, v, cfg: ArchConfig, policy, split,
+            window: int = 0) -> torch.Tensor:
+    """Causal (and, with ``window``, local) attention of q (B, S, h, D),
+    this rank's heads, against the whole k / v (B, S, Hkv, D). A serving
+    policy launches the flash attention kernel (``blockwise_attention``),
+    a training policy takes its plain version (``plain_attention``: no
+    kernel has a backward, and the reference trains through its XLA
+    attention). Under a head split one call a ``attention.kv_runs`` run;
+    the head slices are views."""
     attend = plain_attention if policy.training else blockwise_attention
     if split is None:
-        return attend(q, k, v, causal=True)
+        return attend(q, k, v, causal=True, window=window)
     outs = [attend(q[:, :, q0:q1], k[:, :, a:b], v[:, :, a:b], causal=True)
             for q0, q1, a, b in attn_mod.kv_runs(cfg.n_heads, cfg.kv_heads,
                                                  split)]
@@ -298,15 +373,17 @@ def _out_proj(o, w, policy, split):
     return row_parallel_linear(o, w, policy, split.group)
 
 
-def attn_forward(p, x, cfg: ArchConfig, policy, split=None):
-    """Full-sequence causal self attention (prefill, training). ``split``
-    is this rank's block of the query heads (``heads_split``), None for
-    all of them. Returns (out, (k, v)): the whole K / V on every rank."""
+def attn_forward(p, x, cfg: ArchConfig, policy, split=None, window=0):
+    """Full-sequence causal self attention (prefill, training), local over
+    ``window`` keys where it is above 0 (the hybrid's attention layers).
+    ``split`` is this rank's block of the query heads (``heads_split``),
+    None for all of them. Returns (out, (k, v)): the whole K / V on every
+    rank."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, policy, positions, split)
     kr, vr = _kv_read_in_part(k, v, split)
-    o = _attend(q, kr, vr, cfg, policy, split)
+    o = _attend(q, kr, vr, cfg, policy, split, window=window)
     o = o.reshape(b, s, q.shape[2] * cfg.head_dim)
     return _out_proj(o, p["wo"], policy, split), (k, v)
 
@@ -319,13 +396,22 @@ def decode_rope(pos: int, cfg: ArchConfig, device):
     return rope(positions, cfg.head_dim, cfg.rope_theta)
 
 
+def ring_slot(pos: int, slots: int) -> int:
+    """The ring-buffer cache slot of position ``pos``: pos mod W."""
+    return pos % slots
+
+
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
-                rope_tables, split=None, seq=None):
+                rope_tables, split=None, seq=None, window=0):
     """One-token attention at position ``pos`` (host int); writes the new
     K/V into the caches in place. ``rope_tables`` is ``decode_rope(pos)``,
     built once per step by the caller; ``split`` this rank's block of the
     query heads (``heads_split``), ``seq`` of the caches' rows
-    (``seq_split``). Returns (out, cache_k, cache_v)."""
+    (``seq_split``). With ``window`` > 0 and caches of at most ``window``
+    rows (the hybrid's) the caches are a ring: the new row goes to slot
+    ``ring_slot(pos, W)`` and B6 reads the first min(pos + 1, W) slots,
+    as the reference's ring decode; a longer cache attends its last
+    ``window`` rows. Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     hkv, hd = cfg.kv_heads, cfg.head_dim
     h = cfg.n_heads if split is None else cfg.n_heads // split.n
@@ -336,28 +422,107 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     cos, sin = rope_tables
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos, seq)
-    o = (_decode(q, cache_k, cache_v, pos + 1, cfg, split) if seq is None
-         else _decode_seq(q, cache_k, cache_v, pos + 1, cfg, split, seq))
+    if window > 0:
+        if split is not None or seq is not None:
+            raise NotImplementedError(
+                "a local-window decode under a sharding context (ROADMAP.md "
+                "queue A15: hybrid on the meshes)")
+        if cache_k.shape[1] <= window:
+            slot = ring_slot(pos, cache_k.shape[1])
+            cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, slot)
+            o = ring_decode_attention(q, cache_k, cache_v, pos)
+        else:
+            cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
+            o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
+    elif seq is None:
+        cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
+        o = _decode(q, cache_k, cache_v, pos + 1, cfg, split)
+    else:
+        cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos, seq)
+        o = _decode_seq(q, cache_k, cache_v, pos + 1, cfg, split, seq)
     o = o.reshape(b, 1, h * hd)
     return _out_proj(o, p["wo"], policy, split), cache_k, cache_v
 
 
 def dense_layer_fwd(p, x, cfg: ArchConfig, policy,
-                    splits=(None, None, None)):
-    """Pre-norm residual layer: attention, then SwiGLU. ``splits`` is
-    (``heads_split``, ``mlp_split``, ``fsdp_split``), read once a forward:
-    a remat's recompute runs in the backward, where no context need be
-    installed (the card's backward runs on autograd's device thread).
-    ``p`` is this rank's blocks of the layer, FSDP-gathered here, so a
-    remat's recompute gathers again."""
+                    splits=(None, None, None), window=0):
+    """Pre-norm residual layer: attention (local over ``window`` keys
+    where it is above 0), then SwiGLU. ``splits`` is (``heads_split``,
+    ``mlp_split``, ``fsdp_split``), read once a forward: a remat's
+    recompute runs in the backward, where no context need be installed
+    (the card's backward runs on autograd's device thread). ``p`` is this
+    rank's blocks of the layer, FSDP-gathered here, so a remat's
+    recompute gathers again."""
     heads, mlp, fsdp = splits
     p = fsdp_layer(p, dense_layer_axes(cfg), fsdp, cfg.d_model)
     h, _ = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                        policy, heads)
+                        policy, heads, window)
     x = x + h
     return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                               policy, split=mlp)
+
+
+def rec_layer_fwd(p, x, cfg: ArchConfig, policy):
+    """Pre-norm residual recurrent layer over the whole sequence: the
+    RG-LRU block (from a zero state), then SwiGLU."""
+    y, _ = rglru_mod.rglru_forward(p["rec"], rmsnorm(x, p["ln1"],
+                                                     cfg.norm_eps), cfg, policy)
+    x = x + y
+    return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                              policy)
+
+
+def rec_layer_step(p, x, h_state, conv_state, cfg: ArchConfig, policy):
+    """One decode step of a recurrent layer; writes its new state into
+    ``h_state`` (B, W) f32 and ``conv_state`` (B, K - 1, W), in place (the
+    cache's slices)."""
+    y, st = rglru_mod.rglru_decode_step(
+        p["rec"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+        {"h": h_state, "conv": conv_state}, cfg, policy)
+    h_state.copy_(st["h"])
+    conv_state.copy_(st["conv"])
+    x = x + y
+    return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                              policy)
+
+
+def _hybrid_forward(params, x, cfg: ArchConfig, policy):
+    """The hybrid's layer stack over the whole sequence: each super-block's
+    two recurrent layers and its local-attention layer, then the tail."""
+    nsb, rem = hybrid_counts(cfg)
+    for i in range(nsb):
+        sb = layer_view(params["blocks"], i)
+        x = rec_layer_fwd(sb["rec0"], x, cfg, policy)
+        x = rec_layer_fwd(sb["rec1"], x, cfg, policy)
+        x = dense_layer_fwd(sb["attn"], x, cfg, policy, window=cfg.window)
+    for i in range(rem):
+        x = rec_layer_fwd(layer_view(params["tail_blocks"], i), x, cfg,
+                          policy)
+    return x
+
+
+def _hybrid_decode(params, cache, x, pos: int, cfg: ArchConfig, policy,
+                   tables):
+    """The hybrid's one-token layer stack; every state and ring slot is
+    written into ``cache`` in place."""
+    nsb, rem = hybrid_counts(cfg)
+    for i in range(nsb):
+        sb = layer_view(params["blocks"], i)
+        for j, name in enumerate(("rec0", "rec1")):
+            x = rec_layer_step(sb[name], x, cache["rec_h"][i, j],
+                               cache["rec_conv"][i, j], cfg, policy)
+        lp = sb["attn"]
+        o, _, _ = attn_decode(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                              cache["attn_k"][i], cache["attn_v"][i], pos,
+                              cfg, policy, tables, window=cfg.window)
+        x = x + o
+        x = x + ffn_mod.swiglu(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                               policy)
+    for i in range(rem):
+        x = rec_layer_step(layer_view(params["tail_blocks"], i), x,
+                           cache["tail_h"][i], cache["tail_conv"][i], cfg,
+                           policy)
+    return x
 
 
 def _embed_table(params, cfg, fsdp):
@@ -389,8 +554,14 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                policy: ExecPolicy | None = None):
     """tokens (B, S) -> (logits (B, S, V), aux loss 0.0), as the reference;
     under a vocab split the logits are this rank's block (B, S, V / n)."""
-    check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg)
+    check_family(cfg, policy)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, embedding_lookup(params["embed"], tokens),
+                            cfg, policy)
+        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+        logits = _head(params, params["embed"], cfg, None, x, policy)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
     with _model_scope(policy):
         fsdp = fsdp_split(cfg)
         table = _embed_table(params, cfg, fsdp)
@@ -457,6 +628,8 @@ def cache_spec(cfg: ArchConfig, batch: int, seq_len: int,
     divide raises (the reference would keep that cache whole; the decode
     tells a rank's rows from the local shape)."""
     check_family(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_cache_spec(cfg, batch, seq_len, dtype)
     n = sharding.axis_size("kv_seq")
     if seq_len % n:
         raise ValueError(f"a cache of {seq_len} rows does not split over the "
@@ -466,6 +639,32 @@ def cache_spec(cfg: ArchConfig, batch: int, seq_len: int,
     return {"k": (shape, dtype), "v": (shape, dtype)}, {"k": axes, "v": axes}
 
 
+def _hybrid_cache_spec(cfg: ArchConfig, batch: int, seq_len: int, dtype):
+    """The hybrid's decode cache, the reference's: per super-block its two
+    recurrent states (``rec_h`` (nsb, 2, B, W) f32, ``rec_conv`` (nsb, 2,
+    B, K - 1, W)) and its attention layer's ring of W = min(window,
+    seq_len) slots (``attn_k`` / ``attn_v`` (nsb, B, W, Hkv, D); window 0
+    keeps seq_len rows, a linear cache); the tail's ``tail_h`` /
+    ``tail_conv``."""
+    nsb, rem = hybrid_counts(cfg)
+    w = min(cfg.window or seq_len, seq_len)
+    rst = rglru_mod.rglru_state_shape(cfg, batch)
+    kv = (nsb, batch, w, cfg.kv_heads, cfg.head_dim)
+    shapes = {"rec_h": ((nsb, 2) + rst["h"], torch.float32),
+              "rec_conv": ((nsb, 2) + rst["conv"], dtype),
+              "attn_k": (kv, dtype), "attn_v": (kv, dtype)}
+    axes = {"rec_h": ("p_layers", None, "batch", "mlp"),
+            "rec_conv": ("p_layers", None, "batch", None, "mlp"),
+            "attn_k": ("p_layers", "batch", "kv_seq", None, None),
+            "attn_v": ("p_layers", "batch", "kv_seq", None, None)}
+    if rem:
+        shapes["tail_h"] = ((rem,) + rst["h"], torch.float32)
+        shapes["tail_conv"] = ((rem,) + rst["conv"], dtype)
+        axes["tail_h"] = ("p_layers", "batch", "mlp")
+        axes["tail_conv"] = ("p_layers", "batch", None, "mlp")
+    return shapes, axes
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig, policy: ExecPolicy | None = None):
     """One decode step. tokens (B, 1) int; ``pos`` (host int) the number of
@@ -473,9 +672,15 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     dict is the argument, its layer slices written in place. Under a vocab
     split the logits are this rank's block (B, V / n); under a sequence
     split the cache is this rank's rows and ``pos`` global."""
-    check_family(cfg)
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
+    check_family(cfg, policy)
     pos = int(pos)
+    if cfg.family == "hybrid":
+        x = embedding_lookup(params["embed"], tokens)
+        x = _hybrid_decode(params, cache, x, pos, cfg, policy,
+                           decode_rope(pos, cfg, x.device))
+        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+        return _head(params, params["embed"], cfg, None, x, policy)[:, 0], cache
     heads, mlp, fsdp = heads_split(cfg), mlp_split(cfg), fsdp_split(cfg)
     seq = seq_split(cache["k"].shape[2])
     axes = dense_layer_axes(cfg)

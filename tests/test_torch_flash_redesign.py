@@ -112,13 +112,14 @@ def test_flash_decode_split_empty_splits_change_nothing():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("d,dtype", [(64, "bf16"), (128, "bf16"),
-                                     (128, "f32")])
+                                     (128, "f32"), (256, "bf16")])
 @pytest.mark.parametrize("window", [0, 8])
 @pytest.mark.parametrize("s", [1, 45, 64, 65, 128])
 def test_flash_attention_tc_matches_reference(s, window, d, dtype):
     """Sq = Skv = s, causal, against the materialized-score attention and,
     for bf16 (the tensor-core kernel's type) at the path's head dim 128,
-    the Pallas kernel (blocks of 64 where they divide s, else one block)."""
+    the Pallas kernel (blocks of 64 where they divide s, else one block).
+    Head dim 256 (recurrentgemma-9b) walks the same 64-key tiles."""
     rng = np.random.default_rng(10 * s + window + d)
     q = _normal(rng, (B, H, s, d), dtype)
     k, v = (_normal(rng, (B, HKV, s, d), dtype) for _ in range(2))

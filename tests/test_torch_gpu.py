@@ -99,7 +99,8 @@ from repro_torch.kernels.fused_ffn import (  # noqa: E402
     fused_ffn_xla, int_accumulate)
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.attention import (blockwise_attention,  # noqa: E402
-                                          merge_partials)
+                                          decode_attention, merge_partials,
+                                          ring_decode_attention)
 from repro_torch.launch.serve import init_cache, prefill_into_cache  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.kernels.ops import photonic_matmul_prequant  # noqa: E402
@@ -705,6 +706,113 @@ def test_decode_step_card_matches_cpu(dev):
     full = model_api.prefill_fn(to_device(cpu, dev),
                                 {"tokens": prompt.to(dev)}, cfg)[:, -1]
     a = full.double().cpu().flatten()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,window,layout", [
+    (1, 16, 1, 4096, 2048, "bshd"),     # recurrentgemma-9b's prefill
+    (1, 16, 1, 1024, 256, "bhsd"),
+    (2, 16, 1, 1, 2048, "bhsd"),        # ragged
+    (2, 16, 1, 63, 2048, "bhsd"),
+    (2, 16, 1, 65, 2048, "bhsd"),
+    (2, 16, 1, 129, 2048, "bshd"),
+    (1, 2, 2, 200, 8, "bhsd"),          # window 8, G = 1
+    (1, 2, 2, 64, 0, "bhsd"),           # tile edges, no window
+    (1, 2, 2, 127, 0, "bhsd"),
+    (1, 2, 2, 256, 64, "bhsd"),
+])
+def test_flash_attention_head_dim_256(dev, b, h, hkv, s, window, layout):
+    """B5's bf16 tensor-core entry at head dim 256 (Q re-read from shared
+    memory each k-step) against its plain version, 1 bf16 ulp of the
+    largest |o|, causal with and without a window, in both layouts; one
+    launch a call and two calls bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(s + window + h)
+    if layout == "bshd":
+        q, k, v = (torch.randn(b, s, hh, 256, generator=gen, device=dev)
+                   .bfloat16().transpose(1, 2) for hh in (h, hkv, hkv))
+    else:
+        q, k, v = (torch.randn(b, hh, s, 256, generator=gen, device=dev)
+                   .bfloat16() for hh in (h, hkv, hkv))
+    before = _build.LAUNCHES["flash_attention_causal"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert _build.LAUNCHES["flash_attention_causal"] == before + 1
+    _assert_held(got, ref.flash_attention_ref(q, k, v, causal=True,
+                                              window=window))
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_head_dim_256_follows_its_emulation(dev, window):
+    """At D 256 the kernel keeps the other head dims' numerics: within the
+    f32 limit 2e-5 (1 + |o|) of ``flash_attention_tc_ref`` once o's own
+    rounding is taken off, q (1, 16, 320, 256) on one KV head."""
+    gen = torch.Generator(device=dev).manual_seed(256 + window)
+    q, k, v = (torch.randn(1, hh, 320, 256, generator=gen, device=dev)
+               .bfloat16() for hh in (16, 1, 1))
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                      causal=True, window=window)
+    assert _excess_over_rounding(got, want) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 128, 160, 512])
+def test_flash_decode_head_dim_256_on_the_ring(dev, length):
+    """B6 at D 256 / G 16 (recurrentgemma-9b's decode): on a layer's view
+    of a stacked 512-slot ring over its first min(pos + 1, W) slots
+    against the reference's ring decode (``ring_decode_ref``), and on the
+    strided view of a linear cache's last ``length`` rows against the
+    plain version on those rows; 1 bf16 ulp, each bitwise from call to
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(length + 256)
+    q = torch.randn(4, 1, 16, 256, generator=gen, device=dev).bfloat16()
+    ring, vring = (torch.randn(3, 4, 512, 1, 256, generator=gen,
+                               device=dev).bfloat16()[2] for _ in range(2))
+    pos = length - 1 if length < 512 else 900
+    before = _build.LAUNCHES["flash_decode"]
+    got = ring_decode_attention(q, ring, vring, pos)
+    assert _build.LAUNCHES["flash_decode"] == before + 1
+    _assert_held(got, ref.ring_decode_ref(q, ring, vring, pos))
+    assert torch.equal(ring_decode_attention(q, ring, vring, pos), got)
+    kc, vc = (torch.randn(4, 1024, 1, 256, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    n = length + 300
+    got = decode_attention(q, kc, vc, n, window=length)
+    _assert_held(got, ref.flash_decode_ref(q, kc[:, n - length:n],
+                                           vc[:, n - length:n], length))
+    assert torch.equal(decode_attention(q, kc, vc, n, window=length), got)
+
+
+@pytest.mark.gpu
+def test_hybrid_decode_and_prefill_card_match_cpu(dev):
+    """recurrentgemma-9b at smoke width (5 layers, window 16): the
+    decode-loop prefill of a 20-token prompt on a 12-slot ring (which
+    wraps; B6 on the ring every attention layer) on the card against the
+    CPU's plain versions, and prefill_fn (B5 under the window) against
+    the same; launch counts, corr > 0.999."""
+    cfg = smoke_variant(get_config("recurrentgemma-9b")).with_(n_layers=5)
+    cpu = init_lm(0, cfg, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)))
+    cl, _ = prefill_into_cache(cpu, init_cache(cfg, 2, 12, "cpu"), prompt,
+                               cfg)
+    before = dict(_build.LAUNCHES)
+    gl, _ = prefill_into_cache(to_device(cpu, dev),
+                               init_cache(cfg, 2, 12, dev), prompt.to(dev),
+                               cfg)
+    assert _build.LAUNCHES["flash_decode"] == before.get("flash_decode",
+                                                         0) + 20
+    a, b = gl.double().cpu().flatten(), cl.double().flatten()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
+    full = model_api.prefill_fn(to_device(cpu, dev),
+                                {"tokens": prompt.to(dev)}, cfg)
+    cpu_full = model_api.prefill_fn(cpu, {"tokens": prompt}, cfg)
+    assert _build.LAUNCHES["flash_attention_causal"] == before.get(
+        "flash_attention_causal", 0) + 1
+    a, b = full.double().cpu().flatten(), cpu_full.double().flatten()
     assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
 
 

@@ -307,14 +307,26 @@ def test_photonic_pallas_decode_step_matches_reference(lm):
 def test_registry_and_unported_messages():
     for arch in PORTED_ARCH_IDS:
         cfg = t_get(arch)
-        assert cfg.name == arch and cfg.family in ("dense", "vit")
+        assert cfg.name == arch and cfg.family in ("dense", "hybrid", "vit")
+    assert "recurrentgemma-9b" in PORTED_ARCH_IDS
     for arch in set(ARCH_IDS) - set(PORTED_ARCH_IDS):
         with pytest.raises(NotImplementedError, match="A15"):
             t_get(arch)
     with pytest.raises(KeyError):
         t_get("no-such-arch")
     dense = t_smoke(t_get("qwen2-1.5b"))
-    for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    # the hybrid family is on the ported side: its smoke config, params,
+    # cache and a decode step
+    hybrid = t_smoke(dense.with_(family="hybrid"))
+    assert (hybrid.n_layers, hybrid.window, hybrid.lru_dim) == (3, 16, 64)
+    hp = tapi.init_model(0, hybrid, "cpu")
+    shapes, _ = tapi.cache_axes_spec(hybrid, 1, 8)
+    assert shapes["attn_k"][0] == (1, 1, 8, 2, 16)
+    cache = {k: torch.zeros(s_, dtype=d) for k, (s_, d) in shapes.items()}
+    logits, _ = tapi.decode_fn(hp, cache, torch.zeros(1, 1, dtype=torch.long),
+                               0, hybrid)
+    assert tuple(logits.shape) == (1, hybrid.vocab)
+    for fam in ("moe", "ssm", "encdec", "vlm"):
         cfg = dense.with_(family=fam)
         with pytest.raises(NotImplementedError, match="A15"):
             tapi.init_model(0, cfg, "cpu")

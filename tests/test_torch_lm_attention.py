@@ -211,8 +211,16 @@ def test_flash_decode_rejects_device_length_and_window():
         t_decode(_t(q), _t(kc), _t(vc), torch.tensor(5))
     with pytest.raises(ValueError, match="outside"):
         t_decode(_t(q), _t(kc), _t(vc), 33)
+    # a window over a linear cache is ported (the hybrid family's): the
+    # reference's windowed decode_attention; under a sequence split of the
+    # cache it still raises naming A15
+    got = tattn.decode_attention(_t(q), _t(kc), _t(vc), 5, window=4)
+    want = j_decode_attn(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                         5, window=4)
+    _assert_close(got, want, "f32")
     with pytest.raises(NotImplementedError, match="A15"):
-        tattn.decode_attention(_t(q), _t(kc), _t(vc), 5, window=4)
+        tattn.decode_attention(_t(q), _t(kc), _t(vc), 5, window=4,
+                               seq=object())
 
 
 def test_update_kv_cache_writes_in_place():
