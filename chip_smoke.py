@@ -296,7 +296,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      l. ``[vit_mesh]``, after 4k: opto-vit-base-224 + MGNet (keep 0.33)
         QAT training (qat + xla + xla, AdamW, a global batch of 32 of
         ``ImageStream(224, 32, n_classes=8)``) on gloo ranks on the one
-        card, 6 of its 12 layers: (A) ``DATA_RULES`` on (data 2) and (B)
+        card, 3 of its 12 layers: (A) ``DATA_RULES`` on (data 2) and (B)
         ``MODEL_RULES`` on (data 1, model 2) in one spawn of 2 ranks,
         (C) ``DEFAULT_RULES`` on (2, 2) and (D) ``MULTIPOD_RULES`` on
         (pod 2, data 1, model 2) in one spawn of 4. Each: one step,
@@ -357,15 +357,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         plain attention (last corr > 0.999, every position > 0.99),
         tok/s and peak memory; window 0 planted must agree below
         position 2048 (> 0.999) and fail from it;
+     n. ``[hybrid_train]`` / ``[hybrid_mesh]``, after 4m. (A) its first 5
+        layers (one (rec, rec, attn) super-block and the 2-layer tail) at
+        full width trained on the card through ``make_train_fn`` as the
+        config says (remat, 2 microbatches, bf16 AdamW moments) on
+        ``TokenStream`` batches of 2 x 4096 (the window binds): 2 warmup
+        and 8 timed steps (ms a step by CUDA events, tokens/s, peak
+        memory, each step's loss and grad norm), then 3 on step 0's batch,
+        whose loss must fall; the gradient with remat off bitwise, the
+        batch at once against its 2 microbatches within 4x the control
+        (the microbatches accumulated in bf16), ``lru_scan``'s gradient at
+        (1, 4096, 4096) within 1e-5 of the largest against the f64
+        recurrence stepped position by position. (B) all 38 layers under
+        MODEL_RULES on make_host_mesh(1, 2), 2 gloo ranks on the card,
+        each drawing its blocks of 4m's weights leaf group by leaf group:
+        4m (B)'s 160 positions on the 128-slot ring through the decode
+        step (B6 160 x 12 and B5 12 times a rank), each position's logits
+        within twice 4m (B)'s control's distance of 4m's unsharded run
+        (and above 0.99), the prefill and the first 4 decode steps bitwise
+        the split's arithmetic on one device (``tp_arithmetic``), and two
+        planted faults (a gate GEMM's partials unreduced, b_a added on
+        every rank) outside 4m (A)'s limits; tok/s, gloo ms and MB a step
+        by op, peak memory a rank. (C) (A)'s model and its (4 x 512) batch
+        under MODEL_RULES (1, 2) and DATA_RULES (2): one step's loss equal
+        on both ranks and its gradient within 4x the order control of
+        (A)'s one-device gradient, every whole leaf's gradient bitwise
+        equal across the ranks; then 1 + 2 steps through ``train_loop``
+        (at a vocab of 32768: at 256000 the whole embedding and head with
+        their moments overflow one card for two ranks), the losses and
+        every whole leaf bitwise equal across the ranks after them;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
      their type and bytes over 3.35 TB/s; B2 at the TF32 rate of its
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
-     calls (B5 and B6 also at recurrentgemma-9b's shapes, the kernels
-     line's ``hybrid`` entries; B3 also its first design and each of its
-     three launches; B1
+     calls (B5 and B6 also at recurrentgemma-9b's shapes and at a 4n (B)
+     rank's, the kernels line's ``hybrid`` and ``hybrid_rank`` entries;
+     B3 also its first design and each of its three launches; B1
      also at path d's three shapes, B2's wide entry also at Eq. 2's
      shape with its 3xTF32 bound, both in the kernels line as
      ``ms_by_shape`` / ``wide_eq2``); the noise-draw kernel (after 4e)
@@ -395,6 +424,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM published peaks (dense): int8 and bf16 tensor cores, f32 CUDA
 # cores, HBM
@@ -554,6 +584,25 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(what: str) -> None:
+    """The script's wall clock at the end of ``what``."""
+    say(f"[time] {what} at {time.perf_counter() - T_START:.1f}s")
+
+
+def in_background(fn, *args):
+    """``fn(*args)`` on a thread of its own; returns its Future. The mesh
+    paths 4j, 4k and 4l start their gloo ranks so, to run side by side:
+    their ranks wait on the host's collectives most of the time and the
+    card is idle under them (their speeds are not measured). The thread
+    is not a daemon: the script exits only after its ranks have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return fut
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1798,6 +1847,9 @@ def run_hybrid(torch, dev, card: str) -> dict:
     if not ring_passes(wrap):
         fail(f"[hybrid] (B) the wrapped ring vs the windowed prefill: {wrap}, "
              f"beyond {HY_CORR_FACTOR}x the control's distance ({ctl_b})")
+    # 4n (B) holds its mesh's decode of the same positions against these
+    ring_cpu = on_ring.cpu().share_memory_()
+    seq_cpu = seq.cpu().share_memory_()
     del on_ring
     faults = {}
     saved = transformer.ring_slot
@@ -1879,7 +1931,838 @@ def run_hybrid(torch, dev, card: str) -> dict:
             / prefill_s, "long_tps": HY_LONG / long_s, "peak_gb": peak_gb,
             "phase_s": phase_s, "A": real, "A_control": control,
             "cpu_corr": c, "cpu_control": c_ctl, "B": wrap,
-            "B_control": ctl_b, "C": win, "faults": faults}
+            "B_control": ctl_b, "C": win, "faults": faults,
+            "ring": ring_cpu, "seq": seq_cpu}
+
+
+# path 4n: recurrentgemma-9b trains, and runs on the ("data", "model")
+# mesh. (A) one card: the first HN_LAYERS layers (one (rec, rec, attn)
+# super-block and the 2-layer tail, so the tail trains too) at full width,
+# TokenStream batches of HN_BATCH x HN_SEQ tokens (the 2048-key window
+# binds), HN_WARMUP + HN_STEPS steps of the config's step (remat,
+# microbatch_steps 2, bf16 AdamW moments), then HN_REPEAT more on the
+# batch of step 0. (B) MODEL_RULES on (data 1, model 2), 2 gloo ranks on
+# the card: the full 38 layers, 4m (B)'s 160 positions on the 128-slot
+# ring, the first HN_ARITH_STEPS decode steps and the prefill held bitwise
+# against the split's arithmetic on one device. (C) MODEL_RULES (1, 2)
+# and DATA_RULES (2): one step's gradient at (A)'s size on HN_C_BATCH x
+# HN_C_SEQ tokens against (A)'s one-device gradient; the steps themselves
+# at a vocab of HN_C_VOCAB (see HN_C_VOCAB)
+HN_LAYERS = 5
+HN_BATCH, HN_SEQ = 2, 4096
+HN_WARMUP, HN_STEPS, HN_REPEAT = 2, 8, 3
+# the lru_scan gradient check: one layer's (B, S, W), against a
+# sequential loop over the positions in f64, within this share of the
+# largest |gradient|
+HN_SCAN = (1, 4096, 4096)
+HN_SCAN_REL = 1e-5
+# (A)'s two microbatches against the batch at once: within this many times
+# the control, the same microbatched step with a bf16 accumulator (the
+# distance one more rounding of the gradient moves it)
+HN_MICRO_FACTOR = 4
+HN_ARITH_STEPS = 4
+HN_FAULTS = ("gate partials not reduced", "b_a added on every rank")
+HN_C_BATCH, HN_C_SEQ = 4, 512
+HN_C_WARMUP, HN_C_STEPS = 1, 2
+# (C)'s gradient bound: this many times the order control (the one-device
+# step on the batch at once against the same step in its 2 microbatches,
+# as 4j's half-batch control)
+HN_GRAD_FACTOR = 4
+# (C)'s steps carry AdamW's moments, which at the full vocab do not fit:
+# under either table every rank holds the whole 256000-row embedding and
+# head (2.1 G params) with their moments and the f32 microbatch
+# accumulator, 37 GB a rank before the update, so two ranks overflow the
+# one 80 GB card. The steps run at this vocab, every other width full
+HN_C_VOCAB = 32768
+
+
+def _chunks(t, n: int = 1 << 26):
+    flat = t.reshape(-1)
+    return [flat[i:i + n] for i in range(0, flat.numel(), n)]
+
+
+def rel_l2_sums(torch, a, b) -> tuple:
+    """(sum (a - b)^2, sum b^2) of two tensors, in f64, in chunks (a 1
+    G-element leaf in f64 at once would take 8 GB); b moved to a's
+    device."""
+    num = den = 0.0
+    for x, y in zip(_chunks(a), _chunks(b)):
+        y = y.to(x.device).double()
+        num += float(((x.double() - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return num, den
+
+
+def tree_rel_l2(torch, ga, gb) -> float:
+    """Relative L2 of tree ga against tree gb (chunked f64), leaves
+    matched by key."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    num = den = 0.0
+    for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
+        n, d = rel_l2_sums(torch, a, b)
+        num, den = num + n, den + d
+    return (num / den) ** 0.5
+
+
+def bits_digest(torch, t) -> int:
+    """A 64-bit digest of a tensor's bits (its 16- or 32-bit words times
+    fixed odd multipliers, summed mod 2^64): equal tensors give equal
+    digests, and a tensor differing in any word gives another with
+    probability 1 - 2^-63."""
+    words = t.reshape(-1).view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+    gen = torch.Generator(device=t.device).manual_seed(12345)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for c in _chunks(words):
+        mult = torch.randint(-2 ** 62, 2 ** 62, c.shape, generator=gen,
+                             device=t.device, dtype=torch.int64) * 2 + 1
+        total += (c.to(torch.int64) * mult).sum()
+    return int(total)
+
+
+def scan_grad_check(torch, dev) -> dict:
+    """``lru_scan``'s gradient at one layer's shape (1, 4096, 4096) against
+    the recurrence stepped position by position in f64: a = exp(-8
+    softplus(lambda) r) with the model's lambda and r = sigmoid(N(0, 1)),
+    b ~ N(0, 1) sqrt(1 - a^2), the loss sum(h w) with w ~ N(0, 1). The
+    f64 adjoint: g_t = w_t + a_{t+1} g_{t+1}, dL/db_t = g_t, dL/da_t =
+    g_t h_{t-1}. The f32 loop of the same recurrence is printed beside
+    it, a control."""
+    from repro_torch.models import rglru
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bsz, s, w = HN_SCAN
+    lam = rglru.lambda_init(w, dev)
+    r = torch.sigmoid(torch.randn(bsz, s, w, generator=gen, device=dev))
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    b = torch.randn(bsz, s, w, generator=gen, device=dev) * torch.sqrt(
+        1 - a * a)
+    wt = torch.randn(bsz, s, w, generator=gen, device=dev)
+    a32, b32 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    (rglru.lru_scan(a32, b32) * wt).sum().backward()
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+
+    def sequential(dtype):
+        ad, bd, wd = a.to(dtype), b.to(dtype), wt.to(dtype)
+        h = torch.zeros(bsz, s, w, dtype=dtype, device=dev)
+        prev = torch.zeros(bsz, w, dtype=dtype, device=dev)
+        for t in range(s):
+            prev = ad[:, t] * prev + bd[:, t]
+            h[:, t] = prev
+        gb = torch.empty_like(h)
+        g = torch.zeros(bsz, w, dtype=dtype, device=dev)
+        for t in range(s - 1, -1, -1):
+            g = wd[:, t] + (ad[:, t + 1] * g if t + 1 < s else 0)
+            gb[:, t] = g
+        ga = gb.clone()
+        ga[:, 1:] *= h[:, :-1]
+        ga[:, 0] = 0
+        return ga, gb
+
+    ga64, gb64 = sequential(torch.float64)
+    ga32, gb32 = sequential(torch.float32)
+
+    def err(x, ref):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    out = {"a": err(a32.grad, ga64), "b": err(b32.grad, gb64),
+           "a_loop32": err(ga32, ga64), "b_loop32": err(gb32, gb64),
+           "scan_s": scan_s}
+    del ga64, gb64, ga32, gb32, a32, b32, a, b, wt, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_hybrid_train(torch, dev, card: str) -> dict:
+    """Phase 4n (A), ``[hybrid_train]``: recurrentgemma-9b's first
+    HN_LAYERS layers at full width trained on one card through
+    ``launch/steps.py::make_train_fn`` (the config's remat, 2
+    microbatches and bf16 AdamW moments) on ``TokenStream`` batches of
+    HN_BATCH x HN_SEQ. Checks, under deterministic algorithms (the
+    embedding's gradient accumulates by index): the step's gradient with
+    remat off bitwise (the loss, and every leaf's 64-bit ``bits_digest``);
+    the two microbatches against the batch at once
+    within HN_MICRO_FACTOR times the bf16-accumulator control;
+    ``lru_scan``'s gradient against an f64 sequential loop; the loss
+    falling over HN_REPEAT steps on step 0's batch. Also (C)'s one-device
+    gradient on (C)'s batch from the same initial params: its loss, its
+    leaves' digests (``bits_digest``: (C)'s rank 0 recomputes it and
+    checks it is this one, bit for bit) and its order control."""
+    from repro_torch.bridge import init_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+
+    t_phase = time.perf_counter()
+    full_precision_matmuls()
+    cfg = get_config("recurrentgemma-9b").with_(n_layers=HN_LAYERS)
+    params = init_lm(0, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[hybrid_train] {cfg.name} cut to {cfg.n_layers} layers (one (rec, "
+        f"rec, attn) super-block + {cfg.n_layers % 3} tail rec), full width: "
+        f"{n_params / 1e9:.3f} G params, bf16 from init_lm(seed=0); remat "
+        f"{cfg.remat}, microbatch_steps {cfg.microbatch_steps}, AdamW moments "
+        f"{'f32' if cfg.use_fp32_master else 'bf16'}, grad accumulator "
+        f"{cfg.grad_accum_dtype} ({card})")
+    out = {"n_params": n_params}
+
+    # lru_scan's gradient against the f64 recurrence
+    scan = scan_grad_check(torch, dev)
+    say(f"[hybrid_train] (A) lru_scan gradient at {HN_SCAN} ({scan['scan_s']:.3f}s "
+        f"forward + backward) against the f64 sequential recurrence: max "
+        f"|err| / max |grad| a {scan['a']:.3e}, b {scan['b']:.3e} (limit "
+        f"{HN_SCAN_REL:g}); the f32 sequential loop, a control: a "
+        f"{scan['a_loop32']:.3e}, b {scan['b_loop32']:.3e}")
+    if not max(scan["a"], scan["b"]) <= HN_SCAN_REL:
+        fail(f"4n (A): lru_scan's gradient off the f64 recurrence: {scan}")
+    out["scan"] = scan
+
+    def grads(c, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = steps.make_grad_fn(c)(params, batch)
+        torch.cuda.synchronize()
+        return loss, g, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (C)'s one-device gradient (its batch, 2 microbatches) and the order
+        # control (the batch at once), from these initial params
+        cb = TokenStream(cfg.vocab, HN_C_SEQ, HN_C_BATCH, seed=0,
+                         device=dev).batch_at(0)
+        loss_c, g_c, _ = grads(cfg, cb)
+        _, g_c1, _ = grads(cfg.with_(microbatch_steps=1), cb)
+        out["c_control"] = tree_rel_l2(torch, g_c1, g_c)
+        del g_c1
+        out["c_loss"] = float(loss_c)
+        out["c_digests"] = [bits_digest(torch, t) for t in tree_leaves(g_c)]
+        say(f"[hybrid_train] (C)'s one-device gradient on {HN_C_BATCH} x "
+            f"{HN_C_SEQ} tokens: loss {float(loss_c):.6f}; the batch at once "
+            f"against its 2 microbatches (the order control) "
+            f"{out['c_control']:.3e}")
+        del g_c
+
+        ts = TokenStream(cfg.vocab, HN_SEQ, HN_BATCH, seed=0, device=dev)
+        b0 = ts.batch_at(0)
+        torch.cuda.reset_peak_memory_stats()
+        l_on, g_on, s_on = grads(cfg, b0)
+        peak_grad = torch.cuda.max_memory_allocated() / 2 ** 30
+        d_on = [bits_digest(torch, t) for t in tree_leaves(g_on)]
+        _, g_whole, s_whole = grads(cfg.with_(microbatch_steps=1), b0)
+        micro = tree_rel_l2(torch, g_whole, g_on)
+        del g_whole
+        _, g_16, _ = grads(cfg.with_(grad_accum_dtype="bf16"), b0)
+        micro_ctl = tree_rel_l2(torch, g_16, g_on)
+        del g_16, g_on
+        l_off, g_off, s_off = grads(cfg.with_(remat=False), b0)
+        remat_bitwise = bool(torch.equal(l_on, l_off)) and d_on == [
+            bits_digest(torch, t) for t in tree_leaves(g_off)]
+        del g_off
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    say(f"[hybrid_train] (A) one step's gradient on {HN_BATCH} x {HN_SEQ}: "
+        f"{s_on:.3f}s with remat (peak {peak_grad:.2f} GiB), {s_off:.3f}s "
+        f"without, bitwise equal: {remat_bitwise}; the batch at once "
+        f"({s_whole:.3f}s) against the 2 microbatches: relative L2 "
+        f"{micro:.3e}, limit {HN_MICRO_FACTOR} x the control {micro_ctl:.3e} "
+        f"(the 2 microbatches accumulated in bf16)")
+    if not remat_bitwise:
+        fail("4n (A): the gradient with remat off is not bitwise the remat one")
+    if not micro <= HN_MICRO_FACTOR * micro_ctl:
+        fail(f"4n (A): microbatches vs the batch at once {micro}, beyond "
+             f"{HN_MICRO_FACTOR} x {micro_ctl}")
+    out.update(remat_bitwise=remat_bitwise, micro=micro, micro_ctl=micro_ctl)
+
+    # the train steps: HN_WARMUP, then HN_STEPS timed, then HN_REPEAT on
+    # step 0's batch again
+    state = {"params": params, "opt": adamw_init(params, AdamWConfig(
+        low_mem=not cfg.use_fp32_master)),
+        "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    step_fn = steps.make_train_fn(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms, losses, norms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(HN_WARMUP + HN_STEPS + HN_REPEAT):
+        batch = ts.batch_at(i if i < HN_WARMUP + HN_STEPS else 0)
+        torch.cuda.synchronize()
+        ev[0].record()
+        state, m = step_fn(state, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, m
+    torch.cuda.empty_cache()
+    timed = ms[HN_WARMUP:HN_WARMUP + HN_STEPS]
+    step_ms = sum(timed) / len(timed)
+    tokens = HN_BATCH * HN_SEQ
+    say(f"[hybrid_train] (A) {HN_WARMUP} warmup + {HN_STEPS} steps on fresh "
+        f"batches: {step_ms:.1f} ms a step (CUDA events, mean of "
+        f"{len(timed)}; {min(timed):.1f}-{max(timed):.1f}) = "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB "
+        f"({card})")
+    for i, (x, g, t) in enumerate(zip(losses, norms, ms)):
+        tag = ("warmup" if i < HN_WARMUP else "repeat of batch 0"
+               if i >= HN_WARMUP + HN_STEPS else "step")
+        say(f"[hybrid_train] (A) {tag} {i}: loss {x:.5f}, grad norm {g:.4f}, "
+            f"{t:.1f} ms")
+    rep = losses[HN_WARMUP + HN_STEPS:]
+    if not all(b < a for a, b in zip(rep, rep[1:])):
+        fail(f"4n (A): the loss on step 0's batch did not fall over "
+             f"{HN_REPEAT} steps: {rep}")
+    out.update(step_ms=step_ms, tps=tokens / step_ms * 1e3, peak_gib=peak,
+               losses=losses, norms=norms, ms=ms,
+               phase_s=time.perf_counter() - t_phase)
+    say(f"[hybrid_train] path 4n (A) in {out['phase_s']:.1f}s ({card})")
+    return out
+
+
+def _b_a_on_every_rank(p, uf, split):
+    """4n (B)'s planted fault: each rank adds the gate biases to its
+    partial products before the reduce, so the sum carries them twice."""
+    import torch
+    from repro_torch.models import rglru
+
+    partial = torch.stack([uf @ p["w_a"].float() + p["b_a"],
+                           uf @ p["w_x"].float() + p["b_x"]])
+    whole = rglru._reduce_gates(partial, split.group)
+    c0, c1 = split.block(whole.shape[-1])
+    return whole[0, ..., c0:c1], whole[1, ..., c0:c1]
+
+
+def hybrid_ranks(seq_cpu, ring_cpu, ref: dict, device: str) -> tuple:
+    """One of the 2 gloo ranks of path 4n: (B), then (C), in one spawn
+    (each rank starts once)."""
+    return (hybrid_mesh_rank(seq_cpu, ring_cpu, device),
+            hybrid_train_rank(ref, device))
+
+
+def hybrid_mesh_rank(seq_cpu, ring_cpu, device: str) -> dict:
+    """One rank of path 4n (B): recurrentgemma-9b at full depth and width
+    under MODEL_RULES on make_host_mesh(1, 2), 2 gloo ranks on the card,
+    each drawing its blocks of init_lm(seed=0) leaf group by leaf group.
+    Counted: the decode step over 4m (B)'s 160 positions (``seq_cpu``) on
+    a HY_RING-slot ring and ``prefill_fn`` over the prompt. Then the two
+    planted faults' prefills (with the gate biases drawn N(0, 0.5), which
+    init_lm leaves at 0, so the fault that counts b_a twice shows), and on
+    rank 0, after both ranks free their blocks, the split's arithmetic on
+    one device (``tp_arithmetic`` on the whole params): its prefill and
+    first HN_ARITH_STEPS decode steps against the mesh's, bitwise, and the
+    mesh's decode against 4m (B)'s unsharded one (``ring_cpu``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.models import rglru
+
+    mesh = make_host_mesh(1, 2, device=device)
+    dev = mesh.device
+    full_precision_matmuls()
+    cfg = get_config("recurrentgemma-9b")
+    r0 = dist.get_rank() == 0
+    n_pos = seq_cpu.shape[1]
+    out = {"rank": dist.get_rank(), "backend": mesh.backend}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    with sharding.use_sharding(mesh), torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        local = init_lm(0, cfg, dev, place=True)
+        sync()
+        out.update(draw_s=time.perf_counter() - t0,
+                   held_gb=torch.cuda.memory_allocated(dev) / 1e9,
+                   draw_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        rec = local["blocks"]["rec0"]["rec"]
+        out["shapes"] = {k: tuple(v.shape) for k, v in (
+            ("in_proj", rec["in_proj"]), ("w_a", rec["w_a"]),
+            ("conv_w", rec["conv_w"]),
+            ("wq", local["blocks"]["attn"]["attn"]["wq"]),
+            ("w_down", local["blocks"]["attn"]["ffn"]["w_down"]))}
+        seq = seq_cpu.to(dev)
+        prompt = seq[:, :LM_PROMPT]
+        # warm-up through the entry points, not counted
+        serve.generate(local, serve.init_cache(cfg, LM_BATCH, HY_RING, dev),
+                       prompt[:, :2], 1, cfg)
+        model_api.prefill_fn(local, {"tokens": prompt[:, :16]}, cfg)
+        sync()
+        cache = serve.init_cache(cfg, LM_BATCH, HY_RING, dev)
+        out["cache"] = {k: tuple(v.shape) for k, v in cache.items()}
+        collectives.STATS.clear()
+        collectives.BYTES.clear()
+        _build.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lgs = []
+        t0 = time.perf_counter()
+        for pos in range(n_pos):
+            lg, cache = model_api.decode_fn(local, cache, seq[:, pos:pos + 1],
+                                            pos, cfg)
+            lgs.append(lg)
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["stats"] = dict(collectives.STATS)
+        out["bytes"] = dict(collectives.BYTES)
+        t0 = time.perf_counter()
+        pre = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["launches"] = dict(_build.LAUNCHES)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        dec = torch.stack(lgs, 1)
+        del lgs, cache
+        out["digest"] = (bits_digest(torch, dec), bits_digest(torch, pre))
+
+        # the planted faults, on both ranks (their collectives pair up),
+        # with the gate biases drawn so a doubled b_a shows
+        gen = torch.Generator(device=dev).manual_seed(55)
+        for sub in (local["blocks"]["rec0"], local["blocks"]["rec1"],
+                    local["tail_blocks"]):
+            for k in ("b_a", "b_x"):
+                t = sub["rec"][k]
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+        clean = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
+        faults = {HN_FAULTS[0]: ("_reduce_gates", lambda p, g: p),
+                  HN_FAULTS[1]: ("_gate_preacts", _b_a_on_every_rank)}
+        out["planted"] = {}
+        for tag, (attr, fn) in faults.items():
+            saved = getattr(rglru, attr)
+            setattr(rglru, attr, fn)
+            try:
+                lg = model_api.prefill_fn(local, {"tokens": prompt}, cfg)
+            finally:
+                setattr(rglru, attr, saved)
+            pc = position_corr_chunked(torch, lg, clean)
+            top = lg.argmax(-1) == clean.argmax(-1)
+            out["planted"][tag] = corr_reading(pc, top)
+        del clean, lg, local
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if r0:
+            with sharding._installed(None):
+                whole = init_lm(0, cfg, dev)
+                with tp_arithmetic(torch, whole, cfg):
+                    twin = model_api.prefill_fn(whole, {"tokens": prompt}, cfg)
+                    c = serve.init_cache(cfg, LM_BATCH, HY_RING, dev)
+                    tdec = []
+                    for pos in range(HN_ARITH_STEPS):
+                        lg, c = model_api.decode_fn(
+                            whole, c, seq[:, pos:pos + 1], pos, cfg)
+                        tdec.append(lg)
+                del whole, c
+            out["twin_prefill"] = bool(torch.equal(twin, pre))
+            out["twin_decode"] = bool(torch.equal(
+                torch.stack(tdec, 1), dec[:, :HN_ARITH_STEPS]))
+            out["twin_maxdiff"] = float((twin.float() - pre.float()).abs()
+                                        .max())
+            del twin, tdec
+            ring = ring_cpu.to(dev)
+            for tag, lo in (("all", 0), ("generated", LM_PROMPT)):
+                pc = position_corr_chunked(torch, dec[:, lo:], ring[:, lo:])
+                top = dec[:, lo:].argmax(-1) == ring[:, lo:].argmax(-1)
+                out[tag] = corr_reading(pc, top)
+                out[tag]["before_wrap"] = (
+                    float(pc[:max(HY_RING - lo, 0)].min())
+                    if lo < HY_RING else None)
+            del ring
+        del dec, pre
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def hybrid_train_rank(ref: dict, device: str) -> dict:
+    """One of 2 gloo ranks of path 4n (C), on the card. Rank 0 first
+    recomputes (A)'s one-device gradient on (C)'s batch (no context) and
+    checks it against ``ref`` (its loss and leaf digests) bit for bit.
+    Then under MODEL_RULES on (data 1, model 2) and DATA_RULES on (data
+    2), (A)'s cut model drawn in blocks (init_lm(seed=0)) and (C)'s batch,
+    each rank its rows of each microbatch: one step's gradient (the loss,
+    gloo ms and MB, the logical gradient's relative L2 against the
+    one-device one on rank 0, each whole leaf's gradient digest). Then
+    under each table HN_C_WARMUP + HN_C_STEPS steps through
+    ``train_loop`` at a vocab of HN_C_VOCAB (the losses, seconds, gloo ms
+    and MB, each whole leaf's digest after them)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_lm
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import _build_mesh, make_host_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.optim.adamw import tree_leaves
+
+    meshes = (("MODEL_RULES (1, 2)", make_host_mesh(1, 2, device=device),
+               sharding.MODEL_RULES),
+              ("DATA_RULES (2)", _build_mesh(2, 1, device,
+                                             axis_names=("data",)),
+               sharding.DATA_RULES))
+    dev = meshes[0][1].device
+    full_precision_matmuls()
+    r0 = dist.get_rank() == 0
+    cfg = get_config("recurrentgemma-9b").with_(n_layers=HN_LAYERS)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def agree(values) -> bool:
+        """Whether every rank holds the same list of ints."""
+        mine = torch.tensor(values, dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        return all(torch.equal(e, mine) for e in every)
+
+    def f32_bits(x: float) -> int:
+        return int(torch.tensor(x, dtype=torch.float32).view(torch.int32))
+
+    def whole_digests(tree, split) -> dict:
+        """name -> bits digest of every leaf placed whole (no split dim)."""
+        return {name: bits_digest(torch, t) for name, t, sp in zip(
+            _leaf_names(tree), tree_leaves(tree), tree_leaves(split))
+            if not any(sp)}
+
+    def grads(c, params, batch):
+        torch.use_deterministic_algorithms(True)
+        try:
+            sync()
+            t0 = time.perf_counter()
+            loss, g = steps.make_grad_fn(c)(params, batch)
+            sync()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return loss, g, time.perf_counter() - t0
+
+    out = {tag: {} for tag, _, _ in meshes}
+    g_one = None
+    if r0:
+        whole = init_lm(0, cfg, dev)
+        loss1, g_one, _ = grads(cfg, whole, TokenStream(
+            cfg.vocab, HN_C_SEQ, HN_C_BATCH, seed=0, device=dev).batch_at(0))
+        del whole
+        out["one_is_A"] = (float(loss1) == ref["loss"] and [
+            bits_digest(torch, t) for t in tree_leaves(g_one)]
+            == ref["digests"])
+        # to host memory: on the card its 12.9 GB beside a DATA_RULES
+        # rank's whole gradient and the earlier paths' leftovers overflow
+        # the card
+        g_one = [t.cpu() for t in tree_leaves(g_one)]
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for tag, mesh, rules in meshes:
+        r = out[tag]
+        with sharding.use_sharding(mesh, rules) as ctx:
+            axes = steps.placement_axes(cfg, model_api.model_logical_axes(cfg))
+            split = steps._split_leaves(axes, ctx)
+            params = init_lm(0, cfg, dev, place=True)
+            batch = TokenStream(cfg.vocab, HN_C_SEQ, HN_C_BATCH, seed=0,
+                                ctx=ctx, device=dev,
+                                microbatches=cfg.microbatch_steps).batch_at(0)
+            collectives.STATS.clear()
+            collectives.BYTES.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            loss, g, r["grad_s"] = grads(cfg, params, batch)
+            r["grad_stats"] = dict(collectives.STATS)
+            r["grad_bytes"] = dict(collectives.BYTES)
+            r["grad_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            r["loss"] = float(loss)
+            r["losses_agree"] = agree([f32_bits(float(loss))])
+            digests = whole_digests(g, split)
+            r["whole_grads_agree"] = agree(list(digests.values()))
+            r["n_whole"] = len(digests)
+            r["held"] = {k: tuple(v.shape) for k, v in (
+                ("in_proj", params["blocks"]["rec0"]["rec"]["in_proj"]),
+                ("w_a", params["blocks"]["rec0"]["rec"]["w_a"]),
+                ("embed", params["embed"]))}
+            del params
+            num = den = 0.0
+            for leaf, ax, one in zip(tree_leaves(g), tree_leaves(axes),
+                                     g_one if r0 else
+                                     [None] * len(tree_leaves(g))):
+                whole = steps.gather_tree({"t": leaf}, {"t": ax}, ctx)["t"]
+                if r0:
+                    n_, d_ = rel_l2_sums(torch, whole, one)
+                    num, den = num + n_, den + d_
+                del whole
+            if r0:
+                r["grad_rel"] = (num / den) ** 0.5
+            del g
+            torch.cuda.empty_cache()
+    del g_one
+    torch.cuda.empty_cache()
+
+    # the steps, at a vocab of HN_C_VOCAB
+    cfg_v = cfg.with_(vocab=HN_C_VOCAB)
+    shape = ShapeConfig("4n", HN_C_SEQ, HN_C_BATCH, "train")
+    for tag, mesh, rules in meshes:
+        r = out[tag]
+        with sharding.use_sharding(mesh, rules) as ctx:
+            split_v = steps._split_leaves(steps.placement_axes(
+                cfg_v, model_api.model_logical_axes(cfg_v)), ctx)
+            state = train.init_state(cfg_v, 0, dev)
+            collectives.STATS.clear()
+            collectives.BYTES.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            sync()
+            t0 = time.perf_counter()
+            final, losses, _ = train.train_loop(
+                cfg_v, shape, HN_C_WARMUP + HN_C_STEPS, device=dev,
+                state=state, log_every=10 ** 9)
+            sync()
+            r["steps_s"] = time.perf_counter() - t0
+            r["step_stats"] = dict(collectives.STATS)
+            r["step_bytes"] = dict(collectives.BYTES)
+            r["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            r["losses"] = losses
+            r["step_losses_agree"] = agree([f32_bits(x) for x in losses])
+            digests = whole_digests(final["params"], split_v)
+            r["whole_after_steps_agree"] = agree(list(digests.values()))
+            r["whole_after_steps"] = sorted({k.rsplit("/", 1)[-1]
+                                             for k in digests})
+            del state, final
+            torch.cuda.empty_cache()
+    return out
+
+def check_hybrid_rank_kernels(torch, dev) -> dict:
+    """Phase 3, B5 and B6 at a recurrentgemma-9b rank's shapes under
+    MODEL_RULES on (1, 2) (path 4n (B)): B5 q (4, 128, 8, 256) on the one
+    KV head under the 2048-key window, in the model's (B, S, H, D)
+    layout; B6 q (4, 1, 8, 256) over a layer's view of a (4, 128, 1, 256)
+    ring at positions 63, 127 (full) and 200 (wrapped), each call twice
+    and bitwise equal; against their plain versions at ``held``'s bf16
+    tolerance. Returns kernel name -> max |kernel - plain|."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import (blockwise_attention,
+                                              ring_decode_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(4646)
+    bf, h, d = torch.bfloat16, HY_HEADS // 2, HY_D
+    err = {"flash_attention_causal": 0.0, "flash_decode": 0.0}
+    q = torch.randn(LM_BATCH, LM_PROMPT, h, d, generator=gen,
+                    device=dev).to(bf)
+    k, v = (torch.randn(LM_BATCH, LM_PROMPT, HY_KV, d, generator=gen,
+                        device=dev).to(bf) for _ in range(2))
+    got = blockwise_attention(q, k, v, causal=True, window=HY_WINDOW)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   window=HY_WINDOW).transpose(1, 2)
+    e, ok, tol = held(torch, got, want)
+    say(f"[check] B5 4n rank q({LM_BATCH},{LM_PROMPT},{h},{d}) Hkv {HY_KV} "
+        f"bf16 window {HY_WINDOW}: max abs err {e:.3e} (tol {tol})")
+    if not ok:
+        fail(f"B5 at 4n's rank shape: max abs err {e}")
+    err["flash_attention_causal"] = e
+    for pos in (63, 127, 200):
+        qd = torch.randn(LM_BATCH, 1, h, d, generator=gen, device=dev).to(bf)
+        kr, vr = (torch.randn(2, LM_BATCH, HY_RING, HY_KV, d, generator=gen,
+                              device=dev).to(bf)[1] for _ in range(2))
+        got = ring_decode_attention(qd, kr, vr, pos)
+        if not torch.equal(ring_decode_attention(qd, kr, vr, pos), got):
+            fail(f"B6 at 4n's rank shape, pos {pos}: two calls differ")
+        e, ok, tol = held(torch, got, ref.ring_decode_ref(qd, kr, vr, pos))
+        say(f"[check] B6 4n rank q({LM_BATCH},1,{h},{d}) ring ({LM_BATCH},"
+            f"{HY_RING},{HY_KV},{d}) of a stack, pos {pos} bf16: max abs err "
+            f"{e:.3e} (tol {tol})")
+        if not ok:
+            fail(f"B6 at 4n's rank shape, pos {pos}: max abs err {e}")
+        err["flash_decode"] = max(err["flash_decode"], e)
+    torch.cuda.synchronize()
+    return err
+
+
+def time_hybrid_rank_kernels(torch, dev, card: str) -> dict:
+    """B5 and B6 at a 4n (B) rank's shapes (bf16): B5 over the prompt, q
+    (4, 128, 8, 256) on one KV head under the 2048-key window (all 128
+    keys visible: causal); B6 at a decode step past the wrap, q (4, 1, 8,
+    256) over the full 128-slot ring. Device ms (profiler), bound, the
+    plain version and SDPA; each the sub-entry ``hybrid_rank`` of the
+    kernel's line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(78)
+    b, s, h, d, bf = LM_BATCH, LM_PROMPT, HY_HEADS // 2, HY_D, torch.bfloat16
+    q5, k5, v5 = (torch.randn(b, s, hh, d, generator=gen, device=dev).to(bf)
+                  .transpose(1, 2) for hh in (h, HY_KV, HY_KV))
+    pairs = b * h * hybrid_window_pairs(s, HY_WINDOW)
+    b5 = dict(shape=f"q({b},{h},{s},{d}) Hkv {HY_KV} bf16 window {HY_WINDOW}",
+              fns=(lambda: flash_attention(q5, k5, v5, window=HY_WINDOW),
+                   lambda: ref.flash_attention_ref(q5, k5, v5,
+                                                   window=HY_WINDOW),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q5, k5, v5, is_causal=True, enable_gqa=True)),
+              ops=pairs * 4 * d / PEAK_BF16_FLOPS,
+              nbytes=2 * (2 * b * h * s * d + 2 * b * HY_KV * s * d)
+              / PEAK_BYTES)
+    w = HY_RING
+    q6 = torch.randn(b, 1, h, d, generator=gen, device=dev).to(bf)
+    k6, v6 = (torch.randn(b, w, HY_KV, d, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    b6 = dict(shape=f"q({b},1,{h},{d}) ring ({b},{w},{HY_KV},{d}) full bf16",
+              fns=(lambda: flash_decode(q6, k6, v6, w),
+                   lambda: ref.ring_decode_ref(q6, k6, v6, 2 * w),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q6.transpose(1, 2), k6.transpose(1, 2),
+                       v6.transpose(1, 2), enable_gqa=True)),
+              ops=b * h * w * 4 * d / PEAK_F32_FLOPS,
+              nbytes=2 * (2 * b * w * HY_KV * d + 2 * b * h * d)
+              / PEAK_BYTES)
+    out = {}
+    for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
+        fn, plain_fn, lib_fn = row["fns"]
+        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
+        plain_ms, _ = device_ms(torch, plain_fn)
+        lib_ms, _ = device_ms(torch, lib_fn)
+        bound = max(row["ops"], row["nbytes"])
+        by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
+        say(f"[numbers] {kname} at 4n's rank shape {row['shape']}: kernel "
+            f"{ms:.5f} ms device (profiling passes {passes}), bound "
+            f"{bound * 1e3:.6f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.5f} ms ({card})")
+        out[kname] = {"shape": row["shape"], "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bound * 1e3,
+                      "bound_by": by}
+    return out
+
+
+def _gloo_txt(stats: dict, nbytes: dict, per: float) -> str:
+    """gloo ms and MB of each op, per ``per`` (steps)."""
+    ops = sorted(k for k in stats if not k.endswith("_s"))
+    return ", ".join(f"{k} {stats[k] / per:.0f}x {1e3 * stats[k + '_s'] / per:.2f} ms "
+                     f"{nbytes.get(k, 0) / per / 1e6:.2f} MB" for k in ops)
+
+
+def run_hybrid_mesh(torch, dev, card: str, hybrid: dict,
+                    trained: dict) -> dict:
+    """Path 4n (B) and (C), ``[hybrid_mesh]``: 2 gloo ranks sharing the
+    card. (B) recurrentgemma-9b at full depth and width under MODEL_RULES
+    against 4m (B)'s unsharded run of the same 160 positions on the
+    128-slot ring (``hybrid["ring"]``) and the split's arithmetic on one
+    device; (C) (A)'s cut model under MODEL_RULES and DATA_RULES against
+    (A)'s one-device gradient (recomputed on rank 0 and checked against
+    ``trained``'s digests). Returns rank 0's launches and the
+    readings."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    both = spawn_ranks(hybrid_ranks, 2, hybrid["seq"], hybrid["ring"], {
+        "loss": trained["c_loss"], "digests": trained["c_digests"]}, "cuda",
+        device="cuda", timeout_s=900)
+    spawn_s = time.perf_counter() - t_phase
+    ranks, tr = [b for b, _ in both], [c for _, c in both]
+    r0 = ranks[0]
+    n_pos = hybrid["seq"].shape[1]
+    nsb = 38 // 3
+    want = {"flash_decode": n_pos * nsb, "flash_attention_causal": nsb}
+    say(f"[hybrid_mesh] (B) recurrentgemma-9b, 38 layers, on make_host_mesh(1, "
+        f"2) under MODEL_RULES, 2 ranks, backend {r0['backend']}; each rank "
+        f"drew its blocks of init_lm(seed=0) in {r0['draw_s']:.2f}s and holds "
+        f"{r0['held_gb']:.2f} GB (peak {r0['draw_peak_gb']:.2f} GB while "
+        f"drawing); shapes {r0['shapes']}; cache {r0['cache']} (gloo ranks "
+        f"on one card prove a path, never a speed; {card})")
+    for i, r in enumerate(ranks):
+        say(f"[hybrid_mesh] (B) rank {i}: {n_pos} decode steps in "
+            f"{r['decode_s']:.3f}s = {1e3 * r['decode_s'] / n_pos:.1f} ms a "
+            f"step, {LM_BATCH * n_pos / r['decode_s']:.2f} tok/s a rank; "
+            f"prefill_fn over {LM_BATCH} x {LM_PROMPT} {r['prefill_s']:.3f}s; "
+            f"gloo a decode step: {_gloo_txt(r['stats'], r['bytes'], n_pos)}; "
+            f"peak memory {r['peak_gb']:.2f} GB; launches {r['launches']} "
+            f"({card})")
+        for k, n in want.items():
+            if r["launches"].get(k, 0) != n:
+                fail(f"4n (B) rank {i}: {k} launched "
+                     f"{r['launches'].get(k, 0)} times, expected {n}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        fail("4n (B): the two ranks' logits differ")
+    ctl = hybrid["B_control"]
+    for tag in ("all", "generated"):
+        x = r0[tag]
+        c = ctl if tag == "all" else ctl["generated"]
+        say(f"[hybrid_mesh] (B) decode logits vs 4m (B)'s unsharded run on the "
+            f"ring, {tag} positions: last corr {x['last_corr']:.6f}, min corr "
+            f"{x['min_corr']:.6f}"
+            + (f" (before the wrap {x['before_wrap']:.6f})"
+               if x["before_wrap"] is not None else "")
+            + f", argmax {100 * x['argmax_share']:.2f}%; limit "
+            f"{HY_CORR_FACTOR} x 4m's control (last {c['last_corr']:.6f}, "
+            f"min {c['min_corr']:.6f}) and > 0.99")
+        if not within_control(x, c, LM_BATCH):
+            fail(f"4n (B): the mesh's decode ({tag}) vs the unsharded one: {x}")
+    say(f"[hybrid_mesh] (B) the split's arithmetic on one device "
+        f"(tp_arithmetic): prefill bitwise {r0['twin_prefill']} (max diff "
+        f"{r0['twin_maxdiff']:.3e}), first {HN_ARITH_STEPS} decode steps "
+        f"bitwise {r0['twin_decode']}")
+    for tag, x in r0["planted"].items():
+        caught = not within_control(x, hybrid["A_control"], LM_BATCH)
+        say(f"[hybrid_mesh] (B) planted fault, {tag} (gate biases N(0, 0.5)): "
+            f"prefill vs the clean one last corr {x['last_corr']:.6f}, min "
+            f"{x['min_corr']:.6f}, argmax {100 * x['argmax_share']:.2f}%: "
+            f"caught {caught}")
+        if not caught:
+            fail(f"4n (B): the planted fault ({tag}) passes 4m (A)'s limits")
+    if not (r0["twin_prefill"] and r0["twin_decode"]):
+        fail("4n (B): the mesh's logits are not bitwise the split's "
+             "arithmetic on one device")
+
+    bound = HN_GRAD_FACTOR * trained["c_control"]
+    one_is_a = tr[0].pop("one_is_A")
+    say(f"[hybrid_mesh] (C) rank 0's one-device gradient on (C)'s batch is "
+        f"(A)'s bit for bit (its loss and every leaf's digest): {one_is_a}")
+    if not one_is_a:
+        fail("4n (C): rank 0's one-device gradient is not (A)'s")
+    for tag in tr[0]:
+        x = tr[0][tag]
+        say(f"[hybrid_mesh] (C) {tag}: {HN_LAYERS} layers, {HN_C_BATCH} x "
+            f"{HN_C_SEQ}; rank 0 holds {x['held']}; one step's gradient in "
+            f"{x['grad_s']:.3f}s (peak {x['grad_peak_gb']:.2f} GB a rank), "
+            f"gloo a step: {_gloo_txt(x['grad_stats'], x['grad_bytes'], 1)}; "
+            f"loss {x['loss']:.6f} (one device {trained['c_loss']:.6f}), equal "
+            f"on both ranks {x['losses_agree']}; gradient relative L2 against "
+            f"(A)'s one-device step {x['grad_rel']:.3e}, bound {bound:.3e} = "
+            f"{HN_GRAD_FACTOR} x the order control; the {x['n_whole']} whole "
+            f"leaves' gradients bitwise equal on both ranks "
+            f"{x['whole_grads_agree']} ({card})")
+        say(f"[hybrid_mesh] (C) {tag}, vocab {HN_C_VOCAB}: {HN_C_WARMUP} + "
+            f"{HN_C_STEPS} steps through train_loop in {x['steps_s']:.2f}s "
+            f"(peak {x['step_peak_gb']:.2f} GB a rank), losses "
+            + " ".join(f"{v:.5f}" for v in x["losses"])
+            + f", equal on both ranks {x['step_losses_agree']}; gloo a step: "
+            f"{_gloo_txt(x['step_stats'], x['step_bytes'], HN_C_WARMUP + HN_C_STEPS)}; "
+            f"whole leaves {x['whole_after_steps']} bitwise equal on both "
+            f"ranks after them {x['whole_after_steps_agree']}")
+        if not (x["losses_agree"] and x["step_losses_agree"]):
+            fail(f"4n (C) {tag}: the ranks' losses differ")
+        if not x["grad_rel"] <= bound:
+            fail(f"4n (C) {tag}: gradient rel L2 {x['grad_rel']} above {bound}")
+        if not (x["whole_grads_agree"] and x["whole_after_steps_agree"]):
+            fail(f"4n (C) {tag}: a whole leaf differs across the ranks")
+        for k in ("conv_w", "lambda", "b_a", "b_x", "ln1", "embed", "lm_head"):
+            if k not in x["whole_after_steps"]:
+                fail(f"4n (C) {tag}: {k} not among the whole leaves checked")
+    say(f"[hybrid_mesh] (B) and (C) in one spawn of 2 ranks: {spawn_s:.1f}s "
+        f"({card})")
+    return {"launches": r0["launches"], "B": r0, "C": tr[0],
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def check_b4(torch, dev) -> dict:
@@ -5096,34 +5979,50 @@ LMJ_SUBTLE = "layer 0's wo partials rounded to bf16 before the sum"
 @contextlib.contextmanager
 def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
     """The unsharded LM forward computing on one device what each rank of a
-    (1, n) mesh computes: the column-parallel wq / bq / w_gate / w_up in
-    their n column blocks (contiguous copies, as ``place_lm_params`` holds
-    them), the attention one call a rank's heads (``attention.kv_runs``),
-    the row-parallel wo / w_down contracted in their n row blocks, each
-    block's product in f32, summed in f32 in rank order and rounded once
-    (``layers.row_parallel_linear``). Where each GEMM and kernel depends
-    only on its own operands, the mesh's logits are bitwise these. The
-    control of 4j (A): its distance from the unsharded path sets the
-    limit, and the mesh is held to it bitwise."""
+    (1, n) mesh computes: the column-parallel wq / bq / w_gate / w_up (and
+    the hybrid's in_proj / gate_proj) in their n column blocks (contiguous
+    copies, as ``place_lm_params`` holds them), the attention one call a
+    rank's heads (``attention.kv_runs``), the row-parallel wo / w_down
+    (and out_proj) contracted in their n row blocks, each block's product
+    in f32, summed in f32 in rank order and rounded once (``layers.
+    row_parallel_linear``), and the hybrid's gate GEMMs over each rank's
+    u block and w_a / w_x rows, summed the same way before the biases.
+    Where each GEMM and kernel depends only on its own operands, the
+    mesh's logits are bitwise these. The control of 4j (A): its distance
+    from the unsharded path sets the limit, and the mesh is held to it
+    bitwise; 4n (B)'s bitwise twin."""
     from repro_torch.distributed.sharding import Split
     from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import rglru as rglru_mod
     from repro_torch.models import transformer
 
     def key(w):
         return w.data_ptr(), tuple(w.shape)
 
     blocks = params["blocks"]
+    if cfg.family == "hybrid":
+        nsb, rem = transformer.hybrid_counts(cfg)
+        stacks = [(blocks[k], nsb) for k in ("rec0", "rec1", "attn")]
+        if rem:
+            stacks.append((params["tail_blocks"], rem))
+    else:
+        stacks = [(blocks, cfg.n_layers)]
     cols, rows = {}, set()
-    for i in range(cfg.n_layers):
-        for w in (blocks["attn"]["wq"][i], blocks["ffn"]["w_gate"][i],
-                  blocks["ffn"]["w_up"][i]):
-            s = w.shape[-1] // n
-            cols[key(w)] = [w[:, j * s:(j + 1) * s].contiguous()
-                            for j in range(n)]
-        rows.update(key(w) for w in (blocks["attn"]["wo"][i],
-                                     blocks["ffn"]["w_down"][i]))
-    real = (transformer.linear, ffn_mod.linear, transformer._attend,
-            transformer._decode)
+    for sub, count in stacks:
+        split = [("ffn", ("w_gate", "w_up"), ("w_down",))]
+        split.append(("rec", ("in_proj", "gate_proj"), ("out_proj",))
+                     if "rec" in sub else ("attn", ("wq",), ("wo",)))
+        for part, col_names, row_names in split:
+            for i in range(count):
+                for name in col_names:
+                    w = sub[part][name][i]
+                    s = w.shape[-1] // n
+                    cols[key(w)] = [w[:, j * s:(j + 1) * s].contiguous()
+                                    for j in range(n)]
+                rows.update(key(sub[part][name][i]) for name in row_names)
+    real = (transformer.linear, ffn_mod.linear, rglru_mod.linear,
+            transformer._attend, transformer._decode,
+            rglru_mod._gate_preacts)
 
     def linear(x, w, b=None, policy=None):
         if key(w) in cols:
@@ -5141,6 +6040,18 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
             return y.to(x.dtype)
         return real[0](x, w, b, policy)
 
+    def gate_preacts(p, uf, split):
+        k = uf.shape[-1] // n
+        outs = []
+        for w, bias in ((p["w_a"], p["b_a"]), (p["w_x"], p["b_x"])):
+            y = None
+            for j in range(n):
+                part = (uf[..., j * k:(j + 1) * k].contiguous()
+                        @ w[j * k:(j + 1) * k].float())
+                y = part if y is None else y + part
+            outs.append(y + bias)
+        return tuple(outs)
+
     def per_rank(fn):
         def heads(q, *rest, **kw):
             h = q.shape[2] // n
@@ -5149,14 +6060,16 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
                               for j in range(n)], 2)
         return heads
 
-    transformer.linear = ffn_mod.linear = linear
-    transformer._attend = per_rank(real[2])
-    transformer._decode = per_rank(real[3])
+    transformer.linear = ffn_mod.linear = rglru_mod.linear = linear
+    transformer._attend = per_rank(real[3])
+    transformer._decode = per_rank(real[4])
+    rglru_mod._gate_preacts = gate_preacts
     try:
         yield
     finally:
-        (transformer.linear, ffn_mod.linear, transformer._attend,
-         transformer._decode) = real
+        (transformer.linear, ffn_mod.linear, rglru_mod.linear,
+         transformer._attend, transformer._decode,
+         rglru_mod._gate_preacts) = real
 
 
 def _tree_rel_l2(torch, ga: dict, gb: dict) -> float:
@@ -5600,7 +6513,9 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
 # 4k 487 s on an H100 (PERF.md, the 4k findings), so 4k at 8 would take
 # the whole run to ~85% of its limit; at 4 layers 4k took 309 s of a
 # 1,148 s run once 4m's recurrentgemma-9b joined it, so it runs 2 layers
-# (PERF.md §4 lists the cut and what it saved). (A) 4b's batch 4, prompt 128 and 32 greedy tokens against
+# (PERF.md §4 lists the cut and what it saved; at 1 layer its (C) loss
+# on fresh batches no longer fell). (A) 4b's batch 4, prompt 128
+# and 32 greedy tokens against
 # a cache of LMK_CACHE rows, 128 a rank: the prompt fills model rank 0's
 # rows and every generated token lands on rank 1 (its first decode step
 # has exactly one valid row there). (C) 4j's batch, LMK_TRAIN_STEPS steps
@@ -5983,33 +6898,45 @@ def lm_fsdp_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
     return out
 
 
-def run_lm_fsdp(torch, dev, card: str, lm: dict, peak_4j: list) -> dict:
-    """Path 4k: 4b's qwen2-1.5b weights and prompt under DEFAULT_RULES on
-    (2, 2) and MULTIPOD_RULES on (2, 1, 2), 4 gloo ranks on the one card,
-    against the unsharded runs on the card."""
+def start_lm_fsdp(lm: dict) -> tuple:
+    """Path 4k's 4 gloo ranks, started in the background (``in_background``:
+    they run beside 4j's and 4l's); returns (start time, Future of the
+    ranks' results) for ``run_lm_fsdp``."""
     import shutil
     import tempfile
 
     from repro_torch.bridge import to_device
     from repro_torch.launch.mesh import spawn_ranks
 
-    cfg = lm["cfg"]
     t_phase = time.perf_counter()
     params = to_device(lm["params"], "cpu")
     for t in _leaves(params):
         t.share_memory_()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_fsdp_")
-    try:
-        ranks = spawn_ranks(lm_fsdp_rank, 4, params, cfg,
-                            lm["prompt"].cpu(), tmp, "cuda", device="cuda",
-                            timeout_s=1000)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    del params
+    prompt = lm["prompt"].cpu()
+
+    def spawn():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_fsdp_")
+        try:
+            return spawn_ranks(lm_fsdp_rank, 4, params, lm["cfg"], prompt,
+                               tmp, "cuda", device="cuda", timeout_s=1000)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return t_phase, in_background(spawn)
+
+
+def run_lm_fsdp(torch, dev, card: str, lm: dict, peak_4j: list,
+                started: tuple) -> dict:
+    """Path 4k: 4b's qwen2-1.5b weights and prompt under DEFAULT_RULES on
+    (2, 2) and MULTIPOD_RULES on (2, 1, 2), 4 gloo ranks on the one card
+    (``start_lm_fsdp``'s), against the unsharded runs on the card."""
+    cfg = lm["cfg"]
+    t_phase, pending = started
+    ranks = pending.result()
     r0 = ranks[0]
     report_lm_fsdp(torch, ranks, cfg, card, lm["tps"], lm["toks"].cpu(),
                    peak_4j)
-    say(f"[lm_fsdp] path 4k in {time.perf_counter() - t_phase:.2f}s ({card})")
+    say(f"[lm_fsdp] path 4k in {time.perf_counter() - t_phase:.2f}s from its "
+        f"spawn, beside 4j's and 4l's ranks ({card})")
     return {"launches": r0["launches"], "launches8": r0["launches8"],
             "peak_gb": [r["peak_gb"] for r in ranks]}
 
@@ -6185,8 +7112,8 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
 # path 4l: ViT QAT training on every mesh. opto-vit-base-224 + MGNet (keep
 # 0.33) at full width, cut to VM_LAYERS of its 12 layers (its gloo time
 # scales with the blocks; 4m's recurrentgemma-9b took the script past
-# ~1,050 of its 1,200 s at 12: PERF.md §4 lists the cut), on qat + xla +
-# xla, AdamW, a
+# ~1,050 of its 1,200 s at 12, 4n past it at 6: PERF.md §4 lists the
+# cuts), on qat + xla + xla, AdamW, a
 # global batch of 32 of ImageStream(224, 32, n_classes=8), gloo ranks
 # sharing the one card as 4j / 4k: (A) DATA_RULES on ("data",) 2 and (B)
 # MODEL_RULES on (data 1, model 2) in one spawn of 2 ranks; (C)
@@ -6214,7 +7141,7 @@ def report_lm_fsdp(torch, ranks: list, cfg, card: str, tps_4b: float,
 # VM_FAULT_FACTOR x, and fail its check at full size: (A) the activation
 # scales', (B) the weight scales', (C) the FSDP blocks' bitwise equality.
 VM_BATCH = 32
-VM_LAYERS = 6
+VM_LAYERS = 3
 VM_MICRO = 2                      # (G)'s microbatches a step
 # (G) at smoke size: each later activation scale's relative gap from the
 # one-device step's (a rank's GEMMs at half the rows: 3.4333e-7 on the
@@ -6806,47 +7733,63 @@ def vit_mesh_cfg():
     return train_cfg().with_(n_layers=VM_LAYERS)
 
 
-def run_vit_mesh(torch, dev, card: str) -> dict:
-    """Path 4l: (A)-(D) in two spawns of gloo ranks on the one card, then
-    (E) on the parent's card."""
+def start_vit_mesh() -> tuple:
+    """Path 4l's two spawns of gloo ranks ((A)-(B) on 2, then (C)-(D) on
+    4), in the background (``in_background``: beside 4k's ranks); returns
+    (start time, Future of (ranks by table, (G)'s ranks, each spawn's
+    seconds)) for ``run_vit_mesh``."""
     import shutil
     import tempfile
 
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import init_state
+
+    cfg = vit_mesh_cfg()
+
+    def spawns():
+        params = init_state(cfg, 0, "cpu")["params"]
+        for t in _leaves(params):
+            t.share_memory_()
+        ranks, took, micro = {}, [], None
+        for tables, world in (("AB", 2), ("CD", 4)):
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_vit_mesh_")
+            t0 = time.perf_counter()
+            try:
+                got = spawn_ranks(vit_mesh_rank, world, params, cfg, tmp,
+                                  "cuda", tables, device="cuda",
+                                  timeout_s=900)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            took.append((world, tables, time.perf_counter() - t0,
+                         got[0]["backend"], got[0]["device"]))
+            for tag in tables:
+                ranks[tag] = [r[tag] for r in got]
+            if tables == "AB":
+                micro = [r["G"] for r in got]
+        return ranks, micro, took
+    return time.perf_counter(), in_background(spawns)
+
+
+def run_vit_mesh(torch, dev, card: str, started: tuple) -> dict:
+    """Path 4l: (A)-(D) in ``start_vit_mesh``'s two spawns of gloo ranks on
+    the one card, then (E) on the parent's card."""
     from repro_torch.core.backend import prepare_params
     from repro_torch.data.pipeline import ImageStream
     from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.launch.train import init_state
     from repro_torch.models.layers import ExecPolicy
     from repro_torch.models.vit import forward_vit
     from repro_torch.optim.adamw import tree_map
 
     cfg = vit_mesh_cfg()
-    t_phase = time.perf_counter()
+    t_phase, pending = started
     say(f"[vit_mesh] path 4l: {cfg.name} {cfg.img_size}x{cfg.img_size} + "
         f"MGNet keep {cfg.mgnet_keep_ratio} on qat + xla + xla, training=True, "
         f"global batch {VM_BATCH}, {cfg.n_layers} layers; gloo ranks on the "
         f"one card; the tight checks at smoke size beside each ({card})")
-    params = init_state(cfg, 0, "cpu")["params"]
-    for t in _leaves(params):
-        t.share_memory_()
-    ranks = {}
-    for tables, world in (("AB", 2), ("CD", 4)):
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_vit_mesh_")
-        t0 = time.perf_counter()
-        try:
-            got = spawn_ranks(vit_mesh_rank, world, params, cfg, tmp, "cuda",
-                              tables, device="cuda", timeout_s=900)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        say(f"[vit_mesh] the {world}-rank spawn ({tables}) in "
-            f"{time.perf_counter() - t0:.2f}s, backend {got[0]['backend']}, "
-            f"all on {got[0]['device']}")
-        for tag in tables:
-            ranks[tag] = [r[tag] for r in got]
-        if tables == "AB":
-            micro = [r["G"] for r in got]
-    del params
+    ranks, micro, took = pending.result()
+    for world, tables, spawn_s, backend, where in took:
+        say(f"[vit_mesh] the {world}-rank spawn ({tables}) in {spawn_s:.2f}s "
+            f"(beside 4k's ranks), backend {backend}, all on {where}")
     failures = report_vit_mesh(ranks, card)
     failures += report_vit_mesh_fused(ranks, card)
     failures += report_vit_mesh_micro(micro, card)
@@ -6890,7 +7833,8 @@ def run_vit_mesh(torch, dev, card: str) -> dict:
     for name_ in VIT_KERNELS:
         if launches.get(name_, 0) <= 0:
             failures.append(f"4l (E): kernel {name_} was never launched")
-    say(f"[vit_mesh] path 4l in {time.perf_counter() - t_phase:.2f}s ({card})")
+    say(f"[vit_mesh] path 4l in {time.perf_counter() - t_phase:.2f}s from its "
+        f"first spawn, beside 4k's ranks ({card})")
     if failures:
         fail("; ".join(failures))
     return {"launches": launches, "serve_corr": c}
@@ -7188,6 +8132,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 say(f"[ptxas] {src}: {line.strip()}")
 
+    stamp("build")
+
     # -- 3. kernel checks --------------------------------------------------
     errs = check_kernels(torch, dev)
     errs.update(check_lm_kernels(torch, dev))
@@ -7195,12 +8141,16 @@ def main() -> int:
         errs[kname] = max(errs[kname], e)
     for kname, e in check_hybrid_kernels(torch, dev).items():
         errs[kname] = max(errs[kname], e)
+    for kname, e in check_hybrid_rank_kernels(torch, dev).items():
+        errs[kname] = max(errs[kname], e)
     errs["flash_decode_partial"] = check_partial_kernel(torch, dev)
     errs.update(check_b4(torch, dev))
     # B1 and B3 at the bit plan's widths
     plan_calls = plan_kernel_calls(torch, dev)
     for (kname, _), (_, check) in plan_calls.items():
         errs[kname] = max(errs[kname], check())
+
+    stamp("phase 3 (kernel checks)")
 
     # -- 4a. main path: ViT serving ----------------------------------------
     cfg = serving_cfg("base", 224)
@@ -7265,17 +8215,25 @@ def main() -> int:
     graphs = check_graphs(torch, cfg, sc, params, server, streams,
                           [results[s.sid] for s in sessions])
 
+    stamp("path 4a")
+
     # -- [bitplan]: 4a under a per-layer bit plan, then calibrate_bits ------
     bitplan = run_bitplan(torch, cfg, sc, params, streams, server, card)
+
+    stamp("bitplan")
 
     # -- 4b. main path: LM serving -----------------------------------------
     lm = run_lm(torch, dev, card)
     launches.update(lm["launches"])
 
+    stamp("path 4b")
+
     # -- 4c. main path: model-sharded ViT serving ----------------------------
     sharded = run_sharded(torch, dev, card, serving_cfg("large", 224))
     r0 = sharded["ranks"][0]
     launches["dequant_epilogue"] = r0["launches"].get("dequant_epilogue", 0)
+
+    stamp("path 4c")
 
     # -- 5. numbers --------------------------------------------------------
     say(f"[numbers] card: {card}")
@@ -7519,9 +8477,16 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in hy_ms:
             entry["hybrid"] = hy_ms[entry["name"]]
+    # B5 / B6 at a 4n (B) rank's shapes; their launches come with 4n
+    hr_ms = time_hybrid_rank_kernels(torch, dev, card)
+    for entry in kernels:
+        if entry["name"] in hr_ms:
+            entry["hybrid_rank"] = hr_ms[entry["name"]]
     # B6's partial entry at 4k's rank shape; its launches come with 4k
     partial_entry = time_partial_kernel(torch, dev, card)
     partial_entry["max_abs_err"] = errs["flash_decode_partial"]
+
+    stamp("phase 5 (numbers)")
 
     # -- 4d. [composed]: the composed dispatch, Eq. 2 and the dense
     # baseline on opto-vit-base-224 (after the kernel table, before the
@@ -7544,6 +8509,8 @@ def main() -> int:
     say(f"[composed] launches on the main paths with 4d's: "
         f"{ {e['name']: e['launches'] for e in kernels} }")
 
+    stamp("path 4d")
+
     # -- 4e. [noise]: calibrated device noise on opto-vit-base-224 through
     # the graphed server (after 4d, before the profiled phases)
     noisy = run_noise(torch, dev, card, cfg, sc, params, streams,
@@ -7559,6 +8526,8 @@ def main() -> int:
         del noisy[tag]["server"]           # its graphs' memory back
     torch.cuda.empty_cache()
 
+    stamp("path 4e")
+
     # -- 4f. [control]: the serving control plane on 4a's model and traffic
     # (after 4e, before the profiled phases); (a)'s launches join the counts
     t0 = time.perf_counter()
@@ -7568,6 +8537,8 @@ def main() -> int:
     say(f"[control] path 4f in {time.perf_counter() - t0:.2f}s; launches on "
         f"the main paths with 4f's (a): "
         f"{ {e['name']: e['launches'] for e in kernels} }")
+
+    stamp("path 4f")
 
     # -- 4g. [faults]: faults, checkpoints and migration on 4a's model and
     # traffic (after 4f, before the profiled phases); (A)'s launches join
@@ -7587,6 +8558,8 @@ def main() -> int:
         f"with 4g's (A): { {e['name']: e['launches'] for e in kernels} } "
         f"({card})")
 
+    stamp("path 4g")
+
     # -- 4h. [fleet]: the fleet router and the 1-D data mesh on
     # opto-vit-base-224 (after 4g, before the profiled phases); (A)'s cost
     # serve's launches join the counts
@@ -7601,6 +8574,8 @@ def main() -> int:
     del fleet
     torch.cuda.empty_cache()
 
+    stamp("path 4h")
+
     # -- 4i. [train]: ViT training on opto-vit-base-224 + MGNet (after 4h,
     # before the profiled phases); (D)'s launches join the counts
     train = run_train(torch, dev, card)
@@ -7611,11 +8586,17 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
 
+    stamp("path 4i")
+
     # -- 4j. [lm_mesh]: qwen2-1.5b tensor- and data-parallel on 2 gloo
     # ranks on the card (after 4i, before the profiled phases); rank 0's
     # (A) and (B) launches join the counts, and each kernel of its path
     # records them under ``tp_rank``
+    # 4k's ranks start first and run beside 4j's, then 4l's beside 4k's
+    # (``in_background``)
+    fsdp_started = start_lm_fsdp(lm)
     lm_mesh = run_lm_mesh(torch, dev, card, lm)
+    vit_started = start_vit_mesh()
     for entry in kernels:
         n = (lm_mesh["launches"].get(entry["name"], 0)
              + lm_mesh["launches8"].get(entry["name"], 0))
@@ -7628,11 +8609,13 @@ def main() -> int:
     del lm_mesh
     torch.cuda.empty_cache()
 
+    stamp("path 4j")
+
     # -- 4k. [lm_fsdp]: qwen2-1.5b under DEFAULT_RULES / MULTIPOD_RULES on
     # 4 gloo ranks on the card (after 4j, before the profiled phases);
     # rank 0's (A) and (B) launches join the counts, B6's partial entry
     # its own
-    lm_fsdp = run_lm_fsdp(torch, dev, card, lm, peak_4j)
+    lm_fsdp = run_lm_fsdp(torch, dev, card, lm, peak_4j, fsdp_started)
     for entry in kernels:
         entry["launches"] += (lm_fsdp["launches"].get(entry["name"], 0)
                               + lm_fsdp["launches8"].get(entry["name"], 0))
@@ -7644,16 +8627,20 @@ def main() -> int:
     del lm_fsdp
     torch.cuda.empty_cache()
 
+    stamp("path 4k")
+
     # -- 4l. [vit_mesh]: ViT QAT training under DATA_RULES, MODEL_RULES,
     # DEFAULT_RULES and MULTIPOD_RULES on gloo ranks on the card (after 4k,
     # before the profiled phases); (E)'s launches join the counts
-    vit_mesh = run_vit_mesh(torch, dev, card)
+    vit_mesh = run_vit_mesh(torch, dev, card, vit_started)
     for entry in kernels:
         entry["launches"] += vit_mesh["launches"].get(entry["name"], 0)
     say(f"[vit_mesh] launches on the main paths with 4l's (E): "
         f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
     del vit_mesh
     torch.cuda.empty_cache()
+
+    stamp("path 4l")
 
     # -- 4m. [hybrid]: recurrentgemma-9b at full width on B5 / B6 (after 4l,
     # before the profiled phases); (A)'s launches join the counts, and
@@ -7672,8 +8659,30 @@ def main() -> int:
         f"under the profiler; prefill {hybrid['prefill_tps']:.1f} tok/s at "
         f"{LM_BATCH} x {LM_PROMPT} (first call), "
         f"{hybrid['long_tps']:.1f} tok/s at 1 x {HY_LONG} ({card})")
-    del hybrid
     torch.cuda.empty_cache()
+
+    stamp("path 4m")
+
+    # -- 4n. [hybrid_train] / [hybrid_mesh]: recurrentgemma-9b trained on
+    # the card, then tensor- and data-parallel on 2 gloo ranks (after 4m,
+    # before the profiled phases); rank 0's (B) launches join the counts,
+    # and B5's and B6's ``hybrid_rank`` entries record them
+    t0 = time.perf_counter()
+    trained = run_hybrid_train(torch, dev, card)
+    torch.cuda.empty_cache()
+    mesh_hy = run_hybrid_mesh(torch, dev, card, hybrid, trained)
+    for entry in kernels:
+        n = mesh_hy["launches"].get(entry["name"], 0)
+        entry["launches"] += n
+        if "hybrid_rank" in entry:
+            entry["hybrid_rank"]["launches"] = n
+    say(f"[hybrid_mesh] path 4n in {time.perf_counter() - t0:.1f}s; launches "
+        f"on the main paths with 4n (B)'s rank 0: "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del hybrid, trained, mesh_hy
+    torch.cuda.empty_cache()
+
+    stamp("path 4n")
 
     # each flush's device time, from the profiler over its replays. After
     # the kernel table: once a profiled session has recorded thousands of
@@ -7738,6 +8747,7 @@ def main() -> int:
             f"{e.count:6d}x  {e.key[:90]}")
 
     torch.cuda.synchronize()
+    stamp("the profiled phases")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -174,7 +174,7 @@ def init_vit(seed: int, cfg: ArchConfig, n_classes: int = 1000,
 
 
 def init_lm(seed: int, cfg: ArchConfig, device=None,
-            dtype=torch.bfloat16) -> dict:
+            dtype=torch.bfloat16, place: bool = False) -> dict:
     """An LM param tree of the reference's shapes and scales
     (``init_lm``/``init_dense_layer``/``init_attention``/``init_swiglu``,
     and for a hybrid ``init_rec_layer``/``init_rglru``):
@@ -182,11 +182,31 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
     biases 0; norm gains 1; stacked ``blocks`` with a leading L axis; an
     ``lm_head`` only without tied embeddings. Drawn in f32 from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (default: the
-    card), then cast to ``dtype``."""
-    from repro_torch.models.transformer import attention_shapes, check_family
+    card), then cast to ``dtype``.
+
+    ``place``: cut the tree to this rank's blocks under the installed
+    sharding context (``transformer.place_lm_params``'s blocks, bitwise:
+    the draws are the same); a hybrid's subtrees (``embed``, ``lm_head``,
+    each layer kind of ``blocks``, ``tail_blocks``) each as soon as it is
+    drawn, so a rank never holds the whole tree (recurrentgemma-9b's is
+    20.9 GB)."""
+    from repro_torch.distributed.sharding import current_ctx
+    from repro_torch.models.transformer import (attention_shapes,
+                                                check_family,
+                                                lm_placement_axes)
 
     check_family(cfg)
     dev = resolve_device(device)
+    ctx = current_ctx() if place else None
+    axes = lm_placement_axes(cfg) if ctx is not None else None
+
+    def keep(tree, ax):
+        """``tree`` cut to this rank's blocks of axes ``ax`` (``place``)."""
+        if ctx is None:
+            return tree
+        from repro_torch.core.backend import place_params
+        return place_params(tree, ax, ctx)
+
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
 
@@ -200,7 +220,8 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     if cfg.family == "hybrid":
-        return _init_hybrid(gen, cfg, dev, dtype, normal, he, const)
+        return _init_hybrid(gen, cfg, dev, dtype, normal, he, const, keep,
+                            axes)
 
     attn = {}
     for name, shape in attention_shapes(cfg).items():
@@ -219,23 +240,27 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = he((d, cfg.vocab))
-    return params
+    return keep(params, axes)
 
 
-def _init_hybrid(gen, cfg: ArchConfig, dev, dtype, normal, he, const) -> dict:
+def _init_hybrid(gen, cfg: ArchConfig, dev, dtype, normal, he, const, keep,
+                 axes) -> dict:
     """``init_lm``'s hybrid tree (the reference's ``init_lm`` hybrid
     branch, ``init_rec_layer``, ``init_dense_layer``): embed, the untied
     head, then ``blocks`` of (rec0, rec1, attn) super-blocks and the
-    tail's recurrent layers, every leaf stacked on its leading axis."""
+    tail's recurrent layers, every leaf stacked on its leading axis; each
+    of those subtrees ``keep(subtree, its axes)`` as soon as it is
+    drawn."""
     from repro_torch.models import rglru
     from repro_torch.models.transformer import attention_shapes, hybrid_counts
 
     d, dff = cfg.d_model, cfg.d_ff
     nsb, rem = hybrid_counts(cfg)
-    params = {"embed": normal((cfg.vocab, d), 0.02),
+    ax = axes or {}
+    params = {"embed": keep(normal((cfg.vocab, d), 0.02), ax.get("embed")),
               "final_ln": const((d,), 1.0)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = he((d, cfg.vocab))
+        params["lm_head"] = keep(he((d, cfg.vocab)), ax.get("lm_head"))
 
     def ffn(n):
         return {"w_gate": he((n, d, dff)), "w_up": he((n, d, dff)),
@@ -253,8 +278,11 @@ def _init_hybrid(gen, cfg: ArchConfig, dev, dtype, normal, he, const) -> dict:
         return {"ln1": const((n, d), 1.0), "attn": attn,
                 "ln2": const((n, d), 1.0), "ffn": ffn(n)}
 
-    params["blocks"] = {"rec0": rec_layer(nsb), "rec1": rec_layer(nsb),
-                        "attn": attn_layer(nsb)}
+    blocks = {}
+    for name, make in (("rec0", rec_layer), ("rec1", rec_layer),
+                       ("attn", attn_layer)):
+        blocks[name] = keep(make(nsb), ax.get("blocks", {}).get(name))
+    params["blocks"] = blocks
     if rem:
-        params["tail_blocks"] = rec_layer(rem)
+        params["tail_blocks"] = keep(rec_layer(rem), ax.get("tail_blocks"))
     return params

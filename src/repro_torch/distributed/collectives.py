@@ -81,7 +81,9 @@ tensor (``scripts/fsdp_collectives_ab.py``, 4 ranks on one H100, 700 W,
 direct against 100.0-119.4 ms staged, a 93.6 MB f32 all-reduce
 153.3-175.8 against 186.3-295.1 ms).
 
-Timing. ``STATS`` counts calls and host seconds per op. A staged op
+Timing. ``STATS`` counts calls and host seconds per op, ``BYTES`` the
+bytes of this rank's operand per op (what it puts into the collective).
+A staged op
 synchronizes the card before the clock starts (its copy to the host
 would wait for the card's pending work anyway), so the seconds are the
 op's own, copies included; a direct gloo op on the card is timed to the
@@ -99,7 +101,7 @@ import torch.distributed as dist
 from repro_torch.core import quant
 from repro_torch.distributed import sharding
 
-__all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
+__all__ = ["STATS", "BYTES", "replicated_absmax_scale", "exact_int_psum",
            "all_gather_cat", "all_reduce", "scoped_absmax_scale",
            "scoped_amax", "copy_to_model", "reduce_from_model",
            "gather_from_model", "fsdp_gather", "reduce_scatter_mean", "vocab_max", "vocab_sum"]
@@ -107,6 +109,8 @@ __all__ = ["STATS", "replicated_absmax_scale", "exact_int_psum",
 # op name -> calls, and op name + "_s" -> host seconds, since the last
 # STATS.clear()
 STATS: collections.Counter = collections.Counter()
+# op name -> bytes of this rank's operands, since the last BYTES.clear()
+BYTES: collections.Counter = collections.Counter()
 
 
 def _gloo_cuda(t: torch.Tensor, group) -> bool:
@@ -139,6 +143,7 @@ def all_reduce(t: torch.Tensor, op, group, name: str = "all_reduce",
     _done(out, gloo_cuda and direct)
     STATS[name] += 1
     STATS[name + "_s"] += time.perf_counter() - t0
+    BYTES[name] += t.numel() * t.element_size()
     return out
 
 
@@ -162,6 +167,7 @@ def all_gather_cat(x: torch.Tensor, group, dim: int,
     _done(out, gloo_cuda and direct)
     STATS[name] += 1
     STATS[name + "_s"] += time.perf_counter() - t0
+    BYTES[name] += x.numel() * x.element_size()
     return out
 
 

@@ -21,11 +21,15 @@ and checks that the ranks of each "model" group generated equal tokens.
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain PyTorch versions).
 
-The hybrid family (``--arch recurrentgemma-9b``) serves outside any mesh:
-its cache is the recurrent states and a ring of min(window, cache len)
-slots per attention layer, so ``--cache-len`` may be shorter than the
-prompt and the generated tokens (positions past it overwrite the ring's
-oldest slots, the reference's ring for a cache shorter than the window).
+The hybrid family (``--arch recurrentgemma-9b``) serves on one device and
+on the host mesh under ``MODEL_RULES`` / ``DATA_RULES`` (each rank draws
+its blocks of the weights leaf by leaf, ``bridge.init_lm(place=True)``):
+its cache is the recurrent states (split on the batch and, over "model",
+the LRU width) and a ring of min(window, cache len) slots per attention
+layer (split on the batch only), so ``--cache-len`` may be shorter than
+the prompt and the generated tokens (positions past it overwrite the
+ring's oldest slots, the reference's ring for a cache shorter than the
+window).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -37,6 +41,8 @@ Usage:
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --model-par 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --smoke --device cpu --model-par 2
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.bridge import init_lm
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.configs.registry import get_config
 from repro_torch.core.backend import BACKENDS, prepare_params
@@ -165,8 +172,11 @@ def _serve_ranks(cfg: ArchConfig, args) -> tuple:
     mesh = make_host_mesh(args.data_par, args.model_par, device=args.device)
     policy = ExecPolicy.from_cfg(cfg, training=False)
     with use_sharding(mesh) as ctx:
-        params = model_api.init_model(args.seed, cfg, dev)
-        if policy.is_photonic():
+        if not policy.is_photonic():
+            # each rank draws its blocks, never the whole tree at once
+            params = init_lm(args.seed, cfg, dev, place=True)
+        else:
+            params = model_api.init_model(args.seed, cfg, dev)
             # quantize-once weight cache: every matmul weight tuned before
             # serving, so a token does only activation quant + int8 matmul
             # + dequant (embeddings and norms stay as they are)
@@ -174,7 +184,7 @@ def _serve_ranks(cfg: ArchConfig, args) -> tuple:
             if _rank0():
                 print(f"[serve] backend={policy.backend} "
                       "(weights pre-quantized once)")
-        params = place_lm_params(params, cfg)
+            params = place_lm_params(params, cfg)
         cache = init_cache(cfg, args.batch, args.cache_len, dev)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),

@@ -23,12 +23,17 @@ operation:
 
 The step runs on the composed entries of a training policy
 (``ExecPolicy.from_cfg(cfg, training=True)``): no hand-written kernel has
-a backward, and the reference's train step reaches none.
+a backward, and the reference's train step reaches none. On the card it
+sets ``device.full_precision_matmuls`` before the forward: the setting
+is the process's, so the backward's f32 GEMMs (the hybrid's gates) run
+in full f32 too.
 
 On a mesh. The reference is single-controller: ``jit`` with
 ``NamedSharding``s lays one global state over the devices. Here each
 rank holds its own block (SPMD), under any of the four tables for the
-dense LM and the ViT, and a step built under an installed sharding
+dense LM and the ViT (the hybrid LM under ``DATA_RULES`` /
+``MODEL_RULES``, its whole leaves read in column blocks summed over
+"model" in the model's backward: models/rglru.py), and a step built under an installed sharding
 context (``make_train_fn``, or ``make_train_step(cfg, shape, ctx)``)
 runs the model's mesh forward on this rank's rows (every fake-quant
 scale the global batch's: ``sharding.mesh_scope``) and also:
@@ -59,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import full_precision_matmuls
 from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import ShardingCtx, named_sharding
 from repro_torch.models import api as model_api
@@ -95,15 +101,25 @@ def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
     """The param tree's shapes and dtypes as ``meta`` tensors (the
     reference's ``eval_shape`` of ``init_model``; the ViT's 1000 classes
     and f32)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "hybrid"):
         tf_mod.check_family(cfg)
-        return tree_map(lambda s: _meta(s, dtype), tf_mod.lm_shapes(cfg))
+        return _lm_meta(tf_mod.lm_shapes(cfg), dtype)
     if cfg.family == "vit":
         from repro_torch import bridge
         tree = bridge.init_vit(0, cfg, 1000, rng=_MetaRng())
         return tree_map(lambda a: a if isinstance(a, torch.Tensor)
                         else _meta(a.shape, torch.float32), tree)
     raise model_api._unported(cfg)
+
+
+def _lm_meta(shapes, dtype, name: str = ""):
+    """``meta`` tensors of an LM shape tree in ``dtype``, a hybrid's f32
+    leaves (``lambda``, ``b_a``, ``b_x``) in f32."""
+    from repro_torch.models.rglru import F32_LEAVES
+
+    if isinstance(shapes, dict):
+        return {k: _lm_meta(v, dtype, k) for k, v in shapes.items()}
+    return _meta(shapes, torch.float32 if name in F32_LEAVES else dtype)
 
 
 def abstract_state(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
@@ -131,7 +147,7 @@ def placement_axes(cfg: ArchConfig, axes):
     """``axes`` as this rank places them under the installed context: the
     axes the model cannot split there dropped (``transformer.
     lm_placement_axes``, ``vit.vit_placement_axes``)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "hybrid"):
         return tf_mod.lm_placement_axes(cfg, axes)
     if cfg.family == "vit":
         from repro_torch.models.vit import vit_placement_axes
@@ -217,6 +233,10 @@ def _local_grad_fn(cfg: ArchConfig):
     def value_and_grad(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
+        if leaves[0].is_cuda:
+            # process-wide, so in force on autograd's device thread too: the
+            # hybrid's f32 gate GEMMs stay f32 in the backward
+            full_precision_matmuls()
         with torch.enable_grad():
             loss = model_api.loss_fn(live, batch, cfg, policy)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -238,18 +258,28 @@ def _local_grad_fn(cfg: ArchConfig):
         for i in range(k):
             loss, g = value_and_grad(params, {n: x[i] for n, x in
                                               micro.items()})
-            g_sum = tree_map(lambda a, b: a + b.to(acc_dt), g_sum, g)
+            # in place: the accumulator is the step's own
+            tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_sum, g)
+            del g
             l_sum = l_sum + loss
-        return l_sum / k, tree_map(lambda x: x / k, g_sum)
+        return l_sum / k, tree_map(lambda x: x.div_(k), g_sum)
 
     return grads_of
+
+
+# a gradient leaf from this many bytes up is meaned by gloo on the CUDA
+# tensor itself (``collectives``' Backends: direct is the faster above
+# tens of MB; a 512 MB f32 all-reduce over 2 ranks on one H100, 700 W,
+# 0.442 s direct against 0.660 s staged, PERF.md §6)
+_DIRECT_BYTES = 16 << 20
 
 
 def _data_mean(t: torch.Tensor, group, n: int) -> torch.Tensor:
     """``t`` meaned over the data group: an f32 sum divided by ``n``,
     rounded once to ``t.dtype``."""
     s = collectives.all_reduce(t.float(), dist.ReduceOp.SUM, group,
-                               "dp_mean")
+                               "dp_mean",
+                               direct=4 * t.numel() >= _DIRECT_BYTES)
     return (s / n).to(t.dtype)
 
 
@@ -312,8 +342,9 @@ def make_grad_fn(cfg: ArchConfig):
 
     def mesh_grads_of(params, batch):
         loss, g = grads_of(params, batch)
-        g = (tree_map(mean, g) if fsdp is None else
-             tree_map(lambda t, f: t if f else mean(t), g, fsdp))
+        # in place, leaf by leaf: the gradient is the step's own
+        g = (tree_map(lambda t: t.copy_(mean(t)), g) if fsdp is None else
+             tree_map(lambda t, f: t if f else t.copy_(mean(t)), g, fsdp))
         return mean(loss), g
 
     return mesh_grads_of
@@ -332,7 +363,7 @@ def make_train_fn(cfg: ArchConfig):
     def train_step(state: dict, batch: dict):
         params = state["params"]
         loss, g = grads_of(params, batch)
-        g, gnorm = clip_by_global_norm(g, 1.0, split, groups)
+        g, gnorm = clip_by_global_norm(g, 1.0, split, groups, donate=True)
         lr = warmup_cosine(state["step"] + 1, warmup=cfg.lr_warmup,
                            total=cfg.lr_total)
         new_params, new_opt = adamw_update(g, state["opt"], params, ocfg, lr)

@@ -5,13 +5,16 @@ checkpoints, fault injection and the straggler detector, and the CLI.
     python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
         --device cpu --model-par 2
     python -m repro_torch.launch.train --arch qwen2-1.5b --model-par 2
+    python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke \\
+        --device cpu --model-par 2 --seq 32
     python -m repro_torch.launch.train --arch opto-vit-base --steps 200 \\
         --batch 32 --ckpt-dir /tmp/ckpt --ckpt-every 50
     python -m repro_torch.launch.train --arch opto-vit-base --batch 32 \\
         --data-par 2 --model-par 2
 
-Two families train: the dense LM (``lm_loss`` on ``TokenStream``
-batches, bf16 weights) and the ViT (QAT with the straight-through
+Three families train: the dense and the hybrid LM (``lm_loss`` on
+``TokenStream`` batches, bf16 weights; the hybrid under ``DATA_RULES`` /
+``MODEL_RULES`` only) and the ViT (QAT with the straight-through
 estimator on the composed entries, launch/steps.py, on ``ImageStream``
 batches); the others raise naming A15 (ROADMAP.md queue A). The loop
 runs with or without a sharding context. Under one (``main`` installs
@@ -37,6 +40,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.bridge import init_lm
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, ShapeConfig, smoke_variant
 from repro_torch.configs.registry import get_config
@@ -55,27 +59,36 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
 __all__ = ["init_state", "make_stream", "train_loop", "main"]
 
 
+_LM_FAMILIES = ("dense", "hybrid")
+
+
 def _check_trainable(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "vit"):
+    if cfg.family not in _LM_FAMILIES + ("vit",):
         raise NotImplementedError(
             f"training family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP.md queue A15); trainable: dense, vit")
+            f"repro_torch yet (ROADMAP.md queue A15); trainable: dense, "
+            f"hybrid, vit")
 
 
 def init_state(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """{"params", "opt": AdamW state, "step": 0} on ``device`` (default: the
-    card): the dense LM's params drawn by ``bridge.init_lm``, the ViT's by
+    card): an LM's (dense or hybrid) params drawn by ``bridge.init_lm``
+    (under a context each leaf cut to this rank's block as it is drawn),
+    the ViT's by
     ``bridge.init_vit``'s numpy initializer (1000 classes, as the
     reference's ``init_model``). Under a sharding context every rank draws
     the same whole params and keeps its blocks."""
     _check_trainable(cfg)
     dev = resolve_device(device)
     ocfg = AdamWConfig(low_mem=not cfg.use_fp32_master)
-    params = model_api.init_model(seed, cfg, dev)
     ctx = current_ctx()
-    if ctx is not None:
-        params = place_params(params, placement_axes(
-            cfg, model_api.model_logical_axes(cfg)), ctx)
+    if cfg.family in _LM_FAMILIES:
+        params = init_lm(seed, cfg, dev, place=ctx is not None)
+    else:
+        params = model_api.init_model(seed, cfg, dev)
+        if ctx is not None:
+            params = place_params(params, placement_axes(
+                cfg, model_api.model_logical_axes(cfg)), ctx)
     return {"params": params, "opt": adamw_init(params, ocfg),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -83,13 +96,13 @@ def init_state(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 def make_stream(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                 device=None):
     """``step -> batch``, a pure function of (seed, step), on ``device``
-    (default: the card): for the dense LM ``TokenStream``'s {"tokens",
+    (default: the card): for an LM ``TokenStream``'s {"tokens",
     "labels"}, for the ViT ``{"images", "labels"}`` of ``ImageStream`` (8
     classes); this rank's rows under a sharding context (its share of
     every microbatch with ``cfg.microbatch_steps`` > 1)."""
     _check_trainable(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in _LM_FAMILIES:
         ts = TokenStream(cfg.vocab, shape.seq_len, shape.global_batch,
                          seed=seed, ctx=current_ctx(), device=dev,
                          microbatches=cfg.microbatch_steps)

@@ -18,10 +18,11 @@ ported families only): one surface for the launch layer.
 "model" (``prefill_fn`` / ``decode_fn`` return this rank's vocab block of
 the logits, ``loss_fn`` reduces the logsumexp and the gold logit over
 "model") with the decode cache split along its sequence. ``vit`` routes
-to models/vit.py. ``hybrid`` (RecurrentGemma) serves through the same
-LM entry points outside any mesh: ``prefill_fn`` / ``decode_fn`` on its
-RG-LRU layers and local-attention ring; its training and its meshes
-raise naming queue A15.
+to models/vit.py. ``hybrid`` (RecurrentGemma) runs through the same LM
+entry points: ``loss_fn``, ``prefill_fn`` / ``decode_fn`` on its RG-LRU
+layers and local-attention ring, tensor- and data-parallel under
+``MODEL_RULES`` / ``DATA_RULES``; under the FSDP tables it raises naming
+queue A15 (``transformer.check_family``).
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
 queue A15. The parameters are the port's tree
 (``bridge.from_jax_params`` of the reference's, or ``init_model``);
@@ -116,7 +117,7 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params, batch: dict, cfg: ArchConfig,
             policy: ExecPolicy | None = None) -> torch.Tensor:
-    """The training loss. dense: ``transformer.lm_loss`` of
+    """The training loss. dense and hybrid: ``transformer.lm_loss`` of
     ``batch["tokens"]`` / ``batch["labels"]`` (B, S). vit:
     ``batch["images"]`` (B, H, W, 3) and ``batch["labels"]`` (B,) -> the
     mean cross-entropy of the ViT's logits, the forward where the images

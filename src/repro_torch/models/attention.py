@@ -19,7 +19,8 @@ operands that need a gradient reaching ``blockwise_attention`` raise.
 Under a "model" split of the query heads (the tensor-parallel LM) each
 rank holds a block of the query heads and the whole K / V; ``kv_runs``
 pairs the block with the KV heads it reads (models/transformer.py
-launches once a run).
+launches once a run; the hybrid's ring decode too, each run over the
+whole ring).
 
 The hybrid family's local attention reads a ring-buffer cache of W =
 min(window, S) slots, slot pos mod W holding position pos
@@ -109,7 +110,7 @@ def decode_attention(q, k_cache, v_cache, length: int, *, window=0,
         if seq is not None:
             raise NotImplementedError(
                 "a local-window decode over a sequence-split cache (ROADMAP.md "
-                "queue A15: hybrid on the meshes)")
+                "queue A15: hybrid under the FSDP tables)")
         lo = max(0, length - window)
         return flash_decode(q, k_cache[:, lo:length], v_cache[:, lo:length],
                             length - lo)

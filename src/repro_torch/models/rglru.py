@@ -22,14 +22,47 @@ elementwise passes over (B, S, W) (Hillis-Steele), never a loop over
 positions. Its association order differs from the reference's, so h
 agrees to f32 rounding (the tests hold 1e-5 relative). The reference has
 no Pallas kernel for the RG-LRU, so none is written here.
+
+Training. The gradients of the scan and of the gates come from autograd.
+The doubling scan keeps ceil(log2 S) pairs of (B, S, W) f32 tensors for
+the backward (about 1.6 GB a layer at S 4096, W 4096 and batch 1), which
+is why the LM remats each super-block (models/transformer.py). The
+floor under sqrt(1 - a^2) is ``jnp.maximum``'s: a value exactly on it
+passes half the gradient (``quant._jnp_clip``), where ``torch.clamp_min``
+would pass all of it. The f32 gate GEMMs need the card's full-precision
+matmuls in the backward too; the train step sets them
+(``launch/steps.py``).
+
+Tensor parallelism. ``split`` (a ``sharding.Split`` of the LRU width
+over "model", ``transformer.lru_split``) says the params hold this
+rank's block of the reference's "p_mlp" axes: ``in_proj`` / ``gate_proj``
+columns (their input through ``collectives.copy_to_model``), ``w_a`` /
+``w_x`` rows, ``out_proj`` rows (``layers.row_parallel_linear``). The
+short conv runs on the rank's channel block with that block of the whole
+``conv_w``. The gate GEMMs contract the split width: each rank's f32
+partial products (B, S, W) are summed over the group in f32 in rank order
+(``collectives.reduce_from_model``, ``_reduce_gates``) before ``b_a`` /
+``b_x`` and the sigmoid, each bias added once; then the rank keeps its
+columns. ``lambda``, the scan, ``i * u`` and the GELU gate run on the
+rank's block: the scan is per channel. The decode state is the rank's
+(B, W / n) and (B, K - 1, W / n) block. A whole leaf read in blocks
+(``conv_w``, ``lambda``, ``b_a``, ``b_x``) goes through
+``copy_to_model``, so its gradient, nonzero on each rank in that rank's
+columns only, is summed over the group: every rank then holds the whole
+gradient, and AdamW updates the leaf the same on every rank.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.quant import _jnp_clip
+from repro_torch.distributed import collectives
 from repro_torch.kernels.ref import gelu_tanh
-from repro_torch.models.layers import ExecPolicy, causal_conv1d, linear
+from repro_torch.models.layers import (ExecPolicy, causal_conv1d, linear,
+                                       row_parallel_linear)
 
 __all__ = ["init_rglru", "rglru_shapes", "lru_linspace", "lambda_init",
            "rglru_forward", "rglru_decode_step", "rglru_logical_axes",
@@ -114,16 +147,51 @@ def rglru_state_shape(cfg, batch: int) -> dict:
             "conv": (batch, cfg.conv_kernel - 1, cfg.lru_dim)}
 
 
-def _gates(params, u):
-    """(a, b) of the recurrence, f32, from the conv output u."""
+def _whole_block(t: torch.Tensor, split) -> torch.Tensor:
+    """This rank's columns (last dim) of a whole leaf read in blocks, its
+    gradient summed over the split's group; the leaf itself without a
+    split."""
+    if split is None:
+        return t
+    c0, c1 = split.block(t.shape[-1])
+    return collectives.copy_to_model(t, split.group)[..., c0:c1]
+
+
+def _reduce_gates(partial: torch.Tensor, group) -> torch.Tensor:
+    """The gate GEMMs' f32 partial products summed over ``group`` (in
+    rank order, rounded once); the sum's gradient, of which each rank
+    reads its columns only, summed over the group too."""
+    return collectives.copy_to_model(
+        collectives.reduce_from_model(partial, group), group)
+
+
+def _gate_preacts(params, uf, split):
+    """(W_a u + b_a, W_x u + b_x) in f32 from the f32 conv output uf: this
+    rank's columns under ``split``, where uf is its block of the width
+    and w_a / w_x its rows (the two partials reduced in one call)."""
+    if split is None:
+        return (uf @ params["w_a"].float() + params["b_a"],
+                uf @ params["w_x"].float() + params["b_x"])
+    partial = torch.stack([uf @ params["w_a"].float(),
+                           uf @ params["w_x"].float()])
+    whole = _reduce_gates(partial, split.group)
+    c0, c1 = split.block(whole.shape[-1])
+    return (whole[0, ..., c0:c1] + _whole_block(params["b_a"], split),
+            whole[1, ..., c0:c1] + _whole_block(params["b_x"], split))
+
+
+def _gates(params, u, split=None):
+    """(a, b) of the recurrence, f32, from the conv output u (this rank's
+    block of the width under ``split``)."""
     uf = u.float()
-    r = torch.sigmoid(uf @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(uf @ params["w_x"].float() + params["b_x"])
-    lam = params["lambda"]
+    za, zx = _gate_preacts(params, uf, split)
+    r = torch.sigmoid(za)
+    i = torch.sigmoid(zx)
+    lam = _whole_block(params["lambda"], split)
     log_a = -_C * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
-        i * uf)
+    b = torch.sqrt(_jnp_clip(1.0 - torch.exp(2.0 * log_a), 1e-12,
+                             math.inf)) * (i * uf)
     return a, b
 
 
@@ -144,32 +212,50 @@ def _gate_branch(params, x, policy):
     return gelu_tanh(linear(x, params["gate_proj"], policy=policy).float())
 
 
+def _in(x, split):
+    """The input of the column-parallel in_proj / gate_proj: under a split
+    its gradient is summed over the group (one reduce for both)."""
+    return x if split is None else collectives.copy_to_model(x, split.group)
+
+
+def _out_proj(params, y, policy, split):
+    if split is None:
+        return linear(y, params["out_proj"], policy=policy)
+    return row_parallel_linear(y, params["out_proj"], policy, split.group)
+
+
 def rglru_forward(params: dict, x: torch.Tensor, cfg,
-                  policy: ExecPolicy | None = None, initial_state=None):
+                  policy: ExecPolicy | None = None, initial_state=None,
+                  split=None):
     """x (B, S, d_model) -> (y (B, S, d_model) in x.dtype, final state
-    {"h": (B, W) f32, "conv": (B, K - 1, W)})."""
-    u = linear(x, params["in_proj"], policy=policy)
+    {"h": (B, W) f32, "conv": (B, K - 1, W)}); under ``split`` the params
+    and the state are this rank's blocks (W / n wide) and y is whole."""
+    xin = _in(x, split)
+    u = linear(xin, params["in_proj"], policy=policy)
     conv0 = None if initial_state is None else initial_state["conv"]
-    u, conv_state = causal_conv1d(u, params["conv_w"], conv0)
-    a, b = _gates(params, u)                          # (B, S, W) f32
+    u, conv_state = causal_conv1d(u, _whole_block(params["conv_w"], split),
+                                  conv0)
+    a, b = _gates(params, u, split)                   # (B, S, W) f32
     if initial_state is not None:
         # fold h0 into the first step: h_1 = a_1 h_0 + b_1
         b = torch.cat([b[:, :1] + a[:, :1] * initial_state["h"].float()[:, None],
                        b[:, 1:]], 1)
     h = lru_scan(a, b)
-    y = (h * _gate_branch(params, x, policy)).to(x.dtype)
-    return linear(y, params["out_proj"], policy=policy), {
-        "h": h[:, -1], "conv": conv_state}
+    y = (h * _gate_branch(params, xin, policy)).to(x.dtype)
+    return _out_proj(params, y, policy, split), {"h": h[:, -1],
+                                                 "conv": conv_state}
 
 
 def rglru_decode_step(params: dict, x: torch.Tensor, state: dict, cfg,
-                      policy: ExecPolicy | None = None):
+                      policy: ExecPolicy | None = None, split=None):
     """x (B, 1, d_model), state {"h", "conv"} -> (y, new state); the new
-    state's tensors are new (the caller writes them into its cache)."""
-    u = linear(x, params["in_proj"], policy=policy)
-    u, conv_state = causal_conv1d(u, params["conv_w"], state["conv"])
-    a, b = _gates(params, u)                          # (B, 1, W)
+    state's tensors are new (the caller writes them into its cache). Under
+    ``split`` the state is this rank's block of the width."""
+    xin = _in(x, split)
+    u = linear(xin, params["in_proj"], policy=policy)
+    u, conv_state = causal_conv1d(u, _whole_block(params["conv_w"], split),
+                                  state["conv"])
+    a, b = _gates(params, u, split)                   # (B, 1, W)
     h = a[:, 0] * state["h"].float() + b[:, 0]
-    y = (h[:, None] * _gate_branch(params, x, policy)).to(x.dtype)
-    return linear(y, params["out_proj"], policy=policy), {
-        "h": h, "conv": conv_state}
+    y = (h[:, None] * _gate_branch(params, xin, policy)).to(x.dtype)
+    return _out_proj(params, y, policy, split), {"h": h, "conv": conv_state}

@@ -45,24 +45,34 @@ bitwise the unsharded one and a qat step's scales are the global
 batch's; a remat's recompute re-enters the scope (``sharding.bound``).
 
 ``lm_loss`` is the training loss; ``cfg.remat`` checkpoints each layer
-under autograd (``torch.utils.checkpoint``, non-reentrant), as the
-reference's ``jax.checkpoint``: values are unchanged.
+(each hybrid super-block) under autograd (``torch.utils.checkpoint``,
+non-reentrant), as the reference's ``jax.checkpoint``: values are
+unchanged.
 
-The hybrid family (RecurrentGemma) serves outside any mesh: ``blocks``
-stacks (rec0, rec1, attn) super-blocks on a leading axis and
-``tail_blocks`` the remainder's recurrent layers, as the reference's
-scan over super-blocks does. A recurrent layer is the RG-LRU block
-(models/rglru.py) and a SwiGLU; the attention layer is the dense layer
-with a local ``window`` (B5's window in the prefill). Its decode cache
-holds each super-block's two recurrent states (``rec_h`` f32,
-``rec_conv``) and a ring of ``min(window, S)`` K / V slots (``attn_k``,
-``attn_v``), written at slot ``pos mod W`` and read by B6 over its first
-``min(pos + 1, W)`` slots (``attention.ring_decode_attention``); the
-tail's states are ``tail_h`` / ``tail_conv``.
+The hybrid family (RecurrentGemma): ``blocks`` stacks (rec0, rec1, attn)
+super-blocks on a leading axis and ``tail_blocks`` the remainder's
+recurrent layers, as the reference's scan over super-blocks does. A
+recurrent layer is the RG-LRU block (models/rglru.py) and a SwiGLU; the
+attention layer is the dense layer with a local ``window`` (B5's window
+in the prefill). Its decode cache holds each super-block's two
+recurrent states (``rec_h`` f32, ``rec_conv``) and a ring of ``min(window,
+S)`` K / V slots (``attn_k``, ``attn_v``), written at slot ``pos mod W``
+and read by B6 over its first ``min(pos + 1, W)`` slots
+(``attention.ring_decode_attention``); the tail's states are ``tail_h`` /
+``tail_conv``. It trains (``lm_loss``; under ``cfg.remat`` each
+super-block and each tail layer is checkpointed, the bodies the
+reference remats) and runs tensor- and data-parallel under
+``MODEL_RULES`` / ``DATA_RULES``: the attention layer as the dense one
+(its 16 query heads split over "model" on the one KV head, K / V and the
+ring whole on every rank), the SwiGLU on its d_ff block, the RG-LRU on
+its block of the width (``lru_split``, models/rglru.py), the recurrent
+states split on "mlp" and "batch", the ring on "batch" only. Under the
+FSDP tables (``DEFAULT_RULES`` / ``MULTIPOD_RULES``) it raises naming
+ROADMAP.md queue A15: its ring under a "kv_seq" split needs a rule of
+its own, as the window cuts across the ranks' rows.
 
 The other families (moe / ssm) raise ``NotImplementedError`` naming
-ROADMAP.md queue A15, as do the decomposed (Eq. 2) attention and a
-hybrid under a sharding context or a training policy.
+ROADMAP.md queue A15, as does the decomposed (Eq. 2) attention.
 """
 
 from __future__ import annotations
@@ -91,13 +101,15 @@ __all__ = ["attention_shapes", "lm_shapes", "attention_logical_axes",
            "vocab_split", "seq_split", "attn_forward", "decode_rope",
            "attn_decode", "dense_layer_fwd", "forward_lm", "cross_entropy",
            "lm_loss", "cache_spec", "decode_step", "check_family",
-           "rec_layer_axes", "rec_layer_fwd", "rec_layer_step", "ring_slot"]
+           "rec_layer_axes", "rec_layer_fwd", "rec_layer_step", "ring_slot",
+           "lru_split", "hybrid_splits", "super_block_fwd"]
 
 
-def check_family(cfg: ArchConfig, policy: ExecPolicy | None = None) -> None:
-    """Raise unless ``cfg`` is an LM the port carries: dense, or hybrid
-    on one rank (no context, or a mesh of one) under a serving
-    ``policy``."""
+def check_family(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is an LM the port carries under the installed
+    context: dense under every table, hybrid with no "p_embed" or
+    "kv_seq" split (``sharding.check_model_rules``). Both train and
+    serve."""
     if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"LM family {cfg.family!r} is not ported to repro_torch yet "
@@ -114,14 +126,7 @@ def check_family(cfg: ArchConfig, policy: ExecPolicy | None = None) -> None:
         return
     ctx = sharding.current_ctx()
     if ctx is not None and ctx.mesh.world > 1:
-        raise NotImplementedError(
-            f"the hybrid family ({cfg.name}) under a sharding context is "
-            f"not ported yet (ROADMAP.md queue A15: hybrid on the meshes)")
-    if policy is not None and policy.training:
-        raise NotImplementedError(
-            f"training the hybrid family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md queue A15: hybrid training); serve it under "
-            f"ExecPolicy.from_cfg(cfg, training=False)")
+        sharding.check_model_rules(ctx, "hybrid")
 
 
 def attention_shapes(cfg: ArchConfig) -> dict:
@@ -234,6 +239,12 @@ def mlp_split(cfg: ArchConfig):
     return sharding.split_of("p_mlp", cfg.d_ff)
 
 
+def lru_split(cfg: ArchConfig):
+    """This rank's block of the RG-LRU width (the reference's "p_mlp" axes
+    of ``rglru_logical_axes``), or None."""
+    return sharding.split_of("p_mlp", cfg.lru_dim)
+
+
 def fsdp_split(cfg: ArchConfig):
     """This rank's block of d_model, the "p_embed" dim every layer's
     params are FSDP-split on, or None where they stay whole."""
@@ -258,20 +269,25 @@ def lm_placement_axes(cfg: ArchConfig, axes: dict | None = None) -> dict:
     """``axes`` (default ``lm_logical_axes``; a train state's tree too) with
     the axes the installed context cannot split dropped: "p_heads" unless
     ``heads_split`` (a model axis may divide wq's columns but not the
-    heads), "p_mlp" unless ``mlp_split``, "p_embed" unless ``fsdp_split``
-    and "p_vocab" unless ``vocab_split``."""
+    heads), "p_mlp" unless ``mlp_split`` (inside a hybrid's ``rec``
+    subtree, the RG-LRU's, unless ``lru_split``), "p_embed" unless
+    ``fsdp_split`` and "p_vocab" unless ``vocab_split``."""
     drop = set()
     for ax, split in (("p_heads", heads_split(cfg)), ("p_mlp", mlp_split(cfg)),
                       ("p_embed", fsdp_split(cfg)),
                       ("p_vocab", vocab_split(cfg))):
         if split is None:
             drop.add(ax)
+    drop_rec = drop - {"p_mlp"}
+    if lru_split(cfg) is None:
+        drop_rec.add("p_mlp")
 
-    def walk(t):
+    def walk(t, dropped):
         if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        return tuple(None if a in drop else a for a in t)
-    return walk(lm_logical_axes(cfg) if axes is None else axes)
+            return {k: walk(v, drop_rec if k == "rec" else dropped)
+                    for k, v in t.items()}
+        return tuple(None if a in dropped else a for a in t)
+    return walk(lm_logical_axes(cfg) if axes is None else axes, drop)
 
 
 def place_lm_params(params: dict, cfg: ArchConfig) -> dict:
@@ -281,7 +297,7 @@ def place_lm_params(params: dict, cfg: ArchConfig) -> dict:
     if ctx is None:
         return params
     from repro_torch.core.backend import place_params
-    sharding.check_model_rules(ctx)
+    sharding.check_model_rules(ctx, cfg.family)
     return place_params(params, lm_placement_axes(cfg), ctx)
 
 
@@ -333,24 +349,33 @@ def _attend(q, k, v, cfg: ArchConfig, policy, split,
     attend = plain_attention if policy.training else blockwise_attention
     if split is None:
         return attend(q, k, v, causal=True, window=window)
-    outs = [attend(q[:, :, q0:q1], k[:, :, a:b], v[:, :, a:b], causal=True)
+    outs = [attend(q[:, :, q0:q1], k[:, :, a:b], v[:, :, a:b], causal=True,
+                   window=window)
             for q0, q1, a, b in attn_mod.kv_runs(cfg.n_heads, cfg.kv_heads,
                                                  split)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def _decode(q, k_cache, v_cache, length: int, cfg: ArchConfig,
-            split) -> torch.Tensor:
-    """``decode_attention`` against the whole caches (B, S, Hkv, D); under
-    a head split one call a run, the caches sliced to its KV heads (views
-    the kernel reads by strides)."""
+            split, attend=None) -> torch.Tensor:
+    """``attend(q, k, v, length)`` (default ``decode_attention``) against
+    the whole caches (B, S, Hkv, D); under a head split one call a run,
+    the caches sliced to its KV heads (views the kernel reads by
+    strides)."""
+    attend = attend or decode_attention
     if split is None:
-        return decode_attention(q, k_cache, v_cache, length)
-    outs = [decode_attention(q[:, :, q0:q1], k_cache[:, :, a:b],
-                             v_cache[:, :, a:b], length)
+        return attend(q, k_cache, v_cache, length)
+    outs = [attend(q[:, :, q0:q1], k_cache[:, :, a:b], v_cache[:, :, a:b],
+                   length)
             for q0, q1, a, b in attn_mod.kv_runs(cfg.n_heads, cfg.kv_heads,
                                                  split)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _ring(q, k_ring, v_ring, pos: int):
+    """``ring_decode_attention`` at position ``pos`` (``_decode``'s
+    ``attend``, whose length argument is the position here)."""
+    return ring_decode_attention(q, k_ring, v_ring, pos)
 
 
 def _decode_seq(q, k_rows, v_rows, length: int, cfg: ArchConfig, split,
@@ -410,7 +435,8 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     (``seq_split``). With ``window`` > 0 and caches of at most ``window``
     rows (the hybrid's) the caches are a ring: the new row goes to slot
     ``ring_slot(pos, W)`` and B6 reads the first min(pos + 1, W) slots,
-    as the reference's ring decode; a longer cache attends its last
+    as the reference's ring decode (under a head split the rank's query
+    heads over the whole ring); a longer cache attends its last
     ``window`` rows. Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     hkv, hd = cfg.kv_heads, cfg.head_dim
@@ -423,17 +449,18 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if window > 0:
-        if split is not None or seq is not None:
+        if seq is not None:
             raise NotImplementedError(
-                "a local-window decode under a sharding context (ROADMAP.md "
-                "queue A15: hybrid on the meshes)")
+                "a local-window decode over a sequence-split cache "
+                "(ROADMAP.md queue A15: hybrid under the FSDP tables)")
         if cache_k.shape[1] <= window:
             slot = ring_slot(pos, cache_k.shape[1])
             cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, slot)
-            o = ring_decode_attention(q, cache_k, cache_v, pos)
+            o = _decode(q, cache_k, cache_v, pos, cfg, split, attend=_ring)
         else:
             cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
-            o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
+            o = _decode(q, cache_k, cache_v, pos + 1, cfg, split,
+                        attend=lambda *a: decode_attention(*a, window=window))
     elif seq is None:
         cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
         o = _decode(q, cache_k, cache_v, pos + 1, cfg, split)
@@ -462,42 +489,74 @@ def dense_layer_fwd(p, x, cfg: ArchConfig, policy,
                               policy, split=mlp)
 
 
-def rec_layer_fwd(p, x, cfg: ArchConfig, policy):
+def hybrid_splits(cfg: ArchConfig) -> tuple:
+    """(``heads_split``, ``mlp_split``, ``lru_split``) of the installed
+    context: the hybrid's layers' splits, read once a forward (a remat's
+    recompute runs where no context need be installed)."""
+    return heads_split(cfg), mlp_split(cfg), lru_split(cfg)
+
+
+def rec_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None, None)):
     """Pre-norm residual recurrent layer over the whole sequence: the
-    RG-LRU block (from a zero state), then SwiGLU."""
+    RG-LRU block (from a zero state), then SwiGLU. ``splits`` as
+    ``hybrid_splits`` gives them (the heads' unused here)."""
+    _, mlp, lru = splits
     y, _ = rglru_mod.rglru_forward(p["rec"], rmsnorm(x, p["ln1"],
-                                                     cfg.norm_eps), cfg, policy)
+                                                     cfg.norm_eps), cfg,
+                                   policy, split=lru)
     x = x + y
     return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
-                              policy)
+                              policy, split=mlp)
 
 
-def rec_layer_step(p, x, h_state, conv_state, cfg: ArchConfig, policy):
+def rec_layer_step(p, x, h_state, conv_state, cfg: ArchConfig, policy,
+                   splits=(None, None, None)):
     """One decode step of a recurrent layer; writes its new state into
     ``h_state`` (B, W) f32 and ``conv_state`` (B, K - 1, W), in place (the
-    cache's slices)."""
+    cache's slices; under a width split the rank's W / n columns)."""
+    _, mlp, lru = splits
     y, st = rglru_mod.rglru_decode_step(
         p["rec"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-        {"h": h_state, "conv": conv_state}, cfg, policy)
+        {"h": h_state, "conv": conv_state}, cfg, policy, split=lru)
     h_state.copy_(st["h"])
     conv_state.copy_(st["conv"])
     x = x + y
     return x + ffn_mod.swiglu(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps),
-                              policy)
+                              policy, split=mlp)
+
+
+def super_block_fwd(sb, x, cfg: ArchConfig, policy,
+                    splits=(None, None, None)):
+    """One (rec0, rec1, attn) super-block over the whole sequence: the
+    reference's scanned ``hbody``, the unit it remats."""
+    heads, mlp, _ = splits
+    x = rec_layer_fwd(sb["rec0"], x, cfg, policy, splits)
+    x = rec_layer_fwd(sb["rec1"], x, cfg, policy, splits)
+    return dense_layer_fwd(sb["attn"], x, cfg, policy, (heads, mlp, None),
+                           window=cfg.window)
 
 
 def _hybrid_forward(params, x, cfg: ArchConfig, policy):
     """The hybrid's layer stack over the whole sequence: each super-block's
-    two recurrent layers and its local-attention layer, then the tail."""
+    two recurrent layers and its local-attention layer, then the tail.
+    Under ``cfg.remat`` and autograd each super-block and each tail layer
+    is checkpointed (``sharding.bound`` carries the context into the
+    recompute)."""
     nsb, rem = hybrid_counts(cfg)
+    splits = hybrid_splits(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, p, x):
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            return checkpoint(sharding.bound(fn), p, x, cfg, policy, splits,
+                              use_reentrant=False)
+        return fn(p, x, cfg, policy, splits)
+
     for i in range(nsb):
-        sb = layer_view(params["blocks"], i)
-        x = rec_layer_fwd(sb["rec0"], x, cfg, policy)
-        x = rec_layer_fwd(sb["rec1"], x, cfg, policy)
-        x = dense_layer_fwd(sb["attn"], x, cfg, policy, window=cfg.window)
+        x = run(super_block_fwd, layer_view(params["blocks"], i), x)
     for i in range(rem):
-        x = rec_layer_fwd(layer_view(params["tail_blocks"], i), x, cfg,
-                          policy)
+        x = run(rec_layer_fwd, layer_view(params["tail_blocks"], i), x)
     return x
 
 
@@ -506,22 +565,24 @@ def _hybrid_decode(params, cache, x, pos: int, cfg: ArchConfig, policy,
     """The hybrid's one-token layer stack; every state and ring slot is
     written into ``cache`` in place."""
     nsb, rem = hybrid_counts(cfg)
+    splits = hybrid_splits(cfg)
+    heads, mlp, _ = splits
     for i in range(nsb):
         sb = layer_view(params["blocks"], i)
         for j, name in enumerate(("rec0", "rec1")):
             x = rec_layer_step(sb[name], x, cache["rec_h"][i, j],
-                               cache["rec_conv"][i, j], cfg, policy)
+                               cache["rec_conv"][i, j], cfg, policy, splits)
         lp = sb["attn"]
         o, _, _ = attn_decode(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
                               cache["attn_k"][i], cache["attn_v"][i], pos,
-                              cfg, policy, tables, window=cfg.window)
+                              cfg, policy, tables, heads, window=cfg.window)
         x = x + o
         x = x + ffn_mod.swiglu(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                               policy)
+                               policy, split=mlp)
     for i in range(rem):
         x = rec_layer_step(layer_view(params["tail_blocks"], i), x,
                            cache["tail_h"][i], cache["tail_conv"][i], cfg,
-                           policy)
+                           policy, splits)
     return x
 
 
@@ -555,12 +616,13 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """tokens (B, S) -> (logits (B, S, V), aux loss 0.0), as the reference;
     under a vocab split the logits are this rank's block (B, S, V / n)."""
     policy = policy or ExecPolicy.from_cfg(cfg)
-    check_family(cfg, policy)
+    check_family(cfg)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(params, embedding_lookup(params["embed"], tokens),
-                            cfg, policy)
-        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-        logits = _head(params, params["embed"], cfg, None, x, policy)
+        with _model_scope(policy):
+            x = _hybrid_forward(params, embedding_lookup(params["embed"],
+                                                         tokens), cfg, policy)
+            x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+            logits = _head(params, params["embed"], cfg, None, x, policy)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
     with _model_scope(policy):
         fsdp = fsdp_split(cfg)
@@ -645,7 +707,9 @@ def _hybrid_cache_spec(cfg: ArchConfig, batch: int, seq_len: int, dtype):
     B, K - 1, W)) and its attention layer's ring of W = min(window,
     seq_len) slots (``attn_k`` / ``attn_v`` (nsb, B, W, Hkv, D); window 0
     keeps seq_len rows, a linear cache); the tail's ``tail_h`` /
-    ``tail_conv``."""
+    ``tail_conv``. Placed under a context, the states split on "batch"
+    and (the width) on "mlp", the rings on "batch" only: whole on every
+    model rank (``check_family`` refuses a "kv_seq" split)."""
     nsb, rem = hybrid_counts(cfg)
     w = min(cfg.window or seq_len, seq_len)
     rst = rglru_mod.rglru_state_shape(cfg, batch)
@@ -673,14 +737,16 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     split the logits are this rank's block (B, V / n); under a sequence
     split the cache is this rank's rows and ``pos`` global."""
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
-    check_family(cfg, policy)
+    check_family(cfg)
     pos = int(pos)
     if cfg.family == "hybrid":
-        x = embedding_lookup(params["embed"], tokens)
-        x = _hybrid_decode(params, cache, x, pos, cfg, policy,
-                           decode_rope(pos, cfg, x.device))
-        x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-        return _head(params, params["embed"], cfg, None, x, policy)[:, 0], cache
+        with _model_scope(policy):
+            x = embedding_lookup(params["embed"], tokens)
+            x = _hybrid_decode(params, cache, x, pos, cfg, policy,
+                               decode_rope(pos, cfg, x.device))
+            x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+            logits = _head(params, params["embed"], cfg, None, x, policy)
+        return logits[:, 0], cache
     heads, mlp, fsdp = heads_split(cfg), mlp_split(cfg), fsdp_split(cfg)
     seq = seq_split(cache["k"].shape[2])
     axes = dense_layer_axes(cfg)

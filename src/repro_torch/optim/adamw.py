@@ -83,10 +83,17 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+# elements of a leaf updated at once: the update is elementwise, so chunks
+# give the bits of the whole leaf, and the f32 temporaries of a 1 G-element
+# embedding stay a few hundred MB instead of tens of GB
+_CHUNK = 1 << 26
+
+
 @torch.no_grad()
 def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
                  lr_scale=1.0):
-    """Returns (new_params, new_state). All math f32; storage per cfg."""
+    """Returns (new_params, new_state). All math f32; storage per cfg;
+    each leaf in chunks of ``_CHUNK`` elements."""
     count = state["count"] + 1
     cf = count.float()
     one = torch.ones((), dtype=torch.float32, device=cf.device)
@@ -96,7 +103,7 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
                                   device=cf.device)
     store_dt = _store_dtype(cfg)
 
-    def upd(g, m, v, p):
+    def chunk(g, m, v, p):
         gf = g.float()
         mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
         vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
@@ -105,7 +112,17 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
         step = mhat / (torch.sqrt(vhat) + cfg.eps)
         pf = p.float()
         pf = pf - lr * (step + cfg.weight_decay * pf)
-        return pf.to(p.dtype), mf.to(store_dt), vf.to(store_dt)
+        return pf, mf, vf
+
+    def upd(g, m, v, p):
+        new = (torch.empty(p.shape, dtype=p.dtype, device=p.device),
+               torch.empty(p.shape, dtype=store_dt, device=p.device),
+               torch.empty(p.shape, dtype=store_dt, device=p.device))
+        flat = [t.reshape(-1) for t in (g, m, v, p)]
+        for i in range(0, max(p.numel(), 1), _CHUNK):
+            for out, val in zip(new, chunk(*(t[i:i + _CHUNK] for t in flat))):
+                out.view(-1)[i:i + _CHUNK].copy_(val)
+        return new
 
     out = tree_map(lambda g, m, v, p: upd(g, m, v, p), grads, state["m"],
                    state["v"], params)
@@ -143,7 +160,7 @@ def warmup_cosine(step, *, peak_lr_scale: float = 1.0, warmup: int = 100,
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float = 1.0, split=None,
-                        group=None):
+                        group=None, donate: bool = False):
     """(grads scaled so their global L2 norm is at most ``max_norm``, the
     norm before scaling). The leaves' sums of squares are added in the
     reference's leaf order.
@@ -154,7 +171,11 @@ def clip_by_global_norm(grads, max_norm: float = 1.0, split=None,
     ``launch/steps.py::_split_leaves`` gives them, to that axes' group).
     The blocks' sums of squares of each key are added in leaf order and
     summed over its group once, the keys in sorted order, after the whole
-    leaves', so the norm is the logical gradient's on every rank."""
+    leaves', so the norm is the logical gradient's on every rank.
+
+    ``donate``: the grads are the caller's to overwrite, and f32 leaves
+    are scaled in place (the same f32 product, without a second copy of
+    a train step's accumulated gradient)."""
     gn = 0
     parts: dict = {}
     for leaf, sp in zip(tree_leaves(grads), tree_leaves(split) if split
@@ -173,4 +194,9 @@ def clip_by_global_norm(grads, max_norm: float = 1.0, split=None,
                                              group[sp], "grad_norm_sum")
     gn = torch.sqrt(gn)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+    def scaled(g):
+        if donate and g.dtype == torch.float32:
+            return g.mul_(scale)
+        return (g.float() * scale).to(g.dtype)
+    return tree_map(scaled, grads), gn

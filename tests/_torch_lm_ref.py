@@ -142,3 +142,42 @@ def assemble(ranks: list, key: str, n_batch: int, n_vocab: int):
     return np.concatenate([np.concatenate(
         [by[(i, j)][key] for j in range(n_vocab)], -1)
         for i in range(n_batch)], 0)
+
+
+def hybrid_smoke_model(n_layers: int, seed: int = 0, **kw):
+    """(reference cfg, port cfg, numpy tree) of the recurrentgemma-9b smoke
+    config at ``n_layers`` (``kw`` on both configs): the tree drawn by the
+    port's ``init_lm(seed)`` (the reference's random init of the hybrid
+    takes seconds), ``lambda`` the reference's own expression evaluated by
+    JAX, the norm gains 1 + 0.1 N(0, 1) and the gate biases 0.5 N(0, 1)
+    from ``numpy.random.default_rng(seed)``, so they carry numbers."""
+    import torch
+
+    jcfg = jsmoke(jget("recurrentgemma-9b")).with_(n_layers=n_layers, **kw)
+    tcfg = tsmoke(tget("recurrentgemma-9b")).with_(n_layers=n_layers, **kw)
+
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16)
+        return t.numpy()
+
+    tree = np_tree(bridge.init_lm(seed, tcfg, "cpu"))
+    lam = np.asarray(jnp.log(jnp.expm1(-jnp.log(jnp.linspace(
+        0.9, 0.999, jcfg.lru_dim)) / 8.0)).astype(jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def perturb(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif k in ("ln1", "ln2", "final_ln"):
+                t[k] = (1 + 0.1 * rng.standard_normal(v.shape)).astype(BF16)
+            elif k in ("b_a", "b_x"):
+                t[k] = (0.5 * rng.standard_normal(v.shape)).astype(
+                    np.float32)
+            elif k == "lambda":
+                t[k] = np.broadcast_to(lam, v.shape).copy()
+    perturb(tree)
+    return jcfg, tcfg, tree

@@ -954,3 +954,251 @@ def serve_mesh_suite(raw: dict, noisy_cfgs: dict, n_streams: int,
                                       n_frames, phase)
     out["steps"] = microbatched_steps(mb_cases, lm)
     return out
+
+
+# --------------------------------------------------------------------------
+# the hybrid LM on the ("data", "model") mesh (test_torch_hybrid_mesh.py)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def hybrid_tp_arithmetic(params: dict, cfg, n: int = 2):
+    """The unsharded hybrid forward computing on one device what each rank
+    of a (1, n) mesh under MODEL_RULES computes: the column-parallel
+    weights (wq, w_gate, w_up, in_proj, gate_proj) in their n contiguous
+    column blocks, the attention one call a rank's query heads, the
+    row-parallel wo / w_down / out_proj in their n row blocks, and the
+    RG-LRU's gate GEMMs over the rank's u block and w_a / w_x rows, each
+    block's product in f32, summed in f32 in rank order and rounded once.
+    Where each GEMM depends only on its own operands, the mesh's logits
+    are bitwise these. The blocks are cut from ``params``' leaves at each
+    call (found by storage, so a detached copy's too), so a gradient
+    reaches them: differentiated, it is the mesh step's order control."""
+    from repro_torch.distributed.sharding import Split
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import transformer
+
+    def key(w):
+        return w.data_ptr(), tuple(w.shape)
+
+    cols, rows = set(), set()
+
+    def note(layers, col_names, row_names):
+        for name in col_names:
+            cols.update(key(w) for w in layers[name])
+        for name in row_names:
+            rows.update(key(w) for w in layers[name])
+
+    layers = list(params["blocks"].values())
+    if "tail_blocks" in params:
+        layers.append(params["tail_blocks"])
+    for sub in layers:
+        if "rec" in sub:
+            note(sub["rec"], ("in_proj", "gate_proj"), ("out_proj",))
+        else:
+            note(sub["attn"], ("wq",), ("wo",))
+        note(sub["ffn"], ("w_gate", "w_up"), ("w_down",))
+    real = (transformer.linear, ffn_mod.linear, rglru_mod.linear,
+            transformer._attend, transformer._decode,
+            rglru_mod._gate_preacts)
+
+    def linear(x, w, b=None, policy=None):
+        if key(w) in cols:
+            s = w.shape[-1] // n
+            return torch.cat([real[0](x, w[:, j * s:(j + 1) * s].contiguous(),
+                                      None if b is None else
+                                      b[j * s:(j + 1) * s], policy)
+                              for j in range(n)], -1)
+        if key(w) in rows:
+            k = w.shape[0] // n
+            y = None
+            for j in range(n):
+                p = torch.matmul(x[..., j * k:(j + 1) * k].float(),
+                                 w[j * k:(j + 1) * k].float())
+                y = p if y is None else y + p
+            return y.to(x.dtype)
+        return real[0](x, w, b, policy)
+
+    def gate_preacts(p, uf, split):
+        k = uf.shape[-1] // n
+        outs = []
+        for w, bias in ((p["w_a"], p["b_a"]), (p["w_x"], p["b_x"])):
+            y = None
+            for j in range(n):
+                part = (uf[..., j * k:(j + 1) * k].contiguous()
+                        @ w[j * k:(j + 1) * k].float())
+                y = part if y is None else y + part
+            outs.append(y + bias)
+        return tuple(outs)
+
+    def per_rank(fn):
+        def heads(q, *rest, **kw):
+            h = q.shape[2] // n
+            return torch.cat([fn(q[:, :, j * h:(j + 1) * h].contiguous(),
+                                 *rest[:-1], Split(n, j, None), **kw)
+                              for j in range(n)], 2)
+        return heads
+
+    transformer.linear = ffn_mod.linear = rglru_mod.linear = linear
+    transformer._attend = per_rank(real[3])
+    transformer._decode = per_rank(real[4])
+    rglru_mod._gate_preacts = gate_preacts
+    try:
+        yield
+    finally:
+        (transformer.linear, ffn_mod.linear, rglru_mod.linear,
+         transformer._attend, transformer._decode,
+         rglru_mod._gate_preacts) = real
+
+
+def _hybrid_serve(params, cfg, prompt, forced, ring: int, rows: int,
+                  dev="cpu"):
+    """(prefill logits, the decode logits at every position: the prompt
+    stepped through the decode, then ``forced``) of the port on
+    ``params`` under the installed context (none: one device); ``rows``
+    the whole batch's, of which ``prompt`` holds this rank's."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    with torch.no_grad():
+        pre = api.prefill_fn(params, {"tokens": prompt}, cfg)
+        cache = serve.init_cache(cfg, rows, ring, dev)
+        toks = torch.cat([prompt, forced], 1)
+        lgs = []
+        for pos in range(toks.shape[1]):
+            lg, cache = api.decode_fn(params, cache, toks[:, pos:pos + 1],
+                                      pos, cfg)
+            lgs.append(lg)
+    return pre, torch.stack(lgs, 1)
+
+
+def _b_a_on_every_rank(p, uf, split):
+    """A planted fault: each rank adds the biases to its partial before the
+    reduce, so the reduced sum carries them n times."""
+    from repro_torch.models import rglru as rglru_mod
+
+    partial = torch.stack([uf @ p["w_a"].float() + p["b_a"],
+                           uf @ p["w_x"].float() + p["b_x"]])
+    if split is None:
+        return partial[0], partial[1]
+    whole = rglru_mod._reduce_gates(partial, split.group)
+    c0, c1 = split.block(whole.shape[-1])
+    return whole[0, ..., c0:c1], whole[1, ..., c0:c1]
+
+
+HYBRID_FAULTS = {"gate partials not reduced": ("_reduce_gates",
+                                               lambda partial, group: partial),
+                 "b_a added on every rank": ("_gate_preacts",
+                                             _b_a_on_every_rank)}
+HYBRID_WHOLE = ("conv_w", "lambda", "b_a", "b_x", "ln1", "ln2", "final_ln",
+                "embed", "lm_head", "wk", "wv")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_named_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def hybrid_mesh_suite(tree: dict, cfg, prompt: np.ndarray,
+                      forced: np.ndarray, batch: dict, ring: int,
+                      steps: int) -> dict:
+    """One of 2 CPU ranks: the hybrid under MODEL_RULES on (data 1, model
+    2) and under DATA_RULES on (data 2). For each: this rank's rows of the
+    prefill logits and of the decode logits at every position over a
+    ``ring``-slot ring, greedy tokens, one train step's logical gradient
+    and global loss, ``steps`` steps through ``train_loop`` (its losses and
+    the whole leaves after them, as numpy); under MODEL_RULES also the
+    prefill and decode on one device under ``hybrid_tp_arithmetic`` (the
+    rank's rows), the placed shapes, and two planted faults' prefills."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, steps as steps_mod, train
+    from repro_torch.launch.mesh import _build_mesh, make_host_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.models import rglru as rglru_mod
+
+    meshes = {"model": (make_host_mesh(1, 2, device="cpu"),
+                        sharding.MODEL_RULES),
+              "data": (_build_mesh(2, 1, "cpu", axis_names=("data",)),
+                       sharding.DATA_RULES)}
+    out = {"jax_loaded": "jax" in sys.modules,
+           "repro_loaded": any(m == "repro" or m.startswith("repro.")
+                               for m in sys.modules)}
+    for name, (mesh, rules) in meshes.items():
+        r = out[name] = {"coords": (mesh.d, mesh.m)}
+        with use_sharding(mesh, rules) as ctx:
+            rows = sharding.named_sharding(prompt.shape, ("batch", "seq"),
+                                           ctx)
+
+            def mine(a):
+                return rows.block(torch.from_numpy(np.ascontiguousarray(a)))
+
+            local = transformer.place_lm_params(tree, cfg)
+            rec = local["blocks"]["rec0"]["rec"]
+            r["shapes"] = {k: tuple(v.shape) for k, v in (
+                ("in_proj", rec["in_proj"]), ("w_a", rec["w_a"]),
+                ("out_proj", rec["out_proj"]), ("conv_w", rec["conv_w"]),
+                ("wq", local["blocks"]["attn"]["attn"]["wq"]),
+                ("w_down", local["blocks"]["attn"]["ffn"]["w_down"]))}
+            cache = serve.init_cache(cfg, prompt.shape[0], ring, "cpu")
+            r["cache"] = {k: tuple(v.shape) for k, v in cache.items()}
+            b = prompt.shape[0]
+            pre, dec = _hybrid_serve(local, cfg, mine(prompt), mine(forced),
+                                     ring, b)
+            r["prefill"], r["decode"] = _np32(pre), _np32(dec)
+            with torch.no_grad():
+                r["greedy"] = serve.generate(local, serve.init_cache(
+                    cfg, prompt.shape[0], ring, "cpu"), mine(prompt), 4,
+                    cfg)[0].numpy()
+            with sharding._installed(None):
+                arith = (hybrid_tp_arithmetic(tree, cfg) if name == "model"
+                         else contextlib.nullcontext())
+                with arith:
+                    one = _hybrid_serve(tree, cfg, mine(prompt),
+                                        mine(forced), ring, pre.shape[0])
+            r["arith_prefill"], r["arith_decode"] = map(_np32, one)
+            tb = {k: mine(v) for k, v in batch.items()}
+            r["loss"], r["grads"], r["gnorm"] = _lm_grads(cfg, local, tb, ctx)
+            if name == "model":
+                r["planted"] = {}
+                for tag, (attr, fn) in HYBRID_FAULTS.items():
+                    with patched(rglru_mod, attr, fn), torch.no_grad():
+                        r["planted"][tag] = _np32(api.prefill_fn(
+                            local, {"tokens": mine(prompt)}, cfg))
+            state = train.init_state(cfg, 0, "cpu")
+            final, losses, _ = train.train_loop(
+                cfg, ShapeConfig("hy", prompt.shape[1], prompt.shape[0],
+                                 "train"), steps, device="cpu", state=state,
+                log_every=10 ** 9)
+            r["losses"] = losses
+            named = _named_leaves(final["params"])
+            r["whole"] = {k: _np32(v) for k, v in named.items()
+                          if k.rsplit("/", 1)[-1] in HYBRID_WHOLE}
+            p_axes = steps_mod.placement_axes(
+                cfg, steps_mod.state_logical_axes(cfg))["params"]
+            r["final"] = _np_tree(steps_mod.gather_tree(final["params"],
+                                                        p_axes, ctx))
+    return out
+
+
+def hybrid_tp_card(tree: dict, cfg, prompt, forced, ring: int) -> dict:
+    """One rank of a (1, 2) mesh on the card under MODEL_RULES: the
+    hybrid's prefill and decode logits at every position (f32 numpy,
+    ``_hybrid_serve``) and this rank's kernel launches."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_map
+
+    mesh = make_host_mesh(1, 2, device="cuda")
+    whole = tree_map(lambda t: t.to(mesh.device), tree)
+    with use_sharding(mesh):
+        local = transformer.place_lm_params(whole, cfg)
+        _build.LAUNCHES.clear()
+        pre, dec = _hybrid_serve(local, cfg, prompt.to(mesh.device),
+                                 forced.to(mesh.device), ring,
+                                 prompt.shape[0], mesh.device)
+    return {"prefill": _np32(pre), "decode": _np32(dec),
+            "launches": dict(_build.LAUNCHES)}

@@ -58,7 +58,11 @@ clip bound are discontinuous, so rounding differences move whole
 leaves),
 a run resumed from a checkpoint and after an injected fault bitwise the
 straight run under deterministic algorithms, and a training policy that
-names a kernel raising with the reason.
+names a kernel raising with the reason. The hybrid LM: B5 / B6 at a
+recurrentgemma-9b rank's shapes under MODEL_RULES against their plain
+versions (1 bf16 ulp of the largest |o|); the split RG-LRU's prefill and
+ring decode on 2 gloo ranks of the card bitwise the split's arithmetic on
+one card; the train step's backward under full-precision matmuls.
 """
 
 import gc
@@ -2094,3 +2098,102 @@ def test_vit_mesh_step_under_remat_on_the_card_against_one_device(dev):
     assert abs(ranks[0]["loss"] - float(loss1)) <= 1e-6 * abs(float(loss1))
     assert len({r["loss"] for r in ranks}) == 1
     assert all(r["sim_bitwise"] for r in ranks)
+
+
+# --------------------------------------------------------------------------
+# the hybrid LM on the ("data", "model") mesh and in training (path 4n's
+# checks at a small width)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pos", [63, 127, 200])
+def test_hybrid_kernels_at_tensor_parallel_rank_shapes(dev, pos):
+    """B5 and B6 at a recurrentgemma-9b rank's shapes on make_host_mesh(1,
+    2), bf16: B5 q (4, 128, 8, 256) on the one KV head under the 2048-key
+    window, B6 q (4, 1, 8, 256) over a (4, 128, 1, 256) ring (a layer's
+    view of the stacked ring) before it fills, full, and wrapped; each
+    against its plain version within 1 bf16 ulp of the largest |o|."""
+    gen = torch.Generator(device=dev).manual_seed(pos)
+    bf = torch.bfloat16
+    q = torch.randn(4, 128, 8, 256, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(4, 128, 1, 256, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    got = blockwise_attention(q, k, v, causal=True, window=2048)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   window=2048).transpose(1, 2)
+    qd = torch.randn(4, 1, 8, 256, generator=gen, device=dev).to(bf)
+    kr, vr = (torch.randn(2, 4, 128, 1, 256, generator=gen,
+                          device=dev).to(bf)[1] for _ in range(2))
+    got6 = ring_decode_attention(qd, kr, vr, pos)
+    want6 = ref.ring_decode_ref(qd, kr, vr, pos)
+    assert torch.equal(got6, ring_decode_attention(qd, kr, vr, pos))
+    for g, w in ((got, want), (got6, want6)):
+        err = (g.float() - w.float()).abs().max().item()
+        tol = 2.0 ** (np.floor(np.log2(w.float().abs().max().item())) - 7)
+        assert err <= tol, (err, tol)
+
+
+def _hybrid_card_cfg():
+    """recurrentgemma-9b's head dim 256, one KV head and conv, narrowed:
+    d 1024 (4 heads), LRU width 1024, d_ff 2048, vocab 1024, 5 layers, a
+    64-key window."""
+    return get_config("recurrentgemma-9b").with_(
+        n_layers=5, d_model=1024, n_heads=4, lru_width=1024, d_ff=2048,
+        vocab=1024, window=64)
+
+
+@pytest.mark.gpu
+def test_split_rglru_on_two_ranks_of_the_card_against_its_arithmetic(dev):
+    """The hybrid under MODEL_RULES on make_host_mesh(1, 2), 2 gloo ranks on
+    the card: the prefill (B5 under the window) and the decode at every
+    position of a 64-slot ring that wraps (B6), bitwise the split's
+    arithmetic on one card (``_torch_ranks.hybrid_tp_arithmetic``: the
+    column and row blocks, each rank's heads, the RG-LRU's gate GEMMs over
+    each rank's rows summed in f32 in rank order); both ranks equal."""
+    cfg = _hybrid_card_cfg()
+    params = init_lm(0, cfg, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (2, 80), generator=gen)
+    forced = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    ranks = spawn_ranks(_torch_ranks.hybrid_tp_card, 2, params, cfg, prompt,
+                        forced, 64, device="cuda", timeout_s=600)
+    p = to_device(params, dev)
+    with _torch_ranks.hybrid_tp_arithmetic(p, cfg):
+        pre, dec = _torch_ranks._hybrid_serve(p, cfg, prompt.to(dev),
+                                              forced.to(dev), 64, 2, dev)
+    for r in ranks:
+        np.testing.assert_array_equal(r["prefill"], _torch_ranks._np32(pre))
+        np.testing.assert_array_equal(r["decode"], _torch_ranks._np32(dec))
+        assert r["launches"].get("flash_attention_causal", 0) == 1
+        assert r["launches"].get("flash_decode", 0) == 88
+
+
+@pytest.mark.gpu
+def test_hybrid_backward_runs_full_precision_matmuls(dev):
+    """The train step sets full-precision matmuls on the card before its
+    forward, and the process-wide setting holds on autograd's device
+    thread while the backward runs the f32 gate GEMMs' gradients."""
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import rglru
+
+    cfg = smoke_variant(get_config("recurrentgemma-9b"))
+    params = init_lm(0, cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=dev)
+    seen = []
+    real = rglru._gate_preacts
+
+    def hooked(p, uf, split):
+        za, zx = real(p, uf, split)
+        za.register_hook(lambda g: seen.append(
+            torch.backends.cuda.matmul.allow_tf32) or g)
+        return za, zx
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    rglru._gate_preacts = hooked
+    try:
+        make_grad_fn(cfg)(params, {"tokens": toks, "labels": toks})
+    finally:
+        rglru._gate_preacts = real
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert seen and not any(seen)

@@ -527,29 +527,74 @@ def test_photonic_pallas_decode_step_matches_reference(hy):
     np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
 
 
-def test_hybrid_refusals_name_their_roadmap_item(hy):
-    """Training, a mesh of more than one rank and the decomposed attention
-    raise, each naming queue A15; a one-rank mesh serves."""
-    tcfg, tp = hy["tcfg"], hy["tp"]
-    toks = torch.from_numpy(hy["toks"][:, :8])
-    with pytest.raises(NotImplementedError, match="A15: hybrid training"):
-        tapi.loss_fn(tp, {"tokens": toks, "labels": toks}, tcfg)
-    with pytest.raises(NotImplementedError, match="A15: hybrid training"):
-        tapi.prefill_fn(tp, {"tokens": toks}, tcfg,
-                        TPolicy.from_cfg(tcfg, training=True))
-    with pytest.raises(NotImplementedError, match="A15"):
-        tapi.prefill_fn(tp, {"tokens": toks},
-                        tcfg.with_(attn_impl="decomposed"))
-
-    class TwoRanks:
-        world = 2
+def _fake_ctx(axes, rules, **shape):
+    import types
 
     from repro_torch.distributed import sharding
-    with sharding._installed(sharding.ShardingCtx(TwoRanks(), {})):
-        with pytest.raises(NotImplementedError, match="A15: hybrid on the"):
-            tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
-        with pytest.raises(NotImplementedError, match="A15: hybrid on the"):
-            tapi.cache_axes_spec(tcfg, 2, 12)
-    with use_sharding(make_host_mesh(1, 1, device="cpu")):
-        out = tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
-    assert torch.equal(out, tapi.prefill_fn(tp, {"tokens": toks}, tcfg))
+    mesh = types.SimpleNamespace(axis_names=axes, shape=shape,
+                                 world=int(np.prod(list(shape.values()))),
+                                 coord=lambda ax: 0, group=lambda ax: None)
+    return sharding._installed(sharding.ShardingCtx(mesh, rules))
+
+
+@pytest.mark.parametrize("case", ["default", "multipod", "seq_window",
+                                  "decomposed"])
+def test_hybrid_refusals_name_their_roadmap_item(hy, case):
+    """What the hybrid still refuses raises naming queue A15: the FSDP
+    tables (DEFAULT_RULES on (1, 2) splits "kv_seq", on (2, 1) "p_embed";
+    MULTIPOD_RULES on a pod mesh), a local-window decode over a
+    sequence-split cache, and the decomposed attention. Training and a
+    one-rank mesh run."""
+    from repro_torch.distributed import sharding
+
+    tcfg, tp = hy["tcfg"], hy["tp"]
+    toks = torch.from_numpy(hy["toks"][:, :8])
+    fsdp = "A15: hybrid under the FSDP tables"
+    if case == "default":
+        for shape in (dict(data=1, model=2), dict(data=2, model=1)):
+            with _fake_ctx(("data", "model"), sharding.DEFAULT_RULES,
+                           **shape):
+                for call in (lambda: tapi.prefill_fn(tp, {"tokens": toks},
+                                                     tcfg),
+                             lambda: tapi.cache_axes_spec(tcfg, 2, 12),
+                             lambda: tapi.loss_fn(tp, {"tokens": toks,
+                                                       "labels": toks}, tcfg),
+                             lambda: ttf.place_lm_params(tp, tcfg)):
+                    with pytest.raises(NotImplementedError, match=fsdp):
+                        call()
+        # the refusal is the FSDP tables', not the mesh's: MODEL_RULES on
+        # the same (1, 2) shape passes the family check
+        with _fake_ctx(("data", "model"), sharding.MODEL_RULES, data=1,
+                       model=2):
+            ttf.check_family(tcfg)
+    elif case == "multipod":
+        with _fake_ctx(("pod", "data", "model"), sharding.MULTIPOD_RULES,
+                       pod=2, data=1, model=1):
+            with pytest.raises(NotImplementedError, match=fsdp):
+                tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
+            with pytest.raises(NotImplementedError, match=fsdp):
+                sharding.check_model_rules(None, "hybrid")
+    elif case == "seq_window":
+        seq = sharding.Split(2, 0, None)
+        kv = torch.zeros(2, 8, 1, 16)
+        with pytest.raises(NotImplementedError, match=fsdp):
+            tattn.decode_attention(torch.zeros(2, 1, 4, 16), kv, kv, 4,
+                                   window=4, seq=seq)
+        lp = ttf.layer_view(tp["blocks"], 0)["attn"]
+        x = torch.zeros(2, 1, tcfg.d_model, dtype=torch.bfloat16)
+        ring = torch.zeros(2, 8, 1, tcfg.head_dim, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match=fsdp):
+            ttf.attn_decode(lp["attn"], x, ring, ring.clone(), 3, tcfg,
+                            TPolicy.from_cfg(tcfg, training=False),
+                            ttf.decode_rope(3, tcfg, "cpu"), None, seq,
+                            window=tcfg.window)
+    else:
+        with pytest.raises(NotImplementedError, match="A15"):
+            tapi.prefill_fn(tp, {"tokens": toks},
+                            tcfg.with_(attn_impl="decomposed"))
+        # a training policy and a one-rank mesh run
+        loss = tapi.loss_fn(tp, {"tokens": toks, "labels": toks}, tcfg)
+        assert torch.isfinite(loss)
+        with use_sharding(make_host_mesh(1, 1, device="cpu")):
+            out = tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
+        assert torch.equal(out, tapi.prefill_fn(tp, {"tokens": toks}, tcfg))

@@ -343,7 +343,8 @@ def _shape_tree(tree):
 @pytest.mark.parametrize("arch,kw", [
     ("qwen2-1.5b", {}), ("qwen2-1.5b", dict(use_fp32_master=True)),
     ("qwen2-1.5b", dict(tie_embeddings=False)), ("opto-vit-tiny", {}),
-    ("opto-vit-tiny", dict(mgnet=True))])
+    ("opto-vit-tiny", dict(mgnet=True)),
+    ("recurrentgemma-9b", dict(n_layers=5))])
 def test_abstract_state_equals_the_reference(arch, kw):
     jcfg = jsmoke(jget(arch)).with_(**kw)
     tcfg = tsmoke(tget(arch)).with_(**kw)
