@@ -1070,17 +1070,18 @@ def time_tp_kernels(torch, dev, card: str) -> dict:
     for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
         fn, plain_fn, lib_fn = row["fns"]
         ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
+        event_ms = cuda_ms(fn)
         plain_ms, _ = device_ms(torch, plain_fn)
         lib_ms, _ = device_ms(torch, lib_fn)
         bound = max(row["ops"], row["nbytes"])
         by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
         say(f"[numbers] {kname} at 4j's rank shape {row['shape']}: kernel "
-            f"{ms:.5f} ms device (profiling passes {passes}), bound "
-            f"{bound * 1e3:.6f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
-            f"{lib_ms:.5f} ms ({card})")
-        out[kname] = {"shape": row["shape"], "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bound * 1e3,
-                      "bound_by": by}
+            f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} "
+            f"ms CUDA-event), bound {bound * 1e3:.6f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.5f} ms ({card})")
+        out[kname] = {"shape": row["shape"], "ms": ms, "event_ms": event_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound * 1e3, "bound_by": by}
     return out
 
 
@@ -1199,6 +1200,114 @@ def time_partial_kernel(torch, dev, card: str) -> dict:
             **{k: main[k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
             "shape": main["shape"], "rank1": out["model rank 1"]}
+
+
+def check_ring_partial_kernel(torch, dev) -> float:
+    """Phase 3, B6's partial entry at a 4o rank's shape: q (2, 1, 16, 256)
+    (all 16 query heads, gathered over "model") over each half of a
+    HO_RING-slot ring on the one KV head, a layer's view of the stacked
+    (L, B, W / 2, 1, 256) rings, at ring lengths 1, W / 2, W / 2 + 1 and W
+    (the valid prefix min(pos + 1, W)), bf16 and f32, against its plain
+    version: o and lse within 2e-5, an empty range exactly o = 0 and lse
+    = NEG_INF, two calls bitwise, and the halves merged against
+    ``flash_decode_ref`` over the whole ring within B6's tolerance.
+    Returns the max |kernel - plain| over o and lse."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.models.attention import merge_partials
+
+    gen = torch.Generator(device=dev).manual_seed(4444)
+    half, b = HO_RING // 2, HO_BATCH // 2
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, 1, HY_HEADS, HY_D, generator=gen,
+                        device=dev).to(dtype)
+        stacked = [torch.randn(2, 2, b, half, HY_KV, HY_D, generator=gen,
+                               device=dev).to(dtype) for _ in range(2)]
+        whole = [torch.cat([t[0, 1], t[1, 1]], 1) for t in stacked]
+        for length in (1, half, half + 1, HO_RING):
+            parts = []
+            for r in range(2):
+                row0 = r * half
+                kr, vr = stacked[0][r, 1], stacked[1][r, 1]
+                o, lse = flash_decode_partial(q, kr, vr, row0, length)
+                again = flash_decode_partial(q, kr, vr, row0, length)
+                if not (torch.equal(again[0], o) and torch.equal(again[1],
+                                                                 lse)):
+                    fail("B6 partial on a ring block: two calls differ")
+                wo, wl = ref.flash_decode_partial_ref(q, kr, vr, row0,
+                                                      length)
+                e = max((o - wo).abs().max().item(),
+                        (lse - wl).abs().max().item())
+                ok = (torch.allclose(o, wo, rtol=2e-5, atol=2e-5)
+                      and torch.allclose(lse, wl, rtol=2e-5, atol=2e-5))
+                if row0 >= length:
+                    ok = ok and bool((o == 0).all()) and bool(
+                        (lse == ref.NEG_INF).all())
+                say(f"[check] B6 partial 4o rank q({b},1,{HY_HEADS},{HY_D}) "
+                    f"ring slots [{row0}, {row0 + half}) of {HO_RING}, length "
+                    f"{length} {str(dtype)[6:]}: max abs err {e:.3e} (tol "
+                    f"2e-5" + (", empty: o = 0, lse = NEG_INF"
+                               if row0 >= length else "") + ")")
+                if not ok:
+                    fail(f"B6 partial at 4o's rank shape, slots from {row0}, "
+                         f"length {length}: max abs err {e}")
+                err = max(err, e)
+                parts.append((o, lse))
+            merged = merge_partials(torch.stack([o for o, _ in parts]),
+                                    torch.stack([l for _, l in parts]))
+            e, ok, tol = held(torch, merged.to(dtype), ref.flash_decode_ref(
+                q, whole[0], whole[1], length))
+            say(f"[check] B6 partial at 4o's rank shape, both halves merged, "
+                f"length {length} {str(dtype)[6:]}: max abs err {e:.3e} (tol "
+                f"{tol})")
+            if not ok:
+                fail(f"B6 partial merged at 4o's rank shape, length {length}: "
+                     f"max abs err {e}")
+    torch.cuda.synchronize()
+    return err
+
+
+def time_ring_partial_kernel(torch, dev, card: str) -> dict:
+    """B6's partial entry at a 4o rank's shape once the ring is full: q
+    (2, 1, 16, 256) bf16 over one rank's HO_RING / 2 slots, all valid:
+    device and event ms, bound (the bytes of the valid slots, q and the
+    f32 outputs; its f32 work), plain version and SDPA over the same slots
+    (which returns no lse). The ``ring_rank`` sub-entry of B6 partial's
+    kernels line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+
+    gen = torch.Generator(device=dev).manual_seed(79)
+    b, h, d, rows = HO_BATCH // 2, HY_HEADS, HY_D, HO_RING // 2
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    kr, vr = (torch.randn(b, rows, HY_KV, d, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    fns = (lambda: flash_decode_partial(q, kr, vr, 0, HO_RING),
+           lambda: ref.flash_decode_partial_ref(q, kr, vr, 0, HO_RING),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+               enable_gqa=True))
+    ops = b * h * rows * 4 * d / PEAK_F32_FLOPS
+    nbytes = (2 * (2 * b * rows * HY_KV * d + b * h * d)
+              + 4 * (b * h * d + b * h)) / PEAK_BYTES
+    ms, passes = device_ms(torch, fns[0], SYMBOLS["flash_decode_partial"],
+                           counter="flash_decode_partial")
+    event_ms = cuda_ms(fns[0])
+    plain_ms, _ = device_ms(torch, fns[1])
+    lib_ms, _ = device_ms(torch, fns[2])
+    bound = max(ops, nbytes)
+    by = "operations" if ops >= nbytes else "bytes"
+    shape = (f"q({b},1,{h},{d}) ring slots [0, {rows}) of {HO_RING}, all "
+             f"valid, bf16")
+    say(f"[numbers] flash_decode_partial at 4o's rank shape {shape}: kernel "
+        f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} ms "
+        f"CUDA-event, wrapper included), bound {bound * 1e3:.6f} ms ({by}), "
+        f"plain {plain_ms:.4f} ms, SDPA over the slots {lib_ms:.5f} ms (no "
+        f"lse) ({card})")
+    return {"shape": shape, "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound * 1e3, "bound_by": by, "launches": 0}
 
 
 def corr(torch, a, b) -> float:
@@ -2631,17 +2740,18 @@ def time_hybrid_rank_kernels(torch, dev, card: str) -> dict:
     for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
         fn, plain_fn, lib_fn = row["fns"]
         ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
+        event_ms = cuda_ms(fn)
         plain_ms, _ = device_ms(torch, plain_fn)
         lib_ms, _ = device_ms(torch, lib_fn)
         bound = max(row["ops"], row["nbytes"])
         by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
         say(f"[numbers] {kname} at 4n's rank shape {row['shape']}: kernel "
-            f"{ms:.5f} ms device (profiling passes {passes}), bound "
-            f"{bound * 1e3:.6f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
-            f"{lib_ms:.5f} ms ({card})")
-        out[kname] = {"shape": row["shape"], "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bound * 1e3,
-                      "bound_by": by}
+            f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} "
+            f"ms CUDA-event), bound {bound * 1e3:.6f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.5f} ms ({card})")
+        out[kname] = {"shape": row["shape"], "ms": ms, "event_ms": event_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound * 1e3, "bound_by": by}
     return out
 
 
@@ -2763,6 +2873,566 @@ def run_hybrid_mesh(torch, dev, card: str, hybrid: dict,
         f"({card})")
     return {"launches": r0["launches"], "B": r0, "C": tr[0],
             "phase_s": time.perf_counter() - t_phase}
+
+
+# path 4o: recurrentgemma-9b under the FSDP tables, 4 gloo ranks of the
+# one card: 4n (A)'s model (the first HO_LAYERS layers, a super-block and
+# the 2-layer tail, at full width and the full 256000 vocab) from
+# init_lm(seed=0, place=True). (A) serving under DEFAULT_RULES on (data 2,
+# model 2): a ring of HO_RING slots split along "kv_seq" (HO_RING / 2 a
+# rank), a prompt of HO_PROMPT and HO_FORCED teacher-forced tokens: the
+# decode writes model rank 0's slots, then rank 1's, and wraps into rank
+# 0's. (B) training on HO_T_BATCH x HO_T_SEQ tokens (2 x 512 a rank): one
+# step's gradient under DEFAULT_RULES against the one-device gradient
+# (4n (C)'s class), HO_STEPS step through train_loop, and the gradient
+# under MULTIPOD_RULES on (pod 2, data 1, model 2). (C) the planted
+# faults. Every FSDP step gathers 3.09 GB a rank over gloo (the
+# full-vocab embedding and head 2.1 GB of it): 4.0-5.0 s a decode step,
+# 24-35 s a gradient (H100 80GB HBM3, 700 W; PERF.md §6), so the
+# lengths are cut to fit the script's time (PERF.md §4): the ring, the
+# prompt and the tokens; one microbatch a mesh step (HO_MICRO); one
+# train_loop step; no card checkpoint (the logical checkpoint gathers
+# the whole state, 19.3 GB at the full vocab, on every rank: more than
+# the card holds for 4 ranks)
+HO_LAYERS = 5
+HO_BATCH = 4
+HO_RING, HO_PROMPT, HO_FORCED = 8, 6, 3
+HO_T_BATCH, HO_T_SEQ = 4, 512
+HO_STEPS = 1
+# the mesh steps' microbatches: the config's 2 would double every gather
+# and reduce-scatter of a step (25.9 s a gradient at 2, PERF.md §6)
+HO_MICRO = 1
+HO_FAULTS = ("the FSDP backward without its reduce-scatter",
+             "the ring written at rank 0's slot on every rank",
+             "the merge without the last rank's partial")
+# how long the ranks wait for the card after (A): the foreground phase
+# beside them (4m) must have ended
+HO_WAIT_S = 900
+
+
+def _ring_at_rank0(transformer):
+    """4o's planted fault: every rank writes a ring slot as rank 0 would
+    (the owner's row offset taken as 0), so rank 0's block is written on
+    every rank and the later blocks on none."""
+    import dataclasses
+
+    real = transformer.update_kv_cache
+
+    def write(kc, vc, k, v, pos, seq=None):
+        if seq is not None:
+            seq = dataclasses.replace(seq, index=0)
+        return real(kc, vc, k, v, pos, seq)
+    return write
+
+
+def hybrid_fsdp_rank(seq_cpu, go: str, device: str, smoke: bool = False
+                     ) -> dict:
+    """One of the 4 gloo ranks of path 4o (on the card; on the CPU at the
+    smoke config with ``smoke``, a rehearsal). (A) under DEFAULT_RULES:
+    each rank draws its blocks (``init_lm(place=True)``); counted, the
+    decode step at every position of ``seq_cpu`` on the split ring and
+    ``prefill_fn`` over its prompt; then the planted ring and merge faults'
+    decode steps. Rank 0 also draws the whole params and runs on one device
+    the split's arithmetic on its own rows (``fsdp_ring_arithmetic``: held
+    bitwise), the unsharded decode loop and prefill on the whole batch, and
+    4m (B)'s control (``prefill_fn`` under the ring's window on the plain
+    attention). (B), once ``go`` exists (the foreground phase has freed
+    the card): rank 0's one-device gradient (the config's 2 microbatches)
+    and its order control (the batch at once), to the host; one mesh
+    step's gradient under DEFAULT_RULES (its loss on every rank, its
+    relative L2 against the one-device one, peak memory), the same with
+    the FSDP backward's reduce-scatter planted away, HO_STEPS steps through
+    ``train_loop``, and the gradient under MULTIPOD_RULES (its blocks'
+    digests against DEFAULT_RULES'). Rank 0 returns the readings."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_lm
+    from repro_torch.configs.base import ShapeConfig, smoke_variant
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.models import attention, transformer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+
+    mesh = make_host_mesh(2, 2, device=device)
+    pod_mesh = _build_mesh(1, 2, device, _AXES, n_pod=2)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        full_precision_matmuls()
+    cfg = get_config("recurrentgemma-9b")
+    if smoke:
+        cfg = smoke_variant(cfg)
+    cfg = cfg.with_(n_layers=HO_LAYERS)
+    r0 = dist.get_rank() == 0
+    n_pos = seq_cpu.shape[1]
+    half = HO_RING // 2
+    out = {"rank": dist.get_rank(), "backend": mesh.backend,
+           "device": str(dev), "vocab": cfg.vocab,
+           "micro": cfg.microbatch_steps}
+    t_rank = time.perf_counter()
+
+    def progress(what):
+        if r0:
+            say(f"[hybrid_fsdp] rank 0: {what} at "
+                f"{time.perf_counter() - t_rank:.1f}s")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def whole_of(t, ctx):
+        """The whole (rows, vocab) of this rank's block, on every rank."""
+        t = collectives.all_gather_cat(t.contiguous(),
+                                       ctx.mesh.group("model"), -1)
+        return collectives.all_gather_cat(t, ctx.mesh.group(
+            ctx.rules["batch"]), 0)
+
+    def decode(params, toks, lo, hi, cache):
+        """decode_fn at positions [lo, hi) of ``toks`` on ``cache``: the
+        logits (B, hi - lo, V)."""
+        lgs = []
+        for pos in range(lo, hi):
+            lg, cache = model_api.decode_fn(params, cache,
+                                            toks[:, pos:pos + 1], pos, cfg)
+            lgs.append(lg)
+        return torch.stack(lgs, 1)
+
+    def agree(values) -> bool:
+        mine = torch.tensor(values, dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        return all(torch.equal(e, mine) for e in every)
+
+    def f32_bits(x: float) -> int:
+        return int(torch.tensor(x, dtype=torch.float32).view(torch.int32))
+
+    seq = seq_cpu.to(dev)
+    # -- (A) serving under DEFAULT_RULES
+    with sharding.use_sharding(mesh, sharding.DEFAULT_RULES) as ctx, \
+            torch.no_grad():
+        # one rank draws at a time, its f32 draw of a whole leaf (4.2 GB
+        # for the embedding) released before the next: 4 ranks drawing at
+        # once beside 4m's model and the earlier paths' tensors overflowed
+        # the card
+        for r in range(dist.get_world_size()):
+            if dist.get_rank() == r:
+                reset_peak()
+                t0 = time.perf_counter()
+                local = init_lm(0, cfg, dev, place=True)
+                sync()
+                out.update(draw_s=time.perf_counter() - t0,
+                           draw_peak_gb=peak_gb(),
+                           held_gb=(torch.cuda.memory_allocated(dev) / 1e9
+                                    if cuda else 0.0))
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        rec = local["blocks"]["rec0"]["rec"]
+        out["shapes"] = {k: tuple(v.shape) for k, v in (
+            ("in_proj", rec["in_proj"]), ("out_proj", rec["out_proj"]),
+            ("w_a", rec["w_a"]), ("wq", local["blocks"]["attn"]["attn"]["wq"]),
+            ("embed", local["embed"]), ("lm_head", local["lm_head"]))}
+        mine = sharding.named_sharding(seq.shape, ("batch", "seq"),
+                                       ctx).block(seq)
+        cache = serve.init_cache(cfg, HO_BATCH, HO_RING, dev)
+        out["cache"] = {k: tuple(v.shape) for k, v in cache.items()}
+        collectives.STATS.clear()
+        collectives.BYTES.clear()
+        _build.LAUNCHES.clear()
+        reset_peak()
+        t0 = time.perf_counter()
+        dec = decode(local, mine, 0, half, cache)
+        snap = {k: v.clone() for k, v in cache.items()}
+        dec = torch.cat([dec, decode(local, mine, half, n_pos, cache)], 1)
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["stats"] = dict(collectives.STATS)
+        out["bytes"] = dict(collectives.BYTES)
+        t0 = time.perf_counter()
+        pre = model_api.prefill_fn(local, {"tokens": mine[:, :HO_PROMPT]},
+                                   cfg)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["launches"] = dict(_build.LAUNCHES)
+        out["serve_peak_gb"] = peak_gb()
+        # (C) the ring written at rank 0's slot on every rank: fresh ring,
+        # up to the first position whose key lies in rank 1's slots; the
+        # merge without the last rank's partial at that position, from the
+        # counted run's ring before it
+        saved = transformer.update_kv_cache
+        transformer.update_kv_cache = _ring_at_rank0(transformer)
+        try:
+            bad_ring = decode(local, mine, 0, half + 1, serve.init_cache(
+                cfg, HO_BATCH, HO_RING, dev))
+        finally:
+            transformer.update_kv_cache = saved
+        merge = attention.merge_partials
+        attention.merge_partials = lambda o, lse: merge(o[:-1], lse[:-1])
+        try:
+            bad_merge = decode(local, mine, half, half + 1, snap)
+        finally:
+            attention.merge_partials = merge
+        progress("(A) the counted serve and the faults done")
+        got = {k: whole_of(t, ctx) for k, t in (
+            ("decode", dec), ("prefill", pre), ("ring", bad_ring),
+            ("merge", bad_merge))}
+        whole = None
+        if r0:
+            with sharding._installed(None):
+                whole = init_lm(0, cfg, dev)
+                if cuda:
+                    torch.cuda.empty_cache()
+                v0, v1 = 0, cfg.vocab // 2          # rank 0's vocab block
+                with fsdp_ring_arithmetic(torch, whole, cfg):
+                    twin_pre = model_api.prefill_fn(
+                        whole, {"tokens": mine[:, :HO_PROMPT]}, cfg)
+                    twin_dec = decode(whole, mine, 0, n_pos, serve.init_cache(
+                        cfg, mine.shape[0], HO_RING, dev))
+                out["twin_prefill"] = bool(torch.equal(twin_pre[..., v0:v1],
+                                                       pre))
+                out["twin_decode"] = bool(torch.equal(twin_dec[..., v0:v1],
+                                                      dec))
+                del twin_pre, twin_dec
+
+                def runs():
+                    return (model_api.prefill_fn(
+                        whole, {"tokens": seq[:, :HO_PROMPT]}, cfg),
+                        decode(whole, seq, 0, n_pos, serve.init_cache(
+                            cfg, HO_BATCH, HO_RING, dev)))
+                one_pre, one = runs()
+                # the control: the model split's arithmetic alone (4j's and
+                # 4k's), whose f32 partial sums are the whole of the mesh's
+                # distance from the unsharded run (PERF.md §6, the hybrid
+                # under the FSDP tables)
+                with tp_arithmetic(torch, whole, cfg):
+                    tp_pre, tp = runs()
+
+            def reading(a, b):
+                pc = position_corr(torch, a, b)
+                return corr_reading(pc, a.argmax(-1) == b.argmax(-1))
+
+            wrap, rows1 = slice(0, min(HO_RING, n_pos)), slice(0, half + 1)
+            out["A"] = {
+                "decode": reading(got["decode"], one),
+                "control": reading(tp, one),
+                "decode_before_wrap": reading(got["decode"][:, wrap],
+                                              one[:, wrap]),
+                "control_before_wrap": reading(tp[:, wrap], one[:, wrap]),
+                "prefill": reading(got["prefill"], one_pre),
+                "control_prefill": reading(tp_pre, one_pre),
+                "ring": reading(got["ring"], one[:, rows1]),
+                "control_ring": reading(tp[:, rows1], one[:, rows1]),
+                "merge": reading(got["merge"], one[:, half:half + 1]),
+                "control_merge": reading(tp[:, half:half + 1],
+                                         one[:, half:half + 1])}
+            out["finite"] = bool(torch.isfinite(got["decode"].float()).all()
+                                 and torch.isfinite(got["prefill"].float())
+                                 .all())
+            out["shape"] = tuple(got["decode"].shape)
+            del one, one_pre, tp, tp_pre
+        del got, dec, pre, bad_ring, bad_merge, snap, cache
+        if cuda:
+            torch.cuda.empty_cache()
+        progress("(A) done")
+
+    # -- (B) training, once the foreground phase has ended (``go``): beside
+    # 4m, rank 0's one-device gradient slowed 4m by a third (PERF.md §6)
+    deadline = time.monotonic() + HO_WAIT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"4o: no go after {HO_WAIT_S}s")
+        time.sleep(0.2)
+    dist.barrier()
+    t_b = time.perf_counter()
+    mcfg = cfg.with_(microbatch_steps=HO_MICRO)
+    g_one = None
+    if r0:
+        with sharding._installed(None):
+            batch = TokenStream(cfg.vocab, HO_T_SEQ, HO_T_BATCH, seed=0,
+                                device=dev).batch_at(0)
+            torch.use_deterministic_algorithms(True)
+            try:
+                reset_peak()
+                loss1, g = steps.make_grad_fn(cfg)(whole, batch)
+                out["one_peak_gb"] = peak_gb()
+                g_one = [t.cpu() for t in tree_leaves(g)]
+                del g
+                _, g1 = steps.make_grad_fn(cfg.with_(microbatch_steps=1))(
+                    whole, batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            num = den = 0.0
+            for a, b in zip(tree_leaves(g1), g_one):
+                n_, d_ = rel_l2_sums(torch, a, b)
+                num, den = num + n_, den + d_
+            out["control_B"] = (num / den) ** 0.5
+            out["one_norm"] = den ** 0.5
+            out["loss1"] = float(loss1)
+            del g1, whole, batch
+        if cuda:
+            torch.cuda.empty_cache()
+        out["one_s"] = time.perf_counter() - t_b
+    dist.barrier()
+    progress("(B) the one-device gradient done")
+
+    def mesh_grad(params, ctx, tag):
+        """One step's gradient on this rank's rows under ``ctx``: the
+        loss (equal on every rank?), seconds, peak memory, gloo ops and
+        the blocks' digests."""
+        batch = TokenStream(cfg.vocab, HO_T_SEQ, HO_T_BATCH, seed=0, ctx=ctx,
+                            device=dev, microbatches=HO_MICRO).batch_at(0)
+        collectives.STATS.clear()
+        collectives.BYTES.clear()
+        reset_peak()
+        torch.use_deterministic_algorithms(True)
+        try:
+            sync()
+            t0 = time.perf_counter()
+            loss, g = steps.make_grad_fn(mcfg)(params, batch)
+            sync()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[tag] = {"s": time.perf_counter() - t0, "peak_gb": peak_gb(),
+                    "loss": float(loss), "stats": dict(collectives.STATS),
+                    "bytes": dict(collectives.BYTES),
+                    "losses_agree": agree([f32_bits(float(loss))]),
+                    "digests": [bits_digest(torch, t)
+                                for t in tree_leaves(g)]}
+        return g
+
+    with sharding.use_sharding(mesh, sharding.DEFAULT_RULES) as ctx:
+        axes = steps.placement_axes(cfg, model_api.model_logical_axes(cfg))
+        g = mesh_grad(local, ctx, "default")
+        # the logical gradient's relative L2 against the one-device one, on
+        # rank 0: every rank gathers its blocks leaf by leaf
+        num = 0.0
+        for leaf, ax, one in zip(tree_leaves(g), tree_leaves(axes),
+                                 g_one if r0 else [None] * len(
+                                     tree_leaves(g))):
+            w = steps.gather_tree({"t": leaf}, {"t": ax}, ctx)["t"]
+            if r0:
+                num += rel_l2_sums(torch, w, one)[0]
+            del w
+        del g_one
+        if r0:
+            out["default"]["rel"] = num ** 0.5 / out["one_norm"]
+        progress("(B) DEFAULT_RULES' gradient done")
+        n = transformer.fsdp_split(cfg).n
+
+        def no_reduce(g, group, dim):
+            step = g.shape[dim] // n
+            part = g.narrow(dim, dist.get_rank(group) * step, step)
+            return (part.float() / n).to(g.dtype)
+
+        saved = collectives.reduce_scatter_mean
+        collectives.reduce_scatter_mean = no_reduce
+        try:
+            bad = mesh_grad(local, ctx, "fault")
+        finally:
+            collectives.reduce_scatter_mean = saved
+        # its logical distance from the sound mesh gradient, from each
+        # rank's blocks (a leaf's sum over the ranks that hold it whole
+        # divided by their count): by the triangle inequality its distance
+        # from the one-device gradient is at least this less the sound
+        # gradient's own
+        split = steps._split_leaves(axes, ctx)
+        sq = torch.zeros((), dtype=torch.float64)
+        for a, b, sp in zip(tree_leaves(bad), tree_leaves(g),
+                            tree_leaves(split)):
+            held = 1
+            for ax in sp:
+                held *= mesh.shape[ax]
+            sq += rel_l2_sums(torch, a, b)[0] * held / mesh.world
+        dist.all_reduce(sq)
+        if r0:
+            out["fault"]["from_sound"] = float(sq) ** 0.5 / out["one_norm"]
+        del g, bad
+        progress("(B) the planted FSDP fault done")
+        state = {"params": local, "opt": adamw_init(local, AdamWConfig(
+            low_mem=not cfg.use_fp32_master)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        reset_peak()
+        sync()
+        t0 = time.perf_counter()
+        final, losses, _ = train.train_loop(
+            mcfg, ShapeConfig("4o", HO_T_SEQ, HO_T_BATCH, "train"), HO_STEPS,
+            device=dev, state=state, log_every=10 ** 9)
+        sync()
+        out["steps"] = {
+            "s": time.perf_counter() - t0, "peak_gb": peak_gb(),
+            "losses": losses,
+            "losses_agree": agree([f32_bits(x) for x in losses]),
+            "whole_agree": agree([bits_digest(torch, t) for t, sp in zip(
+                tree_leaves(final["params"]), tree_leaves(split))
+                if not any(sp)]),
+            "moved": not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(final["params"]), tree_leaves(local)))}
+        del state, final, local
+        if cuda:
+            torch.cuda.empty_cache()
+        progress("(B) the train_loop steps done")
+    with sharding.use_sharding(pod_mesh) as pctx:
+        out["pod_rules"] = pctx.rules is sharding.MULTIPOD_RULES
+        plocal = init_lm(0, cfg, dev, place=True)
+        g = mesh_grad(plocal, pctx, "multipod")
+        del g, plocal
+        out["multipod"]["bitwise_default"] = (
+            out["multipod"]["digests"] == out["default"]["digests"])
+    out["B_s"] = time.perf_counter() - t_b
+    progress("(B) done")
+    return out
+
+
+def start_hybrid_fsdp(go: str, smoke: bool = False) -> tuple:
+    """Path 4o's 4 gloo ranks, started in the background (``in_background``:
+    their (A) beside 4m; their (B) waits for ``go``); returns (start time,
+    Future of the ranks' results)."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(404)
+    vocab = 256 if smoke else 256000
+    seq = torch.randint(0, vocab, (HO_BATCH, HO_PROMPT + HO_FORCED),
+                        generator=gen)
+    device = "cpu" if smoke else "cuda"
+    return t_phase, in_background(
+        lambda: spawn_ranks(hybrid_fsdp_rank, 4, seq, go, device, smoke,
+                            device=device, timeout_s=1100))
+
+
+def run_hybrid_fsdp(torch, card: str, started: tuple, fg_peak_gb: float
+                    ) -> dict:
+    """Path 4o, ``[hybrid_fsdp]``: the ranks' (A), (B) and (C) readings
+    and checks (``hybrid_fsdp_rank``'s); ``fg_peak_gb`` the foreground
+    phase's peak beside their (A). Returns rank 0's launches and
+    readings."""
+    t_phase, pending = started
+    ranks = pending.result()
+    r0 = ranks[0]
+    n_pos = HO_PROMPT + HO_FORCED
+    say(f"[hybrid_fsdp] path 4o: recurrentgemma-9b at full width, "
+        f"{HO_LAYERS} layers, vocab {r0['vocab']}, 4 ranks on {r0['device']}, "
+        f"backend {r0['backend']}; rank 0 holds {r0['shapes']} after drawing "
+        f"its blocks in {r0['draw_s']:.2f}s ({r0['held_gb']:.2f} GB, peak "
+        f"{r0['draw_peak_gb']:.2f} GB while drawing); cache {r0['cache']} "
+        f"(gloo ranks on one card prove a path, never a speed; {card})")
+    a_peaks = [r["serve_peak_gb"] for r in ranks]
+    say(f"[hybrid_fsdp] (A) beside 4m: the ranks' serving peaks {a_peaks} GB "
+        f"(drawing, one rank at a time: {[r['draw_peak_gb'] for r in ranks]} "
+        f"GB) + 4m's {fg_peak_gb:.2f} GB = {sum(a_peaks) + fg_peak_gb:.2f} GB "
+        f"of the card's 80")
+    if not sum(a_peaks) + fg_peak_gb < 80:
+        fail(f"4o (A) beside 4m: {sum(a_peaks) + fg_peak_gb} GB")
+    want = {"flash_decode_partial": n_pos, "flash_attention_causal": 1}
+    for i, r in enumerate(ranks):
+        st, nb = r["stats"], r["bytes"]
+        say(f"[hybrid_fsdp] (A) rank {i}: {n_pos} decode steps in "
+            f"{r['decode_s']:.2f}s = {1e3 * r['decode_s'] / n_pos:.0f} ms a "
+            f"step, {HO_BATCH // 2 * n_pos / r['decode_s']:.3f} tok/s a rank; "
+            f"FSDP gathers {2 * nb.get('fsdp_gather', 0) / n_pos / 1e6:.1f} "
+            f"MB a step ({nb.get('fsdp_gather', 0) / n_pos / 1e6:.1f} MB put "
+            f"in); gloo a step: {_gloo_txt(st, nb, n_pos)}; prefill_fn over "
+            f"{HO_BATCH // 2} x {HO_PROMPT} {r['prefill_s']:.2f}s; peak "
+            f"{r['serve_peak_gb']:.2f} GB; launches {r['launches']} ({card})")
+        for k, n in want.items():
+            if r["device"].startswith("cuda") and r["launches"].get(k, 0) != n:
+                fail(f"4o (A) rank {i}: {k} launched "
+                     f"{r['launches'].get(k, 0)} times, expected {n}")
+    a = r0["A"]
+    if not (r0["finite"] and r0["shape"] == (HO_BATCH, n_pos, r0["vocab"])):
+        fail(f"4o (A): logits {r0['shape']} not finite")
+    say(f"[hybrid_fsdp] (A) the split's arithmetic on one device "
+        f"(fsdp_ring_arithmetic, rank 0's rows and vocab block): prefill "
+        f"bitwise {r0['twin_prefill']}, decode bitwise {r0['twin_decode']}")
+    if not (r0["twin_prefill"] and r0["twin_decode"]):
+        fail("4o (A): the mesh's logits are not bitwise the split's "
+             "arithmetic on one device")
+    for tag, ctl in (("decode", "control"),
+                     ("decode_before_wrap", "control_before_wrap"),
+                     ("prefill", "control_prefill")):
+        x, c = a[tag], a[ctl]
+        say(f"[hybrid_fsdp] (A) {tag} vs the unsharded run on the card: last "
+            f"corr {x['last_corr']:.6f}, min {x['min_corr']:.6f}, argmax "
+            f"{100 * x['argmax_share']:.2f}%; limit {HY_CORR_FACTOR} x the "
+            f"control's distance (the model split's arithmetic on one device, "
+            f"tp_arithmetic, vs the same run: last {c['last_corr']:.6f}, min "
+            f"{c['min_corr']:.6f}) and > 0.99")
+        if not within_control(x, c, HO_BATCH):
+            fail(f"4o (A): the mesh's {tag} vs the unsharded run: {x}")
+    for tag, ctl, name in (("ring", "control_ring", HO_FAULTS[1]),
+                           ("merge", "control_merge", HO_FAULTS[2])):
+        x = a[tag]
+        caught = not within_control(x, a[ctl], HO_BATCH)
+        say(f"[hybrid_fsdp] (C) planted fault, {name}: last corr "
+            f"{x['last_corr']:.6f}, min {x['min_corr']:.6f}: caught {caught}")
+        if not caught:
+            fail(f"4o (C): the planted fault ({name}) passes (A)'s limits")
+    bound = HN_GRAD_FACTOR * r0["control_B"]
+    say(f"[hybrid_fsdp] (B) rank 0's one-device gradient (the config's "
+        f"{r0['micro']} microbatches, vocab {r0['vocab']}): "
+        f"{r0['one_s']:.1f}s with its order control, peak "
+        f"{r0['one_peak_gb']:.2f} GB; loss {r0['loss1']:.6f}; the batch at "
+        f"once against it {r0['control_B']:.3e} ({card})")
+    for tag, table in (("default", "DEFAULT_RULES (2, 2)"),
+                       ("multipod", "MULTIPOD_RULES (2, 1, 2)")):
+        x = r0[tag]
+        rel = x.get("rel")
+        say(f"[hybrid_fsdp] (B) {table}: one step's gradient on "
+            f"{HO_T_BATCH} x {HO_T_SEQ} tokens (2 x 512 a rank, "
+            f"{HO_MICRO} microbatch) at vocab {r0['vocab']} in {x['s']:.2f}s, peak "
+            f"{[r[tag]['peak_gb'] for r in ranks]} GB a rank; loss "
+            f"{x['loss']:.6f} (one device {r0['loss1']:.6f}), equal on every "
+            f"rank {x['losses_agree']}; gloo: {_gloo_txt(x['stats'], x['bytes'], 1)}"
+            + (f"; relative L2 against the one-device gradient {rel:.3e}, "
+               f"bound {bound:.3e} = {HN_GRAD_FACTOR} x the order control "
+               f"{r0['control_B']:.3e}" if rel is not None else
+               f"; its blocks bitwise DEFAULT_RULES' on every rank "
+               f"{all(r['multipod']['bitwise_default'] for r in ranks)}")
+            + f" ({card})")
+        if not x["losses_agree"]:
+            fail(f"4o (B) {table}: the ranks' losses differ")
+        if rel is not None and not rel <= bound:
+            fail(f"4o (B) {table}: gradient rel L2 {rel} above {bound}")
+    if not all(r["multipod"]["bitwise_default"] for r in ranks):
+        fail("4o (B): MULTIPOD_RULES' gradient blocks differ from "
+             "DEFAULT_RULES' on the same ranks")
+    if not r0["pod_rules"]:
+        fail("4o (B): the pod mesh did not take MULTIPOD_RULES")
+    x = r0["fault"]
+    least = x["from_sound"] - r0["default"]["rel"]
+    say(f"[hybrid_fsdp] (C) planted fault, {HO_FAULTS[0]}: relative L2 "
+        f"{x['from_sound']:.3e} from the sound mesh gradient, so at least "
+        f"{least:.3e} from the one-device one, against the bound {bound:.3e}")
+    if not least > bound:
+        fail(f"4o (C): the planted fault ({HO_FAULTS[0]}) is not shown to "
+             f"miss (B)'s bound: {least}")
+    x = r0["steps"]
+    say(f"[hybrid_fsdp] (B) {HO_STEPS} steps through train_loop under "
+        f"DEFAULT_RULES in {x['s']:.2f}s (peak "
+        f"{[r['steps']['peak_gb'] for r in ranks]} GB a rank): losses "
+        + " ".join(f"{v:.5f}" for v in x["losses"])
+        + f", equal on every rank {x['losses_agree']}; the whole leaves "
+        f"bitwise equal on every rank {x['whole_agree']}; params moved "
+        f"{x['moved']} ({card})")
+    if not (x["losses_agree"] and x["whole_agree"] and x["moved"]):
+        fail(f"4o (B): the train_loop steps: {x}")
+    say(f"[hybrid_fsdp] path 4o in {time.perf_counter() - t_phase:.1f}s from "
+        f"its spawn, (B) {r0['B_s']:.1f}s ({card})")
+    return {"launches": r0["launches"], "ranks": ranks}
 
 
 def check_b4(torch, dev) -> dict:
@@ -5977,7 +6647,7 @@ LMJ_SUBTLE = "layer 0's wo partials rounded to bf16 before the sum"
 
 
 @contextlib.contextmanager
-def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
+def tp_arithmetic(torch, params: dict, cfg, n: int = 2, vocab: bool = False):
     """The unsharded LM forward computing on one device what each rank of a
     (1, n) mesh computes: the column-parallel wq / bq / w_gate / w_up (and
     the hybrid's in_proj / gate_proj) in their n column blocks (contiguous
@@ -5987,6 +6657,7 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
     in f32, summed in f32 in rank order and rounded once (``layers.
     row_parallel_linear``), and the hybrid's gate GEMMs over each rank's
     u block and w_a / w_x rows, summed the same way before the biases.
+    With ``vocab`` the untied head too, in its n vocab (column) blocks.
     Where each GEMM and kernel depends only on its own operands, the
     mesh's logits are bitwise these. The control of 4j (A): its distance
     from the unsharded path sets the limit, and the mesh is held to it
@@ -6020,6 +6691,11 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
                     cols[key(w)] = [w[:, j * s:(j + 1) * s].contiguous()
                                     for j in range(n)]
                 rows.update(key(sub[part][name][i]) for name in row_names)
+    if vocab:
+        w = params["lm_head"]
+        s = w.shape[-1] // n
+        cols[key(w)] = [w[:, j * s:(j + 1) * s].contiguous()
+                        for j in range(n)]
     real = (transformer.linear, ffn_mod.linear, rglru_mod.linear,
             transformer._attend, transformer._decode,
             rglru_mod._gate_preacts)
@@ -6070,6 +6746,40 @@ def tp_arithmetic(torch, params: dict, cfg, n: int = 2):
         (transformer.linear, ffn_mod.linear, rglru_mod.linear,
          transformer._attend, transformer._decode,
          rglru_mod._gate_preacts) = real
+
+
+@contextlib.contextmanager
+def fsdp_ring_arithmetic(torch, params: dict, cfg, n: int = 2):
+    """What a rank of the hybrid under DEFAULT_RULES / MULTIPOD_RULES with
+    n ranks on "model" computes, on one device from the whole params and
+    the rank's rows: ``tp_arithmetic`` with the head's vocab blocks (the
+    FSDP gathers and the vocab-split lookup move bits only), and each
+    ring read as n blocks of its slots, B6's partial entry over each block
+    at the ring's length min(pos + 1, W), merged in rank order
+    (``attention.merge_partials``). 4o (A)'s bitwise twin."""
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.models import attention, transformer
+
+    with tp_arithmetic(torch, params, cfg, n, vocab=True):
+        heads = transformer._decode
+
+        def decode(q, k, v, length, cfg_, split, attend=None):
+            if attend is not transformer._ring:
+                return heads(q, k, v, length, cfg_, split, attend=attend)
+            rows, valid = k.shape[1] // n, min(length + 1, k.shape[1])
+            parts = [flash_decode_partial(
+                q, k[:, r * rows:(r + 1) * rows].contiguous(),
+                v[:, r * rows:(r + 1) * rows].contiguous(), r * rows, valid)
+                for r in range(n)]
+            return attention.merge_partials(
+                torch.stack([o for o, _ in parts]),
+                torch.stack([lse for _, lse in parts])).to(q.dtype)
+
+        transformer._decode = decode
+        try:
+            yield
+        finally:
+            transformer._decode = heads
 
 
 def _tree_rel_l2(torch, ga: dict, gb: dict) -> float:
@@ -8143,7 +8853,8 @@ def main() -> int:
         errs[kname] = max(errs[kname], e)
     for kname, e in check_hybrid_rank_kernels(torch, dev).items():
         errs[kname] = max(errs[kname], e)
-    errs["flash_decode_partial"] = check_partial_kernel(torch, dev)
+    errs["flash_decode_partial"] = max(check_partial_kernel(torch, dev),
+                                       check_ring_partial_kernel(torch, dev))
     errs.update(check_b4(torch, dev))
     # B1 and B3 at the bit plan's widths
     plan_calls = plan_kernel_calls(torch, dev)
@@ -8485,6 +9196,9 @@ def main() -> int:
     # B6's partial entry at 4k's rank shape; its launches come with 4k
     partial_entry = time_partial_kernel(torch, dev, card)
     partial_entry["max_abs_err"] = errs["flash_decode_partial"]
+    # and at 4o's rank shape (D 256 / G 16 on a ring block); its launches
+    # come with 4o
+    partial_entry["ring_rank"] = time_ring_partial_kernel(torch, dev, card)
 
     stamp("phase 5 (numbers)")
 
@@ -8642,10 +9356,26 @@ def main() -> int:
 
     stamp("path 4l")
 
+    # -- 4o's 4 gloo ranks start here: their (A) runs beside 4m, their (B)
+    # once 4m has ended (``go``)
+    import tempfile
+    o_dir = tempfile.mkdtemp(prefix="chip_smoke_4o_")
+    go = os.path.join(o_dir, "go")
+    o_started = start_hybrid_fsdp(go)
+
     # -- 4m. [hybrid]: recurrentgemma-9b at full width on B5 / B6 (after 4l,
     # before the profiled phases); (A)'s launches join the counts, and
     # B5's and B6's ``hybrid`` entries record them
-    hybrid = run_hybrid(torch, dev, card)
+    try:
+        hybrid = run_hybrid(torch, dev, card)
+        free, total = torch.cuda.mem_get_info()
+        say(f"[hybrid_fsdp] at 4m's end, beside 4o's ranks: the card "
+            f"{(total - free) / 1e9:.2f} GB used of {total / 1e9:.2f} "
+            f"(mem_get_info); 4m's peak {hybrid['peak_gb'] * 2 ** 30 / 1e9:.2f} "
+            f"GB")
+    finally:
+        torch.cuda.empty_cache()
+        open(go, "w").close()
     for entry in kernels:
         n = hybrid["launches"].get(entry["name"], 0)
         entry["launches"] += n
@@ -8659,9 +9389,29 @@ def main() -> int:
         f"under the profiler; prefill {hybrid['prefill_tps']:.1f} tok/s at "
         f"{LM_BATCH} x {LM_PROMPT} (first call), "
         f"{hybrid['long_tps']:.1f} tok/s at 1 x {HY_LONG} ({card})")
-    torch.cuda.empty_cache()
 
     stamp("path 4m")
+
+    # -- 4o. [hybrid_fsdp]: recurrentgemma-9b under DEFAULT_RULES /
+    # MULTIPOD_RULES on 4 gloo ranks (their (A) beside 4m, their (B)
+    # after it); rank 0's (A) launches join the counts, and B6 partial's
+    # ``ring_rank`` entry records its own
+    import shutil
+    try:
+        fsdp_hy = run_hybrid_fsdp(torch, card, o_started,
+                                  hybrid["peak_gb"] * 2 ** 30 / 1e9)
+    finally:
+        shutil.rmtree(o_dir, ignore_errors=True)
+    for entry in kernels:
+        entry["launches"] += fsdp_hy["launches"].get(entry["name"], 0)
+    partial_entry["ring_rank"]["launches"] = fsdp_hy["launches"].get(
+        "flash_decode_partial", 0)
+    say(f"[hybrid_fsdp] launches on the main paths with 4o (A)'s rank 0: "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del fsdp_hy
+    torch.cuda.empty_cache()
+
+    stamp("path 4o")
 
     # -- 4n. [hybrid_train] / [hybrid_mesh]: recurrentgemma-9b trained on
     # the card, then tensor- and data-parallel on 2 gloo ranks (after 4m,

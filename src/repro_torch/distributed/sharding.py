@@ -31,16 +31,14 @@ which runs on autograd's thread, where the thread-local context is
 absent.
 
 The four tables are the reference's and ``rules_for_mesh`` picks among
-them as the reference does. The dense LM and the ViT run under all four:
-under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` their params are FSDP-split
-over "p_embed"'s axes ("data", or ("pod", "data")) and gathered a layer
-at a time; the LM's embedding and head split on the vocab over "model",
-and its decode cache on "kv_seq" over "model" (models/transformer.py).
-The ViT's fused serving encode runs under ``DATA_RULES`` /
-``MODEL_RULES`` only (models/vit.py raises under the FSDP tables), and
-so does the hybrid LM (``check_model_rules`` refuses "p_embed" and
-"kv_seq" splits for it). No model has an experts axis yet:
-``check_model_rules`` raises for that (A15). ``split_of`` is what the sharded layers ask:
+them as the reference does. The dense LM, the hybrid LM and the ViT run
+under all four: under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` their
+params are FSDP-split over "p_embed"'s axes ("data", or ("pod",
+"data")) and gathered a layer at a time; an LM's embedding and head
+split on the vocab over "model", and its decode cache (the hybrid's
+attention ring too) on "kv_seq" over "model" (models/transformer.py).
+No model has an experts axis yet: ``check_model_rules`` raises for that
+(A15). ``split_of`` is what the sharded layers ask:
 this rank's block of a logical dim, or None where the dim stays whole (no
 context, no rule, a size-1 axis, or a dim the axes do not divide); a rule
 that names a tuple of mesh axes is one axis, its first the slowest.
@@ -94,19 +92,11 @@ MULTIPOD_RULES.update({
     "p_embed": ("pod", "data"),
 })
 
-# logical axes a family's layers cannot run split yet, and why: the
-# dense LM and the ViT run under every table (neither has an experts
-# axis, and the ViT carries no vocab or KV cache); the hybrid runs under
-# DATA_RULES / MODEL_RULES but not FSDP-split over "p_embed" nor with its
-# ring cache split along "kv_seq" (the window cuts across the ranks'
-# rows); any other family not the experts split (the moe family)
+# the families whose layers run under every table (none has an experts
+# axis, and the ViT carries no vocab or KV cache); any other family runs
+# without the experts split, which comes with the moe family
+_EVERY_TABLE = ("dense", "hybrid", "vit")
 _EXPERTS = ("experts", "p_experts")
-_EXPERTS_WHY = "the experts split comes with the moe family (ROADMAP.md queue A15)"
-_NOT_RUN = {"dense": ((), ""), "vit": ((), ""),
-            "hybrid": (("p_embed", "kv_seq") + _EXPERTS,
-                       "the hybrid runs under DATA_RULES and MODEL_RULES "
-                       "only (ROADMAP.md queue A15: hybrid under the FSDP "
-                       "tables)")}
 
 # Pure data parallelism over a 1-D ("data",) mesh: only the batch axis
 # shards, every other logical axis replicates. This is the serving
@@ -415,18 +405,15 @@ def axis_size(logical_axis: str) -> int:
 def check_model_rules(ctx: ShardingCtx | None = None,
                       family: str = "dense") -> None:
     """Raise unless the ``family``'s layers of this port run under the ctx
-    (by default the installed one). The dense LM and the ViT run under
-    every table; the hybrid with nothing on "p_embed" or "kv_seq"
-    (``DATA_RULES``, ``MODEL_RULES``); any other family no experts
-    split."""
+    (by default the installed one). The dense LM, the hybrid LM and the
+    ViT run under every table; any other family no experts split."""
     ctx = current_ctx() if ctx is None else ctx
-    if ctx is None:
+    if ctx is None or family in _EVERY_TABLE:
         return
-    axes, why = _NOT_RUN.get(family, (_EXPERTS, _EXPERTS_WHY))
-    live = [ax for ax in axes
+    live = [ax for ax in _EXPERTS
             if _axis_size(ctx.mesh, ctx.rules.get(ax)) > 1]
-    if not live:
-        return
-    raise NotImplementedError(
-        f"the {family} model with logical axes {live} split over the mesh "
-        f"{dict(ctx.mesh.shape)}: {why}")
+    if live:
+        raise NotImplementedError(
+            f"the {family} model with logical axes {live} split over the "
+            f"mesh {dict(ctx.mesh.shape)}: the experts split comes with the "
+            f"moe family (ROADMAP.md queue A15)")

@@ -22,14 +22,14 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain PyTorch versions).
 
 The hybrid family (``--arch recurrentgemma-9b``) serves on one device and
-on the host mesh under ``MODEL_RULES`` / ``DATA_RULES`` (each rank draws
-its blocks of the weights leaf by leaf, ``bridge.init_lm(place=True)``):
-its cache is the recurrent states (split on the batch and, over "model",
-the LRU width) and a ring of min(window, cache len) slots per attention
-layer (split on the batch only), so ``--cache-len`` may be shorter than
-the prompt and the generated tokens (positions past it overwrite the
-ring's oldest slots, the reference's ring for a cache shorter than the
-window).
+on the host mesh under any table (each rank draws its blocks of the
+weights leaf by leaf, ``bridge.init_lm(place=True)``): its cache is the
+recurrent states (split on the batch and, over "model", the LRU width)
+and a ring of min(window, cache len) slots per attention layer (split on
+the batch, and under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` on its slots
+over "model"), so ``--cache-len`` may be shorter than the prompt and the
+generated tokens (positions past it overwrite the ring's oldest slots,
+the reference's ring for a cache shorter than the window).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\

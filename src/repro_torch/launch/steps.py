@@ -31,9 +31,9 @@ in full f32 too.
 On a mesh. The reference is single-controller: ``jit`` with
 ``NamedSharding``s lays one global state over the devices. Here each
 rank holds its own block (SPMD), under any of the four tables for the
-dense LM and the ViT (the hybrid LM under ``DATA_RULES`` /
-``MODEL_RULES``, its whole leaves read in column blocks summed over
-"model" in the model's backward: models/rglru.py), and a step built under an installed sharding
+dense LM, the hybrid LM (its whole leaves read in column blocks summed
+over "model" in the model's backward: models/rglru.py) and the ViT, and
+a step built under an installed sharding
 context (``make_train_fn``, or ``make_train_step(cfg, shape, ctx)``)
 runs the model's mesh forward on this rank's rows (every fake-quant
 scale the global batch's: ``sharding.mesh_scope``) and also:

@@ -13,9 +13,8 @@ checkpoints, fault injection and the straggler detector, and the CLI.
         --data-par 2 --model-par 2
 
 Three families train: the dense and the hybrid LM (``lm_loss`` on
-``TokenStream`` batches, bf16 weights; the hybrid under ``DATA_RULES`` /
-``MODEL_RULES`` only) and the ViT (QAT with the straight-through
-estimator on the composed entries, launch/steps.py, on ``ImageStream``
+``TokenStream`` batches, bf16 weights) and the ViT (QAT with the
+straight-through estimator on the composed entries, launch/steps.py, on ``ImageStream``
 batches); the others raise naming A15 (ROADMAP.md queue A). The loop
 runs with or without a sharding context. Under one (``main`` installs
 ``make_host_mesh(--data-par, --model-par)``, as the reference's, with

@@ -20,9 +20,9 @@ the logits, ``loss_fn`` reduces the logsumexp and the gold logit over
 "model") with the decode cache split along its sequence. ``vit`` routes
 to models/vit.py. ``hybrid`` (RecurrentGemma) runs through the same LM
 entry points: ``loss_fn``, ``prefill_fn`` / ``decode_fn`` on its RG-LRU
-layers and local-attention ring, tensor- and data-parallel under
-``MODEL_RULES`` / ``DATA_RULES``; under the FSDP tables it raises naming
-queue A15 (``transformer.check_family``).
+layers and local-attention ring, under every table as the dense LM
+(under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` its ring split along its
+slots over "model").
 Every other family raises ``NotImplementedError`` naming ROADMAP.md
 queue A15. The parameters are the port's tree
 (``bridge.from_jax_params`` of the reference's, or ``init_model``);

@@ -27,7 +27,8 @@ min(window, S) slots, slot pos mod W holding position pos
 (``ring_decode_attention``). RoPE is applied to each key when it is
 written, so the softmax does not depend on the order of the slots, and
 the valid slots are exactly the first min(pos + 1, W): B6 runs on the
-ring unchanged with that length. A window over a linear cache
+ring unchanged with that length, and a ring split along its slots is a
+split cache of that length (below). A window over a linear cache
 (``decode_attention(window=)``) runs B6 on the view of its last
 ``window`` valid rows.
 
@@ -104,22 +105,27 @@ def decode_attention(q, k_cache, v_cache, length: int, *, window=0,
     partial entry over them, merged with every rank's of ``seq.group``
     (each rank must call it), the output of all q's heads. ``window > 0``
     attends the last ``window`` valid rows, [length - window, length), as
-    the reference's mask: B6 on that view of the caches (no sequence
-    split)."""
-    if window > 0:
-        if seq is not None:
-            raise NotImplementedError(
-                "a local-window decode over a sequence-split cache (ROADMAP.md "
-                "queue A15: hybrid under the FSDP tables)")
-        lo = max(0, length - window)
-        return flash_decode(q, k_cache[:, lo:length], v_cache[:, lo:length],
-                            length - lo)
+    the reference's mask: B6 on that view of the caches; under ``seq``
+    the partial entry on the view of the rank's rows from the window's
+    first (``row0`` shifted by as many), none where the window starts
+    past them."""
+    lo = max(0, length - window) if window > 0 else 0
     if seq is None:
+        if window > 0:
+            return flash_decode(q, k_cache[:, lo:length],
+                                v_cache[:, lo:length], length - lo)
         return flash_decode(q, k_cache, v_cache, length)
     from repro_torch.distributed import collectives
 
-    o, lse = flash_decode_partial(q, k_cache, v_cache,
-                                  seq.index * k_cache.shape[1], length)
+    rows = k_cache.shape[1]
+    row0 = seq.index * rows
+    skip = max(lo - row0, 0)
+    if skip >= rows:
+        # every row of this rank lies before the window: an empty range
+        o, lse = flash_decode_partial(q, k_cache, v_cache, row0, row0)
+    else:
+        o, lse = flash_decode_partial(q, k_cache[:, skip:], v_cache[:, skip:],
+                                      row0 + skip, length)
     b, _, h, d = o.shape
     mine = torch.cat([o.reshape(b, h, d), lse[..., None]], -1)[None]
     parts = collectives.all_gather_cat(mine, seq.group, 0, "decode_partials")

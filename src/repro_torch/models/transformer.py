@@ -61,15 +61,21 @@ and read by B6 over its first ``min(pos + 1, W)`` slots
 (``attention.ring_decode_attention``); the tail's states are ``tail_h`` /
 ``tail_conv``. It trains (``lm_loss``; under ``cfg.remat`` each
 super-block and each tail layer is checkpointed, the bodies the
-reference remats) and runs tensor- and data-parallel under
-``MODEL_RULES`` / ``DATA_RULES``: the attention layer as the dense one
-(its 16 query heads split over "model" on the one KV head, K / V and the
-ring whole on every rank), the SwiGLU on its d_ff block, the RG-LRU on
-its block of the width (``lru_split``, models/rglru.py), the recurrent
-states split on "mlp" and "batch", the ring on "batch" only. Under the
-FSDP tables (``DEFAULT_RULES`` / ``MULTIPOD_RULES``) it raises naming
-ROADMAP.md queue A15: its ring under a "kv_seq" split needs a rule of
-its own, as the window cuts across the ranks' rows.
+reference remats) and runs under every table: under ``MODEL_RULES`` /
+``DATA_RULES`` the attention layer as the dense one (its 16 query heads
+split over "model" on the one KV head), the SwiGLU on its d_ff block,
+the RG-LRU on its block of the width (``lru_split``, models/rglru.py),
+the recurrent states split on "mlp" and "batch", the ring on "batch"
+only. Under ``DEFAULT_RULES`` / ``MULTIPOD_RULES`` every layer's
+"p_embed" dims are FSDP-split too and gathered where the layer runs
+(each recurrent layer's tree, the attention layer's, the embedding and
+the head), the vocab splits as the dense LM's, and the ring splits along
+its slots over "model" ("kv_seq"): a rank holds slots [r W / n, (r + 1)
+W / n). The valid slots are always the prefix [0, min(pos + 1, W)), so
+the new row goes to slot pos mod W on the rank that owns it and the
+attention is B6's partial entry over the rank's slots at that length,
+merged across the ranks: the dense cache's sequence split with the
+ring's length.
 
 The other families (moe / ssm) raise ``NotImplementedError`` naming
 ROADMAP.md queue A15, as does the decomposed (Eq. 2) attention.
@@ -107,9 +113,8 @@ __all__ = ["attention_shapes", "lm_shapes", "attention_logical_axes",
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is an LM the port carries under the installed
-    context: dense under every table, hybrid with no "p_embed" or
-    "kv_seq" split (``sharding.check_model_rules``). Both train and
-    serve."""
+    context (``sharding.check_model_rules``): dense and hybrid under
+    every table, with standard attention. Both train and serve."""
     if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"LM family {cfg.family!r} is not ported to repro_torch yet "
@@ -118,15 +123,10 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (paper Eq. 2) is not ported for "
             f"the LM yet (ROADMAP.md queue A15)")
-    if cfg.family == "dense":
-        if cfg.window:
-            raise NotImplementedError(
-                "a local-attention window is hybrid-only: the dense LM "
-                "attends causally (ROADMAP.md queue A15)")
-        return
-    ctx = sharding.current_ctx()
-    if ctx is not None and ctx.mesh.world > 1:
-        sharding.check_model_rules(ctx, "hybrid")
+    if cfg.family == "dense" and cfg.window:
+        raise NotImplementedError(
+            "a local-attention window is hybrid-only: the dense LM "
+            "attends causally (ROADMAP.md queue A15)")
 
 
 def attention_shapes(cfg: ArchConfig) -> dict:
@@ -379,15 +379,18 @@ def _ring(q, k_ring, v_ring, pos: int):
 
 
 def _decode_seq(q, k_rows, v_rows, length: int, cfg: ArchConfig, split,
-                seq) -> torch.Tensor:
-    """``decode_attention`` against this rank's rows of caches split along
-    their sequence (``seq``): every query head attends the rows (q
-    all-gathered over the head split's group, in head order), the
-    partials merge across ``seq``'s group, and the rank keeps its heads."""
+                seq, window: int = 0) -> torch.Tensor:
+    """``decode_attention`` (over the last ``window`` valid rows where it
+    is above 0) against this rank's rows of caches split along their
+    sequence (``seq``): every query head attends the rows (q all-gathered
+    over the head split's group, in head order), the partials merge
+    across ``seq``'s group, and the rank keeps its heads."""
     if split is None:
-        return decode_attention(q, k_rows, v_rows, length, seq=seq)
+        return decode_attention(q, k_rows, v_rows, length, window=window,
+                                seq=seq)
     q_all = collectives.all_gather_cat(q, split.group, 2, "decode_q")
-    o = decode_attention(q_all, k_rows, v_rows, length, seq=seq)
+    o = decode_attention(q_all, k_rows, v_rows, length, window=window,
+                         seq=seq)
     h0, h1 = split.block(cfg.n_heads)
     return o[:, :, h0:h1]
 
@@ -433,11 +436,13 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     built once per step by the caller; ``split`` this rank's block of the
     query heads (``heads_split``), ``seq`` of the caches' rows
     (``seq_split``). With ``window`` > 0 and caches of at most ``window``
-    rows (the hybrid's) the caches are a ring: the new row goes to slot
-    ``ring_slot(pos, W)`` and B6 reads the first min(pos + 1, W) slots,
-    as the reference's ring decode (under a head split the rank's query
-    heads over the whole ring); a longer cache attends its last
-    ``window`` rows. Returns (out, cache_k, cache_v)."""
+    rows in all (the hybrid's) the caches are a ring of W slots: the new
+    row goes to slot ``ring_slot(pos, W)`` and B6 reads the first
+    min(pos + 1, W) slots, as the reference's ring decode (under a head
+    split the rank's query heads over the whole ring; under ``seq`` the
+    slot's owner writes it and every rank reads its slots of that prefix,
+    B6's partial entry merged across ``seq``'s group); a longer cache
+    attends its last ``window`` rows. Returns (out, cache_k, cache_v)."""
     b = x.shape[0]
     hkv, hd = cfg.kv_heads, cfg.head_dim
     h = cfg.n_heads if split is None else cfg.n_heads // split.n
@@ -448,25 +453,23 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg: ArchConfig, policy,
     cos, sin = rope_tables
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if window > 0:
-        if seq is not None:
-            raise NotImplementedError(
-                "a local-window decode over a sequence-split cache "
-                "(ROADMAP.md queue A15: hybrid under the FSDP tables)")
-        if cache_k.shape[1] <= window:
-            slot = ring_slot(pos, cache_k.shape[1])
-            cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, slot)
+    rows = cache_k.shape[1] * (1 if seq is None else seq.n)
+    if 0 < window and rows <= window:
+        slot = ring_slot(pos, rows)
+        cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, slot, seq)
+        if seq is None:
             o = _decode(q, cache_k, cache_v, pos, cfg, split, attend=_ring)
         else:
-            cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
-            o = _decode(q, cache_k, cache_v, pos + 1, cfg, split,
-                        attend=lambda *a: decode_attention(*a, window=window))
+            o = _decode_seq(q, cache_k, cache_v, min(pos + 1, rows), cfg,
+                            split, seq)
     elif seq is None:
         cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos)
-        o = _decode(q, cache_k, cache_v, pos + 1, cfg, split)
+        o = _decode(q, cache_k, cache_v, pos + 1, cfg, split, attend=(
+            (lambda *a: decode_attention(*a, window=window)) if window
+            else None))
     else:
         cache_k, cache_v = update_kv_cache(cache_k, cache_v, k, v, pos, seq)
-        o = _decode_seq(q, cache_k, cache_v, pos + 1, cfg, split, seq)
+        o = _decode_seq(q, cache_k, cache_v, pos + 1, cfg, split, seq, window)
     o = o.reshape(b, 1, h * hd)
     return _out_proj(o, p["wo"], policy, split), cache_k, cache_v
 
@@ -490,17 +493,23 @@ def dense_layer_fwd(p, x, cfg: ArchConfig, policy,
 
 
 def hybrid_splits(cfg: ArchConfig) -> tuple:
-    """(``heads_split``, ``mlp_split``, ``lru_split``) of the installed
-    context: the hybrid's layers' splits, read once a forward (a remat's
-    recompute runs where no context need be installed)."""
-    return heads_split(cfg), mlp_split(cfg), lru_split(cfg)
+    """(``heads_split``, ``mlp_split``, ``lru_split``, ``fsdp_split``) of
+    the installed context: the hybrid's layers' splits, read once a
+    forward (a remat's recompute runs where no context need be
+    installed)."""
+    return heads_split(cfg), mlp_split(cfg), lru_split(cfg), fsdp_split(cfg)
 
 
-def rec_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None, None)):
+def rec_layer_fwd(p, x, cfg: ArchConfig, policy,
+                  splits=(None, None, None, None)):
     """Pre-norm residual recurrent layer over the whole sequence: the
     RG-LRU block (from a zero state), then SwiGLU. ``splits`` as
-    ``hybrid_splits`` gives them (the heads' unused here)."""
-    _, mlp, lru = splits
+    ``hybrid_splits`` gives them (the heads' unused here); ``p`` is this
+    rank's blocks, FSDP-gathered here (each "p_embed" dim, found by its
+    axis name: the "p_mlp" dims, the LRU width and d_ff, keep their
+    blocks), so a remat's recompute gathers again."""
+    _, mlp, lru, fsdp = splits
+    p = fsdp_layer(p, rec_layer_axes(cfg), fsdp, cfg.d_model)
     y, _ = rglru_mod.rglru_forward(p["rec"], rmsnorm(x, p["ln1"],
                                                      cfg.norm_eps), cfg,
                                    policy, split=lru)
@@ -510,11 +519,13 @@ def rec_layer_fwd(p, x, cfg: ArchConfig, policy, splits=(None, None, None)):
 
 
 def rec_layer_step(p, x, h_state, conv_state, cfg: ArchConfig, policy,
-                   splits=(None, None, None)):
-    """One decode step of a recurrent layer; writes its new state into
-    ``h_state`` (B, W) f32 and ``conv_state`` (B, K - 1, W), in place (the
-    cache's slices; under a width split the rank's W / n columns)."""
-    _, mlp, lru = splits
+                   splits=(None, None, None, None)):
+    """One decode step of a recurrent layer (its blocks FSDP-gathered);
+    writes its new state into ``h_state`` (B, W) f32 and ``conv_state``
+    (B, K - 1, W), in place (the cache's slices; under a width split the
+    rank's W / n columns)."""
+    _, mlp, lru, fsdp = splits
+    p = fsdp_layer(p, rec_layer_axes(cfg), fsdp, cfg.d_model)
     y, st = rglru_mod.rglru_decode_step(
         p["rec"], rmsnorm(x, p["ln1"], cfg.norm_eps),
         {"h": h_state, "conv": conv_state}, cfg, policy, split=lru)
@@ -526,14 +537,31 @@ def rec_layer_step(p, x, h_state, conv_state, cfg: ArchConfig, policy,
 
 
 def super_block_fwd(sb, x, cfg: ArchConfig, policy,
-                    splits=(None, None, None)):
+                    splits=(None, None, None, None)):
     """One (rec0, rec1, attn) super-block over the whole sequence: the
     reference's scanned ``hbody``, the unit it remats."""
-    heads, mlp, _ = splits
+    heads, mlp, _, fsdp = splits
     x = rec_layer_fwd(sb["rec0"], x, cfg, policy, splits)
     x = rec_layer_fwd(sb["rec1"], x, cfg, policy, splits)
-    return dense_layer_fwd(sb["attn"], x, cfg, policy, (heads, mlp, None),
+    return dense_layer_fwd(sb["attn"], x, cfg, policy, (heads, mlp, fsdp),
                            window=cfg.window)
+
+
+def _dense_forward(params, x, cfg: ArchConfig, policy, fsdp):
+    """The dense layer stack over the whole sequence; under ``cfg.remat``
+    and autograd each layer is checkpointed (``sharding.bound`` carries
+    the context into the recompute)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    splits = (heads_split(cfg), mlp_split(cfg), fsdp)
+    for i in range(cfg.n_layers):
+        lp = layer_view(params["blocks"], i)
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            x = checkpoint(sharding.bound(dense_layer_fwd), lp, x, cfg,
+                           policy, splits, use_reentrant=False)
+        else:
+            x = dense_layer_fwd(lp, x, cfg, policy, splits)
+    return x
 
 
 def _hybrid_forward(params, x, cfg: ArchConfig, policy):
@@ -563,19 +591,22 @@ def _hybrid_forward(params, x, cfg: ArchConfig, policy):
 def _hybrid_decode(params, cache, x, pos: int, cfg: ArchConfig, policy,
                    tables):
     """The hybrid's one-token layer stack; every state and ring slot is
-    written into ``cache`` in place."""
+    written into ``cache`` in place (under a "kv_seq" split this rank's
+    slots of each ring)."""
     nsb, rem = hybrid_counts(cfg)
     splits = hybrid_splits(cfg)
-    heads, mlp, _ = splits
+    heads, mlp, _, fsdp = splits
+    seq = seq_split(cache["attn_k"].shape[2]) if nsb else None
     for i in range(nsb):
         sb = layer_view(params["blocks"], i)
         for j, name in enumerate(("rec0", "rec1")):
             x = rec_layer_step(sb[name], x, cache["rec_h"][i, j],
                                cache["rec_conv"][i, j], cfg, policy, splits)
-        lp = sb["attn"]
+        lp = fsdp_layer(sb["attn"], dense_layer_axes(cfg), fsdp, cfg.d_model)
         o, _, _ = attn_decode(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
                               cache["attn_k"][i], cache["attn_v"][i], pos,
-                              cfg, policy, tables, heads, window=cfg.window)
+                              cfg, policy, tables, heads, seq,
+                              window=cfg.window)
         x = x + o
         x = x + ffn_mod.swiglu(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
                                policy, split=mlp)
@@ -617,27 +648,14 @@ def forward_lm(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     under a vocab split the logits are this rank's block (B, S, V / n)."""
     policy = policy or ExecPolicy.from_cfg(cfg)
     check_family(cfg)
-    if cfg.family == "hybrid":
-        with _model_scope(policy):
-            x = _hybrid_forward(params, embedding_lookup(params["embed"],
-                                                         tokens), cfg, policy)
-            x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-            logits = _head(params, params["embed"], cfg, None, x, policy)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
     with _model_scope(policy):
         fsdp = fsdp_split(cfg)
         table = _embed_table(params, cfg, fsdp)
         x = embedding_lookup(table, tokens, vocab_split(cfg))
-        remat = cfg.remat and torch.is_grad_enabled()
-        splits = (heads_split(cfg), mlp_split(cfg), fsdp)
-        for i in range(cfg.n_layers):
-            lp = layer_view(params["blocks"], i)
-            if remat:
-                from torch.utils.checkpoint import checkpoint
-                x = checkpoint(sharding.bound(dense_layer_fwd), lp, x, cfg,
-                               policy, splits, use_reentrant=False)
-            else:
-                x = dense_layer_fwd(lp, x, cfg, policy, splits)
+        if cfg.family == "hybrid":
+            x = _hybrid_forward(params, x, cfg, policy)
+        else:
+            x = _dense_forward(params, x, cfg, policy, fsdp)
         x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
         logits = _head(params, table, cfg, fsdp, x, policy)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -692,13 +710,17 @@ def cache_spec(cfg: ArchConfig, batch: int, seq_len: int,
     check_family(cfg)
     if cfg.family == "hybrid":
         return _hybrid_cache_spec(cfg, batch, seq_len, dtype)
-    n = sharding.axis_size("kv_seq")
-    if seq_len % n:
-        raise ValueError(f"a cache of {seq_len} rows does not split over the "
-                         f"{n} ranks of 'kv_seq'")
+    _check_seq_rows(seq_len)
     shape = (cfg.n_layers, batch, seq_len, cfg.kv_heads, cfg.head_dim)
     axes = ("p_layers", "batch", "kv_seq", None, None)
     return {"k": (shape, dtype), "v": (shape, dtype)}, {"k": axes, "v": axes}
+
+
+def _check_seq_rows(rows: int) -> None:
+    n = sharding.axis_size("kv_seq")
+    if rows % n:
+        raise ValueError(f"a cache of {rows} rows does not split over the "
+                         f"{n} ranks of 'kv_seq'")
 
 
 def _hybrid_cache_spec(cfg: ArchConfig, batch: int, seq_len: int, dtype):
@@ -708,10 +730,13 @@ def _hybrid_cache_spec(cfg: ArchConfig, batch: int, seq_len: int, dtype):
     seq_len) slots (``attn_k`` / ``attn_v`` (nsb, B, W, Hkv, D); window 0
     keeps seq_len rows, a linear cache); the tail's ``tail_h`` /
     ``tail_conv``. Placed under a context, the states split on "batch"
-    and (the width) on "mlp", the rings on "batch" only: whole on every
-    model rank (``check_family`` refuses a "kv_seq" split)."""
+    and (the width) on "mlp", the rings on "batch" and their slots on
+    "kv_seq" (``DEFAULT_RULES`` / ``MULTIPOD_RULES``: W / M slots a
+    rank); a W the "kv_seq" axis does not divide raises, as the dense
+    cache's length."""
     nsb, rem = hybrid_counts(cfg)
     w = min(cfg.window or seq_len, seq_len)
+    _check_seq_rows(w)
     rst = rglru_mod.rglru_state_shape(cfg, batch)
     kv = (nsb, batch, w, cfg.kv_heads, cfg.head_dim)
     shapes = {"rec_h": ((nsb, 2) + rst["h"], torch.float32),
@@ -739,32 +764,35 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     policy = policy or ExecPolicy.from_cfg(cfg, training=False)
     check_family(cfg)
     pos = int(pos)
-    if cfg.family == "hybrid":
-        with _model_scope(policy):
-            x = embedding_lookup(params["embed"], tokens)
-            x = _hybrid_decode(params, cache, x, pos, cfg, policy,
-                               decode_rope(pos, cfg, x.device))
-            x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-            logits = _head(params, params["embed"], cfg, None, x, policy)
-        return logits[:, 0], cache
-    heads, mlp, fsdp = heads_split(cfg), mlp_split(cfg), fsdp_split(cfg)
-    seq = seq_split(cache["k"].shape[2])
-    axes = dense_layer_axes(cfg)
+    fsdp = fsdp_split(cfg)
     with _model_scope(policy):
         table = _embed_table(params, cfg, fsdp)
         x = embedding_lookup(table, tokens, vocab_split(cfg))
         tables = decode_rope(pos, cfg, x.device)
-        for i in range(cfg.n_layers):
-            lp = fsdp_layer(layer_view(params["blocks"], i), axes, fsdp,
-                            cfg.d_model)
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            o, _, _ = attn_decode(lp["attn"], h, cache["k"][i],
-                                  cache["v"][i], pos, cfg, policy, tables,
-                                  heads, seq)
-            x = x + o
-            x = x + ffn_mod.swiglu(lp["ffn"],
-                                   rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                                   policy, split=mlp)
+        if cfg.family == "hybrid":
+            x = _hybrid_decode(params, cache, x, pos, cfg, policy, tables)
+        else:
+            x = _dense_decode(params, cache, x, pos, cfg, policy, tables,
+                              fsdp)
         x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
         logits = _head(params, table, cfg, fsdp, x, policy)[:, 0]
     return logits, cache
+
+
+def _dense_decode(params, cache, x, pos: int, cfg: ArchConfig, policy,
+                  tables, fsdp):
+    """The dense one-token layer stack; each layer's K / V row is written
+    into ``cache`` in place."""
+    heads, mlp = heads_split(cfg), mlp_split(cfg)
+    seq = seq_split(cache["k"].shape[2])
+    axes = dense_layer_axes(cfg)
+    for i in range(cfg.n_layers):
+        lp = fsdp_layer(layer_view(params["blocks"], i), axes, fsdp,
+                        cfg.d_model)
+        o, _, _ = attn_decode(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                              cache["k"][i], cache["v"][i], pos, cfg, policy,
+                              tables, heads, seq)
+        x = x + o
+        x = x + ffn_mod.swiglu(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                               policy, split=mlp)
+    return x

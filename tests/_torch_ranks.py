@@ -1,7 +1,9 @@
 """Rank bodies for the port's multi-rank tests (``test_torch_sharding.py``,
 ``test_torch_data_mesh.py``, ``test_torch_lm_mesh.py``,
 ``test_torch_lm_fsdp.py``, ``test_torch_lm_multipod.py``,
-``test_torch_vit_mesh.py``, ``test_torch_gpu.py``), run by
+``test_torch_vit_mesh.py``, ``test_torch_hybrid_mesh.py``,
+``test_torch_hybrid.py``, ``test_torch_hybrid_fsdp.py``,
+``test_torch_gpu.py``), run by
 ``repro_torch.launch.mesh.spawn_ranks``.
 
 A spawned rank imports this module by name to find its function, so it
@@ -961,16 +963,17 @@ def serve_mesh_suite(raw: dict, noisy_cfgs: dict, n_streams: int,
 # --------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def hybrid_tp_arithmetic(params: dict, cfg, n: int = 2):
+def hybrid_tp_arithmetic(params: dict, cfg, n: int = 2, vocab: bool = False):
     """The unsharded hybrid forward computing on one device what each rank
     of a (1, n) mesh under MODEL_RULES computes: the column-parallel
     weights (wq, w_gate, w_up, in_proj, gate_proj) in their n contiguous
     column blocks, the attention one call a rank's query heads, the
     row-parallel wo / w_down / out_proj in their n row blocks, and the
     RG-LRU's gate GEMMs over the rank's u block and w_a / w_x rows, each
-    block's product in f32, summed in f32 in rank order and rounded once.
-    Where each GEMM depends only on its own operands, the mesh's logits
-    are bitwise these. The blocks are cut from ``params``' leaves at each
+    block's product in f32, summed in f32 in rank order and rounded once;
+    with ``vocab`` also the head in its n vocab (column) blocks. Where
+    each GEMM depends only on its own operands, the mesh's logits are
+    bitwise these. The blocks are cut from ``params``' leaves at each
     call (found by storage, so a detached copy's too), so a gradient
     reaches them: differentiated, it is the mesh step's order control."""
     from repro_torch.distributed.sharding import Split
@@ -998,6 +1001,8 @@ def hybrid_tp_arithmetic(params: dict, cfg, n: int = 2):
         else:
             note(sub["attn"], ("wq",), ("wo",))
         note(sub["ffn"], ("w_gate", "w_up"), ("w_down",))
+    if vocab:
+        cols.add(key(params["lm_head"]))
     real = (transformer.linear, ffn_mod.linear, rglru_mod.linear,
             transformer._attend, transformer._decode,
             rglru_mod._gate_preacts)
@@ -1202,3 +1207,297 @@ def hybrid_tp_card(tree: dict, cfg, prompt, forced, ring: int) -> dict:
                                  prompt.shape[0], mesh.device)
     return {"prefill": _np32(pre), "decode": _np32(dec),
             "launches": dict(_build.LAUNCHES)}
+
+
+# --------------------------------------------------------------------------
+# the hybrid LM under DEFAULT_RULES / MULTIPOD_RULES (test_torch_hybrid.py,
+# test_torch_hybrid_fsdp.py)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def hybrid_fsdp_arithmetic(params: dict, cfg, n: int = 2):
+    """What each rank of a mesh with n ranks on "model" computes under
+    DEFAULT_RULES / MULTIPOD_RULES, on one device from the whole params
+    and the rank's rows: ``hybrid_tp_arithmetic`` with the head in its n
+    vocab blocks (the FSDP gathers and the vocab-split lookup move bits
+    only), and each ring read as n blocks of its slots, B6's partial
+    entry over each block at the ring's length (min(pos + 1, W)), merged
+    in rank order (``attention.merge_partials``)."""
+    from repro_torch.kernels.flash_decode import flash_decode_partial
+    from repro_torch.models import attention, transformer
+
+    with hybrid_tp_arithmetic(params, cfg, n, vocab=True):
+        heads = transformer._decode
+
+        def decode(q, k, v, length, cfg_, split, attend=None):
+            if attend is not transformer._ring:
+                return heads(q, k, v, length, cfg_, split, attend=attend)
+            rows, valid = k.shape[1] // n, min(length + 1, k.shape[1])
+            parts = [flash_decode_partial(
+                q, k[:, r * rows:(r + 1) * rows].contiguous(),
+                v[:, r * rows:(r + 1) * rows].contiguous(), r * rows, valid)
+                for r in range(n)]
+            return attention.merge_partials(
+                torch.stack([o for o, _ in parts]),
+                torch.stack([lse for _, lse in parts])).to(q.dtype)
+
+        transformer._decode = decode
+        try:
+            yield
+        finally:
+            transformer._decode = heads
+
+
+def _ring_at_rank0(transformer):
+    """A planted fault: every rank writes a ring slot as rank 0 would (the
+    owner's row offset taken as 0), so rank 0's block is written on every
+    rank and the later blocks on none."""
+    real = transformer.update_kv_cache
+
+    def write(kc, vc, k, v, pos, seq=None):
+        if seq is not None:
+            seq = dataclasses.replace(seq, index=0)
+        return real(kc, vc, k, v, pos, seq)
+    return write
+
+
+def loop_cfg(cfg, mesh: str):
+    """The FSDP suite's ``train_loop`` config on ``mesh``: under
+    DEFAULT_RULES ("default") the smoke config with the full config's
+    remat (the gathers recomputed in the backward) and 2 microbatches,
+    under MULTIPOD_RULES the smoke config (its steps cost a third)."""
+    return cfg.with_(remat=True, microbatch_steps=2) if mesh == "default" \
+        else cfg
+
+
+HYBRID_FSDP_FAULTS = ("fsdp backward without its reduce-scatter",
+                      "ring written at rank 0's slot on every rank",
+                      "decode merge without the last rank's partial")
+
+
+def _hybrid_fsdp_faults(tree, cfg, local, mine, prompt, forced, ring, tb,
+                        ctx) -> dict:
+    """The three planted faults on this rank (every rank plants them, so
+    their collectives pair up): the train step's logical gradient with
+    the FSDP backward keeping its own block of the gradient (no
+    reduce-scatter), and the decode logits at the first ``ring`` / 2 + 1
+    positions (the last with its key in model rank 1's slots) with the
+    ring written at rank 0's slot, and with the merge dropping the last
+    rank's partial."""
+    from repro_torch.models import attention, transformer
+
+    n = transformer.fsdp_split(cfg).n
+
+    def no_reduce(g, group, dim):
+        step = g.shape[dim] // n
+        part = g.narrow(dim, torch.distributed.get_rank(group) * step, step)
+        return (part.float() / n).to(g.dtype)
+
+    merge = attention.merge_partials
+    out = {}
+    with patched(collectives, "reduce_scatter_mean", no_reduce):
+        out[HYBRID_FSDP_FAULTS[0]] = _lm_grads(cfg, local, tb, ctx)[1]
+    for tag, (owner, name, fn) in (
+            (HYBRID_FSDP_FAULTS[1], (transformer, "update_kv_cache",
+                                     _ring_at_rank0(transformer))),
+            (HYBRID_FSDP_FAULTS[2], (attention, "merge_partials",
+                                     lambda o, lse: merge(o[:-1],
+                                                          lse[:-1])))):
+        with patched(owner, name, fn):
+            out[tag] = _np32(_hybrid_serve(
+                local, cfg, mine(prompt[:, :ring // 2 + 1]),
+                mine(forced[:, :0]), ring, prompt.shape[0])[1])
+    return out
+
+
+def _hybrid_fsdp_serve(tree, cfg, local, mine, prompt, forced, ring) -> dict:
+    """This rank's (rows, vocab block) of the prefill logits and of the
+    decode logits at every position, and the same on one device under
+    ``hybrid_fsdp_arithmetic`` from the whole ``tree`` on the rank's rows,
+    cut to its vocab block."""
+    from repro_torch.models import transformer
+
+    pre, dec = _hybrid_serve(local, cfg, mine(prompt), mine(forced), ring,
+                             prompt.shape[0])
+    v0, v1 = transformer.vocab_split(cfg).block(cfg.vocab)
+    with sharding._installed(None), hybrid_fsdp_arithmetic(tree, cfg):
+        one = _hybrid_serve(tree, cfg, mine(prompt), mine(forced), ring,
+                            pre.shape[0])
+    return {"prefill": _np32(pre), "decode": _np32(dec),
+            "arith_prefill": _np32(one[0][..., v0:v1]),
+            "arith_decode": _np32(one[1][..., v0:v1])}
+
+
+def hybrid_fsdp_suite(tree: dict, cfg, prompt: np.ndarray,
+                      forced: np.ndarray, batch: dict, ring: int, steps: int,
+                      ckpt_dir: str, wide: tuple) -> dict:
+    """One of 4 CPU ranks: the hybrid under DEFAULT_RULES on (data 2,
+    model 2) and MULTIPOD_RULES on (pod 2, data 1, model 2). For each:
+    this rank's blocks' shapes and whether ``bridge.init_lm(place=True)``
+    drew them bitwise ``place_lm_params``'s, its cache's shapes, its
+    (rows, vocab block) of the prefill and ring decode logits (and of the
+    split's arithmetic on one device), one train step's
+    logical gradient, global loss and clip norm, and ``steps`` steps
+    through ``train_loop`` under ``loop_cfg`` (under DEFAULT_RULES with
+    remat and 2 microbatches) checkpointed every step (the losses, the whole leaves, the gathered
+    params, the restored blocks bitwise). Under
+    DEFAULT_RULES also greedy tokens, the planted faults and ``wide``
+    (cfg, tree: an LRU width other than d_model) served over the first
+    ``ring`` / 2 + 2 positions and stepped."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, restore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, steps as steps_mod, train
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    # smoke-sized work on 4 ranks: one thread each, so that the ranks'
+    # idle intra-op threads do not spin on the cores of other test workers
+    torch.set_num_threads(1)
+    out = {"jax_loaded": "jax" in sys.modules,
+           "repro_loaded": any(m == "repro" or m.startswith("repro.")
+                               for m in sys.modules)}
+    for name, pod in (("default", False), ("multipod", True)):
+        mesh, rules = _fsdp_mesh(pod)
+        r = out[name] = {}
+        with use_sharding(mesh, rules) as ctx:
+            r["coords"] = (sharding._axis_coord(mesh, rules["batch"]),
+                           mesh.m)
+            rows = sharding.named_sharding(prompt.shape, ("batch", "seq"),
+                                           ctx)
+
+            def mine(a):
+                return rows.block(torch.from_numpy(np.ascontiguousarray(a)))
+
+            local = transformer.place_lm_params(tree, cfg)
+            with sharding._installed(None):
+                whole = bridge.init_lm(0, cfg, "cpu")
+            r["drawn_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(bridge.init_lm(0, cfg, "cpu", place=True)),
+                tree_leaves(transformer.place_lm_params(whole, cfg))))
+            rec = local["blocks"]["rec0"]["rec"]
+            r["shapes"] = {k: tuple(v.shape) for k, v in (
+                ("in_proj", rec["in_proj"]), ("out_proj", rec["out_proj"]),
+                ("w_a", rec["w_a"]), ("conv_w", rec["conv_w"]),
+                ("tail_in_proj", local["tail_blocks"]["rec"]["in_proj"]),
+                ("wq", local["blocks"]["attn"]["attn"]["wq"]),
+                ("w_down", local["blocks"]["attn"]["ffn"]["w_down"]),
+                ("embed", local["embed"]), ("lm_head", local["lm_head"]))}
+            r["cache"] = {k: tuple(v.shape) for k, v in serve.init_cache(
+                cfg, prompt.shape[0], ring, "cpu").items()}
+            r.update(_hybrid_fsdp_serve(tree, cfg, local, mine, prompt,
+                                        forced, ring))
+            tb = {k: mine(v) for k, v in batch.items()}
+            r["loss"], r["grads"], r["gnorm"] = _lm_grads(cfg, local, tb, ctx)
+            if name == "default":
+                with torch.no_grad():
+                    r["greedy"] = serve.generate(local, serve.init_cache(
+                        cfg, prompt.shape[0], ring, "cpu"),
+                        mine(prompt[:, :2]), 2, cfg)[0].numpy()
+                r["planted"] = _hybrid_fsdp_faults(tree, cfg, local, mine,
+                                                   prompt, forced, ring, tb,
+                                                   ctx)
+                wcfg, wtree = wide
+                wlocal = transformer.place_lm_params(wtree, wcfg)
+                w = r["wide"] = _hybrid_fsdp_serve(
+                    wtree, wcfg, wlocal, mine, prompt[:, :ring // 2 + 2],
+                    forced[:, :0], ring)
+                w["in_proj"] = tuple(wlocal["blocks"]["rec0"]["rec"]
+                                     ["in_proj"].shape)
+                w["loss"], w["grads"], _ = _lm_grads(wcfg, wlocal, tb, ctx)
+            final, losses, _ = train.train_loop(
+                loop_cfg(cfg, name), ShapeConfig("hy", prompt.shape[1],
+                                                 prompt.shape[0], "train"),
+                steps, device="cpu", state=train.init_state(cfg, 0, "cpu"),
+                ckpt=CheckpointManager(f"{ckpt_dir}/{name}", every=1),
+                log_every=10 ** 9)
+            r["losses"] = losses
+            r["m_in_proj"] = tuple(final["opt"]["m"]["blocks"]["rec0"]["rec"]
+                                   ["in_proj"].shape)
+            named = _named_leaves(final["params"])
+            r["whole"] = {k: _np32(v) for k, v in named.items()
+                          if k.rsplit("/", 1)[-1] in HYBRID_WHOLE[:7]}
+            axes = steps_mod.placement_axes(
+                cfg, steps_mod.state_logical_axes(cfg))
+            r["final"] = _np_tree(steps_mod.gather_tree(final, axes, ctx))
+            back, step = restore(f"{ckpt_dir}/{name}/step_{steps}", final,
+                                 ctx, axes)
+            r["restored_step"] = step
+            r["restored_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                  tree_leaves(final)))
+    return out
+
+
+def hybrid_table_calls(tree: dict, cfg, toks: np.ndarray, ring_cases: list
+                       ) -> dict:
+    """One of 2 CPU ranks: the hybrid's entry points under the FSDP tables
+    on three meshes, DEFAULT_RULES on (data 1, model 2) ("kv_seq", the
+    vocab, the heads, d_ff and the LRU width split over "model") and on
+    (data 2, model 1) ("p_embed" and the batch split over "data"), and
+    MULTIPOD_RULES on (pod 2, data 1, model 1): this rank's block of
+    ``prefill_fn``'s logits, its rows' ``loss_fn``, its blocks' shapes
+    and the params gathered back (``place_lm_params``), its cache's local
+    shapes (``cache_axes_spec``); on (1, 2) also the attention layer's
+    ``attn_decode`` under "kv_seq" on its half of each ring of
+    ``ring_cases`` ((x, k ring, v ring, pos), numpy): the output and the
+    rank's half of the written ring."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import _AXES, _build_mesh, make_host_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.models.layers import layer_view
+    from repro_torch.optim.adamw import tree_leaves
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+
+    torch.set_num_threads(1)          # as hybrid_fsdp_suite's ranks
+    meshes = {"default (1, 2)": (make_host_mesh(1, 2, device="cpu"),
+                                 sharding.DEFAULT_RULES),
+              "default (2, 1)": (make_host_mesh(2, 1, device="cpu"),
+                                 sharding.DEFAULT_RULES),
+              "multipod": (_build_mesh(1, 1, "cpu", _AXES, n_pod=2),
+                           sharding.MULTIPOD_RULES)}
+    out = {}
+    for name, (mesh, rules) in meshes.items():
+        r = out[name] = {}
+        with use_sharding(mesh, rules) as ctx:
+            sharding.check_model_rules(ctx, "hybrid")
+            rows = sharding.named_sharding(toks.shape, ("batch", "seq"), ctx)
+            mine = rows.block(torch.from_numpy(toks))
+            local = transformer.place_lm_params(tree, cfg)
+            axes = steps.placement_axes(cfg, api.model_logical_axes(cfg))
+            r["gathered"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(steps.gather_tree(local, axes, ctx)),
+                tree_leaves(tree)))
+            r["in_proj"] = tuple(local["blocks"]["rec0"]["rec"]["in_proj"]
+                                 .shape)
+            r["lm_head"] = tuple(local["lm_head"].shape)
+            r["coords"] = (sharding._axis_coord(mesh, rules["batch"]),
+                           mesh.m)
+            with torch.no_grad():
+                r["prefill"] = _np32(api.prefill_fn(local, {"tokens": mine},
+                                                    cfg))
+                r["loss"] = float(api.loss_fn(local, {
+                    "tokens": mine, "labels": torch.roll(mine, -1, 1)}, cfg))
+            r["cache"] = {k: tuple(v.shape) for k, v in serve.init_cache(
+                cfg, toks.shape[0], 12, "cpu").items()}
+            if name != "default (1, 2)":
+                continue
+            lp = layer_view(local["blocks"], 0)["attn"]
+            policy = ExecPolicy.from_cfg(cfg, training=False)
+            r["ring"] = []
+            for x, kr, vr, pos in ring_cases:
+                seq = transformer.seq_split(kr.shape[1] // 2)
+                h0, h1 = seq.block(kr.shape[1])
+                k, v = t(kr[:, h0:h1]), t(vr[:, h0:h1])
+                with torch.no_grad():
+                    o, k, v = transformer.attn_decode(
+                        lp["attn"], t(x), k, v, pos, cfg, policy,
+                        transformer.decode_rope(pos, cfg, "cpu"),
+                        transformer.heads_split(cfg), seq, window=cfg.window)
+                r["ring"].append((_np32(o), _np32(k), _np32(v)))
+    return out

@@ -594,6 +594,45 @@ def test_flash_decode_partial_kernel(dev, ranges, length, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 16, 17, 25, 32])
+def test_flash_decode_partial_ring_block(dev, length, dtype):
+    """B6's partial entry at D 256 / G 16 (recurrentgemma-9b's 16 query
+    heads, gathered over "model", on its one KV head) over each half of a
+    32-slot ring split along "kv_seq", a layer's view of the stacked
+    rings, at ring lengths min(pos + 1, 32): only rank 0's slots valid (1,
+    16), one of rank 1's (17), the ring full (32); against
+    ``flash_decode_partial_ref``: o and lse within 2e-5, an empty range o
+    = 0 and lse = NEG_INF exactly, each call bitwise from call to call and
+    counted once; the halves merged against ``flash_decode_ref`` over the
+    whole ring within B6's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(length * 7 + 5)
+    q = torch.randn(2, 1, 16, 256, generator=gen, device=dev).to(dtype)
+    stacked = [torch.randn(2, 2, 2, 16, 1, 256, generator=gen,
+                           device=dev).to(dtype) for _ in range(2)]
+    os_, lses = [], []
+    for r in range(2):
+        kr, vr = stacked[0][r, 1], stacked[1][r, 1]
+        before = _build.LAUNCHES["flash_decode_partial"]
+        o, lse = flash_decode_partial(q, kr, vr, 16 * r, length)
+        assert _build.LAUNCHES["flash_decode_partial"] == before + 1
+        want_o, want_lse = ref.flash_decode_partial_ref(q, kr, vr, 16 * r,
+                                                        length)
+        if 16 * r >= length:
+            assert torch.equal(o, torch.zeros_like(o))
+            assert bool((lse == ref.NEG_INF).all())
+        torch.testing.assert_close(o, want_o, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+        again = flash_decode_partial(q, kr, vr, 16 * r, length)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+        os_.append(o)
+        lses.append(lse)
+    merged = merge_partials(torch.stack(os_), torch.stack(lses)).to(dtype)
+    whole = [torch.cat([t[0, 1], t[1, 1]], 1) for t in stacked]
+    _assert_held(merged, ref.flash_decode_ref(q, whole[0], whole[1], length))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("window", [0, 8, 64])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 256])

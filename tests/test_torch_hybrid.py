@@ -537,64 +537,129 @@ def _fake_ctx(axes, rules, **shape):
     return sharding._installed(sharding.ShardingCtx(mesh, rules))
 
 
-@pytest.mark.parametrize("case", ["default", "multipod", "seq_window",
-                                  "decomposed"])
+@pytest.mark.parametrize("case", ["decomposed", "experts"])
 def test_hybrid_refusals_name_their_roadmap_item(hy, case):
-    """What the hybrid still refuses raises naming queue A15: the FSDP
-    tables (DEFAULT_RULES on (1, 2) splits "kv_seq", on (2, 1) "p_embed";
-    MULTIPOD_RULES on a pod mesh), a local-window decode over a
-    sequence-split cache, and the decomposed attention. Training and a
-    one-rank mesh run."""
+    """What the hybrid still refuses raises naming queue A15: the
+    decomposed attention, and an experts split (the moe family's) on a
+    table that maps one; the hybrid itself passes every table there.
+    Training and a one-rank mesh run."""
     from repro_torch.distributed import sharding
 
     tcfg, tp = hy["tcfg"], hy["tp"]
     toks = torch.from_numpy(hy["toks"][:, :8])
-    fsdp = "A15: hybrid under the FSDP tables"
-    if case == "default":
-        for shape in (dict(data=1, model=2), dict(data=2, model=1)):
-            with _fake_ctx(("data", "model"), sharding.DEFAULT_RULES,
-                           **shape):
-                for call in (lambda: tapi.prefill_fn(tp, {"tokens": toks},
-                                                     tcfg),
-                             lambda: tapi.cache_axes_spec(tcfg, 2, 12),
-                             lambda: tapi.loss_fn(tp, {"tokens": toks,
-                                                       "labels": toks}, tcfg),
-                             lambda: ttf.place_lm_params(tp, tcfg)):
-                    with pytest.raises(NotImplementedError, match=fsdp):
-                        call()
-        # the refusal is the FSDP tables', not the mesh's: MODEL_RULES on
-        # the same (1, 2) shape passes the family check
-        with _fake_ctx(("data", "model"), sharding.MODEL_RULES, data=1,
-                       model=2):
-            ttf.check_family(tcfg)
-    elif case == "multipod":
-        with _fake_ctx(("pod", "data", "model"), sharding.MULTIPOD_RULES,
-                       pod=2, data=1, model=1):
-            with pytest.raises(NotImplementedError, match=fsdp):
-                tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
-            with pytest.raises(NotImplementedError, match=fsdp):
-                sharding.check_model_rules(None, "hybrid")
-    elif case == "seq_window":
-        seq = sharding.Split(2, 0, None)
-        kv = torch.zeros(2, 8, 1, 16)
-        with pytest.raises(NotImplementedError, match=fsdp):
-            tattn.decode_attention(torch.zeros(2, 1, 4, 16), kv, kv, 4,
-                                   window=4, seq=seq)
-        lp = ttf.layer_view(tp["blocks"], 0)["attn"]
-        x = torch.zeros(2, 1, tcfg.d_model, dtype=torch.bfloat16)
-        ring = torch.zeros(2, 8, 1, tcfg.head_dim, dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match=fsdp):
-            ttf.attn_decode(lp["attn"], x, ring, ring.clone(), 3, tcfg,
-                            TPolicy.from_cfg(tcfg, training=False),
-                            ttf.decode_rope(3, tcfg, "cpu"), None, seq,
-                            window=tcfg.window)
+    if case == "experts":
+        for axes, rules, shape in (
+                (("data", "model"), sharding.DEFAULT_RULES,
+                 dict(data=2, model=2)),
+                (("pod", "data", "model"), sharding.MULTIPOD_RULES,
+                 dict(pod=2, data=1, model=2))):
+            with _fake_ctx(axes, rules, **shape) as ctx:
+                sharding.check_model_rules(ctx, "hybrid")
+                ttf.check_family(tcfg)
+                with pytest.raises(NotImplementedError, match="A15"):
+                    sharding.check_model_rules(ctx, "moe")
+        return
+    with pytest.raises(NotImplementedError, match="A15"):
+        tapi.prefill_fn(tp, {"tokens": toks},
+                        tcfg.with_(attn_impl="decomposed"))
+    # a training policy and a one-rank mesh run
+    loss = tapi.loss_fn(tp, {"tokens": toks, "labels": toks}, tcfg)
+    assert torch.isfinite(loss)
+    with use_sharding(make_host_mesh(1, 1, device="cpu")):
+        out = tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
+    assert torch.equal(out, tapi.prefill_fn(tp, {"tokens": toks}, tcfg))
+
+
+TABLES = ("default (1, 2)", "default (2, 1)", "multipod")
+RING_POSITIONS = (3, 8, 17, 20)
+
+
+@pytest.fixture(scope="module")
+def tables(hy):
+    """The calls that raised under the FSDP tables, on 2 gloo ranks (one
+    spawn for the module; their body is ``_torch_ranks.
+    hybrid_table_calls``): ``prefill_fn``, ``loss_fn``, ``place_lm_params``
+    and ``cache_axes_spec`` under DEFAULT_RULES on (1, 2) and (2, 1) and
+    MULTIPOD_RULES on (2, 1, 1), and the attention layer's ring
+    ``attn_decode`` split along "kv_seq" at ``RING_POSITIONS`` from the
+    reference's caches; with the reference's loss and ring decode of the
+    same inputs."""
+    import _torch_ranks
+    from repro_torch.launch.mesh import spawn_ranks
+
+    jcfg, jp, tcfg = hy["jcfg"], hy["jp"], hy["tcfg"]
+    toks = hy["toks"][:, :24].astype(np.int32)
+    rng = np.random.default_rng(17)
+    cases = [(rng.standard_normal((2, 1, 64)).astype(BF16),
+              hy["caches"][pos]["attn_k"][0], hy["caches"][pos]["attn_v"][0],
+              pos) for pos in RING_POSITIONS]
+    ranks = spawn_ranks(_torch_ranks.hybrid_table_calls, 2, hy["tp"], tcfg,
+                        toks, cases, device="cpu", timeout_s=600)
+    labels = np.roll(toks, -1, 1)
+    loss = float(japi.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                                   "labels": jnp.asarray(labels)}, jcfg))
+    loss1 = float(tapi.loss_fn(hy["tp"], {"tokens": torch.from_numpy(toks),
+                                          "labels": torch.from_numpy(labels)},
+                               tcfg))
+    pol = JPolicy.from_cfg(jcfg, training=False)
+    lp = _j_layer(jp["blocks"]["attn"], 0)["attn"]
+    ring = [jtf.attn_decode(lp, jnp.asarray(x), jnp.asarray(k),
+                            jnp.asarray(v), jnp.int32(pos), jcfg, pol,
+                            window=jcfg.window) for x, k, v, pos in cases]
+    return {"ranks": ranks, "loss": loss, "loss1": loss1,
+            "ring": [tuple(np.asarray(a) for a in r) for r in ring]}
+
+
+@pytest.mark.parametrize("table", TABLES)
+def test_hybrid_under_the_fsdp_tables_matches_reference(hy, tables, table):
+    """prefill_fn, loss_fn, place_lm_params and cache_axes_spec, which
+    raised under these tables, run: each rank's blocks of the params
+    gather back to the whole tree bitwise; the logits assembled from the
+    ranks' (rows, vocab) blocks in the reference's scanned class (8 bf16
+    ulps, corr > 0.999, as the one-device prefill); the loss (the
+    vocab-parallel cross-entropy, meaned over the ranks' rows) within
+    1e-6 relative of the port's unsharded loss and 5e-4 of the
+    reference's (its scanned forward puts the unsharded port's 2.8e-4
+    away); the cache's local shapes those of its "batch", "mlp" and
+    "kv_seq" splits."""
+    r0, r1 = (r[table] for r in tables["ranks"])
+    for r in (r0, r1):
+        assert r["gathered"]
+    split_vocab = table == "default (1, 2)"
+    if split_vocab:
+        assert (r0["coords"], r1["coords"]) == ((0, 0), (0, 1))
+        got = np.concatenate([r0["prefill"], r1["prefill"]], -1)
+        assert r0["loss"] == r1["loss"]
+        loss = r0["loss"]
     else:
-        with pytest.raises(NotImplementedError, match="A15"):
-            tapi.prefill_fn(tp, {"tokens": toks},
-                            tcfg.with_(attn_impl="decomposed"))
-        # a training policy and a one-rank mesh run
-        loss = tapi.loss_fn(tp, {"tokens": toks, "labels": toks}, tcfg)
-        assert torch.isfinite(loss)
-        with use_sharding(make_host_mesh(1, 1, device="cpu")):
-            out = tapi.prefill_fn(tp, {"tokens": toks}, tcfg)
-        assert torch.equal(out, tapi.prefill_fn(tp, {"tokens": toks}, tcfg))
+        assert (r0["coords"], r1["coords"]) == ((0, 0), (1, 0))
+        got = np.concatenate([r0["prefill"], r1["prefill"]], 0)
+        loss = (r0["loss"] + r1["loss"]) / 2
+    assert got.shape == (2, 24, 256)
+    _assert_scanned_class(got, hy["prefill"])
+    assert abs(loss - tables["loss1"]) <= 1e-6 * tables["loss1"]
+    assert abs(loss - tables["loss"]) <= 5e-4 * tables["loss"]
+    d, w, b = (64, 32, 2) if split_vocab else (32, 64, 1)
+    assert r0["in_proj"] == (1, d, w)
+    assert r0["lm_head"] == ((64, 128) if split_vocab else (32, 256))
+    ring = (1, b, 6 if split_vocab else 12, 1, 16)
+    assert r0["cache"] == {"rec_h": (1, 2, b, w), "rec_conv": (1, 2, b, 3, w),
+                           "attn_k": ring, "attn_v": ring,
+                           "tail_h": (2, b, w), "tail_conv": (2, b, 3, w)}
+
+
+@pytest.mark.parametrize("case", range(len(RING_POSITIONS)))
+def test_ring_decode_split_along_kv_seq_matches_reference(tables, case):
+    """The attention layer's decode on a 12-slot ring split along its
+    slots over model 2 (6 a rank; B6's partial entry over each rank's
+    slots of the valid prefix, merged, the heads split too), from the
+    reference's cache at position 3 (rank 1's slots all empty), 8 (both
+    ranks'), 17 and 20 (wrapped: slot 5 on rank 0, slot 8 on rank 1):
+    the written ring halves bitwise the reference's new ring, the output
+    within 2 bf16 ulps of its largest |value| and corr > 0.9999."""
+    o, k, v = tables["ring"][case]
+    r0, r1 = (r["default (1, 2)"]["ring"][case] for r in tables["ranks"])
+    np.testing.assert_array_equal(r0[0], r1[0])
+    np.testing.assert_array_equal(np.concatenate([r0[1], r1[1]], 1), _f32(k))
+    np.testing.assert_array_equal(np.concatenate([r0[2], r1[2]], 1), _f32(v))
+    _assert_logits_close(r0[0], o, 2)

@@ -205,22 +205,50 @@ def test_flash_decode_equals_causal_row():
     _assert_close(got[:, 0], mine[:, t], "f32")
 
 
-def test_flash_decode_rejects_device_length_and_window():
+def _merged_over_halves(monkeypatch, q, kc, vc, length, window):
+    """``decode_attention(window=, seq=)`` as the two ranks of a cache
+    split in halves along its sequence run it, in one process: each half
+    called with its ``Split``, the partials' all-gather served from the
+    halves' own (``collectives.all_gather_cat`` patched: a first pass
+    records each half's partial, the second returns both in rank order).
+    Returns rank 0's output (both ranks' are the same merge)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import Split
+
+    rows = kc.shape[1] // 2
+    mine = {}
+
+    def gather(x, group, dim, name="all_gather", direct=False):
+        mine[group] = x
+        return torch.cat([mine.get(r, x) for r in range(2)], dim)
+
+    monkeypatch.setattr(collectives, "all_gather_cat", gather)
+    for r in (1, 0):
+        out = tattn.decode_attention(q, kc[:, r * rows:(r + 1) * rows],
+                                     vc[:, r * rows:(r + 1) * rows], length,
+                                     window=window, seq=Split(2, r, r))
+    return out
+
+
+def test_flash_decode_rejects_device_length_and_window(monkeypatch):
     q, kc, vc = _decode_inputs(4, 1, 32, 4, 2, 16)
     with pytest.raises(TypeError, match="host int"):
         t_decode(_t(q), _t(kc), _t(vc), torch.tensor(5))
     with pytest.raises(ValueError, match="outside"):
         t_decode(_t(q), _t(kc), _t(vc), 33)
     # a window over a linear cache is ported (the hybrid family's): the
-    # reference's windowed decode_attention; under a sequence split of the
-    # cache it still raises naming A15
-    got = tattn.decode_attention(_t(q), _t(kc), _t(vc), 5, window=4)
-    want = j_decode_attn(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
-                         5, window=4)
-    _assert_close(got, want, "f32")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tattn.decode_attention(_t(q), _t(kc), _t(vc), 5, window=4,
-                               seq=object())
+    # reference's windowed decode_attention, on the whole cache and on its
+    # two halves of a sequence split merged (the window inside rank 0's
+    # rows, straddling both ranks', and past every row of rank 0)
+    for length, window in ((5, 4), (20, 8), (30, 4), (32, 32)):
+        want = j_decode_attn(jnp.asarray(q), jnp.asarray(kc),
+                             jnp.asarray(vc), length, window=window)
+        got = tattn.decode_attention(_t(q), _t(kc), _t(vc), length,
+                                     window=window)
+        _assert_close(got, want, "f32")
+        got = _merged_over_halves(monkeypatch, _t(q), _t(kc), _t(vc),
+                                  length, window)
+        _assert_close(got, want, "f32")
 
 
 def test_update_kv_cache_writes_in_place():
