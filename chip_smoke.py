@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card at ViT-Base/16-224, ViT-Tiny/16-224, ViT-Large/16-224,
      qwen2-1.5b and recurrentgemma-9b widths (B5's bf16 entry at head dim
      256 under the 2048-key window, B6 at D 256 / G 16 on a ring and on a
-     window view; a bf16 call at head dim 112 or 160 must raise), at
+     window view), at path p's (B5's bf16 entry at head dim 160 and B6 at
+     D 160 / G 4 for stablelm-12b, B5 / B6 at qwen2.5-3b's G 8 and
+     llama3-405b's G 16; a bf16 call at head dim 112 must raise), at
      ragged shapes and, for B1, B2, B5 and B6, at
      their tiles', rings' and splits' edges (B6 also bitwise from call to
      call; B2 also in the (B, S, H, D) layout read by strides and, on
@@ -386,6 +388,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         (at a vocab of 32768: at 256000 the whole embedding and head with
         their moments overflow one card for two ranks), the losses and
         every whole leaf bitwise equal across the ranks after them;
+     o. ``[hybrid_fsdp]``: recurrentgemma-9b's first 5 layers at full
+        width (the full vocab) under DEFAULT_RULES / MULTIPOD_RULES on 4
+        gloo ranks, its serving beside 4m and its training after it;
+     p. ``[dense]``, after 4i: (D) alone on the card, then (C), (A) and
+        (B) in the foreground while 4j's and 4k's gloo ranks run beside
+        them (4j reports after them): the dense family's
+        other configs through 4b's body (``run_lm``) and traffic, each
+        drawn by ``init_model(seed=0)`` in bf16 and freed before the
+        next: (A) stablelm-12b whole (40
+        layers; B5's bf16 entry at head dim 160, B6 at D 160 / G 4: B6
+        6,400 and B5 40 launches), (B) qwen2.5-3b whole (36 layers, G 8:
+        5,760 and 36), (C) llama3-405b at full width on its first 2 of
+        126 layers (G 16: 320 and 2). Each: the exact launch counts, the
+        prefill against the decode loop at every prompt position and the
+        two planted mask faults (held within twice the control's distance
+        from 1 where the control, the prefill on the plain attention,
+        itself reads under 4b's limits), the last decode step against the
+        CPU's plain versions (stablelm-12b's by 4m's rule, against the
+        card's step on B6's plain version), decode tok/s,
+        ms a decode step and prefill ms. (D) stablelm-12b's first 2
+        layers at full width trained through ``make_train_fn`` (2
+        microbatches, bf16 AdamW moments) on 2 x 512 ``TokenStream``
+        tokens a step: 3 steps, then one on step 0's batch, whose loss
+        must fall; every loss finite; ms a step and peak memory;
   5. numbers: frames/s, decode tokens/s and prefill tokens/s, then per
      kernel at a main-path shape its device time (torch.profiler) and
      CUDA-event time, its bound (the larger of operations over the peak of
@@ -393,7 +419,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      three passes and B5 at the bf16 rate, both also at the f32 rate), its
      plain version's time and a PyTorch library yardstick the port never
      calls (B5 and B6 also at recurrentgemma-9b's shapes and at a 4n (B)
-     rank's, the kernels line's ``hybrid`` and ``hybrid_rank`` entries;
+     rank's, the kernels line's ``hybrid`` and ``hybrid_rank`` entries,
+     and at each path-p config's, its ``dense_configs`` entries;
      B3 also its first design and each of its three launches; B1
      also at path d's three shapes, B2's wide entry also at Eq. 2's
      shape with its 3xTF32 bound, both in the kernels line as
@@ -884,8 +911,14 @@ def check_lm_kernels(torch, dev) -> dict:
     """Phase 3, LM kernels: B5 and B6 against their plain versions at
     qwen2-1.5b widths (H 12, Hkv 2, D 128), ragged shapes and the edges of
     B5's 64-key and 64-row tiles and of B6's cluster split, bf16 and f32;
-    B6 twice on the same inputs, which must be bitwise equal. Returns
-    kernel name -> max |kernel - plain|."""
+    B6 twice on the same inputs, which must be bitwise equal. Then 4p's
+    shapes: B5's bf16 entry at head dim 160 (stablelm-12b's prefill, bf16
+    and f32; Sq = Skv at the 64-key / 64-row tile edges at G 1 and G 4,
+    where a row overwritten through the swizzle of the 20-chunk row would
+    show; windows; the (B, S, H, D) strided layout) and B6 at D 160 / G 4
+    (lengths around its cluster split); B5 / B6 at qwen2.5-3b's G 8 and
+    llama3-405b's G 16 (D 128). Returns kernel name -> max |kernel -
+    plain|."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
@@ -932,6 +965,20 @@ def check_lm_kernels(torch, dev) -> dict:
     b5("window 8, tile edge", 2, 12, 2, 129, 129, 128, bf, window=8)
     b5("window 64, G = 1", 1, 2, 2, 256, 256, 64, bf, window=64)
     b5("non-causal bf16", 1, 4, 2, 65, 130, 128, bf, causal=False)
+    # path 4p: stablelm-12b (D 160, G 4), qwen2.5-3b (G 8), llama3-405b (G 16)
+    b5("stablelm prefill", 4, 32, 8, 128, 128, 160, bf)
+    b5("stablelm prefill", 4, 32, 8, 128, 128, 160, f32)
+    b5("stablelm (B,S,H,D) strides", 4, 32, 8, 128, 128, 160, bf,
+       layout="bshd")
+    for s_ in (63, 64, 65, 127, 129):
+        for g_ in (1, 4):
+            b5(f"D 160 tile edge, G = {g_}", 1, 2 * g_, 2, s_, s_, 160, bf)
+    b5("D 160 window 64", 2, 8, 2, 200, 200, 160, bf, window=64)
+    b5("D 160 window 8, tile edge", 1, 8, 2, 129, 129, 160, bf, window=8)
+    b5("D 160 non-causal", 1, 8, 2, 65, 130, 160, bf, causal=False)
+    b5("qwen2.5 prefill, G = 8", 4, 16, 2, 128, 128, 128, bf)
+    b5("llama3 prefill, G = 16", 4, 128, 8, 128, 128, 128, bf,
+       layout="bshd")
 
     def b6(tag, b, s, h, hkv, d, length, dtype, head_major=False):
         q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(dtype)
@@ -969,6 +1016,15 @@ def check_lm_kernels(torch, dev) -> dict:
     for g_, d_ in ((1, 64), (8, 128), (16, 128), (16, 64)):
         b6(f"G = {g_}", 2, 512, 2 * g_, 2, d_, 65, bf)
         b6(f"G = {g_}", 2, 512, 2 * g_, 2, d_, 9, f32)
+    # path 4p: stablelm-12b's decode (D 160, G 4), at its cluster split's
+    # edges too; qwen2.5-3b's (G 8) and llama3-405b's (G 16)
+    b6("stablelm decode", 4, 512, 32, 8, 160, 160, bf)
+    b6("stablelm decode", 4, 512, 32, 8, 160, 160, f32)
+    for length in (7, 8, 9, 65, 159, 511):
+        b6("D 160 split edge", 2, 512, 8, 2, 160, length, bf)
+    b6("D 160 head-major", 2, 96, 8, 2, 160, 70, bf, head_major=True)
+    b6("qwen2.5 decode, G = 8", 4, 512, 16, 2, 128, 160, bf)
+    b6("llama3 decode, G = 16", 4, 512, 128, 8, 128, 160, bf)
     torch.cuda.synchronize()
     return err
 
@@ -1066,22 +1122,89 @@ def time_tp_kernels(torch, dev, card: str) -> dict:
                        v6.transpose(1, 2), attn_mask=live, enable_gqa=True)),
               ops=b * h * length * 4 * d / PEAK_F32_FLOPS,
               nbytes=2 * (2 * b * length * d + 2 * b * h * d) / PEAK_BYTES)
+    return time_attention_rows(
+        torch, {"flash_attention_causal": b5, "flash_decode": b6},
+        "4j's rank shape", card)
+
+
+def time_attention_rows(torch, rows: dict, label: str, card: str,
+                        iters: int = 50) -> dict:
+    """Each row of ``rows`` (kernel name -> its ``shape``, ``fns``: the
+    kernel, its plain version and the SDPA call, and ``ops`` / ``nbytes``:
+    seconds at the card's peaks): the kernel's device ms (profiler) and
+    CUDA-event ms, the bound, the plain version's and SDPA's device ms.
+    Returns kernel name -> the kernels-line sub-entry."""
     out = {}
-    for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
+    for kname, row in rows.items():
         fn, plain_fn, lib_fn = row["fns"]
-        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
-        event_ms = cuda_ms(fn)
-        plain_ms, _ = device_ms(torch, plain_fn)
-        lib_ms, _ = device_ms(torch, lib_fn)
+        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname,
+                               iters=iters)
+        event_ms = cuda_ms(fn, iters=iters)
+        plain_ms, _ = device_ms(torch, plain_fn, iters=iters)
+        lib_ms, _ = device_ms(torch, lib_fn, iters=iters)
         bound = max(row["ops"], row["nbytes"])
         by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
-        say(f"[numbers] {kname} at 4j's rank shape {row['shape']}: kernel "
+        say(f"[numbers] {kname} at {label} {row['shape']}: kernel "
             f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} "
             f"ms CUDA-event), bound {bound * 1e3:.6f} ms ({by}), plain "
             f"{plain_ms:.4f} ms, SDPA {lib_ms:.5f} ms ({card})")
         out[kname] = {"shape": row["shape"], "ms": ms, "event_ms": event_ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound * 1e3, "bound_by": by}
+    return out
+
+
+def time_dense_kernels(torch, dev, card: str) -> dict:
+    """B5 and B6 at each 4p config's shapes (bf16, 4b's traffic): B5 over
+    the prompt, q (4, H, 128, D) in the path's (B, S, H, D) layout read
+    by strides; B6 at the last decode step, q (4, 1, H, D) over 160 of a
+    512-row cache. Device and event ms, bound, the plain version and SDPA
+    (``is_causal`` / ``enable_gqa``; a length mask for the decode).
+    Returns kernel name -> config id -> the kernels-line sub-entry."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(83)
+    bf, b, sq, length = torch.bfloat16, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_GEN
+    out = {"flash_attention_causal": {}, "flash_decode": {}}
+    for arch, *_ in DP_CONFIGS:
+        cfg = get_config(arch)
+        h, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        q5, k5, v5 = (torch.randn(b, sq, hh, d, generator=gen, device=dev)
+                      .to(bf).transpose(1, 2) for hh in (h, hkv, hkv))
+        q6 = torch.randn(b, 1, h, d, generator=gen, device=dev).to(bf)
+        k6, v6 = (torch.randn(b, LM_CACHE, hkv, d, generator=gen, device=dev)
+                  .to(bf) for _ in range(2))
+        live = (torch.arange(LM_CACHE, device=dev) < length)[None, None, None]
+        pairs = b * h * sq * (sq + 1) // 2
+        rows = {
+            "flash_attention_causal": dict(
+                shape=f"q({b},{h},{sq},{d}) Hkv {hkv} bf16 causal, (B, S, "
+                      f"H, D) strides",
+                fns=(lambda: flash_attention(q5, k5, v5),
+                     lambda: ref.flash_attention_ref(q5, k5, v5),
+                     lambda: sdpa(q5, k5, v5, is_causal=True,
+                                  enable_gqa=True)),
+                ops=pairs * 4 * d / PEAK_BF16_FLOPS,
+                nbytes=2 * (2 * b * h * sq * d + 2 * b * hkv * sq * d)
+                / PEAK_BYTES),
+            "flash_decode": dict(
+                shape=f"q({b},1,{h},{d}) cache ({b},{LM_CACHE},{hkv},{d}) "
+                      f"length {length} bf16",
+                fns=(lambda: flash_decode(q6, k6, v6, length),
+                     lambda: ref.flash_decode_ref(q6, k6, v6, length),
+                     lambda: sdpa(q6.transpose(1, 2), k6.transpose(1, 2),
+                                  v6.transpose(1, 2), attn_mask=live,
+                                  enable_gqa=True)),
+                ops=b * h * length * 4 * d / PEAK_F32_FLOPS,
+                nbytes=2 * (2 * b * length * hkv * d + 2 * b * h * d)
+                / PEAK_BYTES)}
+        for kname, entry in time_attention_rows(
+                torch, rows, f"{arch}'s", card, iters=20).items():
+            out[kname][arch] = entry
     return out
 
 
@@ -1347,16 +1470,39 @@ def planted_attention(torch, shift: int):
     return attention
 
 
-def run_lm(torch, dev, card: str) -> dict:
-    """Phase 4b: the LM main path on qwen2-1.5b at full width. Returns the
+def card_memory(torch) -> str:
+    """The card's memory in use, from ``mem_get_info`` (every process on
+    it, the gloo ranks beside this one included)."""
+    free, total = torch.cuda.mem_get_info()
+    return f"{(total - free) / 1e9:.2f} GB used of {total / 1e9:.2f}"
+
+
+def run_lm(torch, dev, card: str, arch: str = "qwen2-1.5b",
+           layers: int | None = None, tag: str = "lm", beside: bool = False,
+           cpu_control: bool = False) -> dict:
+    """Phase 4b on qwen2-1.5b, and 4p on each of the dense family's other
+    configs: the LM main path on ``arch`` at full width (its first
+    ``layers`` layers where given), 4b's traffic and checks. ``beside``:
+    other processes share the card, so print its memory around the draw.
+    ``cpu_control``: the last decode step against the CPU is held by 4m's
+    rule, against a control on the card (see the step). Returns the
     launch counts of the counted run and what the numbers phase reuses."""
     from repro_torch.bridge import to_device
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ref
     from repro_torch.launch.serve import generate, init_cache
     from repro_torch.models import api as model_api
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
+    cut = ""
+    if layers is not None:
+        cut = f" (its first {layers} of {cfg.n_layers})"
+        cfg = cfg.with_(n_layers=layers)
+    if beside:
+        say(f"[{tag}] before {cfg.name}'s draw the card has "
+            f"{card_memory(torch)} (mem_get_info; the gloo ranks of 4j and "
+            f"4k run beside this path; {torch.cuda.memory_reserved() / 1e9:.2f}"
+            f" GB reserved by this process)")
     t0 = time.perf_counter()
     params = model_api.init_model(0, cfg, dev)
     torch.cuda.synchronize()
@@ -1367,10 +1513,18 @@ def run_lm(torch, dev, card: str) -> dict:
         return [tree]
 
     n_params = sum(t.numel() for t in leaves(params))
-    say(f"[lm] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers{cut}, d={cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.kv_heads} KV, d_ff={cfg.d_ff}, vocab "
-        f"{cfg.vocab}, tied; {n_params / 1e9:.3f} G bf16 params from "
+        f"{cfg.vocab}, {'tied' if cfg.tie_embeddings else 'untied'}; "
+        f"{n_params / 1e9:.3f} G bf16 params from "
         f"init_lm(seed=0) on the card in {time.perf_counter() - t0:.2f}s")
+    if beside:
+        # the f32 draws' transient back to the card for the ranks beside
+        torch.cuda.empty_cache()
+        say(f"[{tag}] after the draw: {card_memory(torch)} ("
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved by this "
+            f"process, its peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB allocated)")
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                            generator=gen, device=dev)
@@ -1391,7 +1545,7 @@ def run_lm(torch, dev, card: str) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    say(f"[lm] launches on the LM path: {launches}")
+    say(f"[{tag}] launches on the LM path: {launches}")
     steps = LM_PROMPT + LM_GEN
     want = {"flash_decode": steps * cfg.n_layers,
             "flash_attention_causal": cfg.n_layers}
@@ -1405,11 +1559,11 @@ def run_lm(torch, dev, card: str) -> dict:
     if tuple(full.shape) != (LM_BATCH, LM_PROMPT, cfg.vocab) or not bool(
             torch.isfinite(full.float()).all()):
         fail(f"prefill_fn logits {tuple(full.shape)} not finite")
-    say(f"[lm] generate: {LM_BATCH} x ({LM_PROMPT} prompt + {LM_GEN} "
+    say(f"[{tag}] generate: {LM_BATCH} x ({LM_PROMPT} prompt + {LM_GEN} "
         f"greedy) in {serve_s:.3f}s ({steps} decode steps), decode loop "
         f"{tps:.2f} tok/s; prefill_fn over the prompt {prefill_s * 1e3:.3f} "
         f"ms incl. its first call at this shape ({card})")
-    say(f"[lm] first sequence: {toks[0, :16].tolist()}")
+    say(f"[{tag}] first sequence: {toks[0, :16].tolist()}")
 
     # B5's path against B6's: the full-prompt forward's logits at every
     # prompt position vs the decode loop's (prefill_into_cache's steps) at
@@ -1427,13 +1581,13 @@ def run_lm(torch, dev, card: str) -> dict:
     loop = torch.stack(steps_logits, 1)
     del loop_cache, steps_logits
 
-    def reading(tag, logits):
+    def reading(what, logits):
         pc = position_corr(torch, logits, loop)
         top = (logits.argmax(-1) == loop.argmax(-1))
         r = {"last_corr": float(pc[-1]), "last_argmax": int(top[:, -1].sum()),
              "min_corr": float(pc.min()), "argmax_share": float(
                  top.float().mean())}
-        say(f"[lm] prefill vs decode loop, {tag}: last position corr "
+        say(f"[{tag}] prefill vs decode loop, {what}: last position corr "
             f"{r['last_corr']:.6f}, argmax {r['last_argmax']} of {LM_BATCH}; "
             f"over all {LM_PROMPT} positions min corr {r['min_corr']:.6f}, "
             f"argmax agrees in {100 * r['argmax_share']:.2f}% of rows")
@@ -1443,27 +1597,41 @@ def run_lm(torch, dev, card: str) -> dict:
     # rows; at every position corr > 0.99. On the H100 the kernel path reads
     # 0.999155 / 4 of 4 / 0.999085 and the control 0.999199 / 4 / 0.999097,
     # the planted faults 0.65 and 0.60 / 0 / 0.21 and 0.015 (PERF.md, PR 12)
+    # Where the control itself (the model's own rounding, without B5) reads
+    # under them, the kernel path is held within HY_CORR_FACTOR times the
+    # control's distance from 1, 4m's rule
     def passes(r):
         return (r["last_corr"] > 0.999 and r["last_argmax"] >= LM_BATCH - 1
                 and r["min_corr"] > 0.99)
 
     real = reading("prefill_fn (B5) vs decode_fn (B6)", full)
-    if not passes(real):
-        fail(f"prefill_fn vs decode-loop prefill: {real}")
     saved = transformer.blockwise_attention
+    planted = {}
     try:
-        for tag, shift in (("control: plain attention, right mask", 0),
-                           ("planted fault: query i sees key i+1", 1),
-                           ("planted fault: query i misses key i", -1)):
+        for what, shift in (("control: plain attention, right mask", 0),
+                            ("planted fault: query i sees key i+1", 1),
+                            ("planted fault: query i misses key i", -1)):
             transformer.blockwise_attention = planted_attention(torch, shift)
-            r = reading(tag, model_api.prefill_fn(
+            planted[what] = reading(what, model_api.prefill_fn(
                 params, {"tokens": prompt}, cfg))
-            if shift and passes(r):
-                fail(f"the planted fault ({tag}) passes the prefill/decode "
-                     f"limits, which therefore cannot catch it: {r}")
     finally:
         transformer.blockwise_attention = saved
     del loop
+    control = planted.pop("control: plain attention, right mask")
+    limit = passes
+    if not passes(control):
+        say(f"[{tag}] the control reads under 4b's limits: the kernel path "
+            f"and the planted faults are held within {HY_CORR_FACTOR}x its "
+            f"distance from 1 (4m's rule)")
+        def limit(r):
+            return within_control(r, control, LM_BATCH)
+    if not limit(real):
+        fail(f"{cfg.name}: prefill_fn vs decode-loop prefill: {real} "
+             f"(control {control})")
+    for what, r in planted.items():
+        if limit(r):
+            fail(f"the planted fault ({what}) passes the prefill/decode "
+                 f"limits, which therefore cannot catch it: {r}")
 
     # the last decode step again, on the card and on the CPU (plain
     # versions) from CPU copies of the card's params and cache
@@ -1477,15 +1645,169 @@ def run_lm(torch, dev, card: str) -> dict:
     cpu_s = time.perf_counter() - t0
     c = corr(torch, card_logits, cpu_logits)
     agree = int((card_logits.cpu().argmax(-1) == cpu_logits.argmax(-1)).sum())
-    say(f"[lm] last decode step (pos {pos}) re-run on the CPU with the plain "
-        f"versions ({cpu_s:.1f}s incl. copies): logits corr {c:.6f}, argmax "
-        f"agrees in {agree} of {LM_BATCH} rows, max abs diff "
+    say(f"[{tag}] last decode step (pos {pos}) re-run on the CPU with the "
+        f"plain versions ({cpu_s:.1f}s incl. copies): logits corr {c:.6f}, "
+        f"argmax agrees in {agree} of {LM_BATCH} rows, max abs diff "
         f"{(card_logits.cpu().float() - cpu_logits.float()).abs().max().item():.3e}")
-    if not c > 0.999:
-        fail(f"card vs CPU decode-step logits correlation {c} <= 0.999")
+    if not cpu_control:
+        if not c > 0.999:
+            fail(f"card vs CPU decode-step logits correlation {c} <= 0.999")
+    else:
+        # the control: the same step on the card with B6's plain version,
+        # and 4m's rule: within HY_CORR_FACTOR times the control's
+        # distance from the CPU, above 0.99, the argmax in all rows but one
+        saved = transformer.decode_attention
+        try:
+            transformer.decode_attention = (
+                lambda q, k, v, n, **kw: ref.flash_decode_ref(q, k, v, n))
+            plain_logits, _ = model_api.decode_fn(params, cache, tok, pos,
+                                                  cfg)
+        finally:
+            transformer.decode_attention = saved
+        c_ctl = corr(torch, plain_logits, cpu_logits)
+        c_pk = corr(torch, card_logits, plain_logits)
+        say(f"[{tag}] the control, the card's step on B6's plain version: "
+            f"against the CPU corr {c_ctl:.6f}; the card's step on B6 "
+            f"against it corr {c_pk:.6f}")
+        if not (1 - c <= HY_CORR_FACTOR * (1 - c_ctl) and c > 0.99
+                and agree >= LM_BATCH - 1):
+            fail(f"{cfg.name}: card vs CPU decode-step logits correlation "
+                 f"{c} (control {c_ctl}, argmax {agree} of {LM_BATCH})")
     return {"launches": launches, "cfg": cfg, "params": params,
             "prompt": prompt, "cache": cache, "tok": tok, "pos": pos,
             "tps": tps, "serve_s": serve_s, "toks": toks}
+
+
+# path 4p: the dense family's other configs, each through 4b's body and
+# traffic (``run_lm``) at full width: stablelm-12b whole (40 layers; B5's
+# bf16 entry at head dim 160, B6 at D 160 / G 4), qwen2.5-3b whole (36
+# layers; D 128 / G 8) and llama3-405b on its first 2 of 126 layers (D 128
+# / G 16: the whole model is ~812 GB in bf16, its first 2 layers with the
+# embedding and the head 21.2 GB). Each is drawn by init_model(seed=0) in
+# bf16 and freed before the next, the two large ones first: from ~140 s
+# after 4j's and 4k's ranks start beside them, their training holds ~52
+# GB of the card. (D) stablelm-12b trained at full width on
+# its first DP_TRAIN_LAYERS layers: the config's 2 microbatches and bf16
+# AdamW moments, DP_TRAIN_STEPS steps of DP_TRAIN_BATCH x DP_TRAIN_SEQ
+# ``TokenStream`` tokens, then one more on step 0's batch. Each entry: the
+# id, the layers served (None: all) and whether the last decode step
+# against the CPU is held by 4m's rule (``run_lm``'s ``cpu_control``):
+# at stablelm-12b's 40 layers of random bf16 weights that step reads corr
+# 0.998999 against the CPU, under 4b's absolute 0.999, where the control
+# (the card's step on B6's plain version) reads 0.999040 and B6 against
+# its plain version on the same card 0.999342: the depth amplifies
+# rounding within B6's 1-ulp class that far (PERF.md §6, the dense family)
+DP_CONFIGS = (("llama3-405b", 2, False), ("stablelm-12b", None, True),
+              ("qwen2.5-3b", None, False))
+DP_TRAIN_LAYERS = 2
+DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 2, 512, 3
+
+
+def run_dense_configs(torch, dev, card: str) -> dict:
+    """Phase 4p, ``[dense]``: (A)-(C), each config of DP_CONFIGS through
+    ``run_lm`` (4b's checks: the exact launch counts, the prefill against
+    the decode loop at every prompt position with the two planted mask
+    faults, the last decode step against the CPU's plain versions), then
+    its decode step and prefill timed with CUDA events. Returns each
+    config's launch counts."""
+    from repro_torch.models import api as model_api
+
+    out = {}
+    for arch, layers, cpu_control in DP_CONFIGS:
+        t0 = time.perf_counter()
+        r = run_lm(torch, dev, card, arch, layers, tag="dense", beside=True,
+                   cpu_control=cpu_control)
+        cfg, params, cache = r["cfg"], r["params"], r["cache"]
+        step_ms = cuda_ms(lambda: model_api.decode_fn(
+            params, cache, r["tok"], r["pos"], cfg), iters=10, warmup=2)
+        prefill_ms = cuda_ms(lambda: model_api.prefill_fn(
+            params, {"tokens": r["prompt"]}, cfg), iters=3, warmup=1)
+        n = r["launches"]
+        say(f"[numbers] {cfg.name} ({cfg.n_layers} layers) decode: "
+            f"{r['tps']:.2f} tok/s over the generate loop ({LM_BATCH} x "
+            f"{LM_GEN} tokens); one decode step {step_ms:.3f} ms = "
+            f"{LM_BATCH / step_ms * 1e3:.2f} tok/s steady state; prefill_fn "
+            f"{prefill_ms:.3f} ms for {LM_BATCH} x {LM_PROMPT} tokens = "
+            f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} tokens/s; "
+            f"flash_decode {n.get('flash_decode', 0)} and "
+            f"flash_attention_causal {n.get('flash_attention_causal', 0)} "
+            f"launches ({card})")
+        out[arch] = n
+        del r, params, cache
+        torch.cuda.empty_cache()
+        say(f"[dense] path 4p ({cfg.name}) in {time.perf_counter() - t0:.1f}"
+            f"s; freed: the card has {card_memory(torch)}")
+    return out
+
+
+def run_dense_train(torch, dev, card: str) -> None:
+    """Phase 4p (D): stablelm-12b's first DP_TRAIN_LAYERS layers at full
+    width trained on one card through ``launch/steps.py::make_train_fn``
+    (the config's remat, 2 microbatches and bf16 AdamW moments) on
+    ``TokenStream`` batches of DP_TRAIN_BATCH x DP_TRAIN_SEQ:
+    DP_TRAIN_STEPS steps on fresh batches, then one more on step 0's.
+    Every loss finite, and the repeated batch's loss below its first;
+    ms a step (CUDA events) and peak memory."""
+    from repro_torch.bridge import init_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.device import full_precision_matmuls
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    full_precision_matmuls()
+    full = get_config("stablelm-12b")
+    cfg = full.with_(n_layers=DP_TRAIN_LAYERS)
+    params = init_lm(0, cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = {"params": params, "opt": adamw_init(params, AdamWConfig(
+        low_mem=not cfg.use_fp32_master)),
+        "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    say(f"[dense_train] (D) {cfg.name} cut to its first {cfg.n_layers} of "
+        f"{full.n_layers} layers, full width: {n_params / 1e9:.3f} G bf16 "
+        f"params from init_lm(seed=0); remat {cfg.remat}, microbatch_steps "
+        f"{cfg.microbatch_steps}, AdamW moments "
+        f"{'f32' if cfg.use_fp32_master else 'bf16'}; the card has "
+        f"{card_memory(torch)} ({card})")
+    step_fn = steps.make_train_fn(cfg)
+    ts = TokenStream(cfg.vocab, DP_TRAIN_SEQ, DP_TRAIN_BATCH, seed=0,
+                     device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms, losses, norms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_TRAIN_STEPS + 1):
+        batch = ts.batch_at(i if i < DP_TRAIN_STEPS else 0)
+        torch.cuda.synchronize()
+        ev[0].record()
+        state, m = step_fn(state, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        what = "step" if i < DP_TRAIN_STEPS else "step 0's batch again,"
+        say(f"[dense_train] (D) {what} {i}: loss {losses[-1]:.5f}, grad norm "
+            f"{norms[-1]:.4f}, {ms[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, m
+    torch.cuda.empty_cache()
+    timed = ms[1:DP_TRAIN_STEPS]            # the first step warms up
+    step_ms = sum(timed) / len(timed)
+    tokens = DP_TRAIN_BATCH * DP_TRAIN_SEQ
+    say(f"[dense_train] (D) {step_ms:.1f} ms a step (CUDA events, mean of "
+        f"steps 1-{DP_TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms) = "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB "
+        f"allocated by this process ({card})")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"4p (D): a loss or gradient norm is not finite: {losses}, "
+             f"{norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"4p (D): the loss on step 0's batch did not fall: "
+             f"{losses[0]} -> {losses[-1]}")
+    say(f"[dense_train] path 4p (D) in {time.perf_counter() - t_phase:.1f}s "
+        f"({card})")
 
 
 # path 4m: the hybrid family, recurrentgemma-9b at full width (38 layers,
@@ -1527,7 +1849,7 @@ def check_hybrid_kernels(torch, dev) -> dict:
     held against the reference's ring decode ``ring_decode_ref``) and on
     the strided view of a linear cache's last ``window`` rows, each call
     twice and bitwise equal. A bf16 call at a head dim the entry does not
-    take (112, 160) must raise. Returns kernel name -> max |kernel -
+    take (112: kimi-k2's) must raise. Returns kernel name -> max |kernel -
     plain|."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1570,7 +1892,7 @@ def check_hybrid_kernels(torch, dev) -> dict:
         b5("tile edge, G = 1", 1, 2, 2, s_, s_, 0)
     b5("window 64 at a tile edge", 1, HY_HEADS, HY_KV, 257, 257, 64)
     b5("non-causal", 1, 4, 1, 65, 130, 0, causal=False)
-    for bad in (112, 160):
+    for bad in (112,):
         q = torch.zeros(1, 2, 8, bad, dtype=bf, device=dev)
         try:
             flash_attention(q, q, q)
@@ -2736,23 +3058,9 @@ def time_hybrid_rank_kernels(torch, dev, card: str) -> dict:
               ops=b * h * w * 4 * d / PEAK_F32_FLOPS,
               nbytes=2 * (2 * b * w * HY_KV * d + 2 * b * h * d)
               / PEAK_BYTES)
-    out = {}
-    for kname, row in (("flash_attention_causal", b5), ("flash_decode", b6)):
-        fn, plain_fn, lib_fn = row["fns"]
-        ms, passes = device_ms(torch, fn, SYMBOLS[kname], counter=kname)
-        event_ms = cuda_ms(fn)
-        plain_ms, _ = device_ms(torch, plain_fn)
-        lib_ms, _ = device_ms(torch, lib_fn)
-        bound = max(row["ops"], row["nbytes"])
-        by = "operations" if row["ops"] >= row["nbytes"] else "bytes"
-        say(f"[numbers] {kname} at 4n's rank shape {row['shape']}: kernel "
-            f"{ms:.5f} ms device (profiling passes {passes}; {event_ms:.5f} "
-            f"ms CUDA-event), bound {bound * 1e3:.6f} ms ({by}), plain "
-            f"{plain_ms:.4f} ms, SDPA {lib_ms:.5f} ms ({card})")
-        out[kname] = {"shape": row["shape"], "ms": ms, "event_ms": event_ms,
-                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound * 1e3, "bound_by": by}
-    return out
+    return time_attention_rows(
+        torch, {"flash_attention_causal": b5, "flash_decode": b6},
+        "4n's rank shape", card)
 
 
 def _gloo_txt(stats: dict, nbytes: dict, per: float) -> str:
@@ -7066,29 +7374,39 @@ def lm_mesh_rank(cpu_params: dict, cfg, prompt_cpu, tmp: str, device: str,
     return out
 
 
-def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
-    """Path 4j: 4b's qwen2-1.5b weights and prompt on the (1, 2) and
-    (2, 1) meshes, 2 gloo ranks on the one card, against the unsharded
-    runs on the card."""
-    import tempfile
+def start_lm_mesh(lm: dict) -> tuple:
+    """Path 4j's 2 gloo ranks, started in the background
+    (``in_background``: they run beside 4k's and under 4p); returns (start
+    time, Future of the ranks' results) for ``run_lm_mesh``."""
     import shutil
+    import tempfile
 
     from repro_torch.bridge import to_device
     from repro_torch.launch.mesh import spawn_ranks
 
-    cfg = lm["cfg"]
     t_phase = time.perf_counter()
     params = to_device(lm["params"], "cpu")
     for t in _leaves(params):
         t.share_memory_()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
-    try:
-        ranks = spawn_ranks(lm_mesh_rank, 2, params, cfg,
-                            lm["prompt"].cpu(), tmp, "cuda", device="cuda",
-                            timeout_s=900)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    del params
+    prompt = lm["prompt"].cpu()
+
+    def spawn():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+        try:
+            return spawn_ranks(lm_mesh_rank, 2, params, lm["cfg"], prompt,
+                               tmp, "cuda", device="cuda", timeout_s=900)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return t_phase, in_background(spawn)
+
+
+def run_lm_mesh(torch, dev, card: str, lm: dict, started: tuple) -> dict:
+    """Path 4j: 4b's qwen2-1.5b weights and prompt on the (1, 2) and
+    (2, 1) meshes, 2 gloo ranks on the one card (``start_lm_mesh``'s),
+    against the unsharded runs on the card."""
+    cfg = lm["cfg"]
+    t_phase, pending = started
+    ranks = pending.result()
     r0 = ranks[0]
     say(f"[lm_mesh] path 4j: {cfg.name} on make_host_mesh(1, 2), 2 ranks, "
         f"backend {r0['backend']}, both on {r0['device']} ({card})")
@@ -7207,7 +7525,8 @@ def run_lm_mesh(torch, dev, card: str, lm: dict) -> dict:
     if r0["subtle_vs_control"]["bitwise"]:
         fail(f"4j (A): the planted fault ({LMJ_SUBTLE}) is bitwise the "
              f"control")
-    say(f"[lm_mesh] path 4j in {time.perf_counter() - t_phase:.2f}s ({card})")
+    say(f"[lm_mesh] path 4j in {time.perf_counter() - t_phase:.2f}s from its "
+        f"spawn, beside 4k's ranks and 4p ({card})")
     return {"ranks": ranks, "launches": r0["launches"],
             "launches8": r0["launches8"],
             "peak_gb": [r["peak_gb"] for r in ranks]}
@@ -9193,6 +9512,12 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in hr_ms:
             entry["hybrid_rank"] = hr_ms[entry["name"]]
+    # B5 / B6 at each 4p config's shapes (B5's bf16 entry at head dim 160
+    # for stablelm-12b); their launches come with 4p
+    dense_ms = time_dense_kernels(torch, dev, card)
+    for entry in kernels:
+        if entry["name"] in dense_ms:
+            entry["dense_configs"] = dense_ms[entry["name"]]
     # B6's partial entry at 4k's rank shape; its launches come with 4k
     partial_entry = time_partial_kernel(torch, dev, card)
     partial_entry["max_abs_err"] = errs["flash_decode_partial"]
@@ -9308,8 +9633,31 @@ def main() -> int:
     # records them under ``tp_rank``
     # 4k's ranks start first and run beside 4j's, then 4l's beside 4k's
     # (``in_background``)
+    # 4p (D) first, alone on the card: its ~31 GiB peak does not fit
+    # beside the ranks' training
+    run_dense_train(torch, dev, card)
+    stamp("path 4p (D)")
     fsdp_started = start_lm_fsdp(lm)
-    lm_mesh = run_lm_mesh(torch, dev, card, lm)
+    mesh_started = start_lm_mesh(lm)
+
+    # -- 4p. [dense]: the dense family's other configs on one card, in the
+    # foreground while 4j's and 4k's gloo ranks run beside it; (A)-(C)'s
+    # launches join the counts, and B5's and B6's ``dense_configs``
+    # entries record each config's
+    dense = run_dense_configs(torch, dev, card)
+    for entry in kernels:
+        for arch, *_ in DP_CONFIGS:
+            n = dense[arch].get(entry["name"], 0)
+            entry["launches"] += n
+            if "dense_configs" in entry:
+                entry["dense_configs"][arch]["launches"] = n
+    say(f"[dense] launches on the main paths with 4p's: "
+        f"{ {e['name']: e['launches'] for e in kernels} } ({card})")
+    del dense
+
+    stamp("path 4p")
+
+    lm_mesh = run_lm_mesh(torch, dev, card, lm, mesh_started)
     vit_started = start_vit_mesh()
     for entry in kernels:
         n = (lm_mesh["launches"].get(entry["name"], 0)
@@ -9368,11 +9716,9 @@ def main() -> int:
     # B5's and B6's ``hybrid`` entries record them
     try:
         hybrid = run_hybrid(torch, dev, card)
-        free, total = torch.cuda.mem_get_info()
         say(f"[hybrid_fsdp] at 4m's end, beside 4o's ranks: the card "
-            f"{(total - free) / 1e9:.2f} GB used of {total / 1e9:.2f} "
-            f"(mem_get_info); 4m's peak {hybrid['peak_gb'] * 2 ** 30 / 1e9:.2f} "
-            f"GB")
+            f"{card_memory(torch)} (mem_get_info); 4m's peak "
+            f"{hybrid['peak_gb'] * 2 ** 30 / 1e9:.2f} GB")
     finally:
         torch.cuda.empty_cache()
         open(go, "w").close()

@@ -211,7 +211,10 @@ def init_lm(seed: int, cfg: ArchConfig, device=None,
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+        # scaled in place: a leaf's transient is one f32 copy (llama3-405b's
+        # embedding: 8.4 GB)
+        return torch.randn(shape, generator=gen, device=dev).mul_(std).to(
+            dtype)
 
     def he(shape):                       # fan-in: the per-layer rows
         return normal(shape, (2.0 / shape[-2]) ** 0.5)

@@ -4,10 +4,12 @@ defaults unchanged so a reader finds each counterpart.
 
 Three families are ported: ``vit`` (the near-sensor serving path, and
 its training: QAT with the straight-through estimator, launch/steps.py),
-``dense`` (the decoder-only LM serving path: prefill + KV-cache decode)
-and ``hybrid`` (RecurrentGemma serving: RG-LRU layers with a local
-attention layer every third, ``attn_every``, over a ``window``-token
-ring; ``lru_width`` / ``lru_dim`` and ``conv_kernel`` size the recurrence).
+``dense`` (the decoder-only LM: prefill + KV-cache decode, and its
+training; the configs qwen2-1.5b, qwen2.5-3b, stablelm-12b and
+llama3-405b) and ``hybrid`` (RecurrentGemma, recurrentgemma-9b: RG-LRU
+layers with a local attention layer every third, ``attn_every``, over a
+``window``-token ring; ``lru_width`` / ``lru_dim`` and ``conv_kernel``
+size the recurrence).
 The training knobs are the reference's: ``remat`` (activation
 checkpointing of each encoder layer), ``microbatch_steps`` (gradient
 accumulation), ``use_fp32_master`` (f32 AdamW moments; bf16 when off),

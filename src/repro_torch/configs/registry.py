@@ -1,12 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolves here (the reference's
 src/repro/configs/registry.py, ported ids only).
 
-Ported: ``qwen2-1.5b`` (dense LM), ``recurrentgemma-9b`` (hybrid LM) and
-the paper's own backbones ``opto-vit-{tiny,small,base,large}``. Every other id the reference knows
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+Ported: the dense LMs ``qwen2-1.5b``, ``qwen2.5-3b``, ``stablelm-12b`` and
+``llama3-405b``, the hybrid LM ``recurrentgemma-9b`` and the paper's own
+backbones ``opto-vit-{tiny,small,base,large}``. Every other id the
+reference knows raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
+
+import importlib
 
 from repro_torch.configs.base import ArchConfig
 
@@ -27,20 +31,18 @@ ARCH_IDS = [
     "opto-vit-tiny", "opto-vit-small", "opto-vit-base", "opto-vit-large",
 ]
 
-PORTED_ARCH_IDS = ("qwen2-1.5b", "recurrentgemma-9b", "opto-vit-tiny",
-                   "opto-vit-small", "opto-vit-base", "opto-vit-large")
+PORTED_ARCH_IDS = ("stablelm-12b", "qwen2-1.5b", "llama3-405b", "qwen2.5-3b",
+                   "recurrentgemma-9b", "opto-vit-tiny", "opto-vit-small",
+                   "opto-vit-base", "opto-vit-large")
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id == "qwen2-1.5b":
-        from repro_torch.configs.qwen2_1_5b import get_config as get
-        return get()
-    if arch_id == "recurrentgemma-9b":
-        from repro_torch.configs.recurrentgemma_9b import get_config as get
-        return get()
-    if arch_id in PORTED_ARCH_IDS:
+    if arch_id in PORTED_ARCH_IDS and arch_id.startswith("opto-vit-"):
         from repro_torch.configs.opto_vit import get_config as get
         return get(arch_id.split("-")[-1])
+    if arch_id in PORTED_ARCH_IDS:      # module named after the id
+        return importlib.import_module("repro_torch.configs." + arch_id.replace(
+            "-", "_").replace(".", "_")).get_config()
     if arch_id in ARCH_IDS:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported to repro_torch yet (its "

@@ -12,14 +12,15 @@
 // shape. A block of 4 warps owns a 64-row query tile of one (batch, head);
 // each warp owns 16 rows (2 warps and 32-row tiles, 192 blocks at the
 // prefill shape, measured slower). Q arrives once
-// through cp.async; at D <= 128 it stays in registers as ldmatrix A
+// through cp.async; at D <= 160 it stays in registers as ldmatrix A
 // fragments, at D = 256 in shared memory, re-read by ldmatrix each k-step
-// (see "D = 256" below). K and V
+// (see "D = 160" and "D = 256" below). K and V
 // move in 64-key tiles through a 2-stage cp.async ring in dynamic shared
 // memory, 16-byte chunks, the next tile in flight while this one is used;
 // rows past Skv are zero-filled through the src-size operand and never
-// read. Each row's 16-byte chunk c is stored at c ^ (row & 7), so the
-// eight rows an ldmatrix reads fall in eight different bank groups.
+// read. Each row's 16-byte chunk c is stored at c ^ (row & 7), within
+// its own group of 8 chunks, so the eight rows an ldmatrix reads fall in
+// eight different bank groups (at D 160 see below for the last 4).
 // S = Q K^T is mma.sync m16n8k16 bf16 x bf16 -> f32, then times `scale` in
 // f32; O += P V takes P from the S accumulators as A fragments (FA2's
 // register layout) and V through ldmatrix.trans. Causal and window masks
@@ -31,8 +32,33 @@
 // softmax lives in registers: a row's max and sum by quad shuffles, expf,
 // NEG_INF = -1e30, p exactly 0 for hidden keys, so a row with no visible
 // key keeps l = 0 and writes exactly 0 (o times 1 / max(l, 1e-30)). D in
-// {16, 64, 128, 256}; the wrapper raises on any other D and on 16-byte
-// misalignment.
+// {16, 64, 128, 160, 256}; the wrapper raises on any other D and on
+// 16-byte misalignment.
+//
+// D = 160 (stablelm-12b: 32 query heads on 8 KV heads). A row is 20
+// 16-byte chunks, not a power of two, and that moves two things. (1) The
+// swizzle: c ^ (r & 7) on chunks 16-19 would give 16-23, past the row
+// into the next row's chunks 0-3, and two rows would overwrite each other.
+// So the last group of 4 chunks is swizzled apart: chunk c >= 16 goes to
+// c ^ ((r >> 1) & 3), which stays in 16-19. The row pitch is 320 bytes,
+// 2.5 bank lines, so an odd row starts 64 bytes (4 bank groups) past an
+// even one: the bank group of chunk p of row r is (p + 4 (r & 1)) mod 8.
+// For chunks below 16 that makes the group c ^ (r & 7) ^ 4 (r & 1), still
+// a permutation of the 8 rows; in the last 4 chunks the even rows take
+// groups 0-3 and the odd ones 4-7, (r >> 1) & 3 spreads the four of each
+// kind over them, and an ldmatrix phase of 8 rows stays free of bank
+// conflicts too. Padding the pitch to 24 chunks would do the same with
+// 120 KB of shared memory a block (one block an SM) against 100 KB (two).
+// (2) The loops over D step by pairs of 8-column tiles (Q K^T's k-steps
+// read chunks 2 kk + {0, 1}, P V's 10 pairs of n-tiles chunks 2 dp + {0,
+// 1}), and 20 chunks are 10 whole pairs, so no loop has a ragged end.
+// Registers: O is 20 n-tiles x 4 = 80 a thread, S 32, Q's A fragments 10
+// k-steps x 4 = 40, 152 in all against 128 at D 128 and 160 (Q in shared
+// memory) at D 256. With Q in registers ptxas gives this instance 255
+// registers and no spill (the [ptxas] lines of chip_smoke.py's build, on
+// sm_90a), so Q stays in registers, as at D <= 128: it spares each k-step
+// of Q K^T the ldmatrix that Q in shared memory costs at D 256. Shared
+// memory is (64 + 4 x 64) x 160 x 2 = 100 KB a block, two blocks an SM.
 //
 // D = 256 (recurrentgemma-9b: 16 query heads on one KV head, a 2048-key
 // window). The register file is what binds: a warp's 16 rows of f32 O take
@@ -279,12 +305,19 @@ __device__ __forceinline__ uint32_t pack_lo(float x, float y) {
               y - __bfloat162float(__float2bfloat16_rn(y)));
 }
 
-// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile
+// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile: c
+// XORed within its group of 8 chunks, the last 4 of a 20-chunk row (D 160)
+// within their own group (see "D = 160")
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   constexpr int kChunks = D / 8;
   constexpr int kMask = (kChunks < 8 ? kChunks : 8) - 1;
-  return r * (D * 2) + ((c ^ (r & kMask)) << 4);
+  constexpr int kTail = kChunks > 8 ? kChunks % 8 : 0;  // past whole 8s
+  static_assert(kTail == 0 || kTail == 4, "a row's chunks past its last "
+                "whole group of 8 must be 0 or 4");
+  const int x = (kTail != 0 && c >= kChunks - kTail) ? ((r >> 1) & 3)
+                                                      : (r & kMask);
+  return r * (D * 2) + ((c ^ x) << 4);
 }
 
 // rows [row0, row0 + ROWS) of a (row stride rs) bf16 matrix into a tile;
@@ -346,9 +379,9 @@ flash_attention_causal_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int w0 = q0 + warp * 16;           // the warp's first row
   const int row_a = w0 + (lane >> 2), row_b = row_a + 8;
   const int col = 2 * (lane & 3);          // a fragment's column pair
-  // Q's A fragments in registers (D <= 128), or re-read from shared
+  // Q's A fragments in registers (D <= 160), or re-read from shared
   // memory each k-step (D = 256: the registers hold O and S)
-  constexpr bool kQInRegs = D <= 128;
+  constexpr bool kQInRegs = D <= 160;
   uint32_t qf[kQInRegs ? kKSteps : 1][4];
   float o[kDTiles][4];
 #pragma unroll
@@ -524,6 +557,8 @@ int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                Skv, causal, window, scale, stream);
     case 128: return launch<128>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, Sq,
                                  Skv, causal, window, scale, stream);
+    case 160: return launch<160>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, Sq,
+                                 Skv, causal, window, scale, stream);
     case 256: return launch<256>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, Sq,
                                  Skv, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -553,8 +588,8 @@ extern "C" int flash_attention_causal_f32(const void* q, const void* k,
                       scale, static_cast<cudaStream_t>(stream));
 }
 
-// D in {16, 64, 128, 256}, every pointer and stride 16-byte aligned (the wrapper
-// checks both)
+// D in {16, 64, 128, 160, 256}, every pointer and stride 16-byte aligned
+// (the wrapper checks both)
 extern "C" int flash_attention_causal_bf16(const void* q, const void* k,
                                            const void* v, void* out,
                                            const long long* strides, int B,

@@ -47,7 +47,7 @@ __all__ = ["KV_TILE", "CAUSAL_MAX_HEAD_DIM", "TC_HEAD_DIMS",
 KV_TILE = 32          # keys per tile of both masked kernels (kBKV, tc::kBKV)
 CAUSAL_MAX_HEAD_DIM = 256   # the causal f32 kernel's D bound (its tiles
 #                             live in shared memory)
-TC_HEAD_DIMS = (16, 64, 128, 256)   # the bf16 tensor-core kernel's
+TC_HEAD_DIMS = (16, 64, 128, 160, 256)  # the bf16 tensor-core entry's D
 TC_MASKED_HEAD_DIMS = (64, 64)  # (D, Dv) of the tensor-core masked kernel
 WIDE_D_CHUNK = 32     # the wide entry's D-chunk (wide::kDC)
 

@@ -31,9 +31,20 @@ over "model"), so ``--cache-len`` may be shorter than the prompt and the
 generated tokens (positions past it overwrite the ring's oldest slots,
 the reference's ring for a cache shorter than the window).
 
+The dense family serves every config the registry ports: qwen2-1.5b,
+qwen2.5-3b, stablelm-12b (head dim 160) and llama3-405b (~812 GB in
+bf16: on one card it runs only as ``--smoke``, or cut in depth by a
+caller, as ``chip_smoke.py``'s path 4p cuts it to its first 2 layers).
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 4 --prompt-len 128 --gen 32 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
+        --batch 4 --prompt-len 128 --gen 32 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --batch 4 --prompt-len 128 --gen 32 --cache-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-405b \\
+        --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --batch 4 --prompt-len 128 --gen 32 \\
         --cache-len 512

@@ -7,6 +7,10 @@ checkpoints, fault injection and the straggler detector, and the CLI.
     python -m repro_torch.launch.train --arch qwen2-1.5b --model-par 2
     python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke \\
         --device cpu --model-par 2 --seq 32
+    python -m repro_torch.launch.train --arch stablelm-12b --layers 2 \\
+        --batch 2 --seq 512 --steps 3
+    python -m repro_torch.launch.train --arch llama3-405b --smoke \\
+        --device cpu
     python -m repro_torch.launch.train --arch opto-vit-base --steps 200 \\
         --batch 32 --ckpt-dir /tmp/ckpt --ckpt-every 50
     python -m repro_torch.launch.train --arch opto-vit-base --batch 32 \\

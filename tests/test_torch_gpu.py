@@ -58,7 +58,11 @@ clip bound are discontinuous, so rounding differences move whole
 leaves),
 a run resumed from a checkpoint and after an injected fault bitwise the
 straight run under deterministic algorithms, and a training policy that
-names a kernel raising with the reason. The hybrid LM: B5 / B6 at a
+names a kernel raising with the reason. The dense family's other
+configs: B5's bf16 entry at head dim 160 and B6 at D 160 / G 4
+(stablelm-12b) against their plain versions, and each config at narrow
+widths that keep its head dim and group, card against CPU. The hybrid
+LM: B5 / B6 at a
 recurrentgemma-9b rank's shapes under MODEL_RULES against their plain
 versions (1 bf16 ulp of the largest |o|); the split RG-LRU's prefill and
 ring decode on 2 gloo ranks of the card bitwise the split's arithmetic on
@@ -827,6 +831,102 @@ def test_flash_decode_head_dim_256_on_the_ring(dev, length):
     _assert_held(got, ref.flash_decode_ref(q, kc[:, n - length:n],
                                            vc[:, n - length:n], length))
     assert torch.equal(decode_attention(q, kc, vc, n, window=length), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,window,layout,dtype", [
+    (4, 32, 8, 128, 0, "bshd", torch.bfloat16),   # stablelm-12b's prefill
+    (4, 32, 8, 128, 0, "bhsd", torch.float32),
+    (2, 8, 2, 200, 64, "bhsd", torch.bfloat16),   # a window
+    (1, 8, 2, 129, 8, "bshd", torch.bfloat16),
+] + [(1, 2 * g, 2, s, 0, "bhsd", torch.bfloat16)  # tile edges, G 1 and 4
+     for s in (63, 64, 65, 127, 129) for g in (1, 4)])
+def test_flash_attention_head_dim_160(dev, b, h, hkv, s, window, layout,
+                                      dtype):
+    """B5's bf16 tensor-core entry at head dim 160 (20 16-byte chunks a
+    row, the last 4 swizzled within their own group) against its plain
+    version: 1 bf16 ulp of the largest |o| (f32: 2e-5), causal, with and
+    without a window, in both layouts; at the 64-key / 64-row tile edges,
+    where a row overwritten through the swizzle would show; one launch a
+    call and two calls bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(s * 10 + window + h)
+    if layout == "bshd":
+        q, k, v = (torch.randn(b, s, hh, 160, generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for hh in (h, hkv, hkv))
+    else:
+        q, k, v = (torch.randn(b, hh, s, 160, generator=gen, device=dev)
+                   .to(dtype) for hh in (h, hkv, hkv))
+    before = _build.LAUNCHES["flash_attention_causal"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert _build.LAUNCHES["flash_attention_causal"] == before + 1
+    _assert_held(got, ref.flash_attention_ref(q, k, v, causal=True,
+                                              window=window))
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_head_dim_160_follows_its_emulation(dev, window):
+    """At D 160 the kernel keeps the other head dims' numerics: within the
+    f32 limit 2e-5 (1 + |o|) of ``flash_attention_tc_ref`` once o's own
+    rounding is taken off, q (2, 8, 200, 160) on 2 KV heads."""
+    gen = torch.Generator(device=dev).manual_seed(160 + window)
+    q, k, v = (torch.randn(2, hh, 200, 160, generator=gen, device=dev)
+               .bfloat16() for hh in (8, 2, 2))
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_tc_ref(q.float(), k.float(), v.float(),
+                                      causal=True, window=window)
+    assert _excess_over_rounding(got, want) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 65, 159, 160, 511, 512])
+def test_flash_decode_head_dim_160(dev, length):
+    """B6 at stablelm-12b's decode, D 160 / G 4 (20 16-byte vectors a
+    row on 32 lanes), q (4, 1, 32, 160) over a (4, 512, 8, 160) cache, at
+    lengths around its cluster split: bf16 within 1 bf16 ulp of the
+    plain version, f32 within 2e-5, each bitwise from call to call."""
+    gen = torch.Generator(device=dev).manual_seed(length + 160)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(4, 1, 32, 160, generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn(4, 512, 8, 160, generator=gen, device=dev)
+                  .to(dtype) for _ in range(2))
+        got = flash_decode(q, kc, vc, length)
+        _assert_held(got, ref.flash_decode_ref(q, kc, vc, length))
+        assert torch.equal(flash_decode(q, kc, vc, length), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,d,h", [("stablelm-12b", 640, 4),
+                                      ("qwen2.5-3b", 1024, 8),
+                                      ("llama3-405b", 2048, 16)])
+def test_dense_configs_card_match_cpu(dev, arch, d, h):
+    """The dense family's other configs at narrow widths that keep their
+    head dim and group (2 layers, one KV head): the decode-loop prefill
+    of an 8-token prompt on the card (B6 every layer) and ``prefill_fn``
+    (B5; at head dim 160 for stablelm-12b) against the CPU's plain
+    versions, correlation > 0.999."""
+    cfg = smoke_variant(get_config(arch)).with_(n_layers=2, d_model=d,
+                                                n_heads=h, kv_heads=1)
+    cpu = init_lm(0, cfg, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    cl, _ = prefill_into_cache(cpu, init_cache(cfg, 2, 16, "cpu"), prompt,
+                               cfg)
+    before = dict(_build.LAUNCHES)
+    gp = to_device(cpu, dev)
+    gl, _ = prefill_into_cache(gp, init_cache(cfg, 2, 16, dev),
+                               prompt.to(dev), cfg)
+    full = model_api.prefill_fn(gp, {"tokens": prompt.to(dev)}, cfg)[:, -1]
+    assert _build.LAUNCHES["flash_decode"] == before.get(
+        "flash_decode", 0) + 8 * cfg.n_layers
+    assert _build.LAUNCHES["flash_attention_causal"] == before.get(
+        "flash_attention_causal", 0) + cfg.n_layers
+    b = cl.double().flatten()
+    for got in (gl, full):
+        a = got.double().cpu().flatten()
+        assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999
 
 
 @pytest.mark.gpu
